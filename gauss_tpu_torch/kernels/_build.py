@@ -1,0 +1,176 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``; every
+pointer and the stream pass as ``c_void_p``, every integer as ``c_int``.
+A library's file name carries a hash of all the sources, so an edited
+kernel is rebuilt and an unchanged one is loaded as built. Builds start
+at the first CUDA use of a kernel (or all at once, in parallel, through
+:func:`build_all`) into ``build/kernels/`` under the repository root, or
+into ``$GAUSS_TPU_TORCH_BUILD_DIR``.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises, and a
+C entry point that returns a CUDA error code raises. Importing this module
+compiles nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("panel_factor", "panel_fused")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: Launches per kernel wrapper, counted where the wrapper launches its
+#: kernel and nowhere else (plain-version calls on CPU tensors do not
+#: count). Reset with :func:`reset_launches`.
+LAUNCHES = {"panel_factor": 0, "panel_trailing_fused": 0,
+            "trailing_update": 0}
+
+#: Seconds each source took to build in this process (0.0 when loaded
+#: from an existing build).
+BUILD_SECONDS: dict[str, float] = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "panel_factor": {
+        "gtt_panel_factor": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "panel_fused": {
+        "gtt_panel_fused_grid": [_I, _I, _I],
+        "gtt_panel_fused": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                            _P, _P, _I, _P],
+        "gtt_trailing_update": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("GAUSS_TPU_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parents[2] / "build" / "kernels"
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``;
+    raises RuntimeError when none has it."""
+    cands = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(Path(home) / "bin" / "nvcc")
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(Path(which))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels of gauss_tpu_torch are "
+        "built from source at first use and need the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"libgtt_{name}-{_source_hash()}.so"
+
+
+def _start_build(name: str, nvcc: str):
+    out = _lib_path(name)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed building csrc/{name}.cu "
+                           f"(rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Build every missing library at once — one ``nvcc`` per source, all
+    started together — and load them. Returns the seconds per source."""
+    with _lock:
+        todo = [n for n in names if n not in _libs
+                and not _lib_path(n).is_file()]
+        if todo:
+            nvcc = find_nvcc()
+            t0 = time.perf_counter()
+            jobs = [(n, *_start_build(n, nvcc)) for n in todo]
+            errors = []
+            for n, proc, tmp, out in jobs:
+                try:
+                    _finish_build(n, proc, tmp, out, t0)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        for n in names:
+            BUILD_SECONDS.setdefault(n, 0.0)
+            _load_locked(n)
+    return {n: BUILD_SECONDS[n] for n in names}
+
+
+def _load_locked(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.gtt_error_string.argtypes = [ctypes.c_int]
+        lib.gtt_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _libs[name]
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a CUDA error code returned by a C entry point of ``lib``."""
+    if rc != 0:
+        msg = lib.gtt_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

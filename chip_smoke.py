@@ -17,11 +17,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    values within the stated tolerances, and fused == panel + trailing bit
    for bit; times each with CUDA events (median of --reps launches), and
    one whole n=2048 factorization the same way.
-4. The main path at n=2048 through the port's CLIs: the internal system
-   host-refined and double-single-refined, and a .dat external system;
-   every solve verified at the 1e-4 gate, and the launch counts must show
-   7 fused + 1 panel launches per factorization. Then a random system
-   solved on the card against a float64 reference.
+3b. The same for the row-elimination and matmul kernels: the tiled and
+   row-stripe matmul at (2048, 2048, 2048) in "high" and "highest" within
+   MM_TOL, the elimination step on the (2048, 2304) augmented shape at
+   i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
+   k = 256, within RANKK_TOL; each timed (device time of --reps queued
+   launches, see device_ms) beside its plain version, its library call
+   and its bound; the panel kernel at the 8 strips of one batched solve,
+   and one whole batched and one whole step solve (CUDA events per call,
+   host work included).
+4. The main paths at n=2048 through the port's CLIs, each driven with the
+   launch counts set to 0 just before it and read just after:
+   - blocked: the internal system host-refined and double-single-refined,
+     and a .dat external system; every solve verified at the 1e-4 gate,
+     7 fused + 1 panel launches per factorization. Then a random system
+     solved on the card against a float64 reference.
+   - rowelim: ``--backend cuda-rowelim`` on the internal system
+     (``--verify``) and on the .dat system: 8 panel + 8 rank-k launches
+     per solve. The backend does not refine (as in the JAX package), so
+     the .dat system is held to a float32 backward error (BACKWARD_TOL),
+     not to the 1e-4 forward gate.
+   - rowelim-step: ``--backend cuda-rowelim-step`` on the internal system
+     (``--verify``): 2048 step launches per solve.
+   - matmul: ``matmul 2048 --engines cuda,cuda-kernel,cuda-kernel-v1``,
+     then the same with ``--precision highest``; every engine verifies,
+     and each kernel engine launches twice per run.
+   Each CLI run solves twice (the warm-up at shape, then the timed run).
 5. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
@@ -47,11 +68,21 @@ N = 2048
 PANEL = 256
 SEED = 258458
 DEVICE = "cuda"  # the card; the tests rehearse the script on "cpu"
-# Published H100 SXM peaks: HBM bandwidth and float32 outside the tensor
-# cores (the kernels run FP32 on CUDA cores).
+# Published H100 SXM peaks: HBM bandwidth, float32 outside the tensor
+# cores (the kernels run FP32 on CUDA cores), and dense bf16 on the tensor
+# cores (the floor of the bf16x3 "high" matmul's three bf16 products).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 TOL = 5e-5  # relative to the operand's scale (f32 summation order)
+# Kernel vs plain, relative to max |plain|: the matmul kernels' FMA chains
+# over K = 2048 against cuBLAS's blocked sums, and the rank-k update's over
+# k = 256.
+MM_TOL = 1e-5
+RANKK_TOL = 1e-5
+# Normwise backward error ||b - Ax||_inf / (||A||_inf ||x||_inf + ||b||_inf)
+# of a float32 solve without refinement: a few units of float32 rounding.
+BACKWARD_TOL = 16 * 2.0 ** -24
 
 
 def require(cond, msg: str) -> None:
@@ -74,8 +105,44 @@ def smi_line() -> str:
     return out[0] if out else ""
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+_SPIN_S_PER_CYCLE: list[float] = []
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one ``fn()`` over ``reps`` back-to-back
+    calls, by CUDA events around the whole run. A spin kernel
+    (``torch.cuda._sleep``) queued first holds the card while the host
+    enqueues every call, so the span holds the calls' device time and none
+    of the host's launch gaps: the small kernels here take less time on
+    the card than their wrappers take on the host."""
+    import torch
+
+    if not _SPIN_S_PER_CYCLE:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        torch.cuda._sleep(1 << 22)
+        e.record()
+        e.synchronize()
+        _SPIN_S_PER_CYCLE.append(s.elapsed_time(e) / 1e3 / (1 << 22))
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int((3 * reps * host_s + 1e-3) / _SPIN_S_PER_CYCLE[0]))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -275,6 +342,144 @@ def phase_kernels(reps: int):
     return k1, k2, k3
 
 
+def rowelim_shape(n: int):
+    """(npad, wpad, k) of the batched row-elimination solve at n: the
+    augmented matrix's rows and width, and the pivot steps per group."""
+    from gauss_tpu_torch.kernels import rowelim
+
+    k = rowelim.auto_rowelim_k(n)
+    blk = max(rowelim.DEFAULT_BM, k)
+    npad = -(-n // blk) * blk
+    wpad = -(-(npad + 1) // rowelim.DEFAULT_BN) * rowelim.DEFAULT_BN
+    return npad, wpad, k
+
+
+def phase_elim_matmul_kernels(reps: int):
+    """Kernels 4-7 against their plain versions at the n=N main path's
+    shapes, each timed beside its plain version, its library call and its
+    bound; and the panel kernel at the strips of one batched solve."""
+    import torch
+
+    from gauss_tpu_torch.core import matmul as cm
+    from gauss_tpu_torch.kernels import matmul as km
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import rowelim as kr
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    rng = np.random.default_rng(SEED + 1)
+    dev = torch.device(DEVICE)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device=dev)
+
+    out = {}
+    # Kernels 4 and 5 at (N, N, N): "high" (the CLI default, three bf16
+    # products: the bf16 tensor-core peak bounds it) and "highest" (f32).
+    a, b = rand(N, N), rand(N, N)
+    mm_bytes = 3.0 * N * N * 4
+    for name, fn in (("matmul_tiled", km.matmul_tiled),
+                     ("matmul_stripe", km.matmul_stripe)):
+        out[name] = {}
+        for prec, flops, peak in (("high", 6.0 * N ** 3, PEAK_BF16_FLOP_S),
+                                  ("highest", 2.0 * N ** 3,
+                                   PEAK_F32_FLOP_S)):
+            got = fn(a, b, prec)
+            want = km.matmul_plain(a, b, prec)
+            sync()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            require(err <= MM_TOL * scale, f"{name} {prec} at ({N}, {N}, "
+                    f"{N}): max |kernel - plain| {err} > {MM_TOL} x {scale}")
+            ms = device_ms(lambda: fn(a, b, prec), reps)
+            plain_ms = device_ms(lambda: km.matmul_plain(a, b, prec), reps)
+            lib_ms = device_ms(lambda: cm.matmul(a, b, prec), reps)
+            b_ms, b_by = bound(mm_bytes, flops, peak)
+            out[name][prec] = {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "err": err}
+            print(f"phase 3b: {name} {prec} ({N}, {N}, {N}): ms {ms:.4f} "
+                  f"({2.0 * N ** 3 / ms / 1e9:.1f} TFLOP/s of the product), "
+                  f"plain {plain_ms:.4f}, core.matmul(\"{prec}\") (cuBLAS) "
+                  f"{lib_ms:.4f}, bound {b_ms:.5f} ({b_by}), max_abs_err "
+                  f"{err:g}")
+
+    # Kernel 6 on the batched path's augmented shape, bit for bit.
+    npad, wpad, k = rowelim_shape(N)
+    m = rand(npad, wpad)
+    for i in (0, npad // 2 - 1, npad - 1):
+        got = kr.eliminate_step(m, i)
+        want = kr.eliminate_step_plain(m, i)
+        sync()
+        require(torch.equal(got, want), f"eliminate_step at i={i} on "
+                f"({npad}, {wpad}) differs from the plain version")
+    i = npad // 2 - 1
+    ms = device_ms(lambda: kr.eliminate_step(m, i), reps)
+    plain_ms = device_ms(lambda: kr.eliminate_step_plain(m, i), reps)
+    b_ms, b_by = bound(2.0 * npad * wpad * 4, 2.0 * npad * wpad)
+    out["eliminate_step"] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": None, "bound_ms": b_ms,
+                             "bound_by": b_by, "err": 0.0}
+    print(f"phase 3b: eliminate_step ({npad}, {wpad}) at i = 0, {i}, "
+          f"{npad - 1}: bit for bit; ms {ms:.4f}, plain {plain_ms:.4f}, "
+          f"library none, bound {b_ms:.5f} ({b_by}); {npad} steps per solve "
+          f"= {ms * npad:.2f} ms of kernel")
+
+    # Kernel 7 at the batched path's shape.
+    f, u = rand(npad, k), rand(k, wpad)
+    got = kr.rankk_update(m, f, u)
+    want = kr.rankk_update_plain(m, f, u)
+    sync()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    require(err <= RANKK_TOL * scale, f"rankk_update at ({npad}, {wpad}), "
+            f"k={k}: max |kernel - plain| {err} > {RANKK_TOL} x {scale}")
+    ms = device_ms(lambda: kr.rankk_update(m, f, u), reps)
+    plain_ms = device_ms(lambda: kr.rankk_update_plain(m, f, u), reps)
+    lib_ms = device_ms(lambda: torch.addmm(m, f, u, alpha=-1), reps)
+    b_ms, b_by = bound(4.0 * (2 * npad * wpad + npad * k + k * wpad),
+                       2.0 * npad * wpad * k)
+    out["rankk_update"] = {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "err": err}
+    print(f"phase 3b: rankk_update ({npad}, {wpad}), k={k}: ms {ms:.4f}, "
+          f"plain {plain_ms:.4f}, addmm {lib_ms:.4f}, bound {b_ms:.5f} "
+          f"({b_by}), max_abs_err {err:g}")
+
+    # The panel kernel at the npad // k strips of one batched solve: the
+    # whole (npad, k) strip, rows above kb done.
+    strip = rand(npad, k)
+    kb_mid = (npad // k // 2) * k
+    got = kp.panel_factor(strip, kb_mid)
+    want = kp.panel_factor_plain(strip, kb_mid)
+    sync()
+    require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            and torch.equal(got[0], want[0]),
+            f"panel_factor at ({npad}, {k}), kb={kb_mid} differs from the "
+            f"plain version")
+    panel_ms = sum(device_ms(lambda: kp.panel_factor(strip, kb),
+                             max(3, reps // 4)) for kb in range(0, npad, k))
+    out["panel_batched_ms"] = panel_ms
+    print(f"phase 3b: panel_factor at the {npad // k} strips ({npad}, {k}) "
+          f"of one batched solve: {panel_ms:.4f} ms in all; kb={kb_mid} "
+          f"bit for bit")
+
+    # One whole solve of each form on a random system.
+    a_sys, b_sys = rand(N, N), rand(N)
+    out["batched_solve_ms"] = cuda_event_ms(
+        lambda: kr.gauss_solve_rowelim_batched(a_sys, b_sys, device=DEVICE),
+        max(3, reps // 4))
+    out["step_solve_ms"] = cuda_event_ms(
+        lambda: kr.gauss_solve_rowelim(a_sys, b_sys, device=DEVICE), 3,
+        warmup=1)
+    kern = panel_ms + (npad // k) * out["rankk_update"]["ms"]
+    print(f"phase 3b: one n={N} batched solve {out['batched_solve_ms']:.4f} "
+          f"ms (its kernels {kern:.4f} ms); one step solve "
+          f"{out['step_solve_ms']:.4f} ms (its kernels "
+          f"{npad * out['eliminate_step']['ms']:.4f} ms)")
+    return out
+
+
 def run_cli(mod, argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -358,7 +563,104 @@ def phase_main_path():
           f"{rel:.3e}, residual {resid:.3e}")
     require(fac.m.device.type == DEVICE and resid < 1e-4 and np.isfinite(x).all(),
             "random system on the card")
-    return launches
+    return launches, dat
+
+
+def drive_path(label: str, runs, expect: dict):
+    """Run one main path's CLI runs with every launch count set to 0 just
+    before and read just after; every count must be exactly ``expect``'s
+    (0 where absent). Returns the runs' outputs and the counts."""
+    from gauss_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    outs = []
+    for mod, argv in runs:
+        print(f"phase 4: {label}: {mod.__name__} {' '.join(argv)}")
+        outs.append(run_cli(mod, argv))
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 4: {label}: launches {launches}")
+    for name, count in launches.items():
+        require(count == expect.get(name, 0),
+                f"path {label}: {name} launched {count} times, expected "
+                f"{expect.get(name, 0)}")
+    return outs, launches
+
+
+def phase_elim_matmul_paths(dat: str):
+    """The row-elimination and matmul main paths at n=N (module docstring,
+    phase 4)."""
+    from gauss_tpu_torch.cli import gauss_external, gauss_internal
+    from gauss_tpu_torch.cli import matmul as mm_cli
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import rowelim as kr
+
+    npad, _, k = rowelim_shape(N)
+    groups = npad // k
+    times, by_path = {}, {}
+
+    def internal_ok(label, out):
+        require("Verification: solution pattern (-0.5, 0...0, 0.5) OK"
+                in out, f"{label}: verification failed")
+        res = float(re.search(r"Residual \|\|Ax-b\|\|: (\S+)",
+                              out).group(1))
+        require(res < 1e-4, f"{label}: residual {res} >= 1e-4")
+        times[label] = float(re.search(r"Application time: (\S+) Secs",
+                                       out).group(1))
+
+    # Each CLI run solves twice: the warm-up at shape, then the timed run.
+    outs, by_path["rowelim"] = drive_path("rowelim", [
+        (gauss_internal, ["-s", str(N), "--backend", "cuda-rowelim",
+                          "--verify", "--device", DEVICE]),
+        (gauss_external, [dat, "--backend", "cuda-rowelim", "--device",
+                          DEVICE]),
+    ], {"panel_factor": 2 * 2 * groups, "rankk_update": 2 * 2 * groups})
+    internal_ok("internal, cuda-rowelim", outs[0])
+    times["external .dat, cuda-rowelim"] = float(
+        re.search(r"Time: (\S+) seconds", outs[1]).group(1))
+    # The external system. This backend does not refine, as in the JAX
+    # package, whose bench says of it "no refinement path, cannot meet the
+    # 1e-4 bar" (gauss_tpu/bench/grid.py:293): rounding b (entries ~n^3) to
+    # float32 alone moves the generator system's answer past the 1e-4
+    # forward gate from n=512 on. So the run is held to what a float32
+    # solve can promise, backward stability: the same solve, repeated on
+    # the card, is the exact answer of a system within BACKWARD_TOL of the
+    # given one.
+    err = float(re.search(r"Error: (\S+)", outs[1]).group(1))
+    require(np.isfinite(err), f"external, cuda-rowelim: error {err}")
+    a64 = synthetic.generator_matrix(N)
+    b64 = synthetic.manufactured_rhs(a64, synthetic.manufactured_solution(N))
+    x = kr.gauss_solve_rowelim_batched(a64, b64, device=DEVICE)
+    x = x.cpu().numpy().astype(np.float64)
+    eta = float(np.abs(b64 - a64 @ x).max() / (
+        np.abs(a64).sum(1).max() * np.abs(x).max() + np.abs(b64).max()))
+    print(f"phase 4: external .dat, cuda-rowelim: Error {err:e} (no "
+          f"refinement: not held to 1e-4); backward error {eta:.3e} "
+          f"(limit {BACKWARD_TOL:.3e})")
+    require(eta <= BACKWARD_TOL, f"external, cuda-rowelim: backward error "
+            f"{eta} > {BACKWARD_TOL}")
+
+    outs, by_path["rowelim-step"] = drive_path("rowelim-step", [
+        (gauss_internal, ["-s", str(N), "--backend", "cuda-rowelim-step",
+                          "--verify", "--device", DEVICE]),
+    ], {"eliminate_step": 2 * npad})
+    internal_ok("internal, cuda-rowelim-step", outs[0])
+
+    engines = ["--engines", "cuda,cuda-kernel,cuda-kernel-v1"]
+    outs, by_path["matmul"] = drive_path("matmul", [
+        (mm_cli, [str(N), *engines, "--device", DEVICE]),
+        (mm_cli, [str(N), *engines, "--precision", "highest", "--device",
+                  DEVICE]),
+    ], {"matmul_tiled": 4, "matmul_stripe": 4})
+    for prec, out in zip(("high", "highest"), outs):
+        lines = re.findall(r"^(\S+) time: (\S+) seconds \((\S+) GFLOP/s\) "
+                           r"verify: (\S+)$", out, re.M)
+        require(len(lines) == 3 and all(v == "OK" for *_, v in lines),
+                f"matmul {prec}: not every engine verified: {lines}")
+        for label, secs, _, _ in lines:
+            times[f"matmul {label} {prec}"] = float(secs)
+    for label, secs in times.items():
+        print(f"phase 4: {label}: {secs:f} s")
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -377,22 +679,32 @@ def main(argv=None) -> int:
     phase_toolchain()
     phase_build()
     k1, k2, k3 = phase_kernels(args.reps)
-    launches = phase_main_path()
+    km = phase_elim_matmul_kernels(args.reps)
+    blocked_launches, dat = phase_main_path()
+    by_path = {"blocked": blocked_launches, **phase_elim_matmul_paths(dat)}
+    # A kernel's launches: the sum over the main paths that run it.
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in blocked_launches}
+
+    def launch_keys(name):
+        return {"launches": launches[name], "launches_by_path": {
+            p: c[name] for p, c in by_path.items() if c[name]}}
 
     src = "gauss_tpu_torch/kernels/csrc/"
     kernels = [
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
-         "launches": launches["panel_factor"],
+         **launch_keys("panel_factor"),
          "max_abs_err": k1["err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-         "shape": f"({PANEL}, {PANEL}), the last panel of n={N}"},
+         "shape": f"({PANEL}, {PANEL}), the last panel of n={N}",
+         "batched_solve_strips_ms": km["panel_batched_ms"]},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
-         "launches": launches["panel_trailing_fused"],
+         **launch_keys("panel_trailing_fused"),
          "max_abs_err": k2["err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -400,13 +712,38 @@ def main(argv=None) -> int:
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",
-         "launches": launches["trailing_update"],
+         **launch_keys("trailing_update"),
          "max_abs_err": k3["err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
          "shape": f"sum of the 7 trailing shapes of one n={N} "
                   f"factorization"},
     ]
+    npad, wpad, k = rowelim_shape(N)
+    for name, line in (("matmul_tiled", 131), ("matmul_stripe", 245)):
+        hi, top = km[name]["high"], km[name]["highest"]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": src + "matmul.cu",
+             "replaces": f"gauss_tpu/kernels/matmul_pallas.py:{line}",
+             **launch_keys(name),
+             "max_abs_err": max(hi["err"], top["err"]), "ms": hi["ms"],
+             "plain_ms": hi["plain_ms"], "bound_ms": hi["bound_ms"],
+             "bound_by": hi["bound_by"], "library_ms": hi["library_ms"],
+             "shape": f"({N}, {N}, {N}), precision \"high\" (bf16x3)",
+             "highest": {key: top[key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "err")}})
+    for name, line, shape in (
+            ("eliminate_step", 71, f"({npad}, {wpad}), i={npad // 2 - 1}"),
+            ("rankk_update", 160, f"({npad}, {wpad}), k={k}")):
+        r = km[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": src + "rowelim.cu",
+             "replaces": f"gauss_tpu/kernels/rowelim_pallas.py:{line}",
+             **launch_keys(name), "max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shape": shape})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

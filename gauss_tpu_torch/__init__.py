@@ -6,7 +6,10 @@ whose panel factor and fused panel+trailing update are hand-written CUDA
 kernels for ``sm_90a`` (:mod:`.kernels`, sources in ``kernels/csrc/``),
 the block-inverse triangular solves, host-f64 and on-device
 double-single refinement (:mod:`.core`), the float64 checks
-(:mod:`.verify`) and the reference-parity CLIs (:mod:`.cli`).
+(:mod:`.verify`) and the reference-parity CLIs (:mod:`.cli`). Beside it,
+the row-elimination solves (one step kernel per pivot, or k steps per
+group through the panel kernel and a rank-k update kernel) and the
+matmul driver with a tiled and a row-stripe GEMM kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise RuntimeError.

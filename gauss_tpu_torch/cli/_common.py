@@ -1,11 +1,20 @@
 """Shared CLI machinery: backend dispatch and reference-parity timing spans.
 
-Backends (the port's names for the JAX package's ``tpu`` and
-``tpu-unblocked``):
+Backends (the port's names for the JAX package's ``tpu``,
+``tpu-unblocked``, ``tpu-rowelim`` and ``tpu-rowelim-step``):
 
-    cuda            blocked LU (hand-written panel and fused panel+trailing
-                    kernels), f32 + iterative refinement
-    cuda-unblocked  the unblocked rank-1 elimination oracle
+    cuda               blocked LU (hand-written panel and fused
+                       panel+trailing kernels), f32 + iterative refinement
+    cuda-unblocked     the unblocked rank-1 elimination oracle
+    cuda-rowelim       row elimination, k steps per group (panel kernel +
+                       rank-k update kernel), f32, no refinement
+    cuda-rowelim-step  row elimination, one step kernel per pivot, f32, no
+                       refinement
+
+Matmul engines (``MATMUL_BACKENDS``, the port's names for ``tpu``,
+``tpu-pallas`` and ``tpu-pallas-v1``): ``cuda`` (cuBLAS through
+``core/matmul``), ``cuda-kernel`` (the tiled kernel) and ``cuda-kernel-v1``
+(the row-stripe kernel).
 
 Timing follows the JAX package: the system is staged to the device (f32
 cast + host-to-device copy) BEFORE the span opens, a warm-up solve at the
@@ -13,8 +22,8 @@ same shape runs first (it builds the kernels at first use and initialises
 cuBLAS, so neither bills to the span), and the span ends with a device
 synchronize and a host fetch of the solution vector.
 
-Not in this slice: telemetry (``--metrics-out``), traces and profiles,
-multihost flags, and the native, row-elimination and distributed backends.
+Not ported yet: telemetry (``--metrics-out``), traces and profiles,
+multihost flags, and the native and distributed backends.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ import torch
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 from gauss_tpu_torch.utils.timing import timed_fetch
 
-GAUSS_BACKENDS = ("cuda", "cuda-unblocked")
+GAUSS_BACKENDS = ("cuda", "cuda-unblocked", "cuda-rowelim",
+                  "cuda-rowelim-step")
+MATMUL_BACKENDS = ("cuda", "cuda-kernel", "cuda-kernel-v1")
 DEVICES = ("cuda", "cpu")
 
 # The internal flavor's swap-on-zero pivot policy lives on the oracle
@@ -118,6 +129,18 @@ def _solve_cuda_unblocked(a64, b64, pivoting, dev):
     return np.asarray(x, np.float64), elapsed
 
 
+def _solve_cuda_rowelim(a64, b64, batched: bool, dev):
+    from gauss_tpu_torch.kernels import rowelim
+
+    solve = (rowelim.gauss_solve_rowelim_batched if batched
+             else rowelim.gauss_solve_rowelim)
+    n = len(b64)
+    solve(np.eye(n), np.zeros(n), device=dev).cpu()  # warm-up at shape
+    a_dev, b_dev = _stage(dev, a64, b64)
+    elapsed, x = timed_fetch(lambda: solve(a_dev, b_dev, device=dev))
+    return np.asarray(x, np.float64), elapsed
+
+
 def solve_with_backend(a64: np.ndarray, b64: np.ndarray, backend: str,
                        nthreads: int = 0, pivoting: str | None = None,
                        refine_iters: int = 8, panel: int | None = None,
@@ -126,9 +149,10 @@ def solve_with_backend(a64: np.ndarray, b64: np.ndarray, backend: str,
 
     ``device``: ``cuda`` (None) or ``cpu``. ``nthreads`` is accepted for
     parity with the JAX package's drivers (no backend here uses it).
-    ``refine_iters``/``refine_tol``: with ``refine_iters <= 2`` or
-    ``n < DS_ROUTE_MIN_N`` the blocked backend refines host-side (float64
-    residuals) and stops early at
+    ``refine_iters``/``refine_tol``/``panel`` apply to the blocked backend
+    only (the row-elimination backends do not refine): with
+    ``refine_iters <= 2`` or ``n < DS_ROUTE_MIN_N`` it refines host-side
+    (float64 residuals) and stops early at
     ``||Ax-b|| <= refine_tol * min(1, ||b||)``; with a larger budget at or
     above the gate the whole budget runs on the device with double-single
     residuals."""
@@ -140,6 +164,9 @@ def solve_with_backend(a64: np.ndarray, b64: np.ndarray, backend: str,
                                          refine_tol, dev)
     elif backend == "cuda-unblocked":
         x, elapsed = _solve_cuda_unblocked(a64, b64, pivoting, dev)
+    elif backend in ("cuda-rowelim", "cuda-rowelim-step"):
+        x, elapsed = _solve_cuda_rowelim(a64, b64,
+                                         backend == "cuda-rowelim", dev)
     else:
         raise ValueError(
             f"unknown backend {backend!r}; options: {GAUSS_BACKENDS}")

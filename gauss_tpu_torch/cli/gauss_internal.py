@@ -2,7 +2,8 @@
 
 The JAX package's ``gauss_internal`` surface on the port:
 ``python -m gauss_tpu_torch.cli.gauss_internal -s <n> -t <threads>
-[--backend cuda|cuda-unblocked] [--verify] [--device cuda|cpu]``, defaults
+[--backend cuda|cuda-unblocked|cuda-rowelim|cuda-rowelim-step] [--verify]
+[--device cuda|cpu]``, defaults
 n=2048 / 32 threads, printing ``Application time: %f Secs`` over init +
 solve. Invalid -s/-t values fall back to the defaults with a notice. Exit
 code 1 when ``--verify`` fails or the matrix is singular.

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("panel_factor", "panel_fused")
+SOURCES = ("panel_factor", "panel_fused", "matmul", "rowelim")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel and nowhere else (plain-version calls on CPU tensors do not
 #: count). Reset with :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_trailing_fused": 0,
-            "trailing_update": 0}
+            "trailing_update": 0, "matmul_tiled": 0, "matmul_stripe": 0,
+            "eliminate_step": 0, "rankk_update": 0}
 
 #: Seconds each source took to build in this process (0.0 when loaded
 #: from an existing build).
@@ -50,6 +51,15 @@ _SIGNATURES = {
         "gtt_panel_fused": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                             _P, _P, _I, _P],
         "gtt_trailing_update": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "matmul": {
+        "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "gtt_matmul_stripe": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "rowelim": {
+        "gtt_eliminate_step": [_P, _I, _P, _I, _I, _I, _I, _P],
+        "gtt_rankk_update": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+                             _P],
     },
 }
 

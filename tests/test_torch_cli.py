@@ -192,3 +192,37 @@ def test_chip_smoke_kernel_phase_rehearsal(monkeypatch):
     assert k1["err"] == 0.0 and k1["bound_by"] in ("bytes", "operations")
     assert k2["ms"] == 2.0 and k3["ms"] == 2.0  # two fused shapes
     assert 0 < k2["bound_ms"] and k2["err"] == 0.0
+
+
+def test_chip_smoke_elim_matmul_phase_rehearsal(monkeypatch):
+    """chip_smoke.py's row-elimination and matmul kernel phase on the CPU
+    at a small size, plain versions on both sides: its checks, its shapes
+    (the batched solve's augmented matrix) and its bounds run end to end;
+    the n=2048 bounds are the issue's figures."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from gauss_tpu_torch.utils import timing
+
+    assert chip_smoke.rowelim_shape(2048) == (2048, 2304, 256)
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "N", 200)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps: 1.0)
+    monkeypatch.setattr(timing, "cuda_event_ms",
+                        lambda fn, reps=1, warmup=0, setup=None: 1.0)
+    out = chip_smoke.phase_elim_matmul_kernels(1)
+    for name in ("matmul_tiled", "matmul_stripe"):
+        assert out[name]["high"]["err"] == out[name]["highest"]["err"] == 0.0
+    assert out["eliminate_step"]["bound_by"] == "bytes"
+    assert out["rankk_update"]["err"] == 0.0
+    assert out["panel_batched_ms"] == 1.0  # one 256-row strip at n=200
+    # The bounds at n=2048, as the kernel sources state them.
+    assert round(chip_smoke.bound(3.0 * 2048 ** 2 * 4, 2.0 * 2048 ** 3)[0],
+                 3) == 0.256
+    assert round(chip_smoke.bound(3.0 * 2048 ** 2 * 4, 6.0 * 2048 ** 3,
+                                  chip_smoke.PEAK_BF16_FLOP_S)[0], 3) == 0.052
+    assert chip_smoke.bound(2.0 * 2048 * 2304 * 4,
+                            2.0 * 2048 * 2304) == pytest.approx(
+        (0.01127, "bytes"), rel=1e-3)

@@ -26,8 +26,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and its bound; the panel kernel at the 8 strips of one batched solve,
    and one whole batched and one whole step solve (CUDA events per call,
    host work included).
-4. The main paths at n=2048 through the port's CLIs, each driven with the
-   launch counts set to 0 just before it and read just after:
+3c. The ELL sparse matrix-vector kernel against its plain version, bit for
+   bit, in float64 and float32, at the two operand shapes the sparse
+   generator gives with 20 entries per row: (100000, 36) and
+   (1000000, 37); each timed (device_ms) beside its plain version, the
+   stock gather-and-sum, ``torch.mv`` of the same matrix as a
+   ``sparse_csr_tensor`` (the library call) and its bound (bytes). Also
+   n = 130 and a matrix with an empty row.
+4. The main paths through the port's entry points, each driven with the
+   launch counts set to 0 just before it and read just after (the dense
+   paths at n=2048):
    - blocked: the internal system host-refined and double-single-refined,
      and a .dat external system; every solve verified at the 1e-4 gate,
      7 fused + 1 panel launches per factorization. Then a random system
@@ -43,6 +51,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      then the same with ``--precision highest``; every engine verifies,
      and each kernel engine launches twice per run.
    Each CLI run solves twice (the warm-up at shape, then the timed run).
+   - sparse: ``gauss_tpu_torch.sparse.check`` with its smoke leg (n = 640:
+     CG, GMRES, BiCGStab) and its giant leg (CG at n = 100,000), then the
+     same with ``--giant-n 1000000`` (19 M stored entries, 444 MB of ELL
+     state on the card); each preconditioner kind once at the smoke size;
+     one ``.dat`` round trip; and one n = 1,000,000 solve taken apart
+     (certificate, staging, iterations, host residual). Every solve is
+     verified at the 1e-4 gate by a host residual, and the SpMV kernel's
+     launch count must equal what the iteration counts imply: CG
+     ``iterations + 1`` per solve, BiCGStab ``2 * iterations + 1``, GMRES
+     ``1 + cycles * (restart + 2)``; no other kernel runs on this path.
 5. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
@@ -60,6 +78,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -74,6 +93,9 @@ DEVICE = "cuda"  # the card; the tests rehearse the script on "cpu"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet): the
+# SpMV kernel's float64 products and sums run there.
+PEAK_F64_FLOP_S = 34e12
 TOL = 5e-5  # relative to the operand's scale (f32 summation order)
 # Kernel vs plain, relative to max |plain|: the matmul kernels' FMA chains
 # over K = 2048 against cuBLAS's blocked sums, and the rank-k update's over
@@ -83,6 +105,15 @@ RANKK_TOL = 1e-5
 # Normwise backward error ||b - Ax||_inf / (||A||_inf ||x||_inf + ||b||_inf)
 # of a float32 solve without refinement: a few units of float32 rounding.
 BACKWARD_TOL = 16 * 2.0 ** -24
+# The sparse plane: the generator's entries per row in the giant legs, the
+# orders whose ELL operands the SpMV kernel is checked and timed at (with
+# the padded-row widths the generator gives there), the smoke order, and
+# the residual gate.
+SPARSE_NNZ = 20
+SPARSE_NS = (100_000, 1_000_000)
+SPARSE_ELL_K = {100_000: 36, 1_000_000: 37}
+SPARSE_SMOKE_N = 640
+GATE = 1e-4
 
 
 def require(cond, msg: str) -> None:
@@ -480,6 +511,126 @@ def phase_elim_matmul_kernels(reps: int):
     return out
 
 
+def sparse_system(n: int, nnz_per_row: int):
+    """The sparse generator's system at order n as a CsrMatrix, and the
+    right-hand side the sparse check solves it for."""
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.sparse.csr import CsrMatrix
+
+    rows, cols, vals = synthetic.sparse_coords(n, nnz_per_row, seed=SEED)
+    a = CsrMatrix.from_coords(n, rows, cols, vals)
+    rng = np.random.default_rng(np.random.SeedSequence((SEED, n)))
+    return a, rng.standard_normal(n)
+
+
+def spmv_bytes(n: int, k: int, itemsize: int) -> float:
+    """Bytes one ELL product must move: cols and vals read once, x read
+    once, y written once."""
+    return float(n) * k * (4 + itemsize) + 2.0 * n * itemsize
+
+
+def phase_spmv_kernel(reps: int):
+    """Kernel 8 (the ELL SpMV) against its plain version, bit for bit, at
+    the sparse main path's operand shapes; timed beside the plain version,
+    the stock gather-and-sum, the library call and the bound. Returns the
+    per-shape results and the assembled systems (the main path's breakdown
+    reuses the largest)."""
+    import torch
+
+    from gauss_tpu_torch.core import convert
+    from gauss_tpu_torch.sparse import spmv as ks
+    from gauss_tpu_torch.sparse.csr import CsrMatrix
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 2)
+    out, systems = {}, {}
+
+    def check_equal(a, dtype, label):
+        cols, vals = convert.ell_from_numpy(*a.ell(), device=dev, dtype=dtype)
+        x = torch.as_tensor(rng.standard_normal(a.n), dtype=dtype, device=dev)
+        got = ks.spmv_ell(cols, vals, x)
+        want = ks.spmv_ell_plain(cols, vals, x)
+        sync()
+        require(torch.equal(got, want), f"spmv_ell {label} "
+                f"{tuple(vals.shape)} {dtype}: kernel differs from the "
+                f"plain version (max |diff| "
+                f"{float((got - want).abs().max())})")
+        ref = torch.as_tensor(a.matvec(x.double().cpu().numpy()))
+        err = float((got.double().cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        eps = 1e-5 if dtype == torch.float32 else 1e-13
+        require(err <= eps * max(scale, 1.0), f"spmv_ell {label}: max "
+                f"|kernel - host CSR matvec| {err} > {eps} x {scale}")
+        return cols, vals, x
+
+    for n in SPARSE_NS:
+        t0 = time.perf_counter()
+        a, b = sparse_system(n, SPARSE_NNZ)
+        systems[n] = (a, b)
+        k = max(a.max_row_nnz, 1)
+        print(f"phase 3c: n={n}: {a.nnz} stored entries, ELL ({n}, {k}), "
+              f"assembled on the host in {time.perf_counter() - t0:.2f} s")
+        if n in SPARSE_ELL_K:
+            require(k == SPARSE_ELL_K[n], f"ELL width at n={n} is {k}, "
+                    f"expected {SPARSE_ELL_K[n]}")
+        crow = torch.as_tensor(a.indptr, device=dev)
+        ccol = torch.as_tensor(a.indices.astype(np.int64), device=dev)
+        for dtype in (torch.float64, torch.float32):
+            cols, vals, x = check_equal(a, dtype, "generator")
+            itemsize = vals.element_size()
+            with warnings.catch_warnings():
+                # torch says CSR support is in beta; the call is timed as
+                # the library's yardstick only.
+                warnings.simplefilter("ignore", UserWarning)
+                csr = torch.sparse_csr_tensor(
+                    crow, ccol,
+                    torch.as_tensor(a.data, dtype=dtype, device=dev),
+                    size=(n, n))
+            lib = torch.mv(csr, x)
+            sync()
+            lib_err = float((lib - ks.spmv_ell_plain(cols, vals, x))
+                            .abs().max())
+            ms = device_ms(lambda: ks.spmv_ell(cols, vals, x), reps)
+            plain_ms = device_ms(lambda: ks.spmv_ell_plain(cols, vals, x),
+                                 max(3, reps // 4))
+            stock_ms = device_ms(lambda: (vals * x[cols]).sum(1), reps)
+            lib_ms = device_ms(lambda: torch.mv(csr, x), reps)
+            nbytes = spmv_bytes(n, k, itemsize)
+            b_ms, b_by = bound(nbytes, 2.0 * n * k,
+                               PEAK_F64_FLOP_S if itemsize == 8
+                               else PEAK_F32_FLOP_S)
+            name = "f64" if itemsize == 8 else "f32"
+            out[(n, name)] = {
+                "shape": [n, k], "dtype": name, "ms": ms,
+                "plain_ms": plain_ms, "stock_ms": stock_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes, "err": 0.0}
+            l2 = ("fits the card's 50 MB L2, so repeated launches can run "
+                  "under the HBM bound" if nbytes < 50e6 else
+                  "exceeds the 50 MB L2: this shape reads HBM")
+            print(f"phase 3c: spmv_ell {name} ({n}, {k}): bit for bit; ms "
+                  f"{ms:.4f} ({nbytes / ms / 1e9:.3f} TB/s), plain "
+                  f"{plain_ms:.4f}, stock gather-and-sum {stock_ms:.4f}, "
+                  f"torch.mv on CSR {lib_ms:.4f} (max |mv - plain| "
+                  f"{lib_err:.2e}), bound {b_ms:.5f} ({b_by}: "
+                  f"{nbytes / 1e6:.1f} MB, {l2})")
+            del cols, vals, x, csr, lib
+
+    # A small odd shape and a matrix with an empty row.
+    from gauss_tpu_torch.io import synthetic
+
+    rows, cols, vals = synthetic.sparse_coords(130, 5, seed=1)
+    small = CsrMatrix.from_coords(130, rows, cols, vals)
+    keep = rows != 17
+    holed = CsrMatrix.from_coords(130, rows[keep], cols[keep], vals[keep])
+    for dtype in (torch.float64, torch.float32):
+        check_equal(small, dtype, "n=130")
+        check_equal(holed, dtype, "empty row")
+    print("phase 3c: spmv_ell at n=130 and with an empty row (row 17), f64 "
+          "and f32: bit for bit")
+    return out, systems
+
+
 def run_cli(mod, argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -663,6 +814,179 @@ def phase_elim_matmul_paths(dat: str):
     return by_path
 
 
+def krylov_launches(method: str, iterations: int, restart: int = 32) -> int:
+    """SpMV launches of one solve that reported ``iterations``: one for
+    the initial residual, then one per CG iteration, two per BiCGStab
+    iteration, ``restart + 2`` per GMRES cycle."""
+    if method == "cg":
+        return iterations + 1
+    if method == "bicgstab":
+        return 2 * iterations + 1
+    return 1 + (iterations // restart) * (restart + 2)
+
+
+def phase_sparse_path(spmv: dict, systems: dict):
+    """The sparse main path (module docstring, phase 4). ``spmv`` holds
+    phase 3c's kernel times by (n, dtype), ``systems`` its assembled
+    systems by n. Returns the path's launch counts."""
+    import torch
+
+    from gauss_tpu_torch.io import datfile, synthetic
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.sparse import check, krylov, solve_sparse
+    from gauss_tpu_torch.sparse.csr import CsrMatrix
+    from gauss_tpu_torch.sparse.precond import (apply_precond,
+                                                build_preconditioner)
+    from gauss_tpu_torch.utils.device import resolve_device
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    dev = resolve_device(DEVICE)
+    _build.reset_launches()
+    expect = 0
+    repeats = 3
+
+    def kernel_note(n, launches):
+        ms = spmv.get((n, "f64"), {}).get("ms")
+        return (f"kernel {ms:.4f} ms x {launches} launches = "
+                f"{ms * launches:.3f} ms" if ms is not None else
+                f"{launches} launches")
+
+    # The check's own legs: smoke + giant at each order.
+    for n in SPARSE_NS:
+        summary_path = os.path.join(work, f"sparse_check_{n}.json")
+        argv = ["--smoke-n", str(SPARSE_SMOKE_N), "--giant-n", str(n),
+                "--giant-nnz-per-row", str(SPARSE_NNZ), "--repeats",
+                str(repeats), "--seed", str(SEED), "--gate", str(GATE),
+                "--device", DEVICE, "--summary-json", summary_path]
+        print(f"phase 4: sparse: {check.__name__} {' '.join(argv)}")
+        before = _build.LAUNCHES["spmv_ell"]
+        run_cli(check, argv)
+        with open(summary_path) as f:
+            summary = json.load(f)
+        require(summary["ok"] and summary["routed"]["detected"] == "sparse",
+                f"sparse check at giant n={n}: {summary}")
+        leg = 0
+        for method, row in summary["methods"].items():
+            require(row["verified"] and row["rel_residual"] <= GATE,
+                    f"sparse smoke {method}: {row}")
+            leg += repeats * krylov_launches(method, row["iterations"])
+        giant = summary["giant"]
+        require(giant["verified"] and giant["no_densify_ok"]
+                and giant["rel_residual"] <= GATE and giant["n"] == n,
+                f"sparse giant n={n}: {giant}")
+        g_launches = krylov_launches("cg", giant["iterations"])
+        leg += g_launches
+        got = _build.LAUNCHES["spmv_ell"] - before
+        require(DEVICE != "cuda" or got == leg, f"sparse check at giant "
+                f"n={n}: spmv_ell launched {got} times, the iteration "
+                f"counts imply {leg}")
+        expect += leg
+        dpeak = giant["device_peak_bytes"]
+        print(f"phase 4: sparse giant n={n}: ELL {giant['ell_shape']}, "
+              f"{giant['iterations']} CG iterations, {giant['s_per_solve']} "
+              f"s (assembly {giant['assembly_s']} s), {kernel_note(n, g_launches)}, "
+              f"true relative residual {giant['rel_residual']:.3e}, host "
+              f"peak RSS {giant['peak_rss_bytes'] / 2**30:.2f} GiB "
+              f"(+{giant['host_added_bytes'] / 2**30:.2f} GiB over the "
+              f"leg's start), device "
+              f"peak {'n/a' if dpeak is None else f'{dpeak / 2**20:.0f} MiB'}")
+
+    def solve_line(label, a, b, **kw):
+        nonlocal expect
+        sync()
+        t0 = time.perf_counter()
+        res = solve_sparse(a, b, gate=GATE, device=DEVICE, **kw)
+        secs = time.perf_counter() - t0
+        true_rel = float(np.linalg.norm(a.matvec(res.x) - b)
+                         / np.linalg.norm(b))
+        require(np.isfinite(res.x).all() and true_rel <= GATE,
+                f"sparse {label}: true relative residual {true_rel}")
+        launches = krylov_launches(res.method, res.iterations)
+        expect += launches
+        print(f"phase 4: sparse {label}: {res.method}/{res.precond} "
+              f"n={a.n}: {res.iterations} iterations, {secs:.4f} s, "
+              f"{launches} SpMV launches, true relative residual "
+              f"{true_rel:.3e}")
+        return res
+
+    # Each preconditioner kind once at the smoke size.
+    a, b = sparse_system(SPARSE_SMOKE_N, 6)
+    for kind in ("none", "block_jacobi", "tridiag", "ilu0", "ic0"):
+        solve_line(f"precond {kind}", a, b, method="cg", precond=kind)
+    # The block-incomplete apply is two sequential sweeps over the blocks:
+    # its host-clock time per apply at this size.
+    for kind in ("jacobi", "block_jacobi", "tridiag", "ilu0"):
+        prec = build_preconditioner(a, kind, device=DEVICE)
+        r = torch.as_tensor(b, device=dev)
+        apply_precond(prec, r)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            apply_precond(prec, r)
+        sync()
+        print(f"phase 4: sparse apply_precond {kind} n={a.n} "
+              f"(meta {prec.meta}): {(time.perf_counter() - t0) / 5 * 1e3:.3f}"
+              f" ms per apply (host clock, synchronised)")
+
+    # One .dat round trip at the smoke size.
+    dat = os.path.join(work, f"sparse_{SPARSE_SMOKE_N}.dat")
+    rows, cols, vals = synthetic.sparse_coords(SPARSE_SMOKE_N, 6, seed=SEED)
+    datfile.write_dat(dat, n=SPARSE_SMOKE_N, rows=rows, cols=cols, vals=vals)
+    from_dat = CsrMatrix.from_dat(dat, strict=True)
+    require(from_dat.indices.tobytes() == a.indices.tobytes()
+            and from_dat.data.tobytes() == a.data.tobytes(),
+            ".dat round trip changed the matrix")
+    res = solve_line(".dat round trip", from_dat, b)
+    require(res.method == "cg", f".dat round trip took {res.method}")
+
+    # One solve at the largest order taken apart: what a giant solve's
+    # seconds are made of.
+    n = max(systems)
+    a, b = systems[n]
+    t0 = time.perf_counter()
+    require(a.gershgorin_spd(), f"n={n}: no SPD certificate")
+    t_cert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols_t, vals_t = krylov._stage(a, dev)
+    prec = build_preconditioner(a, "jacobi", device=DEVICE)
+    bt = torch.as_tensor(b, device=dev)
+    x0 = torch.zeros(n, dtype=torch.float64, device=dev)
+    sync()
+    t_stage = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, iters, _, rel = krylov.cg_run(cols_t, vals_t, bt, x0, prec, GATE,
+                                     maxiter=krylov.DEFAULT_MAXITER)
+    sync()
+    t_iter = time.perf_counter() - t0
+    launches = krylov_launches("cg", iters)
+    expect += launches
+    xh = x.cpu().numpy()
+    t0 = time.perf_counter()
+    true_rel = float(np.linalg.norm(a.matvec(xh) - b) / np.linalg.norm(b))
+    t_res = time.perf_counter() - t0
+    require(true_rel <= GATE, f"n={n} breakdown solve: residual {true_rel}")
+    ms = spmv.get((n, "f64"), {}).get("ms")
+    per_iter = t_iter / max(iters, 1) * 1e3
+    print(f"phase 4: sparse breakdown n={n}: certificate {t_cert:.3f} s, "
+          f"ELL staging + copy to the device {t_stage:.3f} s, cg_run "
+          f"{t_iter * 1e3:.2f} ms for {iters} iterations ({per_iter:.3f} ms "
+          f"per iteration, one host sync each"
+          + (f"; the SpMV kernel is {ms:.4f} ms of it" if ms else "")
+          + f"), host residual {t_res:.3f} s; true relative residual "
+          f"{true_rel:.3e}")
+
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 4: sparse: launches {launches} (the iteration counts "
+          f"imply {expect} SpMV launches)")
+    if DEVICE == "cuda":
+        for name, count in launches.items():
+            want = expect if name == "spmv_ell" else 0
+            require(count == want, f"path sparse: {name} launched {count} "
+                    f"times, expected {want}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20,
@@ -680,8 +1004,13 @@ def main(argv=None) -> int:
     phase_build()
     k1, k2, k3 = phase_kernels(args.reps)
     km = phase_elim_matmul_kernels(args.reps)
+    spmv, systems = phase_spmv_kernel(args.reps)
     blocked_launches, dat = phase_main_path()
     by_path = {"blocked": blocked_launches, **phase_elim_matmul_paths(dat)}
+    for path, counts in by_path.items():
+        require(counts["spmv_ell"] == 0, f"path {path} launched the SpMV "
+                f"kernel {counts['spmv_ell']} times")
+    by_path["sparse"] = phase_sparse_path(spmv, systems)
     # A kernel's launches: the sum over the main paths that run it.
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in blocked_launches}
@@ -744,6 +1073,17 @@ def main(argv=None) -> int:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "shape": shape})
+    big = spmv[(max(SPARSE_NS), "f64")]
+    kernels.append(
+        {"name": "spmv_ell", "route": "cuda", "source": src + "spmv.cu",
+         "replaces": "gauss_tpu/sparse/spmv.py:74", **launch_keys("spmv_ell"),
+         "max_abs_err": big["err"], "ms": big["ms"],
+         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+         "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+         "shape": f"ELL {tuple(big['shape'])} float64 (torch.mv on the "
+                  f"same matrix as CSR is the library call)",
+         "stock_gather_sum_ms": big["stock_ms"],
+         "shapes": [spmv[key] for key in sorted(spmv)]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

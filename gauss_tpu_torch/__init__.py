@@ -9,7 +9,11 @@ double-single refinement (:mod:`.core`), the float64 checks
 (:mod:`.verify`) and the reference-parity CLIs (:mod:`.cli`). Beside it,
 the row-elimination solves (one step kernel per pivot, or k steps per
 group through the panel kernel and a rank-k update kernel) and the
-matmul driver with a tiled and a row-stripe GEMM kernel.
+matmul driver with a tiled and a row-stripe GEMM kernel. And the sparse
+Krylov plane (:mod:`.sparse`): CSR assembly from the coordinate stream, an
+ELL sparse matrix-vector kernel, CG / GMRES / BiCGStab in float64 with
+factor-based preconditioners, with the structure detector
+(:mod:`.structure`) and the tuning seeds (:mod:`.tune`) it reads.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise RuntimeError.

@@ -196,6 +196,45 @@ def panel_factor_swap(p: torch.Tensor, kb: int = 0):
     return p, ipiv, min_piv
 
 
+def panel_factor_swap_batched(p: torch.Tensor):
+    """:func:`panel_factor_swap` at ``kb = 0`` over a stack of blocks
+    ``(nb, h, panel)`` at once: the same step loop with a leading batch
+    axis (the JAX package runs ``jax.vmap`` of its stock panel here). A zero
+    pivot eliminates nothing (multiplier 0, the JAX package's
+    ``zero_pivot_safe``) instead of poisoning the rows below it, and a NaN
+    pivot counts as 0. Returns ``(factored, ipiv, min_abs_pivot)`` of
+    shapes ``(nb, h, panel)``, ``(nb, panel)`` and ``(nb,)``."""
+    nb, h, panel = p.shape
+    p = p.clone()
+    dev, dt = p.device, p.dtype
+    blk = torch.arange(nb, device=dev)
+    rows = torch.arange(h, device=dev)
+    pcols = torch.arange(panel, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    ninf = torch.full((), float("-inf"), dtype=dt, device=dev)
+    ipiv = torch.zeros((nb, panel), dtype=torch.int64, device=dev)
+    min_piv = torch.full((nb,), float("inf"), dtype=dt, device=dev)
+    for j in range(panel):
+        cand = torch.where(rows >= j, p[:, :, j].abs(), ninf)
+        nan = torch.isnan(cand)  # jnp.argmax's order: the first NaN wins
+        prow = torch.where(nan.any(1), torch.argmax(nan.to(torch.int32), 1),
+                           torch.argmax(torch.where(nan, ninf, cand), 1))
+        ipiv[:, j] = prow
+        rc, rp = p[:, j].clone(), p[blk, prow]
+        p[:, j] = rp
+        p[blk, prow] = rc
+        piv = p[:, j, j]
+        apiv = piv.abs()
+        min_piv = torch.minimum(min_piv,
+                                torch.where(torch.isnan(apiv), zero, apiv))
+        inv_piv = torch.where(apiv > 0, 1.0 / piv, zero)
+        mult = torch.where(rows > j, p[:, :, j] * inv_piv[:, None], zero)
+        p[:, :, j] = torch.where(rows > j, mult, p[:, :, j])
+        urow = torch.where(pcols > j, p[:, j], zero)
+        p = p - mult[:, :, None] * urow[:, None, :]
+    return p, ipiv, min_piv
+
+
 def _fold_transpositions(ipiv: torch.Tensor, h: int) -> torch.Tensor:
     """Fold a swap panel's transposition sequence into gather indices."""
     perm = list(range(h))

@@ -9,6 +9,9 @@
   (``csrc/rowelim.cu``) and the row-elimination solve drivers;
   ``csrc/gemm_common.cuh`` holds the f32 tile routine of the GEMM-shaped
   kernels;
+- ``csrc/spmv.cu`` — the ELL sparse matrix-vector product, whose wrapper
+  ``spmv_ell_kernel`` lives with the sparse plane
+  (:mod:`gauss_tpu_torch.sparse.spmv`);
 - :mod:`._build` — ``nvcc`` build at first use, ``ctypes`` binding, and
   the per-wrapper launch counts (``LAUNCHES``).
 """

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("panel_factor", "panel_fused", "matmul", "rowelim")
+SOURCES = ("panel_factor", "panel_fused", "matmul", "rowelim", "spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: count). Reset with :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_trailing_fused": 0,
             "trailing_update": 0, "matmul_tiled": 0, "matmul_stripe": 0,
-            "eliminate_step": 0, "rankk_update": 0}
+            "eliminate_step": 0, "rankk_update": 0, "spmv_ell": 0}
 
 #: Seconds each source took to build in this process (0.0 when loaded
 #: from an existing build).
@@ -60,6 +60,10 @@ _SIGNATURES = {
         "gtt_eliminate_step": [_P, _I, _P, _I, _I, _I, _I, _P],
         "gtt_rankk_update": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
                              _P],
+    },
+    "spmv": {
+        "gtt_spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _P],
+        "gtt_spmv_ell_f64": [_P, _P, _P, _P, _I, _I, _P],
     },
 }
 

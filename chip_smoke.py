@@ -391,7 +391,7 @@ def phase_elim_matmul_kernels(reps: int):
     bound; and the panel kernel at the strips of one batched solve."""
     import torch
 
-    from gauss_tpu_torch.core import matmul as cm
+    from gauss_tpu_torch.core.matmul import matmul as core_matmul
     from gauss_tpu_torch.kernels import matmul as km
     from gauss_tpu_torch.kernels import panel as kp
     from gauss_tpu_torch.kernels import rowelim as kr
@@ -424,7 +424,7 @@ def phase_elim_matmul_kernels(reps: int):
                     f"{N}): max |kernel - plain| {err} > {MM_TOL} x {scale}")
             ms = device_ms(lambda: fn(a, b, prec), reps)
             plain_ms = device_ms(lambda: km.matmul_plain(a, b, prec), reps)
-            lib_ms = device_ms(lambda: cm.matmul(a, b, prec), reps)
+            lib_ms = device_ms(lambda: core_matmul(a, b, prec), reps)
             b_ms, b_by = bound(mm_bytes, flops, peak)
             out[name][prec] = {"ms": ms, "plain_ms": plain_ms,
                                "library_ms": lib_ms, "bound_ms": b_ms,

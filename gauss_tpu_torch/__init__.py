@@ -19,6 +19,31 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise RuntimeError.
 On CPU tensors every kernel wrapper runs its plain PyTorch version.
 The package imports torch and numpy only; importing it compiles nothing.
+
+The JAX package's top-level names ``eliminate``, ``back_substitute``,
+``gauss_solve`` and ``matmul`` are re-exported here, loaded at first use
+so that ``import gauss_tpu_torch`` imports no torch; ``obs`` comes with
+the telemetry core.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_LAZY = {"eliminate": "gauss_tpu_torch.core.gauss",
+         "back_substitute": "gauss_tpu_torch.core.gauss",
+         "gauss_solve": "gauss_tpu_torch.core.gauss",
+         "matmul": "gauss_tpu_torch.core.matmul"}
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

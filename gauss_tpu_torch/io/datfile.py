@@ -33,9 +33,9 @@ parser (``engine="native"`` there) is not part of this package yet, so
 - ``strict=False``, dense path (:func:`read_dat` + :func:`densify`): the
   reference's fscanf loop scatters entries in file order, so the LAST
   occurrence wins — bug-parity with gauss_external_input.c's initMatrix.
-- ``strict=False``, sparse assembly (the JAX package's CSR builder, not
-  ported yet): coordinates are SUMMED — the additive convention of
-  finite-element/graph assembly.
+- ``strict=False``, sparse assembly (the CSR builder,
+  :meth:`gauss_tpu_torch.sparse.csr.CsrMatrix.from_dat`): coordinates are
+  SUMMED — the additive convention of finite-element/graph assembly.
 
 That divergence is inherent to the two traditions, which is exactly why
 ``strict=True`` refuses to guess.
@@ -183,8 +183,9 @@ def read_dat(path_or_file: PathOrFile, strict: bool = True,
 class CoordStream:
     """Streaming ``.dat`` reader: the header eagerly (``.n``,
     ``.declared_nnz``), the body lazily as 0-indexed ``(rows, cols,
-    vals)`` numpy chunks of at most ``chunk`` entries. Iterate it once.
-    All of :func:`read_dat`'s per-line validation (bounds,
+    vals)`` numpy chunks of at most ``chunk`` entries. Iterate it once;
+    :meth:`gauss_tpu_torch.sparse.csr.CsrMatrix.from_coord_chunks`
+    accepts it directly. All of :func:`read_dat`'s per-line validation (bounds,
     malformed lines, header/body count mismatch) runs as the stream
     advances; ``strict`` additionally rejects non-finite values,
     duplicate coordinates (detected by the same vectorized scan, at end

@@ -18,8 +18,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    for bit; times each with CUDA events (median of --reps launches), and
    one whole n=2048 factorization the same way.
 3b. The same for the row-elimination and matmul kernels: the tiled and
-   row-stripe matmul at (2048, 2048, 2048) in "high" and "highest" within
-   MM_TOL, the elimination step on the (2048, 2304) augmented shape at
+   row-stripe matmul at (2048, 2048, 2048) in "high" and "highest" (the
+   stripe also in "default") within MM_TOL; the stripe's launch geometry
+   (blocks, cluster size, dynamic shared memory, copy width, clusters the
+   card holds at once), its TFLOP/s and share of its bound in each mode,
+   and the stripe against its plain version at STRIPE_SHAPES in every
+   mode, contiguous and as misaligned column slices; the elimination step on the (2048, 2304) augmented shape at
    i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
    k = 256, within RANKK_TOL; each timed (device time of --reps queued
    launches, see device_ms) beside its plain version, its library call
@@ -101,6 +105,10 @@ TOL = 5e-5  # relative to the operand's scale (f32 summation order)
 # over K = 2048 against cuBLAS's blocked sums, and the rank-k update's over
 # k = 256.
 MM_TOL = 1e-5
+# (m, k, n) shapes kernel 5 is also held to its plain version at: one row,
+# ragged rows, columns and K (lda = 777: the 4-byte copy), and a K under
+# one ring stage.
+STRIPE_SHAPES = ((1, 2048, 2048), (2049, 777, 1000), (130, 17, 130))
 RANKK_TOL = 1e-5
 # Normwise backward error ||b - Ax||_inf / (||A||_inf ||x||_inf + ||b||_inf)
 # of a float32 solve without refinement: a few units of float32 rounding.
@@ -406,15 +414,18 @@ def phase_elim_matmul_kernels(reps: int):
 
     out = {}
     # Kernels 4 and 5 at (N, N, N): "high" (the CLI default, three bf16
-    # products: the bf16 tensor-core peak bounds it) and "highest" (f32).
+    # products: the bf16 tensor-core peak bounds it) and "highest" (f32);
+    # the stripe also in "default" (one bf16 product).
     a, b = rand(N, N), rand(N, N)
     mm_bytes = 3.0 * N * N * 4
-    for name, fn in (("matmul_tiled", km.matmul_tiled),
-                     ("matmul_stripe", km.matmul_stripe)):
+    modes = (("high", 6.0 * N ** 3, PEAK_BF16_FLOP_S),
+             ("highest", 2.0 * N ** 3, PEAK_F32_FLOP_S))
+    for name, fn, precs in (
+            ("matmul_tiled", km.matmul_tiled, modes),
+            ("matmul_stripe", km.matmul_stripe,
+             modes + (("default", 2.0 * N ** 3, PEAK_BF16_FLOP_S),))):
         out[name] = {}
-        for prec, flops, peak in (("high", 6.0 * N ** 3, PEAK_BF16_FLOP_S),
-                                  ("highest", 2.0 * N ** 3,
-                                   PEAK_F32_FLOP_S)):
+        for prec, flops, peak in precs:
             got = fn(a, b, prec)
             want = km.matmul_plain(a, b, prec)
             sync()
@@ -434,6 +445,7 @@ def phase_elim_matmul_kernels(reps: int):
                   f"plain {plain_ms:.4f}, core.matmul(\"{prec}\") (cuBLAS) "
                   f"{lib_ms:.4f}, bound {b_ms:.5f} ({b_by}), max_abs_err "
                   f"{err:g}")
+    phase_stripe_checks(out["matmul_stripe"], rand)
 
     # Kernel 6 on the batched path's augmented shape, bit for bit.
     npad, wpad, k = rowelim_shape(N)
@@ -490,10 +502,18 @@ def phase_elim_matmul_kernels(reps: int):
             f"plain version")
     panel_ms = sum(device_ms(lambda: kp.panel_factor(strip, kb),
                              max(3, reps // 4)) for kb in range(0, npad, k))
+    # Its bound, strip by strip as phase 3 reckons it: the strip read and
+    # written once (with the pivot vectors), and the operations on the
+    # rows still live below kb.
+    strip_bounds = [bound(2.0 * npad * k * 4 + 4 * k + 8 * npad + 4,
+                          panel_ops(npad, k, kb))
+                    for kb in range(0, npad, k)]
     out["panel_batched_ms"] = panel_ms
+    out["panel_batched_bound_ms"] = sum(b for b, _ in strip_bounds)
     print(f"phase 3b: panel_factor at the {npad // k} strips ({npad}, {k}) "
           f"of one batched solve: {panel_ms:.4f} ms in all; kb={kb_mid} "
-          f"bit for bit")
+          f"bit for bit; bound {out['panel_batched_bound_ms']:.5f} "
+          f"({', '.join(sorted({by for _, by in strip_bounds}))})")
 
     # One whole solve of each form on a random system.
     a_sys, b_sys = rand(N, N), rand(N)
@@ -509,6 +529,77 @@ def phase_elim_matmul_kernels(reps: int):
           f"{out['step_solve_ms']:.4f} ms (its kernels "
           f"{npad * out['eliminate_step']['ms']:.4f} ms)")
     return out
+
+
+def phase_stripe_checks(timed: dict, rand):
+    """Kernel 5's launch geometry and its share of the bound in each mode
+    (``timed``: its (N, N, N) results by precision), then the kernel
+    against its plain version at STRIPE_SHAPES, contiguous and as column
+    slices whose rows start off 16-byte boundaries (the kernel's 4-byte
+    copy path), in every mode."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import matmul as km
+
+    geom = km.stripe_geometry(N, N, N, N, N)
+    print(f"phase 3b: matmul_stripe geometry at ({N}, {N}, {N}): "
+          f"{geom.blocks} blocks = {geom.stripes} clusters x {geom.cl}, "
+          f"{geom.threads} threads, {geom.smem_bytes} B dynamic shared "
+          f"memory, {4 * geom.vec}-byte copies, {geom.k_tiles} K tiles")
+    full = km.stripe_geometry(2048, 2048, 2048, 2048, 2048).blocks
+    require(full >= km.H100_SMS, f"stripe grid of {full} blocks at "
+            f"m=2048 leaves SMs idle")
+    for prec, r in timed.items():
+        line = (f"phase 3b: matmul_stripe {prec}: "
+                f"{2.0 * N ** 3 / r['ms'] / 1e9:.1f} TFLOP/s of the product, "
+                f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of its bound")
+        if DEVICE == "cuda":
+            for vec in (4, 1):
+                info = km.stripe_launch_info(prec, vec)
+                require(info["smem_bytes"] == geom.smem_bytes
+                        and info["max_active_clusters"] >= 1,
+                        f"stripe launch info {info} ({4 * vec}-byte copy)")
+                line += (f"; {4 * vec}-byte copy: "
+                         f"{info['max_active_clusters']} clusters at once, "
+                         f"tensor cores {info['tensor_cores']}")
+        print(line)
+
+    def sliced(x, off):
+        wide = torch.zeros((x.shape[0], x.shape[1] + off + 2),
+                           dtype=x.dtype, device=x.device)
+        wide[:, off:off + x.shape[1]] = x
+        return wide[:, off:off + x.shape[1]]
+
+    for m, k, n in STRIPE_SHAPES:
+        x, y = rand(m, k), rand(k, n)
+        for layout, (a, b) in (("contiguous", (x, y)),
+                               ("sliced", (sliced(x, 1), sliced(y, 3)))):
+            g = km.stripe_geometry(m, n, k, a.stride(0), b.stride(0),
+                                   a.data_ptr(), b.data_ptr())
+            require(layout == "contiguous" or g.vec == 1,
+                    f"sliced operands at ({m}, {k}, {n}) took the "
+                    f"16-byte copy")
+            errs = []
+            for prec in ("highest", "high", "default"):
+                _build.reset_launches()
+                got = km.matmul_stripe(a, b, prec)
+                want = km.matmul_plain(a, b, prec)
+                sync()
+                require(_build.LAUNCHES["matmul_stripe"] ==
+                        (1 if DEVICE == "cuda" else 0),
+                        f"stripe launches {_build.LAUNCHES}")
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                require(got.shape == (m, n) and err <= MM_TOL * scale,
+                        f"matmul_stripe {prec} at ({m}, {k}, {n}) "
+                        f"{layout}: max |kernel - plain| {err} > {MM_TOL} "
+                        f"x {scale}")
+                errs.append(f"{prec} {err / scale:.2e}")
+            print(f"phase 3b: matmul_stripe ({m}, {k}, {n}) {layout} "
+                  f"({g.blocks} blocks, {4 * g.vec}-byte copies): "
+                  f"max |kernel - plain| / max |plain|: {', '.join(errs)} "
+                  f"(limit {MM_TOL})")
 
 
 def sparse_system(n: int, nnz_per_row: int):
@@ -1029,7 +1120,8 @@ def main(argv=None) -> int:
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
          "shape": f"({PANEL}, {PANEL}), the last panel of n={N}",
-         "batched_solve_strips_ms": km["panel_batched_ms"]},
+         "batched_solve_strips_ms": km["panel_batched_ms"],
+         "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"]},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
@@ -1050,18 +1142,19 @@ def main(argv=None) -> int:
     ]
     npad, wpad, k = rowelim_shape(N)
     for name, line in (("matmul_tiled", 131), ("matmul_stripe", 245)):
-        hi, top = km[name]["high"], km[name]["highest"]
+        hi = km[name]["high"]
         kernels.append(
             {"name": name, "route": "cuda", "source": src + "matmul.cu",
              "replaces": f"gauss_tpu/kernels/matmul_pallas.py:{line}",
              **launch_keys(name),
-             "max_abs_err": max(hi["err"], top["err"]), "ms": hi["ms"],
+             "max_abs_err": max(r["err"] for r in km[name].values()),
+             "ms": hi["ms"],
              "plain_ms": hi["plain_ms"], "bound_ms": hi["bound_ms"],
              "bound_by": hi["bound_by"], "library_ms": hi["library_ms"],
              "shape": f"({N}, {N}, {N}), precision \"high\" (bf16x3)",
-             "highest": {key: top[key] for key in (
+             **{prec: {key: r[key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "err")}})
+                 "err")} for prec, r in km[name].items() if prec != "high"}})
     for name, line, shape in (
             ("eliminate_step", 71, f"({npad}, {wpad}), i={npad // 2 - 1}"),
             ("rankk_update", 160, f"({npad}, {wpad}), k={k}")):

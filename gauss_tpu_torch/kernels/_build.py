@@ -55,6 +55,7 @@ _SIGNATURES = {
     "matmul": {
         "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "gtt_matmul_stripe": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "gtt_matmul_stripe_info": [_I, _I, _P],
     },
     "rowelim": {
         "gtt_eliminate_step": [_P, _I, _P, _I, _I, _I, _I, _P],

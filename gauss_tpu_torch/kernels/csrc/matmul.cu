@@ -24,12 +24,13 @@
 // reused TM or TN times from registers. The bf16 splits run on CUDA cores
 // (exact products, f32 sums); moving them onto the tensor cores (wgmma
 // with TMA-fed shared-memory tiles) is the later optimisation.
+#include <stdint.h>
+
 #include "gemm_common.cuh"
+#include "stripe_common.cuh"
 
 #define GTT_TILED_BM 128
 #define GTT_TILED_BN 128
-#define GTT_STRIPE_BM 32
-#define GTT_STRIPE_BN 128
 
 template <int BM, int BN, int TM, int TN>
 __device__ __forceinline__ void gtt_store_tile(float* __restrict__ C,
@@ -60,21 +61,25 @@ gtt_matmul_tiled_kernel(const float* __restrict__ A, int lda,
   gtt_store_tile<BM, BN, TM, TN>(C, ldc, M, N, row0, col0, acc);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(GTT_GEMM_THREADS)
+// One thread-block cluster of GTT_STRIPE_CL blocks owns one (BM, N) row
+// stripe (cluster index = stripe); block r of it (%cluster_ctarank)
+// computes the stripe's column tiles r, r + CL, ... one after another.
+template <int MODE, int VEC>
+__global__ void __launch_bounds__(GTT_STRIPE_THREADS)
 gtt_matmul_stripe_kernel(const float* __restrict__ A, int lda,
                          const float* __restrict__ B, int ldb,
-                         float* __restrict__ C, int ldc, int M, int N,
-                         int K) {
-  constexpr int BM = GTT_STRIPE_BM, BN = GTT_STRIPE_BN, TM = 4, TN = 4;
-  __shared__ GttGemmSmem<BM, BN> s;
-  float acc[TM][TN];
-  const int row0 = blockIdx.x * BM;
-  for (int col0 = 0; col0 < N; col0 += BN) {
-    gtt_gemm_tile<BM, BN, TM, TN, MODE>(A, lda, B, ldb, M, N, K, row0, col0,
-                                        s, acc);
-    gtt_store_tile<BM, BN, TM, TN>(C, ldc, M, N, row0, col0, acc);
-  }
+                         float* __restrict__ C, int ldc, int M, int N, int K,
+                         int cvec) {
+  extern __shared__ __align__(16) unsigned char gtt_stripe_smem[];
+  GttStripeStage* ring = reinterpret_cast<GttStripeStage*>(gtt_stripe_smem);
+  unsigned rank, stripe;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(stripe));
+  const int row0 = (int)stripe * GTT_STRIPE_BM;
+  for (int col0 = (int)rank * GTT_STRIPE_BN; col0 < N;
+       col0 += GTT_STRIPE_CL * GTT_STRIPE_BN)
+    gtt_stripe_tile<MODE, VEC>(A, lda, B, ldb, C, ldc, M, N, K, row0, col0,
+                               cvec, ring);
 }
 
 static int gtt_check_mm(int m, int n, int k, int lda, int ldb, int ldc,
@@ -107,22 +112,119 @@ extern "C" int gtt_matmul_tiled(const float* a, int lda, const float* b,
   return (int)cudaGetLastError();
 }
 
-// The same contract on the row-stripe grid.
+static cudaLaunchConfig_t gtt_stripe_config(int blocks, cudaStream_t st,
+                                            cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = GTT_STRIPE_CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(GTT_STRIPE_THREADS);
+  cfg.dynamicSmemBytes = GTT_STRIPE_SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of the <MODE, VEC> kernel the card holds at once, from
+// cudaOccupancyMaxActiveClusters at the ring's dynamic shared memory
+// (queried once per process; 0 means none fits).
+template <int MODE, int VEC>
+static int gtt_stripe_clusters(int* clusters) {
+  static int cached = -1;
+  if (cached < 0) {
+    auto kern = gtt_matmul_stripe_kernel<MODE, VEC>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GTT_STRIPE_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = gtt_stripe_config(GTT_STRIPE_CL, 0, &attr);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, (void*)kern, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    cached = n;
+  }
+  *clusters = cached;
+  return 0;
+}
+
+template <int MODE, int VEC>
+static int gtt_stripe_launch(const float* a, int lda, const float* b,
+                             int ldb, float* c, int ldc, int m, int n, int k,
+                             int cvec, cudaStream_t st) {
+  int clusters = 0;
+  const int rc = gtt_stripe_clusters<MODE, VEC>(&clusters);
+  if (rc) return rc;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr;
+  const int stripes = (m + GTT_STRIPE_BM - 1) / GTT_STRIPE_BM;
+  const cudaLaunchConfig_t cfg =
+      gtt_stripe_config(stripes * GTT_STRIPE_CL, st, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, gtt_matmul_stripe_kernel<MODE, VEC>, a, lda, b, ldb, c, ldc, m,
+      n, k, cvec);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// 4 when A's and B's rows all start on 16-byte boundaries (16-byte
+// cp.async), else 1 (4-byte cp.async).
+static int gtt_stripe_vec(const void* a, int lda, const void* b, int ldb) {
+  return (lda % 4 == 0 && ldb % 4 == 0 && (uintptr_t)a % 16 == 0 &&
+          (uintptr_t)b % 16 == 0)
+             ? 4
+             : 1;
+}
+
+template <int VEC>
+static int gtt_stripe_mode(const float* a, int lda, const float* b, int ldb,
+                           float* c, int ldc, int m, int n, int k, int mode,
+                           int cvec, cudaStream_t st) {
+  if (mode == GTT_MODE_F32)
+    return gtt_stripe_launch<GTT_MODE_F32, VEC>(a, lda, b, ldb, c, ldc, m, n,
+                                                k, cvec, st);
+  if (mode == GTT_MODE_BF16X3)
+    return gtt_stripe_launch<GTT_MODE_BF16X3, VEC>(a, lda, b, ldb, c, ldc, m,
+                                                   n, k, cvec, st);
+  return gtt_stripe_launch<GTT_MODE_BF16, VEC>(a, lda, b, ldb, c, ldc, m, n,
+                                               k, cvec, st);
+}
+
+// The same contract on the cluster-owned row-stripe grid:
+// ceil(m / GTT_STRIPE_BM) clusters of GTT_STRIPE_CL blocks. Returns
+// cudaErrorLaunchOutOfResources when no cluster fits on the card.
 extern "C" int gtt_matmul_stripe(const float* a, int lda, const float* b,
                                  int ldb, float* c, int ldc, int m, int n,
                                  int k, int mode, void* stream) {
   const int bad = gtt_check_mm(m, n, k, lda, ldb, ldc, mode);
   if (bad) return bad;
-  const dim3 grid((m + GTT_STRIPE_BM - 1) / GTT_STRIPE_BM);
+  const int cvec = ldc % 4 == 0 && (uintptr_t)c % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == GTT_MODE_F32)
-    gtt_matmul_stripe_kernel<GTT_MODE_F32>
-        <<<grid, GTT_GEMM_THREADS, 0, st>>>(a, lda, b, ldb, c, ldc, m, n, k);
-  else if (mode == GTT_MODE_BF16X3)
-    gtt_matmul_stripe_kernel<GTT_MODE_BF16X3>
-        <<<grid, GTT_GEMM_THREADS, 0, st>>>(a, lda, b, ldb, c, ldc, m, n, k);
+  if (gtt_stripe_vec(a, lda, b, ldb) == 4)
+    return gtt_stripe_mode<4>(a, lda, b, ldb, c, ldc, m, n, k, mode, cvec, st);
+  return gtt_stripe_mode<1>(a, lda, b, ldb, c, ldc, m, n, k, mode, cvec, st);
+}
+
+// The stripe kernel's launch facts for a mode and copy width (4 or 1):
+// out[0] dynamic shared memory bytes, out[1] clusters the card holds at
+// once, out[2] blocks per cluster, out[3] threads per block, out[4] 1 when
+// the mode runs on the tensor cores.
+extern "C" int gtt_matmul_stripe_info(int mode, int vec, int* out) {
+  if (mode < GTT_MODE_F32 || mode > GTT_MODE_BF16 || (vec != 1 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if (vec == 4)
+    rc = mode == GTT_MODE_F32      ? gtt_stripe_clusters<GTT_MODE_F32, 4>(&out[1])
+         : mode == GTT_MODE_BF16X3 ? gtt_stripe_clusters<GTT_MODE_BF16X3, 4>(&out[1])
+                                   : gtt_stripe_clusters<GTT_MODE_BF16, 4>(&out[1]);
   else
-    gtt_matmul_stripe_kernel<GTT_MODE_BF16>
-        <<<grid, GTT_GEMM_THREADS, 0, st>>>(a, lda, b, ldb, c, ldc, m, n, k);
-  return (int)cudaGetLastError();
+    rc = mode == GTT_MODE_F32      ? gtt_stripe_clusters<GTT_MODE_F32, 1>(&out[1])
+         : mode == GTT_MODE_BF16X3 ? gtt_stripe_clusters<GTT_MODE_BF16X3, 1>(&out[1])
+                                   : gtt_stripe_clusters<GTT_MODE_BF16, 1>(&out[1]);
+  out[0] = GTT_STRIPE_SMEM;
+  out[2] = GTT_STRIPE_CL;
+  out[3] = GTT_STRIPE_THREADS;
+  out[4] = mode != GTT_MODE_F32 && GTT_STRIPE_TC;
+  return rc;
 }

@@ -215,6 +215,7 @@ def test_chip_smoke_elim_matmul_phase_rehearsal(monkeypatch):
     out = chip_smoke.phase_elim_matmul_kernels(1)
     for name in ("matmul_tiled", "matmul_stripe"):
         assert out[name]["high"]["err"] == out[name]["highest"]["err"] == 0.0
+    assert out["matmul_stripe"]["default"]["err"] == 0.0
     assert out["eliminate_step"]["bound_by"] == "bytes"
     assert out["rankk_update"]["err"] == 0.0
     assert out["panel_batched_ms"] == 1.0  # one 256-row strip at n=200

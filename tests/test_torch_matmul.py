@@ -161,20 +161,67 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The stripe kernel's ragged shapes: one row, ragged rows, columns and K
+# with 4-byte copies (lda = 777), and a K under one ring stage.
+STRIPE_SHAPES = [(1, 2048, 2048), (2049, 777, 1000), (130, 17, 130)]
+
+
+def _sliced(x: np.ndarray, dev, off: int = 1):
+    """``x`` as a column slice of a wider matrix: row stride
+    ``cols + off + 2`` and a base pointer ``off`` floats past an aligned
+    allocation, so no row starts on a 16-byte boundary."""
+    rows, cols = x.shape
+    wide = torch.zeros((rows, cols + off + 2), dtype=torch.float32,
+                       device=dev)
+    wide[:, off:off + cols] = torch.as_tensor(x, device=dev)
+    return wide[:, off:off + cols]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", SHAPES + [(2048, 2048, 2048)])
-def test_kernels_match_plain_on_card(cuda_device, m, k, n):
-    a, b = (torch.as_tensor(x, device=cuda_device) for x in _operands(m, k, n))
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("m,k,n", SHAPES + [(2048, 2048, 2048)]
+                         + STRIPE_SHAPES)
+def test_kernels_match_plain_on_card(cuda_device, m, k, n, strided):
+    x, y = _operands(m, k, n)
+    if strided:
+        a, b = _sliced(x, cuda_device), _sliced(y, cuda_device, off=3)
+        assert a.stride(0) == k + 3 and a.data_ptr() % 16 == 4
+    else:
+        a, b = (torch.as_tensor(v, device=cuda_device) for v in (x, y))
+    geom = tmm.stripe_geometry(m, n, k, a.stride(0), b.stride(0),
+                               a.data_ptr(), b.data_ptr())
+    if strided:
+        assert geom.vec == 1
     for precision in ("highest", "high", "default"):
         want = tmm.matmul_plain(a, b, precision)
         scale = float(want.abs().max())
         for fn in (tmm.matmul_tiled, tmm.matmul_stripe):
+            _build.reset_launches()
             got = fn(a, b, precision)
             torch.cuda.synchronize()
+            assert _build.LAUNCHES[fn.__name__] == 1, fn.__name__
+            assert sum(_build.LAUNCHES.values()) == 1
+            assert got.shape == (m, n) and bool(torch.isfinite(got).all())
             assert float((got - want).abs().max()) <= CARD_TOL * scale, (
-                fn.__name__, precision)
+                fn.__name__, precision, geom)
     with pytest.raises(TypeError):
         tmm.matmul_tiled(a.double(), b.double())
+
+
+@pytest.mark.cuda
+def test_stripe_launch_info_on_card(cuda_device):
+    """The ring's shared memory is what the geometry says, and the card
+    holds enough clusters for one wave of the stripe grid at m = 2048
+    (or raises at launch if it cannot hold one)."""
+    geom = tmm.stripe_geometry(2048, 2048, 2048, 2048, 2048)
+    for precision in ("highest", "high", "default"):
+        for vec in (4, 1):
+            info = tmm.stripe_launch_info(precision, vec)
+            assert info["smem_bytes"] == geom.smem_bytes > 48 * 1024
+            assert info["cluster"] == geom.cl
+            assert info["threads"] == geom.threads
+            assert info["max_active_clusters"] >= 1
+            assert not info["tensor_cores"]
 
 
 def test_tile_constants_match_jax_seed_and_cuda_sources():
@@ -192,9 +239,75 @@ def test_tile_constants_match_jax_seed_and_cuda_sources():
 
     assert tmm.CUDA_TILE == (define("matmul.cu", "GTT_TILED_BM"),
                              define("matmul.cu", "GTT_TILED_BN"))
-    assert tmm.CUDA_STRIPE_TILE == (define("matmul.cu", "GTT_STRIPE_BM"),
-                                    define("matmul.cu", "GTT_STRIPE_BN"))
+    stripe = "stripe_common.cuh"
+    src[stripe] = (_build.CSRC / stripe).read_text()
+    assert tmm.CUDA_STRIPE_TILE == (define(stripe, "GTT_STRIPE_BM"),
+                                    define(stripe, "GTT_STRIPE_BN"))
+    assert (tmm.STRIPE_CLUSTER, tmm.STRIPE_BK, tmm.STRIPE_STAGES,
+            tmm.STRIPE_THREADS) == tuple(
+        define(stripe, f"GTT_STRIPE_{x}")
+        for x in ("CL", "BK", "STAGES", "THREADS"))
+    assert tmm.STRIPE_PAD == (define(stripe, "GTT_STRIPE_APAD"),
+                              define(stripe, "GTT_STRIPE_BPAD"))
     assert tre.CUDA_ELIM_TILE == (define("rowelim.cu", "GTT_ELIM_ROWS"),
                                   define("rowelim.cu", "GTT_ELIM_THREADS"))
     assert tre.CUDA_RANKK_TILE == (define("rowelim.cu", "GTT_RANKK_BM"),
                                    define("rowelim.cu", "GTT_RANKK_BN"))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + STRIPE_SHAPES
+                         + [(2048, 2048, 2048), (64, 1, 1), (65, 16, 1025)])
+def test_stripe_geometry_covers_every_element_once(m, k, n):
+    """Every (row, column) of C lies in exactly one tile of exactly one
+    block, and every block belongs to one cluster of a stripe."""
+    geom = tmm.stripe_geometry(m, n, k, k, n)
+    assert geom.blocks == geom.stripes * geom.cl
+    assert geom.stripes * geom.bm >= m > (geom.stripes - 1) * geom.bm
+    assert geom.k_tiles * tmm.STRIPE_BK >= k > (geom.k_tiles - 1) * tmm.STRIPE_BK
+    hits = np.zeros((geom.stripes * geom.bm, -(-n // geom.bn) * geom.bn),
+                    dtype=np.int32)
+    for block in range(geom.blocks):
+        for row0, col0 in tmm.stripe_block_tiles(geom, n, block):
+            assert row0 == (block // geom.cl) * geom.bm
+            assert (col0 // geom.bn) % geom.cl == block % geom.cl
+            hits[row0:row0 + geom.bm, col0:col0 + geom.bn] += 1
+    assert (hits[:m, :n] == 1).all()
+    assert hits.max() == 1
+
+
+def test_stripe_geometry_fills_the_card_at_2048():
+    geom = tmm.stripe_geometry(2048, 2048, 2048, 2048, 2048)
+    assert geom.blocks >= tmm.H100_SMS and geom.blocks % geom.cl == 0
+    assert geom.vec == 4
+    # Each block of a cluster takes 2 of the 16 column tiles.
+    assert {len(tmm.stripe_block_tiles(geom, 2048, b))
+            for b in range(geom.blocks)} == {2}
+    # The ring is dynamic shared memory above the 48 KB static limit, and
+    # several blocks still fit in an SM's 227 KB.
+    assert 48 * 1024 < geom.smem_bytes <= 227 * 1024 // 2
+
+
+@pytest.mark.parametrize("lda,ldb,a_off,b_off,vec", [
+    (2048, 2048, 0, 0, 4),
+    (200, 130, 0, 0, 1),     # ldb = 130, the (100, 200, 130) shape
+    (2048, 2048, 4, 0, 1),   # A's base one float past a 16-byte boundary
+    (2048, 2048, 0, 8, 1),   # B's base two floats past it
+    (2048, 2048, 16, 32, 4),  # whole 16-byte offsets keep the 16-byte copy
+    (777, 1000, 0, 0, 1),
+    (132, 1000, 0, 0, 4),
+])
+def test_stripe_geometry_copy_width(lda, ldb, a_off, b_off, vec):
+    base = 0x7f0000000000  # an allocation's alignment (256 bytes)
+    geom = tmm.stripe_geometry(100, 130, 200, lda, ldb, base + a_off,
+                               base + b_off)
+    assert geom.vec == vec
+
+
+def test_stripe_geometry_of_sliced_tensors():
+    """The addresses a column slice hands the kernel (the card test's
+    strided operands, here on CPU tensors) take the 4-byte copy."""
+    wide = torch.zeros(100, 204)
+    a = wide[:, 1:201]
+    geom = tmm.stripe_geometry(100, 130, 200, a.stride(0), 132,
+                               a.data_ptr(), wide.data_ptr())
+    assert a.stride(0) == 204 and a.data_ptr() % 16 == 4 and geom.vec == 1

@@ -22,9 +22,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    stripe also in "default") within MM_TOL; the stripe's launch geometry
    (blocks, cluster size, dynamic shared memory, copy width, clusters the
    card holds at once), its TFLOP/s and share of its bound in each mode,
-   and the stripe against its plain version at STRIPE_SHAPES in every
-   mode, contiguous and as misaligned column slices; the elimination step on the (2048, 2304) augmented shape at
-   i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
+   its registers and spills from ``nvcc -Xptxas -v``, and the stripe
+   against its plain version at STRIPE_SHAPES in every mode, contiguous
+   and as misaligned column slices; the elimination step on the (2048,
+   2304) augmented shape at i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
    k = 256, within RANKK_TOL; each timed (device time of --reps queued
    launches, see device_ms) beside its plain version, its library call
    and its bound; the panel kernel at the 8 strips of one batched solve,
@@ -531,6 +532,38 @@ def phase_elim_matmul_kernels(reps: int):
     return out
 
 
+def ptxas_usage(source: str) -> dict:
+    """Registers and bytes of spill stores of each kernel of
+    ``csrc/<source>.cu`` (by mangled name), as ``nvcc -Xptxas -v`` reports
+    them under the port's build flags: a throwaway build in the build
+    directory."""
+    from gauss_tpu_torch.kernels import _build
+
+    out = _build.build_dir() / f"ptxas-{source}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out), str(_build.CSRC / f"{source}.cu")],
+        capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    require(proc.returncode == 0, f"nvcc -Xptxas -v csrc/{source}.cu: "
+            f"{proc.stderr[-2000:]}")
+    usage, kernel = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            usage[kernel] = [0, 0]
+        elif kernel:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[kernel][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                usage[kernel][1] = int(m.group(1))
+    return usage
+
+
 def phase_stripe_checks(timed: dict, rand):
     """Kernel 5's launch geometry and its share of the bound in each mode
     (``timed``: its (N, N, N) results by precision), then the kernel
@@ -564,6 +597,14 @@ def phase_stripe_checks(timed: dict, rand):
                          f"{info['max_active_clusters']} clusters at once, "
                          f"tensor cores {info['tensor_cores']}")
         print(line)
+    if DEVICE == "cuda":
+        modes = {"0": "highest", "1": "high", "2": "default"}
+        for kernel, (regs, spill) in sorted(ptxas_usage("matmul").items()):
+            m = re.search(r"gtt_matmul_stripe_kernelILi(\d)ELi(\d)E", kernel)
+            if m:
+                print(f"phase 3b: ptxas -v, matmul_stripe {modes[m[1]]} "
+                      f"with {4 * int(m[2])}-byte copies: {regs} registers, "
+                      f"{spill} bytes of spill stores")
 
     def sliced(x, off):
         wide = torch.zeros((x.shape[0], x.shape[1] + off + 2),

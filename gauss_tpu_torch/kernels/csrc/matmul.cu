@@ -1,29 +1,44 @@
 // Tiled matmul kernel and row-stripe matmul kernel: C = A @ B in f32.
 //
 // Replaces: gauss_tpu/kernels/matmul_pallas.py
-//   - matmul_pallas (_mm_kernel on a 3-D (m, n, k) grid):
+//   - matmul_pallas (:131, _mm_kernel on a 3-D (m, n, k) grid):
 //     gtt_matmul_tiled_kernel below, one block per (128, 128) output tile,
 //     walking K inside the block (the TPU's sequential k grid axis and its
-//     VMEM accumulator become a loop and registers);
-//   - matmul_pallas_stripe (the same accumulate kernel on a 2-D grid, one
-//     full-width (bm, N) output stripe per program, the reference's CUDA
-//     Version-1 layout): gtt_matmul_stripe_kernel below, one block per
-//     (32, N) row stripe, walking its 128-wide column tiles and, for each,
-//     K. The stripe has no width limit: each column tile's sums live in
-//     registers only while that tile is computed.
+//     VMEM accumulator become a loop and registers), on the tile routine
+//     of gemm_common.cuh: an 8x8 register micro-tile, single-buffered
+//     scalar staging, the bf16 splits on CUDA cores;
+//   - matmul_pallas_stripe (:245, the same accumulate kernel on a 2-D
+//     grid, one full-width (bm, N) output stripe per program with a
+//     sequential K axis, the reference's CUDA Version-1 layout):
+//     gtt_matmul_stripe_kernel below, on the routine of stripe_common.cuh.
 //
-// What bounds it on the H100: operations. At 2048^3 "highest" is
+// What bounds them on the H100: operations. At 2048^3 "highest" is
 // 2*2048^3 = 17.2 GFLOP of f32 FMA against 50 MB of operands and result
-// (67 TFLOP/s f32 and 3.35 TB/s: 0.256 ms of operations, 0.015 ms of
-// bytes); "high" is three bf16 products, 51.5 GFLOP, whose floor is the
-// bf16 tensor-core peak (989 TFLOP/s: 0.052 ms).
+// (67 TFLOP/s f32 on CUDA cores and 3.35 TB/s: 0.256 ms of operations,
+// 0.015 ms of bytes); "high" is three bf16 products, 51.5 GFLOP, whose
+// floor is the bf16 tensor-core peak (989 TFLOP/s: 0.052 ms); "default"
+// one bf16 product (0.017 ms).
 //
-// What the design does about it: the shared tile routine of
-// gemm_common.cuh, a shared-memory-staged SGEMM with an 8x8 (tiled) or
-// 4x4 (stripe) register micro-tile per thread, so each staged operand is
-// reused TM or TN times from registers. The bf16 splits run on CUDA cores
-// (exact products, f32 sums); moving them onto the tensor cores (wgmma
-// with TMA-fed shared-memory tiles) is the later optimisation.
+// The stripe's design: "one program owns a stripe" becomes one
+// thread-block cluster of GTT_STRIPE_CL = 8 blocks per (64, N) stripe,
+// block r of the cluster taking column tiles r, r + 8, ...: the blocks
+// of a stripe run side by side, and at m = 2048 the grid is 256 blocks
+// of 128 threads, one wave on 132 SMs (cudaOccupancyMaxActiveClusters:
+// 45 clusters at once at 3 blocks an SM). Each block walks K through a
+// 4-stage cp.async ring of (64 x 16) A and (16 x 128) B tiles in 57 KB of
+// dynamic shared memory, so the next tiles arrive while one is computed;
+// operands whose rows are not all 16-byte aligned (any row stride, sliced
+// tensors) take the 4-byte cp.async variant of the same kernel. "highest"
+// accumulates true f32 FMAs in an 8x8 register micro-tile per thread on
+// the CUDA cores; "high" and "default" run mma.sync.m16n8k16 bf16 on the
+// tensor cores, splitting each staged f32 element into bf16 hi/lo while
+// the fragments are built. The blocks of a cluster read the same A tiles;
+// sharing them over distributed shared memory was left out (by count,
+// ~1 MB of A beside ~2 MB of B of L2 traffic per block at 2048^3).
+// ptxas -v (nvcc 12.9, sm_90a; chip_smoke.py phase 3b prints it), the
+// stripe kernel by mode with 16-byte / 4-byte copies: "highest" 168
+// registers, no spills / 168, 56 bytes of spill stores; "high" 168, 4
+// bytes / 168, 60 bytes; "default" 162, none / 168, 32 bytes.
 #include <stdint.h>
 
 #include "gemm_common.cuh"
@@ -64,8 +79,11 @@ gtt_matmul_tiled_kernel(const float* __restrict__ A, int lda,
 // One thread-block cluster of GTT_STRIPE_CL blocks owns one (BM, N) row
 // stripe (cluster index = stripe); block r of it (%cluster_ctarank)
 // computes the stripe's column tiles r, r + CL, ... one after another.
+// Registers for 3 blocks an SM (168 a thread): the card then holds 45
+// clusters at once, and the 32 of m = 2048 run in one wave (at 2 blocks an
+// SM it holds 30).
 template <int MODE, int VEC>
-__global__ void __launch_bounds__(GTT_STRIPE_THREADS)
+__global__ void __launch_bounds__(GTT_STRIPE_THREADS, 3)
 gtt_matmul_stripe_kernel(const float* __restrict__ A, int lda,
                          const float* __restrict__ B, int ldb,
                          float* __restrict__ C, int ldc, int M, int N, int K,
@@ -225,6 +243,6 @@ extern "C" int gtt_matmul_stripe_info(int mode, int vec, int* out) {
   out[0] = GTT_STRIPE_SMEM;
   out[2] = GTT_STRIPE_CL;
   out[3] = GTT_STRIPE_THREADS;
-  out[4] = mode != GTT_MODE_F32 && GTT_STRIPE_TC;
+  out[4] = mode != GTT_MODE_F32;
   return rc;
 }

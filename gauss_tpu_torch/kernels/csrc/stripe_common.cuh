@@ -19,17 +19,16 @@
 //                   f32 sum (the TPU kernel's acc += hl + lh + hh per K
 //                   block, matmul_pallas.py:_mm_kernel) ("high");
 //   GTT_MODE_BF16   one hi*hi pass ("default").
-// With GTT_STRIPE_TC the bf16 modes run on the tensor cores
-// (mma.sync.m16n8k16, bf16 in, f32 accumulate; each warp a 32x64 quarter of
-// the tile); without it they run on the CUDA cores through the f32
-// micro-tile (a product of two bf16 values is exact in f32).
+// The bf16 modes run on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
+// accumulate; each warp a 32x64 quarter of the tile as 2 x 8 m16n8
+// tiles).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_common.cuh"  // GTT_MODE_*, gtt_stage
+#include "gemm_common.cuh"  // GTT_MODE_*
 
 #define GTT_STRIPE_BM 64       // rows of one stripe
 #define GTT_STRIPE_BN 128      // columns of one tile
@@ -40,14 +39,11 @@
 #define GTT_STRIPE_APAD 8      // A rows of 24 floats: fragment reads miss bank conflicts
 #define GTT_STRIPE_BPAD 4      // B rows of 132 floats: the same for B
 
-#ifndef GTT_STRIPE_TC
-#define GTT_STRIPE_TC 0
-#endif
-
 struct GttStripeStage {
   float a[GTT_STRIPE_BM][GTT_STRIPE_BK + GTT_STRIPE_APAD];  // a[row][k]
   float b[GTT_STRIPE_BK][GTT_STRIPE_BN + GTT_STRIPE_BPAD];  // b[k][col]
 };
+
 #define GTT_STRIPE_SMEM ((int)(GTT_STRIPE_STAGES * sizeof(GttStripeStage)))
 
 // One cp.async of VEC floats; src_bytes < 4 * VEC zero-fills the rest.
@@ -119,8 +115,8 @@ __device__ __forceinline__ float gtt_f4(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// acc[i * 8 + j] += sum over the stage's K of A[row i][k] * B[k][col j].
-template <int MODE>
+// acc[i * 8 + j] += sum over the stage's K of A[row i][k] * B[k][col j],
+// true f32 FMAs in K order.
 __device__ __forceinline__ void gtt_stripe_fma(const GttStripeStage& s,
                                                float (&acc)[64]) {
 #pragma unroll
@@ -131,29 +127,20 @@ __device__ __forceinline__ void gtt_stripe_fma(const GttStripeStage& s,
       a4[i] = *reinterpret_cast<const float4*>(&s.a[gtt_stripe_row(i)][k4]);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float b[8], bl[8], al[8];
+      float b[8];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&s.b[k4 + q][gtt_stripe_col(4 * h)]);
+        const float4 v = *reinterpret_cast<const float4*>(
+            &s.b[k4 + q][gtt_stripe_col(4 * h)]);
         b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z,
         b[4 * h + 3] = v.w;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) gtt_stage<MODE>(b[j], b[j], bl[j]);
-#pragma unroll
       for (int i = 0; i < 8; ++i) {
-        float a;
-        gtt_stage<MODE>(gtt_f4(a4[i], q), a, al[i]);
+        const float a = gtt_f4(a4[i], q);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float& c = acc[i * 8 + j];
-          if (MODE == GTT_MODE_BF16X3) {
-            c = fmaf(a, bl[j], c);
-            c = fmaf(al[i], b[j], c);
-          }
-          c = fmaf(a, b[j], c);
-        }
+        for (int j = 0; j < 8; ++j)
+          acc[i * 8 + j] = fmaf(a, b[j], acc[i * 8 + j]);
       }
     }
   }
@@ -173,61 +160,76 @@ __device__ __forceinline__ void gtt_split_bf16x2(float x0, float x1,
 }
 
 __device__ __forceinline__ void gtt_mma_bf16(float* d, const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                                             const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The stage's K step of 16 on the tensor cores. The n8 tiles go in pairs,
+// each product issued for the 2 x 2 (mi, ni) sums of the pair before the
+// next product, so consecutive mma.sync are independent while the
+// fragments fit the registers of 3 blocks an SM.
 template <int MODE>
 __device__ __forceinline__ void gtt_stripe_mma(const GttStripeStage& s,
                                                float (&acc)[64]) {
+  constexpr int NG = 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / 2) * 32, wc = (warp % 2) * 64;
+  static_assert(GTT_STRIPE_BK == 16, "one m16n8k16 step per stage");
+  uint32_t ah[2][4], al[2][4];
 #pragma unroll
-  for (int k0 = 0; k0 < GTT_STRIPE_BK; k0 += 16) {
-    uint32_t ah[2][4], al[2][4];
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wr + mi * 16 + g;
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {  // a0..a3: (+0, +0), (+8, +0), (+0, +8), (+8, +8)
-        const float2 x = *reinterpret_cast<const float2*>(
-            &s.a[r + (f & 1) * 8][k0 + 2 * t + (f >> 1) * 8]);
-        gtt_split_bf16x2(x.x, x.y, ah[mi][f], al[mi][f]);
-      }
+    for (int f = 0; f < 4; ++f) {  // a0..a3: (+0, +0), (+8, +0), (+0, +8), (+8, +8)
+      const float2 x = *reinterpret_cast<const float2*>(
+          &s.a[wr + mi * 16 + g + (f & 1) * 8][2 * t + (f >> 1) * 8]);
+      gtt_split_bf16x2(x.x, x.y, ah[mi][f], al[mi][f]);
     }
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int c = wc + ni * 8 + g;
-      uint32_t bh[2], bl[2];
+  for (int n0 = 0; n0 < 8; n0 += NG) {
+    uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
 #pragma unroll
       for (int f = 0; f < 2; ++f)  // b0, b1: k = 2t + {0, 1} and + 8
-        gtt_split_bf16x2(s.b[k0 + 2 * t + f * 8][c],
-                         s.b[k0 + 2 * t + f * 8 + 1][c], bh[f], bl[f]);
+        gtt_split_bf16x2(s.b[2 * t + f * 8][wc + (n0 + n) * 8 + g],
+                         s.b[2 * t + f * 8 + 1][wc + (n0 + n) * 8 + g],
+                         bh[n][f], bl[n][f]);
+    float d[2][NG][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (MODE == GTT_MODE_BF16X3) {
-          gtt_mma_bf16(d, ah[mi], bl[0], bl[1]);
-          gtt_mma_bf16(d, al[mi], bh[0], bh[1]);
-        }
-        gtt_mma_bf16(d, ah[mi], bh[0], bh[1]);
-        float* c = &acc[(mi * 8 + ni) * 4];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], d[q]);
-      }
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[mi][n][q] = 0.0f;
+    if (MODE == GTT_MODE_BF16X3) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < NG; ++n) gtt_mma_bf16(d[mi][n], ah[mi], bl[n]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int n = 0; n < NG; ++n) gtt_mma_bf16(d[mi][n], al[mi], bh[n]);
     }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < NG; ++n) gtt_mma_bf16(d[mi][n], ah[mi], bh[n]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float& c = acc[(mi * 8 + n0 + n) * 4 + q];
+          c = __fadd_rn(c, d[mi][n][q]);
+        }
   }
 }
-
-template <int MODE>
-struct GttStripeTC {
-  static constexpr bool value = GTT_STRIPE_TC && MODE != GTT_MODE_F32;
-};
 
 // C[(row0, col0) tile] = A @ B over all of K. Every thread of the block
 // must call it; ring holds GTT_STRIPE_STAGES stages of dynamic shared
@@ -259,15 +261,15 @@ __device__ __forceinline__ void gtt_stripe_tile(
       gtt_stripe_load<VEC>(ring[next % S], A, lda, B, ldb, M, N, K, row0,
                            col0, next * BK);
     gtt_cp_async_commit();
-    if (GttStripeTC<MODE>::value)
-      gtt_stripe_mma<MODE>(ring[kt % S], acc);
+    if (MODE == GTT_MODE_F32)
+      gtt_stripe_fma(ring[kt % S], acc);
     else
-      gtt_stripe_fma<MODE>(ring[kt % S], acc);
+      gtt_stripe_mma<MODE>(ring[kt % S], acc);
   }
   gtt_cp_async_wait<0>();
   __syncthreads();  // the next tile's copies refill the ring
 
-  if (GttStripeTC<MODE>::value) {
+  if (MODE != GTT_MODE_F32) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll

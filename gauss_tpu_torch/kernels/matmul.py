@@ -21,9 +21,9 @@ only.
 Not ported as behaviour, because it answers the TPU's VMEM: the tile
 clamp (``_mm_blocks``), the stripe's VMEM guard (``_stripe_blocks``; a
 CUDA block keeps one column tile's sums in registers at a time, so the
-stripe has no width limit), the tuned-store lookup and the VMEM telemetry. The
-CUDA tiles are compile-time constants; ``bm``/``bn``/``bk`` are accepted
-for parity and ignored. Any ``m, n, k`` works: the kernels bounds-check
+stripe has no width limit), the tuned-store lookup and the VMEM
+telemetry. The CUDA tiles are compile-time constants; ``bm``/``bn``/``bk``
+are accepted for parity and ignored. Any ``m, n, k`` works: the kernels bounds-check
 the ragged edges instead of padding.
 """
 

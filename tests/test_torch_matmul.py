@@ -221,7 +221,7 @@ def test_stripe_launch_info_on_card(cuda_device):
             assert info["cluster"] == geom.cl
             assert info["threads"] == geom.threads
             assert info["max_active_clusters"] >= 1
-            assert not info["tensor_cores"]
+            assert info["tensor_cores"] == (precision != "highest")
 
 
 def test_tile_constants_match_jax_seed_and_cuda_sources():

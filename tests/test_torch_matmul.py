@@ -211,8 +211,8 @@ def test_kernels_match_plain_on_card(cuda_device, m, k, n, strided):
 @pytest.mark.cuda
 def test_stripe_launch_info_on_card(cuda_device):
     """The ring's shared memory is what the geometry says, and the card
-    holds enough clusters for one wave of the stripe grid at m = 2048
-    (or raises at launch if it cannot hold one)."""
+    holds every cluster of the stripe grid at m = 2048 at once: one
+    wave."""
     geom = tmm.stripe_geometry(2048, 2048, 2048, 2048, 2048)
     for precision in ("highest", "high", "default"):
         for vec in (4, 1):
@@ -220,7 +220,7 @@ def test_stripe_launch_info_on_card(cuda_device):
             assert info["smem_bytes"] == geom.smem_bytes > 48 * 1024
             assert info["cluster"] == geom.cl
             assert info["threads"] == geom.threads
-            assert info["max_active_clusters"] >= 1
+            assert info["max_active_clusters"] >= geom.stripes
             assert info["tensor_cores"] == (precision != "highest")
 
 

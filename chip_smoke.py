@@ -11,7 +11,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. Build: compiles ``gauss_tpu_torch/kernels/csrc/*.cu`` with ``nvcc``
    for ``sm_90a`` (one process per source, in parallel).
 3. Kernels vs plain versions at the shapes of the n=2048 main path: the
-   panel factor at (256, 256) (and (2048, 256)), the fused panel+trailing
+   panel factor's two routes bit for bit (the cluster kernel at (256,
+   256) and (2048, 256), the one-block kernel at (4096, 256)), each with
+   its geometry, clusters at once, ptxas usage, us per pivot step and
+   ``torch.linalg.lu_factor`` beside it, and the cluster kernel at the
+   sizes of PANEL_CLUSTER_SWEEP; the fused panel+trailing
    kernel and the standalone trailing kernel at all 7 fused launch shapes
    (h = 2048 - kb, kb = 0, 256, ..., 1536). Checks identical pivots,
    values within the stated tolerances, and fused == panel + trailing bit
@@ -28,9 +32,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    2304) augmented shape at i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
    k = 256, within RANKK_TOL; each timed (device time of --reps queued
    launches, see device_ms) beside its plain version, its library call
-   and its bound; the panel kernel at the 8 strips of one batched solve,
-   and one whole batched and one whole step solve (CUDA events per call,
-   host work included).
+   and its bound; the panel kernel at the 8 live-row strips of one
+   batched solve (two of them bit for bit) beside ``lu_factor_ex`` on the
+   same strips, and one whole batched and one whole step solve (CUDA
+   events per call, host work included).
 3c. The ELL sparse matrix-vector kernel against its plain version, bit for
    bit, in float64 and float32, at the two operand shapes the sparse
    generator gives with 20 entries per row: (100000, 36) and
@@ -43,11 +48,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    paths at n=2048):
    - blocked: the internal system host-refined and double-single-refined,
      and a .dat external system; every solve verified at the 1e-4 gate,
-     7 fused + 1 panel launches per factorization. Then a random system
+     7 fused + 1 cluster-panel launches per factorization. Then a random system
      solved on the card against a float64 reference.
    - rowelim: ``--backend cuda-rowelim`` on the internal system
-     (``--verify``) and on the .dat system: 8 panel + 8 rank-k launches
-     per solve. The backend does not refine (as in the JAX package), so
+     (``--verify``) and on the .dat system: 8 cluster-panel + 8 rank-k
+     launches per solve; then the internal system at n=4096, whose three
+     tallest live strips take the one-block kernel and the other 13 the
+     cluster kernel. The backend does not refine (as in the JAX package), so
      the .dat system is held to a float32 backward error (BACKWARD_TOL),
      not to the 1e-4 forward gate.
    - rowelim-step: ``--backend cuda-rowelim-step`` on the internal system
@@ -110,6 +117,10 @@ MM_TOL = 1e-5
 # ragged rows, columns and K (lda = 777: the 4-byte copy), and a K under
 # one ring stage.
 STRIPE_SHAPES = ((1, 2048, 2048), (2049, 777, 1000), (130, 17, 130))
+# Cluster sizes kernel 1's cluster route is timed at, by strip height
+# (width PANEL): the rule's size among them.
+PANEL_CLUSTER_SWEEP = {256: (2, 3, 4, 8, 16), 1024: (5, 8, 12, 16),
+                       2048: (10, 12, 14, 16)}
 RANKK_TOL = 1e-5
 # Normwise backward error ||b - Ax||_inf / (||A||_inf ||x||_inf + ||b||_inf)
 # of a float32 solve without refinement: a few units of float32 rounding.
@@ -179,6 +190,21 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def quiet_fd1():
+    """Silence file descriptor 1 (C-level stdout) for a library call that
+    prints there: MAGMA's batched LU warns on every tall strip."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(os.devnull, "w") as null:
+        os.dup2(null.fileno(), 1)
+        try:
+            yield
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
 
 
 def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
@@ -252,36 +278,7 @@ def phase_kernels(reps: int):
     rng = np.random.default_rng(SEED)
     dev = torch.device(DEVICE)
 
-    # Kernel 1: the panel factor. (256, 256) is the main path's shape (the
-    # last panel of every n=2048 factorization); (2048, 256) the tallest.
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-          "err": 0.0}
-    for h in (PANEL, N):
-        x = torch.as_tensor(rng.standard_normal((h, PANEL)),
-                            dtype=torch.float32, device=dev)
-        got = kp.panel_factor(x, 0)
-        ref = kp.panel_factor_plain(x, 0)
-        sync()
-        require(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
-                f"panel_factor pivots differ from the plain version at "
-                f"({h}, {PANEL})")
-        err = float((got[0] - ref[0]).abs().max())
-        scale = float(ref[0].abs().max())
-        require(err <= TOL * scale, f"panel_factor at ({h}, {PANEL}): "
-                f"max |kernel - plain| {err} > {TOL} x {scale}")
-        require(float(got[3]) == float(ref[3]), "panel_factor min |pivot|")
-        ms = cuda_event_ms(lambda: kp.panel_factor(x, 0), reps)
-        plain_ms = cuda_event_ms(lambda: kp.panel_factor_plain(x, 0),
-                                 max(3, reps // 4))
-        lib_ms = cuda_event_ms(lambda: torch.linalg.lu_factor(x), reps)
-        b_ms, b_by = bound(2.0 * h * PANEL * 4 + 4 * PANEL + 8 * h + 4,
-                           panel_ops(h, PANEL, 0))
-        print(f"phase 3: panel_factor ({h}, {PANEL}): ms {ms:.4f}, plain "
-              f"{plain_ms:.4f}, lu_factor {lib_ms:.4f}, bound {b_ms:.5f} "
-              f"({b_by}), max_abs_err {err:g}")
-        if h == PANEL:
-            k1.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      library_ms=lib_ms, err=err)
+    k1 = phase_panel(reps, rng)
 
     # Kernels 2 and 3 at the 7 fused launch shapes of one factorization:
     # block = the live rows m[kb:] (h = N - kb, width N), panel at col0 = kb.
@@ -373,13 +370,131 @@ def phase_kernels(reps: int):
     fac_ms = cuda_event_ms(lambda: blocked.lu_factor_blocked_unrolled(
         a, panel=PANEL, device=DEVICE), max(3, reps // 2))
     print(f"phase 3: one n={N} factorization (lu_factor_blocked_unrolled): "
-          f"{fac_ms:.4f} ms; its kernels {k1['ms'] + k2['ms']:.4f} ms "
+          f"{fac_ms:.4f} ms; its kernels "
+          f"{k1['ms'] + k2['ms']:.4f} ms "
           f"(panel at ({PANEL}, {PANEL}) + the 7 fused shapes)")
     from gauss_tpu_torch.kernels import _build
 
     print(f"phase 3: launch counts over these checks and timings: "
           f"{dict(_build.LAUNCHES)}")
     return k1, k2, k3
+
+
+def same_outputs(got, want) -> bool:
+    """torch.equal on each of two tuples of outputs."""
+    import torch
+
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def panel_launch_key(h: int, panel: int) -> str:
+    """The launch count that a panel factor of an (h, panel) strip adds
+    to: the route ``panel_geometry`` gives it."""
+    from gauss_tpu_torch.kernels import panel as kp
+
+    return ("panel_factor_cluster"
+            if kp.panel_geometry(h, panel).route == "cluster"
+            else "panel_factor")
+
+
+def panel_bound(h: int, panel: int, kb: int = 0):
+    """Kernel 1's bound: the strip read and written once with the pivot
+    vectors, and the operations on its live rows."""
+    return bound(2.0 * h * panel * 4 + 4 * panel + 8 * h + 4,
+                 panel_ops(h, panel, kb))
+
+
+def phase_panel(reps: int, rng):
+    """Kernel 1's two routes against the plain version, bit for bit, at
+    PANEL_SHAPES: each shape's route and geometry, clusters the card holds
+    at once, ms and us per pivot step beside the plain version,
+    ``torch.linalg.lu_factor`` and the bound; the cluster sizes of
+    PANEL_CLUSTER_SWEEP; both kernels' ptxas usage. Returns the record of
+    the main path's (PANEL, PANEL) shape, with every shape's record under
+    "shapes"."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    dev = torch.device(DEVICE)
+    on_card = DEVICE == "cuda"
+    if on_card:
+        for source in ("panel_cluster", "panel_factor"):
+            for kernel, (regs, spill, smem) in sorted(
+                    ptxas_usage(source).items()):
+                print(f"phase 3: ptxas -v, csrc/{source}.cu {kernel}: "
+                      f"{regs} registers, {spill} bytes of spill stores, "
+                      f"{smem} bytes of static shared memory")
+    records = {}
+    for h, panel in ((PANEL, PANEL), (N, PANEL), (2 * N, PANEL)):
+        geom = kp.panel_geometry(h, panel)
+        key = panel_launch_key(h, panel)
+        x = torch.as_tensor(rng.standard_normal((h, panel)),
+                            dtype=torch.float32, device=dev)
+        before = _build.LAUNCHES[key]
+        got = kp.panel_factor(x, 0)
+        ref = kp.panel_factor_plain(x, 0)
+        sync()
+        require(_build.LAUNCHES[key] == before + on_card,
+                f"panel_factor at ({h}, {panel}) did not launch {key}")
+        require(same_outputs(got, ref), f"{key} at ({h}, {panel}) differs "
+                f"from the plain version")
+        err = float((got[0] - ref[0]).abs().max())
+        ms = cuda_event_ms(lambda: kp.panel_factor(x, 0), reps)
+        plain_ms = cuda_event_ms(lambda: kp.panel_factor_plain(x, 0),
+                                 max(3, reps // 4))
+        with quiet_fd1():
+            lib_ms = cuda_event_ms(lambda: torch.linalg.lu_factor(x), reps)
+        b_ms, b_by = panel_bound(h, panel)
+        if geom.route == "cluster":
+            where = (f"a cluster of {geom.cluster} blocks x "
+                     f"{geom.rows_per_block} rows, {geom.smem_bytes} B "
+                     f"dynamic shared memory")
+            if on_card:
+                info = kp.panel_cluster_info(h, panel)
+                require(info["cluster"] == geom.cluster
+                        and info["rows_per_block"] == geom.rows_per_block
+                        and info["smem_bytes"] == geom.smem_bytes
+                        and info["max_active_clusters"] >= 1,
+                        f"C launcher's geometry {info} != {geom}")
+                where += f", {info['max_active_clusters']} clusters at once"
+        else:
+            where = "one block over a global scratch"
+        print(f"phase 3: {key} ({h}, {panel}) on {where}: bit for bit; ms "
+              f"{ms:.4f} ({1e3 * ms / panel:.2f} us per pivot step), plain "
+              f"{plain_ms:.4f}, lu_factor {lib_ms:.4f}, bound {b_ms:.5f} "
+              f"({b_by}), max_abs_err {err:g}")
+        records[(h, panel)] = {"key": key, "geom": geom, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": lib_ms,
+                               "err": err}
+    require(not on_card or (records[(PANEL, PANEL)]["key"] ==
+                            records[(N, PANEL)]["key"] ==
+                            "panel_factor_cluster" and
+                            records[(2 * N, PANEL)]["key"] == "panel_factor"),
+            f"routes {[r['key'] for r in records.values()]}: expected the "
+            f"cluster kernel at ({PANEL}, {PANEL}) and ({N}, {PANEL}), one "
+            f"block at ({2 * N}, {PANEL})")
+    if on_card:
+        for h, sizes in PANEL_CLUSTER_SWEEP.items():
+            x = torch.as_tensor(rng.standard_normal((h, PANEL)),
+                                dtype=torch.float32, device=dev)
+            ref = kp.panel_factor_plain(x, 0)
+            times = {}
+            for c in sizes:
+                require(same_outputs(kp.panel_factor_cluster(x, 0, c), ref),
+                        f"cluster of {c} at ({h}, {PANEL}) differs from the "
+                        f"plain version")
+                times[c] = cuda_event_ms(
+                    lambda: kp.panel_factor_cluster(x, 0, c), reps)
+            best = min(times, key=times.get)
+            print(f"phase 3: cluster sizes at ({h}, {PANEL}), ms: "
+                  + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+                  + f"; fastest C={best}, the rule's "
+                  f"C={kp.panel_geometry(h, PANEL).cluster}")
+    return dict(records[(PANEL, PANEL)], shapes=records)
 
 
 def rowelim_shape(n: int):
@@ -491,29 +606,31 @@ def phase_elim_matmul_kernels(reps: int):
           f"({b_by}), max_abs_err {err:g}")
 
     # The panel kernel at the npad // k strips of one batched solve: the
-    # whole (npad, k) strip, rows above kb done.
+    # live rows of each group, (npad - kb, k) at kb = 0, k, ...
     strip = rand(npad, k)
     kb_mid = (npad // k // 2) * k
-    got = kp.panel_factor(strip, kb_mid)
-    want = kp.panel_factor_plain(strip, kb_mid)
-    sync()
-    require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-            and torch.equal(got[0], want[0]),
-            f"panel_factor at ({npad}, {k}), kb={kb_mid} differs from the "
-            f"plain version")
-    panel_ms = sum(device_ms(lambda: kp.panel_factor(strip, kb),
-                             max(3, reps // 4)) for kb in range(0, npad, k))
-    # Its bound, strip by strip as phase 3 reckons it: the strip read and
-    # written once (with the pivot vectors), and the operations on the
-    # rows still live below kb.
-    strip_bounds = [bound(2.0 * npad * k * 4 + 4 * k + 8 * npad + 4,
-                          panel_ops(npad, k, kb))
-                    for kb in range(0, npad, k)]
+    for kb in sorted({0, kb_mid}):
+        live = strip[kb:]
+        require(same_outputs(kp.panel_factor(live, 0),
+                             kp.panel_factor_plain(live, 0)),
+                f"panel_factor at the live strip ({npad - kb}, {k}) differs "
+                f"from the plain version")
+    kbs = range(0, npad, k)
+    panel_ms = sum(device_ms(lambda: kp.panel_factor(strip[kb:], 0),
+                             max(3, reps // 4)) for kb in kbs)
+    with quiet_fd1():
+        lib_ms = sum(device_ms(lambda: torch.linalg.lu_factor_ex(strip[kb:]),
+                               max(3, reps // 4)) for kb in kbs)
+    strip_bounds = [panel_bound(npad - kb, k) for kb in kbs]
     out["panel_batched_ms"] = panel_ms
+    out["panel_batched_library_ms"] = lib_ms
     out["panel_batched_bound_ms"] = sum(b for b, _ in strip_bounds)
-    print(f"phase 3b: panel_factor at the {npad // k} strips ({npad}, {k}) "
-          f"of one batched solve: {panel_ms:.4f} ms in all; kb={kb_mid} "
-          f"bit for bit; bound {out['panel_batched_bound_ms']:.5f} "
+    routes = sorted({panel_launch_key(npad - kb, k) for kb in kbs})
+    print(f"phase 3b: panel_factor at the {len(kbs)} live-row strips "
+          f"({npad}..{npad - kbs[-1]}, {k}) of one batched solve "
+          f"({', '.join(routes)}): {panel_ms:.4f} ms in all; strips "
+          f"{npad} and {npad - kb_mid} bit for bit; lu_factor_ex "
+          f"{lib_ms:.4f} ms; bound {out['panel_batched_bound_ms']:.5f} "
           f"({', '.join(sorted({by for _, by in strip_bounds}))})")
 
     # One whole solve of each form on a random system.
@@ -533,10 +650,10 @@ def phase_elim_matmul_kernels(reps: int):
 
 
 def ptxas_usage(source: str) -> dict:
-    """Registers and bytes of spill stores of each kernel of
-    ``csrc/<source>.cu`` (by mangled name), as ``nvcc -Xptxas -v`` reports
-    them under the port's build flags: a throwaway build in the build
-    directory."""
+    """Registers, bytes of spill stores and bytes of static shared memory
+    of each kernel of ``csrc/<source>.cu`` (by mangled name), as ``nvcc
+    -Xptxas -v`` reports them under the port's build flags: a throwaway
+    build in the build directory."""
     from gauss_tpu_torch.kernels import _build
 
     out = _build.build_dir() / f"ptxas-{source}.so"
@@ -553,14 +670,14 @@ def ptxas_usage(source: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = m.group(1)
-            usage[kernel] = [0, 0]
+            usage[kernel] = [0, 0, 0]
         elif kernel:
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                usage[kernel][0] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                usage[kernel][1] = int(m.group(1))
+            for i, pattern in enumerate((r"Used (\d+) registers",
+                                         r"(\d+) bytes spill stores",
+                                         r"(\d+) bytes smem")):
+                m = re.search(pattern, line)
+                if m:
+                    usage[kernel][i] = int(m.group(1))
     return usage
 
 
@@ -599,7 +716,8 @@ def phase_stripe_checks(timed: dict, rand):
         print(line)
     if DEVICE == "cuda":
         modes = {"0": "highest", "1": "high", "2": "default"}
-        for kernel, (regs, spill) in sorted(ptxas_usage("matmul").items()):
+        for kernel, (regs, spill, _) in sorted(
+                ptxas_usage("matmul").items()):
             m = re.search(r"gtt_matmul_stripe_kernelILi(\d)ELi(\d)E", kernel)
             if m:
                 print(f"phase 3b: ptxas -v, matmul_stripe {modes[m[1]]} "
@@ -822,9 +940,14 @@ def phase_main_path():
     require(launches["panel_trailing_fused"] == per * factorizations,
             f"expected {per} fused launches per factorization, got "
             f"{launches['panel_trailing_fused']} for {factorizations}")
-    require(launches["panel_factor"] == factorizations,
-            f"expected 1 panel launch per factorization, got "
-            f"{launches['panel_factor']} for {factorizations}")
+    # The last (PANEL, PANEL) panel goes unfused, through the cluster
+    # kernel; the one-block kernel runs no strip of this path.
+    last = panel_launch_key(PANEL, PANEL)
+    for key in ("panel_factor", "panel_factor_cluster"):
+        want = factorizations if key == last else 0
+        require(launches[key] == want, f"expected {want} {key} launches "
+                f"over {factorizations} factorizations, got "
+                f"{launches[key]}")
     for label, secs in times.items():
         print(f"phase 4: {label}: {secs:f} s")
 
@@ -881,6 +1004,16 @@ def phase_elim_matmul_paths(dat: str):
     groups = npad // k
     times, by_path = {}, {}
 
+    def strip_launches(n: int, solves: int) -> dict:
+        """Panel and rank-k launches of ``solves`` batched solves at n:
+        each group's live-row strip on the route the rule gives it."""
+        npad_n, _, k_n = rowelim_shape(n)
+        expect = {"rankk_update": solves * npad_n // k_n}
+        for kb in range(0, npad_n, k_n):
+            key = panel_launch_key(npad_n - kb, k_n)
+            expect[key] = expect.get(key, 0) + solves
+        return expect
+
     def internal_ok(label, out):
         require("Verification: solution pattern (-0.5, 0...0, 0.5) OK"
                 in out, f"{label}: verification failed")
@@ -896,7 +1029,9 @@ def phase_elim_matmul_paths(dat: str):
                           "--verify", "--device", DEVICE]),
         (gauss_external, [dat, "--backend", "cuda-rowelim", "--device",
                           DEVICE]),
-    ], {"panel_factor": 2 * 2 * groups, "rankk_update": 2 * 2 * groups})
+    ], strip_launches(N, 2 * 2))
+    require(by_path["rowelim"]["panel_factor_cluster"] == 2 * 2 * groups,
+            f"rowelim: the cluster kernel did not carry every strip")
     internal_ok("internal, cuda-rowelim", outs[0])
     times["external .dat, cuda-rowelim"] = float(
         re.search(r"Time: (\S+) seconds", outs[1]).group(1))
@@ -921,6 +1056,15 @@ def phase_elim_matmul_paths(dat: str):
           f"(limit {BACKWARD_TOL:.3e})")
     require(eta <= BACKWARD_TOL, f"external, cuda-rowelim: backward error "
             f"{eta} > {BACKWARD_TOL}")
+
+    # At n = 2N the tallest live strips exceed what a cluster holds: the
+    # path takes both routes.
+    outs, by_path[f"rowelim n={2 * N}"] = drive_path(
+        f"rowelim n={2 * N}", [
+            (gauss_internal, ["-s", str(2 * N), "--backend", "cuda-rowelim",
+                              "--verify", "--device", DEVICE]),
+        ], strip_launches(2 * N, 2))
+    internal_ok(f"internal n={2 * N}, cuda-rowelim", outs[0])
 
     outs, by_path["rowelim-step"] = drive_path("rowelim-step", [
         (gauss_internal, ["-s", str(N), "--backend", "cuda-rowelim-step",
@@ -1152,17 +1296,30 @@ def main(argv=None) -> int:
             p: c[name] for p, c in by_path.items() if c[name]}}
 
     src = "gauss_tpu_torch/kernels/csrc/"
+    tall, block = k1["shapes"][(N, PANEL)], k1["shapes"][(2 * N, PANEL)]
     kernels = [
+        {"name": "panel_factor_cluster", "route": "cuda",
+         "source": src + "panel_cluster.cu",
+         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+         **launch_keys("panel_factor_cluster"),
+         "max_abs_err": k1["err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+         "shape": f"({PANEL}, {PANEL}), the last panel of n={N}, a cluster "
+                  f"of {k1['geom'].cluster}",
+         f"({N}, {PANEL})": {key: tall[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "err")},
+         "batched_solve_strips_ms": km["panel_batched_ms"],
+         "batched_solve_strips_library_ms": km["panel_batched_library_ms"],
+         "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"]},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
          **launch_keys("panel_factor"),
-         "max_abs_err": k1["err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-         "shape": f"({PANEL}, {PANEL}), the last panel of n={N}",
-         "batched_solve_strips_ms": km["panel_batched_ms"],
-         "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"]},
+         "max_abs_err": block["err"], "ms": block["ms"],
+         "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
+         "bound_by": block["bound_by"], "library_ms": block["library_ms"],
+         "shape": f"({2 * N}, {PANEL}), taller than a cluster holds"},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",

@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version.
 
-- :mod:`.panel` — ``panel_factor`` (``csrc/panel_factor.cu``);
+- :mod:`.panel` — ``panel_factor``: the cluster-resident kernel
+  (``csrc/panel_cluster.cu`` on ``csrc/panel_cluster.cuh``) for strips a
+  cluster of up to 16 blocks holds, the one-block kernel
+  (``csrc/panel_factor.cu``) for taller ones (``panel_geometry``);
 - :mod:`.panel_fused` — ``panel_trailing_fused`` and ``trailing_update``
   (``csrc/panel_fused.cu``);
 - :mod:`.matmul` — ``matmul_tiled`` and ``matmul_stripe``

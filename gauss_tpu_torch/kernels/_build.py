@@ -26,16 +26,18 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("panel_factor", "panel_fused", "matmul", "rowelim", "spmv")
+SOURCES = ("panel_factor", "panel_cluster", "panel_fused", "matmul",
+           "rowelim", "spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: Launches per kernel wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (plain-version calls on CPU tensors do not
 #: count). Reset with :func:`reset_launches`.
-LAUNCHES = {"panel_factor": 0, "panel_trailing_fused": 0,
-            "trailing_update": 0, "matmul_tiled": 0, "matmul_stripe": 0,
-            "eliminate_step": 0, "rankk_update": 0, "spmv_ell": 0}
+LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
+            "panel_trailing_fused": 0, "trailing_update": 0,
+            "matmul_tiled": 0, "matmul_stripe": 0, "eliminate_step": 0,
+            "rankk_update": 0, "spmv_ell": 0}
 
 #: Seconds each source took to build in this process (0.0 when loaded
 #: from an existing build).
@@ -45,6 +47,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "panel_factor": {
         "gtt_panel_factor": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "panel_cluster": {
+        "gtt_panel_factor_cluster": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                     _P],
+        "gtt_panel_factor_cluster_at": [_P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                        _P, _I, _P],
+        "gtt_panel_cluster_info": [_I, _I, _I, _P],
     },
     "panel_fused": {
         "gtt_panel_fused_grid": [_I, _I, _I],

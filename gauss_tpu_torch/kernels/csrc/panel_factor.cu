@@ -5,22 +5,26 @@
 // TPU's two-level deferred form exists for VMEM and MXU limits and is not
 // carried over; its different rounding is covered by the tests' tolerance.
 //
-// What bounds it on the H100: not bytes or FLOPs (a (256, 256) panel is
-// 256 KB and ~11 MFLOP, well under a microsecond of either) but the chain
-// of `panel` dependent steps — each a block-wide argmax, a broadcast of the
-// pivot row and a rank-1 update, separated by barriers. The panel does not
-// fit one SM's shared memory at the main path's widths (256 x 256 x 4 B =
-// 256 KB > 227 KB), so it lives in a global scratch, transposed, where it
-// stays resident in the 50 MB L2.
+// Route: only strips that no thread-block cluster of up to 16 blocks holds
+// in shared memory (kernels/panel.py::panel_geometry; at panel 256, above
+// 3,392 rows). Every other strip runs the cluster kernel of
+// panel_cluster.cu, which computes the same values bit for bit.
 //
-// What the design does about it: ONE thread block of 512 threads walks all
-// steps in one launch (no launch per step, no host round trip); rows stay
-// in place (done mask, no physical swaps) and each thread owns a fixed set
-// of rows, so the only cross-thread traffic per step is the argmax and the
-// pivot row, which is staged in shared memory. The transposed layout makes
-// every per-step column read and rank-1 update coalesced. A cooperative
-// multi-block version that holds the panel in the SMs' shared memory is a
-// later optimisation.
+// What bounds it on the H100: not bytes or FLOPs (a (4096, 256) strip is
+// 4 MB and ~0.27 GFLOP, microseconds of either) but the chain of `panel`
+// dependent steps, each a block-wide argmax, a broadcast of the pivot row
+// and a rank-1 update, separated by barriers, all on ONE SM: each step
+// reads and writes every live element right of the step through L2
+// (about 2 MB each way at (4096, 256)): 8.13 ms for the 256 steps of a
+// (2048, 256) strip on an H100 SXM at 700 W (chip_smoke.py).
+//
+// What the design does about it: one block of 512 threads walks all steps
+// in one launch (no launch per step, no host round trip), over the panel
+// in a global scratch, transposed, where it stays in the 50 MB L2; rows
+// stay in place (done mask, no swaps), each thread owns fixed rows, and
+// the rank-1 update keeps GTT_BATCH loads in flight. That is what a strip
+// too tall for a cluster's shared memory gets; the fused kernel's phase A
+// (panel_fused.cu) still runs this same step loop, gtt_factor_panel.
 #include "panel_common.cuh"
 
 __global__ void __launch_bounds__(GTT_THREADS)

@@ -1,9 +1,14 @@
 """Panel factorization: partial-pivot LU of one (h, panel) column block.
 
 Port of ``gauss_tpu/kernels/panel_pallas.py::panel_factor_pallas`` (the
-classic per-step rank-1 form). The CUDA kernel is ``csrc/panel_factor.cu``;
-:func:`panel_factor_plain` is the same step loop in plain PyTorch, in the
-same order, and is what a CPU tensor runs.
+classic per-step rank-1 form). Two CUDA kernels compute it, chosen by
+shape alone (:func:`panel_geometry`): ``csrc/panel_cluster.cu``, one
+thread-block cluster of up to 16 blocks holding the strip in shared
+memory, for every strip such a cluster holds (at panel 256, up to 3,392
+rows); and ``csrc/panel_factor.cu``, one block over a global scratch, for
+taller strips. Both are bit for bit equal to :func:`panel_factor_plain`,
+the same step loop in plain PyTorch, in the same order, which is what a
+CPU tensor runs.
 
 The scheme (kept from the JAX package): the panel is held TRANSPOSED,
 (panel, h), so column j is one contiguous row; rows are never swapped — a
@@ -24,6 +29,9 @@ parity and ignored). On finite inputs segmentation never changes a value.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from gauss_tpu_torch.kernels import _build
@@ -32,6 +40,49 @@ from gauss_tpu_torch.kernels import _build
 #: tuner seed); the port keeps the name for the fused tile resolution.
 PANEL_SEG_SEED = 64
 DEFAULT_SEG = PANEL_SEG_SEED
+
+#: The routing rule of the panel-factor kernels, as compiled into
+#: ``csrc/panel_cluster.cuh``: the widest panel either kernel takes, the
+#: widest cluster, the rows a cluster block aims to hold (measured on the
+#: H100, ``PERF.md``), and the dynamic shared memory of one sm_90 block.
+PANEL_MAX = 1024
+PANEL_CLUSTER_MAX = 16
+PANEL_CLUSTER_ROWS = 16
+PANEL_SMEM_MAX = 232448
+
+
+class PanelGeometry(NamedTuple):
+    route: str           # "cluster" (csrc/panel_cluster.cu) or "block"
+    cluster: int         # blocks in the cluster (1 on the one-block route)
+    rows_per_block: int
+    smem_bytes: int      # dynamic shared memory per block (0 for "block")
+
+
+def cluster_smem_bytes(rows: int, panel: int) -> int:
+    """Dynamic shared memory of a cluster block holding ``rows`` rows of a
+    ``panel``-wide strip: the strip at a column stride of ``r4 | 4`` (rows
+    rounded up to 4), two candidate slots and two pivot rows of ``panel``
+    words, two multiplier columns of ``r4``, the step records, and two
+    parities of 16 pushed candidates of 4 words."""
+    r4 = -(-rows // 4) * 4
+    return 4 * (panel * ((r4 | 4) + 4) + 2 * r4 + rows + 2 * 16 * 4)
+
+
+def panel_geometry(h: int, panel: int) -> PanelGeometry:
+    """The kernel an (h, panel) strip takes on the card, by the C
+    launcher's rule: a cluster of C blocks, C from ``ceil(h /
+    PANEL_CLUSTER_ROWS)`` (at most ``PANEL_CLUSTER_MAX``) up to the first
+    whose blocks' rows fit their shared memory; the one-block kernel when
+    no C up to ``PANEL_CLUSTER_MAX`` fits (at panel 256, above 3,392
+    rows)."""
+    if 1 <= panel <= PANEL_MAX and h >= 1:
+        first = min(PANEL_CLUSTER_MAX, max(1, -(-h // PANEL_CLUSTER_ROWS)))
+        for c in range(first, PANEL_CLUSTER_MAX + 1):
+            rows = -(-h // c)
+            smem = cluster_smem_bytes(rows, panel)
+            if smem <= PANEL_SMEM_MAX:
+                return PanelGeometry("cluster", c, rows, smem)
+    return PanelGeometry("block", 1, h, 0)
 
 
 def argmax_nan_first(x: torch.Tensor) -> torch.Tensor:
@@ -115,7 +166,10 @@ def check_cuda_f32(x: torch.Tensor, what: str) -> None:
                          f"{tuple(x.shape)} strides {x.stride()}")
 
 
-def _panel_factor_cuda(p: torch.Tensor, kb: int):
+def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
+    """Launch a panel-factor kernel: the cluster kernel at ``cluster``
+    blocks, at the rule's size when ``cluster`` is 0, or the one-block
+    kernel when ``cluster`` is None."""
     if p.stride(1) != 1:
         p = p.contiguous()
     check_cuda_f32(p, "panel_factor")
@@ -126,17 +180,59 @@ def _panel_factor_cuda(p: torch.Tensor, kb: int):
     inv = torch.empty(h, dtype=torch.int32, device=dev)
     chosen = torch.empty(h, dtype=torch.int32, device=dev)
     minpiv = torch.empty(1, dtype=p.dtype, device=dev)
-    lib = _build.library("panel_factor")
+    args = (p.data_ptr(), p.stride(0), h, panel, int(kb), pt.data_ptr(),
+            ipiv.data_ptr(), inv.data_ptr(), chosen.data_ptr(),
+            minpiv.data_ptr())
+    name = "panel_factor" if cluster is None else "panel_factor_cluster"
+    lib = _build.library("panel_factor" if cluster is None
+                         else "panel_cluster")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gtt_panel_factor(p.data_ptr(), p.stride(0), h, panel,
-                                  int(kb), pt.data_ptr(), ipiv.data_ptr(),
-                                  inv.data_ptr(), chosen.data_ptr(),
-                                  minpiv.data_ptr(), stream)
-    _build.check(lib, rc, "panel_factor")
-    _build.LAUNCHES["panel_factor"] += 1
+        if cluster is None:
+            rc = lib.gtt_panel_factor(*args, stream)
+        elif cluster == 0:
+            rc = lib.gtt_panel_factor_cluster(*args, stream)
+        else:
+            rc = lib.gtt_panel_factor_cluster_at(*args, int(cluster), stream)
+    _build.check(lib, rc, name)
+    _build.LAUNCHES[name] += 1
     perm_local = perm_from_inv(inv, chosen, kb, panel)
     return pt.T[perm_local], ipiv, perm_local, minpiv[0]
+
+
+def _check_panel_args(p: torch.Tensor, kb: int, what: str) -> None:
+    if p.dim() != 2 or p.shape[0] - kb < p.shape[1] or kb < 0:
+        raise ValueError(f"{what} expects (h, panel) with at least "
+                         f"panel rows at or below kb={kb}, got "
+                         f"{tuple(p.shape)}")
+
+
+def panel_factor_cluster(p: torch.Tensor, kb: int = 0,
+                         cluster: int | None = None):
+    """:func:`panel_factor` through the cluster kernel at ``cluster``
+    blocks (None: the rule's, even for a strip the rule sends to the
+    one-block kernel, which then raises). For measuring cluster sizes and
+    for the tests; needs a CUDA tensor. A cluster that does not fit on the
+    card raises RuntimeError."""
+    _check_panel_args(p, kb, "panel_factor_cluster")
+    if p.device.type != "cuda":
+        raise ValueError(f"panel_factor_cluster: the kernel needs a CUDA "
+                         f"tensor, got one on {p.device}")
+    return _panel_factor_cuda(p, kb, 0 if cluster is None else cluster)
+
+
+def panel_cluster_info(h: int, panel: int, cluster: int = 0) -> dict:
+    """What the C launcher reports for an (h, panel) strip at ``cluster``
+    blocks (0: its rule's): the cluster size (0 on the one-block route),
+    rows per block, dynamic shared memory bytes and the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``). Builds
+    ``csrc/panel_cluster.cu``; needs a CUDA device."""
+    lib = _build.library("panel_cluster")
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.gtt_panel_cluster_info(h, panel, cluster, out),
+                 "panel_cluster_info")
+    return {"cluster": out[0], "rows_per_block": out[1],
+            "smem_bytes": out[2], "max_active_clusters": out[3]}
 
 
 def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
@@ -148,16 +244,15 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
     into ``p``), the permutation as int64 gather indices, and min |pivot|
     (0 for singular input). ``p`` is not modified.
 
-    A CUDA tensor launches the kernel (``csrc/panel_factor.cu``) or
+    A CUDA tensor launches the kernel :func:`panel_geometry` names for
+    its shape (``csrc/panel_cluster.cu`` or ``csrc/panel_factor.cu``) or
     raises; a CPU tensor runs :func:`panel_factor_plain`. ``seg`` is
     accepted for parity with the JAX package and ignored."""
     del seg
-    if p.dim() != 2 or p.shape[0] - kb < p.shape[1] or kb < 0:
-        raise ValueError(f"panel_factor expects (h, panel) with at least "
-                         f"panel rows at or below kb={kb}, got "
-                         f"{tuple(p.shape)}")
+    _check_panel_args(p, kb, "panel_factor")
     if p.device.type == "cpu":
         return panel_factor_plain(p, kb)
     if p.device.type != "cuda":
         raise ValueError(f"panel_factor: unsupported device {p.device}")
-    return _panel_factor_cuda(p, kb)
+    route = panel_geometry(*p.shape).route
+    return _panel_factor_cuda(p, kb, 0 if route == "cluster" else None)

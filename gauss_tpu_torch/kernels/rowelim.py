@@ -20,10 +20,10 @@ And the two solve drivers:
   argmax with ``jnp.argmax``'s order) and the two-row swap stay on the
   device between launches, so a solve makes no host round trip until
   the back-substitution's result is fetched.
-- :func:`gauss_solve_rowelim_batched` — k steps per group: the (npad, k)
-  strip is factored by the panel kernel (:func:`.panel.panel_factor`),
-  the group's rows are gathered once, and the k eliminations land as one
-  rank-k update; the block rows are rewritten in row-elimination form
+- :func:`gauss_solve_rowelim_batched` — k steps per group: the live
+  rows of the group's k columns, ``m[kb:, kb:kb + k]``, are factored by
+  the panel kernel (:func:`.panel.panel_factor`), the live rows are
+  permuted once, and the k eliminations land as one rank-k update; the block rows are rewritten in row-elimination form
   (unit diagonal, scaled U) and the solution comes from a blockwise
   back-substitution through the inverted diagonal blocks.
 
@@ -35,7 +35,11 @@ padding only. The JAX back-substitution's two trace forms (unrolled below
 ``ROWELIM_UNROLL_MAX_NB`` blocks, ``lax.scan`` above) are one loop here.
 On the CPU the batched driver's panel runs the panel kernel's plain
 version, where the JAX package runs its stock swap panel: pivots agree
-wherever the maximum is unique, and values to float32 rounding.
+wherever the maximum is unique, and values to float32 rounding. The JAX
+driver factors the whole (npad, k) strip with the rows above ``kb``
+marked done, because ``fori_loop`` needs static shapes; the port factors
+only the live rows, which gives every value the driver reads bit for bit
+(a done row's entries, NaN included, never reach them).
 """
 
 from __future__ import annotations
@@ -232,7 +236,6 @@ def gauss_solve_rowelim_batched(a, b, k: int | None = None,
     npad = -(-n // blk) * blk
     wpad = -(-(npad + 1) // bn) * bn
     m = _augmented(a, b, npad, wpad)
-    rows = torch.arange(npad, device=dev)
     cols = torch.arange(wpad, device=dev)
     jcol = torch.arange(k, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -240,9 +243,11 @@ def gauss_solve_rowelim_batched(a, b, k: int | None = None,
     upper = jcol[:, None] < jcol[None, :]
     uinvs = []
     for kb in range(0, npad, k):
-        p, _, perm_local, _ = panel_factor(m[:, kb:kb + k], kb)
-        m = m[perm_local]
-        dblk = p[kb:kb + k]
+        # Only the live rows m[kb:]: the rows above kb are done, and
+        # nothing below reads what a panel factor would leave in them.
+        p, _, perm_local, _ = panel_factor(m[kb:, kb:kb + k])
+        m[kb:] = m[kb:][perm_local]
+        dblk = p[:k]
         linv = unit_lower_inv(torch.tril(dblk, -1) + eye_k)
         d = torch.diagonal(dblk)  # the U11 diagonal: the pivots
         # u12 = L11^-1 @ (the post-swap block rows): its panel columns are
@@ -250,7 +255,8 @@ def gauss_solve_rowelim_batched(a, b, k: int | None = None,
         # rows are rewritten from u12 below, so the rank-k update needs
         # multipliers only for the rows BELOW the block.
         u12 = torch.matmul(linv, m[kb:kb + k])
-        f = torch.where((rows >= kb + k)[:, None], p, zero)
+        f = torch.zeros((npad, k), dtype=dt, device=dev)
+        f[kb + k:] = p[k:]
         right = (cols >= kb + k)[None, :]
         m = rankk_update(m, f, torch.where(right, u12, zero))
         # The block rows in row-elimination form: unit diagonal, scaled U11

@@ -209,13 +209,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_card_factor_matches_cpu_plain(cuda_device):
-    """The n=512 auto route on the card (3 fused + 1 panel launches)
-    against the plain versions on the CPU."""
+    """The n=512 auto route on the card (3 fused launches + 1 launch of
+    the cluster panel kernel) against the plain versions on the CPU."""
     a = _matrix(512, 21)
     _build.reset_launches()
     fg = tb.lu_factor_blocked_unrolled(a, panel=128, device=cuda_device)
     assert _build.LAUNCHES["panel_trailing_fused"] == 3
-    assert _build.LAUNCHES["panel_factor"] == 1
+    assert _build.LAUNCHES["panel_factor_cluster"] == 1
+    assert _build.LAUNCHES["panel_factor"] == 0
     fc = tb.lu_factor_blocked_unrolled(a, panel=128, device="cpu")
     assert torch.equal(fg.perm.cpu(), fc.perm)
     scale = float(fc.m.abs().max())

@@ -10,7 +10,10 @@ import torch
 from gauss_tpu.kernels.panel_pallas import panel_factor_pallas
 from gauss_tpu_torch.io import synthetic
 from gauss_tpu_torch.kernels import _build
-from gauss_tpu_torch.kernels.panel import panel_factor, panel_factor_plain
+from gauss_tpu_torch.kernels.panel import (PanelGeometry, panel_factor,
+                                           panel_factor_cluster,
+                                           panel_factor_plain,
+                                           panel_geometry)
 
 # Factored-panel tolerance, relative to the panel's max |value|: XLA:CPU
 # contracts the rank-1 update into an FMA where the port rounds product and
@@ -113,6 +116,47 @@ def test_too_few_rows_rejected():
         panel_factor(torch.zeros(20, 16), 8)
 
 
+# Shared memory of a cluster block, by hand: 4 B x (panel x (column
+# stride + 4) + 2 x rows rounded up to 4 + rows + 128), the column stride
+# being the rounded rows with bit 2 set.
+@pytest.mark.parametrize("h,panel,want", [
+    (256, 256, PanelGeometry("cluster", 16, 16, 4 * (256 * 24 + 176))),
+    (2048, 256, PanelGeometry("cluster", 16, 128, 4 * (256 * 136 + 512))),
+    (1001, 256, PanelGeometry("cluster", 16, 63, 4 * (256 * 72 + 319))),
+    (3392, 256, PanelGeometry("cluster", 16, 212, 4 * (256 * 216 + 764))),
+    (3393, 256, PanelGeometry("block", 1, 3393, 0)),
+    (4096, 256, PanelGeometry("block", 1, 4096, 0)),
+    (100, 16, PanelGeometry("cluster", 7, 15, 4 * (16 * 24 + 175))),
+    (16, 16, PanelGeometry("cluster", 1, 16, 4 * (16 * 24 + 176))),
+    (1024, 1024, PanelGeometry("block", 1, 1024, 0)),
+    (2048, 2048, PanelGeometry("block", 1, 2048, 0)),
+])
+def test_panel_geometry(h, panel, want):
+    """The routing rule: the cluster kernel wherever a cluster of at most
+    16 blocks holds the strip in shared memory (227 KB a block), the
+    one-block kernel beyond."""
+    got = panel_geometry(h, panel)
+    assert got == want
+    if got.route == "cluster":
+        assert got.smem_bytes <= 232448
+        assert (got.cluster - 1) * got.rows_per_block < h
+        assert got.cluster * got.rows_per_block >= h
+
+
+def test_main_path_strips_take_the_cluster_route():
+    """Every strip that the n=2048 main paths factor: the blocked path's
+    last panel and the batched solve's live-row strips."""
+    for h in range(256, 2049, 256):
+        assert panel_geometry(h, 256).route == "cluster", h
+
+
+def test_cluster_wrapper_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_factor_cluster(torch.zeros(32, 8))
+    with pytest.raises(ValueError, match="rows"):
+        panel_factor_cluster(torch.zeros(20, 16), 8)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -122,6 +166,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _identical(got, want):
+    """torch.equal on every output, NaN positions compared as positions."""
+    return all(torch.equal(torch.isnan(g), torch.isnan(w))
+               and torch.equal(torch.nan_to_num(g, nan=0.0),
+                               torch.nan_to_num(w, nan=0.0))
+               if g.is_floating_point() else torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def _launched(h, panel):
+    return ("panel_factor_cluster"
+            if panel_geometry(h, panel).route == "cluster"
+            else "panel_factor")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,panel", [(256, 256), (2048, 256), (100, 16)])
 def test_kernel_matches_plain_on_card(cuda_device, h, panel):
@@ -129,9 +188,71 @@ def test_kernel_matches_plain_on_card(cuda_device, h, panel):
     pivots and values."""
     x = torch.as_tensor(np.random.default_rng(h).standard_normal(
         (h, panel)), dtype=torch.float32, device=cuda_device)
-    before = _build.LAUNCHES["panel_factor"]
+    name = _launched(h, panel)
+    before = _build.LAUNCHES[name]
     got = panel_factor(x, 0)
     want = panel_factor_plain(x, 0)
-    assert _build.LAUNCHES["panel_factor"] == before + 1
+    assert _build.LAUNCHES[name] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _poisoned(kind, h, panel, seed):
+    p = np.random.default_rng(seed).standard_normal((h, panel))
+    if kind == "zero_column":
+        p[:, 5] = 0.0
+    elif kind == "nan_column":
+        p[h // 3, 7] = np.nan
+    elif kind == "ties":
+        p = synthetic.internal_matrix(h)[:, :panel]
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,panel,kb,kind", [
+    (1001, 256, 0, "random"),      # h not a multiple of C = 16
+    (790, 128, 40, "random"),      # kb > 0
+    (2048, 256, 300, "random"),    # kb > 0 across the first two blocks
+    (512, 64, 0, "zero_column"),
+    (512, 64, 16, "nan_column"),
+    (700, 96, 0, "ties"),
+    (700, 96, 33, "ties"),
+    (4096, 256, 16, "random"),     # routed to the one-block kernel
+])
+def test_routes_match_plain_on_card(cuda_device, h, panel, kb, kind):
+    x = torch.as_tensor(_poisoned(kind, h, panel, h + kb),
+                        dtype=torch.float32, device=cuda_device)
+    name = _launched(h, panel)
+    assert (name == "panel_factor") == (h == 4096)
+    before = dict(_build.LAUNCHES)
+    got = panel_factor(x, kb)
+    torch.cuda.synchronize()
+    want = panel_factor_plain(x, kb)
+    assert _build.LAUNCHES[name] == before[name] + 1
+    assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+    assert _identical(got, want)
+    if kind != "random":
+        assert float(got[3]) == float(want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,panel,cluster", [
+    (40, 8, 16),     # rows 3 a block: the last two blocks hold none
+    (200, 32, 16),   # the last block holds 5 of 13 rows
+    (200, 32, 3), (200, 32, 1), (1024, 256, 5), (1024, 256, 12),
+])
+def test_cluster_sizes_match_plain_on_card(cuda_device, h, panel, cluster):
+    x = torch.as_tensor(np.random.default_rng(cluster).standard_normal(
+        (h, panel)), dtype=torch.float32, device=cuda_device)
+    got = panel_factor_cluster(x, 0, cluster)
+    torch.cuda.synchronize()
+    assert _identical(got, panel_factor_plain(x, 0))
+
+
+@pytest.mark.cuda
+def test_cluster_that_does_not_fit_raises(cuda_device):
+    x = torch.zeros((4096, 256), device=cuda_device)
+    with pytest.raises(RuntimeError, match="panel_factor_cluster"):
+        panel_factor_cluster(x)      # the rule sends it to one block
+    with pytest.raises(RuntimeError, match="panel_factor_cluster"):
+        panel_factor_cluster(x, 0, 17)

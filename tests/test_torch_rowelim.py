@@ -148,6 +148,67 @@ def test_batched_matches_step_form():
     assert _close(xb, xs, a)
 
 
+def _batched_whole_strip(a, b, k, bm=BM, bn=BN):
+    """The batched driver as the JAX package walks it: each group factors
+    the whole (npad, k) strip with the rows above kb marked done and
+    permutes every row. The port's driver factors only the live rows."""
+    from gauss_tpu_torch.core.blocked import unit_lower_inv, upper_inv
+    from gauss_tpu_torch.kernels.panel import panel_factor
+
+    a, b, n = tre._staged(a, b, "cpu")
+    dt = a.dtype
+    npad = -(-n // max(bm, k)) * max(bm, k)
+    wpad = -(-(npad + 1) // bn) * bn
+    m = tre._augmented(a, b, npad, wpad)
+    rows, cols, jcol = (torch.arange(x) for x in (npad, wpad, k))
+    zero = torch.zeros((), dtype=dt)
+    eye_k = torch.eye(k, dtype=dt)
+    upper = jcol[:, None] < jcol[None, :]
+    uinvs = []
+    for kb in range(0, npad, k):
+        p, _, perm_local, _ = panel_factor(m[:, kb:kb + k], kb)
+        m = m[perm_local]
+        dblk = p[kb:kb + k]
+        linv = unit_lower_inv(torch.tril(dblk, -1) + eye_k)
+        d = torch.diagonal(dblk)
+        u12 = torch.matmul(linv, m[kb:kb + k])
+        f = torch.where((rows >= kb + k)[:, None], p, zero)
+        right = (cols >= kb + k)[None, :]
+        m = tre.rankk_update(m, f, torch.where(right, u12, zero))
+        inv_d = torch.reciprocal(d)[:, None]
+        new_block = torch.where(right, u12 * inv_d, zero)
+        pan = torch.where(upper, u12[:, kb:kb + k] * inv_d, zero) + eye_k
+        new_block[:, kb:kb + k] = pan
+        m[kb:kb + k] = new_block
+        m[kb + k:, kb:kb + k] = 0.0
+        uinvs.append(upper_inv(pan))
+    x = torch.zeros(npad, dtype=dt)
+    for g in range(len(uinvs) - 1, -1, -1):
+        blk_rows = m[g * k:(g + 1) * k]
+        r = blk_rows[:, npad] - torch.matmul(blk_rows[:, :npad], x)
+        x[g * k:(g + 1) * k] = torch.matmul(uinvs[g], r)
+    return x[:n]
+
+
+@pytest.mark.parametrize("system", ["random", "internal_ties", "nan_entry"])
+def test_batched_live_rows_match_whole_strip(system):
+    """Factoring only the live rows gives the whole-strip form's solution
+    bit for bit, ties and NaN included."""
+    n, k = 100, 16
+    if system == "internal_ties":
+        a = synthetic.internal_matrix(n).astype(np.float32)
+        b = synthetic.internal_rhs(n).astype(np.float32)
+    else:
+        a, b = _system(n)
+        if system == "nan_entry":
+            a[37, 52] = np.nan
+    got = tre.gauss_solve_rowelim_batched(a, b, k=k, bm=BM, bn=BN,
+                                          device="cpu").numpy()
+    want = _batched_whole_strip(a, b, k).numpy()
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+    assert np.isnan(got).any() == (system == "nan_entry")
+
+
 @pytest.mark.parametrize("n", [512, 2048, 4096, 16384, 30000, 40000])
 def test_auto_rowelim_k_matches_jax(n):
     assert tre.auto_rowelim_k(n) == jre.auto_rowelim_k(n)

@@ -22,15 +22,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    for bit; times each with CUDA events (median of --reps launches), and
    one whole n=2048 factorization the same way.
 3b. The same for the row-elimination and matmul kernels: the tiled and
-   row-stripe matmul at (2048, 2048, 2048) in "high" and "highest" (the
-   stripe also in "default") within MM_TOL; the stripe's launch geometry
-   (blocks, cluster size, dynamic shared memory, copy width, clusters the
-   card holds at once), its TFLOP/s and share of its bound in each mode,
-   its registers and spills from ``nvcc -Xptxas -v``, and the stripe
-   against its plain version at STRIPE_SHAPES in every mode, contiguous
-   and as misaligned column slices; the elimination step on the (2048,
-   2304) augmented shape at i = 0, 1023, 2047 bit for bit, and the rank-k update at (2048, 2304),
-   k = 256, within RANKK_TOL; each timed (device time of --reps queued
+   row-stripe matmul at (2048, 2048, 2048) in "high", "highest" and
+   "default" within MM_TOL; the stripe's launch geometry (blocks, cluster
+   size, dynamic shared memory, copy width, clusters the card holds at
+   once), its TFLOP/s and share of its bound in each mode, its registers
+   and spills from ``nvcc -Xptxas -v``, and the stripe against its plain
+   version at STRIPE_SHAPES in every mode, contiguous and as misaligned
+   column slices; the elimination step on the (2048, 2304) augmented
+   shape at i = 0, 1023, 2047 bit for bit, and the rank-k update at
+   (2048, 2304), k = 256, within RANKK_TOL; the tiled kernel's and the
+   rank-k update's geometry (grid, tile, ring, copy width, waves), the
+   blocks an SM the card holds, registers and spills, TFLOP/s and share
+   of the bound, the tiled kernel at STRIPE_SHAPES in every mode and the
+   rank-k update at RANKK_SHAPES, contiguous and as misaligned column
+   slices, one launch each; each timed (device time of --reps queued
    launches, see device_ms) beside its plain version, its library call
    and its bound; the panel kernel at the 8 live-row strips of one
    batched solve (two of them bit for bit) beside ``lu_factor_ex`` on the
@@ -83,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -122,6 +128,10 @@ STRIPE_SHAPES = ((1, 2048, 2048), (2049, 777, 1000), (130, 17, 130))
 PANEL_CLUSTER_SWEEP = {256: (2, 3, 4, 8, 16), 1024: (5, 8, 12, 16),
                        2048: (10, 12, 14, 16)}
 RANKK_TOL = 1e-5
+# (R, k, C) shapes kernel 7 is also held to its plain version at: ragged
+# rows, K and columns, one row, and a K that is no multiple of a ring
+# stage with 129 columns (4-byte copies of u).
+RANKK_SHAPES = ((513, 17, 1000), (1, 256, 2304), (130, 300, 129))
 # Normwise backward error ||b - Ax||_inf / (||A||_inf ||x||_inf + ||b||_inf)
 # of a float32 solve without refinement: a few units of float32 rounding.
 BACKWARD_TOL = 16 * 2.0 ** -24
@@ -530,16 +540,15 @@ def phase_elim_matmul_kernels(reps: int):
 
     out = {}
     # Kernels 4 and 5 at (N, N, N): "high" (the CLI default, three bf16
-    # products: the bf16 tensor-core peak bounds it) and "highest" (f32);
-    # the stripe also in "default" (one bf16 product).
+    # products: the bf16 tensor-core peak bounds it), "highest" (f32) and
+    # "default" (one bf16 product).
     a, b = rand(N, N), rand(N, N)
     mm_bytes = 3.0 * N * N * 4
     modes = (("high", 6.0 * N ** 3, PEAK_BF16_FLOP_S),
-             ("highest", 2.0 * N ** 3, PEAK_F32_FLOP_S))
-    for name, fn, precs in (
-            ("matmul_tiled", km.matmul_tiled, modes),
-            ("matmul_stripe", km.matmul_stripe,
-             modes + (("default", 2.0 * N ** 3, PEAK_BF16_FLOP_S),))):
+             ("highest", 2.0 * N ** 3, PEAK_F32_FLOP_S),
+             ("default", 2.0 * N ** 3, PEAK_BF16_FLOP_S))
+    for name, fn, precs in (("matmul_tiled", km.matmul_tiled, modes),
+                            ("matmul_stripe", km.matmul_stripe, modes)):
         out[name] = {}
         for prec, flops, peak in precs:
             got = fn(a, b, prec)
@@ -604,6 +613,7 @@ def phase_elim_matmul_kernels(reps: int):
     print(f"phase 3b: rankk_update ({npad}, {wpad}), k={k}: ms {ms:.4f}, "
           f"plain {plain_ms:.4f}, addmm {lib_ms:.4f}, bound {b_ms:.5f} "
           f"({b_by}), max_abs_err {err:g}")
+    phase_sgemm_checks(out, rand)
 
     # The panel kernel at the npad // k strips of one batched solve: the
     # live rows of each group, (npad - kb, k) at kb = 0, k, ...
@@ -649,6 +659,7 @@ def phase_elim_matmul_kernels(reps: int):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def ptxas_usage(source: str) -> dict:
     """Registers, bytes of spill stores and bytes of static shared memory
     of each kernel of ``csrc/<source>.cu`` (by mangled name), as ``nvcc
@@ -679,6 +690,18 @@ def ptxas_usage(source: str) -> dict:
                 if m:
                     usage[kernel][i] = int(m.group(1))
     return usage
+
+
+def sliced(x, off: int):
+    """``x`` as a column slice of a wider matrix: row stride
+    ``cols + off + 2`` and a base pointer ``off`` floats past an aligned
+    allocation, so no row starts on a 16-byte boundary for off = 1, 2, 3."""
+    import torch
+
+    wide = torch.zeros((x.shape[0], x.shape[1] + off + 2), dtype=x.dtype,
+                       device=x.device)
+    wide[:, off:off + x.shape[1]] = x
+    return wide[:, off:off + x.shape[1]]
 
 
 def phase_stripe_checks(timed: dict, rand):
@@ -724,12 +747,6 @@ def phase_stripe_checks(timed: dict, rand):
                       f"with {4 * int(m[2])}-byte copies: {regs} registers, "
                       f"{spill} bytes of spill stores")
 
-    def sliced(x, off):
-        wide = torch.zeros((x.shape[0], x.shape[1] + off + 2),
-                           dtype=x.dtype, device=x.device)
-        wide[:, off:off + x.shape[1]] = x
-        return wide[:, off:off + x.shape[1]]
-
     for m, k, n in STRIPE_SHAPES:
         x, y = rand(m, k), rand(k, n)
         for layout, (a, b) in (("contiguous", (x, y)),
@@ -759,6 +776,116 @@ def phase_stripe_checks(timed: dict, rand):
                   f"({g.blocks} blocks, {4 * g.vec}-byte copies): "
                   f"max |kernel - plain| / max |plain|: {', '.join(errs)} "
                   f"(limit {MM_TOL})")
+
+
+def phase_sgemm_checks(timed: dict, rand):
+    """Kernels 4 and 7 on the f32 routine of sgemm_common.cuh (kernel 4's
+    bf16 modes on the stripe's tile routine): each launch's geometry, the
+    blocks an SM the card holds and the waves, registers and spills,
+    TFLOP/s and share of the bound at the n=N shapes (``timed``: phase
+    3b's results); then kernel 4 at STRIPE_SHAPES in every mode and kernel
+    7 at RANKK_SHAPES against their plain versions, contiguous and as
+    column slices whose rows start off 16-byte boundaries, one launch
+    each."""
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import matmul as km
+    from gauss_tpu_torch.kernels import rowelim as kr
+
+    npad, wpad, k = rowelim_shape(N)
+    runs = [("matmul_tiled", prec, (N, N, N),
+             km.gemm_geometry(N, N, N, N, N, precision=prec), r)
+            for prec, r in timed["matmul_tiled"].items()]
+    runs.append(("rankk_update", "highest", (npad, k, wpad),
+                 km.gemm_geometry(npad, wpad, k, k, wpad),
+                 timed["rankk_update"]))
+    for name, prec, (m, kk, n), g, r in runs:
+        line = (f"phase 3b: {name} {prec} ({m}, {kk}, {n}): grid "
+                f"{g.grid[0]} x {g.grid[1]} = {g.blocks} blocks of "
+                f"{g.threads} threads, tile ({g.bm}, {g.bn}), "
+                f"{g.smem_bytes} B dynamic shared memory, {4 * g.vec}-byte "
+                f"copies, {g.k_tiles} K tiles, {g.waves:.3f} waves at the "
+                f"launch bound's {g.blocks_per_sm} blocks an SM; "
+                f"{2.0 * m * kk * n / r['ms'] / 1e9:.1f} TFLOP/s of the "
+                f"product, {100.0 * r['bound_ms'] / r['ms']:.1f}% of its "
+                f"bound")
+        if DEVICE == "cuda":
+            info = km.launch_info(name, prec, g.vec)
+            require(info["smem_bytes"] == g.smem_bytes
+                    and info["threads"] == g.threads
+                    and info["tile"] == (g.bm, g.bn)
+                    and info["tensor_cores"] == g.tensor_cores
+                    and info["blocks_per_sm"] >= g.blocks_per_sm,
+                    f"{name} {prec}: launch info {info} against {g}")
+            line += (f"; the card holds {info['blocks_per_sm']} blocks an "
+                     f"SM")
+        print(line)
+    if DEVICE == "cuda":
+        modes = {"0": "highest", "1": "high", "2": "default"}
+        usage = {**ptxas_usage("matmul"), **ptxas_usage("rowelim")}
+        for kernel, (regs, spill, _) in sorted(usage.items()):
+            m = re.search(r"gtt_(matmul_tiled_f32|matmul_tiled_mma|"
+                          r"rankk_update)_kernelI((?:Li\d+E)+)E", kernel)
+            if m:
+                args = re.findall(r"Li(\d+)E", m[2])
+                label = ("rankk_update" if m[1] == "rankk_update" else
+                         "matmul_tiled " + (modes[args[0]] if len(args) == 2
+                                            else "highest"))
+                print(f"phase 3b: ptxas -v, {label} with "
+                      f"{4 * int(args[-1])}-byte copies: {regs} registers, "
+                      f"{spill} bytes of spill stores")
+
+    def one_launch(name, got, want, what, tol):
+        sync()
+        require(_build.LAUNCHES[name] == (1 if DEVICE == "cuda" else 0)
+                and sum(_build.LAUNCHES.values()) == _build.LAUNCHES[name],
+                f"{what}: launches {_build.LAUNCHES}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        require(got.shape == want.shape and err <= tol * scale,
+                f"{what}: max |kernel - plain| {err} > {tol} x {scale}")
+        return err / scale
+
+    for m, kk, n in STRIPE_SHAPES:
+        x, y = rand(m, kk), rand(kk, n)
+        for layout, (a, b) in (("contiguous", (x, y)),
+                               ("sliced", (sliced(x, 1), sliced(y, 3)))):
+            errs, copies = [], []
+            for prec in ("highest", "high", "default"):
+                g = km.gemm_geometry(m, n, kk, a.stride(0), b.stride(0),
+                                     a.data_ptr(), b.data_ptr(), prec)
+                require(layout == "contiguous" or g.vec == 1,
+                        f"sliced operands at ({m}, {kk}, {n}) took the "
+                        f"16-byte copy in {prec}")
+                _build.reset_launches()
+                rel = one_launch("matmul_tiled", km.matmul_tiled(a, b, prec),
+                                 km.matmul_plain(a, b, prec),
+                                 f"matmul_tiled {prec} at ({m}, {kk}, {n}) "
+                                 f"{layout}", MM_TOL)
+                errs.append(f"{prec} {rel:.2e}")
+                copies.append(f"{prec} {g.blocks} blocks, {4 * g.vec}-byte")
+            print(f"phase 3b: matmul_tiled ({m}, {kk}, {n}) {layout} "
+                  f"({'; '.join(copies)} copies): max |kernel - plain| / "
+                  f"max |plain|: {', '.join(errs)} (limit {MM_TOL})")
+    for rows, kk, cols in RANKK_SHAPES:
+        ops = rand(rows, cols), rand(rows, kk), rand(kk, cols)
+        for layout, (mm, f, u) in (
+                ("contiguous", ops),
+                ("sliced", tuple(sliced(x, off)
+                                 for x, off in zip(ops, (1, 2, 3))))):
+            g = km.gemm_geometry(rows, cols, kk, f.stride(0), u.stride(0),
+                                 f.data_ptr(), u.data_ptr())
+            require(layout == "contiguous" or g.vec == 1,
+                    f"sliced u at ({rows}, {kk}, {cols}) took the 16-byte "
+                    f"copy")
+            _build.reset_launches()
+            rel = one_launch("rankk_update", kr.rankk_update(mm, f, u),
+                             kr.rankk_update_plain(mm, f, u),
+                             f"rankk_update at ({rows}, {cols}), k={kk} "
+                             f"{layout}", RANKK_TOL)
+            print(f"phase 3b: rankk_update ({rows}, {cols}), k={kk} "
+                  f"{layout} ({g.blocks} blocks, {4 * g.vec}-byte copies of "
+                  f"u): max |kernel - plain| / max |plain| {rel:.2e} "
+                  f"(limit {RANKK_TOL})")
 
 
 def sparse_system(n: int, nnz_per_row: int):

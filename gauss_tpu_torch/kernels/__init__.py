@@ -10,8 +10,10 @@
   (``csrc/matmul.cu``);
 - :mod:`.rowelim` — ``eliminate_step`` and ``rankk_update``
   (``csrc/rowelim.cu``) and the row-elimination solve drivers;
-  ``csrc/gemm_common.cuh`` holds the f32 tile routine of the GEMM-shaped
-  kernels;
+  ``csrc/sgemm_common.cuh`` holds the f32 tile routine of the tiled
+  matmul's "highest" and the rank-k update, ``csrc/stripe_common.cuh``
+  the stripe's routine (whose tensor-core modes the tiled matmul also
+  runs), ``csrc/gemm_common.cuh`` what they share;
 - ``csrc/spmv.cu`` — the ELL sparse matrix-vector product, whose wrapper
   ``spmv_ell_kernel`` lives with the sparse plane
   (:mod:`gauss_tpu_torch.sparse.spmv`);

@@ -65,11 +65,13 @@ _SIGNATURES = {
         "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "gtt_matmul_stripe": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "gtt_matmul_stripe_info": [_I, _I, _P],
+        "gtt_matmul_tiled_info": [_I, _I, _P],
     },
     "rowelim": {
         "gtt_eliminate_step": [_P, _I, _P, _I, _I, _I, _I, _P],
         "gtt_rankk_update": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
                              _P],
+        "gtt_rankk_update_info": [_I, _P],
     },
     "spmv": {
         "gtt_spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _P],

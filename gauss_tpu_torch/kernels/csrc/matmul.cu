@@ -2,11 +2,15 @@
 //
 // Replaces: gauss_tpu/kernels/matmul_pallas.py
 //   - matmul_pallas (:131, _mm_kernel on a 3-D (m, n, k) grid):
-//     gtt_matmul_tiled_kernel below, one block per (128, 128) output tile,
-//     walking K inside the block (the TPU's sequential k grid axis and its
-//     VMEM accumulator become a loop and registers), on the tile routine
-//     of gemm_common.cuh: an 8x8 register micro-tile, single-buffered
-//     scalar staging, the bf16 splits on CUDA cores;
+//     gtt_matmul_tiled_{f32,mma}_kernel below, a 2-D grid of output tiles,
+//     each block walking K (the TPU's sequential k grid axis and its VMEM
+//     accumulator become the block's cp.async ring and registers).
+//     "highest" runs the f32 routine of sgemm_common.cuh on (64, 128)
+//     tiles of 128 threads, 4 blocks an SM; "high" and "default" run the
+//     stripe's tile routine (stripe_common.cuh: mma.sync.m16n8k16 bf16,
+//     hi*lo, lo*hi, hi*hi per K step of 16) on (64, 128) tiles, 3 blocks
+//     an SM. What tells it from the stripe kernel: every output tile is a
+//     block of its own, scheduled in any order, with no cluster;
 //   - matmul_pallas_stripe (:245, the same accumulate kernel on a 2-D
 //     grid, one full-width (bm, N) output stripe per program with a
 //     sequential K axis, the reference's CUDA Version-1 layout):
@@ -42,38 +46,40 @@
 #include <stdint.h>
 
 #include "gemm_common.cuh"
+#include "sgemm_common.cuh"
 #include "stripe_common.cuh"
 
-#define GTT_TILED_BM 128
-#define GTT_TILED_BN 128
-
-template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void gtt_store_tile(float* __restrict__ C,
-                                               int ldc, int M, int N,
-                                               int row0, int col0,
-                                               const float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int r, c;
-      gtt_tile_coords<BN, TM, TN>(row0, col0, i, j, r, c);
-      if (r < M && c < N) C[(size_t)r * ldc + c] = acc[i][j];
-    }
+// Kernel 4, "highest": one block per (GTT_SGEMM_BM, GTT_SGEMM_BN) output
+// tile on the f32 routine of sgemm_common.cuh.
+template <int VEC>
+__global__ void __launch_bounds__(GTT_SGEMM_THREADS, GTT_SGEMM_MIN_BLOCKS)
+gtt_matmul_tiled_f32_kernel(const float* __restrict__ A, int lda,
+                            const float* __restrict__ B, int ldb,
+                            float* __restrict__ C, int ldc, int M, int N,
+                            int K, int cvec) {
+  extern __shared__ __align__(16) unsigned char gtt_sgemm_smem[];
+  GttSgemmStage* ring = reinterpret_cast<GttSgemmStage*>(gtt_sgemm_smem);
+  const int row0 = blockIdx.y * GTT_SGEMM_BM, col0 = blockIdx.x * GTT_SGEMM_BN;
+  float acc[64];
+  gtt_sgemm_tile<VEC>(A, lda, B, ldb, M, N, K, row0, col0, ring, acc);
+  gtt_sgemm_store<false>(C, ldc, nullptr, 0, M, N, row0, col0, cvec, acc);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(GTT_GEMM_THREADS)
-gtt_matmul_tiled_kernel(const float* __restrict__ A, int lda,
-                        const float* __restrict__ B, int ldb,
-                        float* __restrict__ C, int ldc, int M, int N, int K) {
-  constexpr int BM = GTT_TILED_BM, BN = GTT_TILED_BN, TM = 8, TN = 8;
-  __shared__ GttGemmSmem<BM, BN> s;
-  float acc[TM][TN];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  gtt_gemm_tile<BM, BN, TM, TN, MODE>(A, lda, B, ldb, M, N, K, row0, col0, s,
-                                      acc);
-  gtt_store_tile<BM, BN, TM, TN>(C, ldc, M, N, row0, col0, acc);
+// Kernel 4, "high" and "default": one block per (GTT_STRIPE_BM,
+// GTT_STRIPE_BN) output tile on the stripe's tile routine
+// (stripe_common.cuh: the same ring, mma.sync bf16 fragments), with the
+// stripe kernel's launch bound.
+template <int MODE, int VEC>
+__global__ void __launch_bounds__(GTT_STRIPE_THREADS, 3)
+gtt_matmul_tiled_mma_kernel(const float* __restrict__ A, int lda,
+                            const float* __restrict__ B, int ldb,
+                            float* __restrict__ C, int ldc, int M, int N,
+                            int K, int cvec) {
+  extern __shared__ __align__(16) unsigned char gtt_stripe_smem[];
+  GttStripeStage* ring = reinterpret_cast<GttStripeStage*>(gtt_stripe_smem);
+  gtt_stripe_tile<MODE, VEC>(A, lda, B, ldb, C, ldc, M, N, K,
+                             blockIdx.y * GTT_STRIPE_BM,
+                             blockIdx.x * GTT_STRIPE_BN, cvec, ring);
 }
 
 // One thread-block cluster of GTT_STRIPE_CL blocks owns one (BM, N) row
@@ -108,26 +114,106 @@ static int gtt_check_mm(int m, int n, int k, int lda, int ldb, int ldc,
   return 0;
 }
 
+// 4 when A's and B's rows all start on 16-byte boundaries (16-byte
+// cp.async), else 1 (4-byte cp.async).
+static int gtt_stripe_vec(const void* a, int lda, const void* b, int ldb) {
+  return (lda % 4 == 0 && ldb % 4 == 0 && (uintptr_t)a % 16 == 0 &&
+          (uintptr_t)b % 16 == 0)
+             ? 4
+             : 1;
+}
+
+// The tiled kernel of a mode and copy width: its tile, threads, dynamic
+// shared memory and (once per process, through gtt_kernel_occupancy) the
+// blocks an SM holds.
+template <int MODE, int VEC>
+static int gtt_tiled_occupancy(int* bm, int* bn, int* threads, int* smem,
+                               int* blocks) {
+  static int cache = -1;
+  const void* kern;
+  if constexpr (MODE == GTT_MODE_F32) {
+    kern = (const void*)gtt_matmul_tiled_f32_kernel<VEC>;
+    *bm = GTT_SGEMM_BM, *bn = GTT_SGEMM_BN;
+    *threads = GTT_SGEMM_THREADS, *smem = GTT_SGEMM_SMEM;
+  } else {
+    kern = (const void*)gtt_matmul_tiled_mma_kernel<MODE, VEC>;
+    *bm = GTT_STRIPE_BM, *bn = GTT_STRIPE_BN;
+    *threads = GTT_STRIPE_THREADS, *smem = GTT_STRIPE_SMEM;
+  }
+  const int rc = gtt_kernel_occupancy(kern, *threads, *smem, &cache);
+  *blocks = cache;
+  return rc;
+}
+
+template <int MODE, int VEC>
+static int gtt_tiled_launch(const float* a, int lda, const float* b,
+                            int ldb, float* c, int ldc, int m, int n, int k,
+                            int cvec, cudaStream_t st) {
+  int bm, bn, threads, smem, blocks;
+  const int rc =
+      gtt_tiled_occupancy<MODE, VEC>(&bm, &bn, &threads, &smem, &blocks);
+  if (rc) return rc;
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  const dim3 grid((n + bn - 1) / bn, (m + bm - 1) / bm);
+  if constexpr (MODE == GTT_MODE_F32)
+    gtt_matmul_tiled_f32_kernel<VEC><<<grid, threads, smem, st>>>(
+        a, lda, b, ldb, c, ldc, m, n, k, cvec);
+  else
+    gtt_matmul_tiled_mma_kernel<MODE, VEC><<<grid, threads, smem, st>>>(
+        a, lda, b, ldb, c, ldc, m, n, k, cvec);
+  return (int)cudaGetLastError();
+}
+
 // a: (m, k), b: (k, n), c: (m, n), all f32 row-major with row strides
-// lda/ldb/ldc; mode: GTT_MODE_*. Returns cudaGetLastError().
+// lda/ldb/ldc; mode: GTT_MODE_*. A 2-D grid of output tiles, each walking
+// K: "highest" on sgemm_common.cuh (16-byte copies of B when its rows are
+// aligned), the bf16 modes on the stripe's tile routine (16-byte copies
+// when the rows of A and B are aligned, gtt_stripe_vec). Returns
+// cudaGetLastError().
 extern "C" int gtt_matmul_tiled(const float* a, int lda, const float* b,
                                 int ldb, float* c, int ldc, int m, int n,
                                 int k, int mode, void* stream) {
   const int bad = gtt_check_mm(m, n, k, lda, ldb, ldc, mode);
   if (bad) return bad;
-  const dim3 grid((n + GTT_TILED_BN - 1) / GTT_TILED_BN,
-                  (m + GTT_TILED_BM - 1) / GTT_TILED_BM);
+  const int cvec = ldc % 4 == 0 && (uintptr_t)c % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (mode == GTT_MODE_F32)
-    gtt_matmul_tiled_kernel<GTT_MODE_F32><<<grid, GTT_GEMM_THREADS, 0, st>>>(
-        a, lda, b, ldb, c, ldc, m, n, k);
-  else if (mode == GTT_MODE_BF16X3)
-    gtt_matmul_tiled_kernel<GTT_MODE_BF16X3>
-        <<<grid, GTT_GEMM_THREADS, 0, st>>>(a, lda, b, ldb, c, ldc, m, n, k);
+    return gtt_sgemm_vec(b, ldb) == 4
+               ? gtt_tiled_launch<GTT_MODE_F32, 4>(a, lda, b, ldb, c, ldc, m,
+                                                   n, k, cvec, st)
+               : gtt_tiled_launch<GTT_MODE_F32, 1>(a, lda, b, ldb, c, ldc, m,
+                                                   n, k, cvec, st);
+  const bool v4 = gtt_stripe_vec(a, lda, b, ldb) == 4;
+  if (mode == GTT_MODE_BF16X3)
+    return v4 ? gtt_tiled_launch<GTT_MODE_BF16X3, 4>(a, lda, b, ldb, c, ldc,
+                                                     m, n, k, cvec, st)
+              : gtt_tiled_launch<GTT_MODE_BF16X3, 1>(a, lda, b, ldb, c, ldc,
+                                                     m, n, k, cvec, st);
+  return v4 ? gtt_tiled_launch<GTT_MODE_BF16, 4>(a, lda, b, ldb, c, ldc, m,
+                                                 n, k, cvec, st)
+            : gtt_tiled_launch<GTT_MODE_BF16, 1>(a, lda, b, ldb, c, ldc, m,
+                                                 n, k, cvec, st);
+}
+
+// The tiled kernel's launch facts for a mode and copy width (4 or 1):
+// out[0] dynamic shared memory bytes, out[1] blocks an SM holds at once,
+// out[2] threads per block, out[3] 1 when the mode runs on the tensor
+// cores, out[4] and out[5] the output tile's rows and columns.
+extern "C" int gtt_matmul_tiled_info(int mode, int vec, int* out) {
+  if (mode < GTT_MODE_F32 || mode > GTT_MODE_BF16 || (vec != 1 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  int* o = out;
+  int rc;
+  if (vec == 4)
+    rc = mode == GTT_MODE_F32 ? gtt_tiled_occupancy<GTT_MODE_F32, 4>(&o[4], &o[5], &o[2], &o[0], &o[1])
+         : mode == GTT_MODE_BF16X3 ? gtt_tiled_occupancy<GTT_MODE_BF16X3, 4>(&o[4], &o[5], &o[2], &o[0], &o[1])
+                                   : gtt_tiled_occupancy<GTT_MODE_BF16, 4>(&o[4], &o[5], &o[2], &o[0], &o[1]);
   else
-    gtt_matmul_tiled_kernel<GTT_MODE_BF16><<<grid, GTT_GEMM_THREADS, 0, st>>>(
-        a, lda, b, ldb, c, ldc, m, n, k);
-  return (int)cudaGetLastError();
+    rc = mode == GTT_MODE_F32 ? gtt_tiled_occupancy<GTT_MODE_F32, 1>(&o[4], &o[5], &o[2], &o[0], &o[1])
+         : mode == GTT_MODE_BF16X3 ? gtt_tiled_occupancy<GTT_MODE_BF16X3, 1>(&o[4], &o[5], &o[2], &o[0], &o[1])
+                                   : gtt_tiled_occupancy<GTT_MODE_BF16, 1>(&o[4], &o[5], &o[2], &o[0], &o[1]);
+  out[3] = mode != GTT_MODE_F32;
+  return rc;
 }
 
 static cudaLaunchConfig_t gtt_stripe_config(int blocks, cudaStream_t st,
@@ -184,15 +270,6 @@ static int gtt_stripe_launch(const float* a, int lda, const float* b,
       &cfg, gtt_matmul_stripe_kernel<MODE, VEC>, a, lda, b, ldb, c, ldc, m,
       n, k, cvec);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
-}
-
-// 4 when A's and B's rows all start on 16-byte boundaries (16-byte
-// cp.async), else 1 (4-byte cp.async).
-static int gtt_stripe_vec(const void* a, int lda, const void* b, int ldb) {
-  return (lda % 4 == 0 && ldb % 4 == 0 && (uintptr_t)a % 16 == 0 &&
-          (uintptr_t)b % 16 == 0)
-             ? 4
-             : 1;
 }
 
 template <int VEC>

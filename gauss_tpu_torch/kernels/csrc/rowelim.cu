@@ -23,16 +23,20 @@
 // Rank-k update out = m - f @ u. What bounds it: operations. At n = 2048,
 // k = 256 one launch is 2 * 2048 * 2304 * 256 = 2.42 GFLOP of f32 FMA
 // against 42 MB (0.036 ms of operations at 67 TFLOP/s, 0.0126 ms of
-// bytes). What the design does about it: the shared f32 tile routine of
-// gemm_common.cuh (true f32, the TPU kernel's Precision.HIGHEST), with the
-// product accumulated in full in registers and subtracted from m once in
-// the epilogue, as the TPU kernel does.
+// bytes). What the design does about it: the f32 routine of
+// sgemm_common.cuh (true f32, the TPU kernel's Precision.HIGHEST: a
+// cp.async ring, K-major A, 16-byte conflict-free fragments, 8x8 sums a
+// thread) on a 2-D grid of (64, 128) output tiles of 128 threads, 4 blocks
+// an SM; the product is accumulated in full in registers and subtracted
+// from m once in the epilogue, as the TPU kernel does, m read and out
+// written as float4s where the rows allow it. At (2048, 2304) the grid is
+// 576 tiles on 528 block slots: 1.09 waves, the small tile keeping the
+// last wave's cost at half a (128, 128) tile's.
 #include "gemm_common.cuh"
+#include "sgemm_common.cuh"
 
 #define GTT_ELIM_THREADS 256
 #define GTT_ELIM_ROWS 8
-#define GTT_RANKK_BM 128
-#define GTT_RANKK_BN 128
 
 __global__ void __launch_bounds__(GTT_ELIM_THREADS)
 gtt_eliminate_step_kernel(const float* __restrict__ m, int ldm,
@@ -54,27 +58,47 @@ gtt_eliminate_step_kernel(const float* __restrict__ m, int ldm,
   }
 }
 
-__global__ void __launch_bounds__(GTT_GEMM_THREADS)
+template <int VEC>
+__global__ void __launch_bounds__(GTT_SGEMM_THREADS, GTT_SGEMM_MIN_BLOCKS)
 gtt_rankk_update_kernel(const float* __restrict__ m, int ldm,
                         const float* __restrict__ f, int ldf,
                         const float* __restrict__ u, int ldu,
                         float* __restrict__ out, int ldo, int R, int C,
-                        int k) {
-  constexpr int BM = GTT_RANKK_BM, BN = GTT_RANKK_BN, TM = 8, TN = 8;
-  __shared__ GttGemmSmem<BM, BN> s;
-  float acc[TM][TN];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  gtt_gemm_tile<BM, BN, TM, TN, GTT_MODE_F32>(f, ldf, u, ldu, R, C, k, row0,
-                                              col0, s, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int r, c;
-      gtt_tile_coords<BN, TM, TN>(row0, col0, i, j, r, c);
-      if (r < R && c < C)
-        out[(size_t)r * ldo + c] = __fsub_rn(m[(size_t)r * ldm + c], acc[i][j]);
-    }
+                        int k, int ovec) {
+  extern __shared__ __align__(16) unsigned char gtt_sgemm_smem[];
+  GttSgemmStage* ring = reinterpret_cast<GttSgemmStage*>(gtt_sgemm_smem);
+  const int row0 = blockIdx.y * GTT_SGEMM_BM, col0 = blockIdx.x * GTT_SGEMM_BN;
+  float acc[64];
+  gtt_sgemm_tile<VEC>(f, ldf, u, ldu, R, C, k, row0, col0, ring, acc);
+  gtt_sgemm_store<true>(out, ldo, m, ldm, R, C, row0, col0, ovec, acc);
+}
+
+// The rank-k kernel of a copy width (once per process, through
+// gtt_kernel_occupancy): the blocks an SM holds.
+template <int VEC>
+static int gtt_rankk_occupancy(int* blocks) {
+  static int cache = -1;
+  const int rc = gtt_kernel_occupancy(
+      (const void*)gtt_rankk_update_kernel<VEC>, GTT_SGEMM_THREADS,
+      GTT_SGEMM_SMEM, &cache);
+  *blocks = cache;
+  return rc;
+}
+
+template <int VEC>
+static int gtt_rankk_launch(const float* m, int ldm, const float* f, int ldf,
+                            const float* u, int ldu, float* out, int ldo,
+                            int R, int C, int k, int ovec, cudaStream_t st) {
+  int blocks = 0;
+  const int rc = gtt_rankk_occupancy<VEC>(&blocks);
+  if (rc) return rc;
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  const dim3 grid((C + GTT_SGEMM_BN - 1) / GTT_SGEMM_BN,
+                  (R + GTT_SGEMM_BM - 1) / GTT_SGEMM_BM);
+  gtt_rankk_update_kernel<VEC><<<grid, GTT_SGEMM_THREADS, GTT_SGEMM_SMEM,
+                                 st>>>(m, ldm, f, ldf, u, ldu, out, ldo, R,
+                                       C, k, ovec);
+  return (int)cudaGetLastError();
 }
 
 // m: (rows, cols) row stride ldm, read only; out: a different (rows, cols)
@@ -103,10 +127,30 @@ extern "C" int gtt_rankk_update(const float* m, int ldm, const float* f,
   if (R < 1 || C < 1 || k < 1 || ldm < C || ldo < C || ldf < k ||
       ldu < C || m == out)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((C + GTT_RANKK_BN - 1) / GTT_RANKK_BN,
-                  (R + GTT_RANKK_BM - 1) / GTT_RANKK_BM);
-  gtt_rankk_update_kernel<<<grid, GTT_GEMM_THREADS, 0,
-                            (cudaStream_t)stream>>>(m, ldm, f, ldf, u, ldu,
-                                                    out, ldo, R, C, k);
-  return (int)cudaGetLastError();
+  // out and m as float4s where both have rows on 16-byte boundaries; u's
+  // rows copied 16 bytes at a time where they are (gtt_sgemm_vec).
+  const int ovec = ldo % 4 == 0 && ldm % 4 == 0 &&
+                   (uintptr_t)out % 16 == 0 && (uintptr_t)m % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (gtt_sgemm_vec(u, ldu) == 4)
+    return gtt_rankk_launch<4>(m, ldm, f, ldf, u, ldu, out, ldo, R, C, k,
+                               ovec, st);
+  return gtt_rankk_launch<1>(m, ldm, f, ldf, u, ldu, out, ldo, R, C, k, ovec,
+                             st);
+}
+
+// The rank-k kernel's launch facts for a copy width of u (4 or 1), laid
+// out as gtt_matmul_tiled_info's: out[0] dynamic shared memory bytes,
+// out[1] blocks an SM holds at once, out[2] threads per block, out[3] 0
+// (CUDA cores), out[4] and out[5] the output tile's rows and columns.
+extern "C" int gtt_rankk_update_info(int vec, int* out) {
+  if (vec != 1 && vec != 4) return (int)cudaErrorInvalidValue;
+  const int rc = vec == 4 ? gtt_rankk_occupancy<4>(&out[1])
+                          : gtt_rankk_occupancy<1>(&out[1]);
+  out[0] = GTT_SGEMM_SMEM;
+  out[2] = GTT_SGEMM_THREADS;
+  out[3] = 0;
+  out[4] = GTT_SGEMM_BM;
+  out[5] = GTT_SGEMM_BN;
+  return rc;
 }

@@ -28,7 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_common.cuh"  // GTT_MODE_*
+#include "gemm_common.cuh"  // GTT_MODE_*, gtt_cp_async
 
 #define GTT_STRIPE_BM 64       // rows of one stripe
 #define GTT_STRIPE_BN 128      // columns of one tile
@@ -45,30 +45,6 @@ struct GttStripeStage {
 };
 
 #define GTT_STRIPE_SMEM ((int)(GTT_STRIPE_STAGES * sizeof(GttStripeStage)))
-
-// One cp.async of VEC floats; src_bytes < 4 * VEC zero-fills the rest.
-template <int VEC>
-__device__ __forceinline__ void gtt_cp_async(float* dst, const float* src,
-                                             int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void gtt_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void gtt_cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 
 // Issue the copies of K tile [k0, k0 + BK) of A's rows [row0, row0 + BM)
 // and of B's columns [col0, col0 + BN) into stage s.

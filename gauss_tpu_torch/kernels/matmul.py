@@ -2,15 +2,17 @@
 precision names.
 
 Port of ``gauss_tpu/kernels/matmul_pallas.py``: :func:`matmul_tiled` is
-``matmul_pallas`` (a 2-D grid of output tiles, each walking K, on the
-tile routine of ``csrc/gemm_common.cuh``) and :func:`matmul_stripe` is
-``matmul_pallas_stripe`` (full-width row stripes, the reference's CUDA
-Version-1 layout: on the H100 each stripe belongs to one thread-block
-cluster whose blocks split its column tiles, on the routine of
-``csrc/stripe_common.cuh``; :func:`stripe_geometry` is its launch
-arithmetic). Both kernels live in ``csrc/matmul.cu``;
-:func:`matmul_plain` is their plain PyTorch version, which a CPU tensor
-runs.
+``matmul_pallas`` (a 2-D grid of output tiles, each block walking K:
+"highest" on the f32 routine of ``csrc/sgemm_common.cuh``, which the
+rank-k update of :mod:`.rowelim` shares, the bf16 modes on the stripe's
+tensor-core tile routine; :func:`gemm_geometry` is its launch
+arithmetic) and :func:`matmul_stripe` is ``matmul_pallas_stripe``
+(full-width row stripes, the reference's CUDA Version-1 layout: on the
+H100 each stripe belongs to one thread-block cluster whose blocks split
+its column tiles, on the routine of ``csrc/stripe_common.cuh``;
+:func:`stripe_geometry` is its launch arithmetic). Both kernels live in
+``csrc/matmul.cu``; :func:`matmul_plain` is their plain PyTorch version,
+which a CPU tensor runs.
 
 Precision (the TPU kernel's ``_kernel_precision`` rules): ``"high"`` on
 float32 is the in-kernel bf16x3 split (hi·lo + lo·hi + hi·hi, f32 sums),
@@ -41,8 +43,16 @@ from gauss_tpu_torch.kernels.panel import check_cuda_f32
 #: The JAX package's default matmul tiles (its tuner seed, ``tune/space``),
 #: kept for reference; the CUDA kernels' own tiles are below.
 MM_TILE_SEED = (512, 512, 1024)
-#: Output tile of the tiled kernel, as compiled into ``csrc/matmul.cu``.
-CUDA_TILE = (128, 128)
+#: The f32 routine of ``csrc/sgemm_common.cuh`` (the tiled kernel's
+#: "highest" and the rank-k update): output tile (rows, columns), K depth
+#: of a ring stage, stages, threads per block, the launch bound's blocks
+#: per SM, and the padding of A's K-major rows (in floats).
+SGEMM_TILE = (64, 128)
+SGEMM_BK, SGEMM_STAGES, SGEMM_THREADS, SGEMM_MIN_BLOCKS = 16, 4, 128, 4
+SGEMM_APAD = 4
+#: Output tile of the tiled kernel in every mode: the f32 routine's, and
+#: the stripe routine's (64, 128) in the bf16 modes.
+CUDA_TILE = SGEMM_TILE
 #: The stripe kernel's constants, as compiled into
 #: ``csrc/stripe_common.cuh``: (rows of a stripe, columns of one tile),
 #: blocks per cluster, K depth of a ring stage, stages, threads per block
@@ -51,8 +61,11 @@ CUDA_STRIPE_TILE = (64, 128)
 STRIPE_CLUSTER = 8
 STRIPE_BK, STRIPE_STAGES, STRIPE_THREADS = 16, 4, 128
 STRIPE_PAD = (8, 4)
+#: The launch bound's blocks per SM of the kernels on the stripe routine.
+STRIPE_MIN_BLOCKS = 3
 #: Streaming multiprocessors of an H100 SXM: the stripe grid at m = 2048
-#: holds at least this many blocks.
+#: holds at least this many blocks, and a grid's waves count slots on
+#: them.
 H100_SMS = 132
 
 #: Operand modes of ``csrc/gemm_common.cuh`` (GTT_MODE_*).
@@ -92,6 +105,82 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     if mode == "bf16":
         return _bf16_pass(a.to(torch.bfloat16), b.to(torch.bfloat16))
     return torch.matmul(a, b)
+
+
+class GemmGeometry(NamedTuple):
+    """Launch arithmetic of ``gtt_matmul_tiled`` (and, in "highest", of
+    ``gtt_rankk_update``) for one call."""
+
+    bm: int             # rows of an output tile
+    bn: int             # columns of an output tile
+    grid: tuple         # (column tiles, row tiles): blockIdx.x, blockIdx.y
+    blocks: int
+    threads: int        # per block
+    vec: int            # floats per cp.async of B (and of A in the bf16
+                        # modes): 4 (16 bytes) or 1 (4 bytes)
+    smem_bytes: int     # dynamic shared memory per block (the ring)
+    k_tiles: int        # ring stages filled per tile
+    blocks_per_sm: int  # the launch bound's
+    waves: float        # blocks / (blocks_per_sm * H100_SMS)
+    tensor_cores: bool
+
+
+def gemm_geometry(m: int, n: int, k: int, lda: int, ldb: int,
+                  a_ptr: int = 0, b_ptr: int = 0,
+                  precision: str = "highest") -> GemmGeometry:
+    """The grid ``gtt_matmul_tiled`` launches for an (m, k) x (k, n)
+    product in ``precision`` with row strides ``lda``/``ldb`` (in floats)
+    and operand addresses ``a_ptr``/``b_ptr`` (``data_ptr()``); in
+    "highest" also the grid of ``gtt_rankk_update`` (A = f, B = u). The
+    same rules as the C launchers: "highest" copies A 4 bytes at a time
+    (the copy transposes it) and B 16 bytes at a time when every row of B
+    starts on a 16-byte boundary; the bf16 modes take the stripe's rule,
+    16-byte copies when the rows of both A and B do."""
+    if kernel_mode(precision, torch.float32) == "f32":
+        (bm, bn), threads = SGEMM_TILE, SGEMM_THREADS
+        vec = 4 if ldb % 4 == 0 and b_ptr % 16 == 0 else 1
+        smem = SGEMM_STAGES * 4 * SGEMM_BK * (bm + SGEMM_APAD + bn)
+        k_tiles, per_sm, tc = -(-k // SGEMM_BK), SGEMM_MIN_BLOCKS, False
+    else:
+        sg = stripe_geometry(m, n, k, lda, ldb, a_ptr, b_ptr)
+        bm, bn, threads, vec = sg.bm, sg.bn, sg.threads, sg.vec
+        smem, k_tiles = sg.smem_bytes, sg.k_tiles
+        per_sm, tc = STRIPE_MIN_BLOCKS, True
+    grid = (-(-n // bn), -(-m // bm))
+    blocks = grid[0] * grid[1]
+    return GemmGeometry(bm, bn, grid, blocks, threads, vec, smem, k_tiles,
+                        per_sm, blocks / (per_sm * H100_SMS), tc)
+
+
+def gemm_tile_origins(geom: GemmGeometry):
+    """The (row0, col0) of the output tile of every block of the grid, in
+    launch order (blockIdx.x fastest). Tiles reach past ``m`` and ``n`` at
+    the ragged edges; the kernels mask them."""
+    return [(y * geom.bm, x * geom.bn) for y in range(geom.grid[1])
+            for x in range(geom.grid[0])]
+
+
+def launch_info(fn: str, precision: str = "highest", vec: int = 4) -> dict:
+    """What the card reports for the tiled kernel (``fn="matmul_tiled"``)
+    in a precision's mode, or the rank-k update (``fn="rankk_update"``,
+    f32), at a copy width (4 or 1): dynamic shared memory, blocks an SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    threads per block, whether it runs on the tensor cores, and its output
+    tile. Builds the kernel's source; needs a CUDA device."""
+    out = (ctypes.c_int * 6)()
+    if fn == "matmul_tiled":
+        lib = _build.library("matmul")
+        mode = _MODES[kernel_mode(precision, torch.float32)]
+        rc = lib.gtt_matmul_tiled_info(mode, vec, out)
+    elif fn == "rankk_update":
+        lib = _build.library("rowelim")
+        rc = lib.gtt_rankk_update_info(vec, out)
+    else:
+        raise ValueError(f"launch_info: no such kernel {fn!r}")
+    _build.check(lib, rc, f"{fn}_info")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1],
+            "threads": out[2], "tensor_cores": bool(out[3]),
+            "tile": (out[4], out[5])}
 
 
 class StripeGeometry(NamedTuple):
@@ -192,8 +281,9 @@ def _dispatch(fn: str, a, b, precision: str) -> torch.Tensor:
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, precision: str = "high",
                  *, bm: int | None = None, bn: int | None = None,
                  bk: int | None = None) -> torch.Tensor:
-    """``a @ b`` on a 2-D grid of (128, 128) output tiles, each walking K
-    (kernel ``gtt_matmul_tiled``). A CUDA tensor launches the kernel or
+    """``a @ b`` on a 2-D grid of (64, 128) output tiles, each block
+    walking K through a ``cp.async`` ring (kernel ``gtt_matmul_tiled``;
+    :func:`gemm_geometry` gives the grid). A CUDA tensor launches the kernel or
     raises (TypeError for a type other than float32); CPU tensors run
     :func:`matmul_plain`. ``bm``/``bn``/``bk`` are accepted for parity
     with the JAX package and ignored."""

@@ -12,7 +12,8 @@ plain PyTorch version (what a CPU tensor runs):
   elsewhere, and the pivot row replaced by the scaled row. Bit for bit
   equal to :func:`eliminate_step_plain`.
 - :func:`rankk_update` — ``m − f @ u`` in true float32, the product
-  accumulated in full and subtracted once.
+  accumulated in full and subtracted once (on the f32 routine of
+  ``csrc/sgemm_common.cuh``, which the tiled matmul's "highest" shares).
 
 And the two solve drivers:
 
@@ -51,6 +52,7 @@ import torch
 from gauss_tpu_torch.core.blocked import panel_fits_vmem, unit_lower_inv, upper_inv
 from gauss_tpu_torch.core.gauss import back_substitute
 from gauss_tpu_torch.kernels import _build
+from gauss_tpu_torch.kernels.matmul import SGEMM_TILE
 from gauss_tpu_torch.kernels.panel import (argmax_nan_first, check_cuda_f32,
                                            panel_factor)
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
@@ -59,10 +61,12 @@ from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 #: drivers' padding: rows to a multiple of DEFAULT_BM, width of DEFAULT_BN.
 ROWELIM_TILE_SEED = (256, 256)
 DEFAULT_BM, DEFAULT_BN = ROWELIM_TILE_SEED
-#: Threads (columns) and rows per block of the step kernel, and the output
-#: tile of the rank-k kernel, as compiled into ``csrc/rowelim.cu``.
+#: Rows and threads (columns) per block of the step kernel, as compiled
+#: into ``csrc/rowelim.cu``, and the output tile of the rank-k kernel: the
+#: f32 routine's of ``csrc/sgemm_common.cuh``
+#: (:func:`.matmul.gemm_geometry` in "highest" is its grid).
 CUDA_ELIM_TILE = (8, 256)
-CUDA_RANKK_TILE = (128, 128)
+CUDA_RANKK_TILE = SGEMM_TILE
 
 
 def eliminate_step_plain(m: torch.Tensor, i: int) -> torch.Tensor:

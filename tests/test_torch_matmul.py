@@ -193,6 +193,9 @@ def test_kernels_match_plain_on_card(cuda_device, m, k, n, strided):
     if strided:
         assert geom.vec == 1
     for precision in ("highest", "high", "default"):
+        tiled = tmm.gemm_geometry(m, n, k, a.stride(0), b.stride(0),
+                                  a.data_ptr(), b.data_ptr(), precision)
+        assert tiled.vec == (1 if strided else tiled.vec)
         want = tmm.matmul_plain(a, b, precision)
         scale = float(want.abs().max())
         for fn in (tmm.matmul_tiled, tmm.matmul_stripe):
@@ -224,6 +227,28 @@ def test_stripe_launch_info_on_card(cuda_device):
             assert info["tensor_cores"] == (precision != "highest")
 
 
+@pytest.mark.cuda
+def test_tiled_and_rankk_launch_info_on_card(cuda_device):
+    """The card's launch facts of the tiled kernel in every mode and of the
+    rank-k update are what :func:`gemm_geometry` says, and the card holds
+    at least the launch bound's blocks an SM."""
+    for fn, precisions in (("matmul_tiled", ("highest", "high", "default")),
+                           ("rankk_update", ("highest",))):
+        for precision in precisions:
+            geom = tmm.gemm_geometry(2048, 2048, 2048, 2048, 2048,
+                                     precision=precision)
+            for vec in (4, 1):
+                info = tmm.launch_info(fn, precision, vec)
+                assert info["smem_bytes"] == geom.smem_bytes > 48 * 1024
+                assert info["threads"] == geom.threads
+                assert info["tile"] == (geom.bm, geom.bn)
+                assert info["tensor_cores"] == geom.tensor_cores
+                assert info["blocks_per_sm"] >= geom.blocks_per_sm, (
+                    fn, precision, vec, info)
+    with pytest.raises(ValueError, match="no such kernel"):
+        tmm.launch_info("matmul_stripe")
+
+
 def test_tile_constants_match_jax_seed_and_cuda_sources():
     """The port's copy of the JAX package's tile seed, and its own CUDA
     tile constants against the defines compiled into csrc/."""
@@ -237,8 +262,26 @@ def test_tile_constants_match_jax_seed_and_cuda_sources():
     def define(f, name):
         return int(re.search(rf"#define {name} (\d+)", src[f]).group(1))
 
-    assert tmm.CUDA_TILE == (define("matmul.cu", "GTT_TILED_BM"),
-                             define("matmul.cu", "GTT_TILED_BN"))
+    sgemm = "sgemm_common.cuh"
+    src[sgemm] = (_build.CSRC / sgemm).read_text()
+    assert tmm.SGEMM_TILE == (define(sgemm, "GTT_SGEMM_BM"),
+                              define(sgemm, "GTT_SGEMM_BN"))
+    assert (tmm.SGEMM_BK, tmm.SGEMM_STAGES, tmm.SGEMM_THREADS,
+            tmm.SGEMM_MIN_BLOCKS, tmm.SGEMM_APAD) == tuple(
+        define(sgemm, f"GTT_SGEMM_{x}")
+        for x in ("BK", "STAGES", "THREADS", "MIN_BLOCKS", "APAD"))
+    # Both tiled kernels (f32 and tensor-core) and the rank-k update take
+    # these tiles and launch bounds.
+    assert tmm.CUDA_TILE == tmm.SGEMM_TILE == tmm.CUDA_STRIPE_TILE
+    assert re.search(r"__launch_bounds__\(GTT_SGEMM_THREADS, "
+                     r"GTT_SGEMM_MIN_BLOCKS\)\s*gtt_matmul_tiled_f32_kernel",
+                     src["matmul.cu"])
+    assert re.search(r"__launch_bounds__\(GTT_SGEMM_THREADS, "
+                     r"GTT_SGEMM_MIN_BLOCKS\)\s*gtt_rankk_update_kernel",
+                     src["rowelim.cu"])
+    assert re.search(rf"__launch_bounds__\(GTT_STRIPE_THREADS, "
+                     rf"{tmm.STRIPE_MIN_BLOCKS}\)\s*gtt_matmul_tiled_mma_kernel",
+                     src["matmul.cu"])
     stripe = "stripe_common.cuh"
     src[stripe] = (_build.CSRC / stripe).read_text()
     assert tmm.CUDA_STRIPE_TILE == (define(stripe, "GTT_STRIPE_BM"),
@@ -251,8 +294,7 @@ def test_tile_constants_match_jax_seed_and_cuda_sources():
                               define(stripe, "GTT_STRIPE_BPAD"))
     assert tre.CUDA_ELIM_TILE == (define("rowelim.cu", "GTT_ELIM_ROWS"),
                                   define("rowelim.cu", "GTT_ELIM_THREADS"))
-    assert tre.CUDA_RANKK_TILE == (define("rowelim.cu", "GTT_RANKK_BM"),
-                                   define("rowelim.cu", "GTT_RANKK_BN"))
+    assert tre.CUDA_RANKK_TILE == tmm.SGEMM_TILE
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES + STRIPE_SHAPES
@@ -311,3 +353,86 @@ def test_stripe_geometry_of_sliced_tensors():
     geom = tmm.stripe_geometry(100, 130, 200, a.stride(0), 132,
                                a.data_ptr(), wide.data_ptr())
     assert a.stride(0) == 204 and a.data_ptr() % 16 == 4 and geom.vec == 1
+
+
+PRECISIONS = ["highest", "high", "default"]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("m,k,n", SHAPES + STRIPE_SHAPES
+                         + [(2048, 2048, 2048), (2048, 256, 2304),
+                            (64, 1, 1), (65, 16, 1025)])
+def test_gemm_geometry_covers_every_element_once(m, k, n, precision):
+    """Every (row, column) of C lies in the tile of exactly one block, and
+    the ring walks all of K."""
+    geom = tmm.gemm_geometry(m, n, k, k, n, precision=precision)
+    bk = tmm.SGEMM_BK if precision == "highest" else tmm.STRIPE_BK
+    assert geom.blocks == geom.grid[0] * geom.grid[1]
+    assert geom.k_tiles * bk >= k > (geom.k_tiles - 1) * bk
+    hits = np.zeros((geom.grid[1] * geom.bm, geom.grid[0] * geom.bn),
+                    dtype=np.int32)
+    origins = tmm.gemm_tile_origins(geom)
+    assert len(origins) == geom.blocks
+    for row0, col0 in origins:
+        hits[row0:row0 + geom.bm, col0:col0 + geom.bn] += 1
+    assert (hits[:m, :n] == 1).all() and hits.max() == 1
+    # No row or column of tiles lies wholly past the matrix.
+    assert (geom.grid[1] - 1) * geom.bm < m and (geom.grid[0] - 1) * geom.bn < n
+    assert geom.threads * 64 == geom.bm * geom.bn  # 8 x 8 sums a thread
+
+
+@pytest.mark.parametrize("m,k,n,precision,blocks,waves", [
+    # The rank-k update of one batched-solve group at n = 2048.
+    (2048, 256, 2304, "highest", 576, 1.091),
+    (2048, 2048, 2048, "highest", 512, 0.970),
+    (2048, 2048, 2048, "high", 512, 1.293),
+    (2048, 2048, 2048, "default", 512, 1.293),
+])
+def test_gemm_geometry_waves_at_the_main_path_shapes(m, k, n, precision,
+                                                     blocks, waves):
+    """The grids and waves PERF.md states: 4 blocks an SM of the f32
+    routine (528 slots on 132 SMs), 3 of the tensor-core routine (396),
+    each within the SM's 227 KB of shared memory."""
+    geom = tmm.gemm_geometry(m, n, k, k, n, precision=precision)
+    slots = geom.blocks_per_sm * tmm.H100_SMS
+    assert slots == (528 if precision == "highest" else 396)
+    assert geom.blocks == blocks
+    assert geom.waves == blocks / slots and round(geom.waves, 3) == waves
+    assert geom.tensor_cores == (precision != "highest")
+    assert geom.smem_bytes <= 227 * 1024 // geom.blocks_per_sm
+
+
+@pytest.mark.parametrize("precision,lda,ldb,a_off,b_off,vec", [
+    ("highest", 2048, 2048, 0, 0, 4),
+    ("highest", 777, 1000, 0, 0, 4),    # A's alignment does not matter
+    ("highest", 2048, 2048, 4, 0, 4),
+    ("highest", 200, 130, 0, 0, 1),     # ldb = 130
+    ("highest", 2048, 2048, 0, 8, 1),   # B's base two floats past 16 bytes
+    ("highest", 2048, 2048, 16, 32, 4),
+    ("high", 2048, 2048, 0, 0, 4),
+    ("high", 777, 1000, 0, 0, 1),       # the stripe's rule: A's too
+    ("high", 2048, 2048, 4, 0, 1),
+    ("default", 2048, 2048, 0, 8, 1),
+    ("default", 132, 1000, 16, 32, 4),
+])
+def test_gemm_geometry_copy_width(precision, lda, ldb, a_off, b_off, vec):
+    """The copy width the C launcher picks: in "highest" from B's rows
+    alone (gtt_sgemm_vec), in the bf16 modes from A's and B's
+    (gtt_stripe_vec)."""
+    base = 0x7f0000000000  # an allocation's alignment (256 bytes)
+    geom = tmm.gemm_geometry(100, 130, 200, lda, ldb, base + a_off,
+                             base + b_off, precision)
+    assert geom.vec == vec
+
+
+def test_gemm_geometry_of_sliced_tensors():
+    """The addresses column slices hand the kernels (the card tests'
+    strided operands, here on CPU tensors) take the 4-byte copy in every
+    mode; the rank-k update's u as well."""
+    wide = torch.zeros(200, 204)
+    a, b = wide[:100, 1:201], wide[:, 3:133]
+    for precision in PRECISIONS:
+        geom = tmm.gemm_geometry(100, 130, 200, a.stride(0), b.stride(0),
+                                 a.data_ptr(), b.data_ptr(), precision)
+        assert geom.vec == 1
+    assert b.data_ptr() % 16 == 12

@@ -83,16 +83,19 @@ def test_step_zero_pivot_poisons_like_jax():
     assert np.isnan(got[:i]).any()
 
 
-def test_rankk_plain_matches_jax():
+@pytest.mark.parametrize("rows,cols,k", [(96, 128, 32), (64, 64, 17),
+                                         (32, 192, 1)])
+def test_rankk_plain_matches_jax(rows, cols, k):
     rng = np.random.default_rng(7)
-    m = rng.standard_normal((96, 128)).astype(np.float32)
-    f = rng.standard_normal((96, 32)).astype(np.float32)
-    u = rng.standard_normal((32, 128)).astype(np.float32)
+    m = rng.standard_normal((rows, cols)).astype(np.float32)
+    f = rng.standard_normal((rows, k)).astype(np.float32)
+    u = rng.standard_normal((k, cols)).astype(np.float32)
     want = np.asarray(jre.rankk_update_pallas(
         jnp.asarray(m), jnp.asarray(f), jnp.asarray(u), bm=BM, bn=BN))
     got = tre.rankk_update(torch.from_numpy(m), torch.from_numpy(f),
                            torch.from_numpy(u)).numpy()
-    # f32 summation order over k=32 terms (measured 0 here).
+    # f32 summation order over k <= 32 terms: measured 0 at k = 32 and 17,
+    # 1.1e-7 (one rounding) at k = 1.
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
@@ -312,6 +315,28 @@ def test_kernels_match_plain_on_card(cuda_device):
     got = tre.rankk_update(m, f, u)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # Ragged rows, K and columns (a K under one ring stage), contiguous and
+    # as column slices whose rows start off 16-byte boundaries: the 4-byte
+    # copies of u and the per-element epilogue. One launch each.
+    for rows, k, cols in ((513, 17, 1000), (1, 256, 2304), (130, 300, 129)):
+        ops = [torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device=cuda_device)
+               for shape in ((rows, cols), (rows, k), (k, cols))]
+        for sliced in (False, True):
+            if sliced:
+                ops = [torch.zeros((x.shape[0], x.shape[1] + off + 2),
+                                   device=cuda_device)[:, off:off + x.shape[1]]
+                       .copy_(x) for x, off in zip(ops, (1, 2, 3))]
+                assert all(x.data_ptr() % 16 for x in ops)
+            _build.reset_launches()
+            got = tre.rankk_update(*ops)
+            want = tre.rankk_update_plain(*ops)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["rankk_update"] == 1
+            assert got.shape == (rows, cols) and got.is_contiguous()
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), (rows, k, cols,
+                                                          sliced)
     # Both drivers on the card against the same drivers' plain route on
     # the CPU (n=300: identity padding to 512 rows).
     a, b = _system(300)

@@ -53,13 +53,15 @@
 #ifndef GTT_SGEMM_MIN_BLOCKS
 #define GTT_SGEMM_MIN_BLOCKS 4  // launch bound: blocks an SM, 128 registers
 #endif
-#define GTT_SGEMM_BN 128        // columns of an output tile
+#ifndef GTT_SGEMM_BK
 #define GTT_SGEMM_BK 16         // K depth of one ring stage
+#endif
+#define GTT_SGEMM_BN 128        // columns of an output tile
 #define GTT_SGEMM_APAD 4        // A's K-major rows of BM + 4 floats
 
 static_assert(GTT_SGEMM_THREADS == 2 * GTT_SGEMM_BM,
               "one 8x8 micro-tile per thread covers the tile");
-static_assert(GTT_SGEMM_BK == 16, "A's copy splits K into two halves of 8");
+static_assert(GTT_SGEMM_BK % 8 == 0, "A's copy takes K in runs of 8");
 
 struct GttSgemmStage {
   float a[GTT_SGEMM_BK][GTT_SGEMM_BM + GTT_SGEMM_APAD];  // a[k][row]
@@ -85,7 +87,7 @@ __device__ __forceinline__ void gtt_sgemm_load(
   constexpr int BK = GTT_SGEMM_BK, BW = GTT_SGEMM_BN / VEC;
   static_assert(GTT_SGEMM_BK * BW % T == 0, "B's copies divide evenly");
   const int tid = threadIdx.x;
-  // Copy i: K half i / 4 (k = (i / 4) * 8 + tid % 8), row
+  // Copy i: the K run i / 4 of 8 (k = (i / 4) * 8 + tid % 8), row
   // tid / 8 + (i % 4) * T / 8.
 #pragma unroll
   for (int i = 0; i < BM * BK / T; ++i) {

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Which tile, ring depth and occupancy the f32 GEMM routine should take.
+"""Which tile, ring depth and occupancy the f32 GEMM routine should take,
+and what holds it.
 
-    python3 scripts/probe_sgemm.py [--variants 64:128:4:4,128:256:3:2] [--reps 20]
+    python3 scripts/probe_sgemm.py [--variants 64:128:4:4,128:256:3:2]
+        [--forms full,no-copy,one-lds] [--reps 20]
 
 Builds ``csrc/rowelim.cu`` and ``csrc/matmul.cu`` once per variant
-``BM:THREADS:STAGES:MIN_BLOCKS`` of ``csrc/sgemm_common.cuh`` (its
-``GTT_SGEMM_*`` defines overridden with ``-D``) into
-``build/sgemm_probe/``, all builds in parallel, and for each variant
-prints: the registers and bytes of spill stores of the rank-k kernel and
-the tiled "highest" kernel (``-Xptxas -v``), the blocks an SM holds
-(``gtt_rankk_update_info``), the grid and its waves, and the device time
-of 20 queued launches (``chip_smoke.device_ms``) of the rank-k update at
-(2048, 2304), k = 256, and of the tiled "highest" product at 2048^3, each
-checked against its plain version (1e-5 of max |plain|), beside
-``torch.addmm`` and ``torch.matmul`` on the same inputs. Needs a CUDA
-device and ``nvcc``.
+``BM:THREADS:STAGES:MIN_BLOCKS[:BK]`` of ``csrc/sgemm_common.cuh`` (its
+``GTT_SGEMM_*`` defines overridden with ``-D``) and form, into
+``build/sgemm_probe/``, all builds in parallel. The forms are the routine
+as it is (``full``) and two ablations of a copy of it, whose results are
+wrong and not checked: ``no-copy`` issues no copies after the ring's
+prologue (the K loop computes on stale stages: what the copies cost), and
+``one-lds`` reads every K step's fragments from the stage's first K row,
+so the compiler loads them once a stage (what the shared-memory fragment
+reads cost). For each build it prints: the registers and bytes of spill
+stores of the rank-k kernel and the tiled "highest" kernel (``-Xptxas
+-v``), the blocks an SM holds (``gtt_rankk_update_info``), the grid and
+its waves, and the device time of 20 queued launches
+(``chip_smoke.device_ms``) of the rank-k update at (2048, 2304), k = 256,
+and of the tiled "highest" product at 2048^3, the full form checked
+against its plain version (1e-5 of max |plain|), beside ``torch.addmm``
+and ``torch.matmul`` on the same inputs. Needs a CUDA device and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -29,16 +37,43 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "gauss_tpu_torch" / "kernels" / "csrc"
 SMS = 132
+# form -> [(text in sgemm_common.cuh, its replacement)]
+ABLATIONS = {
+    "full": [],
+    "no-copy": [("""    if (next < kt_n)
+      gtt_sgemm_load<VEC>(ring[next % S], A, lda, B, ldb, M, N, K, row0,
+                          col0, next * BK);
+""", "")],
+    "one-lds": [("s.a[kk]", "s.a[0]"), ("s.b[kk]", "s.b[0]")],
+}
 
 
-def build(variant: str, source: str, nvcc: str, flags, work: Path):
-    bm, threads, stages, minb = variant.split(":")
-    so = work / f"lib{source}-{variant.replace(':', '_')}.so"
+def sources(form: str, work: Path) -> Path:
+    """A copy of csrc/ with the form's edits to sgemm_common.cuh."""
+    out = work / form
+    out.mkdir(parents=True, exist_ok=True)
+    for f in CSRC.iterdir():
+        text = f.read_text()
+        if f.name == "sgemm_common.cuh":
+            for old, new in ABLATIONS[form]:
+                if old not in text:
+                    raise SystemExit(f"probe: {form}: {old!r} not found")
+                text = text.replace(old, new)
+        (out / f.name).write_text(text)
+    return out
+
+
+def build(variant: str, form: str, source: str, nvcc: str, flags,
+          work: Path):
+    bm, threads, stages, minb, *bk = variant.split(":")
+    so = work / f"lib{source}-{variant.replace(':', '_')}-{form}.so"
     cmd = [nvcc, *flags, "-Xptxas", "-v", f"-DGTT_SGEMM_BM={bm}",
            f"-DGTT_SGEMM_THREADS={threads}", f"-DGTT_SGEMM_STAGES={stages}",
-           f"-DGTT_SGEMM_MIN_BLOCKS={minb}", "-o", str(so),
-           str(REPO / "gauss_tpu_torch" / "kernels" / "csrc" / f"{source}.cu")]
+           f"-DGTT_SGEMM_MIN_BLOCKS={minb}",
+           *(f"-DGTT_SGEMM_BK={v}" for v in bk), "-o", str(so),
+           str(work / form / f"{source}.cu")]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
@@ -68,7 +103,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default="64:128:4:4,64:128:3:4,"
                     "64:128:3:5,128:256:3:2,128:256:4:2",
-                    help="comma-separated BM:THREADS:STAGES:MIN_BLOCKS")
+                    help="comma-separated BM:THREADS:STAGES:MIN_BLOCKS[:BK]")
+    ap.add_argument("--forms", default="full",
+                    help="comma-separated of " + ", ".join(ABLATIONS))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(REPO))
@@ -87,8 +124,12 @@ def main(argv=None) -> int:
     work.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     variants = args.variants.split(",")
-    jobs = {(v, s): build(v, s, nvcc, _build.NVCC_FLAGS, work)
-            for v in variants for s in ("rowelim", "matmul")}
+    forms = args.forms.split(",")
+    for form in forms:
+        sources(form, work)
+    runs = [(v, form) for v in variants for form in forms]
+    jobs = {(v, form, s): build(v, form, s, nvcc, _build.NVCC_FLAGS, work)
+            for v, form in runs for s in ("rowelim", "matmul")}
     logs = {}
     for key, (so, proc) in jobs.items():
         logs[key] = proc.communicate()[0]
@@ -114,10 +155,10 @@ def main(argv=None) -> int:
     print(f"probe: torch.addmm at ({R}, {C}), k={K}: {lib_rk:.4f} ms; "
           f"torch.matmul at {N}^3: {lib_mm:.4f} ms")
     stream = torch.cuda.current_stream().cuda_stream
-    for v in variants:
+    for v, form in runs:
         libs = {}
         for s in ("rowelim", "matmul"):
-            lib = ctypes.CDLL(str(jobs[(v, s)][0]))
+            lib = ctypes.CDLL(str(jobs[(v, form, s)][0]))
             for fn, types in _build._SIGNATURES[s].items():
                 getattr(lib, fn).argtypes = types
                 getattr(lib, fn).restype = ctypes.c_int
@@ -150,14 +191,14 @@ def main(argv=None) -> int:
         ms_mm = device_ms(tiled, args.reps)
         tiles_rk = -(-R // bm) * -(-C // bn)
         tiles_mm = -(-N // bm) * -(-N // bn)
-        ok = err_rk <= 1e-5 and err_mm <= 1e-5
-        print(f"probe: {v} (tile ({bm}, {bn}), {threads} threads, {smem} B "
-              f"ring, {per_sm} blocks an SM): rank-k "
-              f"[{ptxas(logs[(v, 'rowelim')], 'rankk_update_kernel')}] "
+        ok = form != "full" or (err_rk <= 1e-5 and err_mm <= 1e-5)
+        print(f"probe: {v} {form} (tile ({bm}, {bn}), {threads} threads, "
+              f"{smem} B ring, {per_sm} blocks an SM): rank-k "
+              f"[{ptxas(logs[(v, form, 'rowelim')], 'rankk_update_kernel')}] "
               f"{ms_rk:.4f} ms ({2.0 * R * C * K / ms_rk / 1e9:.1f} TFLOP/s, "
               f"{tiles_rk} tiles = {tiles_rk / (per_sm * SMS):.3f} waves, "
               f"err {err_rk:.2e}); tiled highest "
-              f"[{ptxas(logs[(v, 'matmul')], 'tiled_f32_kernel')}] "
+              f"[{ptxas(logs[(v, form, 'matmul')], 'tiled_f32_kernel')}] "
               f"{ms_mm:.4f} ms ({2.0 * N ** 3 / ms_mm / 1e9:.1f} TFLOP/s, "
               f"{tiles_mm / (per_sm * SMS):.3f} waves, err {err_mm:.2e})"
               f"{'' if ok else '  MISMATCH'}")

@@ -30,8 +30,10 @@
 // an SM; the product is accumulated in full in registers and subtracted
 // from m once in the epilogue, as the TPU kernel does, m read and out
 // written as float4s where the rows allow it. At (2048, 2304) the grid is
-// 576 tiles on 528 block slots: 1.09 waves, the small tile keeping the
-// last wave's cost at half a (128, 128) tile's.
+// 576 tiles on 528 block slots, 1.09 waves. An SM computes at one rate
+// however many of its 4 slots are filled, so the time follows the tiles an
+// SM takes, ceil(576 / 132) = 5 here; (128, 128) tiles take 3 of twice
+// the work, and 5 blocks an SM (one wave) spill (scripts/probe_sgemm.py).
 #include "gemm_common.cuh"
 #include "sgemm_common.cuh"
 

@@ -21,7 +21,8 @@ its waves, and the device time of 20 queued launches
 (``chip_smoke.device_ms``) of the rank-k update at (2048, 2304), k = 256,
 and of the tiled "highest" product at 2048^3, the full form checked
 against its plain version (1e-5 of max |plain|), beside ``torch.addmm``
-and ``torch.matmul`` on the same inputs. Needs a CUDA device and
+and ``torch.matmul`` on the same inputs; with ``--rows``, the rank-k
+update also at (R, 2304) for each R given. Needs a CUDA device and
 ``nvcc``.
 """
 
@@ -106,6 +107,10 @@ def main(argv=None) -> int:
                     help="comma-separated BM:THREADS:STAGES:MIN_BLOCKS[:BK]")
     ap.add_argument("--forms", default="full",
                     help="comma-separated of " + ", ".join(ABLATIONS))
+    ap.add_argument("--rows", default="",
+                    help="comma-separated R: also time the rank-k update "
+                         "at (R, 2304), k = 256 (how its time follows its "
+                         "tile count and waves)")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(REPO))
@@ -202,6 +207,20 @@ def main(argv=None) -> int:
               f"{ms_mm:.4f} ms ({2.0 * N ** 3 / ms_mm / 1e9:.1f} TFLOP/s, "
               f"{tiles_mm / (per_sm * SMS):.3f} waves, err {err_mm:.2e})"
               f"{'' if ok else '  MISMATCH'}")
+        for rows in filter(None, args.rows.split(",")):
+            r = int(rows)
+            mr, fr, outr = m[:r], f[:r], out_rk[:r]
+
+            def rankk_rows():
+                _build.check(libs["rowelim"], libs["rowelim"].gtt_rankk_update(
+                    mr.data_ptr(), C, fr.data_ptr(), K, u.data_ptr(), C,
+                    outr.data_ptr(), C, r, C, K, stream), "rankk")
+
+            ms = device_ms(rankk_rows, args.reps)
+            tiles = -(-r // bm) * -(-C // bn)
+            print(f"probe:   rank-k at ({r}, {C}), k={K}: {ms:.4f} ms, "
+                  f"{tiles} tiles = {tiles / (per_sm * SMS):.3f} waves, "
+                  f"{1e3 * ms / tiles:.4f} us a tile")
         if not ok:
             return 1
     for so, _ in jobs.values():

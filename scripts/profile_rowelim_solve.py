@@ -11,11 +11,11 @@ a random n x n system seeded 258458:
 - times ``gauss_solve_rowelim_batched`` by CUDA events around each of
   ``--reps`` calls (after two warm-up calls) and prints the median and
   the least;
-- traces one more call with ``torch.profiler`` and prints the device
-  time of the kernels by name (the largest first), their sum, the span
-  from the first kernel's start to the last one's end, the share of that
-  span in which no kernel runs (the idle share), and the host time of the
-  call.
+- traces one more call with ``torch.profiler`` and prints the number of
+  kernels, the device's busy time in the span from the first kernel's
+  start to the last one's end, the share of that span in which no kernel
+  runs (the idle share), the host time of the call, and the device time
+  and launches of the kernels by name (the largest first).
 
 Needs a CUDA device.
 """
@@ -86,11 +86,13 @@ def main(argv=None) -> int:
     if not kernels:
         print("profile: the trace holds no device events")
         return 1
-    by_name: dict[str, float] = {}
+    by_name: dict[str, list] = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -103,8 +105,9 @@ def main(argv=None) -> int:
     print(f"profile: traced call: {len(kernels)} kernels, device busy "
           f"{busy:.4f} ms of a {span:.4f} ms span (idle share "
           f"{1.0 - busy / span:.3f}); host {host_ms:.4f} ms")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
-        print(f"profile:   {ms:9.4f} ms  {name[:110]}")
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:args.top]:
+        print(f"profile:   {ms:9.4f} ms {count:4d} x {name[:100]}")
     return 0
 
 

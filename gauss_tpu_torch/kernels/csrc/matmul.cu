@@ -164,11 +164,25 @@ static int gtt_tiled_launch(const float* a, int lda, const float* b,
   return (int)cudaGetLastError();
 }
 
+template <int VEC>
+static int gtt_tiled_mode(const float* a, int lda, const float* b, int ldb,
+                          float* c, int ldc, int m, int n, int k, int mode,
+                          int cvec, cudaStream_t st) {
+  if (mode == GTT_MODE_F32)
+    return gtt_tiled_launch<GTT_MODE_F32, VEC>(a, lda, b, ldb, c, ldc, m, n,
+                                               k, cvec, st);
+  if (mode == GTT_MODE_BF16X3)
+    return gtt_tiled_launch<GTT_MODE_BF16X3, VEC>(a, lda, b, ldb, c, ldc, m,
+                                                  n, k, cvec, st);
+  return gtt_tiled_launch<GTT_MODE_BF16, VEC>(a, lda, b, ldb, c, ldc, m, n,
+                                              k, cvec, st);
+}
+
 // a: (m, k), b: (k, n), c: (m, n), all f32 row-major with row strides
 // lda/ldb/ldc; mode: GTT_MODE_*. A 2-D grid of output tiles, each walking
 // K: "highest" on sgemm_common.cuh (16-byte copies of B when its rows are
-// aligned), the bf16 modes on the stripe's tile routine (16-byte copies
-// when the rows of A and B are aligned, gtt_stripe_vec). Returns
+// aligned, gtt_sgemm_vec), the bf16 modes on the stripe's tile routine
+// (16-byte copies when the rows of A and B are, gtt_stripe_vec). Returns
 // cudaGetLastError().
 extern "C" int gtt_matmul_tiled(const float* a, int lda, const float* b,
                                 int ldb, float* c, int ldc, int m, int n,
@@ -176,23 +190,25 @@ extern "C" int gtt_matmul_tiled(const float* a, int lda, const float* b,
   const int bad = gtt_check_mm(m, n, k, lda, ldb, ldc, mode);
   if (bad) return bad;
   const int cvec = ldc % 4 == 0 && (uintptr_t)c % 16 == 0;
+  const int vec = mode == GTT_MODE_F32 ? gtt_sgemm_vec(b, ldb)
+                                       : gtt_stripe_vec(a, lda, b, ldb);
   cudaStream_t st = (cudaStream_t)stream;
+  return vec == 4 ? gtt_tiled_mode<4>(a, lda, b, ldb, c, ldc, m, n, k, mode,
+                                      cvec, st)
+                  : gtt_tiled_mode<1>(a, lda, b, ldb, c, ldc, m, n, k, mode,
+                                      cvec, st);
+}
+
+template <int VEC>
+static int gtt_tiled_info(int mode, int* o) {
   if (mode == GTT_MODE_F32)
-    return gtt_sgemm_vec(b, ldb) == 4
-               ? gtt_tiled_launch<GTT_MODE_F32, 4>(a, lda, b, ldb, c, ldc, m,
-                                                   n, k, cvec, st)
-               : gtt_tiled_launch<GTT_MODE_F32, 1>(a, lda, b, ldb, c, ldc, m,
-                                                   n, k, cvec, st);
-  const bool v4 = gtt_stripe_vec(a, lda, b, ldb) == 4;
+    return gtt_tiled_occupancy<GTT_MODE_F32, VEC>(&o[4], &o[5], &o[2], &o[0],
+                                                  &o[1]);
   if (mode == GTT_MODE_BF16X3)
-    return v4 ? gtt_tiled_launch<GTT_MODE_BF16X3, 4>(a, lda, b, ldb, c, ldc,
-                                                     m, n, k, cvec, st)
-              : gtt_tiled_launch<GTT_MODE_BF16X3, 1>(a, lda, b, ldb, c, ldc,
-                                                     m, n, k, cvec, st);
-  return v4 ? gtt_tiled_launch<GTT_MODE_BF16, 4>(a, lda, b, ldb, c, ldc, m,
-                                                 n, k, cvec, st)
-            : gtt_tiled_launch<GTT_MODE_BF16, 1>(a, lda, b, ldb, c, ldc, m,
-                                                 n, k, cvec, st);
+    return gtt_tiled_occupancy<GTT_MODE_BF16X3, VEC>(&o[4], &o[5], &o[2],
+                                                     &o[0], &o[1]);
+  return gtt_tiled_occupancy<GTT_MODE_BF16, VEC>(&o[4], &o[5], &o[2], &o[0],
+                                                 &o[1]);
 }
 
 // The tiled kernel's launch facts for a mode and copy width (4 or 1):
@@ -202,16 +218,8 @@ extern "C" int gtt_matmul_tiled(const float* a, int lda, const float* b,
 extern "C" int gtt_matmul_tiled_info(int mode, int vec, int* out) {
   if (mode < GTT_MODE_F32 || mode > GTT_MODE_BF16 || (vec != 1 && vec != 4))
     return (int)cudaErrorInvalidValue;
-  int* o = out;
-  int rc;
-  if (vec == 4)
-    rc = mode == GTT_MODE_F32 ? gtt_tiled_occupancy<GTT_MODE_F32, 4>(&o[4], &o[5], &o[2], &o[0], &o[1])
-         : mode == GTT_MODE_BF16X3 ? gtt_tiled_occupancy<GTT_MODE_BF16X3, 4>(&o[4], &o[5], &o[2], &o[0], &o[1])
-                                   : gtt_tiled_occupancy<GTT_MODE_BF16, 4>(&o[4], &o[5], &o[2], &o[0], &o[1]);
-  else
-    rc = mode == GTT_MODE_F32 ? gtt_tiled_occupancy<GTT_MODE_F32, 1>(&o[4], &o[5], &o[2], &o[0], &o[1])
-         : mode == GTT_MODE_BF16X3 ? gtt_tiled_occupancy<GTT_MODE_BF16X3, 1>(&o[4], &o[5], &o[2], &o[0], &o[1])
-                                   : gtt_tiled_occupancy<GTT_MODE_BF16, 1>(&o[4], &o[5], &o[2], &o[0], &o[1]);
+  const int rc = vec == 4 ? gtt_tiled_info<4>(mode, out)
+                          : gtt_tiled_info<1>(mode, out);
   out[3] = mode != GTT_MODE_F32;
   return rc;
 }

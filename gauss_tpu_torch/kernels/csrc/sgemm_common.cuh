@@ -31,9 +31,6 @@
 // - The epilogue (gtt_sgemm_store) stores float4s, and in the rank-k
 //   update reads m as float4s, where the rows allow it; per element at the
 //   ragged edge. A warp's store covers two rows of 256 contiguous bytes.
-//
-// The constants can be overridden with -D for a measurement
-// (scripts/probe_sgemm.py); the port's build uses the values below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,22 +38,12 @@
 
 #include "gemm_common.cuh"  // gtt_cp_async
 
-#ifndef GTT_SGEMM_BM
 #define GTT_SGEMM_BM 64         // rows of an output tile
-#endif
-#ifndef GTT_SGEMM_THREADS
-#define GTT_SGEMM_THREADS 128   // 2 * BM: (BM / 8) x 16 threads of 8 x 8 sums
-#endif
-#ifndef GTT_SGEMM_STAGES
-#define GTT_SGEMM_STAGES 4      // stages of the cp.async ring
-#endif
-#ifndef GTT_SGEMM_MIN_BLOCKS
-#define GTT_SGEMM_MIN_BLOCKS 4  // launch bound: blocks an SM, 128 registers
-#endif
-#ifndef GTT_SGEMM_BK
-#define GTT_SGEMM_BK 16         // K depth of one ring stage
-#endif
 #define GTT_SGEMM_BN 128        // columns of an output tile
+#define GTT_SGEMM_BK 16         // K depth of one ring stage
+#define GTT_SGEMM_STAGES 4      // stages of the cp.async ring
+#define GTT_SGEMM_THREADS 128   // 2 * BM: (BM / 8) x 16 threads of 8 x 8 sums
+#define GTT_SGEMM_MIN_BLOCKS 4  // launch bound: blocks an SM, 128 registers
 #define GTT_SGEMM_APAD 4        // A's K-major rows of BM + 4 floats
 
 static_assert(GTT_SGEMM_THREADS == 2 * GTT_SGEMM_BM,

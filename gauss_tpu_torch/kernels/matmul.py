@@ -50,9 +50,6 @@ MM_TILE_SEED = (512, 512, 1024)
 SGEMM_TILE = (64, 128)
 SGEMM_BK, SGEMM_STAGES, SGEMM_THREADS, SGEMM_MIN_BLOCKS = 16, 4, 128, 4
 SGEMM_APAD = 4
-#: Output tile of the tiled kernel in every mode: the f32 routine's, and
-#: the stripe routine's (64, 128) in the bf16 modes.
-CUDA_TILE = SGEMM_TILE
 #: The stripe kernel's constants, as compiled into
 #: ``csrc/stripe_common.cuh``: (rows of a stripe, columns of one tile),
 #: blocks per cluster, K depth of a ring stage, stages, threads per block
@@ -150,14 +147,6 @@ def gemm_geometry(m: int, n: int, k: int, lda: int, ldb: int,
     blocks = grid[0] * grid[1]
     return GemmGeometry(bm, bn, grid, blocks, threads, vec, smem, k_tiles,
                         per_sm, blocks / (per_sm * H100_SMS), tc)
-
-
-def gemm_tile_origins(geom: GemmGeometry):
-    """The (row0, col0) of the output tile of every block of the grid, in
-    launch order (blockIdx.x fastest). Tiles reach past ``m`` and ``n`` at
-    the ragged edges; the kernels mask them."""
-    return [(y * geom.bm, x * geom.bn) for y in range(geom.grid[1])
-            for x in range(geom.grid[0])]
 
 
 def launch_info(fn: str, precision: str = "highest", vec: int = 4) -> dict:

@@ -52,7 +52,6 @@ import torch
 from gauss_tpu_torch.core.blocked import panel_fits_vmem, unit_lower_inv, upper_inv
 from gauss_tpu_torch.core.gauss import back_substitute
 from gauss_tpu_torch.kernels import _build
-from gauss_tpu_torch.kernels.matmul import SGEMM_TILE
 from gauss_tpu_torch.kernels.panel import (argmax_nan_first, check_cuda_f32,
                                            panel_factor)
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
@@ -62,11 +61,9 @@ from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 ROWELIM_TILE_SEED = (256, 256)
 DEFAULT_BM, DEFAULT_BN = ROWELIM_TILE_SEED
 #: Rows and threads (columns) per block of the step kernel, as compiled
-#: into ``csrc/rowelim.cu``, and the output tile of the rank-k kernel: the
-#: f32 routine's of ``csrc/sgemm_common.cuh``
-#: (:func:`.matmul.gemm_geometry` in "highest" is its grid).
+#: into ``csrc/rowelim.cu``. The rank-k kernel's grid is
+#: :func:`.matmul.gemm_geometry`'s in "highest".
 CUDA_ELIM_TILE = (8, 256)
-CUDA_RANKK_TILE = SGEMM_TILE
 
 
 def eliminate_step_plain(m: torch.Tensor, i: int) -> torch.Tensor:

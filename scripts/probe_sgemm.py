@@ -7,7 +7,7 @@ and what holds it.
 
 Builds ``csrc/rowelim.cu`` and ``csrc/matmul.cu`` once per variant
 ``BM:THREADS:STAGES:MIN_BLOCKS[:BK]`` of ``csrc/sgemm_common.cuh`` (its
-``GTT_SGEMM_*`` defines overridden with ``-D``) and form, into
+``GTT_SGEMM_*`` defines rewritten in a copy of ``csrc/``) and form, into
 ``build/sgemm_probe/``, all builds in parallel. The forms are the routine
 as it is (``full``) and two ablations of a copy of it, whose results are
 wrong and not checked: ``no-copy`` issues no copies after the ring's
@@ -51,13 +51,20 @@ ABLATIONS = {
 }
 
 
-def sources(form: str, work: Path) -> Path:
-    """A copy of csrc/ with the form's edits to sgemm_common.cuh."""
-    out = work / form
+def sources(variant: str, form: str, work: Path) -> Path:
+    """A copy of csrc/ whose sgemm_common.cuh has the variant's defines
+    and the form's edits."""
+    out = work / f"{variant.replace(':', '_')}-{form}"
     out.mkdir(parents=True, exist_ok=True)
+    names = ("BM", "THREADS", "STAGES", "MIN_BLOCKS", "BK")
     for f in CSRC.iterdir():
         text = f.read_text()
         if f.name == "sgemm_common.cuh":
+            for name, value in zip(names, variant.split(":")):
+                text, n = re.subn(rf"#define GTT_SGEMM_{name} \d+",
+                                  f"#define GTT_SGEMM_{name} {value}", text)
+                if n != 1:
+                    raise SystemExit(f"probe: GTT_SGEMM_{name} not found")
             for old, new in ABLATIONS[form]:
                 if old not in text:
                     raise SystemExit(f"probe: {form}: {old!r} not found")
@@ -66,15 +73,10 @@ def sources(form: str, work: Path) -> Path:
     return out
 
 
-def build(variant: str, form: str, source: str, nvcc: str, flags,
-          work: Path):
-    bm, threads, stages, minb, *bk = variant.split(":")
-    so = work / f"lib{source}-{variant.replace(':', '_')}-{form}.so"
-    cmd = [nvcc, *flags, "-Xptxas", "-v", f"-DGTT_SGEMM_BM={bm}",
-           f"-DGTT_SGEMM_THREADS={threads}", f"-DGTT_SGEMM_STAGES={stages}",
-           f"-DGTT_SGEMM_MIN_BLOCKS={minb}",
-           *(f"-DGTT_SGEMM_BK={v}" for v in bk), "-o", str(so),
-           str(work / form / f"{source}.cu")]
+def build(src: Path, source: str, nvcc: str, flags):
+    so = src / f"lib{source}.so"
+    cmd = [nvcc, *flags, "-Xptxas", "-v", "-o", str(so),
+           str(src / f"{source}.cu")]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
@@ -130,10 +132,9 @@ def main(argv=None) -> int:
     nvcc = _build.find_nvcc()
     variants = args.variants.split(",")
     forms = args.forms.split(",")
-    for form in forms:
-        sources(form, work)
     runs = [(v, form) for v in variants for form in forms]
-    jobs = {(v, form, s): build(v, form, s, nvcc, _build.NVCC_FLAGS, work)
+    dirs = {run: sources(*run, work) for run in runs}
+    jobs = {(v, form, s): build(dirs[(v, form)], s, nvcc, _build.NVCC_FLAGS)
             for v, form in runs for s in ("rowelim", "matmul")}
     logs = {}
     for key, (so, proc) in jobs.items():

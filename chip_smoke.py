@@ -17,10 +17,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``torch.linalg.lu_factor`` beside it, and the cluster kernel at the
    sizes of PANEL_CLUSTER_SWEEP; the fused panel+trailing
    kernel and the standalone trailing kernel at all 7 fused launch shapes
-   (h = 2048 - kb, kb = 0, 256, ..., 1536). Checks identical pivots,
-   values within the stated tolerances, and fused == panel + trailing bit
-   for bit; times each with CUDA events (median of --reps launches), and
-   one whole n=2048 factorization the same way.
+   (h = 2048 - kb, kb = 0, 256, ..., 1536) and the fused kernel at a
+   (4096, 4096) block, whose strip takes phase A's one-block route, each
+   with the C launcher's geometry (route, grid, shared memory, clusters at
+   once) held against ``fused_geometry`` and its ptxas usage. Checks
+   identical pivots, values within the stated tolerances, and fused ==
+   panel + trailing bit for bit; times each with CUDA events (median of
+   --reps launches) beside the panel kernel on the same strip (phase A
+   alone) and the trailing kernel (phase B alone), and one whole n=2048
+   factorization the same way beside ``torch.linalg.lu_factor`` on the
+   same matrix.
 3b. The same for the row-elimination and matmul kernels: the tiled and
    row-stripe matmul at (2048, 2048, 2048) in "high", "highest" and
    "default" within MM_TOL; the stripe's launch geometry (blocks, cluster
@@ -290,104 +296,183 @@ def phase_kernels(reps: int):
 
     k1 = phase_panel(reps, rng)
 
+    if DEVICE == "cuda":
+        for kernel, (regs, spill, smem) in sorted(
+                ptxas_usage("panel_fused").items()):
+            print(f"phase 3: ptxas -v, csrc/panel_fused.cu {kernel}: "
+                  f"{regs} registers, {spill} bytes of spill stores, "
+                  f"{smem} bytes of static shared memory")
+
     # Kernels 2 and 3 at the 7 fused launch shapes of one factorization:
     # block = the live rows m[kb:] (h = N - kb, width N), panel at col0 = kb.
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
-          "bytes": 0.0, "err": 0.0}
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
-          "bytes": 0.0, "err": 0.0}
+    k2 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "flops": 0.0, "bytes": 0.0, "err": 0.0, "phase_a_ms": 0.0,
+          "phase_a_device_ms": 0.0, "routes": set()}
+    k3 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "flops": 0.0, "bytes": 0.0, "err": 0.0}
     for kb in range(0, N - PANEL, PANEL):
-        h = N - kb
-        orig = torch.as_tensor(rng.standard_normal((h, N)),
-                               dtype=torch.float32, device=dev)
-        work = orig.clone()
-        p, ipiv, perm, mp, upd = kf.panel_trailing_fused(work, kb, 0,
-                                                         panel=PANEL)
-        rp, ripiv, rperm, rmp, rupd = kf.panel_trailing_fused_plain(
-            orig.clone(), kb, 0, panel=PANEL)
-        sync()
-        require(torch.equal(ipiv, ripiv) and torch.equal(perm, rperm),
-                f"fused pivots differ from the plain version at kb={kb}")
-        scale = float(rupd.abs().max())
-        err = max(float((upd - rupd).abs().max()),
-                  float((p - rp).abs().max()))
-        require(err <= TOL * scale, f"fused at kb={kb}: max |kernel - "
-                f"plain| {err} > {TOL} x {scale}")
-        require(torch.equal(upd[:, :kb + PANEL], orig[:, :kb + PANEL]),
-                f"fused wrote columns left of col0+panel at kb={kb}")
-        # The unfused pair: panel kernel + reconstruction + trailing kernel.
-        pair = orig.clone()
-        p2, ipiv2, perm2, mp2 = kp.panel_factor(pair[:, kb:kb + PANEL], 0)
-        mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, 0, PANEL)
-        kf.trailing_update(pair, mult, onehot, kb)
-        sync()
-        require(torch.equal(pair, upd) and torch.equal(p2, p)
-                and torch.equal(ipiv2, ipiv) and float(mp2) == float(mp),
-                f"fused != panel + trailing bit for bit at kb={kb}")
-        plain_pair = orig.clone()
-        kf.trailing_update_plain(plain_pair, mult, ipiv2, kb,
-                                 kf.FUSED_FSEG_SEED)
-        err3 = float((pair - plain_pair).abs().max())
-        require(err3 <= TOL * scale, f"trailing at kb={kb}: max |kernel - "
-                f"plain| {err3} > {TOL} x {scale}")
-
-        def reset():
-            work.copy_(orig)
-
-        ms2 = cuda_event_ms(lambda: kf.panel_trailing_fused(work, kb, 0,
-                                                            panel=PANEL),
-                            reps, setup=reset)
-        pms2 = cuda_event_ms(lambda: kf.panel_trailing_fused_plain(
-            work, kb, 0, panel=PANEL), max(3, reps // 4), setup=reset)
-        ms3 = cuda_event_ms(lambda: kf.trailing_update(work, mult, ipiv2,
-                                                       kb), reps,
-                            setup=reset)
-        pms3 = cuda_event_ms(lambda: kf.trailing_update_plain(
-            work, mult, ipiv2, kb, kf.FUSED_FSEG_SEED), max(3, reps // 4),
-            setup=reset)
-        ncols = N - kb - PANEL
-        f3 = trailing_ops(h, 0, PANEL, ncols)
-        f2 = f3 + panel_ops(h, PANEL, 0)
-        # The fused kernel reads and writes only columns col0 = kb onward
-        # (panel out + trailing); columns left of kb hold L and are untouched.
-        by2 = 8.0 * h * (N - kb) + 4 * PANEL + 8 * h + 4
-        by3 = 4.0 * h * ncols * 2 + 4.0 * PANEL * h + 4 * PANEL
-        b2 = bound(by2, f2)
-        b3 = bound(by3, f3)
-        print(f"phase 3: fused h={h} kb={kb}: ms {ms2:.4f}, plain "
-              f"{pms2:.4f}, bound {b2[0]:.5f} ({b2[1]}), max_abs_err "
-              f"{err:g}; trailing: ms {ms3:.4f}, plain {pms3:.4f}, bound "
-              f"{b3[0]:.5f} ({b3[1]}), max_abs_err {err3:g}; fused == pair "
-              f"bit for bit")
-        for acc, ms_, pms_, b_, fl, by, e in (
-                (k2, ms2, pms2, b2, f2, by2, err),
-                (k3, ms3, pms3, b3, f3, by3, err3)):
-            acc["ms"] += ms_
-            acc["plain_ms"] += pms_
-            acc["bound_ms"] += b_[0]
-            acc["flops"] += fl
-            acc["bytes"] += by
-            acc["err"] = max(acc["err"], e)
+        rec = fused_shape(reps, rng, N - kb, N, kb)
+        k2["routes"].add(rec["route"])
+        k2["phase_a_ms"] += rec["phase_a_ms"]
+        k2["phase_a_device_ms"] += rec["phase_a_device_ms"]
+        for acc, key in ((k2, "fused"), (k3, "trailing")):
+            r = rec[key]
+            for f in ("ms", "device_ms", "plain_ms", "bound_ms", "flops",
+                      "bytes"):
+                acc[f] += r[f]
+            acc["err"] = max(acc["err"], r["err"])
     for acc in (k2, k3):
         acc["bound_by"] = bound(acc["bytes"], acc["flops"])[1]
+    print(f"phase 3: the 7 fused launches: ms {k2['ms']:.4f} (phase A alone, "
+          f"the panel kernel on each strip: {k2['phase_a_ms']:.4f}; phase B "
+          f"alone, the trailing kernel: {k3['ms']:.4f}); device ms "
+          f"{k2['device_ms']:.4f} (phase A {k2['phase_a_device_ms']:.4f}, "
+          f"phase B {k3['device_ms']:.4f}); bound {k2['bound_ms']:.5f}")
+    # The one-block route of phase A: a strip taller than a cluster holds.
+    k2["tall"] = fused_shape(max(3, reps // 4), rng, 2 * N, 2 * N, 0)
+    k2["routes"].add(k2["tall"]["route"])
+    require(DEVICE != "cuda" or k2["tall"]["route"] == "block",
+            "the tall strip's fused launch did not take the one-block route")
 
     # One whole n=N factorization: the kernels plus the torch work between
-    # launches (row gathers, diagonal-block inverses, the U-inverse pass).
+    # launches (row gathers, diagonal-block inverses, the U-inverse pass),
+    # beside torch.linalg.lu_factor on the same matrix.
     from gauss_tpu_torch.core import blocked
 
     a = torch.as_tensor(rng.standard_normal((N, N)), dtype=torch.float32,
                         device=dev)
     fac_ms = cuda_event_ms(lambda: blocked.lu_factor_blocked_unrolled(
         a, panel=PANEL, device=DEVICE), max(3, reps // 2))
+    with quiet_fd1():
+        lu_ms = cuda_event_ms(lambda: torch.linalg.lu_factor(a), reps)
+    k2["factorization_ms"], k2["lu_factor_ms"] = fac_ms, lu_ms
     print(f"phase 3: one n={N} factorization (lu_factor_blocked_unrolled): "
           f"{fac_ms:.4f} ms; its kernels "
           f"{k1['ms'] + k2['ms']:.4f} ms "
-          f"(panel at ({PANEL}, {PANEL}) + the 7 fused shapes)")
+          f"(panel at ({PANEL}, {PANEL}) + the 7 fused shapes); "
+          f"torch.linalg.lu_factor on the same ({N}, {N}) matrix "
+          f"{lu_ms:.4f} ms")
     from gauss_tpu_torch.kernels import _build
 
     print(f"phase 3: launch counts over these checks and timings: "
           f"{dict(_build.LAUNCHES)}")
     return k1, k2, k3
+
+
+def fused_shape(reps: int, rng, h: int, wtot: int, kb: int) -> dict:
+    """Kernels 2 and 3 on one (h, wtot) block with the panel at col0 = kb
+    (kbrow 0): the fused kernel against its plain version (pivots equal,
+    values within TOL, columns left of the panel's end untouched) and
+    against the unfused pair bit for bit, the trailing kernel against its
+    plain version; the C launcher's geometry against ``fused_geometry``;
+    each timed (CUDA events, median of ``reps``) beside its plain version
+    and bound, with the panel kernel on the same strip (phase A alone)."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    dev = torch.device(DEVICE)
+    geom = kf.fused_geometry(h, wtot, PANEL, kb)
+    where = (f"{geom.route} route (phase A on a cluster of {geom.cluster}"
+             if geom.route == "cluster" else
+             "block route (phase A on one block") + (
+        f"), grid {geom.grid}, {geom.smem_bytes} B dynamic shared memory, "
+        f"{geom.chunks} chunks x {geom.row_tiles} row tiles")
+    if DEVICE == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        info = kf.fused_launch_info(h, wtot, PANEL, kb)
+        want = kf.fused_geometry(h, wtot, PANEL, kb, sms=sms,
+                                 clusters=info["fit"])._asdict()
+        require({k: info[k] for k in want} == want and info["fit"] >= 1,
+                f"fused launch at ({h}, {wtot}, kb={kb}): C launcher's "
+                f"geometry {info} != {want}")
+        unit = "clusters" if geom.route == "cluster" else "blocks an SM"
+        where += f", {info['fit']} {unit} at once"
+    orig = torch.as_tensor(rng.standard_normal((h, wtot)),
+                           dtype=torch.float32, device=dev)
+    work = orig.clone()
+    before = _build.LAUNCHES["panel_trailing_fused"]
+    p, ipiv, perm, mp, upd = kf.panel_trailing_fused(work, kb, 0,
+                                                     panel=PANEL)
+    require(_build.LAUNCHES["panel_trailing_fused"]
+            == before + (DEVICE == "cuda"), "one fused launch per call")
+    rp, ripiv, rperm, rmp, rupd = kf.panel_trailing_fused_plain(
+        orig.clone(), kb, 0, panel=PANEL)
+    sync()
+    require(torch.equal(ipiv, ripiv) and torch.equal(perm, rperm),
+            f"fused pivots differ from the plain version at ({h}, {wtot}), "
+            f"kb={kb}")
+    scale = float(rupd.abs().max())
+    err = max(float((upd - rupd).abs().max()),
+              float((p - rp).abs().max()))
+    require(err <= TOL * scale, f"fused at ({h}, {wtot}), kb={kb}: max "
+            f"|kernel - plain| {err} > {TOL} x {scale}")
+    require(torch.equal(upd[:, :kb + PANEL], orig[:, :kb + PANEL]),
+            f"fused wrote columns left of col0+panel at kb={kb}")
+    # The unfused pair: panel kernel + reconstruction + trailing kernel.
+    pair = orig.clone()
+    strip = pair[:, kb:kb + PANEL]
+    p2, ipiv2, perm2, mp2 = kp.panel_factor(strip, 0)
+    mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, 0, PANEL)
+    kf.trailing_update(pair, mult, onehot, kb)
+    sync()
+    require(torch.equal(pair, upd) and torch.equal(p2, p)
+            and torch.equal(ipiv2, ipiv) and float(mp2) == float(mp),
+            f"fused != panel + trailing bit for bit at ({h}, {wtot}), "
+            f"kb={kb}")
+    plain_pair = orig.clone()
+    kf.trailing_update_plain(plain_pair, mult, ipiv2, kb, kf.FUSED_FSEG_SEED)
+    err3 = float((pair - plain_pair).abs().max())
+    require(err3 <= TOL * scale, f"trailing at kb={kb}: max |kernel - "
+            f"plain| {err3} > {TOL} x {scale}")
+
+    def reset():
+        work.copy_(orig)
+
+    plain_reps = max(3, reps // 4)
+    calls = {"fused": lambda: kf.panel_trailing_fused(work, kb, 0,
+                                                      panel=PANEL),
+             "phase A": lambda: kp.panel_factor(strip, 0),
+             "phase B": lambda: kf.trailing_update(work, mult, ipiv2, kb)}
+    ms2 = cuda_event_ms(calls["fused"], reps, setup=reset)
+    pms2 = cuda_event_ms(lambda: kf.panel_trailing_fused_plain(
+        work, kb, 0, panel=PANEL), plain_reps, setup=reset)
+    ms_a = cuda_event_ms(calls["phase A"], reps)
+    ms3 = cuda_event_ms(calls["phase B"], reps, setup=reset)
+    # Device time alone: launches queued behind a spin kernel (the values
+    # they leave in `work` are not read).
+    dev = ({k: device_ms(fn, reps) for k, fn in calls.items()}
+           if DEVICE == "cuda" else {k: 0.0 for k in calls})
+    pms3 = cuda_event_ms(lambda: kf.trailing_update_plain(
+        work, mult, ipiv2, kb, kf.FUSED_FSEG_SEED), plain_reps,
+        setup=reset)
+    ncols = wtot - kb - PANEL
+    f3 = trailing_ops(h, 0, PANEL, ncols)
+    f2 = f3 + panel_ops(h, PANEL, 0)
+    # The fused kernel reads and writes only columns col0 = kb onward
+    # (panel out + trailing); columns left of kb hold L and are untouched.
+    by2 = 8.0 * h * (wtot - kb) + 4 * PANEL + 8 * h + 4
+    by3 = 4.0 * h * ncols * 2 + 4.0 * PANEL * h + 4 * PANEL
+    b2 = bound(by2, f2)
+    b3 = bound(by3, f3)
+    print(f"phase 3: fused ({h}, {wtot}) kb={kb}, {where}: ms {ms2:.4f} "
+          f"(phase A, the panel kernel on the strip: {ms_a:.4f}; phase B, "
+          f"the trailing kernel: {ms3:.4f}), device ms {dev['fused']:.4f} "
+          f"(phase A {dev['phase A']:.4f}, phase B {dev['phase B']:.4f}), "
+          f"plain {pms2:.4f}, bound {b2[0]:.5f} ({b2[1]}), max_abs_err "
+          f"{err:g}; trailing: plain {pms3:.4f}, bound {b3[0]:.5f} "
+          f"({b3[1]}), max_abs_err {err3:g}; fused == pair bit for bit")
+    return {"route": geom.route, "phase_a_ms": ms_a,
+            "phase_a_device_ms": dev["phase A"],
+            "fused": {"ms": ms2, "device_ms": dev["fused"], "plain_ms": pms2,
+                      "bound_ms": b2[0], "flops": f2, "bytes": by2,
+                      "err": err},
+            "trailing": {"ms": ms3, "device_ms": dev["phase B"],
+                         "plain_ms": pms3, "bound_ms": b3[0], "flops": f3,
+                         "bytes": by3, "err": err3}}
 
 
 def same_outputs(got, want) -> bool:
@@ -1449,17 +1534,32 @@ def main(argv=None) -> int:
          "shape": f"({2 * N}, {PANEL}), taller than a cluster holds"},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
+         "sources": [src + "panel_fused.cu", src + "panel_cluster.cuh",
+                     src + "panel_common.cuh"],
+         "phase_a_routes": sorted(k2["routes"]),
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
          **launch_keys("panel_trailing_fused"),
-         "max_abs_err": k2["err"], "ms": k2["ms"],
+         "max_abs_err": max(k2["err"], k2["tall"]["fused"]["err"]),
+         "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
-         "shape": f"sum of the 7 launches of one n={N} factorization"},
+         "shape": f"sum of the 7 launches of one n={N} factorization "
+                  f"(phase A on the cluster route)",
+         "phase_a_ms": k2["phase_a_ms"], "phase_b_ms": k3["ms"],
+         "device_ms": k2["device_ms"],
+         "phase_a_device_ms": k2["phase_a_device_ms"],
+         "phase_b_device_ms": k3["device_ms"],
+         f"({2 * N}, {2 * N}) one-block route": {
+             key: k2["tall"]["fused"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "err")},
+         "factorization_ms": k2["factorization_ms"],
+         "factorization_lu_factor_ms": k2["lu_factor_ms"]},
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",
          **launch_keys("trailing_update"),
          "max_abs_err": k3["err"], "ms": k3["ms"],
+         "device_ms": k3["device_ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
          "shape": f"sum of the 7 trailing shapes of one n={N} "

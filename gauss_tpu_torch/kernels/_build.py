@@ -56,10 +56,11 @@ _SIGNATURES = {
         "gtt_panel_cluster_info": [_I, _I, _I, _P],
     },
     "panel_fused": {
-        "gtt_panel_fused_grid": [_I, _I, _I],
+        "gtt_panel_fused_info": [_I, _I, _I, _I, _I, _P],
         "gtt_panel_fused": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                            _P, _P, _I, _P],
-        "gtt_trailing_update": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                            _P, _P, _P, _P, _P],
+        "gtt_trailing_update": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                _P],
     },
     "matmul": {
         "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],

@@ -1,11 +1,11 @@
-// Device routines shared by the panel-factor kernel (panel_factor.cu) and
-// the fused panel+trailing / standalone trailing kernels (panel_fused.cu).
+// Device routines shared by the one-block panel-factor kernel
+// (panel_factor.cu) and the one-block route of the fused panel+trailing
+// kernel (panel_fused.cu).
 //
-// gtt_factor_panel is the ONE pivot-step loop: the panel-factor kernel and
-// the fused kernel's phase A both run it, so their factored panels are
-// bit-identical. gtt_trailing_chunk is the ONE trailing-tile routine: the
-// fused kernel's phase B and the standalone trailing kernel both run it,
-// so fused == panel + trailing, bit for bit, at matching fseg.
+// gtt_factor_panel is the ONE one-block pivot-step loop: the panel-factor
+// kernel and the fused kernel's one-block phase A both run it, so their
+// factored panels are bit-identical (and equal to the cluster loop of
+// panel_cluster.cuh, which computes the same values).
 //
 // Arithmetic contract of the step loop: every multiply, subtract and
 // divide is an explicitly rounded IEEE operation (__fmul_rn, __fsub_rn,
@@ -21,8 +21,6 @@
 
 #define GTT_THREADS 512     // threads per block, every kernel
 #define GTT_PANEL_MAX 1024  // widest panel the step loop stages in smem
-#define GTT_TC 32           // trailing columns per chunk (one per lane)
-#define GTT_FSEG_MAX 64     // widest trailing-apply segment
 #define GTT_BATCH 16        // rank-1 update columns in flight per thread
 
 // The argmax order of jnp.argmax / torch.argmax: a NaN beats every number
@@ -84,16 +82,14 @@ __device__ void gtt_load_panel_t(const float* __restrict__ src, int ld,
 // Step j: argmax of |column j| over live rows -> pivot p; ipiv[j] = p,
 // inv[p] = kb + j, chosen[p] = 1; the pivot row is staged in smem; live
 // rows take multipliers col/piv in column j and the rank-1 update
-// T[c] - u[c] * mult in every column c > j. `mult_rec` (nullable) records
-// each step's multiplier row (0 on done rows) for the trailing phase.
-// Outputs inv/chosen are (h,), ipiv (panel,), minpiv one float (a NaN
-// pivot counts as 0: a zero pivot already poisoned the trailing rows).
+// T[c] - u[c] * mult in every column c > j. Outputs inv/chosen are (h,),
+// ipiv (panel,), minpiv one float (a NaN pivot counts as 0: a zero pivot
+// already poisoned the trailing rows).
 __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
                                  int kb, int* __restrict__ ipiv,
                                  int* __restrict__ inv,
                                  int* __restrict__ chosen,
-                                 float* __restrict__ minpiv,
-                                 float* __restrict__ mult_rec) {
+                                 float* __restrict__ minpiv) {
   __shared__ float s_u[GTT_PANEL_MAX];
   __shared__ float s_min;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -128,7 +124,6 @@ __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
       const float q = __fdiv_rn(cv, piv);
       const float m = done ? 0.0f : q;
       col[r] = done ? cv : q;
-      if (mult_rec != nullptr) mult_rec[(size_t)j * h + r] = m;
       // Rank-1 update, GTT_BATCH columns at a time: all the batch's loads
       // issue before its stores, so GTT_BATCH L2 round trips overlap
       // instead of serialising load-store pairs.
@@ -160,97 +155,7 @@ __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
   if (tid == 0) *minpiv = s_min;
 }
 
-// Apply a factored panel's recorded eliminations to the trailing columns
-// [c0, c0 + ncols) (ncols <= GTT_TC) of the row-major block (h rows, row
-// stride ld), one fseg-wide segment of steps at a time:
-//   1. U0 = the segment's pivot rows of the chunk (w x ncols, in smem);
-//   2. forward substitution through the unit-lower w x w coupling
-//      L[j][i] = mult[s0+i][p_j], i < j:  U_j = U0_j - sum_{i<j} L[j][i] U_i
-//      (the sequential pivot-row recurrence; one thread per column);
-//   3. every row takes T - sum_i mult[s0+i][r] * U_i (zero multipliers on
-//      done rows leave them as they are), then the pivot rows take U.
-// Pivot rows come out holding U12 and live rows A22 - L21 @ U12, in the
-// block's original row order. One thread owns a row for step 3, with the
-// chunk's GTT_TC column sums in registers.
-__device__ void gtt_trailing_chunk(float* __restrict__ block, int ld, int h,
-                                   int c0, int ncols, int panel, int fseg,
-                                   const float* __restrict__ mult,
-                                   const int* __restrict__ ipiv) {
-  __shared__ float s_u[GTT_FSEG_MAX][GTT_TC];
-  __shared__ float s_l[GTT_FSEG_MAX][GTT_FSEG_MAX];
-  __shared__ int s_p[GTT_FSEG_MAX];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int s0 = 0; s0 < panel; s0 += fseg) {
-    const int w = min(fseg, panel - s0);
-    for (int i = tid; i < w; i += nt) s_p[i] = ipiv[s0 + i];
-    __syncthreads();
-    for (int e = tid; e < w * GTT_TC; e += nt) {
-      const int i = e / GTT_TC, c = e % GTT_TC;
-      s_u[i][c] = c < ncols ? block[(size_t)s_p[i] * ld + c0 + c] : 0.0f;
-    }
-    for (int e = tid; e < w * w; e += nt) {
-      const int jj = e / w, i = e % w;
-      s_l[jj][i] = i < jj ? mult[(size_t)(s0 + i) * h + s_p[jj]] : 0.0f;
-    }
-    __syncthreads();
-    if (tid < GTT_TC) {
-      const int c = tid;
-      for (int jj = 1; jj < w; ++jj) {
-        float acc = 0.0f;
-        for (int i = 0; i < jj; ++i) acc = fmaf(s_l[jj][i], s_u[i][c], acc);
-        s_u[jj][c] = s_u[jj][c] - acc;
-      }
-    }
-    __syncthreads();
-    for (int r = tid; r < h; r += nt) {
-      float acc[GTT_TC];
-#pragma unroll
-      for (int c = 0; c < GTT_TC; ++c) acc[c] = 0.0f;
-      for (int i = 0; i < w; ++i) {
-        const float m = mult[(size_t)(s0 + i) * h + r];
-#pragma unroll
-        for (int c = 0; c < GTT_TC; ++c) acc[c] = fmaf(m, s_u[i][c], acc[c]);
-      }
-      float* row = block + (size_t)r * ld + c0;
-      if (ncols == GTT_TC) {
-#pragma unroll
-        for (int c = 0; c < GTT_TC; ++c) row[c] = row[c] - acc[c];
-      } else {
-#pragma unroll
-        for (int c = 0; c < GTT_TC; ++c)
-          if (c < ncols) row[c] = row[c] - acc[c];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < w * GTT_TC; e += nt) {
-      const int i = e / GTT_TC, c = e % GTT_TC;
-      if (c < ncols) block[(size_t)s_p[i] * ld + c0 + c] = s_u[i][c];
-    }
-    __syncthreads();
-  }
-}
-
-// Every trailing chunk right of the panel, strided over the grid.
-__device__ void gtt_trailing_all(float* __restrict__ block, int ld, int h,
-                                 int wtot, int col0, int panel, int fseg,
-                                 const float* __restrict__ mult,
-                                 const int* __restrict__ ipiv) {
-  const int cstart = col0 + panel;
-  const int nchunks = wtot > cstart ? (wtot - cstart + GTT_TC - 1) / GTT_TC
-                                    : 0;
-  for (int q = blockIdx.x; q < nchunks; q += gridDim.x) {
-    const int c0 = cstart + q * GTT_TC;
-    gtt_trailing_chunk(block, ld, h, c0, min(GTT_TC, wtot - c0), panel, fseg,
-                       mult, ipiv);
-  }
-}
-
 // The message of a CUDA error code (each library exports its own copy).
 extern "C" const char* gtt_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
-}
-
-static inline int gtt_trailing_chunks(int wtot, int col0, int panel) {
-  const int cstart = col0 + panel;
-  return wtot > cstart ? (wtot - cstart + GTT_TC - 1) / GTT_TC : 0;
 }

@@ -24,7 +24,8 @@
 // stay in place (done mask, no swaps), each thread owns fixed rows, and
 // the rank-1 update keeps GTT_BATCH loads in flight. That is what a strip
 // too tall for a cluster's shared memory gets; the fused kernel's phase A
-// (panel_fused.cu) still runs this same step loop, gtt_factor_panel.
+// (panel_fused.cu) runs this same step loop, gtt_factor_panel, on the
+// strips that no cluster holds.
 #include "panel_common.cuh"
 
 __global__ void __launch_bounds__(GTT_THREADS)
@@ -33,7 +34,7 @@ gtt_panel_factor_kernel(const float* __restrict__ src, int ld, int h,
                         int* __restrict__ ipiv, int* __restrict__ inv,
                         int* __restrict__ chosen, float* __restrict__ minpiv) {
   gtt_load_panel_t(src, ld, h, panel, pt);
-  gtt_factor_panel(pt, h, panel, kb, ipiv, inv, chosen, minpiv, nullptr);
+  gtt_factor_panel(pt, h, panel, kb, ipiv, inv, chosen, minpiv);
 }
 
 // src: the (h, panel) block, row stride ld. pt: (panel, h) scratch that

@@ -3,23 +3,29 @@
 Port of ``gauss_tpu/kernels/panel_fused_pallas.py``:
 
 - :func:`panel_trailing_fused` (``panel_trailing_fused_pallas``): ONE
-  launch factors the (h, panel) column block of ``block`` at ``col0`` —
-  the panel kernel's step loop, recording each step's multiplier row —
-  and applies its eliminations to every column right of the panel. Pivot
+  launch factors the (h, panel) column block of ``block`` at ``col0`` and
+  applies its eliminations to every column right of the panel. Pivot
   rows come out holding U12 and live rows A22 - L21 @ U12, in the block's
   ORIGINAL row order; columns at or left of ``col0 + panel`` are not
-  written. CUDA kernel: ``csrc/panel_fused.cu`` (a cooperative launch:
-  block 0 factors, grid-wide barrier, every block updates trailing
-  chunks).
+  written. CUDA kernel: ``csrc/panel_fused.cu``. Phase A (the factor)
+  goes to the first thread-block cluster that starts, which runs the
+  cluster step loop of ``csrc/panel_cluster.cuh`` on every strip such a
+  cluster holds, or to one block running the one-block loop on taller
+  strips (:func:`fused_geometry` states the route); it derives the
+  multiplier record by the rule of :func:`reconstruct_mult_pt`. Phase B
+  (the trailing update) is split into jobs that every block of the grid
+  takes by ticket: per 64-column chunk the pivot rows alone (B1, which
+  writes each segment's U rows), then (256, 64) tiles of the whole block
+  (B2), each after its chunk's B1.
 - :func:`trailing_update` (``trailing_update_pallas``): the same trailing
-  math as its own launch, from multipliers and pivots that
+  jobs as their own launch, from multipliers and pivots that
   :func:`reconstruct_mult_pt` rebuilds exactly (gathers and selects only)
   from a factored panel.
 
 The contract, as in the JAX package: fused == panel + reconstruct +
 trailing, bit for bit, at matching ``fseg`` — on the card the kernels
-share one step routine and one tile routine, on the CPU the plain versions
-share their Python functions.
+share one step loop per route and one trailing routine, on the CPU the
+plain versions share their Python functions.
 
 Trailing math per ``fseg``-wide segment of steps [s0, s1): U0 = the
 segment's pivot rows; U = the forward substitution of U0 through the unit
@@ -30,18 +36,23 @@ done rows as they are); the pivot rows take U.
 
 ``ct`` (the trailing tile width) is accepted for API parity and changes
 no value: every output column depends on its own column alone, so the
-card's 32-column chunks give the same bits at any ``ct``. ``seg`` is
+card's 64-column chunks give the same bits at any ``ct``. ``seg`` is
 ignored (see :mod:`.panel`).
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from gauss_tpu_torch.kernels import _build
-from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, check_cuda_f32,
+from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_MAX,
+                                           check_cuda_f32,
+                                           cluster_smem_bytes,
                                            factor_steps_plain,
-                                           perm_from_inv)
+                                           panel_geometry, perm_from_inv)
 
 #: The JAX package's tuner seeds for the fused kernel's trailing tile width
 #: and trailing-apply segment width.
@@ -49,6 +60,91 @@ FUSED_CT_SEED = 256
 FUSED_FSEG_SEED = 32
 #: Widest fseg the CUDA tile routine stages (csrc GTT_FSEG_MAX).
 FSEG_MAX_CUDA = 64
+#: The trailing jobs' shape, as compiled into ``csrc/panel_fused.cu``: rows
+#: of a B2 tile (and of a B1 pivot-row pass) and columns of a chunk.
+TRAIL_TILE_ROWS = 256
+TRAIL_CHUNK_COLS = 64
+#: The grid rule's card facts, as measured on the H100 SXM (the C launcher
+#: reads the card's own): its SMs, and the clusters of 16 blocks of 512
+#: threads at one block an SM that it holds at once
+#: (``cudaOccupancyMaxActiveClusters``).
+H100_SMS = 132
+H100_CLUSTERS_OF_16 = 7
+
+
+class FusedGeometry(NamedTuple):
+    route: str           # phase A: "cluster" (the cluster step loop) or
+                         # "block" (the one-block loop)
+    cluster: int         # blocks in a cluster (1 on the one-block route)
+    rows_per_block: int  # strip rows a phase-A block holds
+    grid: int            # blocks launched
+    smem_bytes: int      # dynamic shared memory per block
+    chunks: int          # 64-column chunks right of the panel (B1 jobs)
+    row_tiles: int       # 256-row tiles of the block (B2 jobs per chunk)
+
+
+def trailing_smem_bytes(panel: int, fseg: int) -> int:
+    """Dynamic shared memory of the trailing jobs: a ticket, the pivot rows
+    and a tile's row steps (padded to 4 words), then two stages of
+    (fseg, 256) multipliers and (fseg, 64) U rows."""
+    head = (4 + panel + TRAIL_TILE_ROWS + 3) // 4 * 4
+    return 4 * (head + 2 * fseg * (TRAIL_TILE_ROWS + TRAIL_CHUNK_COLS))
+
+
+def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
+                   fseg: int = FUSED_FSEG_SEED, sms: int = H100_SMS,
+                   clusters: int | None = None) -> FusedGeometry:
+    """The launch of :func:`panel_trailing_fused` on an (h, wtot) block with
+    the panel at ``col0``, by the C launcher's rule. Phase A takes the
+    cluster route where :func:`~gauss_tpu_torch.kernels.panel.panel_geometry`
+    does (at panel 256 up to 3,392 rows, C = 16 from 256 rows on), else the
+    one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
+    B2 tiles. Grid: on the cluster route ``C * min(1 + ceil(jobs / C),
+    clusters)`` (phase A's cluster, then a block per job, no more clusters
+    than the card holds at once: ``clusters``, by default the H100's 7 for
+    C = 16 and ``sms // C`` otherwise), on the one-block route
+    ``min(1 + jobs, sms)``. Dynamic shared memory: the larger of phase A's
+    strip and the trailing jobs' (:func:`trailing_smem_bytes`)."""
+    if (h < 1 or not 1 <= panel <= PANEL_MAX or col0 < 0
+            or col0 + panel > wtot):
+        raise ValueError(f"fused_geometry: no launch for h={h}, wtot={wtot}, "
+                         f"panel={panel}, col0={col0}")
+    if not 1 <= fseg <= FSEG_MAX_CUDA:
+        raise ValueError(f"fused_geometry: fseg {fseg} outside [1, "
+                         f"{FSEG_MAX_CUDA}]")
+    chunks = -(-(wtot - col0 - panel) // TRAIL_CHUNK_COLS)
+    row_tiles = -(-h // TRAIL_TILE_ROWS)
+    jobs = chunks * (1 + row_tiles)
+    trail = trailing_smem_bytes(panel, fseg)
+    strip = panel_geometry(h, panel)
+    if strip.route == "cluster":
+        c = strip.cluster
+        if clusters is None:
+            clusters = H100_CLUSTERS_OF_16 if c == 16 else max(1, sms // c)
+        grid = c * min(1 + -(-jobs // c), clusters)
+        return FusedGeometry("cluster", c, strip.rows_per_block, grid,
+                             max(cluster_smem_bytes(strip.rows_per_block,
+                                                    panel), trail),
+                             chunks, row_tiles)
+    return FusedGeometry("block", 1, h, min(1 + jobs, sms), trail, chunks,
+                         row_tiles)
+
+
+def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
+                      fseg: int = FUSED_FSEG_SEED) -> dict:
+    """What the C launcher reports for a fused call: its geometry (the
+    fields of :class:`FusedGeometry` but ``route``) and ``fit``, the
+    clusters the card holds at once on the cluster route, or the blocks an
+    SM holds on the one-block route. Builds ``csrc/panel_fused.cu``; needs
+    a CUDA device."""
+    lib = _build.library("panel_fused")
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.gtt_panel_fused_info(h, wtot, col0, panel, fseg,
+                                               out), "fused_launch_info")
+    return {"cluster": out[0] or 1, "rows_per_block": out[1],
+            "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
+            "row_tiles": out[5], "fit": out[6],
+            "route": "cluster" if out[0] else "block"}
 
 
 def resolve_tiles(h: int, wtot: int, panel: int, ct=None, seg=None,
@@ -102,6 +198,14 @@ def panel_trailing_fused_plain(block: torch.Tensor, col0: int, kbrow: int,
     return t.T[perm_local], ipiv, perm_local, minpiv, block
 
 
+def _trailing_scratch(panel: int, chunks: int, dev):
+    """The trailing jobs' scratch: each chunk's U rows, and the counters
+    (job tickets, phase A's arrivals, one flag per chunk), zeroed."""
+    u = torch.empty((panel, chunks * TRAIL_CHUNK_COLS), dtype=torch.float32,
+                    device=dev)
+    return u, torch.zeros(3 + chunks, dtype=torch.int32, device=dev)
+
+
 def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
     check_cuda_f32(block, "panel_trailing_fused")
     if fseg > FSEG_MAX_CUDA:
@@ -109,25 +213,23 @@ def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
                          f"CUDA tile routine's {FSEG_MAX_CUDA}")
     h, wtot = block.shape
     dev = block.device
+    geom = fused_geometry(h, wtot, panel, col0, fseg)
     pt = torch.empty((panel, h), dtype=block.dtype, device=dev)
     mult = torch.empty((panel, h), dtype=block.dtype, device=dev)
     ipiv = torch.empty(panel, dtype=torch.int32, device=dev)
     inv = torch.empty(h, dtype=torch.int32, device=dev)
     chosen = torch.empty(h, dtype=torch.int32, device=dev)
     minpiv = torch.empty(1, dtype=block.dtype, device=dev)
+    u, ctr = _trailing_scratch(panel, geom.chunks, dev)
     lib = _build.library("panel_fused")
     with torch.cuda.device(dev):
-        grid = lib.gtt_panel_fused_grid(wtot, col0, panel)
-        if grid < 1:
-            raise RuntimeError(
-                "panel_trailing_fused: no co-resident grid for the "
-                "cooperative launch on this device")
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gtt_panel_fused(block.data_ptr(), block.stride(0), h, wtot,
                                  col0, kbrow, panel, fseg, pt.data_ptr(),
                                  mult.data_ptr(), ipiv.data_ptr(),
                                  inv.data_ptr(), chosen.data_ptr(),
-                                 minpiv.data_ptr(), grid, stream)
+                                 minpiv.data_ptr(), u.data_ptr(),
+                                 ctr.data_ptr(), stream)
     _build.check(lib, rc, "panel_trailing_fused")
     _build.LAUNCHES["panel_trailing_fused"] += 1
     perm_local = perm_from_inv(inv, chosen, kbrow, panel)
@@ -201,9 +303,9 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
     ``col0 + panel``, IN PLACE; returns ``block``. The same tile math as
     the fused kernel's trailing phase.
 
-    A CUDA tensor launches ``csrc/panel_fused.cu``'s trailing kernel (no
-    launch when nothing lies right of the panel) or raises; a CPU tensor
-    runs :func:`trailing_update_plain`."""
+    A CUDA tensor launches ``csrc/panel_fused.cu``'s trailing kernel, the
+    fused kernel's phase B on its own (no launch when nothing lies right of
+    the panel), or raises; a CPU tensor runs :func:`trailing_update_plain`."""
     panel = mult.shape[0]
     h, wtot = block.shape
     if col0 < 0 or col0 + panel > wtot:
@@ -233,13 +335,16 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
         return block
     mult = mult.to(torch.float32).contiguous()
     ipiv = ipiv.to(torch.int32).contiguous()
+    u, ctr = _trailing_scratch(panel, fused_geometry(h, wtot, panel, col0,
+                                                     fseg).chunks,
+                               block.device)
     lib = _build.library("panel_fused")
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream(block.device).cuda_stream
         rc = lib.gtt_trailing_update(block.data_ptr(), block.stride(0), h,
                                      wtot, col0, panel, fseg,
                                      mult.data_ptr(), ipiv.data_ptr(),
-                                     stream)
+                                     u.data_ptr(), ctr.data_ptr(), stream)
     _build.check(lib, rc, "trailing_update")
     _build.LAUNCHES["trailing_update"] += 1
     return block

@@ -12,7 +12,7 @@ from gauss_tpu.kernels import panel_fused_pallas as jpf
 from gauss_tpu.kernels.panel_pallas import panel_factor_pallas
 from gauss_tpu_torch.kernels import _build
 from gauss_tpu_torch.kernels import panel_fused as tpf
-from gauss_tpu_torch.kernels.panel import panel_factor
+from gauss_tpu_torch.kernels.panel import cluster_smem_bytes, panel_factor
 
 # Fused-vs-JAX tolerance (rtol = atol): the float-association difference
 # tests/test_fused.py allows between the fused kernel and XLA — here the
@@ -158,6 +158,53 @@ def test_bad_geometry_rejected():
         tpf.panel_trailing_fused(torch.zeros(32, 64), 0, 24, panel=16)
 
 
+@pytest.mark.parametrize("kb,grid", zip(range(0, 2048 - 256, 256),
+                                         (112, 112, 112, 112, 80, 48, 32)))
+def test_fused_geometry_main_path(kb, grid):
+    """The 7 fused launches of an n=2048 factorization: phase A on a
+    cluster of 16, and a grid of phase A's cluster plus a block per job,
+    at most the 7 clusters of 16 an H100 holds at once."""
+    h = 2048 - kb
+    g = tpf.fused_geometry(h, 2048, 256, kb)
+    assert g.grid == grid
+    assert (g.route, g.cluster, g.rows_per_block) == ("cluster", 16, h // 16)
+    assert g.chunks == (2048 - kb - 256) // 64 and g.row_tiles == h // 256
+    jobs = g.chunks * (1 + g.row_tiles)
+    assert g.grid == 16 * min(1 + -(-jobs // 16), 7)
+    assert tpf.fused_geometry(h, 2048, 256, kb, clusters=3).grid == 16 * min(
+        1 + -(-jobs // 16), 3)
+    assert g.smem_bytes == max(cluster_smem_bytes(h // 16, 256),
+                               tpf.trailing_smem_bytes(256, 32))
+    assert g.smem_bytes <= 232448
+
+
+def test_fused_geometry_one_block_route():
+    """A strip taller than a 16-block cluster holds: phase A on one block,
+    the grid one block per job up to one per SM."""
+    g = tpf.fused_geometry(4096, 4096, 256)
+    assert (g.route, g.cluster, g.rows_per_block) == ("block", 1, 4096)
+    assert (g.chunks, g.row_tiles, g.grid) == (60, 16, 132)
+    assert g.smem_bytes == tpf.trailing_smem_bytes(256, 32)
+    assert tpf.fused_geometry(3392, 3392, 256).route == "cluster"
+    assert tpf.fused_geometry(3393, 3393, 256).route == "block"
+
+
+def test_fused_geometry_ragged_and_empty_trailing():
+    g = tpf.fused_geometry(96, 96, 16, 32, fseg=16)
+    assert (g.chunks, g.row_tiles) == (1, 1)
+    g = tpf.fused_geometry(80, 80, 16, 64)
+    assert g.chunks == 0 and g.grid == g.cluster
+
+
+@pytest.mark.parametrize("h,wtot,panel,col0,fseg", [
+    (0, 64, 16, 0, 16), (64, 64, 16, 56, 16), (64, 64, 0, 0, 16),
+    (2048, 2048, 1025, 0, 16), (64, 64, 16, -1, 16), (64, 64, 16, 0, 0),
+    (64, 64, 16, 0, 65)])
+def test_fused_geometry_rejects_bad_shapes(h, wtot, panel, col0, fseg):
+    with pytest.raises(ValueError):
+        tpf.fused_geometry(h, wtot, panel, col0, fseg)
+
+
 def test_trailing_update_rejects_mismatched_eliminations():
     """The kernel reads mult as (panel, h) and panel pivot rows: other
     shapes are refused before any pointer is passed."""
@@ -179,16 +226,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_pair(orig, kb, panel, fseg=None):
+    """The unfused pair on the card: panel kernel + reconstruction +
+    trailing kernel."""
+    pair = orig.clone()
+    p, ipiv, perm, mp = panel_factor(pair[:, kb:kb + panel], 0)
+    mult, onehot = tpf.reconstruct_mult_pt(p, ipiv, perm, 0, panel)
+    tpf.trailing_update(pair, mult, onehot, kb, fseg=fseg)
+    return p, ipiv, perm, mp, pair, mult
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,wtot,kb,panel", [(2048, 2048, 0, 256),
-                                             (1024, 2048, 1024, 256),
-                                             (96, 96, 32, 16)])
-def test_kernels_match_plain_on_card(cuda_device, h, wtot, kb, panel):
+@pytest.mark.parametrize("h,wtot,kb,panel,route", [
+    (2048, 2048, 0, 256, "cluster"), (1024, 2048, 1024, 256, "cluster"),
+    (96, 96, 32, 16, "cluster"), (4096, 4096, 0, 256, "block")])
+def test_kernels_match_plain_on_card(cuda_device, h, wtot, kb, panel, route):
+    """Both phase-A routes against the plain version (pivots equal, values
+    within TOL, columns left of the panel's end untouched), and fused ==
+    pair bit for bit; one launch each."""
+    assert tpf.fused_geometry(h, wtot, panel, kb).route == route
     rng = np.random.default_rng(h + kb)
     orig = torch.as_tensor(rng.standard_normal((h, wtot)),
                            dtype=torch.float32, device=cuda_device)
+    _build.reset_launches()
     p, ipiv, perm, mp, upd = tpf.panel_trailing_fused(orig.clone(), kb, 0,
                                                       panel=panel)
+    assert _build.LAUNCHES["panel_trailing_fused"] == 1
     rp, ripiv, rperm, rmp, rupd = tpf.panel_trailing_fused_plain(
         orig.clone(), kb, 0, panel=panel)
     assert torch.equal(ipiv, ripiv) and torch.equal(perm, rperm)
@@ -196,8 +259,79 @@ def test_kernels_match_plain_on_card(cuda_device, h, wtot, kb, panel):
     assert float((upd - rupd).abs().max()) <= TOL * scale
     assert torch.equal(p, rp) and float(mp) == float(rmp)
     assert torch.equal(upd[:, :kb + panel], orig[:, :kb + panel])
-    pair = orig.clone()
-    p2, ipiv2, perm2, _ = panel_factor(pair[:, kb:kb + panel], 0)
-    mult, onehot = tpf.reconstruct_mult_pt(p2, ipiv2, perm2, 0, panel)
-    tpf.trailing_update(pair, mult, onehot, kb)
+    p2, ipiv2, _, mp2, pair, _ = _card_pair(orig, kb, panel)
     assert torch.equal(pair, upd) and torch.equal(p2, p)
+    assert torch.equal(ipiv2, ipiv) and float(mp2) == float(mp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,wtot,kb,panel,fseg", [
+    (300, 333, 5, 64, 8),     # ragged rows, a 13-column last chunk
+    (300, 333, 5, 64, 64),    # one segment of 64 (two lanes a warp row)
+    (200, 250, 0, 48, 32),    # a 16-wide last segment
+    (600, 900, 0, 320, 32)])  # more pivot rows than one 256-row B1 pass
+def test_ragged_shapes_and_segments_on_card(cuda_device, h, wtot, kb, panel,
+                                            fseg):
+    """Ragged tiles and chunks, odd segment widths and a panel wider than
+    a tile through B1/B2: the fused kernel within TOL of the plain version,
+    fused == pair bit for bit, and the trailing kernel within TOL of its
+    plain version on the same eliminations."""
+    rng = np.random.default_rng(h + wtot + fseg)
+    orig = torch.as_tensor(rng.standard_normal((h, wtot)),
+                           dtype=torch.float32, device=cuda_device)
+    p, ipiv, perm, mp, upd = tpf.panel_trailing_fused(orig.clone(), kb, 0,
+                                                      panel=panel, fseg=fseg)
+    _, ripiv, _, _, rupd = tpf.panel_trailing_fused_plain(
+        orig.clone(), kb, 0, panel=panel, fseg=fseg)
+    assert torch.equal(ipiv, ripiv)
+    scale = float(rupd.abs().max())
+    assert float((upd - rupd).abs().max()) <= TOL * scale
+    assert torch.equal(upd[:, :kb + panel], orig[:, :kb + panel])
+    p2, _, _, _, pair, mult = _card_pair(orig, kb, panel, fseg)
+    assert torch.equal(pair, upd) and torch.equal(p2, p)
+    plain = tpf.trailing_update_plain(orig.clone(), mult, ipiv, kb, fseg)
+    assert float((pair - plain).abs().max()) <= TOL * scale
+
+
+def _same_with_nan(a, b):
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0, a), torch.where(nan, 0, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", ["nan", "singular"])
+@pytest.mark.parametrize("h", [512, 4096])
+def test_poisoned_block_matches_pair_on_card(cuda_device, poison, h):
+    """A NaN in the panel, or a panel column of zeros (a zero pivot): the
+    fused kernel gives the pair's min |pivot| and the pair's NaN pattern,
+    its other values bit for bit, on both phase-A routes."""
+    kb, panel = 0, 256
+    rng = np.random.default_rng(7 + h)
+    a = rng.standard_normal((h, h)).astype(np.float32)
+    if poison == "nan":
+        a[h // 3, 5] = np.nan
+    else:
+        a[:, 17] = 0.0
+    orig = torch.as_tensor(a, device=cuda_device)
+    p, _, _, mp, upd = tpf.panel_trailing_fused(orig.clone(), kb, 0,
+                                                panel=panel)
+    p2, _, _, mp2, pair, _ = _card_pair(orig, kb, panel)
+    assert float(mp) == float(mp2) == 0.0
+    assert bool(torch.isnan(upd).any())
+    assert _same_with_nan(upd, pair) and _same_with_nan(p, p2)
+
+
+@pytest.mark.cuda
+def test_launch_info_matches_geometry_on_card(cuda_device):
+    """The C launcher's geometry is fused_geometry's, at the main path's
+    first and last shapes and the one-block route's tall strip, and the
+    card holds at least one such cluster or block."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for h, wtot, kb in ((2048, 2048, 0), (512, 2048, 1536),
+                        (4096, 4096, 0)):
+        info = tpf.fused_launch_info(h, wtot, 256, kb)
+        g = tpf.fused_geometry(h, wtot, 256, kb, sms=sms,
+                               clusters=info["fit"])
+        assert info["fit"] >= 1
+        assert {k: info[k] for k in g._fields} == g._asdict()

@@ -84,7 +84,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      launch count must equal what the iteration counts imply: CG
      ``iterations + 1`` per solve, BiCGStab ``2 * iterations + 1``, GMRES
      ``1 + cycles * (restart + 2)``; no other kernel runs on this path.
-5. The ``kernels`` JSON line, the card line, and the final
+5. Telemetry at n=2048, through the entry points with the obs flags:
+   (a) ``gauss_internal --verify --metrics-out --profile --phase-profile
+   --trace``: the stream holds the JAX package's spans (the port's warm-up
+   label, no XLA cost span) and a health event with a positive min
+   |pivot|, a growth factor and a residual under 1e-4; the port's
+   ``summarize`` renders it; the Chrome trace holds as many panel and
+   fused kernel events as the wrappers counted in the traced window, and
+   its device busy time is printed; one timed solve traced alone gives
+   device busy ms against host ms (the idle share). (b) ``Application
+   time`` without flags and with ``--metrics-out`` alone, in turns, three
+   each: both medians, and the same launches and residual in all six. (c)
+   ``lu_factor_blocked_phased`` == ``lu_factor_blocked_unrolled(
+   panel_impl="pallas")`` bit for bit, with the phase table. (d)
+   ``gauss_external --debug``, ``matmul`` (three engines, ``--trace``:
+   kernel events == launches) and the sparse check's smoke leg, each with
+   ``--metrics-out``: ``sparse.solves`` == the ``sparse_solve`` events,
+   and the SpMV launches their iteration counts imply. The run (a) is the
+   path's launch counts; a ``{"telemetry": ...}`` JSON line carries the
+   phase's figures.
+6. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -99,6 +118,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -150,6 +170,16 @@ SPARSE_NS = (100_000, 1_000_000)
 SPARSE_ELL_K = {100_000: 36, 1_000_000: 37}
 SPARSE_SMOKE_N = 640
 GATE = 1e-4
+# Device activity in a torch.profiler Chrome trace.
+TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The telemetry phase's spans of one --phase-profile --verify run of the
+# blocked backend: the JAX package's list, with the port's warm-up label
+# and without its XLA cost span.
+TELEMETRY_SPANS = {"setup_env", "initMatrix", "host_staging",
+                   "compile:cuda_blocked_warmup", "computeGauss",
+                   "health_monitors", "phase_profile", "pad_stage",
+                   "panel_factor", "pivot_apply", "trailing_update", "verify"}
+PHASES = ("pad_stage", "panel_factor", "pivot_apply", "trailing_update")
 
 
 def require(cond, msg: str) -> None:
@@ -1475,6 +1505,302 @@ def phase_sparse_path(spmv: dict, systems: dict):
     return launches
 
 
+def trace_device(path: str):
+    """``(kernel names, busy ms, span ms)`` of a Chrome trace: the names of
+    its kernel events, the length of the union of its device events'
+    intervals, and the time from the first device event's start to the
+    last one's end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in TRACE_DEVICE_CATS and e.get("ph") == "X"]
+    if not dev:
+        return [], 0.0, 0.0
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in dev)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    names = [e["name"] for e in dev if e["cat"] == "kernel"]
+    return names, busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+
+
+def read_stream(path: str):
+    """The events of one --metrics-out file (one run), its span names and
+    its counters."""
+    from gauss_tpu_torch import obs
+
+    events = obs.read_events(path)
+    require(len({ev["run"] for ev in events}) == 1,
+            f"{path}: expected one run")
+    spans = {ev["name"] for ev in events if ev["type"] == "span"}
+    counters = {ev["name"]: ev["value"] for ev in events
+                if ev["type"] == "metric" and ev["kind"] == "counter"}
+    return events, spans, counters
+
+
+def phase_telemetry(dat: str):
+    """The telemetry path (module docstring, phase 5): returns the launch
+    counts of the observed CLI run (a) and the figures the phase
+    measured."""
+    import statistics
+
+    import torch
+
+    from gauss_tpu_torch.cli import gauss_external, gauss_internal
+    from gauss_tpu_torch.cli import matmul as mm_cli
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.obs import summarize
+    from gauss_tpu_torch.sparse import check
+    from gauss_tpu_torch.utils import profiling
+    from gauss_tpu_torch.utils.device import as_tensor, resolve_device
+
+    on_card = DEVICE == "cuda"
+    work = os.path.join(REPO, "build", "chip_smoke", "telemetry")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    panel = blocked.auto_panel(N)
+    panels = -(-N // panel)
+    out = {"n": N, "panel": panel}
+    # The phase profile's panel kernel launches: one per strip, each on the
+    # route its height gives it.
+    phased_expect = {}
+    for kb in range(0, panels * panel, panel):
+        key = panel_launch_key(panels * panel - kb, panel)
+        phased_expect[key] = phased_expect.get(key, 0) + 1
+
+    # (a) One observed run through every telemetry flag.
+    metrics = os.path.join(work, "internal.jsonl")
+    tdir = os.path.join(work, "trace")
+    argv = ["-s", str(N), "--verify", "--metrics-out", metrics, "--profile",
+            "--phase-profile", "--trace", tdir, "--device", DEVICE]
+    print(f"phase 5: gauss_internal {' '.join(argv)}")
+    _build.reset_launches()
+    text = run_cli(gauss_internal, argv)
+    launches = dict(_build.LAUNCHES)
+    print(f"phase 5: launches {launches}")
+    require("Verification: solution pattern (-0.5, 0...0, 0.5) OK" in text,
+            "telemetry run: verification failed")
+    require("Solver phase profile (instrumented re-factorization):" in text,
+            "telemetry run: no phase table")
+    events, spans, _ = read_stream(metrics)
+    require(spans == TELEMETRY_SPANS, f"telemetry spans {sorted(spans)}, "
+            f"expected {sorted(TELEMETRY_SPANS)}")
+    (health,) = [ev for ev in events if ev["type"] == "health"]
+    require(health["backend"] == "cuda" and health["min_abs_pivot"] > 0
+            and health["growth_factor"] > 0 and health["residual"] < 1e-4,
+            f"telemetry health event {health}")
+    (compile_ev,) = [ev for ev in events if ev["type"] == "compile"]
+    require(compile_ev["label"] == "cuda_blocked_warmup",
+            f"compile event {compile_ev}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = summarize.main([metrics])
+    require(rc == 0 and "flat profile (leaf spans):" in buf.getvalue()
+            and "numerical health:" in buf.getvalue(),
+            f"summarize exited {rc}")
+    for line in buf.getvalue().strip().splitlines():
+        print(f"    | {line}")
+    # Launches: two factorizations in the traced solve (warm-up and timed:
+    # fused on every panel but the last), then the phase profile's panel
+    # kernel on every strip, outside the trace.
+    expect = {panel_launch_key(panel, panel): 2,
+              "panel_trailing_fused": 2 * (panels - 1)}
+    for key, count in phased_expect.items():
+        expect[key] = expect.get(key, 0) + count
+    for name, count in launches.items():
+        want = expect.get(name, 0) if on_card else 0
+        require(count == want, f"telemetry run: {name} launched {count} "
+                f"times, expected {want}")
+    (tfile,) = os.listdir(tdir)
+    kernels, busy_ms, span_ms = trace_device(os.path.join(tdir, tfile))
+    traced = {"panel_factor_cluster": "gtt_panel_cluster_kernel",
+              "panel_factor": "gtt_panel_factor_kernel",
+              "panel_trailing_fused": "gtt_fused_kernel"}
+    in_trace = {name: sum(1 for k in kernels if sym in k)
+                for name, sym in traced.items()}
+    # The phase profile ran after the trace closed.
+    want_trace = dict(launches)
+    for key, count in phased_expect.items():
+        want_trace[key] -= count if on_card else 0
+    names = {}
+    for k in kernels:
+        if "gtt_" in k:
+            names[k] = names.get(k, 0) + 1
+    print(f"phase 5: hand-written kernels in the trace: {names}")
+    require(not on_card or len(kernels) > 0, "the trace holds no kernel")
+    for name in traced:
+        require(in_trace[name] == want_trace[name], f"trace: {in_trace[name]}"
+                f" {name} kernel events, {want_trace[name]} launches in the "
+                f"traced window")
+    print(f"phase 5: trace {tfile}: {len(kernels)} kernel events "
+          f"({in_trace} of the hand-written kernels, as launched); device "
+          f"busy {busy_ms:.3f} ms over {span_ms:.3f} ms from first to last "
+          f"device event (warm-up, staging, timed solve, health monitors)")
+    out["cli_trace"] = {"kernel_events": len(kernels), "busy_ms": busy_ms,
+                        "device_span_ms": span_ms, "by_kernel": in_trace}
+
+    # One timed solve of the CLI (the same call) traced alone: its device
+    # busy time against its host wall.
+    dev = resolve_device(DEVICE)
+    a64, b64 = synthetic.internal_matrix(N), synthetic.internal_rhs(N)
+    a_dev, b_dev = as_tensor(a64, dev), as_tensor(b64, dev)
+
+    def timed_solve():
+        return blocked.solve_refined(a64, b64, a_dev=a_dev, b_dev=b_dev,
+                                     tol=1e-5)
+
+    timed_solve()
+    sync()
+    with profiling.trace(os.path.join(work, "solve_trace"), DEVICE) as tr:
+        t0 = time.perf_counter()
+        timed_solve()
+        sync()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy_ms, span_ms = trace_device(tr.path)
+    idle = 1.0 - busy_ms / host_ms
+    print(f"phase 5: one traced timed solve (n={N}): host {host_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({len(kernels)} kernels), idle "
+          f"share {idle:.4f}")
+    out["traced_solve"] = {"host_ms": host_ms, "busy_ms": busy_ms,
+                           "device_span_ms": span_ms, "idle_share": idle,
+                           "kernel_events": len(kernels)}
+
+    # (b) Application time without flags and with --metrics-out alone, in
+    # turns: the same launches, the same residual.
+    plain = ["-s", str(N), "--verify", "--device", DEVICE]
+    times = {"no flags": [], "--metrics-out": []}
+    seen = {}
+    for i in range(3):
+        for label, extra in (("no flags", []), ("--metrics-out", [
+                "--metrics-out", os.path.join(work, f"timed_{i}.jsonl")])):
+            _build.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = gauss_internal.main(plain + extra)
+            text = buf.getvalue()
+            require(rc == 0, f"{label} run exited {rc}")
+            times[label].append(float(re.search(
+                r"Application time: (\S+) Secs", text).group(1)))
+            residual = re.search(r"Residual \|\|Ax-b\|\|: (\S+)", text).group(1)
+            seen.setdefault((tuple(sorted(_build.LAUNCHES.items())),
+                             residual), []).append(label)
+    require(len(seen) == 1, f"observed and unobserved runs differ in "
+            f"launches or residual: {seen}")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"phase 5: Application time, median of 3 in turns: no flags "
+          f"{med['no flags']:f} s {times['no flags']}, --metrics-out "
+          f"{med['--metrics-out']:f} s {times['--metrics-out']}; launches "
+          f"and residual equal in all 6")
+    out["application_time_s"] = {"no_flags": times["no flags"],
+                                 "metrics_out": times["--metrics-out"],
+                                 "median_no_flags": med["no flags"],
+                                 "median_metrics_out": med["--metrics-out"]}
+    # The solve's host time outside the factorization, by span, from the
+    # last untraced observed run.
+    events, _, _ = read_stream(os.path.join(work, "timed_2.jsonl"))
+    spans_s = {}
+    for ev in events:
+        if ev["type"] == "span":
+            spans_s[ev["name"]] = spans_s.get(ev["name"], 0.0) + ev["dur_s"]
+    print(f"phase 5: spans of the last observed run, s: {spans_s}")
+    out["spans_s"] = spans_s
+
+    # (c) The phased factorization against the unrolled panel-kernel form,
+    # bit for bit, and its phase table (the second of two runs).
+    a = torch.as_tensor(np.random.default_rng(SEED).standard_normal((N, N)),
+                        dtype=torch.float32, device=dev)
+    blocked.lu_factor_blocked_phased(a, device=dev)
+    pt = profiling.PhaseTimer(emit=False)
+    _build.reset_launches()
+    fp = blocked.lu_factor_blocked_phased(a, timer=pt, device=dev)
+    phased_launches = dict(_build.LAUNCHES)
+    fu = blocked.lu_factor_blocked_unrolled(a, panel=panel,
+                                            panel_impl="pallas", device=dev)
+    sync()
+    for field, x, y in zip(fp._fields, fp, fu):
+        require(torch.equal(x, y), f"phased != unrolled pallas: {field}")
+    require(phased_launches == {k: phased_expect.get(k, 0) if on_card else 0
+                                for k in phased_launches},
+            f"phased launches {phased_launches}")
+    print(f"phase 5: lu_factor_blocked_phased == lu_factor_blocked_unrolled"
+          f"(panel_impl='pallas') bit for bit (m, perm, min_abs_pivot, linv, "
+          f"uinv) at n={N}, panel {panel}; launches {phased_expect}")
+    print(pt.report())
+    out["phase_s"] = {k: pt.seconds[k] for k in PHASES}
+    out["phase_share"] = {k: pt.seconds[k] / pt.total for k in PHASES}
+
+    # (d) The other CLIs, observed once each.
+    ext = os.path.join(work, "external.jsonl")
+    print(f"phase 5: gauss_external {dat} --debug --metrics-out {ext}")
+    text = run_cli(gauss_external, [dat, "--debug", "--metrics-out", ext,
+                                    "--device", DEVICE])
+    require("DEBUG: partial pivoting moved" in text, "external --debug line")
+    events, spans, _ = read_stream(ext)
+    require({"parse_dat", "manufacture_rhs", "verify", "computeGauss",
+             "compile:cuda_blocked_warmup"} <= spans, f"external {spans}")
+    errs = [ev["max_rel_error"] for ev in events
+            if ev["type"] == "health" and "max_rel_error" in ev]
+    require(len(errs) == 1 and errs[0] <= 1e-4, f"external errors {errs}")
+
+    mm = os.path.join(work, "matmul.jsonl")
+    mdir = os.path.join(work, "matmul_trace")
+    argv = [str(N), "--engines", "cuda,cuda-kernel,cuda-kernel-v1",
+            "--metrics-out", mm, "--trace", mdir, "--device", DEVICE]
+    print(f"phase 5: matmul {' '.join(argv)}")
+    _build.reset_launches()
+    run_cli(mm_cli, argv)
+    mm_launches = dict(_build.LAUNCHES)
+    events, spans, _ = read_stream(mm)
+    engines = ("cuda", "cuda-kernel", "cuda-kernel-v1")
+    require(spans == {"prepare_inputs", "verify"}
+            | {f"matmul:{e}" for e in engines}
+            | {f"compile:matmul_warmup:{e}" for e in engines},
+            f"matmul spans {spans}")
+    healths = [ev for ev in events if ev["type"] == "health"]
+    require(len(healths) == 3 and all(ev["verified"] for ev in healths),
+            f"matmul health {healths}")
+    (tfile,) = os.listdir(mdir)
+    kernels, _, _ = trace_device(os.path.join(mdir, tfile))
+    for name, sym in (("matmul_tiled", "gtt_matmul_tiled"),
+                      ("matmul_stripe", "gtt_matmul_stripe_kernel")):
+        got = sum(1 for k in kernels if sym in k)
+        require(got == mm_launches[name] == (2 if on_card else 0),
+                f"matmul trace: {got} {name} kernel events, "
+                f"{mm_launches[name]} launches")
+
+    sp = os.path.join(work, "sparse.jsonl")
+    repeats = 3
+    argv = ["--skip-giant", "--repeats", str(repeats), "--seed", str(SEED),
+            "--metrics-out", sp, "--device", DEVICE]
+    print(f"phase 5: sparse check {' '.join(argv)}")
+    _build.reset_launches()
+    run_cli(check, argv)
+    events, spans, counters = read_stream(sp)
+    solves = [ev for ev in events if ev["type"] == "sparse_solve"]
+    require(spans == {"sparse_check_smoke"}, f"sparse spans {spans}")
+    require(len(solves) == 3 * repeats and counters.get("sparse.solves")
+            == len(solves) and "sparse.stagnations" not in counters,
+            f"sparse counters {counters}, {len(solves)} sparse_solve events")
+    spmv = sum(krylov_launches(ev["method"], ev["iterations"])
+               for ev in solves)
+    require(_build.LAUNCHES["spmv_ell"] == (spmv if on_card else 0),
+            f"sparse: {_build.LAUNCHES['spmv_ell']} SpMV launches, the "
+            f"events' iteration counts imply {spmv}")
+    print(f"phase 5: sparse.solves {counters['sparse.solves']} == "
+          f"{len(solves)} sparse_solve events; {spmv} SpMV launches as the "
+          f"events' iteration counts imply")
+    print(json.dumps({"telemetry": out}))
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20,
@@ -1499,6 +1825,7 @@ def main(argv=None) -> int:
         require(counts["spmv_ell"] == 0, f"path {path} launched the SpMV "
                 f"kernel {counts['spmv_ell']} times")
     by_path["sparse"] = phase_sparse_path(spmv, systems)
+    by_path["telemetry"], tele = phase_telemetry(dat)
     # A kernel's launches: the sum over the main paths that run it.
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in blocked_launches}
@@ -1523,7 +1850,8 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "err")},
          "batched_solve_strips_ms": km["panel_batched_ms"],
          "batched_solve_strips_library_ms": km["panel_batched_library_ms"],
-         "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"]},
+         "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"],
+         "phase_profile_share": tele["phase_share"]},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",

@@ -13,7 +13,9 @@ matmul driver with a tiled and a row-stripe GEMM kernel. And the sparse
 Krylov plane (:mod:`.sparse`): CSR assembly from the coordinate stream, an
 ELL sparse matrix-vector kernel, CG / GMRES / BiCGStab in float64 with
 factor-based preconditioners, with the structure detector
-(:mod:`.structure`) and the tuning seeds (:mod:`.tune`) it reads.
+(:mod:`.structure`) and the tuning seeds (:mod:`.tune`) it reads. The
+telemetry core (:mod:`.obs`) records spans, counters and health monitors
+as JSONL under the CLIs' ``--metrics-out``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise RuntimeError.
@@ -22,11 +24,13 @@ The package imports torch and numpy only; importing it compiles nothing.
 
 The JAX package's top-level names ``eliminate``, ``back_substitute``,
 ``gauss_solve`` and ``matmul`` are re-exported here, loaded at first use
-so that ``import gauss_tpu_torch`` imports no torch; ``obs`` comes with
-the telemetry core.
+so that ``import gauss_tpu_torch`` imports no torch; ``obs`` is the
+telemetry core, which imports no torch either.
 """
 
 import importlib
+
+from gauss_tpu_torch import obs
 
 __version__ = "0.1.0"
 
@@ -34,7 +38,7 @@ _LAZY = {"eliminate": "gauss_tpu_torch.core.gauss",
          "back_substitute": "gauss_tpu_torch.core.gauss",
          "gauss_solve": "gauss_tpu_torch.core.gauss",
          "matmul": "gauss_tpu_torch.core.matmul"}
-__all__ = sorted(_LAZY)
+__all__ = sorted([*_LAZY, "obs"])
 
 
 def __getattr__(name):

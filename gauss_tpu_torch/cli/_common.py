@@ -22,15 +22,28 @@ same shape runs first (it builds the kernels at first use and initialises
 cuBLAS, so neither bills to the span), and the span ends with a device
 synchronize and a host fetch of the solution vector.
 
-Not ported yet: telemetry (``--metrics-out``), traces and profiles,
-multihost flags, and the native and distributed backends.
+Telemetry follows the JAX package too: under ``--metrics-out`` the
+staging (``host_staging``, ``host_staging_ds``), each warm-up (a
+``compile:<label>`` span and a ``compile`` event) and the health monitors
+(``health_monitors``) are spans, and the timed solve is recorded
+afterwards as ``computeGauss`` — no span opens inside it. Backend names in
+the stream are the port's (``cuda`` for ``tpu``, ``cuda[ds]`` for
+``tpu[ds]``). Without ``--metrics-out`` no recorder is active: the
+health reductions do not run, and a run launches, synchronizes and
+prints what it did before the telemetry existed.
+
+Not ported yet: multihost flags (and the per-process stream naming of
+``--metrics-out``), and the native and distributed backends.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from gauss_tpu_torch import obs
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 from gauss_tpu_torch.utils.timing import timed_fetch
 
@@ -65,11 +78,29 @@ def resolve_pivoting(pivoting: str | None, backend: str) -> str:
     return pivoting
 
 
+@contextlib.contextmanager
+def metrics_run(args, tool: str, **meta):
+    """The CLIs' ``obs.run`` wrapper. Yields ``(recorder,
+    stream_path)``: with ``args.metrics_out`` a recorder is active for the
+    block and flushed to that path at its end; without it, ``(None,
+    None)`` and no recorder, so every telemetry hook is a no-op (the JAX
+    package activates an in-memory recorder here; the port does not, so an
+    unobserved run reduces and synchronizes nothing for it). Single-process
+    only: the multihost stream naming comes with the distributed plane."""
+    path = getattr(args, "metrics_out", None)
+    if not path:
+        yield None, None
+        return
+    with obs.run(metrics_out=path, tool=tool, **meta) as rec:
+        yield rec, path
+
+
 def _stage(dev: torch.device, *arrays):
     """float32 copies on ``dev``, complete before any span opens."""
-    staged = [as_tensor(a, dev) for a in arrays]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with obs.span("host_staging"):
+        staged = [as_tensor(a, dev) for a in arrays]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return staged
 
 
@@ -77,43 +108,57 @@ def _solve_cuda_blocked(a64, b64, refine_iters, panel, refine_tol, dev):
     from gauss_tpu_torch.core import blocked
 
     n = len(b64)
+    holder = {}
     if refine_iters > 2 and n >= DS_ROUTE_MIN_N:
         # The whole refinement budget on the device with double-single
         # residuals; refine_tol does not apply (no host residual to test).
         from gauss_tpu_torch.core import dsfloat
 
         eye = np.eye(n)
-        x_w, _ = dsfloat.solve_once_ds(
-            _stage(dev, eye)[0], dsfloat.to_ds(eye.T, dev),
-            dsfloat.to_ds(np.zeros(n), dev), panel, iters=refine_iters)
-        dsfloat.ds_to_f64(x_w)
-        a_dev = _stage(dev, a64)[0]
-        at_ds = dsfloat.to_ds(np.asarray(a64, np.float64).T, dev)
-        b_ds = dsfloat.to_ds(np.asarray(b64, np.float64), dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with obs.compile_span("cuda_ds_warmup", n=n):
+            x_w, _ = dsfloat.solve_once_ds(
+                _stage(dev, eye)[0], dsfloat.to_ds(eye.T, dev),
+                dsfloat.to_ds(np.zeros(n), dev), panel, iters=refine_iters)
+            dsfloat.ds_to_f64(x_w)
+        with obs.span("host_staging_ds"):
+            a_dev = _stage(dev, a64)[0]
+            at_ds = dsfloat.to_ds(np.asarray(a64, np.float64).T, dev)
+            b_ds = dsfloat.to_ds(np.asarray(b64, np.float64), dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
         def _solve_ds():
-            x_ds, _ = dsfloat.solve_once_ds(a_dev, at_ds, b_ds, panel,
-                                            iters=refine_iters)
+            x_ds, holder["fac"] = dsfloat.solve_once_ds(
+                a_dev, at_ds, b_ds, panel, iters=refine_iters)
             return torch.stack([x_ds.hi, x_ds.lo])
 
         elapsed, hl = timed_fetch(_solve_ds)
-        return hl[0].astype(np.float64) + hl[1].astype(np.float64), elapsed
+        x = hl[0].astype(np.float64) + hl[1].astype(np.float64)
+        with obs.span("health_monitors"):
+            obs.record_solve_health(a=a64, x=x, b=b64,
+                                    factors=holder.get("fac"), n=n,
+                                    backend="cuda[ds]")
+        return x, elapsed
 
-    w_a, w_b = np.eye(n), np.zeros(n)
-    blocked.solve_refined(w_a, w_b, panel=panel, iters=refine_iters,
-                          a_dev=_stage(dev, w_a)[0],
-                          b_dev=_stage(dev, w_b)[0])
+    with obs.compile_span("cuda_blocked_warmup", n=n):
+        w_a, w_b = np.eye(n), np.zeros(n)
+        blocked.solve_refined(w_a, w_b, panel=panel, iters=refine_iters,
+                              a_dev=_stage(dev, w_a)[0],
+                              b_dev=_stage(dev, w_b)[0])
     a_dev, b_dev = _stage(dev, a64, b64)
 
+    # Only x leaves the span; the factors stay on the device in the holder
+    # for the health monitors below.
     def _solve():
-        x, _ = blocked.solve_refined(a64, b64, panel=panel,
-                                     iters=refine_iters, a_dev=a_dev,
-                                     b_dev=b_dev, tol=refine_tol)
+        x, holder["fac"] = blocked.solve_refined(
+            a64, b64, panel=panel, iters=refine_iters, a_dev=a_dev,
+            b_dev=b_dev, tol=refine_tol)
         return x
 
     elapsed, x = timed_fetch(_solve)
+    with obs.span("health_monitors"):
+        obs.record_solve_health(a=a64, x=x, b=b64, factors=holder.get("fac"),
+                                n=n, backend="cuda")
     return x, elapsed
 
 
@@ -121,8 +166,9 @@ def _solve_cuda_unblocked(a64, b64, pivoting, dev):
     from gauss_tpu_torch.core.gauss import gauss_solve
 
     n = len(b64)
-    gauss_solve(np.eye(n), np.zeros(n), pivoting=pivoting,
-                device=dev).cpu()  # warm-up at shape
+    with obs.compile_span("cuda_unblocked_warmup", n=n):
+        gauss_solve(np.eye(n), np.zeros(n), pivoting=pivoting,
+                    device=dev).cpu()  # warm-up at shape
     a_dev, b_dev = _stage(dev, a64, b64)
     elapsed, x = timed_fetch(
         lambda: gauss_solve(a_dev, b_dev, pivoting=pivoting, device=dev))
@@ -135,7 +181,9 @@ def _solve_cuda_rowelim(a64, b64, batched: bool, dev):
     solve = (rowelim.gauss_solve_rowelim_batched if batched
              else rowelim.gauss_solve_rowelim)
     n = len(b64)
-    solve(np.eye(n), np.zeros(n), device=dev).cpu()  # warm-up at shape
+    label = "cuda_rowelim_warmup" if batched else "cuda_rowelim_step_warmup"
+    with obs.compile_span(label, n=n):
+        solve(np.eye(n), np.zeros(n), device=dev).cpu()  # warm-up at shape
     a_dev, b_dev = _stage(dev, a64, b64)
     elapsed, x = timed_fetch(lambda: solve(a_dev, b_dev, device=dev))
     return np.asarray(x, np.float64), elapsed
@@ -170,4 +218,11 @@ def solve_with_backend(a64: np.ndarray, b64: np.ndarray, backend: str,
     else:
         raise ValueError(
             f"unknown backend {backend!r}; options: {GAUSS_BACKENDS}")
+    # Telemetry: the solve span (measured by each backend's protocol
+    # above) and, for the backends whose path did not record factor-level
+    # monitors, the generic solution-health event.
+    obs.record_span("computeGauss", elapsed, backend=backend)
+    if backend != "cuda" and obs.active() is not None:
+        with obs.span("health_monitors"):
+            obs.record_solve_health(a=a64, x=x, b=b64, backend=backend)
     return x, elapsed

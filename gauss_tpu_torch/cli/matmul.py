@@ -6,6 +6,7 @@ cuda_matmul.cu:104-187)::
 
     python -m gauss_tpu_torch.cli.matmul [nsize] [--engines E1,E2,...]
         [--precision highest|high|default] [--device cuda|cpu]
+        [--metrics-out PATH] [--trace DIR]
 
 It fills ``A[idx] = idx+1`` and ``B[idx] = 1/(idx+1)`` (default nsize
 1024), and per engine prints::
@@ -24,9 +25,16 @@ shape runs first (it builds the kernel and initialises cuBLAS); the timed
 span includes the host-to-device copy of A and B and the fetch of C, as
 the reference's does (cuda_matmul.cu:135-167).
 
+``--metrics-out`` records, as the JAX package does, the
+``prepare_inputs`` span, per engine a ``matmul_warmup:<engine>`` compile
+span, a ``verify`` span, the timed ``matmul:<engine>`` span (recorded
+after the run), a ``reported_time`` and a ``health`` event;
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the engines'
+runs into DIR.
+
 Not ported yet: the ``seq``/``omp`` engines wait for the native CPU
-engines, ``tpu-dist`` for the distributed plane, and ``--threads``,
-``--trace`` and ``--metrics-out`` for the telemetry core.
+engines (and ``--threads`` with them), ``tpu-dist`` for the distributed
+plane.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ from functools import partial
 
 import numpy as np
 
+from gauss_tpu_torch import obs
 from gauss_tpu_torch.cli import _common
+from gauss_tpu_torch.utils import profiling
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 from gauss_tpu_torch.utils.timing import timed_fetch
 from gauss_tpu_torch.verify import checks
@@ -67,7 +77,8 @@ def _engine_fn(engine: str, precision: str | None = None):
 
 def _run_device(a, b, engine: str, precision, dev):
     mm = _engine_fn(engine, precision)
-    mm(as_tensor(a, dev), as_tensor(b, dev)).cpu()  # warm-up at shape
+    with obs.compile_span(f"matmul_warmup:{engine}", n=a.shape[0]):
+        mm(as_tensor(a, dev), as_tensor(b, dev)).cpu()  # warm-up at shape
     elapsed, c = timed_fetch(
         lambda: mm(as_tensor(a, dev), as_tensor(b, dev)))
     return np.asarray(c, np.float64), elapsed
@@ -89,6 +100,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=_common.DEVICES, default="cuda",
                    help="cuda (default) or cpu (the kernels' plain "
                         "versions)")
+    p.add_argument("--trace", "--trace-dir", dest="trace", metavar="DIR",
+                   default=None,
+                   help="write a torch.profiler Chrome trace into DIR")
+    p.add_argument("--metrics-out", metavar="PATH", default=None,
+                   help="append this run's telemetry as JSONL to PATH; "
+                        "render with `python -m "
+                        "gauss_tpu_torch.obs.summarize`")
     args = p.parse_args(argv)
     n = args.nsize
     if n <= 0:
@@ -101,20 +119,34 @@ def main(argv=None) -> int:
               f"options: {_common.MATMUL_BACKENDS}", file=sys.stderr)
         return 1
     dev = resolve_device(args.device)
-
-    a, b = _inputs(n)
-    truth = a @ b  # float64 host truth for the epsilon comparator
-    scale = float(np.abs(truth).max())
-    failed = False
-    for engine in engines:
-        c, elapsed = _run_device(a, b, engine, args.precision, dev)
-        ok = checks.elementwise_match(c, truth,
-                                      epsilon=checks.EPSILON * scale)
-        gflops = 2.0 * n ** 3 / elapsed / 1e9
-        print(f"{LABELS[engine]} time: {elapsed:f} seconds "
-              f"({gflops:.1f} GFLOP/s) "
-              f"verify: {'OK' if ok else 'MISMATCH'}")
-        failed |= not ok
+    with _common.metrics_run(args, "matmul") as (rec, stream):
+        obs.emit("config", tool="matmul", n=n, engines=",".join(engines))
+        with obs.span("prepare_inputs"):
+            a, b = _inputs(n)
+            truth = a @ b  # float64 host truth for the epsilon comparator
+            scale = float(np.abs(truth).max())
+        failed = False
+        with profiling.trace(args.trace, dev):
+            for engine in engines:
+                c, elapsed = _run_device(a, b, engine, args.precision, dev)
+                with obs.span("verify"):
+                    ok = checks.elementwise_match(
+                        c, truth, epsilon=checks.EPSILON * scale)
+                label = LABELS[engine]
+                obs.record_span(f"matmul:{engine}", elapsed, backend=engine)
+                obs.emit("reported_time", name=f"{label} time",
+                         seconds=elapsed)
+                if obs.active() is not None:
+                    obs.emit("health", backend=engine, verified=ok,
+                             max_rel_diff=float(
+                                 np.max(np.abs(c - truth))) / scale)
+                gflops = 2.0 * n ** 3 / elapsed / 1e9
+                print(f"{label} time: {elapsed:f} seconds "
+                      f"({gflops:.1f} GFLOP/s) "
+                      f"verify: {'OK' if ok else 'MISMATCH'}")
+                failed |= not ok
+    if stream:
+        print(f"Metrics: run {rec.run_id} appended to {stream}")
     return 1 if failed else 0
 
 

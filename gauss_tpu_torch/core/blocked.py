@@ -24,6 +24,10 @@ Routes per panel (``panel_impl``):
 - ``"jax"`` — the stock swap-based panel (:func:`panel_factor_swap`) and
   torch GEMMs. The name is the JAX package's.
 
+:func:`lu_factor_blocked_phased` runs the ``"pallas"`` route with a
+synchronized telemetry span around each phase (the solver-phase profile of
+the CLIs' ``--phase-profile``).
+
 Deliberate deviations from the JAX package:
 
 - :func:`resolve_factor` returns the unrolled form for every n. The JAX
@@ -254,6 +258,75 @@ def _use_fused(panel_impl: str, panel: int, wtot: int) -> bool:
 PANEL_IMPLS = ("auto", "fused", "pallas", "jax")
 
 
+def _check_square(a, panel_impl: str, device):
+    if panel_impl not in PANEL_IMPLS:
+        raise ValueError(f"unknown panel_impl {panel_impl!r}; "
+                         f"options: {PANEL_IMPLS}")
+    dev = resolve_device(device)
+    a = as_tensor(a, dev)
+    n = a.shape[0]
+    if a.shape != (n, n):
+        raise ValueError(f"expected square matrix, got {tuple(a.shape)}")
+    return a, dev
+
+
+def _factor_panel(m: torch.Tensor, kb: int, panel: int, panel_impl: str):
+    """Factor the (live rows, panel) column block of ``m`` at column
+    ``kb``. On the fused route the kernel also updates the trailing
+    columns of the live rows of ``m`` in place. Returns ``(p, perm_local,
+    min_abs_pivot, fused)``: the factored panel in pivot order, the gather
+    indices of the live rows, and whether the trailing update is done.
+    Single source for the unrolled and phased factorizations."""
+    npad = m.shape[0]
+    live = m[kb:]
+    if _use_fused(panel_impl, panel, npad - kb):
+        # One launch: factor + U12 + trailing update; the trailing
+        # columns of `live` (a view of m) are updated in place.
+        p, _, perm_local, mp, _ = panel_trailing_fused(live, kb, 0,
+                                                       panel=panel)
+        return p, perm_local, mp, True
+    if panel_impl == "jax":
+        p, ipiv, mp = panel_factor_swap(live[:, kb:kb + panel], 0)
+        return p, _fold_transpositions(ipiv, npad - kb), mp, False
+    p, _, perm_local, mp = panel_factor(live[:, kb:kb + panel], 0)
+    return p, perm_local, mp, False
+
+
+def _apply_pivots(m: torch.Tensor, perm: torch.Tensor, kb: int,
+                  perm_local: torch.Tensor) -> torch.Tensor:
+    """Permute the live rows of ``m`` (the L multipliers left of the panel
+    move with their rows) into a new tensor, and ``perm`` with them, in
+    place. Returns the permuted live rows."""
+    perm[kb:] = perm[kb:][perm_local]
+    return m[kb:][perm_local]
+
+
+def _install_and_update(m: torch.Tensor, live: torch.Tensor, kb: int,
+                        panel: int, p: torch.Tensor, fused: bool,
+                        mode: str) -> torch.Tensor:
+    """Install the factored panel into the permuted live rows, compute the
+    L diagonal-block inverse, apply U12 = L11^-1 A12 and A22 -= L21 U12
+    unless the fused kernel did, and write the live rows back into ``m``.
+    Returns the L diagonal-block inverse."""
+    npad = m.shape[0]
+    live[:, kb:kb + panel] = p
+    linv = _diag_block_linv(live[:panel, kb:kb + panel])
+    if not fused and kb + panel < npad:
+        u12 = gdot(linv, live[:panel, kb + panel:], mode)
+        live[:panel, kb + panel:] = u12
+        live[panel:, kb + panel:] -= gdot(live[panel:, kb:kb + panel], u12,
+                                          mode)
+    m[kb:] = live
+    return linv
+
+
+def _uinvs(m: torch.Tensor, panel: int) -> torch.Tensor:
+    """The U diagonal-block inverses, only needed by lu_solve: one pass
+    over the finished diagonal blocks after the panel loop."""
+    return torch.stack([_diag_block_uinv(m[kb:kb + panel, kb:kb + panel])
+                        for kb in range(0, m.shape[0], panel)])
+
+
 def lu_factor_blocked_unrolled(a, panel: int | None = DEFAULT_PANEL,
                                panel_impl: str = "auto",
                                gemm_precision: str = "highest",
@@ -268,54 +341,71 @@ def lu_factor_blocked_unrolled(a, panel: int | None = DEFAULT_PANEL,
     of the ``pallas``/``jax`` routes ("highest" = true f32, "high" and
     "bf16x3" = the explicit bf16 split); the fused kernel runs its own
     f32 arithmetic."""
-    if panel_impl not in PANEL_IMPLS:
-        raise ValueError(f"unknown panel_impl {panel_impl!r}; "
-                         f"options: {PANEL_IMPLS}")
     mode = resolve_precision(gemm_precision, allow_split=True)
-    dev = resolve_device(device)
-    a = as_tensor(a, dev)
-    n = a.shape[0]
-    if a.shape != (n, n):
-        raise ValueError(f"expected square matrix, got {tuple(a.shape)}")
-    panel = _resolve_panel(n, panel)
+    a, dev = _check_square(a, panel_impl, device)
+    panel = _resolve_panel(a.shape[0], panel)
     m = _pad_to_panel(a, panel)
     npad = m.shape[0]
     perm = torch.arange(npad, device=dev)
     min_piv = torch.full((), float("inf"), device=dev)
     linvs = []
     for kb in range(0, npad, panel):
-        live = m[kb:]
-        if _use_fused(panel_impl, panel, npad - kb):
-            # One launch: factor + U12 + trailing update; the trailing
-            # columns of `live` (a view of m) are updated in place.
-            p, _, perm_local, mp, _ = panel_trailing_fused(
-                live, kb, 0, panel=panel)
-        elif panel_impl == "jax":
-            p, ipiv, mp = panel_factor_swap(live[:, kb:kb + panel], 0)
-            perm_local = _fold_transpositions(ipiv, npad - kb)
-        else:
-            p, _, perm_local, mp = panel_factor(live[:, kb:kb + panel], 0)
+        p, perm_local, mp, fused = _factor_panel(m, kb, panel, panel_impl)
         min_piv = torch.minimum(min_piv, mp)
-        # Permute the live rows (the L multipliers left of the panel move
-        # with their rows), install the factored panel.
-        live = live[perm_local]
-        perm[kb:] = perm[kb:][perm_local]
-        live[:, kb:kb + panel] = p
-        linv = _diag_block_linv(live[:panel, kb:kb + panel])
-        linvs.append(linv)
-        if (not _use_fused(panel_impl, panel, npad - kb)
-                and kb + panel < npad):
-            u12 = gdot(linv, live[:panel, kb + panel:], mode)
-            live[:panel, kb + panel:] = u12
-            live[panel:, kb + panel:] -= gdot(live[panel:, kb:kb + panel],
-                                              u12, mode)
-        m[kb:] = live
-    # The U diagonal-block inverses are only needed by lu_solve: one pass
-    # over the finished diagonal blocks after the loop.
-    uinvs = [_diag_block_uinv(m[kb:kb + panel, kb:kb + panel])
-             for kb in range(0, npad, panel)]
+        live = _apply_pivots(m, perm, kb, perm_local)
+        linvs.append(_install_and_update(m, live, kb, panel, p, fused, mode))
     return BlockedLU(m=m, perm=perm, min_abs_pivot=min_piv,
-                     linv=torch.stack(linvs), uinv=torch.stack(uinvs))
+                     linv=torch.stack(linvs), uinv=_uinvs(m, panel))
+
+
+def lu_factor_blocked_phased(a, panel: int | None = None,
+                             panel_impl: str = "auto",
+                             gemm_precision: str = "highest",
+                             timer=None, device=None) -> BlockedLU:
+    """Blocked LU with per-phase telemetry spans — the solver-phase profile
+    (the JAX package's ``lu_factor_blocked_phased``).
+
+    The panel loop of :func:`lu_factor_blocked_unrolled`, through the same
+    helpers, with a span around each phase (``pad_stage``, then per panel
+    ``panel_factor`` / ``pivot_apply`` / ``trailing_update``), each closed
+    after a synchronize of the card, reported through the PhaseTimer ->
+    obs bridge. ``"auto"`` and ``"fused"`` resolve to the panel kernel
+    (``"pallas"``), as in the JAX package, whose phased form never runs
+    the fused kernel: so the result equals
+    ``lu_factor_blocked_unrolled(..., panel_impl="pallas")`` bit for bit.
+    The synchronizes make this the diagnostic path; the phase RATIOS are
+    the payload.
+
+    ``timer``: an optional :class:`gauss_tpu_torch.utils.profiling.PhaseTimer`
+    to accumulate into (a private one is used otherwise)."""
+    from gauss_tpu_torch.utils.profiling import PhaseTimer
+
+    mode = resolve_precision(gemm_precision, allow_split=True)
+    a, dev = _check_square(a, panel_impl, device)
+    if panel_impl in ("auto", "fused"):
+        panel_impl = "pallas"
+    pt = PhaseTimer() if timer is None else timer
+    panel = _resolve_panel(a.shape[0], panel)
+    with pt.phase("pad_stage", block_on=a):
+        m = _pad_to_panel(a, panel)
+    npad = m.shape[0]
+    perm = torch.arange(npad, device=dev)
+    min_piv = torch.full((), float("inf"), device=dev)
+    linvs = []
+    for kb in range(0, npad, panel):
+        with pt.phase("panel_factor", block_on=m):
+            p, perm_local, mp, fused = _factor_panel(m, kb, panel,
+                                                     panel_impl)
+        min_piv = torch.minimum(min_piv, mp)
+        with pt.phase("pivot_apply", block_on=m):
+            live = _apply_pivots(m, perm, kb, perm_local)
+        with pt.phase("trailing_update", block_on=m):
+            linvs.append(_install_and_update(m, live, kb, panel, p, fused,
+                                             mode))
+    with pt.phase("trailing_update", block_on=m):
+        uinv = _uinvs(m, panel)
+    return BlockedLU(m=m, perm=perm, min_abs_pivot=min_piv,
+                     linv=torch.stack(linvs), uinv=uinv)
 
 
 def lu_solve(factors: BlockedLU, b, method: str = "auto") -> torch.Tensor:

@@ -26,10 +26,14 @@ Runs on ``cuda`` unless ``--device cpu`` is given. ``--summary-json``
 writes the per-method seconds-per-solve and iteration counts plus the
 giant leg's wall time and peak bytes (``kind: sparse_solve``).
 
+``--metrics-out PATH`` appends the run's ``obs`` stream: the
+``sparse_check_smoke`` and ``sparse_check_giant`` spans, a
+``sparse_solve`` event per solve and the ``sparse.solves`` counter.
+
 Not ported yet: the smoke leg's routed solve (``solve_auto`` picking the
 CG rung) waits for the structure router, so the ``routed`` line reports
-the detected class only; ``--metrics-out``, ``--history`` and
-``--regress-check`` wait for the ``obs`` core.
+the detected class only; ``--history`` and ``--regress-check`` wait for
+``obs.regress``.
 
 Exit status: 2 when any leg fails verification/classification/memory, 0
 otherwise.
@@ -225,6 +229,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "meaningful)")
     p.add_argument("--seed", type=int, default=258458)
     p.add_argument("--gate", type=float, default=1e-4)
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="append the run's obs JSONL stream here")
     p.add_argument("--summary-json", default=None, metavar="PATH",
                    help="write the summary (kind=sparse_solve)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -236,13 +242,20 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.cli._common import metrics_run
+
     t0 = time.perf_counter()
-    routed, methods = run_smoke(args.smoke_n, args.nnz_per_row, args.seed,
-                                args.gate, args.repeats, args.device)
-    giant = None
-    if not args.skip_giant:
-        giant = run_giant(args.giant_n, args.giant_nnz_per_row, args.seed,
-                          args.gate, args.device)
+    with metrics_run(args, "sparse_check", seed=args.seed):
+        with obs.span("sparse_check_smoke", n=args.smoke_n):
+            routed, methods = run_smoke(args.smoke_n, args.nnz_per_row,
+                                        args.seed, args.gate, args.repeats,
+                                        args.device)
+        giant = None
+        if not args.skip_giant:
+            with obs.span("sparse_check_giant", n=args.giant_n):
+                giant = run_giant(args.giant_n, args.giant_nnz_per_row,
+                                  args.seed, args.gate, args.device)
     wall = round(time.perf_counter() - t0, 3)
 
     bad: List[str] = []

@@ -13,9 +13,16 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 # Names whose modules are not ported yet, and the ROADMAP queue-1 item
 # that brings each.
-PENDING = {"gauss_tpu": {"obs": "item 2, the telemetry core"},
+_OBS_COST = "obs/compile's XLA cost half, which has no counterpart"
+PENDING = {"gauss_tpu.obs": {
+               "collective_budget": "item 12, dist/",
+               "compiled_collective_budget": "item 12, dist/",
+               "record_collective_budget": "item 12, dist/",
+               "cost_summary": _OBS_COST,
+               "record_cost": _OBS_COST,
+               "record_vmem_estimate": _OBS_COST},
            "gauss_tpu.structure": {"solve_auto": "item 9, the router"}}
-PACKAGES = ["", ".io", ".core", ".structure"]
+PACKAGES = ["", ".io", ".core", ".structure", ".obs"]
 
 
 def _reference_exports(pkg: str) -> set:
@@ -64,12 +71,14 @@ def test_core_matmul_is_the_function():
 
 def test_package_import_is_light():
     """``import gauss_tpu_torch`` loads no torch (the top-level names load
-    at first use), and the subpackage re-exports load no JAX and build no
-    kernel."""
+    at first use), nor does ``import gauss_tpu_torch.obs``, and the
+    subpackage re-exports load no JAX and build no kernel."""
     code = ("import sys\n"
             "import gauss_tpu_torch\n"
             "assert 'torch' not in sys.modules\n"
             "import gauss_tpu_torch.io, gauss_tpu_torch.structure\n"
+            "assert 'torch' not in sys.modules\n"
+            "import gauss_tpu_torch.obs\n"
             "assert 'torch' not in sys.modules\n"
             "gauss_tpu_torch.gauss_solve\n"
             "import gauss_tpu_torch.core\n"

@@ -103,7 +103,34 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and the SpMV launches their iteration counts imply. The run (a) is the
    path's launch counts; a ``{"telemetry": ...}`` JSON line carries the
    phase's figures.
-6. The ``kernels`` JSON line, the card line, and the final
+6. Large-n routes (the chunked and flat factor forms, ``resolve_factor``'s
+   size routing and ``solve_handoff``'s single-card lane):
+   (a) ``resolve_factor`` on the card picks the unrolled form at 4096,
+   chunk 4 at 8192 (panel 256) and chunk 8 at 12,800 (panel 128). (b)
+   The chunked form at n=1024, panel 128, chunk 2 and 3 (a ragged last
+   group), with every launch of the panel and fused kernels held against
+   its plain version on the same input (the panel bit for bit, the fused
+   kernel's block within TOL and bit for bit against the unfused pair):
+   the fused kernel on the group's strided live rows, the panel kernel on
+   each group's last panel; one fused launch with no trailing columns on a
+   strided view; the whole factor against the same call on the CPU
+   (``perm`` equal, ``m``/``linv``/``uinv`` within TOL_FACTOR of max |m|),
+   again with the strip form forced. (c) n=8192 and n=12,800 at full
+   size: launches by kernel and phase-A route against the form's plan, a
+   whole ``lu_factor_blocked_chunked`` call (CUDA events, median of 3)
+   beside ``torch.linalg.lu_factor`` on the same matrix, and one traced
+   call: each kernel's device ms, each one-block launch's ms by strip
+   height, device busy and idle share. (d) The counted path:
+   ``gauss_internal -s 8192 --verify``, ``solve_refined`` on the n=12,800
+   internal system, the flat form at n=2048 (``unroll=False`` through the
+   1e-4 gate; ``abft=True`` bit for bit equal to ``panel_impl="pallas"``
+   with every checksum entry under the JAX package's threshold;
+   ``zero_pivot_safe`` on a singular matrix: finite, min |pivot| 0), and
+   ``solve_handoff`` at n=2048 (its ``route`` event), with exact launch
+   counts; ``fits_single_chip`` at the card's budget, and the ``dist``
+   lane's typed error. A ``{"large_n": ...}`` JSON line carries the
+   phase's figures.
+7. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -180,6 +207,25 @@ TELEMETRY_SPANS = {"setup_env", "initMatrix", "host_staging",
                    "health_monitors", "phase_profile", "pad_stage",
                    "panel_factor", "pivot_apply", "trailing_update", "verify"}
 PHASES = ("pad_stage", "panel_factor", "pivot_apply", "trailing_update")
+# Phase 6. resolve_factor's picks on the card: (n, form, chunk, panel).
+ROUTES = ((4096, "unrolled", None, 256), (8192, "chunked", 4, 256),
+          (12800, "chunked", 8, 128))
+# The chunked form checked launch by launch: n, panel, the chunks (2:
+# even groups; 3: a ragged last group), and the strip height that forces
+# the deferred update's strip form (with its byte gate set to 0).
+CHUNK_CHECK = (1024, 128, (2, 3))
+CHUNK_CHECK_STRIP = 160
+# The full-size cells: (n, panel, chunk) as ROUTES gives them.
+LARGE_CELLS = ((8192, 256, 4), (12800, 128, 8))
+FLAT_N = 2048
+# Factor fields against the CPU: tests/test_torch_blocked.py's tolerance
+# for m, linv and uinv, relative to max |m|. At n=1024 it lies below the
+# float32 rounding of the factorization itself (the CPU's float32 factor
+# is 1.1e-4 to 1.6e-4 of max |m| from the float64 one with the same
+# pivots), so there the card's factor is held to the float64 factor:
+# no further from it than F64_RATIO times the CPU's float32 factor.
+TOL_FACTOR = 5e-5
+F64_RATIO = 2.0
 
 
 def require(cond, msg: str) -> None:
@@ -1726,7 +1772,8 @@ def phase_telemetry(dat: str):
                                             panel_impl="pallas", device=dev)
     sync()
     for field, x, y in zip(fp._fields, fp, fu):
-        require(torch.equal(x, y), f"phased != unrolled pallas: {field}")
+        require(x is y is None or torch.equal(x, y),
+                f"phased != unrolled pallas: {field}")
     require(phased_launches == {k: phased_expect.get(k, 0) if on_card else 0
                                 for k in phased_launches},
             f"phased launches {phased_launches}")
@@ -1801,6 +1848,452 @@ def phase_telemetry(dat: str):
     return launches, out
 
 
+def factor_plan(n: int, panel: int, chunk: int | None = None):
+    """The kernel launches of one ``"auto"`` factorization on the card, in
+    order, as ``(launch key, phase-A route, strip height)``: the chunked
+    form at ``chunk`` (the fused kernel on each panel with columns right of
+    it inside its group, the panel kernel on the group's last panel), or
+    with ``chunk=None`` the unrolled (and flat) form, one group of every
+    panel."""
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+
+    npad = -(-n // panel) * panel
+    nb = npad // panel
+    chunk = nb if chunk is None else chunk
+    plan = []
+    for g0 in range(0, nb, chunk):
+        gh = npad - g0 * panel
+        w = min(chunk, nb - g0) * panel
+        for kb in range(0, w, panel):
+            h = gh - kb
+            if panel >= 64 and w - kb > panel:
+                plan.append(("panel_trailing_fused",
+                             kf.fused_geometry(h, w, panel, kb).route, h))
+            else:
+                plan.append((panel_launch_key(h, panel),
+                             kp.panel_geometry(h, panel).route, h))
+    return plan
+
+
+def plan_counts(*plans) -> dict:
+    """Launches per key over the plans, every key of the counts present."""
+    from gauss_tpu_torch.kernels import _build
+
+    out = dict.fromkeys(_build.LAUNCHES, 0)
+    for plan in plans:
+        for key, _, _ in plan:
+            out[key] += 1
+    return out
+
+
+def route_counts(plan) -> dict:
+    out = {}
+    for key, route, _ in plan:
+        out[f"{key}/{route}"] = out.get(f"{key}/{route}", 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def checked_launches(seen: dict):
+    """Inside the block, every panel-kernel and fused-kernel launch that
+    ``core/blocked`` makes is held against the plain version on a copy of
+    its input: the panel kernel bit for bit; the fused kernel's panel,
+    pivots, permutation and min |pivot| bit for bit, its updated block
+    within TOL of the plain one and bit for bit equal to the unfused pair
+    (panel kernel + reconstruction + trailing kernel) on the same input.
+    ``seen`` counts the checked launches, the strided ones (leading
+    dimension above the width) and those with no trailing columns."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+
+    real_pf, real_fused = blocked.panel_factor, blocked.panel_trailing_fused
+
+    def note(kind, x, empty):
+        seen[kind] = seen.get(kind, 0) + 1
+        if x.stride(0) > x.shape[1]:
+            seen[kind + " strided"] = seen.get(kind + " strided", 0) + 1
+        if empty:
+            seen[kind + " no trailing"] = seen.get(kind + " no trailing",
+                                                   0) + 1
+
+    def panel_factor(p, kb=0, seg=None):
+        x = p.clone()
+        got = real_pf(p, kb, seg)
+        require(same_outputs(got, kp.panel_factor_plain(x, kb)),
+                f"panel kernel at {tuple(p.shape)} (ld {p.stride(0)}, "
+                f"kb={kb}) differs from the plain version")
+        note("panel", p, False)
+        return got
+
+    def fused(block, col0, kbrow, *, panel, **kw):
+        x = block.clone()
+        got = real_fused(block, col0, kbrow, panel=panel, **kw)
+        ref = kf.panel_trailing_fused_plain(x.clone(), col0, kbrow,
+                                            panel=panel)
+        where = (f"fused kernel at {tuple(block.shape)} (ld "
+                 f"{block.stride(0)}, col0={col0}, kbrow={kbrow})")
+        require(same_outputs(got[:4], ref[:4]),
+                f"{where}: panel or pivots differ from the plain version")
+        scale = float(ref[4].abs().max())
+        err = float((block - ref[4]).abs().max())
+        require(err <= TOL * scale, f"{where}: max |kernel - plain| {err} "
+                f"> {TOL} x {scale}")
+        pair = x.clone()
+        p2, ipiv2, perm2, _ = kp.panel_factor(pair[:, col0:col0 + panel],
+                                              kbrow)
+        mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, kbrow, panel)
+        kf.trailing_update(pair, mult, onehot, col0)
+        require(torch.equal(pair, block), f"{where}: != the unfused pair")
+        note("fused", block, col0 + panel == block.shape[1])
+        return got
+
+    blocked.panel_factor, blocked.panel_trailing_fused = panel_factor, fused
+    try:
+        yield fused
+    finally:
+        blocked.panel_factor = real_pf
+        blocked.panel_trailing_fused = real_fused
+
+
+def factor_err(f1, f2) -> float:
+    """``perm`` equal, then the largest of ``m``/``linv``/``uinv``'s max
+    |f1 - f2| over max |m|, on the CPU in float64."""
+    import torch
+
+    require(torch.equal(f1.perm.cpu(), f2.perm.cpu()), "perm differs")
+    scale = float(f2.m.abs().max())
+    return max(float((getattr(f1, f).cpu().double()
+                      - getattr(f2, f).cpu().double()).abs().max())
+               for f in ("m", "linv", "uinv")) / scale
+
+
+def chunked_f64(a, panel: int, chunk: int):
+    """The chunked factorization of ``a`` in float64 on the CPU: the same
+    group loop (``_factor_group``) and plain kernel versions, which are
+    dtype-generic."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+
+    n = a.shape[0]
+    npad = -(-n // panel) * panel
+    m = torch.eye(npad, dtype=torch.float64)
+    m[:n, :n] = torch.as_tensor(a, dtype=torch.float64)
+    perm = torch.arange(npad)
+    min_piv = torch.full((), float("inf"), dtype=torch.float64)
+    linvs, uinvs = [], []
+    for g0 in range(0, npad // panel, chunk):
+        m, perm, min_piv, li, ui = blocked._factor_group(
+            m, perm, min_piv, g0, panel, chunk, "auto", "f32")
+        linvs.append(li)
+        uinvs.append(ui)
+    return blocked.BlockedLU(m, perm, min_piv, torch.cat(linvs),
+                             torch.cat(uinvs))
+
+
+def trace_launches(fn, path: str):
+    """One traced call of ``fn``: its hand-written kernels in launch order
+    as ``(key, route, device ms)``, the device busy ms, and the call's host
+    ms (to a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kinds = (("gtt_fused_kernel<true>", "panel_trailing_fused", "cluster"),
+             ("gtt_fused_kernel<false>", "panel_trailing_fused", "block"),
+             ("gtt_panel_cluster_kernel", "panel_factor_cluster", "cluster"),
+             ("gtt_panel_factor_kernel", "panel_factor", "block"))
+    out = []
+    for e in sorted((e for e in events if e.get("cat") == "kernel"
+                     and e.get("ph") == "X"), key=lambda e: float(e["ts"])):
+        for sym, key, route in kinds:
+            if sym in e["name"]:
+                out.append((key, route, float(e.get("dur", 0)) / 1e3))
+    _, busy, _ = trace_device(path)
+    return out, busy, host_ms
+
+
+def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
+    """One full-size cell (module docstring, phase 6 (c))."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    on_card = DEVICE == "cuda"
+    a = torch.as_tensor(np.random.default_rng(SEED + n).standard_normal(
+        (n, n)), dtype=torch.float32, device=torch.device(DEVICE))
+
+    def call():
+        return blocked.lu_factor_blocked_chunked(a, panel=panel, chunk=chunk,
+                                                 device=DEVICE)
+
+    plan = factor_plan(n, panel, chunk)
+    _build.reset_launches()
+    fac = call()
+    sync()
+    want = plan_counts(plan) if on_card else plan_counts()
+    require(dict(_build.LAUNCHES) == want, f"n={n}: launches "
+            f"{dict(_build.LAUNCHES)}, the plan says {want}")
+    require(bool(torch.isfinite(fac.m).all()) and float(fac.min_abs_pivot)
+            > 0, f"n={n}: factor not finite or singular")
+    del fac
+    nb = -(-n // panel)
+    rec = {"n": n, "panel": panel, "chunk": chunk, "groups": -(-nb // chunk),
+           "launches": route_counts(plan),
+           "bound_ms": bound(8.0 * n * n, 2.0 * n ** 3 / 3)[0]}
+    if on_card:
+        rec["factor_ms"] = cuda_event_ms(call, 3, warmup=1)
+        with quiet_fd1():
+            rec["lu_factor_ms"] = cuda_event_ms(
+                lambda: torch.linalg.lu_factor(a), 3, warmup=1)
+        got, busy, host_ms = trace_launches(
+            call, os.path.join(work, f"factor_{n}.json"))
+        require([(k, r) for k, r, _ in got] == [(k, r) for k, r, _ in plan],
+                f"n={n}: the trace's kernels {[(k, r) for k, r, _ in got]} "
+                f"!= the plan")
+        dev_ms = {}
+        for (key, route, ms) in got:
+            dev_ms[f"{key}/{route}"] = dev_ms.get(f"{key}/{route}", 0.0) + ms
+        rec.update(
+            device_ms=dev_ms, busy_ms=busy, traced_host_ms=host_ms,
+            idle_share=1.0 - busy / host_ms,
+            other_device_ms=busy - sum(dev_ms.values()),
+            block_route_ms_by_height=[
+                [key, h, round(ms, 4)] for (key, route, h), (_, _, ms)
+                in zip(plan, got) if route == "block"])
+    print(f"phase 6: n={n}, panel {panel}, chunk {chunk} "
+          f"({rec['groups']} groups): launches {rec['launches']}"
+          + (f"; factor {rec['factor_ms']:.3f} ms (median of 3), "
+             f"lu_factor {rec['lu_factor_ms']:.3f} ms, bound "
+             f"{rec['bound_ms']:.3f} ms; traced call: kernels "
+             f"{ {k: round(v, 3) for k, v in rec['device_ms'].items()} } "
+             f"ms, other device work {rec['other_device_ms']:.3f} ms, busy "
+             f"{busy:.3f} of {host_ms:.3f} ms host (idle share "
+             f"{rec['idle_share']:.4f}); one-block launches [key, height, "
+             f"ms]: {rec['block_route_ms_by_height']}"
+             if on_card else "") + f" [{smi_line() if on_card else 'cpu'}]")
+    return rec
+
+
+def phase_large_n():
+    """The large-n routes (module docstring, phase 6): returns the launch
+    counts of the counted path (d) and the phase's figures."""
+    import torch
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.cli import gauss_internal
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.verify import checks
+
+    on_card = DEVICE == "cuda"
+    dev = torch.device(DEVICE)
+    card = smi_line() if on_card else "cpu"
+    work = os.path.join(REPO, "build", "chip_smoke", "large_n")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"card": card}
+
+    # (a) Routing, as the card sees it.
+    forms = {blocked.lu_factor_blocked_unrolled: "unrolled",
+             blocked.lu_factor_blocked_chunked: "chunked",
+             blocked.lu_factor_blocked: "flat"}
+    for n, form, chunk, panel in ROUTES:
+        f = blocked.resolve_factor(n, "auto", device="cuda")
+        got = (forms[getattr(f, "func", f)],
+               getattr(f, "keywords", {}).get("chunk", blocked.CHUNK_DEFAULT)
+               if form == "chunked" else None, blocked.auto_panel(n))
+        require(got == (form, chunk, panel), f"resolve_factor({n}) on the "
+                f"card: {got}, expected {(form, chunk, panel)}")
+        print(f"phase 6: resolve_factor({n}, 'auto') on the card: {form}"
+              + (f", chunk {chunk}" if chunk else "") + f", panel {panel}")
+
+    # (b) The chunked form launch by launch at CHUNK_CHECK, against the CPU.
+    n, panel, chunks = CHUNK_CHECK
+    a = np.random.default_rng(SEED).standard_normal((n, n)).astype(
+        np.float32)
+    seen = {}
+    errs = {}
+    for strip in (None, CHUNK_CHECK_STRIP):
+        saved = (blocked.GROUP_UPDATE_STRIP,
+                 blocked.GROUP_UPDATE_UNSTRIPPED_MAX_BYTES)
+        if strip:
+            blocked.GROUP_UPDATE_STRIP = strip
+            blocked.GROUP_UPDATE_UNSTRIPPED_MAX_BYTES = 0
+        try:
+            for chunk in chunks:
+                with checked_launches(seen):
+                    fg = blocked.lu_factor_blocked_chunked(
+                        a, panel=panel, chunk=chunk, device=DEVICE)
+                    sync()
+                fc = blocked.lu_factor_blocked_chunked(
+                    a, panel=panel, chunk=chunk, device="cpu")
+                f64 = chunked_f64(a, panel, chunk)
+                e = {"card_vs_cpu": factor_err(fg, fc),
+                     "cpu_vs_f64": factor_err(fc, f64),
+                     "card_vs_f64": factor_err(fg, f64)}
+                require(e["card_vs_f64"] <= max(TOL_FACTOR, F64_RATIO
+                                                * e["cpu_vs_f64"]),
+                        f"chunked n={n} chunk {chunk}"
+                        f"{' strip form' if strip else ''}: {e} (x max|m|)")
+                errs[f"chunk {chunk}" + (" strip" if strip else "")] = e
+        finally:
+            (blocked.GROUP_UPDATE_STRIP,
+             blocked.GROUP_UPDATE_UNSTRIPPED_MAX_BYTES) = saved
+    # One fused launch with no trailing columns, on a strided view.
+    full = torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (n, n)), dtype=torch.float32, device=dev)
+    with checked_launches(seen) as fused:
+        fused(full[panel:, panel:3 * panel], panel, 0, panel=panel)
+    # Both update forms ran every launch of each chunk's plan, plus the
+    # launch with no trailing columns.
+    plans = sum(len(factor_plan(n, panel, c)) for c in chunks)
+    require(seen.get("fused no trailing") == 1
+            and seen.get("fused strided") == seen.get("fused")
+            and seen["fused"] + seen.get("panel", 0) == 2 * plans + 1,
+            f"checked launches {seen}, plans {plans}")
+    out["chunk_check"] = {"n": n, "panel": panel, "launches": seen,
+                          "whole_factor": errs}
+    print(f"phase 6: chunked n={n}, panel {panel}, chunk {chunks}, unstripped "
+          f"and strip form ({CHUNK_CHECK_STRIP}-row strips): checked "
+          f"launches {seen}, each against its plain version; whole factor, "
+          f"x max|m| (perm equal throughout): {errs} [{card}]")
+
+    # (c) The full-size cells.
+    out["cells"] = [large_cell(n, p, c, work) for n, p, c in LARGE_CELLS]
+
+    # (d) The counted path.
+    (n8, p8, c8), (n12, p12, c12) = LARGE_CELLS
+    _build.reset_launches()
+    print(f"phase 6: gauss_internal -s {n8} --verify")
+    t0 = time.perf_counter()
+    text = run_cli(gauss_internal, ["-s", str(n8), "--verify", "--device",
+                                    DEVICE])
+    require("Verification: solution pattern (-0.5, 0...0, 0.5) OK" in text,
+            f"gauss_internal -s {n8}: verification failed")
+    res = float(re.search(r"Residual \|\|Ax-b\|\|: (\S+)", text).group(1))
+    require(res < GATE, f"gauss_internal -s {n8}: residual {res}")
+    out["internal"] = {"n": n8, "residual": res, "application_time_s": float(
+        re.search(r"Application time: (\S+) Secs", text).group(1)),
+        "wall_s": time.perf_counter() - t0}
+    print(f"phase 6: gauss_internal -s {n8}: Application time "
+          f"{out['internal']['application_time_s']} s, residual {res:.3e}, "
+          f"{out['internal']['wall_s']:.3f} s wall [{card}]")
+    a12, b12 = synthetic.internal_matrix(n12), synthetic.internal_rhs(n12)
+    t0 = time.perf_counter()
+    x, fac = blocked.solve_refined(a12, b12, device=DEVICE)
+    wall = time.perf_counter() - t0
+    res = checks.residual_norm(a12, x, b12)
+    require(checks.internal_pattern_ok(x, atol=1e-4) and res < GATE,
+            f"solve_refined n={n12}: residual {res}")
+    out["refined"] = {"n": n12, "residual": res, "wall_s": wall}
+    print(f"phase 6: solve_refined internal n={n12}: pattern OK, residual "
+          f"{res:.3e}, {wall:.3f} s wall [{card}]")
+    del a12, b12, x, fac
+    # The flat form at FLAT_N.
+    af, bf = synthetic.internal_matrix(FLAT_N), synthetic.internal_rhs(
+        FLAT_N)
+    x, fac = blocked.solve_refined(af, bf, unroll=False, device=DEVICE)
+    res = checks.residual_norm(af, x, bf)
+    require(checks.internal_pattern_ok(x, atol=1e-4) and res < GATE
+            and fac.abft_err is None, f"flat n={FLAT_N}: residual {res}")
+    ar = torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal(
+        (FLAT_N, FLAT_N)), dtype=torch.float32, device=dev)
+    fa = blocked.lu_factor_blocked(ar, panel=None, abft=True, device=DEVICE)
+    fp = blocked.lu_factor_blocked(ar, panel=None, panel_impl="pallas",
+                                   device=DEVICE)
+    require(same_outputs([fa.m, fa.perm, fa.linv, fa.uinv],
+                         [fp.m, fp.perm, fp.linv, fp.uinv]),
+            "abft=True != panel_impl='pallas' bit for bit")
+    tol = blocked.abft_default_tol(fa.m.shape[0], torch.float32,
+                                   float(ar.sum(0).abs().max()))
+    abft_max = float(fa.abft_err.max())
+    require(bool(torch.isfinite(fa.abft_err).all()) and abft_max < tol,
+            f"abft_err max {abft_max} >= {tol}")
+    sing = ar.clone()
+    sing[:, 7] = 0.0
+    sing[40] = sing[3]
+    fz = blocked.lu_factor_blocked(sing, panel=None, zero_pivot_safe=True,
+                                   device=DEVICE)
+    require(bool(torch.isfinite(fz.m).all()) and float(fz.min_abs_pivot)
+            == 0.0, "zero_pivot_safe: factor not finite or min |pivot| != 0")
+    out["flat"] = {"n": FLAT_N, "residual": res, "abft_err_max": abft_max,
+                   "abft_tol": tol}
+    print(f"phase 6: flat form n={FLAT_N}: unroll=False residual {res:.3e}; "
+          f"abft=True == pallas bit for bit, abft_err max {abft_max:.3e} < "
+          f"{tol:.3e} ({fa.abft_err.numel()} entries); zero_pivot_safe on a "
+          f"singular matrix: finite, min |pivot| 0 [{card}]")
+    # The handoff's single-card lane.
+    stream = os.path.join(work, "handoff.jsonl")
+    with obs.run(metrics_out=stream, tool="chip_smoke"):
+        xh = blocked.solve_handoff(af, bf, device=DEVICE)
+    (route,) = [ev for ev in obs.read_events(stream)
+                if ev["type"] == "route"]
+    budget = blocked.device_memory_budget(DEVICE)
+    require({k: route[k] for k in ("tool", "n", "lane", "est_bytes",
+                                   "budget", "itemsize")}
+            == {"tool": "solve_handoff", "n": FLAT_N, "lane": "single_chip",
+                "est_bytes": 3 * FLAT_N ** 2 * 4, "budget": budget,
+                "itemsize": 4} and checks.residual_norm(af, xh, bf) < GATE,
+            f"handoff route event {route}")
+    n_max = int((budget // 12) ** 0.5)
+    require(blocked.fits_single_chip(n_max, device=DEVICE)
+            and not blocked.fits_single_chip(n_max + 1, device=DEVICE),
+            f"fits_single_chip at n={n_max}")
+    try:
+        blocked.solve_handoff(af, bf, engine="dist")
+        require(False, "engine='dist' did not raise")
+    except blocked.LaneNotPortedError as e:
+        print(f"phase 6: solve_handoff engine='dist': {e}")
+    out["handoff"] = {"budget": budget, "largest_n": n_max}
+    print(f"phase 6: solve_handoff n={FLAT_N}: route {route['lane']}, "
+          f"est {route['est_bytes']} of budget {budget} B; fits_single_chip "
+          f"admits n up to {n_max} at float32 [{card}]")
+    launches = dict(_build.LAUNCHES)
+    unrolled = factor_plan(FLAT_N, blocked.auto_panel(FLAT_N))
+    # abft=True and its panel_impl="pallas" reference: the panel kernel
+    # on every panel (the unfused pair), twice.
+    fpanel = blocked.auto_panel(FLAT_N)
+    abft_plan = [(panel_launch_key(FLAT_N - kb, fpanel), None, FLAT_N - kb)
+                 for kb in range(0, FLAT_N, fpanel)]
+    want = (plan_counts(factor_plan(n8, p8, c8), factor_plan(n8, p8, c8),
+                        factor_plan(n12, p12, c12), unrolled, unrolled,
+                        abft_plan, abft_plan) if on_card else plan_counts())
+    print(f"phase 6: counted path launches {launches} [{card}]")
+    require(launches == want, f"large-n path: launches {launches}, the "
+            f"plans say {want}")
+    print(json.dumps({"large_n": out}))
+    return launches, out
+
+
+def large_n_summary(large: dict, key: str) -> dict:
+    """A kernel's launches by phase-A route and device ms in one
+    factorization of each full-size cell (phase 6)."""
+    out = {}
+    for cell in large["cells"]:
+        out[f"n={cell['n']}"] = {
+            k.split("/")[1]: {"launches": v, "device_ms": cell.get(
+                "device_ms", {}).get(k)}
+            for k, v in cell["launches"].items() if k.split("/")[0] == key}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20,
@@ -1826,6 +2319,7 @@ def main(argv=None) -> int:
                 f"kernel {counts['spmv_ell']} times")
     by_path["sparse"] = phase_sparse_path(spmv, systems)
     by_path["telemetry"], tele = phase_telemetry(dat)
+    by_path["large_n"], large = phase_large_n()
     # A kernel's launches: the sum over the main paths that run it.
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in blocked_launches}
@@ -1851,7 +2345,8 @@ def main(argv=None) -> int:
          "batched_solve_strips_ms": km["panel_batched_ms"],
          "batched_solve_strips_library_ms": km["panel_batched_library_ms"],
          "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"],
-         "phase_profile_share": tele["phase_share"]},
+         "phase_profile_share": tele["phase_share"],
+         "large_n": large_n_summary(large, "panel_factor_cluster")},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
@@ -1859,7 +2354,8 @@ def main(argv=None) -> int:
          "max_abs_err": block["err"], "ms": block["ms"],
          "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
          "bound_by": block["bound_by"], "library_ms": block["library_ms"],
-         "shape": f"({2 * N}, {PANEL}), taller than a cluster holds"},
+         "shape": f"({2 * N}, {PANEL}), taller than a cluster holds",
+         "large_n": large_n_summary(large, "panel_factor")},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
          "sources": [src + "panel_fused.cu", src + "panel_cluster.cuh",
@@ -1881,7 +2377,8 @@ def main(argv=None) -> int:
              key: k2["tall"]["fused"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "err")},
          "factorization_ms": k2["factorization_ms"],
-         "factorization_lu_factor_ms": k2["lu_factor_ms"]},
+         "factorization_lu_factor_ms": k2["lu_factor_ms"],
+         "large_n": large_n_summary(large, "panel_trailing_fused")},
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",

@@ -73,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _run(args) -> int:
     with obs.span("setup_env"):
-        resolve_device(args.device)
+        dev = resolve_device(args.device)
     try:
         with obs.span("parse_dat"):
             if args.debug:
@@ -98,7 +98,7 @@ def _run(args) -> int:
         x_true = synthetic.manufactured_solution(n)
         b = synthetic.manufactured_rhs(a, x_true)
     obs.emit("config", tool="gauss_external", n=n, backend=args.backend,
-             matrixfile=str(args.matrixfile))
+             device=dev.type, matrixfile=str(args.matrixfile))
     print(f"Matrix {args.matrixfile}: {n} x {n}, backend {args.backend}")
 
     with profiling.trace(args.trace, args.device):
@@ -114,8 +114,8 @@ def _run(args) -> int:
         # to <= 1 when n is not a panel multiple.
         from gauss_tpu_torch.core.blocked import resolve_factor
 
-        fac = resolve_factor(n, "auto")(a, panel=args.panel,
-                                        device=args.device)
+        fac = resolve_factor(n, "auto", device=args.device)(
+            a, panel=args.panel, device=args.device)
         perm = fac.perm[:n].cpu().numpy()
         moved = int((perm != np.arange(n)).sum())
         pivots = fac.m.diagonal()[:n].abs().cpu().numpy()

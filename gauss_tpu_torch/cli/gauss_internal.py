@@ -106,11 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _run(args) -> int:
     with obs.span("setup_env"):
-        resolve_device(args.device)
+        dev = resolve_device(args.device)
     n = positive_int_or_default(args.s, DEFAULT_N, "matrix size")
     t = positive_int_or_default(args.t, DEFAULT_THREADS, "thread count")
     obs.emit("config", tool="gauss_internal", n=n, threads=t,
-             backend=args.backend)
+             backend=args.backend, device=dev.type)
     print(f"Computing Gaussian elimination: size {n} x {n}, "
           f"backend {args.backend}, threads/shards {t}")
 

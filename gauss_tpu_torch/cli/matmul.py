@@ -120,7 +120,8 @@ def main(argv=None) -> int:
         return 1
     dev = resolve_device(args.device)
     with _common.metrics_run(args, "matmul") as (rec, stream):
-        obs.emit("config", tool="matmul", n=n, engines=",".join(engines))
+        obs.emit("config", tool="matmul", n=n, engines=",".join(engines),
+                 device=dev.type)
         with obs.span("prepare_inputs"):
             a, b = _inputs(n)
             truth = a @ b  # float64 host truth for the epsilon comparator

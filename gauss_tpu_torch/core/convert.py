@@ -23,9 +23,10 @@ from gauss_tpu_torch.utils.device import resolve_device
 
 
 def blocked_lu_from_numpy(m, perm, min_abs_pivot, linv=None, uinv=None,
-                          device=None) -> BlockedLU:
+                          abft_err=None, device=None) -> BlockedLU:
     """A port :class:`BlockedLU` on ``device`` (default ``cuda``) from
-    numpy arrays: float32 factor fields, int64 permutation."""
+    numpy arrays: float32 factor fields (``abft_err`` too), int64
+    permutation."""
     dev = resolve_device(device)
 
     def f32(x):
@@ -36,12 +37,12 @@ def blocked_lu_from_numpy(m, perm, min_abs_pivot, linv=None, uinv=None,
         m=f32(m),
         perm=torch.as_tensor(np.array(perm, np.int64), device=dev),
         min_abs_pivot=f32(np.asarray(min_abs_pivot).reshape(())),
-        linv=f32(linv), uinv=f32(uinv))
+        linv=f32(linv), uinv=f32(uinv), abft_err=f32(abft_err))
 
 
 def blocked_lu_to_numpy(fac) -> tuple:
-    """``(m, perm, min_abs_pivot, linv, uinv)`` as numpy arrays (None
-    where the factor has no inverses)."""
+    """``(m, perm, min_abs_pivot, linv, uinv, abft_err)`` as numpy arrays
+    (None where the factor has no inverses or no checksum record)."""
     def host(x):
         if x is None:
             return None
@@ -50,7 +51,8 @@ def blocked_lu_to_numpy(fac) -> tuple:
         return np.asarray(x)
 
     return (host(fac.m), host(fac.perm), host(fac.min_abs_pivot),
-            host(fac.linv), host(fac.uinv))
+            host(fac.linv), host(fac.uinv),
+            host(getattr(fac, "abft_err", None)))
 
 
 def ell_from_numpy(cols, vals, device=None, dtype=torch.float64):

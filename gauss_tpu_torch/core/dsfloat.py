@@ -178,14 +178,17 @@ DS_REFINE_STEPS = 6
 
 def solve_once_ds(a: torch.Tensor, at_ds: DS, b_ds: DS, panel: int | None,
                   iters: int = DS_REFINE_STEPS, unroll="auto",
-                  gemm_precision: str = "highest"):
+                  gemm_precision: str = "highest", donate: bool = False):
     """One f32 factor + solve + double-single refinement pass on ``a``'s
     device. ``a`` is the f32 matrix tensor (factor operand); ``at_ds`` /
-    ``b_ds`` the double-single transposed matrix and RHS. Returns
+    ``b_ds`` the double-single transposed matrix and RHS. ``donate``: the
+    factorization may take ``a`` in place (a caller that owns it; see
+    :func:`gauss_tpu_torch.core.blocked.resolve_factor`). Returns
     ``(x_ds, factors)``."""
     from gauss_tpu_torch.core import blocked
 
-    factor = blocked.resolve_factor(a.shape[0], unroll)
+    factor = blocked.resolve_factor(a.shape[0], unroll, donate=donate,
+                                    device=a.device)
     fac = factor(a, panel=panel, gemm_precision=gemm_precision,
                  device=a.device)
     x0 = blocked.lu_solve(fac, b_ds.hi)
@@ -196,11 +199,17 @@ def solve_ds(a, b, iters: int = DS_REFINE_STEPS, panel: int | None = None,
              unroll="auto", device=None):
     """Fully on-device mixed-precision solve: f32 blocked factorization +
     double-single refinement; returns ``(x_float64, factors)``."""
+    from gauss_tpu_torch.core.blocked import _resolve_panel
+
     dev = resolve_device(device)
     a64 = np.asarray(a, np.float64)
     b64 = np.asarray(b, np.float64)
+    n = len(b64)
+    # The f32 factor operand is staged here and dead after the factor:
+    # donate it where it needs no padding, as the JAX package does.
     x, fac = solve_once_ds(torch.as_tensor(a64, dtype=torch.float32,
                                            device=dev),
                            to_ds(a64.T, dev), to_ds(b64, dev), panel,
-                           iters=iters, unroll=unroll)
+                           iters=iters, unroll=unroll,
+                           donate=n % _resolve_panel(n, panel) == 0)
     return ds_to_f64(x), fac

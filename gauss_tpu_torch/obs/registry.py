@@ -43,9 +43,12 @@ ENV_FINGERPRINT_KEYS = ("host", "os_pid", "python", "torch", "cuda",
 
 def environment_fingerprint() -> Dict[str, Any]:
     """Where this run executed: hostname, interpreter, the torch and CUDA
-    versions and — when CUDA is ALREADY initialized in this process — the
-    card's name and the device count. Stamped into run_start at close so a
-    regression is attributable to an environment, not just a commit.
+    versions and the backend: ``"cuda"`` with the card's name and the
+    device count when CUDA is ALREADY initialized in this process, else
+    ``"cpu"`` (a run that never touched the card ran on the CPU, as the
+    JAX package stamps the platform it ran on). Stamped into run_start at
+    close so a regression is attributable to an environment, not just a
+    commit.
 
     Never initializes anything: torch is read only if already imported,
     and the device only if CUDA is initialized (probing would create a
@@ -62,6 +65,7 @@ def environment_fingerprint() -> Dict[str, Any]:
     fp["torch"] = getattr(torch, "__version__", None)
     fp["cuda"] = getattr(getattr(torch, "version", None), "cuda", None)
     if not torch.cuda.is_initialized():
+        fp["backend"] = "cpu"
         return fp
     fp.update(backend="cuda",
               device_kind=torch.cuda.get_device_name(0),
@@ -165,10 +169,13 @@ class Recorder:
         (the CLIs open the run before any CUDA call; by close, CUDA is
         initialized if the run touched the card)."""
         self.emit("run_end", wall_s=time.perf_counter() - self.t0)
-        start = self.events[0]
-        for k, v in environment_fingerprint().items():
-            if k not in start and v is not None:
-                start[k] = _jsonable(v)
+        try:
+            start = self.events[0]
+            for k, v in environment_fingerprint().items():
+                if k not in start and v is not None:
+                    start[k] = _jsonable(v)
+        except Exception:  # fingerprinting must never take down a run
+            pass
 
     def flush(self, path) -> int:
         """Append every event (+ registry summaries) to ``path`` as JSONL;

@@ -172,9 +172,17 @@ def test_auto_panel_and_resolve_factor():
         assert tb.auto_panel(n) == jb.auto_panel(n)
     assert tb.resolve_factor(2048, "auto") is tb.lu_factor_blocked_unrolled
     assert tb.resolve_factor(64, True) is tb.lu_factor_blocked_unrolled
-    for unroll in (False, "chunked"):
-        with pytest.raises(ValueError, match="not part"):
-            tb.resolve_factor(64, unroll)
+    # The flat and chunked forms are routes now: forced, and by size.
+    assert tb.resolve_factor(64, False) is tb.lu_factor_blocked
+    assert tb.resolve_factor(64, "chunked") is tb.lu_factor_blocked_chunked
+    assert tb.resolve_factor(64, "auto", device="cpu") is tb.lu_factor_blocked
+    assert tb.resolve_factor(64, "auto") is tb.lu_factor_blocked_unrolled
+    assert tb.resolve_factor(8192, "auto") is tb.lu_factor_blocked_chunked
+    f = tb.resolve_factor(12800, "auto", device="cpu")
+    assert f.func is tb.lu_factor_blocked_chunked and f.keywords == {
+        "chunk": 8}
+    with pytest.raises(ValueError, match="unknown unroll"):
+        tb.resolve_factor(64, "bogus")
     with pytest.raises(ValueError):
         tb.lu_factor_blocked_unrolled(np.eye(4), panel_impl="mosaic",
                                       device="cpu")

@@ -149,6 +149,31 @@ def test_matmul_stream_matches_jax(jax_streams, tmp_path):
 
 
 @pytest.mark.parametrize("key", ["internal", "external", "matmul"])
+def test_cpu_stream_says_cpu(jax_streams, tmp_path, key):
+    """A --device cpu stream records the device in its config event and
+    backend "cpu" in its fingerprint, and the run starts no CUDA
+    context."""
+    import torch
+
+    from gauss_tpu_torch.cli import gauss_external, gauss_internal, matmul
+
+    path = tmp_path / "c.jsonl"
+    main, argv = {
+        "internal": (gauss_internal.main, ["-s", "32", "--verify"]),
+        "external": (gauss_external.main, [str(jax_streams["dat"])]),
+        "matmul": (matmul.main, ["32"]),
+    }[key]
+    assert _run(main, [*argv, "--device", "cpu", "--metrics-out",
+                       str(path)])[0] == 0
+    events, _, _ = _stream(path)
+    (config,) = [ev for ev in events if ev["type"] == "config"]
+    assert config["device"] == "cpu"
+    assert events[0]["type"] == "run_start"
+    assert events[0]["backend"] == "cpu" and "device_kind" not in events[0]
+    assert not torch.cuda.is_initialized()
+
+
+@pytest.mark.parametrize("key", ["internal", "external", "matmul"])
 def test_both_summarizers_render_both_streams(jax_streams, tmp_path, key):
     """One stream, both summarizers: the same flat profile and health
     sections; each package's stream renders under the other's."""

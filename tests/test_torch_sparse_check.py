@@ -100,7 +100,7 @@ def test_check_giant_leg_line(monkeypatch):
     assert rc == 0 and giant[0].endswith("OK")
 
 
-def test_leg_rss_sees_what_the_block_adds(monkeypatch):
+def test_leg_rss_sees_what_the_block_adds():
     with check._LegRss(interval=0.001) as rss:
         block = np.ones(40_000_000)  # 320 MB, touched
         assert block.sum() == 40_000_000
@@ -110,8 +110,20 @@ def test_leg_rss_sees_what_the_block_adds(monkeypatch):
         pass
     assert idle.peak - idle.start < 50 << 20
     # A leg that adds more than the budget fails it, whatever it solves.
-    monkeypatch.setattr(check, "PEAK_BUDGET_BYTES", 1 << 20)
-    row = check.run_giant(60_000, 20, 258458, 1e-4, device="cpu")
+    # The leg runs in a fresh interpreter: in a worker whose heap already
+    # holds pages that earlier tests freed, the leg's allocations reuse
+    # them and its RSS growth does not show.
+    code = ("import json\n"
+            "from gauss_tpu_torch.sparse import check\n"
+            "check.PEAK_BUDGET_BYTES = 1 << 20\n"
+            "row = check.run_giant(60_000, 20, 258458, 1e-4, device='cpu')\n"
+            "print(json.dumps({k: row[k] for k in ('verified', "
+            "'host_added_bytes', 'no_densify_ok', 'peak_budget_bytes')}))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    row = json.loads(r.stdout.strip().splitlines()[-1])
+    assert row["peak_budget_bytes"] == 1 << 20
     assert row["verified"] and row["host_added_bytes"] > 1 << 20
     assert row["no_densify_ok"] is False
 

@@ -113,14 +113,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kernel's block within TOL and bit for bit against the unfused pair):
    the fused kernel on the group's strided live rows, the panel kernel on
    each group's last panel; one fused launch with no trailing columns on a
-   strided view; the whole factor against the same call on the CPU
-   (``perm`` equal, ``m``/``linv``/``uinv`` within TOL_FACTOR of max |m|),
-   again with the strip form forced. (c) n=8192 and n=12,800 at full
-   size: launches by kernel and phase-A route against the form's plan, a
-   whole ``lu_factor_blocked_chunked`` call (CUDA events, median of 3)
-   beside ``torch.linalg.lu_factor`` on the same matrix, and one traced
-   call: each kernel's device ms, each one-block launch's ms by strip
-   height, device busy and idle share. (d) The counted path:
+   strided view; the whole factor with the same pivots as the same call
+   on the CPU, and its ``m``/``linv``/``uinv`` no further from the
+   float64 factor with those pivots (``lu_f64``, numpy) than F64_RATIO
+   times the CPU's and than F64_CAP, in max |m| (TOL_FACTOR lies below
+   float32 rounding at this size), again with the strip form forced. (c)
+   n=8192 and n=12,800 at full size: launches by kernel and phase-A route
+   against the form's plan; every launch of one factorization held
+   against its plain version as in (b), the one-block routes on strided
+   group views among them; the factor's float64 backward error within
+   BACKWARD_RATIO of ``torch.linalg.lu_factor``'s; a whole
+   ``lu_factor_blocked_chunked`` call (CUDA events, median of 3) beside
+   ``lu_factor`` on the same matrix, and one traced call: each kernel's
+   device ms, each one-block launch's ms by strip height, device busy
+   and idle share. (d) The counted path:
    ``gauss_internal -s 8192 --verify``, ``solve_refined`` on the n=12,800
    internal system, the flat form at n=2048 (``unroll=False`` through the
    1e-4 gate; ``abft=True`` bit for bit equal to ``panel_impl="pallas"``
@@ -221,11 +227,17 @@ FLAT_N = 2048
 # Factor fields against the CPU: tests/test_torch_blocked.py's tolerance
 # for m, linv and uinv, relative to max |m|. At n=1024 it lies below the
 # float32 rounding of the factorization itself (the CPU's float32 factor
-# is 1.1e-4 to 1.6e-4 of max |m| from the float64 one with the same
-# pivots), so there the card's factor is held to the float64 factor:
-# no further from it than F64_RATIO times the CPU's float32 factor.
+# is 1.1e-4 to 1.6e-4 of max |m| from the float64 factor with the same
+# pivots, lu_f64), so there the card's factor is held to the float64
+# factor: no further from it than F64_RATIO times the CPU's float32
+# factor, and than F64_CAP.
 TOL_FACTOR = 5e-5
 F64_RATIO = 2.0
+F64_CAP = 4e-4
+# The full-size factors' float64 backward error ||A[perm] - LU||_F /
+# ||A||_F: at most BACKWARD_RATIO times torch.linalg.lu_factor's on the
+# same matrix.
+BACKWARD_RATIO = 4.0
 
 
 def require(cond, msg: str) -> None:
@@ -1903,7 +1915,8 @@ def checked_launches(seen: dict):
     within TOL of the plain one and bit for bit equal to the unfused pair
     (panel kernel + reconstruction + trailing kernel) on the same input.
     ``seen`` counts the checked launches, the strided ones (leading
-    dimension above the width) and those with no trailing columns."""
+    dimension above the width), those on phase A's one-block route and
+    those with no trailing columns."""
     import torch
 
     from gauss_tpu_torch.core import blocked
@@ -1912,13 +1925,13 @@ def checked_launches(seen: dict):
 
     real_pf, real_fused = blocked.panel_factor, blocked.panel_trailing_fused
 
-    def note(kind, x, empty):
-        seen[kind] = seen.get(kind, 0) + 1
-        if x.stride(0) > x.shape[1]:
-            seen[kind + " strided"] = seen.get(kind + " strided", 0) + 1
-        if empty:
-            seen[kind + " no trailing"] = seen.get(kind + " no trailing",
-                                                   0) + 1
+    def note(kind, x, route, empty):
+        for key, hit in ((kind, True),
+                         (kind + " strided", x.stride(0) > x.shape[1]),
+                         (kind + " one-block", route == "block"),
+                         (kind + " no trailing", empty)):
+            if hit:
+                seen[key] = seen.get(key, 0) + 1
 
     def panel_factor(p, kb=0, seg=None):
         x = p.clone()
@@ -1926,7 +1939,7 @@ def checked_launches(seen: dict):
         require(same_outputs(got, kp.panel_factor_plain(x, kb)),
                 f"panel kernel at {tuple(p.shape)} (ld {p.stride(0)}, "
                 f"kb={kb}) differs from the plain version")
-        note("panel", p, False)
+        note("panel", p, kp.panel_geometry(*p.shape).route, False)
         return got
 
     def fused(block, col0, kbrow, *, panel, **kw):
@@ -1948,7 +1961,9 @@ def checked_launches(seen: dict):
         mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, kbrow, panel)
         kf.trailing_update(pair, mult, onehot, col0)
         require(torch.equal(pair, block), f"{where}: != the unfused pair")
-        note("fused", block, col0 + panel == block.shape[1])
+        note("fused", block, kf.fused_geometry(*block.shape, panel,
+                                               col0).route,
+             col0 + panel == block.shape[1])
         return got
 
     blocked.panel_factor, blocked.panel_trailing_fused = panel_factor, fused
@@ -1971,28 +1986,60 @@ def factor_err(f1, f2) -> float:
                for f in ("m", "linv", "uinv")) / scale
 
 
-def chunked_f64(a, panel: int, chunk: int):
-    """The chunked factorization of ``a`` in float64 on the CPU: the same
-    group loop (``_factor_group``) and plain kernel versions, which are
-    dtype-generic."""
+def lu_f64(a, perm, panel: int):
+    """The reference for :func:`factor_err`: ``a`` identity-padded to a
+    multiple of ``panel``, its rows ordered by ``perm`` (the pivots of the
+    factor under test), factored without pivoting in float64 by numpy,
+    with the inverses of its diagonal blocks. Shares no code with the
+    port."""
     import torch
 
-    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.core.blocked import BlockedLU
 
     n = a.shape[0]
     npad = -(-n // panel) * panel
-    m = torch.eye(npad, dtype=torch.float64)
-    m[:n, :n] = torch.as_tensor(a, dtype=torch.float64)
-    perm = torch.arange(npad)
-    min_piv = torch.full((), float("inf"), dtype=torch.float64)
-    linvs, uinvs = [], []
-    for g0 in range(0, npad // panel, chunk):
-        m, perm, min_piv, li, ui = blocked._factor_group(
-            m, perm, min_piv, g0, panel, chunk, "auto", "f32")
-        linvs.append(li)
-        uinvs.append(ui)
-    return blocked.BlockedLU(m, perm, min_piv, torch.cat(linvs),
-                             torch.cat(uinvs))
+    m = np.eye(npad)
+    m[:n, :n] = np.asarray(a, dtype=np.float64)
+    m = m[np.asarray(perm.cpu())]
+    for k in range(npad - 1):
+        m[k + 1:, k] /= m[k, k]
+        m[k + 1:, k + 1:] -= np.outer(m[k + 1:, k], m[k, k + 1:])
+    low, up = np.tril(m, -1) + np.eye(npad), np.triu(m)
+
+    def inv(t):
+        return torch.as_tensor(np.stack(
+            [np.linalg.inv(t[k:k + panel, k:k + panel])
+             for k in range(0, npad, panel)]))
+
+    return BlockedLU(torch.as_tensor(m), perm.cpu(),
+                     torch.as_tensor(np.abs(np.diag(up)).min()), inv(low),
+                     inv(up))
+
+
+def backward_err(a, lu, perm) -> float:
+    """``||A[perm] - LU||_F / ||A||_F`` in float64 on ``a``'s device: ``lu``
+    the packed factor (L's multipliers below the diagonal, U on and
+    above), ``a`` identity-padded to its size."""
+    import torch
+
+    n, npad = a.shape[0], lu.shape[0]
+    eye = torch.eye(npad, dtype=torch.float64, device=a.device)
+    ap = eye.clone()
+    ap[:n, :n] = a
+    lu = lu.double()
+    r = ap[perm] - (torch.tril(lu, -1) + eye) @ torch.triu(lu)
+    return float(torch.linalg.norm(r) / torch.linalg.norm(ap))
+
+
+def lu_factor_perm(piv):
+    """The row order of ``torch.linalg.lu_factor``'s pivots (LAPACK's
+    1-based sequential exchanges)."""
+    import torch
+
+    perm = list(range(len(piv)))
+    for i, p in enumerate(piv.cpu().tolist()):
+        perm[i], perm[p - 1] = perm[p - 1], perm[i]
+    return torch.as_tensor(perm, device=piv.device)
 
 
 def trace_launches(fn, path: str):
@@ -2051,11 +2098,37 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
             f"{dict(_build.LAUNCHES)}, the plan says {want}")
     require(bool(torch.isfinite(fac.m).all()) and float(fac.min_abs_pivot)
             > 0, f"n={n}: factor not finite or singular")
-    del fac
     nb = -(-n // panel)
     rec = {"n": n, "panel": panel, "chunk": chunk, "groups": -(-nb // chunk),
            "launches": route_counts(plan),
-           "bound_ms": bound(8.0 * n * n, 2.0 * n ** 3 / 3)[0]}
+           "bound_ms": bound(8.0 * n * n, 2.0 * n ** 3 / 3)[0],
+           "backward_err": backward_err(a, fac.m, fac.perm)}
+    del fac
+    with quiet_fd1():
+        lu, piv = torch.linalg.lu_factor(a)
+    rec["lu_factor_backward_err"] = backward_err(a, lu, lu_factor_perm(piv))
+    del lu, piv
+    require(rec["backward_err"] <= BACKWARD_RATIO
+            * rec["lu_factor_backward_err"], f"n={n}: backward error "
+            f"{rec['backward_err']}, lu_factor's "
+            f"{rec['lu_factor_backward_err']}")
+    # Every launch at this cell's own shapes against its plain version.
+    seen = {}
+    with checked_launches(seen):
+        call()
+        sync()
+    fused = [r for k, r, _ in plan if k == "panel_trailing_fused"]
+    panels = [r for k, r, _ in plan if k != "panel_trailing_fused"]
+    # A group's block is a strided view of the matrix unless it is the
+    # whole matrix; a panel always is.
+    want = {"fused": len(fused),
+            "fused strided": len(fused) if rec["groups"] > 1 else 0,
+            "fused one-block": fused.count("block"), "panel": len(panels),
+            "panel strided": len(panels),
+            "panel one-block": panels.count("block")}
+    require(seen == {k: v for k, v in want.items() if v},
+            f"n={n}: checked launches {seen}, the plan gives {want}")
+    rec["checked_launches"] = seen
     if on_card:
         rec["factor_ms"] = cuda_event_ms(call, 3, warmup=1)
         with quiet_fd1():
@@ -2077,7 +2150,10 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
                 [key, h, round(ms, 4)] for (key, route, h), (_, _, ms)
                 in zip(plan, got) if route == "block"])
     print(f"phase 6: n={n}, panel {panel}, chunk {chunk} "
-          f"({rec['groups']} groups): launches {rec['launches']}"
+          f"({rec['groups']} groups): launches {rec['launches']}; every "
+          f"launch of one factorization against its plain version: {seen}; "
+          f"backward error {rec['backward_err']:.3e} (lu_factor "
+          f"{rec['lu_factor_backward_err']:.3e})"
           + (f"; factor {rec['factor_ms']:.3f} ms (median of 3), "
              f"lu_factor {rec['lu_factor_ms']:.3f} ms, bound "
              f"{rec['bound_ms']:.3f} ms; traced call: kernels "
@@ -2144,11 +2220,11 @@ def phase_large_n():
                     sync()
                 fc = blocked.lu_factor_blocked_chunked(
                     a, panel=panel, chunk=chunk, device="cpu")
-                f64 = chunked_f64(a, panel, chunk)
-                e = {"card_vs_cpu": factor_err(fg, fc),
-                     "cpu_vs_f64": factor_err(fc, f64),
-                     "card_vs_f64": factor_err(fg, f64)}
-                require(e["card_vs_f64"] <= max(TOL_FACTOR, F64_RATIO
+                e = {"card_vs_cpu": factor_err(fg, fc)}
+                f64 = lu_f64(a, fg.perm, panel)
+                e.update(cpu_vs_f64=factor_err(fc, f64),
+                         card_vs_f64=factor_err(fg, f64))
+                require(e["card_vs_f64"] <= min(F64_CAP, F64_RATIO
                                                 * e["cpu_vs_f64"]),
                         f"chunked n={n} chunk {chunk}"
                         f"{' strip form' if strip else ''}: {e} (x max|m|)")

@@ -82,6 +82,8 @@ Deliberate deviations from the JAX package:
 - The in-group fused launches take the group's live rows with ``kbrow =
   0``, where the JAX package passes the whole group with ``kbrow = kb``:
   the rows above are finished and no pivot comes from them either way.
+- ``swap_impl="loop"`` runs the folded gather: it gives the bits of the
+  JAX form's two-row exchange loop, which exists for its cost on a TPU.
 - float32 storage only; the lowered (bfloat16) factor comes later.
 """
 
@@ -510,21 +512,8 @@ def _check_lowered_support(gemm_precision: str, abft: bool) -> None:
             "or the rider at float32")
 
 
-def _swap_rows(m: torch.Tensor, perm: torch.Tensor, kb: int,
-               ipiv: torch.Tensor) -> torch.Tensor:
-    """``swap_impl="loop"``: replay the stock panel's two-row exchanges on
-    the rows of ``m`` (all columns) and on ``perm``, in place. Returns the
-    live rows (a view)."""
-    for j, r in enumerate(ipiv.tolist()):
-        if r != j:
-            a, b = kb + j, kb + r
-            m[[a, b]] = m[[b, a]]
-            perm[[a, b]] = perm[[b, a]]
-    return m[kb:]
-
-
 def _factor_panels(m: torch.Tensor, panel: int, panel_impl: str, mode: str,
-                   swap_impl: str = "gather", zero_pivot_safe: bool = False,
+                   zero_pivot_safe: bool = False,
                    abft: bool = False) -> BlockedLU:
     """The panel loop of the unrolled and flat forms on the padded ``m``
     (factored in place)."""
@@ -535,15 +524,9 @@ def _factor_panels(m: torch.Tensor, panel: int, panel_impl: str, mode: str,
     linvs, errs = [], []
     crow0 = crow = _csum_init(m) if abft else None
     for kb in range(0, npad, panel):
-        if swap_impl == "loop" and panel_impl == "jax":
-            p, ipiv, mp = panel_factor_swap(m[kb:, kb:kb + panel], 0,
-                                            zero_pivot_safe)
-            fused = False
-            live = _swap_rows(m, perm, kb, ipiv)
-        else:
-            p, perm_local, mp, fused = _factor_panel(
-                m, kb, panel, panel_impl, zero_pivot_safe, carried=abft)
-            live = _apply_pivots(m, perm, kb, perm_local)
+        p, perm_local, mp, fused = _factor_panel(
+            m, kb, panel, panel_impl, zero_pivot_safe, carried=abft)
+        live = _apply_pivots(m, perm, kb, perm_local)
         min_piv = torch.minimum(min_piv, mp)
         linvs.append(_install_and_update(m, live, kb, panel, p, fused, mode))
         if abft:
@@ -589,10 +572,10 @@ def lu_factor_blocked(a, panel: int | None = DEFAULT_PANEL,
     """The flat form (the JAX package's ``lu_factor_blocked``): the panel
     loop of :func:`lu_factor_blocked_unrolled` with the JAX form's options.
 
-    ``swap_impl``: ``"gather"`` applies each panel's pivots as one folded
-    gather; ``"loop"`` replays the stock panel's two-row exchanges (the
-    panel kernels emit a folded permutation, so "loop" changes nothing
-    on their routes). The two give the same bits.
+    ``swap_impl``: ``"gather"`` or ``"loop"``, validated as in the JAX
+    package; both apply each panel's pivots as one folded gather, which
+    gives the bits of the JAX form's two-row exchange loop (a choice of
+    TPU cost that eager PyTorch does not have).
     ``zero_pivot_safe``: an exactly-zero pivot eliminates nothing instead
     of NaN-poisoning the rows below it (``min_abs_pivot`` still records
     0): the stock panel (``"jax"``), which alone guards the division,
@@ -612,8 +595,8 @@ def lu_factor_blocked(a, panel: int | None = DEFAULT_PANEL,
     if zero_pivot_safe:
         panel_impl = "jax"
     return _factor_panels(_pad_to_panel(a, panel, donate), panel,
-                          panel_impl, mode, swap_impl=swap_impl,
-                          zero_pivot_safe=zero_pivot_safe, abft=abft)
+                          panel_impl, mode, zero_pivot_safe=zero_pivot_safe,
+                          abft=abft)
 
 
 def lu_factor_blocked_phased(a, panel: int | None = None,
@@ -946,7 +929,7 @@ def solve_refined(a, b, panel: int | None = None, iters: int = 2,
     b64 = np.asarray(b, dtype=np.float64)
     n = len(b64)
     dev = a_dev.device if a_dev is not None else resolve_device(device)
-    donate = a_dev is None and n % _resolve_panel(n, panel) == 0
+    donate = a_dev is None
     if a_dev is None:
         a_dev = as_tensor(a64, dev)
     if b_dev is None:

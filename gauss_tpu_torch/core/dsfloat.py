@@ -199,17 +199,14 @@ def solve_ds(a, b, iters: int = DS_REFINE_STEPS, panel: int | None = None,
              unroll="auto", device=None):
     """Fully on-device mixed-precision solve: f32 blocked factorization +
     double-single refinement; returns ``(x_float64, factors)``."""
-    from gauss_tpu_torch.core.blocked import _resolve_panel
-
     dev = resolve_device(device)
     a64 = np.asarray(a, np.float64)
     b64 = np.asarray(b, np.float64)
-    n = len(b64)
     # The f32 factor operand is staged here and dead after the factor:
-    # donate it where it needs no padding, as the JAX package does.
+    # donate it (factored in place where it needs no padding), as the JAX
+    # package does.
     x, fac = solve_once_ds(torch.as_tensor(a64, dtype=torch.float32,
                                            device=dev),
                            to_ds(a64.T, dev), to_ds(b64, dev), panel,
-                           iters=iters, unroll=unroll,
-                           donate=n % _resolve_panel(n, panel) == 0)
+                           iters=iters, unroll=unroll, donate=True)
     return ds_to_f64(x), fac

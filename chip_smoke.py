@@ -136,7 +136,33 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    counts; ``fits_single_chip`` at the card's budget, and the ``dist``
    lane's typed error. A ``{"large_n": ...}`` JSON line carries the
    phase's figures.
-7. The ``kernels`` JSON line, the card line, and the final
+7. The lowered-precision solve (``core/lowered``) on the bfloat16 forms
+   of kernels 1-3: (a) kernel 1 at bfloat16 bit for bit against its plain
+   version on the cluster route at (N, PANEL) and on the one-block route
+   at the first height past a bfloat16 cluster's reach (6,849 rows at
+   panel 256; the C launcher's ``panel_cluster_info`` printed beside the
+   Python rule), kernel 2 at (N, N) and on its one-block route, kernel 3
+   at (N, N), their blocks within TOL_BF16 and fused == pair bit for bit,
+   each timed (CUDA events, median of --reps) beside the float32 kernel
+   on the same input, the plain version and ``lu_factor`` on the float32
+   strip; (b) ``solve_lowered`` at N on the dominant system ``a + N I``,
+   each rung (``bfloat16``, ``bf16x3``, ``float32``): the factor's ms, the
+   refinement steps used, the relative residual (<= 1e-4), the call's
+   seconds and its launches against the plan; (c) each rung alone and
+   ``solve_lowered_auto`` on the internal system and the cond ~1e6 system
+   at N, the walk with a tune store written by the port's ``TuneStore``
+   (start bfloat16, 6 steps): the served dtype, the demotions (at least
+   one on the cond ~1e6 system), the answer verified; (d) the bfloat16
+   chunked form at LOWERED_CHECK with every launch against its plain
+   version and the factor against the float64 factor on its pivots
+   (``lu_f64``), then at n=8192 (``resolve_factor``'s chunked form):
+   every launch of one factorization against its plain version, launches
+   by phase-A route beside the float32 form's, one factorization (median
+   of 3) beside the float32 one and ``lu_factor``, one traced call, and
+   ``solve_lowered(dtype="bfloat16")`` through the 1e-4 gate. The counted
+   solves of (b)-(d) are the phase's launch counts; a ``{"lowered": ...}``
+   JSON line carries its figures.
+8. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -174,6 +200,12 @@ PEAK_BF16_FLOP_S = 989e12
 # SpMV kernel's float64 products and sums run there.
 PEAK_F64_FLOP_S = 34e12
 TOL = 5e-5  # relative to the operand's scale (f32 summation order)
+# A bfloat16 block of the fused and trailing kernels against the plain
+# version, relative to max |plain|: four bfloat16 ulps (2^-7 each) at that
+# scale. Both sum in float32 and round once per segment, in another order,
+# so a sum may round to the other bfloat16 neighbour, and such a flip in a
+# pivot row's U enters every later row through |m| <= 1, once per segment.
+TOL_BF16 = 4 * 2.0 ** -7
 # Kernel vs plain, relative to max |plain|: the matmul kernels' FMA chains
 # over K = 2048 against cuBLAS's blocked sums, and the rank-k update's over
 # k = 256.
@@ -238,6 +270,10 @@ F64_CAP = 4e-4
 # ||A||_F: at most BACKWARD_RATIO times torch.linalg.lu_factor's on the
 # same matrix.
 BACKWARD_RATIO = 4.0
+# Phase 7: the bfloat16 chunked form held to the float64 factor on its
+# pivots (n, panel, chunk), and the full-size cell resolve_factor picks.
+LOWERED_CHECK = (1024, 128, 2)
+LOWERED_LARGE = (8192, 256, 4)
 
 
 def require(cond, msg: str) -> None:
@@ -313,6 +349,16 @@ def quiet_fd1():
 
 def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / peak_flop_s
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def bound_bf16(nbytes: float, step_ops: float, gemm_ops: float):
+    """A bfloat16 kernel's bound: its bytes, or its operations, the step
+    loop's elementwise ones at the float32 CUDA-core rate (each rounds on
+    its own) and the trailing update's products at the bf16 tensor-core
+    rate, the larger."""
+    t_b = nbytes / PEAK_BYTES_S
+    t_f = step_ops / PEAK_F32_FLOP_S + gemm_ops / PEAK_BF16_FLOP_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -570,14 +616,15 @@ def same_outputs(got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def panel_launch_key(h: int, panel: int) -> str:
-    """The launch count that a panel factor of an (h, panel) strip adds
-    to: the route ``panel_geometry`` gives it."""
+def panel_launch_key(h: int, panel: int, itemsize: int = 4) -> str:
+    """The launch count that a panel factor of an (h, panel) strip of
+    ``itemsize``-byte words adds to: the route ``panel_geometry`` gives
+    it, with the bfloat16 forms' suffix at 2 bytes."""
     from gauss_tpu_torch.kernels import panel as kp
 
     return ("panel_factor_cluster"
-            if kp.panel_geometry(h, panel).route == "cluster"
-            else "panel_factor")
+            if kp.panel_geometry(h, panel, itemsize).route == "cluster"
+            else "panel_factor") + ("_bf16" if itemsize == 2 else "")
 
 
 def panel_bound(h: int, panel: int, kb: int = 0):
@@ -1563,15 +1610,17 @@ def phase_sparse_path(spmv: dict, systems: dict):
     return launches
 
 
-def trace_device(path: str):
+def trace_device(path: str, since: float = float("-inf")):
     """``(kernel names, busy ms, span ms)`` of a Chrome trace: the names of
     its kernel events, the length of the union of its device events'
     intervals, and the time from the first device event's start to the
-    last one's end."""
+    last one's end; only events that start at or after ``since`` (trace
+    microseconds) count."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     dev = [e for e in events
-           if e.get("cat") in TRACE_DEVICE_CATS and e.get("ph") == "X"]
+           if e.get("cat") in TRACE_DEVICE_CATS and e.get("ph") == "X"
+           and float(e["ts"]) >= since]
     if not dev:
         return [], 0.0, 0.0
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
@@ -1860,16 +1909,18 @@ def phase_telemetry(dat: str):
     return launches, out
 
 
-def factor_plan(n: int, panel: int, chunk: int | None = None):
+def factor_plan(n: int, panel: int, chunk: int | None = None,
+                itemsize: int = 4):
     """The kernel launches of one ``"auto"`` factorization on the card, in
     order, as ``(launch key, phase-A route, strip height)``: the chunked
     form at ``chunk`` (the fused kernel on each panel with columns right of
     it inside its group, the panel kernel on the group's last panel), or
     with ``chunk=None`` the unrolled (and flat) form, one group of every
-    panel."""
+    panel; ``itemsize`` 2 for the bfloat16 forms."""
     from gauss_tpu_torch.kernels import panel as kp
     from gauss_tpu_torch.kernels import panel_fused as kf
 
+    sfx = "_bf16" if itemsize == 2 else ""
     npad = -(-n // panel) * panel
     nb = npad // panel
     chunk = nb if chunk is None else chunk
@@ -1880,11 +1931,11 @@ def factor_plan(n: int, panel: int, chunk: int | None = None):
         for kb in range(0, w, panel):
             h = gh - kb
             if panel >= 64 and w - kb > panel:
-                plan.append(("panel_trailing_fused",
-                             kf.fused_geometry(h, w, panel, kb).route, h))
+                plan.append(("panel_trailing_fused" + sfx, kf.fused_geometry(
+                    h, w, panel, kb, itemsize=itemsize).route, h))
             else:
-                plan.append((panel_launch_key(h, panel),
-                             kp.panel_geometry(h, panel).route, h))
+                plan.append((panel_launch_key(h, panel, itemsize),
+                             kp.panel_geometry(h, panel, itemsize).route, h))
     return plan
 
 
@@ -1907,16 +1958,17 @@ def route_counts(plan) -> dict:
 
 
 @contextlib.contextmanager
-def checked_launches(seen: dict):
+def checked_launches(seen: dict, errs: dict | None = None):
     """Inside the block, every panel-kernel and fused-kernel launch that
     ``core/blocked`` makes is held against the plain version on a copy of
     its input: the panel kernel bit for bit; the fused kernel's panel,
     pivots, permutation and min |pivot| bit for bit, its updated block
-    within TOL of the plain one and bit for bit equal to the unfused pair
-    (panel kernel + reconstruction + trailing kernel) on the same input.
-    ``seen`` counts the checked launches, the strided ones (leading
-    dimension above the width), those on phase A's one-block route and
-    those with no trailing columns."""
+    within TOL (TOL_BF16 for a bfloat16 block) of the plain one and bit for
+    bit equal to the unfused pair (panel kernel + reconstruction + trailing
+    kernel) on the same input. ``seen`` counts the checked launches, the
+    strided ones (leading dimension above the width), those on phase A's
+    one-block route and those with no trailing columns; ``errs``, when
+    given, keeps the largest fused error over its scale by dtype."""
     import torch
 
     from gauss_tpu_torch.core import blocked
@@ -1939,7 +1991,8 @@ def checked_launches(seen: dict):
         require(same_outputs(got, kp.panel_factor_plain(x, kb)),
                 f"panel kernel at {tuple(p.shape)} (ld {p.stride(0)}, "
                 f"kb={kb}) differs from the plain version")
-        note("panel", p, kp.panel_geometry(*p.shape).route, False)
+        note("panel", p, kp.panel_geometry(*p.shape,
+                                           p.element_size()).route, False)
         return got
 
     def fused(block, col0, kbrow, *, panel, **kw):
@@ -1951,18 +2004,23 @@ def checked_launches(seen: dict):
                  f"{block.stride(0)}, col0={col0}, kbrow={kbrow})")
         require(same_outputs(got[:4], ref[:4]),
                 f"{where}: panel or pivots differ from the plain version")
-        scale = float(ref[4].abs().max())
-        err = float((block - ref[4]).abs().max())
-        require(err <= TOL * scale, f"{where}: max |kernel - plain| {err} "
-                f"> {TOL} x {scale}")
+        tol = TOL_BF16 if block.dtype == torch.bfloat16 else TOL
+        scale = float(ref[4].float().abs().max())
+        err = float((block.float() - ref[4].float()).abs().max())
+        require(err <= tol * scale, f"{where}: max |kernel - plain| {err} "
+                f"> {tol} x {scale}")
+        if errs is not None:
+            key = str(block.dtype).replace("torch.", "")
+            errs[key] = max(errs.get(key, 0.0), err / scale)
         pair = x.clone()
         p2, ipiv2, perm2, _ = kp.panel_factor(pair[:, col0:col0 + panel],
                                               kbrow)
         mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, kbrow, panel)
         kf.trailing_update(pair, mult, onehot, col0)
         require(torch.equal(pair, block), f"{where}: != the unfused pair")
-        note("fused", block, kf.fused_geometry(*block.shape, panel,
-                                               col0).route,
+        note("fused", block, kf.fused_geometry(
+            *block.shape, panel, col0,
+            itemsize=block.element_size()).route,
              col0 + panel == block.shape[1])
         return got
 
@@ -1984,6 +2042,20 @@ def factor_err(f1, f2) -> float:
     return max(float((getattr(f1, f).cpu().double()
                       - getattr(f2, f).cpu().double()).abs().max())
                for f in ("m", "linv", "uinv")) / scale
+
+
+def field_errs(f1, f2) -> dict:
+    """``perm`` equal, then for each of ``m``/``linv``/``uinv`` max |f1 -
+    f2| over max |f2| of that field, on the CPU in float64 (the bfloat16
+    check: its inverses carry their own scale)."""
+    import torch
+
+    require(torch.equal(f1.perm.cpu(), f2.perm.cpu()), "perm differs")
+    out = {}
+    for f in ("m", "linv", "uinv"):
+        x, y = (getattr(g, f).cpu().double() for g in (f1, f2))
+        out[f] = float((x - y).abs().max() / y.abs().max())
+    return out
 
 
 def lu_f64(a, perm, panel: int):
@@ -2042,16 +2114,42 @@ def lu_factor_perm(piv):
     return torch.as_tensor(perm, device=piv.device)
 
 
+# The hand-written panel kernels' trace names, demangled and mangled
+# (CUPTI may report either), with the launch key and phase-A route each
+# stands for.
+TRACE_KINDS = (
+    (("gtt_fused_kernel<true>", "gtt_fused_kernelILb1E"),
+     "panel_trailing_fused", "cluster"),
+    (("gtt_fused_kernel<false>", "gtt_fused_kernelILb0E"),
+     "panel_trailing_fused", "block"),
+    (("gtt_panel_cluster_kernel",), "panel_factor_cluster", "cluster"),
+    (("gtt_panel_factor_kernel",), "panel_factor", "block"),
+    (("gtt_fused_bf16_kernel<true>", "gtt_fused_bf16_kernelILb1E"),
+     "panel_trailing_fused_bf16", "cluster"),
+    (("gtt_fused_bf16_kernel<false>", "gtt_fused_bf16_kernelILb0E"),
+     "panel_trailing_fused_bf16", "block"),
+    (("gtt_panel_cluster_bf16_kernel",), "panel_factor_cluster_bf16",
+     "cluster"),
+    (("gtt_panel_factor_bf16_kernel",), "panel_factor_bf16", "block"))
+
+
 def trace_launches(fn, path: str):
     """One traced call of ``fn``: its hand-written kernels in launch order
     as ``(key, route, device ms)``, the device busy ms, and the call's host
-    ms (to a synchronize)."""
+    ms (to a synchronize). A spin kernel queued and finished inside the
+    profile before the call marks where the call's device work starts:
+    the first kernel recorded after the profiler starts can go missing
+    from the trace, and the marker takes that place."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     sync()
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
     with profile(activities=acts) as prof:
+        if DEVICE == "cuda":
+            torch.cuda._sleep(1 << 16)
+        sync()
         t0 = time.perf_counter()
         fn()
         sync()
@@ -2059,17 +2157,19 @@ def trace_launches(fn, path: str):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    kinds = (("gtt_fused_kernel<true>", "panel_trailing_fused", "cluster"),
-             ("gtt_fused_kernel<false>", "panel_trailing_fused", "block"),
-             ("gtt_panel_cluster_kernel", "panel_factor_cluster", "cluster"),
-             ("gtt_panel_factor_kernel", "panel_factor", "block"))
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and e.get("ph") == "X"), key=lambda e: float(e["ts"]))
+    marks = [float(e["ts"]) + float(e.get("dur", 0)) for e in kernels
+             if "spin" in e["name"]]
+    since = marks[-1] if marks else float("-inf")
     out = []
-    for e in sorted((e for e in events if e.get("cat") == "kernel"
-                     and e.get("ph") == "X"), key=lambda e: float(e["ts"])):
-        for sym, key, route in kinds:
-            if sym in e["name"]:
+    for e in kernels:
+        if float(e["ts"]) < since:
+            continue
+        for syms, key, route in TRACE_KINDS:
+            if any(sym in e["name"] for sym in syms):
                 out.append((key, route, float(e.get("dur", 0)) / 1e3))
-    _, busy, _ = trace_device(path)
+    _, busy, _ = trace_device(path, since)
     return out, busy, host_ms
 
 
@@ -2358,6 +2458,547 @@ def phase_large_n():
     return launches, out
 
 
+# --- Phase 7: the lowered-precision solve ------------------------------
+
+
+def bf16_reach(panel: int) -> int:
+    """The tallest strip a bfloat16 cluster holds at ``panel`` (the rule of
+    ``panel_geometry`` at 2 bytes a word)."""
+    from gauss_tpu_torch.kernels import panel as kp
+
+    lo, hi = 1, 1 << 17
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if kp.panel_geometry(mid, panel, 2).route == "cluster":
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def dominant_system(n: int, seed: int = SEED):
+    """The random dominant system ``a + n I`` and its right-hand side."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    a[np.arange(n), np.arange(n)] += float(n)
+    return a, rng.standard_normal(n)
+
+
+def ill_system(n: int, cond_exp: int = 6, seed: int = SEED):
+    """tests/test_lowered.py's symmetric system of condition ~10^cond_exp
+    (orthogonal Q from a QR of a random matrix, log-spaced spectrum)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    d = np.logspace(0, cond_exp, n)
+    return (q * d) @ q.T, rng.standard_normal(n)
+
+
+def lowered_panel_shape(reps: int, rng, h: int, reach: int) -> dict:
+    """Kernel 1's bfloat16 form at (h, PANEL) against its plain version
+    (bit for bit), with the C launcher's geometry beside the Python rule,
+    timed beside the float32 kernel on the same strip and
+    ``torch.linalg.lu_factor`` on the float32 strip."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    on_card = DEVICE == "cuda"
+    x32 = torch.as_tensor(rng.standard_normal((h, PANEL)),
+                          dtype=torch.float32, device=torch.device(DEVICE))
+    x = x32.to(torch.bfloat16)
+    geom = kp.panel_geometry(h, PANEL, 2)
+    key = panel_launch_key(h, PANEL, 2)
+    before = _build.LAUNCHES[key]
+    got = kp.panel_factor(x, 0)
+    ref = kp.panel_factor_plain(x, 0)
+    sync()
+    require(_build.LAUNCHES[key] == before + on_card,
+            f"bf16 panel_factor at ({h}, {PANEL}) did not launch {key}")
+    require(same_outputs(got, ref), f"{key} at ({h}, {PANEL}) differs from "
+            f"the plain version")
+    rule = f"rule {geom.route}, C={geom.cluster}, {geom.rows_per_block} rows"
+    if on_card:
+        for hh in sorted({h, reach}):
+            info = kp.panel_cluster_info(hh, PANEL, itemsize=2)
+            g = kp.panel_geometry(hh, PANEL, 2)
+            want = ((g.cluster, g.rows_per_block, g.smem_bytes)
+                    if g.route == "cluster" else (0, 0, 0))
+            require((info["cluster"], info["rows_per_block"],
+                     info["smem_bytes"]) == want,
+                    f"bf16 cluster info at ({hh}, {PANEL}): {info} != {g}")
+            rule += (f"; panel_cluster_info({hh}, {PANEL}, itemsize=2) "
+                     f"{info} beside panel_geometry {tuple(g)}")
+    rec = {"key": key, "route": geom.route, "err": float(
+        (got[0].float() - ref[0].float()).abs().max())}
+    plain_reps = max(3, reps // 4)
+    if on_card:
+        rec["ms"] = cuda_event_ms(lambda: kp.panel_factor(x, 0), reps)
+        rec["f32_ms"] = cuda_event_ms(lambda: kp.panel_factor(x32, 0), reps)
+        rec["plain_ms"] = cuda_event_ms(lambda: kp.panel_factor_plain(x, 0),
+                                        plain_reps)
+        with quiet_fd1():
+            rec["library_ms"] = cuda_event_ms(
+                lambda: torch.linalg.lu_factor(x32), reps)
+    b_ms, b_by = bound_bf16(2.0 * h * PANEL * 2 + 4 * PANEL + 8 * h + 2,
+                            panel_ops(h, PANEL, 0), 0.0)
+    rec.update(bound_ms=b_ms, bound_by=b_by)
+    print(f"phase 7: {key} ({h}, {PANEL}) bfloat16, {rule}: bit for bit"
+          + (f"; ms {rec['ms']:.4f} (float32 kernel on the same strip "
+             f"{rec['f32_ms']:.4f}), plain {rec['plain_ms']:.4f}, lu_factor "
+             f"(float32 strip) {rec['library_ms']:.4f}" if on_card else "")
+          + f", bound {b_ms:.5f} ({b_by})")
+    return rec
+
+
+def lowered_fused_shape(reps: int, rng, h: int, wtot: int) -> dict:
+    """Kernels 2 and 3 at bfloat16 on an (h, wtot) block, panel at column
+    0: the fused kernel's panel and pivots bit for bit and its block
+    within TOL_BF16 of the plain version, bit for bit equal to the unfused
+    pair; the trailing kernel within TOL_BF16 of its plain version; the C
+    launcher's geometry against ``fused_geometry``; each timed beside the
+    float32 kernel on the same block."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    on_card = DEVICE == "cuda"
+    dev = torch.device(DEVICE)
+    geom = kf.fused_geometry(h, wtot, PANEL, 0, itemsize=2)
+    where = f"{geom.route} route, grid {geom.grid}"
+    if on_card:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        info = kf.fused_launch_info(h, wtot, PANEL, 0, itemsize=2)
+        want = kf.fused_geometry(h, wtot, PANEL, 0, sms=sms,
+                                 clusters=info["fit"], itemsize=2)._asdict()
+        require({k: info[k] for k in want} == want and info["fit"] >= 1,
+                f"bf16 fused launch at ({h}, {wtot}): C launcher's geometry "
+                f"{info} != {want}")
+        where = f"{info['route']} route, grid {info['grid']}, {info['fit']} " \
+                f"{'clusters' if info['route'] == 'cluster' else 'blocks an SM'}" \
+                f" at once"
+    orig32 = torch.as_tensor(rng.standard_normal((h, wtot)),
+                             dtype=torch.float32, device=dev)
+    orig = orig32.to(torch.bfloat16)
+    work = orig.clone()
+    key = "panel_trailing_fused_bf16"
+    before = _build.LAUNCHES[key]
+    p, ipiv, perm, mp, upd = kf.panel_trailing_fused(work, 0, 0, panel=PANEL)
+    rp, ripiv, rperm, rmp, rupd = kf.panel_trailing_fused_plain(
+        orig.clone(), 0, 0, panel=PANEL)
+    sync()
+    require(_build.LAUNCHES[key] == before + on_card, f"one {key} launch")
+    require(same_outputs((p, ipiv, perm, mp), (rp, ripiv, rperm, rmp)),
+            f"bf16 fused at ({h}, {wtot}): panel or pivots differ from the "
+            f"plain version")
+    scale = float(rupd.float().abs().max())
+    err = float((upd.float() - rupd.float()).abs().max())
+    require(err <= TOL_BF16 * scale, f"bf16 fused at ({h}, {wtot}): max "
+            f"|kernel - plain| {err} > {TOL_BF16} x {scale}")
+    pair = orig.clone()
+    p2, ipiv2, perm2, _ = kp.panel_factor(pair[:, :PANEL], 0)
+    mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, 0, PANEL)
+    kf.trailing_update(pair, mult, onehot, 0)
+    plain_pair = orig.clone()
+    kf.trailing_update_plain(plain_pair, mult, ipiv2, 0, kf.FUSED_FSEG_SEED)
+    sync()
+    require(torch.equal(pair, upd), f"bf16 fused != pair at ({h}, {wtot})")
+    err3 = float((pair.float() - plain_pair.float()).abs().max())
+    require(err3 <= TOL_BF16 * scale, f"bf16 trailing at ({h}, {wtot}): max "
+            f"|kernel - plain| {err3} > {TOL_BF16} x {scale}")
+    ncols = wtot - PANEL
+    f3 = trailing_ops(h, 0, PANEL, ncols)
+    b2 = bound_bf16(4.0 * h * wtot + 2 * PANEL + 8 * h + 2,
+                    panel_ops(h, PANEL, 0), f3)
+    b3 = bound_bf16(2.0 * h * ncols * 2 + 2.0 * PANEL * h + 4 * PANEL, 0.0,
+                    f3)
+    rec = {"route": geom.route, "err": err, "err3": err3,
+           "err_rel": err / scale, "err3_rel": err3 / scale,
+           "bound_ms": b2[0], "bound_by": b2[1], "bound3_ms": b3[0],
+           "bound3_by": b3[1]}
+    if on_card:
+        w32 = orig32.clone()
+
+        def reset():
+            work.copy_(orig)
+
+        def reset32():
+            w32.copy_(orig32)
+
+        plain_reps = max(3, reps // 4)
+        rec["ms"] = cuda_event_ms(lambda: kf.panel_trailing_fused(
+            work, 0, 0, panel=PANEL), reps, setup=reset)
+        rec["f32_ms"] = cuda_event_ms(lambda: kf.panel_trailing_fused(
+            w32, 0, 0, panel=PANEL), reps, setup=reset32)
+        rec["plain_ms"] = cuda_event_ms(lambda: kf.panel_trailing_fused_plain(
+            work, 0, 0, panel=PANEL), plain_reps, setup=reset)
+        rec["ms3"] = cuda_event_ms(lambda: kf.trailing_update(
+            work, mult, ipiv2, 0), reps, setup=reset)
+        m32 = mult.float()
+        rec["f32_ms3"] = cuda_event_ms(lambda: kf.trailing_update(
+            w32, m32, ipiv2, 0), reps, setup=reset32)
+        rec["plain_ms3"] = cuda_event_ms(lambda: kf.trailing_update_plain(
+            work, mult, ipiv2, 0, kf.FUSED_FSEG_SEED), plain_reps,
+            setup=reset)
+    print(f"phase 7: panel_trailing_fused_bf16 ({h}, {wtot}), {where}: "
+          f"panel bit for bit, block max |kernel - plain| {err / scale:.3e} "
+          f"of its scale, == pair bit for bit; trailing_update_bf16 "
+          f"{err3 / scale:.3e}"
+          + (f"; ms {rec['ms']:.4f} (float32 {rec['f32_ms']:.4f}), plain "
+             f"{rec['plain_ms']:.4f}; trailing ms {rec['ms3']:.4f} (float32 "
+             f"{rec['f32_ms3']:.4f}), plain {rec['plain_ms3']:.4f}"
+             if on_card else "")
+          + f"; bound {b2[0]:.5f} ({b2[1]}), trailing {b3[0]:.5f} "
+          f"({b3[1]})")
+    return rec
+
+
+def one_block_figures(reps: int, rng) -> dict:
+    """Kernels 1 and 2 at the n=8192 chunked form's tallest one-block
+    launches, at both dtypes: kernel 1 on the (7424, 256) strip (the first
+    group's last panel) beside ``lu_factor`` on the float32 strip, kernel
+    2 on the (8192, 1024) group block (the first group's first panel);
+    each with its bound (bytes at the dtype's itemsize)."""
+    import torch
+
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    dev = torch.device(DEVICE)
+    hp, (hf, wf) = 7424, (8192, 4 * PANEL)
+    strip = torch.as_tensor(rng.standard_normal((hp, PANEL)),
+                            dtype=torch.float32, device=dev)
+    block = torch.as_tensor(rng.standard_normal((hf, wf)),
+                            dtype=torch.float32, device=dev)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16",
+                                                  torch.bfloat16)):
+        x, blk = strip.to(dt), block.to(dt)
+        work = blk.clone()
+        isz = x.element_size()
+        f2 = trailing_ops(hf, 0, PANEL, wf - PANEL)
+        rec = {"panel_route": kp.panel_geometry(hp, PANEL, isz).route,
+               "fused_route": kf.fused_geometry(hf, wf, PANEL, 0,
+                                                itemsize=isz).route,
+               "panel_ms": cuda_event_ms(lambda: kp.panel_factor(x, 0),
+                                         reps),
+               "fused_ms": cuda_event_ms(
+                   lambda: kf.panel_trailing_fused(work, 0, 0, panel=PANEL),
+                   reps, setup=lambda: work.copy_(blk))}
+        pb = (bound_bf16(2.0 * hp * PANEL * isz + 4 * PANEL + 8 * hp + isz,
+                         panel_ops(hp, PANEL, 0), 0.0) if isz == 2 else
+              panel_bound(hp, PANEL))
+        fb = (bound_bf16(2.0 * hf * wf * isz, panel_ops(hf, PANEL, 0), f2)
+              if isz == 2 else bound(8.0 * hf * wf,
+                                     f2 + panel_ops(hf, PANEL, 0)))
+        rec.update(panel_bound_ms=pb[0], panel_bound_by=pb[1],
+                   fused_bound_ms=fb[0], fused_bound_by=fb[1])
+        out[name] = rec
+    with quiet_fd1():
+        out["lu_factor_strip_ms"] = cuda_event_ms(
+            lambda: torch.linalg.lu_factor(strip), reps)
+    print(f"phase 7: the n=8192 form's tallest one-block launches, kernel 1 "
+          f"at ({hp}, {PANEL}) and kernel 2 at ({hf}, {wf}): "
+          + "; ".join(f"{k} {v}" for k, v in out.items()) + f" [{smi_line()}]")
+    return out
+
+
+def phase_lowered(reps: int):
+    """The lowered-precision solve (module docstring, phase 7): returns the
+    launch counts of its counted solves and the phase's figures."""
+    import torch
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.core import lowered
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.tune import apply as tapply
+    from gauss_tpu_torch.tune import store as tstore
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+    from gauss_tpu_torch.verify import checks
+
+    on_card = DEVICE == "cuda"
+    dev = torch.device(DEVICE)
+    card = smi_line() if on_card else "cpu"
+    work = os.path.join(REPO, "build", "chip_smoke", "lowered")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(SEED + 7)
+    out = {"card": card}
+    path = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after, added to the phase's path counts."""
+        _build.reset_launches()
+        res = fn()
+        sync()
+        for k, v in _build.LAUNCHES.items():
+            path[k] += v
+        return res, dict(_build.LAUNCHES)
+
+    # (a) The kernels at bfloat16 against their plain versions.
+    reach = bf16_reach(PANEL)
+    out["bf16_reach"] = reach
+    out["panel"] = {h: lowered_panel_shape(reps, rng, h, reach)
+                    for h in (N, reach + 1)}
+    if on_card:
+        out["one_block"] = one_block_figures(max(3, reps // 4), rng)
+    tall = f"({reach + 1}, {4 * PANEL})"
+    out["fused"] = {f"({N}, {N})": lowered_fused_shape(reps, rng, N, N),
+                    tall: lowered_fused_shape(max(3, reps // 4), rng,
+                                              reach + 1, 4 * PANEL)}
+    require(not on_card or (out["panel"][N]["route"] == "cluster"
+                            and out["panel"][reach + 1]["route"] == "block"
+                            and out["fused"][tall]["route"] == "block"),
+            "bf16 routes: expected the cluster at N and one block past the "
+            "reach")
+
+    # (b) solve_lowered at N, each rung, on the dominant system.
+    a, b = dominant_system(N)
+    rungs = {}
+    for dt in lowered.LOWERED_DTYPES:
+        storage, gp = lowered._storage_and_precision(dt)
+        t0 = time.perf_counter()
+        (x, fac, info), launches = counted(
+            lambda dt=dt: lowered.solve_lowered(a, b, dtype=dt,
+                                                device=DEVICE))
+        secs = time.perf_counter() - t0
+        itemsize = 2 if dt == "bfloat16" else 4
+        want = (plan_counts(factor_plan(N, blocked.auto_panel(N, itemsize),
+                                        None, itemsize))
+                if on_card else plan_counts())
+        require(launches == want, f"solve_lowered {dt}: launches {launches},"
+                f" the plan says {want}")
+        require(info["rel_residual"] <= GATE and fac.m.dtype == storage,
+                f"solve_lowered {dt} at n={N}: {info}")
+        rec = dict(info, seconds=secs, launches={
+            k: v for k, v in launches.items() if v})
+        if on_card:
+            a_dev = torch.as_tensor(a, dtype=storage, device=dev)
+            factor = blocked.resolve_factor(N, "auto", device=DEVICE)
+
+            def call():
+                return factor(a_dev, gemm_precision=gp, device=DEVICE)
+
+            rec["factor_ms"] = cuda_event_ms(call, 5)
+            got, busy, host_ms = trace_launches(
+                call, os.path.join(work, f"factor_{dt}_{N}.json"))
+            rec.update(kernel_device_ms=sum(ms for _, _, ms in got),
+                       busy_ms=busy, traced_host_ms=host_ms,
+                       idle_share=1.0 - busy / host_ms)
+        rungs[dt] = rec
+        print(f"phase 7: solve_lowered n={N} {dt}: "
+              + (f"factor {rec['factor_ms']:.4f} ms (CUDA events, median of "
+                 f"5; traced: kernels {rec['kernel_device_ms']:.3f} ms, busy "
+                 f"{rec['busy_ms']:.3f} of {rec['traced_host_ms']:.3f} ms, "
+                 f"idle share {rec['idle_share']:.3f}), " if on_card else "")
+              + f"refine steps {info['refine_steps']}, rel_residual "
+              f"{info['rel_residual']:.3e}, call {secs:.4f} s, launches "
+              f"{rec['launches']} [{card}]")
+    out["rungs"] = rungs
+
+    # (c) The ladder on the internal system and the cond ~1e6 system.
+    systems = {"internal": (synthetic.internal_matrix(N),
+                            synthetic.internal_rhs(N)),
+               "cond1e6": ill_system(N)}
+    walks = {}
+    for name, (sa, sb) in systems.items():
+        walk = {}
+        for dt in lowered.LOWERED_DTYPES:
+            try:
+                (_, _, info), _ = counted(lambda dt=dt: lowered.solve_lowered(
+                    sa, sb, dtype=dt, device=DEVICE))
+                walk[dt] = {"converged": True, **info}
+            except lowered.PrecisionNotConvergedError as e:
+                sync()
+                walk[dt] = {"converged": False, "refine_steps":
+                            e.refine_steps, "rel_residual": e.rel_residual}
+        walks[name] = walk
+        print(f"phase 7: n={N} {name} system, each rung alone: "
+              + "; ".join(f"{dt} {'converged' if r['converged'] else 'failed typed'}"
+                          f" ({r['refine_steps']} steps, rel_residual "
+                          f"{r['rel_residual']:.3e})" for dt, r in walk.items())
+              + f" [{card}]")
+    store_path = os.path.join(work, "tune_store.json")
+    st = tstore.TuneStore(fingerprint=tstore.store_fingerprint())
+    st.put("lowered", N, {"dtype": "bfloat16", "refine_steps": 6})
+    st.save(store_path)
+    saved_env = os.environ.get(tstore.ENV_STORE)
+    os.environ[tstore.ENV_STORE] = store_path
+    tapply.reset_cache()
+    tuned = {}
+    try:
+        require(tapply.store_status()["usable"] and lowered.lowered_params(
+            N) == ("bfloat16", 6), f"tune store {tapply.store_status()}")
+        for name, (sa, sb) in systems.items():
+            stream = os.path.join(work, f"auto_{name}.jsonl")
+            with obs.run(metrics_out=stream, tool="chip_smoke"):
+                try:
+                    (x, _, info), _ = counted(
+                        lambda sa=sa, sb=sb: lowered.solve_lowered_auto(
+                            sa, sb, device=DEVICE))
+                    served = info["dtype"]
+                except lowered.PrecisionNotConvergedError as e:
+                    sync()
+                    x, served, info = None, None, {"error": str(e)}
+            counters = {ev["name"]: ev["value"] for ev in obs.read_events(
+                stream) if ev["type"] == "metric" and ev["kind"] == "counter"}
+            rel = (checks.residual_norm(sa, x, sb, relative=True)
+                   if x is not None else None)
+            require(rel is not None and rel <= GATE, f"auto walk on {name}: "
+                    f"{info}, rel_residual {rel}")
+            if name == "internal":
+                require(checks.internal_pattern_ok(x, atol=GATE),
+                        "auto walk on the internal system: pattern")
+            tuned[name] = {"served": served, "demoted": info["demoted"],
+                           "demotions": counters.get("precision.demotions",
+                                                     0),
+                           "rel_residual": rel}
+            print(f"phase 7: solve_lowered_auto n={N} {name}, tune store "
+                  f"start (bfloat16, 6): served {served}, demotions "
+                  f"{tuned[name]['demotions']}, verified rel_residual "
+                  f"{rel:.3e} [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop(tstore.ENV_STORE, None)
+        else:
+            os.environ[tstore.ENV_STORE] = saved_env
+        tapply.reset_cache()
+    require(tuned["cond1e6"]["demotions"] >= 1, f"the cond ~1e6 system did "
+            f"not demote: {tuned['cond1e6']}")
+    out["walks"], out["tuned"] = walks, tuned
+
+    # (d) The chunked form at bfloat16: the float64 check at n=1024, then
+    # n=8192 at full size.
+    n, panel, chunk = LOWERED_CHECK
+    a16 = torch.as_tensor(np.random.default_rng(SEED).standard_normal(
+        (n, n)), dtype=torch.bfloat16, device=dev)
+    seen, errs = {}, {}
+    with checked_launches(seen, errs):
+        blocked.lu_factor_blocked_chunked(a16, panel=panel, chunk=chunk,
+                                          device=DEVICE)
+        sync()
+    # The factor against the float64 factor on its pivots, field by field
+    # over the field's own scale, on the dominant system: a bfloat16 LU of
+    # a random matrix of this order is O(1) off in every field (n * 2^-8
+    # times its growth), on the card and the CPU alike, so there the
+    # comparison could not tell a fault from rounding.
+    ad, _ = dominant_system(n)
+    ad16 = torch.as_tensor(ad, dtype=torch.bfloat16)
+    fg = blocked.lu_factor_blocked_chunked(ad16.to(dev), panel=panel,
+                                           chunk=chunk, device=DEVICE)
+    fc = blocked.lu_factor_blocked_chunked(ad16, panel=panel, chunk=chunk,
+                                           device="cpu")
+    f64 = lu_f64(ad16.float().numpy(), fc.perm, panel)
+    e = {"card_vs_f64": field_errs(fg, f64), "cpu_vs_f64": field_errs(
+        fc, f64)}
+    require(all(e["card_vs_f64"][f] <= F64_RATIO * e["cpu_vs_f64"][f]
+                for f in ("m", "linv", "uinv")),
+            f"bf16 chunked n={n}: {e}")
+    out["check"] = {"n": n, "panel": panel, "chunk": chunk, "launches": seen,
+                    "whole_factor": e}
+    print(f"phase 7: bf16 chunked n={n}, panel {panel}, chunk {chunk}: "
+          f"checked launches (random matrix) {seen}; the factor of the "
+          f"dominant system against the float64 one on its pivots, field by "
+          f"field over the field's max: {e} [{card}]")
+
+    n, panel, chunk = LOWERED_LARGE
+    a_big, b_big = dominant_system(n, SEED + n)
+    a16 = torch.as_tensor(a_big, dtype=torch.bfloat16, device=dev)
+    a32 = torch.as_tensor(a_big, dtype=torch.float32, device=dev)
+    f = blocked.resolve_factor(n, "auto", device="cuda")
+    require(getattr(f, "func", f) is blocked.lu_factor_blocked_chunked
+            and getattr(f, "keywords", {}).get("chunk", blocked.CHUNK_DEFAULT)
+            == chunk and blocked.auto_panel(n, 2) == panel,
+            f"resolve_factor({n}) at bf16: {f}")
+    plan = factor_plan(n, panel, chunk, 2)
+    plan32 = factor_plan(n, panel, chunk, 4)
+    rc16, rc32 = route_counts(plan), route_counts(plan32)
+    one16 = sum(v for k, v in rc16.items() if k.endswith("/block"))
+    one32 = sum(v for k, v in rc32.items() if k.endswith("/block"))
+    seen = {}
+    with checked_launches(seen, errs):
+        blocked.lu_factor_blocked_chunked(a16, panel=panel, chunk=chunk,
+                                          device=DEVICE)
+        sync()
+    fused = [r for k, r, _ in plan if k.startswith("panel_trailing_fused")]
+    panels = [r for k, r, _ in plan if not k.startswith("panel_trailing")]
+    groups = -(-(-(-n // panel)) // chunk)
+    want = {"fused": len(fused),
+            "fused strided": len(fused) if groups > 1 else 0,
+            "fused one-block": fused.count("block"), "panel": len(panels),
+            "panel strided": len(panels),
+            "panel one-block": panels.count("block")}
+    require(seen == {k: v for k, v in want.items() if v},
+            f"bf16 n={n}: checked launches {seen}, the plan gives {want}")
+    big = {"n": n, "panel": panel, "chunk": chunk, "launches": rc16,
+           "f32_launches": rc32, "one_block": one16, "f32_one_block": one32,
+           "checked_launches": seen, "bound_ms": bound(
+               4.0 * n * n, 2.0 * n ** 3 / 3, PEAK_BF16_FLOP_S)[0]}
+    if on_card:
+        big["factor_ms"] = cuda_event_ms(
+            lambda: blocked.lu_factor_blocked_chunked(
+                a16, panel=panel, chunk=chunk, device=DEVICE), 3, warmup=1)
+        big["f32_factor_ms"] = cuda_event_ms(
+            lambda: blocked.lu_factor_blocked_chunked(
+                a32, panel=panel, chunk=chunk, device=DEVICE), 3, warmup=1)
+        with quiet_fd1():
+            big["lu_factor_ms"] = cuda_event_ms(
+                lambda: torch.linalg.lu_factor(a32), 3, warmup=1)
+        got, busy, host_ms = trace_launches(
+            lambda: blocked.lu_factor_blocked_chunked(
+                a16, panel=panel, chunk=chunk, device=DEVICE),
+            os.path.join(work, f"factor_bf16_{n}.json"))
+        traced = [(k, r) for k, r, _ in got]
+        planned = [(k, r) for k, r, _ in plan]
+        if traced != planned:
+            with open(os.path.join(work, f"factor_bf16_{n}.json")) as fh:
+                names = [(e["ts"], e["name"]) for e in json.load(fh)[
+                    "traceEvents"] if e.get("cat") == "kernel"
+                    and "gtt" in e.get("name", "")]
+            print(f"phase 7: the trace's gtt kernel events: {sorted(names)}")
+        require(traced == planned, f"bf16 n={n}: the trace's kernels "
+                f"{traced} != the plan {planned}")
+        dev_ms = {}
+        for key, route, ms in got:
+            dev_ms[f"{key}/{route}"] = dev_ms.get(f"{key}/{route}", 0.0) + ms
+        big.update(device_ms=dev_ms, busy_ms=busy, traced_host_ms=host_ms,
+                   idle_share=1.0 - busy / host_ms)
+    del a32
+    t0 = time.perf_counter()
+    (x, fac, info), launches = counted(lambda: lowered.solve_lowered(
+        a_big, b_big, dtype="bfloat16", device=DEVICE))
+    big["solve_seconds"] = time.perf_counter() - t0
+    want = plan_counts(plan) if on_card else plan_counts()
+    require(launches == want and info["rel_residual"] <= GATE,
+            f"solve_lowered bf16 n={n}: {info}, launches {launches}")
+    big["solve"] = info
+    out["large"] = big
+    print(f"phase 7: bf16 n={n}, panel {panel}, chunk {chunk}: launches "
+          f"{rc16} ({one16} one-block; float32: {one32}); every launch of "
+          f"one factorization against its plain version: {seen}"
+          + (f"; factor {big['factor_ms']:.3f} ms (median of 3), float32 "
+             f"{big['f32_factor_ms']:.3f}, lu_factor (float32) "
+             f"{big['lu_factor_ms']:.3f}, bound {big['bound_ms']:.3f}; traced "
+             f"kernels { {k: round(v, 3) for k, v in dev_ms.items()} } ms, "
+             f"busy {busy:.3f} of {host_ms:.3f} ms (idle share "
+             f"{big['idle_share']:.4f})" if on_card else "")
+          + f"; solve_lowered bfloat16 refine steps {info['refine_steps']}, "
+          f"rel_residual {info['rel_residual']:.3e}, "
+          f"{big['solve_seconds']:.3f} s [{card}]")
+    out["fused_errs"] = errs
+    print(f"phase 7: counted solves' launches {path} [{card}]")
+    print(json.dumps({"lowered": out}, default=lambda o: str(o)))
+    return path, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -2396,6 +3037,11 @@ def main(argv=None) -> int:
     by_path["sparse"] = phase_sparse_path(spmv, systems)
     by_path["telemetry"], tele = phase_telemetry(dat)
     by_path["large_n"], large = phase_large_n()
+    by_path["lowered"], low = phase_lowered(args.reps)
+    for name in ("panel_factor_cluster_bf16", "panel_factor_bf16",
+                 "panel_trailing_fused_bf16"):
+        require(by_path["lowered"][name] > 0, f"the lowered path launched "
+                f"no {name}")
     # A kernel's launches: the sum over the main paths that run it.
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in blocked_launches}
@@ -2466,6 +3112,63 @@ def main(argv=None) -> int:
          "shape": f"sum of the 7 trailing shapes of one n={N} "
                   f"factorization"},
     ]
+    reach = low["bf16_reach"]
+    p16, b16 = low["panel"][N], low["panel"][reach + 1]
+    f16, t16 = low["fused"][f"({N}, {N})"], low["fused"][
+        f"({reach + 1}, {4 * PANEL})"]
+    for name, rec, shape in (
+            ("panel_factor_cluster_bf16", p16,
+             f"({N}, {PANEL}) bfloat16, the cluster route"),
+            ("panel_factor_bf16", b16,
+             f"({reach + 1}, {PANEL}) bfloat16, the first height past a "
+             f"bfloat16 cluster's reach")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": src + ("panel_cluster.cu" if "cluster" in name
+                              else "panel_factor.cu"),
+             "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+             **launch_keys(name), "max_abs_err": rec["err"],
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+             "library_ms": rec["library_ms"], "f32_ms": rec["f32_ms"],
+             "shape": shape + " (library: lu_factor on the float32 strip)",
+             "large_n": {f"n={low['large']['n']}": {
+                 k.split("/")[1]: v for k, v in low["large"][
+                     "launches"].items() if k.split("/")[0] == name}}})
+    kernels.append(
+        {"name": "panel_trailing_fused_bf16", "route": "cuda",
+         "source": src + "panel_fused.cu",
+         "sources": [src + "panel_fused.cu", src + "panel_cluster.cuh",
+                     src + "panel_common.cuh"],
+         "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
+         **launch_keys("panel_trailing_fused_bf16"),
+         "max_abs_err": f16["err"], "ms": f16["ms"],
+         "plain_ms": f16["plain_ms"], "bound_ms": f16["bound_ms"],
+         "bound_by": f16["bound_by"], "library_ms": None,
+         "f32_ms": f16["f32_ms"],
+         "max_err_over_scale": f16["err_rel"],
+         "shape": f"({N}, {N}) bfloat16, panel at column 0, phase A on the "
+                  f"cluster route (tolerance {TOL_BF16} of the block's "
+                  f"scale)",
+         f"({reach + 1}, {4 * PANEL}) one-block route": {
+             key: t16[key] for key in ("ms", "f32_ms", "plain_ms",
+                                       "bound_ms", "err", "err_rel")},
+         "factorization_n8192_ms": low["large"].get("factor_ms"),
+         "factorization_n8192_f32_ms": low["large"].get("f32_factor_ms"),
+         "factorization_n8192_lu_factor_ms": low["large"].get(
+             "lu_factor_ms")})
+    kernels.append(
+        {"name": "trailing_update_bf16", "route": "cuda",
+         "source": src + "panel_fused.cu",
+         "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",
+         **launch_keys("trailing_update_bf16"),
+         "max_abs_err": f16["err3"], "ms": f16["ms3"],
+         "plain_ms": f16["plain_ms3"], "bound_ms": f16["bound3_ms"],
+         "bound_by": f16["bound3_by"], "library_ms": None,
+         "f32_ms": f16["f32_ms3"],
+         "max_err_over_scale": f16["err3_rel"],
+         "shape": f"({N}, {N}) bfloat16, panel at column 0 (the unfused "
+                  f"pair's leg)"})
     npad, wpad, k = rowelim_shape(N)
     for name, line in (("matmul_tiled", 131), ("matmul_stripe", 245)):
         hi = km[name]["high"]

@@ -35,9 +35,10 @@ policy, a CUDA device standing where the JAX package asks for a TPU:
     cpu     >= 1024            as on cuda
 
 (n=8192 runs chunk 4 at panel 256, 8 groups; n=12,800 chunk 8 at panel
-128, 13 groups.) The JAX package's tuned chunk and panel overrides
-(``tune.apply``) arrive with the port's tune read side; until then the
-seeds above decide.
+128, 13 groups.) A tuned store (:mod:`gauss_tpu_torch.tune.apply`) that
+carries a ``"lu_factor"`` ``chunk`` or ``panel`` for the size bucket
+overrides the seed, as in the JAX package; without one the seeds above
+decide.
 
 Routes per panel (``panel_impl``), in every form:
 
@@ -84,7 +85,17 @@ Deliberate deviations from the JAX package:
   the rows above are finished and no pivot comes from them either way.
 - ``swap_impl="loop"`` runs the folded gather: it gives the bits of the
   JAX form's two-row exchange loop, which exists for its cost on a TPU.
-- float32 storage only; the lowered (bfloat16) factor comes later.
+
+Storage is float32, or bfloat16 when the operand is a bfloat16 tensor
+(the lowered factor of :mod:`gauss_tpu_torch.core.lowered`), under the
+JAX package's precision contract: every trailing-update GEMM on bfloat16
+operands multiplies in float32 and rounds once to bfloat16
+(:func:`_gdot`), the diagonal-block inverses ``linv``/``uinv`` are
+computed and stored in float32 (:func:`accum_dtype`), and
+:func:`lu_solve` computes in float32 and returns float32 against a
+bfloat16 factor. The kernels take bfloat16 storage with the reference's
+rounding (``kernels/panel.py``, ``kernels/panel_fused.py``). The float32
+path is unchanged: every cast there is an identity.
 """
 
 from __future__ import annotations
@@ -95,9 +106,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gauss_tpu_torch.core.matmul import BF16X3, gdot, resolve_precision
+from gauss_tpu_torch.core.matmul import (BF16X3, dot_bf16x3, gdot,
+                                         resolve_precision)
 from gauss_tpu_torch.kernels.panel import panel_factor
 from gauss_tpu_torch.kernels.panel_fused import panel_trailing_fused
+from gauss_tpu_torch.tune import apply as _tune
+from gauss_tpu_torch.tune.space import CHUNK_SEED
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 
 DEFAULT_PANEL = 128
@@ -108,9 +122,8 @@ PANEL_VMEM_ROW_OVERHEAD = {64: 190, 128: 220, 256: 220}
 NARROW_PANEL_OVERHEAD_FLOOR = 220
 NARROW_PANEL_OVERHEAD_SCALE = 55_000
 TRI_INV_BASE = 64  # base-case size of the recursive triangular inversions
-#: Panels per group of the chunked form (the JAX package's tune.space
-#: CHUNK_SEED).
-CHUNK_DEFAULT = 4
+#: Panels per group of the chunked form (the tune seed).
+CHUNK_DEFAULT = CHUNK_SEED
 #: Rows per strip of the chunked form's deferred update in its strip form.
 GROUP_UPDATE_STRIP = 2048
 #: Up to this many bytes (4 * npad * ncols * itemsize, the unstripped
@@ -138,7 +151,13 @@ def panel_fits_vmem(n: int, panel: int, itemsize: int = 4) -> bool:
 
 def auto_panel(n: int, itemsize: int = 4) -> int:
     """The JAX package's panel width: 128 below n=1024, 256 while the
-    (n, 256) panel fits its VMEM model (~12.4k), 128 beyond."""
+    (n, 256) panel fits its VMEM model at ``itemsize`` (~12.4k at 4
+    bytes), 128 beyond. A tuned store's ``"lu_factor"`` ``panel`` for the
+    size bucket wins over the rule (:func:`gauss_tpu_torch.tune.apply
+    .override`)."""
+    tuned = _tune.override("lu_factor", n, "panel")
+    if tuned:
+        return int(tuned)
     if n < 1024:
         return DEFAULT_PANEL
     return 256 if panel_fits_vmem(n, 256, itemsize) else 128
@@ -151,12 +170,15 @@ def _resolve_panel(n: int, panel, itemsize: int = 4) -> int:
 class BlockedLU(NamedTuple):
     """P @ A = L @ U, padded to a panel multiple.
 
-    m:    (npad, npad); strictly lower = L multipliers, upper = U.
+    m:    (npad, npad) in the storage dtype (float32 or bfloat16);
+          strictly lower = L multipliers, upper = U.
     perm: (npad,) int64 gather indices; row k of ``m`` is original row
           ``perm[k]``.
-    min_abs_pivot: 0-d; min |pivot| over all steps, 0 means singular.
+    min_abs_pivot: 0-d, storage dtype; min |pivot| over all steps, 0
+          means singular.
     linv/uinv: (nb, panel, panel) inverses of the diagonal blocks of L
-          (unit lower) and U; None only for hand-built instances, and
+          (unit lower) and U, in the accumulate dtype (float32 for both
+          storage dtypes); None only for hand-built instances, and
           :func:`lu_solve` then substitutes.
     abft_err: set only by the ``abft=True`` forms: the column-checksum
           mismatch per panel (flat form) or per group (chunked form), then
@@ -211,15 +233,55 @@ def upper_inv(u: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- The precision contract (the JAX package's core/blocked.py) ----------
+#
+# A factorization may run with bfloat16 storage (core.lowered's
+# "bfloat16" rung) or with float32 storage and the explicit bf16x3 split
+# GEMM ("bf16x3"). What keeps a lowered factor refinable to the 1e-4 gate:
+#
+# - float32 accumulation: every trailing-update GEMM on bfloat16 operands
+#   multiplies in float32 and rounds ONCE to bfloat16 (_gdot);
+# - float32 diagonal-block inverses: linv/uinv are computed from the
+#   upcast block and stored in float32 (accum_dtype);
+# - float32 solves: lu_solve computes in float32 against a bfloat16
+#   factor and returns float32.
+#
+# At float32 storage the accumulate dtype is float32, every cast is an
+# identity and _gdot is the pre-contract gdot, so that path is unchanged.
+
+
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulate dtype: float32 for bfloat16 storage, else the
+    storage dtype itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _gdot(x: torch.Tensor, y: torch.Tensor, mode: str,
+          dtype: torch.dtype) -> torch.Tensor:
+    """One trailing-update GEMM under the precision contract: ``mode`` is a
+    resolved precision; ``dtype`` the storage dtype. bfloat16 storage
+    multiplies the upcast operands (exactly representable in float32) and
+    rounds once to bfloat16; the split GEMM returns float32, which the
+    caller's store rounds; float32 storage is :func:`gdot` itself."""
+    if mode == BF16X3:
+        return dot_bf16x3(x.float(), y.float())
+    if dtype == torch.bfloat16:
+        return gdot(x.float(), y.float(), mode).to(dtype)
+    return gdot(x, y, mode)
+
+
 def _diag_block_linv(d: torch.Tensor) -> torch.Tensor:
-    """Inverse of the unit-lower part of one factored diagonal block."""
+    """Inverse of the unit-lower part of one factored diagonal block, in
+    the accumulate dtype."""
+    d = d.to(accum_dtype(d.dtype))
     return unit_lower_inv(torch.tril(d, -1) + torch.eye(
         d.shape[0], dtype=d.dtype, device=d.device))
 
 
 def _diag_block_uinv(d: torch.Tensor) -> torch.Tensor:
-    """Inverse of the upper part of one factored diagonal block."""
-    return upper_inv(torch.triu(d))
+    """Inverse of the upper part of one factored diagonal block, in the
+    accumulate dtype."""
+    return upper_inv(torch.triu(d.to(accum_dtype(d.dtype))))
 
 
 def _pad_to_panel(a: torch.Tensor, panel: int,
@@ -331,12 +393,31 @@ def _use_fused(panel_impl: str, panel: int, wtot: int,
 PANEL_IMPLS = ("auto", "fused", "pallas", "jax")
 
 
+def storage_dtype(x) -> torch.dtype:
+    """The dtype a factorization stores ``x`` in: bfloat16 for a bfloat16
+    tensor or array (``ml_dtypes``), float32 for everything else (float64
+    and other inputs stage as float32)."""
+    dt = getattr(x, "dtype", None)
+    if dt == torch.bfloat16 or str(dt) == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
+
+
+def _stage(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``dev``; a numpy bfloat16 array
+    (which torch cannot read) goes through float32, exactly."""
+    if not isinstance(x, torch.Tensor) and str(getattr(x, "dtype", "")) \
+            == "bfloat16":
+        x = np.asarray(x, np.float32)
+    return as_tensor(x, dev, dtype)
+
+
 def _check_square(a, panel_impl: str, device):
     if panel_impl not in PANEL_IMPLS:
         raise ValueError(f"unknown panel_impl {panel_impl!r}; "
                          f"options: {PANEL_IMPLS}")
     dev = resolve_device(device)
-    a = as_tensor(a, dev)
+    a = _stage(a, dev, storage_dtype(a))
     n = a.shape[0]
     if a.shape != (n, n):
         raise ValueError(f"expected square matrix, got {tuple(a.shape)}")
@@ -385,14 +466,16 @@ def _install_and_update(m: torch.Tensor, live: torch.Tensor, kb: int,
     L diagonal-block inverse, apply U12 = L11^-1 A12 and A22 -= L21 U12
     unless the fused kernel did, and write the live rows back into ``m``.
     Returns the L diagonal-block inverse. ``m`` may be rectangular: the
-    update covers its columns right of the panel."""
+    update covers its columns right of the panel. The GEMMs follow the
+    precision contract (:func:`_gdot`)."""
     live[:, kb:kb + panel] = p
     linv = _diag_block_linv(live[:panel, kb:kb + panel])
     if not fused and kb + panel < m.shape[1]:
-        u12 = gdot(linv, live[:panel, kb + panel:], mode)
+        dt = m.dtype
+        u12 = _gdot(linv, live[:panel, kb + panel:], mode, dt)
         live[:panel, kb + panel:] = u12
-        live[panel:, kb + panel:] -= gdot(live[panel:, kb:kb + panel], u12,
-                                          mode)
+        live[panel:, kb + panel:] -= _gdot(live[panel:, kb:kb + panel], u12,
+                                           mode, dt)
     m[kb:] = live
     return linv
 
@@ -500,11 +583,12 @@ def abft_default_tol(npad: int, dtype, scale: float) -> float:
     return max(float(scale), 1.0) * max(64.0 * npad * eps, 1e-6)
 
 
-def _check_lowered_support(gemm_precision: str, abft: bool) -> None:
-    """The rider's tolerances and dots are defined against f32 math: the
-    explicit split GEMM is refused with it (the port stores float32
-    only, so the JAX package's bf16-storage case cannot arise)."""
-    if abft and gemm_precision == BF16X3:
+def _check_lowered_support(dtype: torch.dtype, gemm_precision: str,
+                           abft: bool) -> None:
+    """The rider's tolerances and dots are defined against float32 math:
+    bfloat16 storage and the explicit split GEMM are refused with it (a
+    bfloat16 rider would alarm on storage rounding)."""
+    if abft and (dtype == torch.bfloat16 or gemm_precision == BF16X3):
         raise ValueError(
             "abft=True requires float32 storage with a lax.Precision gemm "
             "(the checksum invariant's tolerances are calibrated against "
@@ -520,7 +604,7 @@ def _factor_panels(m: torch.Tensor, panel: int, panel_impl: str, mode: str,
     npad = m.shape[0]
     dev = m.device
     perm = torch.arange(npad, device=dev)
-    min_piv = torch.full((), float("inf"), device=dev)
+    min_piv = torch.full((), float("inf"), dtype=m.dtype, device=dev)
     linvs, errs = [], []
     crow0 = crow = _csum_init(m) if abft else None
     for kb in range(0, npad, panel):
@@ -548,17 +632,20 @@ def lu_factor_blocked_unrolled(a, panel: int | None = DEFAULT_PANEL,
     """Blocked LU with partial pivoting, one Python step per column panel
     (the trailing submatrix genuinely shrinks: triangular work).
 
-    ``a``: (n, n) array or tensor, factored in float32 on ``device``
-    (default ``cuda``; ``"cpu"`` runs the kernels' plain versions).
+    ``a``: (n, n) array or tensor, factored on ``device`` (default
+    ``cuda``; ``"cpu"`` runs the kernels' plain versions) in bfloat16
+    when it is a bfloat16 tensor or array, else in float32 (the precision
+    contract above).
     ``panel``: width, None = :func:`auto_panel`. ``panel_impl``: see the
     module docstring. ``gemm_precision``: the torch-GEMM trailing updates
     of the ``pallas``/``jax`` routes ("highest" = true f32, "high" and
     "bf16x3" = the explicit bf16 split); the fused kernel runs its own
-    f32 arithmetic. ``donate``: factor a float32 ``a`` on ``device`` in
-    place when it needs no padding."""
+    arithmetic (float32, or the bfloat16 rounding of the reference at
+    bfloat16 storage). ``donate``: factor ``a`` in place when it already
+    lies on ``device`` in its storage dtype and needs no padding."""
     mode = resolve_precision(gemm_precision, allow_split=True)
     a, dev = _check_square(a, panel_impl, device)
-    panel = _resolve_panel(a.shape[0], panel)
+    panel = _resolve_panel(a.shape[0], panel, a.element_size())
     return _factor_panels(_pad_to_panel(a, panel, donate), panel,
                           panel_impl, mode)
 
@@ -590,8 +677,8 @@ def lu_factor_blocked(a, panel: int | None = DEFAULT_PANEL,
         raise ValueError(f"unknown swap_impl {swap_impl!r}; options: "
                          f"('gather', 'loop')")
     a, dev = _check_square(a, panel_impl, device)
-    _check_lowered_support(gemm_precision, abft)
-    panel = _resolve_panel(a.shape[0], panel)
+    _check_lowered_support(a.dtype, gemm_precision, abft)
+    panel = _resolve_panel(a.shape[0], panel, a.element_size())
     if zero_pivot_safe:
         panel_impl = "jax"
     return _factor_panels(_pad_to_panel(a, panel, donate), panel,
@@ -626,12 +713,12 @@ def lu_factor_blocked_phased(a, panel: int | None = None,
     if panel_impl in ("auto", "fused"):
         panel_impl = "pallas"
     pt = PhaseTimer() if timer is None else timer
-    panel = _resolve_panel(a.shape[0], panel)
+    panel = _resolve_panel(a.shape[0], panel, a.element_size())
     with pt.phase("pad_stage", block_on=a):
         m = _pad_to_panel(a, panel)
     npad = m.shape[0]
     perm = torch.arange(npad, device=dev)
-    min_piv = torch.full((), float("inf"), device=dev)
+    min_piv = torch.full((), float("inf"), dtype=m.dtype, device=dev)
     linvs = []
     for kb in range(0, npad, panel):
         with pt.phase("panel_factor", block_on=m):
@@ -658,36 +745,42 @@ def lu_solve(factors: BlockedLU, b, method: str = "auto") -> torch.Tensor:
     and one inverse multiply (the JAX package's unrolled and scan forms are
     one loop here). ``"substitution"`` forces triangular solves, which keep
     substitution's backward stability on adversarial inputs (explicit
-    unit-lower inverses can grow like 2^(panel-1))."""
+    unit-lower inverses can grow like 2^(panel-1)).
+
+    The solve runs in the accumulate dtype and returns it: float32 against
+    a bfloat16 factor (the precision contract), whose blocks are upcast
+    exactly where they meet the solution."""
     if method not in ("auto", "substitution"):
         raise ValueError(f"unknown method {method!r}; options: "
                          "('auto', 'substitution')")
     m, perm = factors.m, factors.perm
     npad = m.shape[0]
-    b = as_tensor(b, m.device, m.dtype)
+    cdt = accum_dtype(m.dtype)
+    b = _stage(b, m.device, cdt)
     was_vector = b.dim() == 1
     b2 = b[:, None] if was_vector else b
     if b2.dim() != 2:
         raise ValueError(f"b must be (n,) or (n, k), got {tuple(b.shape)}")
     n, k = b2.shape
-    bp = torch.zeros((npad, k), dtype=m.dtype, device=m.device)
+    bp = torch.zeros((npad, k), dtype=cdt, device=m.device)
     bp[:n] = b2
     bp = bp[perm]
     if factors.linv is None or method == "substitution":
-        y = torch.linalg.solve_triangular(m, bp, upper=False,
+        ms = m.to(cdt)
+        y = torch.linalg.solve_triangular(ms, bp, upper=False,
                                           unitriangular=True)
-        x = torch.linalg.solve_triangular(m, y, upper=True)
+        x = torch.linalg.solve_triangular(ms, y, upper=True)
     else:
         nb, panel, _ = factors.linv.shape
         y = torch.zeros_like(bp)
         for i in range(nb):
             s = slice(i * panel, (i + 1) * panel)
-            r = bp[s] - m[s, :i * panel] @ y[:i * panel]
+            r = bp[s] - m[s, :i * panel].to(cdt) @ y[:i * panel]
             y[s] = factors.linv[i] @ r
         x = torch.zeros_like(bp)
         for i in range(nb - 1, -1, -1):
             s = slice(i * panel, (i + 1) * panel)
-            r = y[s] - m[s, (i + 1) * panel:] @ x[(i + 1) * panel:]
+            r = y[s] - m[s, (i + 1) * panel:].to(cdt) @ x[(i + 1) * panel:]
             x[s] = factors.uinv[i] @ r
     x = x[:n]
     return x[:, 0] if was_vector else x
@@ -710,12 +803,12 @@ def lu_factor_blocked_chunked(a, panel: int | None = DEFAULT_PANEL,
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     a, dev = _check_square(a, panel_impl, device)
-    _check_lowered_support(gemm_precision, abft)
-    panel = _resolve_panel(a.shape[0], panel)
+    _check_lowered_support(a.dtype, gemm_precision, abft)
+    panel = _resolve_panel(a.shape[0], panel, a.element_size())
     m = _pad_to_panel(a, panel, donate)
     nb = m.shape[0] // panel
     perm = torch.arange(m.shape[0], device=dev)
-    min_piv = torch.full((), float("inf"), device=dev)
+    min_piv = torch.full((), float("inf"), dtype=m.dtype, device=dev)
     linvs_all, uinvs_all, errs = [], [], []
     crow0 = crow = _csum_init(m) if abft else None
     for g0 in range(0, nb, chunk):
@@ -801,14 +894,15 @@ def _factor_group(m, perm, min_piv, g0: int, panel: int, chunk: int,
     perm[gs:] = perm[rows]
 
     if rt:
+        dt = m.dtype
         top = m[rows[:w], gs + w:] if unstripped else m[gs:gs + w, gs + w:]
-        u12 = torch.empty((w, rt), dtype=m.dtype, device=m.device)
+        u12 = torch.empty((w, rt), dtype=dt, device=m.device)
         for i in range(gpanels):
             s = slice(i * panel, (i + 1) * panel)
             r = top[s]
             if i:
-                r = r - gdot(grp[s, :i * panel], u12[:i * panel], mode)
-            u12[s] = gdot(linvs[i], r, mode)
+                r = r - _gdot(grp[s, :i * panel], u12[:i * panel], mode, dt)
+            u12[s] = _gdot(linvs[i], r, mode, dt)
         if carried:
             lc = _csum_group_solve(crow[:, gs:gs + w], grp, uinvs, gpanels,
                                    panel, mode)
@@ -818,7 +912,7 @@ def _factor_group(m, perm, min_piv, g0: int, panel: int, chunk: int,
             # Gather, multiply, then write: rows[w:] can name rows of the
             # group's top block, whose right columns the u12 write below
             # replaces.
-            fresh = m[rows[w:], gs + w:] - gdot(grp[w:], u12, mode)
+            fresh = m[rows[w:], gs + w:] - _gdot(grp[w:], u12, mode, dt)
             m[gs:gs + w, gs + w:] = u12
             m[gs + w:, gs + w:] = fresh
         else:
@@ -826,7 +920,8 @@ def _factor_group(m, perm, min_piv, g0: int, panel: int, chunk: int,
             sw = max(1, min(GROUP_UPDATE_STRIP, gh - w))
             for r0 in range(w, gh, sw):
                 r1 = min(r0 + sw, gh)
-                m[gs + r0:gs + r1, gs + w:] -= gdot(grp[r0:r1], u12, mode)
+                m[gs + r0:gs + r1, gs + w:] -= _gdot(grp[r0:r1], u12, mode,
+                                                     dt)
 
     if not carried:
         return m, perm, min_piv, linvs, uinvs
@@ -852,8 +947,9 @@ def resolve_factor(n: int, unroll="auto", *, donate: bool = False,
 
     ``abft=True`` selects the checksum-carrying form, the flat one where
     the policy says unrolled. ``donate=True`` lets the factorization take
-    the caller's float32 tensor in place when it needs no padding (the
-    JAX package's donating twins). ``checkpoint_path`` raises: the
+    the caller's tensor in place when it needs no padding (the JAX
+    package's donating twins). A tuned store's ``"lu_factor"`` ``chunk``
+    for the size bucket replaces the seed before the escalation. ``checkpoint_path`` raises: the
     checkpointed factorization is ROADMAP queue-1 item 9."""
     if checkpoint_path is not None:
         if abft:
@@ -880,9 +976,13 @@ def resolve_factor(n: int, unroll="auto", *, donate: bool = False,
         if not on_card and n < 1024:
             return pick(lu_factor_blocked)
         if n > UNROLL_MAX_N:
+            # As in the JAX package, the chunk is chosen from the panel at
+            # itemsize 4 whatever the operand's dtype, while the factor
+            # resolves its own panel at the operand's itemsize.
             panel = auto_panel(n)
             nb = -(-n // panel)
-            chunk = CHUNK_DEFAULT
+            chunk = int(_tune.override("lu_factor", n, "chunk")
+                        or CHUNK_DEFAULT)
             while -(-nb // chunk) > MAX_CHUNK_GROUPS and chunk < MAX_CHUNK:
                 chunk *= 2
             if -(-nb // chunk) > MAX_CHUNK_GROUPS:
@@ -912,28 +1012,47 @@ def gauss_solve_blocked(a, b, panel: int | None = None,
     return lu_solve(fac, b)
 
 
-def solve_refined(a, b, panel: int | None = None, iters: int = 2,
-                  panel_impl: str = "auto", a_dev=None, b_dev=None,
-                  tol: float = 0.0, unroll="auto", device=None):
-    """Mixed-precision solve: float32 blocked factorization on the device,
-    float64 residual refinement on the host (one O(n^2) matvec per
-    iteration against the O(n^3) factor). Returns ``(x_float64, factors)``.
+def _torch_dtype(dtype) -> torch.dtype:
+    """A storage dtype named by a torch dtype, a string or a numpy dtype:
+    float32 or bfloat16, the two the kernels take."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = str(dtype)
+    if name in ("float32", "bfloat16"):
+        return getattr(torch, name)
+    raise ValueError(f"dtype={dtype!r}: the port factors in float32 or "
+                     f"bfloat16 only")
 
-    ``a_dev``/``b_dev``: the already-staged float32 tensors of a/b (timed
+
+def solve_refined(a, b, panel: int | None = None, iters: int = 2,
+                  dtype=torch.float32, panel_impl: str = "auto", a_dev=None,
+                  b_dev=None, tol: float = 0.0, unroll="auto", device=None):
+    """Mixed-precision solve: blocked factorization on the device in
+    ``dtype`` (float32, or bfloat16 under the precision contract), float64
+    residual refinement on the host (one O(n^2) matvec per iteration
+    against the O(n^3) factor). Returns ``(x_float64, factors)``.
+
+    ``a_dev``/``b_dev``: the already-staged ``dtype`` tensors of a/b (timed
     callers stage outside their span); their device is then the device.
     Without ``a_dev`` the staged copy is made here and, when it needs no
-    padding, factored in place (``donate``, as in the JAX package).
-    ``tol``: stop once ``||Ax - b||_2 <= tol * min(1, ||b||_2)``; 0 runs
-    exactly ``iters`` iterations."""
+    padding, factored in place (``donate``, as in the JAX package). Each
+    correction's right-hand side is staged in ``dtype``, as in the JAX
+    package. ``tol``: stop once ``||Ax - b||_2 <= tol * min(1, ||b||_2)``;
+    0 runs exactly ``iters`` iterations."""
     a64 = np.asarray(a, dtype=np.float64)
     b64 = np.asarray(b, dtype=np.float64)
     n = len(b64)
+    dt = _torch_dtype(dtype)
     dev = a_dev.device if a_dev is not None else resolve_device(device)
     donate = a_dev is None
     if a_dev is None:
-        a_dev = as_tensor(a64, dev)
+        a_dev = as_tensor(a64, dev, dt)
     if b_dev is None:
-        b_dev = as_tensor(b64, dev)
+        b_dev = as_tensor(b64, dev, dt)
     factor = resolve_factor(n, unroll, donate=donate, device=dev)
     fac = factor(a_dev, panel=panel, panel_impl=panel_impl, device=dev)
     x = lu_solve(fac, b_dev).cpu().numpy().astype(np.float64)
@@ -942,7 +1061,7 @@ def solve_refined(a, b, panel: int | None = None, iters: int = 2,
         r = b64 - a64 @ x
         if tol > 0.0 and float(np.linalg.norm(r)) <= tol_eff:
             break
-        d = lu_solve(fac, as_tensor(r, dev)).cpu().numpy()
+        d = lu_solve(fac, as_tensor(r, dev, dt)).cpu().numpy()
         x = x + d.astype(np.float64)
     return x, fac
 
@@ -1024,8 +1143,9 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
     :class:`LaneNotPortedError` naming the estimate and the budget;
     options a chosen lane cannot honour raise ValueError, as in the JAX
     package. ``single_chip_kwargs`` are :func:`solve_refined`'s
-    (panel_impl, unroll, a_dev, b_dev, device) and ``dtype``, which counts
-    in the estimate and must be float32 (the port stores float32 only).
+    (dtype, panel_impl, unroll, a_dev, b_dev, device); ``dtype`` counts in
+    the estimate and must be float32 or bfloat16 (the dtypes the kernels
+    take).
     ``mesh`` is accepted for the JAX signature; no lane reads it yet."""
     from gauss_tpu_torch import obs
 
@@ -1043,11 +1163,8 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
             engine is None
             and fits_single_chip(n, itemsize=itemsize, budget=eff_budget)):
         kwargs = dict(single_chip_kwargs)
-        dtype = kwargs.pop("dtype", None)
-        if dtype is not None and _dtype_itemsize(dtype) != 4:
-            raise ValueError(f"dtype={dtype!r}: the port factors in "
-                             f"float32 only (the lowered factor is ROADMAP "
-                             f"queue-1 item 3)")
+        if kwargs.get("dtype") is not None:
+            _torch_dtype(kwargs["dtype"])
         obs.emit("route", tool="solve_handoff", n=n, lane="single_chip",
                  est_bytes=est_bytes, budget=eff_budget, itemsize=itemsize)
         return solve_refined(a, b, panel=panel, iters=iters, tol=tol,

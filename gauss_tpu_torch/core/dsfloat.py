@@ -154,22 +154,51 @@ def ds_residual(at: DS, x: DS, b: DS) -> DS:
 
 
 def refine_ds(fac, at: DS, b: DS, x0: torch.Tensor, iters: int = 3,
-              solve_fn=None) -> DS:
+              solve_fn=None, tol: float = 0.0, return_iters: bool = False):
     """On-device iterative refinement with double-single residuals.
 
-    Each iteration: r = b - A x (double-single), d = solve_fn(fac, r.hi +
-    r.lo) — the correction only needs f32 relative accuracy — and a
-    double-single update of x. The whole budget runs; nothing syncs with
-    the host."""
+    ``fac``: a blocked factor of A, float32 or lowered (bfloat16 storage
+    or the bf16x3 update): the correction solve runs in the factor's
+    accumulate dtype (``blocked.lu_solve``), so one refinement serves
+    every rung of ``core.lowered``'s ladder. Each iteration: r = b - A x
+    (double-single), d = solve_fn(fac, r.hi + r.lo) — the correction only
+    needs f32 relative accuracy — and a double-single update of x.
+
+    ``tol`` > 0: an iteration whose residual already satisfies
+    ``||r||_2 <= tol * ||b.hi||_2`` applies no update, and neither does
+    any later one (the JAX package's masked early exit: every iteration
+    still runs, a converged x stops changing). ``return_iters=True``
+    returns ``(x, used)``, ``used`` a 0-d int32 tensor counting the
+    iterations that updated. With the defaults the loop and its result
+    are the plain one's. Nothing syncs with the host in either form."""
     if solve_fn is None:
         from gauss_tpu_torch.core.blocked import lu_solve as solve_fn
 
     x = ds_from_f32(x0)
+    if tol <= 0.0 and not return_iters:
+        for _ in range(iters):
+            r = ds_residual(at, x, b)
+            d = solve_fn(fac, r.hi + r.lo)
+            x = ds_add(x, ds_from_f32(d))
+        return x
+
+    dev = b.hi.device
+    thresh = tol * torch.sqrt(torch.sum(torch.square(b.hi.float())))
+    used = torch.zeros((), dtype=torch.int32, device=dev)
+    active = torch.ones((), dtype=torch.bool, device=dev)
     for _ in range(iters):
         r = ds_residual(at, x, b)
-        d = solve_fn(fac, r.hi + r.lo)
-        x = ds_add(x, ds_from_f32(d))
-    return x
+        rc = r.hi + r.lo
+        if tol > 0.0:
+            rnorm = torch.sqrt(torch.sum(torch.square(rc.float())))
+            step = active & (rnorm > thresh)
+        else:
+            step = active
+        xn = ds_add(x, ds_from_f32(solve_fn(fac, rc)))
+        x = DS(torch.where(step, xn.hi, x.hi), torch.where(step, xn.lo, x.lo))
+        used = used + step.to(torch.int32)
+        active = step
+    return (x, used) if return_iters else x
 
 
 #: Default refinement step count (the JAX package's DS_REFINE_STEPS).

@@ -33,9 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Launches per kernel wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (plain-version calls on CPU tensors do not
-#: count). Reset with :func:`reset_launches`.
+#: count). The bfloat16 forms of the panel, fused and trailing kernels
+#: count under their own ``_bf16`` keys. Reset with
+#: :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
             "panel_trailing_fused": 0, "trailing_update": 0,
+            "panel_factor_bf16": 0, "panel_factor_cluster_bf16": 0,
+            "panel_trailing_fused_bf16": 0, "trailing_update_bf16": 0,
             "matmul_tiled": 0, "matmul_stripe": 0, "eliminate_step": 0,
             "rankk_update": 0, "spmv_ell": 0}
 
@@ -44,23 +48,28 @@ LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
 BUILD_SECONDS: dict[str, float] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PANEL = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_CLUSTER_AT = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+_FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_TRAILING = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     "panel_factor": {
-        "gtt_panel_factor": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "gtt_panel_factor": _PANEL,
+        "gtt_panel_factor_bf16": _PANEL,
     },
     "panel_cluster": {
-        "gtt_panel_factor_cluster": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                     _P],
-        "gtt_panel_factor_cluster_at": [_P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                        _P, _I, _P],
-        "gtt_panel_cluster_info": [_I, _I, _I, _P],
+        "gtt_panel_factor_cluster": _PANEL,
+        "gtt_panel_factor_cluster_bf16": _PANEL,
+        "gtt_panel_factor_cluster_at": _CLUSTER_AT,
+        "gtt_panel_factor_cluster_at_bf16": _CLUSTER_AT,
+        "gtt_panel_cluster_info": [_I, _I, _I, _I, _P],
     },
     "panel_fused": {
-        "gtt_panel_fused_info": [_I, _I, _I, _I, _I, _P],
-        "gtt_panel_fused": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P],
-        "gtt_trailing_update": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                _P],
+        "gtt_panel_fused_info": [_I, _I, _I, _I, _I, _I, _P],
+        "gtt_panel_fused": _FUSED,
+        "gtt_panel_fused_bf16": _FUSED,
+        "gtt_trailing_update": _TRAILING,
+        "gtt_trailing_update_bf16": _TRAILING,
     },
     "matmul": {
         "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],

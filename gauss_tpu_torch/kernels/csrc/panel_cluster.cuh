@@ -2,10 +2,14 @@
 // strip held in the shared memory of one thread-block cluster.
 //
 // Block b of a cluster of C owns rows [b * rows, b * rows + nr) of the
-// strip, nr <= rows = ceil(h / C), as a column-major (panel, lds) array in
-// its dynamic shared memory (lds: rows rounded up to 4, kept off a
-// multiple of 8, so the rank-1 update moves float4s and the transposing
-// load and store stay at most 4-way bank-conflicted). Warp 0 of a block
+// strip, nr <= rows = ceil(h / C), as a column-major (panel, lds) array of
+// the storage type T in its dynamic shared memory (lds: rows rounded up to
+// 4, kept off a multiple of 8, so the rank-1 update moves four rows at a
+// time — a float4, or 8 bytes of bfloat16 — and the transposing load and
+// store stay at most 4-way bank-conflicted at float32, 2-way at bfloat16,
+// whose column stride lds / 2 words is 2 mod 4). At bfloat16 the strip
+// takes half the bytes, so a block holds about twice the rows (428 at
+// panel 256 against 212). Warp 0 of a block
 // owns the block's pivot column work; the other warps share the rest of
 // the rank-1 update. Pivot step j:
 //   1. wait at the cluster barrier of step j;
@@ -30,10 +34,11 @@
 // buffers of step j - 1.
 //
 // Arithmetic contract, the same as gtt_factor_panel (panel_common.cuh):
-// every element sees __fsub_rn(v, __fmul_rn(u, m)) in step order, the
-// multiplier is __fdiv_rn(col, piv), done rows take m = 0 (and are updated
-// all the same), and an inf/NaN multiplier also touches the finished
-// columns as 0 * m. The argmax's reduction order cannot matter, because
+// every element sees __fsub_rn(v, __fmul_rn(u, m)) in step order (each
+// result rounded to bfloat16 at bfloat16 storage), the multiplier is
+// __fdiv_rn(col, piv), done rows take m = 0 (and are updated all the
+// same), and an inf/NaN multiplier also touches the finished columns as
+// 0 * m. Candidates compare the stored (rounded) values. The argmax's reduction order cannot matter, because
 // (key, index) with the key below is the same total order as gtt_better.
 // So this loop is bit for bit equal to gtt_factor_panel and to the plain
 // PyTorch version (panel_factor_plain), and the trailing kernel, which
@@ -51,7 +56,8 @@
 
 namespace gtt_cg = cooperative_groups;
 
-// Rows of a block rounded up to float4s, and the strip's column stride.
+// Rows of a block rounded up to quads of rows, and the strip's column
+// stride in elements.
 __host__ __device__ inline int gtt_cluster_r4(int rows) {
   return (rows + 3) & ~3;
 }
@@ -59,35 +65,47 @@ __host__ __device__ inline int gtt_cluster_lds(int rows) {
   return gtt_cluster_r4(rows) | 4;
 }
 
+// Bytes of a block's strip of `itemsize`-byte elements, rounded up to 16
+// (a no-op at float32, whose panel * lds * 4 is a multiple of 16).
+__host__ __device__ inline size_t gtt_cluster_strip_bytes(int rows,
+                                                          int panel,
+                                                          int itemsize) {
+  return ((size_t)itemsize * panel * gtt_cluster_lds(rows) + 15) &
+         ~(size_t)15;
+}
+
 // Dynamic shared memory of one block holding `rows` rows of a panel-wide
-// strip: the strip, two slots and two pivot rows (panel words each), two
-// multiplier columns (r4 each), the step records (rows) and two parities
-// of GTT_CLUSTER_MAX pushed candidates.
-__host__ __device__ inline size_t gtt_cluster_smem_bytes(int rows,
-                                                         int panel) {
-  return 4 * ((size_t)panel * (gtt_cluster_lds(rows) + 4) +
-              2 * (size_t)gtt_cluster_r4(rows) + rows +
+// strip of `itemsize`-byte elements: the strip, then two slots and two
+// pivot rows (panel floats each), two multiplier columns (r4 floats each),
+// the step records (rows) and two parities of GTT_CLUSTER_MAX pushed
+// candidates.
+__host__ __device__ inline size_t gtt_cluster_smem_bytes(int rows, int panel,
+                                                         int itemsize) {
+  return gtt_cluster_strip_bytes(rows, panel, itemsize) +
+         4 * (4 * (size_t)panel + 2 * (size_t)gtt_cluster_r4(rows) + rows +
               2 * GTT_CLUSTER_MAX * GTT_CAND_WORDS);
 }
 
 // The routing rule (kernels/panel.py::panel_geometry states it in Python):
-// the cluster size for an (h, panel) strip, or 0 when no cluster of at
-// most GTT_CLUSTER_MAX blocks holds it and the one-block kernel runs.
-// C starts at ceil(h / GTT_CLUSTER_ROWS), at most GTT_CLUSTER_MAX, and
-// grows until a block's rows fit its shared memory.
-__host__ inline int gtt_cluster_size(int h, int panel) {
+// the cluster size for an (h, panel) strip of `itemsize`-byte elements, or
+// 0 when no cluster of at most GTT_CLUSTER_MAX blocks holds it and the
+// one-block kernel runs. C starts at ceil(h / GTT_CLUSTER_ROWS), at most
+// GTT_CLUSTER_MAX, and grows until a block's rows fit its shared memory.
+__host__ inline int gtt_cluster_size(int h, int panel, int itemsize) {
   if (panel < 1 || panel > GTT_PANEL_MAX || h < 1) return 0;
   int c = (h + GTT_CLUSTER_ROWS - 1) / GTT_CLUSTER_ROWS;
   c = c < 1 ? 1 : (c > GTT_CLUSTER_MAX ? GTT_CLUSTER_MAX : c);
   for (; c <= GTT_CLUSTER_MAX; ++c)
-    if (gtt_cluster_smem_bytes((h + c - 1) / c, panel) <= GTT_SMEM_MAX)
+    if (gtt_cluster_smem_bytes((h + c - 1) / c, panel, itemsize) <=
+        GTT_SMEM_MAX)
       return c;
   return 0;
 }
 
 // One block's share of the strip, laid out in its dynamic shared memory.
+template <typename T>
 struct GttClusterStrip {
-  float* t;     // (panel, lds): t[c * lds + rl] is row row0 + rl, column c
+  T* t;         // (panel, lds): t[c * lds + rl] is row row0 + rl, column c
   float* slot;  // 2 x panel: the block's candidate row, by step parity
   float* u;     // 2 x panel: the pivot row
   float* m;     // 2 x r4: the multipliers (0 on the pad rows)
@@ -96,10 +114,11 @@ struct GttClusterStrip {
   int lds, rows, r4, nr, row0, panel, kb;
 };
 
-__device__ inline GttClusterStrip gtt_cluster_layout(float* smem, int h,
-                                                     int panel, int kb,
-                                                     int rows, int rank) {
-  GttClusterStrip s;
+template <typename T>
+__device__ inline GttClusterStrip<T> gtt_cluster_layout(void* smem, int h,
+                                                        int panel, int kb,
+                                                        int rows, int rank) {
+  GttClusterStrip<T> s;
   s.lds = gtt_cluster_lds(rows);
   s.rows = rows;
   s.r4 = gtt_cluster_r4(rows);
@@ -107,8 +126,11 @@ __device__ inline GttClusterStrip gtt_cluster_layout(float* smem, int h,
   s.nr = max(0, min(rows, h - s.row0));
   s.panel = panel;
   s.kb = kb;
-  s.t = smem;
-  s.m = s.t + (size_t)panel * s.lds;  // 16-byte aligned: float4 reads
+  s.t = reinterpret_cast<T*>(smem);
+  // 16-byte aligned: float4 reads of the multipliers.
+  s.m = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem) +
+      gtt_cluster_strip_bytes(rows, panel, (int)sizeof(T)));
   s.slot = s.m + 2 * s.r4;
   s.u = s.slot + 2 * panel;
   s.step = reinterpret_cast<int*>(s.u + 2 * panel);
@@ -139,13 +161,14 @@ __device__ __forceinline__ void gtt_warp_best(unsigned& key, int& idx,
 // Load the block's rows of the (h, panel) row-major strip at src (row
 // stride ld), coalesced along each row; zero the pad rows; mark every row
 // unchosen and every pad row's multiplier 0.
-__device__ void gtt_cluster_load(const GttClusterStrip& s,
-                                 const float* __restrict__ src, int ld) {
+template <typename T>
+__device__ void gtt_cluster_load(const GttClusterStrip<T>& s,
+                                 const T* __restrict__ src, int ld) {
   const int total = s.r4 * s.panel;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int rl = e / s.panel, c = e - rl * s.panel;
     s.t[c * s.lds + rl] =
-        rl < s.nr ? src[(size_t)(s.row0 + rl) * ld + c] : 0.0f;
+        rl < s.nr ? src[(size_t)(s.row0 + rl) * ld + c] : gtt_to<T>(0.0f);
   }
   for (int rl = threadIdx.x; rl < s.rows; rl += blockDim.x) s.step[rl] = -1;
   for (int rl = threadIdx.x; rl < 2 * s.r4; rl += blockDim.x) s.m[rl] = 0.0f;
@@ -158,20 +181,21 @@ __device__ void gtt_cluster_load(const GttClusterStrip& s,
 // warps update them), and push the candidate (key, row, signed value)
 // into cand[jn & 1][rank] of every block of the cluster. The row is
 // INT_MAX when the block holds no row.
+template <typename T>
 __device__ __forceinline__ void gtt_cluster_candidate(
-    const GttClusterStrip& s, int jn, int rank, const float* __restrict__ u,
-    const float* __restrict__ m) {
+    const GttClusterStrip<T>& s, int jn, int rank,
+    const float* __restrict__ u, const float* __restrict__ m) {
   const int lane = threadIdx.x & 31;
   unsigned key = 0;
   int idx = INT_MAX;
   float val = 0.0f;
-  float* col = s.t + jn * s.lds;
+  T* col = s.t + jn * s.lds;
 #pragma unroll 4
   for (int rl = lane; rl < s.nr; rl += 32) {
-    float v = col[rl];
+    float v = gtt_f(col[rl]);
     if (m != nullptr) {
-      v = __fsub_rn(v, __fmul_rn(u[jn], m[rl]));
-      col[rl] = v;
+      v = gtt_r<T>(__fsub_rn(v, gtt_r<T>(__fmul_rn(u[jn], m[rl]))));
+      col[rl] = gtt_to<T>(v);
     }
     const int r = s.row0 + rl;
     const bool done = r < s.kb || s.step[rl] >= 0;
@@ -194,8 +218,10 @@ __device__ __forceinline__ void gtt_cluster_candidate(
     float* slot = s.slot + (jn & 1) * s.panel;
 #pragma unroll 4
     for (int c = jn + 1 + lane; c < s.panel; c += 32) {
-      const float v = s.t[c * s.lds + bl];
-      slot[c] = m != nullptr ? __fsub_rn(v, __fmul_rn(u[c], mb)) : v;
+      const float v = gtt_f(s.t[c * s.lds + bl]);
+      slot[c] = m != nullptr
+                    ? gtt_r<T>(__fsub_rn(v, gtt_r<T>(__fmul_rn(u[c], mb))))
+                    : v;
     }
   }
   __syncwarp();
@@ -213,21 +239,23 @@ __device__ __forceinline__ void gtt_cluster_arrive(bool release) {
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
-// v - uc * m, elementwise, each product and difference rounded.
+// v - uc * m, elementwise, each product and difference rounded (to the
+// storage type T).
+template <typename T>
 __device__ __forceinline__ void gtt_sub4(float4& v, float uc, float4 m) {
-  v.x = __fsub_rn(v.x, __fmul_rn(uc, m.x));
-  v.y = __fsub_rn(v.y, __fmul_rn(uc, m.y));
-  v.z = __fsub_rn(v.z, __fmul_rn(uc, m.z));
-  v.w = __fsub_rn(v.w, __fmul_rn(uc, m.w));
+  v.x = gtt_r<T>(__fsub_rn(v.x, gtt_r<T>(__fmul_rn(uc, m.x))));
+  v.y = gtt_r<T>(__fsub_rn(v.y, gtt_r<T>(__fmul_rn(uc, m.y))));
+  v.z = gtt_r<T>(__fsub_rn(v.z, gtt_r<T>(__fmul_rn(uc, m.z))));
+  v.w = gtt_r<T>(__fsub_rn(v.w, gtt_r<T>(__fmul_rn(uc, m.w))));
 }
 
-// The rank-1 update of columns [c0, panel) of every row (float4s of rows,
-// the pad rows included), and the finished columns [0, j) of rows whose
-// multiplier is inf/NaN, by the block's warps but warp 0.
-__device__ __forceinline__ void gtt_cluster_update(const GttClusterStrip& s,
-                                                   int j, int c0,
-                                                   const float* __restrict__ u,
-                                                   const float* __restrict__ m) {
+// The rank-1 update of columns [c0, panel) of every row (four rows at a
+// time, the pad rows included), and the finished columns [0, j) of rows
+// whose multiplier is inf/NaN, by the block's warps but warp 0.
+template <typename T>
+__device__ __forceinline__ void gtt_cluster_update(
+    const GttClusterStrip<T>& s, int j, int c0, const float* __restrict__ u,
+    const float* __restrict__ m) {
   const int tid = threadIdx.x - 32, nt = blockDim.x - 32, nq = s.r4 >> 2;
   if (tid < 0) return;
   const int G = nq >= nt ? 1 : nt / nq;
@@ -235,22 +263,22 @@ __device__ __forceinline__ void gtt_cluster_update(const GttClusterStrip& s,
   if (g >= G) return;
   for (int q = nq >= nt ? tid : tid - g * nq; q < nq; q += nt) {
     const float4 mv = reinterpret_cast<const float4*>(m)[q];
-    float* base = s.t + 4 * q;
+    T* base = s.t + 4 * q;
     int c = c0 + g;
     for (; c + G < s.panel; c += 2 * G) {
-      float4* a0 = reinterpret_cast<float4*>(base + c * s.lds);
-      float4* a1 = reinterpret_cast<float4*>(base + (c + G) * s.lds);
-      float4 v0 = *a0, v1 = *a1;
-      gtt_sub4(v0, u[c], mv);
-      gtt_sub4(v1, u[c + G], mv);
-      *a0 = v0;
-      *a1 = v1;
+      T* a0 = base + c * s.lds;
+      T* a1 = base + (c + G) * s.lds;
+      float4 v0 = gtt_ld4(a0), v1 = gtt_ld4(a1);
+      gtt_sub4<T>(v0, u[c], mv);
+      gtt_sub4<T>(v1, u[c + G], mv);
+      gtt_st4(a0, v0);
+      gtt_st4(a1, v1);
     }
     if (c < s.panel) {
-      float4* a = reinterpret_cast<float4*>(base + c * s.lds);
-      float4 v = *a;
-      gtt_sub4(v, u[c], mv);
-      *a = v;
+      T* a = base + c * s.lds;
+      float4 v = gtt_ld4(a);
+      gtt_sub4<T>(v, u[c], mv);
+      gtt_st4(a, v);
     }
     const float mk[4] = {mv.x, mv.y, mv.z, mv.w};
 #pragma unroll
@@ -259,8 +287,9 @@ __device__ __forceinline__ void gtt_cluster_update(const GttClusterStrip& s,
         // The plain version subtracts 0 * mult from the finished columns
         // too; that is an identity unless the multiplier is inf/NaN.
         for (int cf = g; cf < j; cf += G) {
-          float* a = base + cf * s.lds + k;
-          *a = __fsub_rn(*a, __fmul_rn(0.0f, mk[k]));
+          T* a = base + cf * s.lds + k;
+          *a = gtt_to<T>(
+              __fsub_rn(gtt_f(*a), gtt_r<T>(__fmul_rn(0.0f, mk[k]))));
         }
       }
     }
@@ -272,7 +301,8 @@ __device__ __forceinline__ void gtt_cluster_update(const GttClusterStrip& s,
 // 0; the returned min |pivot| (a NaN pivot counts as 0) is valid in every
 // thread. On return the block's rows are factored in s.t and s.step holds
 // the step that chose each row.
-__device__ float gtt_cluster_factor(const GttClusterStrip& s,
+template <typename T>
+__device__ float gtt_cluster_factor(const GttClusterStrip<T>& s,
                                     int* __restrict__ ipiv) {
   gtt_cg::cluster_group cluster = gtt_cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -315,16 +345,16 @@ __device__ float gtt_cluster_factor(const GttClusterStrip& s,
     // other warps copy the pivot row from its owner's slot.
     if (lead) {
       if (rank == 0 && lane == 0) ipiv[j] = p;
-      float* col = s.t + j * lds;
+      T* col = s.t + j * lds;
 #pragma unroll 4
       for (int rl = lane; rl < s.nr; rl += 32) {
         const int r = s.row0 + rl;
         if (r == p) s.step[rl] = j;
         const bool done = r < s.kb || s.step[rl] >= 0;  // includes p
-        const float cv = col[rl];
-        const float q = __fdiv_rn(cv, piv);
+        const float cv = gtt_f(col[rl]);
+        const float q = gtt_r<T>(__fdiv_rn(cv, piv));
         m[rl] = done ? 0.0f : q;
-        col[rl] = done ? cv : q;
+        col[rl] = gtt_to<T>(done ? cv : q);
       }
     } else {
       const float* ps =
@@ -347,9 +377,9 @@ __device__ float gtt_cluster_factor(const GttClusterStrip& s,
 
 // Write the block's factored rows into pt (panel, h), coalesced along each
 // column, and its rows' inv (new position) and chosen flags.
-__device__ void gtt_cluster_store(const GttClusterStrip& s, int h,
-                                  float* __restrict__ pt,
-                                  int* __restrict__ inv,
+template <typename T>
+__device__ void gtt_cluster_store(const GttClusterStrip<T>& s, int h,
+                                  T* __restrict__ pt, int* __restrict__ inv,
                                   int* __restrict__ chosen) {
   const int total = s.nr * s.panel;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {

@@ -12,12 +12,69 @@
 // __fdiv_rn) — no FMA contraction — so the loop computes exactly what the
 // plain PyTorch version (separate mul, sub, div kernels) computes on the
 // same inputs, and both choose the same pivots.
+//
+// Storage type T: float, or __nv_bfloat16 for the lowered factor
+// (core/lowered.py). At bfloat16 each of those operations is done in
+// float32 and its result rounded to bfloat16 at once (gtt_r), in the plain
+// version's order: the division, the product (exact in float32, so one
+// rounding) and the subtraction — what PyTorch's bfloat16 arithmetic does
+// op by op. Values held outside the strip (the pivot row, multipliers,
+// candidates) stay float, which holds every bfloat16 value exactly. At
+// float32 gtt_r and gtt_to are identities and the loop is the float32
+// one. Conversions go through the bf16 intrinsics only.
 #pragma once
 
 #include <cfloat>
 #include <climits>
 #include <cstddef>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+typedef __nv_bfloat16 gtt_bf16;
+
+// A stored value as float, a float as the storage type (rounded to
+// nearest even), and the rounding of a float to the storage type.
+__device__ __forceinline__ float gtt_f(float x) { return x; }
+__device__ __forceinline__ float gtt_f(gtt_bf16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T gtt_to(float x);
+template <>
+__device__ __forceinline__ float gtt_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ gtt_bf16 gtt_to<gtt_bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <typename T>
+__device__ __forceinline__ float gtt_r(float x) {
+  return gtt_f(gtt_to<T>(x));
+}
+
+// Four consecutive stored values (16 bytes of float, 8 of bfloat16, at
+// that alignment) as a float4, and back.
+__device__ __forceinline__ float4 gtt_ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void gtt_st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float4 gtt_ld4(const gtt_bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(w.x & 0xffffu))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(w.x >> 16))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(w.y & 0xffffu))),
+      __bfloat162float(__ushort_as_bfloat16((unsigned short)(w.y >> 16))));
+}
+__device__ __forceinline__ void gtt_st4(gtt_bf16* p, float4 v) {
+  uint2 w;
+  w.x = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.x)) |
+        (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16;
+  w.y = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.z)) |
+        (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.w)) << 16;
+  *reinterpret_cast<uint2*>(p) = w;
+}
 
 #define GTT_THREADS 512     // threads per block, every kernel
 #define GTT_PANEL_MAX 1024  // widest panel the step loop stages in smem
@@ -66,8 +123,9 @@ __device__ int gtt_block_argmax(float v, int i) {
 // the transposed scratch pt (panel rows of h): column j of the panel is
 // then one contiguous row, so each step's column reads and rank-1 updates
 // are coalesced across the threads that own consecutive rows.
-__device__ void gtt_load_panel_t(const float* __restrict__ src, int ld,
-                                 int h, int panel, float* __restrict__ pt) {
+template <typename T>
+__device__ void gtt_load_panel_t(const T* __restrict__ src, int ld, int h,
+                                 int panel, T* __restrict__ pt) {
   const size_t total = (size_t)h * panel;
   for (size_t e = threadIdx.x; e < total; e += blockDim.x) {
     const int r = (int)(e / panel), c = (int)(e % panel);
@@ -83,13 +141,14 @@ __device__ void gtt_load_panel_t(const float* __restrict__ src, int ld,
 // inv[p] = kb + j, chosen[p] = 1; the pivot row is staged in smem; live
 // rows take multipliers col/piv in column j and the rank-1 update
 // T[c] - u[c] * mult in every column c > j. Outputs inv/chosen are (h,),
-// ipiv (panel,), minpiv one float (a NaN pivot counts as 0: a zero pivot
+// ipiv (panel,), minpiv one value (a NaN pivot counts as 0: a zero pivot
 // already poisoned the trailing rows).
-__device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
+template <typename T>
+__device__ void gtt_factor_panel(T* __restrict__ pt, int h, int panel,
                                  int kb, int* __restrict__ ipiv,
                                  int* __restrict__ inv,
                                  int* __restrict__ chosen,
-                                 float* __restrict__ minpiv) {
+                                 T* __restrict__ minpiv) {
   __shared__ float s_u[GTT_PANEL_MAX];
   __shared__ float s_min;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -97,16 +156,17 @@ __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
   if (tid == 0) s_min = INFINITY;
   __syncthreads();
   for (int j = 0; j < panel; ++j) {
-    float* col = pt + (size_t)j * h;
+    T* col = pt + (size_t)j * h;
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int r = tid; r < h; r += nt) {
       const bool done = r < kb || chosen[r] != 0;
-      const float c = done ? -INFINITY : fabsf(col[r]);
+      const float c = done ? -INFINITY : fabsf(gtt_f(col[r]));
       if (gtt_better(c, r, bv, bi)) { bv = c; bi = r; }
     }
     const int p = gtt_block_argmax(bv, bi);
-    for (int c = tid; c < panel; c += nt) s_u[c] = pt[(size_t)c * h + p];
+    for (int c = tid; c < panel; c += nt)
+      s_u[c] = gtt_f(pt[(size_t)c * h + p]);
     if (tid == 0) {
       ipiv[j] = p;
       inv[p] = kb + j;
@@ -120,10 +180,10 @@ __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
     }
     for (int r = tid; r < h; r += nt) {
       const bool done = r < kb || chosen[r] != 0;  // includes p
-      const float cv = col[r];
-      const float q = __fdiv_rn(cv, piv);
+      const float cv = gtt_f(col[r]);
+      const float q = gtt_r<T>(__fdiv_rn(cv, piv));
       const float m = done ? 0.0f : q;
-      col[r] = done ? cv : q;
+      col[r] = gtt_to<T>(done ? cv : q);
       // Rank-1 update, GTT_BATCH columns at a time: all the batch's loads
       // issue before its stores, so GTT_BATCH L2 round trips overlap
       // instead of serialising load-store pairs.
@@ -131,28 +191,29 @@ __device__ void gtt_factor_panel(float* __restrict__ pt, int h, int panel,
       for (; c + GTT_BATCH <= panel; c += GTT_BATCH) {
         float v[GTT_BATCH];
 #pragma unroll
-        for (int k = 0; k < GTT_BATCH; ++k) v[k] = pt[(size_t)(c + k) * h + r];
+        for (int k = 0; k < GTT_BATCH; ++k)
+          v[k] = gtt_f(pt[(size_t)(c + k) * h + r]);
 #pragma unroll
         for (int k = 0; k < GTT_BATCH; ++k)
-          pt[(size_t)(c + k) * h + r] =
-              __fsub_rn(v[k], __fmul_rn(s_u[c + k], m));
+          pt[(size_t)(c + k) * h + r] = gtt_to<T>(
+              __fsub_rn(v[k], gtt_r<T>(__fmul_rn(s_u[c + k], m))));
       }
       for (; c < panel; ++c) {
-        float* a = pt + (size_t)c * h + r;
-        *a = __fsub_rn(*a, __fmul_rn(s_u[c], m));
+        T* a = pt + (size_t)c * h + r;
+        *a = gtt_to<T>(__fsub_rn(gtt_f(*a), gtt_r<T>(__fmul_rn(s_u[c], m))));
       }
       if (!(fabsf(m) <= FLT_MAX)) {
         // The plain version subtracts 0 * mult from the finished columns
         // too; that is an identity unless the multiplier is inf/NaN.
         for (int c = 0; c < j; ++c) {
-          float* a = pt + (size_t)c * h + r;
-          *a = __fsub_rn(*a, __fmul_rn(0.0f, m));
+          T* a = pt + (size_t)c * h + r;
+          *a = gtt_to<T>(__fsub_rn(gtt_f(*a), gtt_r<T>(__fmul_rn(0.0f, m))));
         }
       }
     }
     __syncthreads();
   }
-  if (tid == 0) *minpiv = s_min;
+  if (tid == 0) *minpiv = gtt_to<T>(s_min);
 }
 
 // The message of a CUDA error code (each library exports its own copy).

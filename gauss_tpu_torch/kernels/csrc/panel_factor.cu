@@ -26,15 +26,38 @@
 // too tall for a cluster's shared memory gets; the fused kernel's phase A
 // (panel_fused.cu) runs this same step loop, gtt_factor_panel, on the
 // strips that no cluster holds.
+//
+// The bfloat16 form (gtt_panel_factor_bf16, kernel
+// gtt_panel_factor_bf16_kernel) runs the same loop on a bfloat16 scratch
+// with the reference's per-operation rounding (panel_common.cuh); it moves
+// half the bytes through L2 per step, and the chain of steps bounds it the
+// same way.
 #include "panel_common.cuh"
+
+template <typename T>
+__device__ __forceinline__ void gtt_panel_factor_body(
+    const T* __restrict__ src, int ld, int h, int panel, int kb,
+    T* __restrict__ pt, int* __restrict__ ipiv, int* __restrict__ inv,
+    int* __restrict__ chosen, T* __restrict__ minpiv) {
+  gtt_load_panel_t(src, ld, h, panel, pt);
+  gtt_factor_panel(pt, h, panel, kb, ipiv, inv, chosen, minpiv);
+}
 
 __global__ void __launch_bounds__(GTT_THREADS)
 gtt_panel_factor_kernel(const float* __restrict__ src, int ld, int h,
                         int panel, int kb, float* __restrict__ pt,
                         int* __restrict__ ipiv, int* __restrict__ inv,
                         int* __restrict__ chosen, float* __restrict__ minpiv) {
-  gtt_load_panel_t(src, ld, h, panel, pt);
-  gtt_factor_panel(pt, h, panel, kb, ipiv, inv, chosen, minpiv);
+  gtt_panel_factor_body(src, ld, h, panel, kb, pt, ipiv, inv, chosen, minpiv);
+}
+
+__global__ void __launch_bounds__(GTT_THREADS)
+gtt_panel_factor_bf16_kernel(const gtt_bf16* __restrict__ src, int ld, int h,
+                             int panel, int kb, gtt_bf16* __restrict__ pt,
+                             int* __restrict__ ipiv, int* __restrict__ inv,
+                             int* __restrict__ chosen,
+                             gtt_bf16* __restrict__ minpiv) {
+  gtt_panel_factor_body(src, ld, h, panel, kb, pt, ipiv, inv, chosen, minpiv);
 }
 
 // src: the (h, panel) block, row stride ld. pt: (panel, h) scratch that
@@ -45,6 +68,18 @@ extern "C" int gtt_panel_factor(const float* src, int ld, int h, int panel,
   if (panel < 1 || panel > GTT_PANEL_MAX || h < 1)
     return (int)cudaErrorInvalidValue;
   gtt_panel_factor_kernel<<<1, GTT_THREADS, 0, (cudaStream_t)stream>>>(
+      src, ld, h, panel, kb, pt, ipiv, inv, chosen, minpiv);
+  return (int)cudaGetLastError();
+}
+
+// The same at bfloat16 storage: src, pt and minpiv are bfloat16.
+extern "C" int gtt_panel_factor_bf16(const gtt_bf16* src, int ld, int h,
+                                     int panel, int kb, gtt_bf16* pt,
+                                     int* ipiv, int* inv, int* chosen,
+                                     gtt_bf16* minpiv, void* stream) {
+  if (panel < 1 || panel > GTT_PANEL_MAX || h < 1)
+    return (int)cudaErrorInvalidValue;
+  gtt_panel_factor_bf16_kernel<<<1, GTT_THREADS, 0, (cudaStream_t)stream>>>(
       src, ld, h, panel, kb, pt, ipiv, inv, chosen, minpiv);
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,19 @@
 // routine. Kernel 3 runs the same jobs from the caller's (mult, ipiv), so
 // fused == panel + reconstruct_mult_pt + trailing, bit for bit, at
 // matching fseg, on NaN and inf too.
+//
+// The bfloat16 forms (gtt_panel_fused_bf16 / gtt_fused_bf16_kernel and
+// gtt_trailing_update_bf16 / gtt_trailing_bf16_kernel) take a bfloat16
+// block: phase A is the bfloat16 step loop of either route (its strip is
+// half the bytes, so the cluster route reaches 6,848 rows at panel 256),
+// and phase B keeps the JAX kernel's precision contract: the multiplier
+// record, the U rows and every accumulation stay float32 (the record and
+// scratch are float32 at either storage); a segment's U is rounded to
+// bfloat16 (ulow) when its forward substitution is done, before any row
+// applies it, and every trailing element is rounded to bfloat16 once per
+// segment, after __fsub_rn(T, acc). Tiles and pivot rows read and write
+// bfloat16 and do the same float32 arithmetic as the float32 forms, so
+// fused == pair bit for bit there too.
 #include <mutex>
 
 #include "panel_cluster.cuh"
@@ -77,15 +90,16 @@
 enum { GTT_CTR_CLUSTER = 0, GTT_CTR_JOB = 1, GTT_CTR_FACTORED = 2,
        GTT_CTR_CHUNK = 3 };
 
+template <typename T>
 struct GttFusedArgs {
-  float* block;  // (h, wtot) row-major, row stride ld, updated in place
+  T* block;      // (h, wtot) row-major, row stride ld, updated in place
   int ld, h, wtot, col0, kbrow, panel, fseg;
-  float* pt;     // (panel, h): the factored panel, transposed (phase A)
-  float* mult;   // (panel, h): the multiplier record
+  T* pt;         // (panel, h): the factored panel, transposed (phase A)
+  float* mult;   // (panel, h): the multiplier record (float32 at any T)
   int* ipiv;     // (panel,) pivot rows
   int* inv;      // (h,) phase A's outputs
   int* chosen;
-  float* minpiv;
+  T* minpiv;
   float* u;      // (panel, chunks * GTT_TN): each chunk's U rows (B1)
   int* ctr;
   int chunks, row_tiles, rows;  // rows: of a phase-A cluster block
@@ -208,19 +222,22 @@ __device__ __forceinline__ void gtt_cp_wait() {
 // record: mult[j][r] = the factored value at (r, j) when row r was live at
 // step j (r >= kb, unchosen or chosen after j), else 0. Coalesced along
 // each column, as gtt_cluster_store writes pt.
-__device__ void gtt_cluster_store_mult(const GttClusterStrip& s, int h,
+template <typename T>
+__device__ void gtt_cluster_store_mult(const GttClusterStrip<T>& s, int h,
                                        float* __restrict__ mult) {
   const int total = s.nr * s.panel;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int c = e / s.nr, rl = e - c * s.nr;
     const int st = s.step[rl];
     const bool live = s.row0 + rl >= s.kb && (st < 0 || st > c);
-    mult[(size_t)c * h + s.row0 + rl] = live ? s.t[c * s.lds + rl] : 0.0f;
+    mult[(size_t)c * h + s.row0 + rl] =
+        live ? gtt_f(s.t[c * s.lds + rl]) : 0.0f;
   }
 }
 
 // The same record from the one-block loop's outputs (pt, inv, chosen).
-__device__ void gtt_block_store_mult(const float* __restrict__ pt, int h,
+template <typename T>
+__device__ void gtt_block_store_mult(const T* __restrict__ pt, int h,
                                      int panel, int kb,
                                      const int* __restrict__ inv,
                                      const int* __restrict__ chosen,
@@ -228,7 +245,7 @@ __device__ void gtt_block_store_mult(const float* __restrict__ pt, int h,
   for (int j = 0; j < panel; ++j)
     for (int r = threadIdx.x; r < h; r += blockDim.x) {
       const bool live = r >= kb && (!chosen[r] || inv[r] > kb + j);
-      mult[(size_t)j * h + r] = live ? pt[(size_t)j * h + r] : 0.0f;
+      mult[(size_t)j * h + r] = live ? gtt_f(pt[(size_t)j * h + r]) : 0.0f;
     }
 }
 
@@ -266,7 +283,9 @@ __device__ __forceinline__ void gtt_seg_chain(float (&acc)[8][4],
 // su[jj * GTT_TN + c] and ug[jj * us + c]. Right-looking: once row i is
 // final, every later row adds its term i, so each row's sum still runs
 // over i ascending from 0 in one fmaf chain, and row jj > 0 takes U0 - sum
-// (row 0 keeps U0). Selects, not branches, keep the warp converged.
+// (row 0 keeps U0). Selects, not branches, keep the warp converged. The
+// rows leave rounded to the storage type T (ulow; an identity at float32).
+template <typename T>
 __device__ __forceinline__ void gtt_fsub_warp(const float* __restrict__ lt,
                                               const float* __restrict__ u0,
                                               float* __restrict__ su,
@@ -302,8 +321,9 @@ __device__ __forceinline__ void gtt_fsub_warp(const float* __restrict__ lt,
     for (int hh = 0; hh < 2; ++hh) {
       const int jj = lane + 32 * hh;
       if (jj < w) {
-        su[jj * GTT_TN + c4 + 16 * j] = v[j][hh];
-        ug[(size_t)jj * us + c4 + 16 * j] = v[j][hh];
+        const float ulow = gtt_r<T>(v[j][hh]);
+        su[jj * GTT_TN + c4 + 16 * j] = ulow;
+        ug[(size_t)jj * us + c4 + 16 * j] = ulow;
       }
     }
 }
@@ -313,6 +333,7 @@ __device__ __forceinline__ void gtt_fsub_warp(const float* __restrict__ lt,
 // read as float4 broadcasts. Row jj's chain takes its terms i = 0 .. jj-1
 // in order, as in gtt_fsub_warp, in fewer instructions: the form the
 // main path (fseg 32) runs.
+template <typename T>
 __device__ __forceinline__ void gtt_fsub_col32(const float* __restrict__ lt,
                                                const float* __restrict__ u0,
                                                float* __restrict__ su,
@@ -342,13 +363,16 @@ __device__ __forceinline__ void gtt_fsub_col32(const float* __restrict__ lt,
 #pragma unroll
   for (int jj = 0; jj < 32; ++jj)
     if (jj < w) {
-      su[jj * GTT_TN + c] = v[jj];
-      ug[(size_t)jj * us + c] = v[jj];
+      const float ulow = gtt_r<T>(v[jj]);
+      su[jj * GTT_TN + c] = ulow;
+      ug[(size_t)jj * us + c] = ulow;
     }
 }
 
-// A segment's forward substitution by the block (its U rows in su and ug):
-// one thread a column for fseg <= 32, else one warp per four columns.
+// A segment's forward substitution by the block (its U rows, rounded to
+// T, in su and ug): one thread a column for fseg <= 32, else one warp per
+// four columns.
+template <typename T>
 __device__ __forceinline__ void gtt_fsub(const float* __restrict__ lt,
                                          const float* __restrict__ u0,
                                          float* __restrict__ su,
@@ -356,9 +380,10 @@ __device__ __forceinline__ void gtt_fsub(const float* __restrict__ lt,
                                          int w, int fseg) {
   if (fseg <= 32) {
     if (threadIdx.x < GTT_TN)
-      gtt_fsub_col32(lt, u0, su, ug, us, w, threadIdx.x);
+      gtt_fsub_col32<T>(lt, u0, su, ug, us, w, threadIdx.x);
   } else {
-    gtt_fsub_warp(lt, u0, su, ug, us, w, threadIdx.x >> 5, threadIdx.x & 31);
+    gtt_fsub_warp<T>(lt, u0, su, ug, us, w, threadIdx.x >> 5,
+                     threadIdx.x & 31);
   }
 }
 
@@ -370,9 +395,11 @@ __device__ __forceinline__ void gtt_fsub(const float* __restrict__ lt,
 // more on the chunk's flag), and the later pivot rows take T - acc: the
 // sequence every trailing element sees, on the pivot rows alone. The next
 // segment's rows also go to u0 in shared memory, where its forward
-// substitution reads them.
-__device__ void gtt_pivot_rows(const GttFusedArgs& a, const GttTrailSmem& sm,
-                               int q) {
+// substitution reads them. At bfloat16 the pivot rows are read from the
+// block as float, and every T - acc is rounded to bfloat16.
+template <typename T>
+__device__ void gtt_pivot_rows(const GttFusedArgs<T>& a,
+                               const GttTrailSmem& sm, int q) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int tr = tid >> 4, tc = tid & 15;
   const int c0 = a.col0 + a.panel + q * GTT_TN;
@@ -410,7 +437,7 @@ __device__ void gtt_pivot_rows(const GttFusedArgs& a, const GttTrailSmem& sm,
     for (int m = 0; m < 8; ++m) {
       const int e = e0 + m * nt, k = e / GTT_TN, c = e - k * GTT_TN;
       v[m] = k < a.panel && c < nc
-                 ? a.block[(size_t)sm.piv[k] * a.ld + c0 + c] : 0.0f;
+                 ? gtt_f(a.block[(size_t)sm.piv[k] * a.ld + c0 + c]) : 0.0f;
     }
 #pragma unroll
     for (int m = 0; m < 8; ++m) {
@@ -430,7 +457,7 @@ __device__ void gtt_pivot_rows(const GttFusedArgs& a, const GttTrailSmem& sm,
       gtt_cp_wait<0>();
     }
     __syncthreads();  // lt is in; u0 holds the segment's rows
-    gtt_fsub(lt, u0, su, ug + (size_t)s0 * us, us, w, a.fseg);
+    gtt_fsub<T>(lt, u0, su, ug + (size_t)s0 * us, us, w, a.fseg);
     __syncthreads();
     if (tid == 0) gtt_release_add(flag);  // the segment's U rows, to tiles
     for (int k0 = s0; k0 < a.panel; k0 += GTT_TM) {
@@ -454,10 +481,10 @@ __device__ void gtt_pivot_rows(const GttFusedArgs& a, const GttTrailSmem& sm,
       for (int ra = 0; ra < 8; ++ra) {
         const int kr = k + ra;
         if (kr >= s1 && kr < a.panel) {
-          t[ra].x = __fsub_rn(t[ra].x, acc[ra][0]);
-          t[ra].y = __fsub_rn(t[ra].y, acc[ra][1]);
-          t[ra].z = __fsub_rn(t[ra].z, acc[ra][2]);
-          t[ra].w = __fsub_rn(t[ra].w, acc[ra][3]);
+          t[ra].x = gtt_r<T>(__fsub_rn(t[ra].x, acc[ra][0]));
+          t[ra].y = gtt_r<T>(__fsub_rn(t[ra].y, acc[ra][1]));
+          t[ra].z = gtt_r<T>(__fsub_rn(t[ra].z, acc[ra][2]));
+          t[ra].w = gtt_r<T>(__fsub_rn(t[ra].w, acc[ra][3]));
           reinterpret_cast<float4*>(ug + (size_t)kr * us)[tc] = t[ra];
           if (kr < s1 + w1)
             reinterpret_cast<float4*>(u0 + (kr - s1) * GTT_TN)[tc] = t[ra];
@@ -469,7 +496,8 @@ __device__ void gtt_pivot_rows(const GttFusedArgs& a, const GttTrailSmem& sm,
 }
 
 // B2: rows [rt * GTT_TM, +GTT_TM) x chunk q's columns of the block.
-__device__ void gtt_trailing_tile(const GttFusedArgs& a,
+template <typename T>
+__device__ void gtt_trailing_tile(const GttFusedArgs<T>& a,
                                   const GttTrailSmem& sm, int q, int rt) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int tr = tid >> 4, tc = tid & 15;
@@ -515,10 +543,10 @@ __device__ void gtt_trailing_tile(const GttFusedArgs& a,
 #pragma unroll
   for (int ra = 0; ra < 8; ++ra) {
     const int r = r0 + 8 * tr + ra;
-    const float* row = a.block + (size_t)r * a.ld + c0 + 4 * tc;
+    const T* row = a.block + (size_t)r * a.ld + c0 + 4 * tc;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      t[ra][b] = r < a.h && 4 * tc + b < nc ? row[b] : 0.0f;
+      t[ra][b] = r < a.h && 4 * tc + b < nc ? gtt_f(row[b]) : 0.0f;
   }
   for (int si = 0; si < nseg; ++si) {
     const int s0 = si * a.fseg, w = min(a.fseg, a.panel - s0);
@@ -553,7 +581,8 @@ __device__ void gtt_trailing_tile(const GttFusedArgs& a,
         t[ra][3] = uu.w;
       } else {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) t[ra][b] = __fsub_rn(t[ra][b], acc[ra][b]);
+        for (int b = 0; b < 4; ++b)
+          t[ra][b] = gtt_r<T>(__fsub_rn(t[ra][b], acc[ra][b]));
       }
     }
     __syncthreads();  // this stage is refilled two segments on
@@ -561,17 +590,18 @@ __device__ void gtt_trailing_tile(const GttFusedArgs& a,
 #pragma unroll
   for (int ra = 0; ra < 8; ++ra) {
     const int r = r0 + 8 * tr + ra;
-    float* row = a.block + (size_t)r * a.ld + c0 + 4 * tc;
+    T* row = a.block + (size_t)r * a.ld + c0 + 4 * tc;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      if (r < a.h && 4 * tc + b < nc) row[b] = t[ra][b];
+      if (r < a.h && 4 * tc + b < nc) row[b] = gtt_to<T>(t[ra][b]);
   }
 }
 
 // Take jobs until none is left: B1 of chunk q for tickets q < chunks
 // (after phase A), then the B2 tiles chunk by chunk, each segment after
 // its chunk's B1 has published that segment's U rows.
-__device__ void gtt_trailing_jobs(const GttFusedArgs& a,
+template <typename T>
+__device__ void gtt_trailing_jobs(const GttFusedArgs<T>& a,
                                   const GttTrailSmem& sm) {
   const int jobs = a.chunks * (1 + a.row_tiles);
   for (;;) {
@@ -594,9 +624,8 @@ __device__ void gtt_trailing_jobs(const GttFusedArgs& a,
 
 // CLUSTER: launched with a cluster dimension; phase A on the cluster step
 // loop. Else launched without clusters; phase A on the one-block loop.
-template <bool CLUSTER>
-__global__ void __launch_bounds__(GTT_THREADS, 1)
-gtt_fused_kernel(const GttFusedArgs a) {
+template <bool CLUSTER, typename T>
+__device__ __forceinline__ void gtt_fused_body(const GttFusedArgs<T>& a) {
   float* dyn = reinterpret_cast<float*>(gtt_dyn4);
   const GttTrailSmem sm = gtt_trail_layout(dyn, a.panel);
   bool first;
@@ -615,13 +644,13 @@ gtt_fused_kernel(const GttFusedArgs a) {
   if (first) {
     if constexpr (CLUSTER) {
       const int rank = (int)gtt_cg::this_cluster().block_rank();
-      const GttClusterStrip s =
-          gtt_cluster_layout(dyn, a.h, a.panel, a.kbrow, a.rows, rank);
+      const GttClusterStrip<T> s =
+          gtt_cluster_layout<T>(dyn, a.h, a.panel, a.kbrow, a.rows, rank);
       gtt_cluster_load(s, a.block + a.col0, a.ld);
       const float minp = gtt_cluster_factor(s, a.ipiv);
       gtt_cluster_store(s, a.h, a.pt, a.inv, a.chosen);
       gtt_cluster_store_mult(s, a.h, a.mult);
-      if (rank == 0 && threadIdx.x == 0) *a.minpiv = minp;
+      if (rank == 0 && threadIdx.x == 0) *a.minpiv = gtt_to<T>(minp);
     } else {
       gtt_load_panel_t(a.block + a.col0, a.ld, a.h, a.panel, a.pt);
       gtt_factor_panel(a.pt, a.h, a.panel, a.kbrow, a.ipiv, a.inv, a.chosen,
@@ -635,11 +664,50 @@ gtt_fused_kernel(const GttFusedArgs a) {
   gtt_trailing_jobs(a, sm);
 }
 
+template <bool CLUSTER>
 __global__ void __launch_bounds__(GTT_THREADS, 1)
-gtt_trailing_kernel(const GttFusedArgs a) {
+gtt_fused_kernel(const GttFusedArgs<float> a) {
+  gtt_fused_body<CLUSTER>(a);
+}
+
+template <bool CLUSTER>
+__global__ void __launch_bounds__(GTT_THREADS, 1)
+gtt_fused_bf16_kernel(const GttFusedArgs<gtt_bf16> a) {
+  gtt_fused_body<CLUSTER>(a);
+}
+
+__global__ void __launch_bounds__(GTT_THREADS, 1)
+gtt_trailing_kernel(const GttFusedArgs<float> a) {
   gtt_trailing_jobs(a, gtt_trail_layout(reinterpret_cast<float*>(gtt_dyn4),
                                         a.panel));
 }
+
+__global__ void __launch_bounds__(GTT_THREADS, 1)
+gtt_trailing_bf16_kernel(const GttFusedArgs<gtt_bf16> a) {
+  gtt_trailing_jobs(a, gtt_trail_layout(reinterpret_cast<float*>(gtt_dyn4),
+                                        a.panel));
+}
+
+// The kernels of a storage type: fused on the cluster route, fused on the
+// one-block route, trailing.
+template <typename T>
+struct GttFusedKernels;
+template <>
+struct GttFusedKernels<float> {
+  static const void* get(int kind) {
+    return kind == 0   ? (const void*)gtt_fused_kernel<true>
+           : kind == 1 ? (const void*)gtt_fused_kernel<false>
+                       : (const void*)gtt_trailing_kernel;
+  }
+};
+template <>
+struct GttFusedKernels<gtt_bf16> {
+  static const void* get(int kind) {
+    return kind == 0   ? (const void*)gtt_fused_bf16_kernel<true>
+           : kind == 1 ? (const void*)gtt_fused_bf16_kernel<false>
+                       : (const void*)gtt_trailing_bf16_kernel;
+  }
+};
 
 // ---- launchers -----------------------------------------------------------
 
@@ -651,15 +719,15 @@ struct GttFusedGeom {
 };
 
 static GttFusedGeom gtt_fused_geom(int h, int wtot, int col0, int panel,
-                                   int fseg) {
+                                   int fseg, int itemsize) {
   GttFusedGeom g;
-  g.cluster = gtt_cluster_size(h, panel);
+  g.cluster = gtt_cluster_size(h, panel, itemsize);
   g.chunks = gtt_trailing_chunks(wtot, col0, panel);
   g.row_tiles = (h + GTT_TM - 1) / GTT_TM;
   const size_t tb = gtt_trailing_smem_bytes(panel, fseg);
   if (g.cluster > 0) {
     g.rows = (h + g.cluster - 1) / g.cluster;
-    const size_t sa = gtt_cluster_smem_bytes(g.rows, panel);
+    const size_t sa = gtt_cluster_smem_bytes(g.rows, panel, itemsize);
     g.smem = sa > tb ? sa : tb;
   } else {
     g.rows = h;
@@ -714,42 +782,49 @@ static cudaLaunchConfig_t gtt_fused_config(const GttFusedGeom& g,
   return cfg;
 }
 
+// The kernel of (kind, itemsize): kind 0 fused on the cluster route, 1
+// fused on the one-block route, 2 trailing.
+static const void* gtt_fused_kernel_of(int kind, int itemsize) {
+  return itemsize == 2 ? GttFusedKernels<gtt_bf16>::get(kind)
+                       : GttFusedKernels<float>::get(kind);
+}
+
 // How many of the launch's clusters (cluster route) or blocks per SM
 // (otherwise) the card holds at once; 0: none fits. Sets the kernels'
 // attributes on first use and caches each answer in a small table.
-static int gtt_fused_fit(int kind, const GttFusedGeom& g, int* fit) {
+static int gtt_fused_fit(int kind, int itemsize, const GttFusedGeom& g,
+                         int* fit) {
   static std::mutex mu;
   static bool attrs_set = false;
   static long long keys[64];
   static int vals[64];
   static int used = 0;
   std::lock_guard<std::mutex> lock(mu);
-  const long long key =
-      (long long)kind << 56 | (long long)g.cluster << 40 | (long long)g.smem;
+  const long long key = (long long)kind << 56 | (long long)itemsize << 52 |
+                        (long long)g.cluster << 40 | (long long)g.smem;
   for (int i = 0; i < used; ++i)
     if (keys[i] == key) { *fit = vals[i]; return 0; }
   cudaError_t e;
   if (!attrs_set) {
-    const void* kerns[] = {(const void*)gtt_fused_kernel<true>,
-                           (const void*)gtt_fused_kernel<false>,
-                           (const void*)gtt_trailing_kernel};
-    // The cluster kernel may need a whole block's shared memory for its
+    // The cluster kernels may need a whole block's shared memory for their
     // strip; the others at most the trailing jobs' widest.
     const int most[] = {GTT_SMEM_MAX,
                         (int)gtt_trailing_smem_bytes(GTT_PANEL_MAX,
                                                      GTT_FSEG_MAX),
                         (int)gtt_trailing_smem_bytes(GTT_PANEL_MAX,
                                                      GTT_FSEG_MAX)};
-    for (int i = 0; i < 3; ++i) {
-      e = cudaFuncSetAttribute(kerns[i],
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               most[i]);
+    for (int size : {4, 2}) {
+      for (int k = 0; k < 3; ++k) {
+        e = cudaFuncSetAttribute(gtt_fused_kernel_of(k, size),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most[k]);
+        if (e != cudaSuccess) return (int)e;
+      }
+      e = cudaFuncSetAttribute(gtt_fused_kernel_of(0, size),
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
       if (e != cudaSuccess) return (int)e;
     }
-    e = cudaFuncSetAttribute(gtt_fused_kernel<true>,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e != cudaSuccess) return (int)e;
     attrs_set = true;
   }
   int n = 0;
@@ -758,13 +833,11 @@ static int gtt_fused_fit(int kind, const GttFusedGeom& g, int* fit) {
     one.grid = g.cluster;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = gtt_fused_config(one, 0, &attr);
-    e = cudaOccupancyMaxActiveClusters(&n, (void*)gtt_fused_kernel<true>,
+    e = cudaOccupancyMaxActiveClusters(&n, gtt_fused_kernel_of(0, itemsize),
                                        &cfg);
   } else {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kind == 1 ? (const void*)gtt_fused_kernel<false>
-                      : (const void*)gtt_trailing_kernel,
-        GTT_THREADS, g.smem);
+        &n, gtt_fused_kernel_of(kind, itemsize), GTT_THREADS, g.smem);
   }
   if (e != cudaSuccess) return (int)e;
   if (used < 64) {
@@ -781,29 +854,32 @@ static int gtt_fused_fit(int kind, const GttFusedGeom& g, int* fit) {
 // *fit, the clusters the card holds at once (cluster route) or the blocks
 // an SM holds (one-block route).
 static int gtt_fused_plan(int h, int wtot, int col0, int panel, int fseg,
-                          GttFusedGeom* g, int* fit) {
+                          int itemsize, GttFusedGeom* g, int* fit) {
   int sms = 0;
   int rc = gtt_sm_count(&sms);
   if (rc) return rc;
-  *g = gtt_fused_geom(h, wtot, col0, panel, fseg);
-  rc = gtt_fused_fit(g->cluster > 0 ? 0 : 1, *g, fit);
+  *g = gtt_fused_geom(h, wtot, col0, panel, fseg, itemsize);
+  rc = gtt_fused_fit(g->cluster > 0 ? 0 : 1, itemsize, *g, fit);
   if (rc) return rc;
   if (*fit < 1) return (int)cudaErrorLaunchOutOfResources;
   gtt_fused_grid(*g, *fit, sms);
   return 0;
 }
 
-// The launch facts of a fused call: out[0] the cluster size (0 on the
-// one-block route), out[1] rows per phase-A block, out[2] the grid,
-// out[3] dynamic shared memory bytes per block, out[4] column chunks,
-// out[5] row tiles, out[6] clusters the card holds at once (cluster
-// route) or blocks an SM holds (one-block route).
+// The launch facts of a fused call on a block of `itemsize`-byte elements
+// (4: float32, 2: bfloat16): out[0] the cluster size (0 on the one-block
+// route), out[1] rows per phase-A block, out[2] the grid, out[3] dynamic
+// shared memory bytes per block, out[4] column chunks, out[5] row tiles,
+// out[6] clusters the card holds at once (cluster route) or blocks an SM
+// holds (one-block route).
 extern "C" int gtt_panel_fused_info(int h, int wtot, int col0, int panel,
-                                    int fseg, int* out) {
+                                    int fseg, int itemsize, int* out) {
   const int bad = gtt_check(h, wtot, col0, panel, fseg);
   if (bad) return bad;
+  if (itemsize != 4 && itemsize != 2) return (int)cudaErrorInvalidValue;
   GttFusedGeom g;
-  const int rc = gtt_fused_plan(h, wtot, col0, panel, fseg, &g, &out[6]);
+  const int rc =
+      gtt_fused_plan(h, wtot, col0, panel, fseg, itemsize, &g, &out[6]);
   if (rc) return rc;
   out[0] = g.cluster;
   out[1] = g.rows;
@@ -814,69 +890,114 @@ extern "C" int gtt_panel_fused_info(int h, int wtot, int col0, int panel,
   return 0;
 }
 
-// block: (h, wtot) row-major, row stride ld, updated IN PLACE right of
-// col0 + panel. pt, mult: (panel, h); ipiv (panel,); inv, chosen (h,);
-// minpiv (1,); u: (panel, chunks * 64) scratch; ctr: (3 + chunks,) int32,
-// ZEROED. Returns cudaErrorLaunchOutOfResources when the card holds no
-// such cluster or block, else the launch's error code.
-extern "C" int gtt_panel_fused(float* block, int ld, int h, int wtot,
-                               int col0, int kbrow, int panel, int fseg,
-                               float* pt, float* mult, int* ipiv, int* inv,
-                               int* chosen, float* minpiv, float* u,
-                               int* ctr, void* stream) {
+template <typename T>
+static int gtt_fused_launch(T* block, int ld, int h, int wtot, int col0,
+                            int kbrow, int panel, int fseg, T* pt,
+                            float* mult, int* ipiv, int* inv, int* chosen,
+                            T* minpiv, float* u, int* ctr, void* stream) {
   int bad = gtt_check(h, wtot, col0, panel, fseg);
   if (bad) return bad;
   if (kbrow < 0 || h - kbrow < panel) return (int)cudaErrorInvalidValue;
+  const int itemsize = (int)sizeof(T);
   GttFusedGeom g;
   int fit = 0;
-  bad = gtt_fused_plan(h, wtot, col0, panel, fseg, &g, &fit);
+  bad = gtt_fused_plan(h, wtot, col0, panel, fseg, itemsize, &g, &fit);
   if (bad) return bad;
-  const GttFusedArgs a = {block, ld, h, wtot, col0, kbrow, panel, fseg,
-                          pt, mult, ipiv, inv, chosen, minpiv, u, ctr,
-                          g.chunks, g.row_tiles, g.rows,
-                          g.cluster > 0 ? g.cluster : 1};
+  const GttFusedArgs<T> a = {block, ld, h, wtot, col0, kbrow, panel, fseg,
+                             pt, mult, ipiv, inv, chosen, minpiv, u, ctr,
+                             g.chunks, g.row_tiles, g.rows,
+                             g.cluster > 0 ? g.cluster : 1};
+  void* args[] = {(void*)&a};
   cudaError_t e;
   if (g.cluster > 0) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg =
         gtt_fused_config(g, (cudaStream_t)stream, &attr);
-    e = cudaLaunchKernelEx(&cfg, gtt_fused_kernel<true>, a);
+    e = cudaLaunchKernelExC(&cfg, gtt_fused_kernel_of(0, itemsize), args);
   } else {
-    gtt_fused_kernel<false><<<g.grid, GTT_THREADS, g.smem,
-                              (cudaStream_t)stream>>>(a);
-    e = cudaSuccess;
+    e = cudaLaunchKernel(gtt_fused_kernel_of(1, itemsize), dim3(g.grid),
+                         dim3(GTT_THREADS), args, g.smem,
+                         (cudaStream_t)stream);
   }
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// block: (h, wtot) row-major, row stride ld, updated IN PLACE right of
+// col0 + panel. pt: (panel, h); mult: (panel, h) float32; ipiv (panel,);
+// inv, chosen (h,); minpiv (1,); u: (panel, chunks * 64) float32 scratch;
+// ctr: (3 + chunks,) int32, ZEROED. Returns cudaErrorLaunchOutOfResources
+// when the card holds no such cluster or block, else the launch's error
+// code.
+extern "C" int gtt_panel_fused(float* block, int ld, int h, int wtot,
+                               int col0, int kbrow, int panel, int fseg,
+                               float* pt, float* mult, int* ipiv, int* inv,
+                               int* chosen, float* minpiv, float* u,
+                               int* ctr, void* stream) {
+  return gtt_fused_launch(block, ld, h, wtot, col0, kbrow, panel, fseg, pt,
+                          mult, ipiv, inv, chosen, minpiv, u, ctr, stream);
+}
+
+// The same at bfloat16 storage: block, pt and minpiv are bfloat16; mult
+// and u stay float32.
+extern "C" int gtt_panel_fused_bf16(gtt_bf16* block, int ld, int h, int wtot,
+                                    int col0, int kbrow, int panel, int fseg,
+                                    gtt_bf16* pt, float* mult, int* ipiv,
+                                    int* inv, int* chosen, gtt_bf16* minpiv,
+                                    float* u, int* ctr, void* stream) {
+  return gtt_fused_launch(block, ld, h, wtot, col0, kbrow, panel, fseg, pt,
+                          mult, ipiv, inv, chosen, minpiv, u, ctr, stream);
+}
+
 // The unfused pair's trailing launch: the same jobs as the fused kernel's
-// phase B, from the caller's (panel, h) multipliers and pivot rows. u and
-// ctr as for gtt_panel_fused. No launch when nothing lies right of the
-// panel.
-extern "C" int gtt_trailing_update(float* block, int ld, int h, int wtot,
-                                   int col0, int panel, int fseg,
-                                   const float* mult, const int* ipiv,
-                                   float* u, int* ctr, void* stream) {
+// phase B, from the caller's (panel, h) float32 multipliers and pivot
+// rows. u and ctr as for gtt_panel_fused. No launch when nothing lies
+// right of the panel.
+template <typename T>
+static int gtt_trailing_launch(T* block, int ld, int h, int wtot, int col0,
+                               int panel, int fseg, const float* mult,
+                               const int* ipiv, float* u, int* ctr,
+                               void* stream) {
   int bad = gtt_check(h, wtot, col0, panel, fseg);
   if (bad) return bad;
   int sms = 0;
   bad = gtt_sm_count(&sms);
   if (bad) return bad;
-  GttFusedGeom g = gtt_fused_geom(h, wtot, col0, panel, fseg);
+  const int itemsize = (int)sizeof(T);
+  GttFusedGeom g = gtt_fused_geom(h, wtot, col0, panel, fseg, itemsize);
   const int jobs = g.chunks * (1 + g.row_tiles);
   if (jobs < 1) return 0;
   g.cluster = 0;
   g.smem = gtt_trailing_smem_bytes(panel, fseg);
   g.grid = jobs < sms ? jobs : sms;
   int fit = 0;
-  bad = gtt_fused_fit(2, g, &fit);
+  bad = gtt_fused_fit(2, itemsize, g, &fit);
   if (bad) return bad;
   if (fit < 1) return (int)cudaErrorLaunchOutOfResources;
-  const GttFusedArgs a = {block, ld, h, wtot, col0, 0, panel, fseg,
-                          nullptr, const_cast<float*>(mult),
-                          const_cast<int*>(ipiv), nullptr, nullptr, nullptr,
-                          u, ctr, g.chunks, g.row_tiles, 0, 0};
-  gtt_trailing_kernel<<<g.grid, GTT_THREADS, g.smem, (cudaStream_t)stream>>>(
-      a);
-  return (int)cudaGetLastError();
+  const GttFusedArgs<T> a = {block, ld, h, wtot, col0, 0, panel, fseg,
+                             nullptr, const_cast<float*>(mult),
+                             const_cast<int*>(ipiv), nullptr, nullptr,
+                             nullptr, u, ctr, g.chunks, g.row_tiles, 0, 0};
+  void* args[] = {(void*)&a};
+  const cudaError_t e =
+      cudaLaunchKernel(gtt_fused_kernel_of(2, itemsize), dim3(g.grid),
+                       dim3(GTT_THREADS), args, g.smem, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+extern "C" int gtt_trailing_update(float* block, int ld, int h, int wtot,
+                                   int col0, int panel, int fseg,
+                                   const float* mult, const int* ipiv,
+                                   float* u, int* ctr, void* stream) {
+  return gtt_trailing_launch(block, ld, h, wtot, col0, panel, fseg, mult,
+                             ipiv, u, ctr, stream);
+}
+
+// The same at bfloat16 storage (mult stays float32).
+extern "C" int gtt_trailing_update_bf16(gtt_bf16* block, int ld, int h,
+                                        int wtot, int col0, int panel,
+                                        int fseg, const float* mult,
+                                        const int* ipiv, float* u, int* ctr,
+                                        void* stream) {
+  return gtt_trailing_launch(block, ld, h, wtot, col0, panel, fseg, mult,
+                             ipiv, u, ctr, stream);
 }

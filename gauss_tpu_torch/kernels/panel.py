@@ -21,10 +21,25 @@ gather indices. Pivot choice is ``argmax |column|`` over live rows with
 ties go to the lowest ORIGINAL row index. A NaN pivot counts as 0 in
 ``min_abs_pivot``.
 
+Storage is float32 or bfloat16 (the lowered factor of ``core.lowered``).
+At bfloat16 every operation of the step loop is done in float32 and
+rounded to bfloat16 right after it, in the plain version's order: the
+division ``col / piv``, the product ``u * mult`` (exact in float32, so one
+rounding) and the subtraction. That is what PyTorch's bfloat16 arithmetic
+does op by op, and what the JAX package's kernel computes at bfloat16
+(bit for bit in interpret mode with ``seg=panel``); pivots are chosen on
+the rounded values. The cluster kernel's strip is bfloat16 in shared
+memory, so a cluster holds about twice the rows: up to 6,848 at panel
+256, against 3,392 at float32 (:func:`panel_geometry`). The CUDA entry
+points of the two dtypes are separate symbols and count their launches
+under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``).
+
 Deviation from the JAX package: the two-level deferred form (``defer``)
 and the ``seg`` segmentation exist there for VMEM and MXU limits; the port
 runs the classic single-segment form only (``seg`` is accepted for API
-parity and ignored). On finite inputs segmentation never changes a value.
+parity and ignored). On finite inputs segmentation never changes a value
+at float32; at bfloat16 the JAX package's ``defer`` form rounds
+differently, so its tests pass ``seg=panel``.
 """
 
 from __future__ import annotations
@@ -49,6 +64,8 @@ PANEL_MAX = 1024
 PANEL_CLUSTER_MAX = 16
 PANEL_CLUSTER_ROWS = 16
 PANEL_SMEM_MAX = 232448
+#: The storage dtypes the panel kernels take.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class PanelGeometry(NamedTuple):
@@ -58,28 +75,30 @@ class PanelGeometry(NamedTuple):
     smem_bytes: int      # dynamic shared memory per block (0 for "block")
 
 
-def cluster_smem_bytes(rows: int, panel: int) -> int:
+def cluster_smem_bytes(rows: int, panel: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of a cluster block holding ``rows`` rows of a
-    ``panel``-wide strip: the strip at a column stride of ``r4 | 4`` (rows
-    rounded up to 4), two candidate slots and two pivot rows of ``panel``
-    words, two multiplier columns of ``r4``, the step records, and two
-    parities of 16 pushed candidates of 4 words."""
+    ``panel``-wide strip of ``itemsize``-byte words: the strip at a column
+    stride of ``r4 | 4`` words (rows rounded up to 4), its bytes rounded
+    up to 16; then two candidate slots and two pivot rows of ``panel``
+    floats, two multiplier columns of ``r4`` floats, the step records, and
+    two parities of 16 pushed candidates of 4 words."""
     r4 = -(-rows // 4) * 4
-    return 4 * (panel * ((r4 | 4) + 4) + 2 * r4 + rows + 2 * 16 * 4)
+    strip = -(-(itemsize * panel * (r4 | 4)) // 16) * 16
+    return strip + 4 * (4 * panel + 2 * r4 + rows + 2 * 16 * 4)
 
 
-def panel_geometry(h: int, panel: int) -> PanelGeometry:
-    """The kernel an (h, panel) strip takes on the card, by the C
-    launcher's rule: a cluster of C blocks, C from ``ceil(h /
-    PANEL_CLUSTER_ROWS)`` (at most ``PANEL_CLUSTER_MAX``) up to the first
-    whose blocks' rows fit their shared memory; the one-block kernel when
-    no C up to ``PANEL_CLUSTER_MAX`` fits (at panel 256, above 3,392
-    rows)."""
+def panel_geometry(h: int, panel: int, itemsize: int = 4) -> PanelGeometry:
+    """The kernel an (h, panel) strip of ``itemsize``-byte words takes on
+    the card, by the C launcher's rule: a cluster of C blocks, C from
+    ``ceil(h / PANEL_CLUSTER_ROWS)`` (at most ``PANEL_CLUSTER_MAX``) up to
+    the first whose blocks' rows fit their shared memory; the one-block
+    kernel when no C up to ``PANEL_CLUSTER_MAX`` fits (at panel 256, above
+    3,392 rows at float32 and above 6,848 at bfloat16)."""
     if 1 <= panel <= PANEL_MAX and h >= 1:
         first = min(PANEL_CLUSTER_MAX, max(1, -(-h // PANEL_CLUSTER_ROWS)))
         for c in range(first, PANEL_CLUSTER_MAX + 1):
             rows = -(-h // c)
-            smem = cluster_smem_bytes(rows, panel)
+            smem = cluster_smem_bytes(rows, panel, itemsize)
             if smem <= PANEL_SMEM_MAX:
                 return PanelGeometry("cluster", c, rows, smem)
     return PanelGeometry("block", 1, h, 0)
@@ -156,14 +175,34 @@ def panel_factor_plain(p: torch.Tensor, kb: int = 0):
     return t.T[perm_local], ipiv, perm_local, minpiv
 
 
-def check_cuda_f32(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: the CUDA kernel takes float32, got "
-                        f"{x.dtype}")
+def _check_row_major(x: torch.Tensor, what: str) -> None:
     if x.dim() != 2 or x.stride(1) != 1:
         raise ValueError(f"{what}: expected a 2-D row-major tensor "
                          f"(unit column stride), got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
+
+
+def check_cuda_f32(x: torch.Tensor, what: str) -> None:
+    """A float32 2-D row-major tensor, for the kernels that take float32
+    only (matmul, rowelim)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: the CUDA kernel takes float32, got "
+                        f"{x.dtype}")
+    _check_row_major(x, what)
+
+
+def check_cuda_storage(x: torch.Tensor, what: str) -> None:
+    """A 2-D row-major tensor in one of :data:`KERNEL_DTYPES` (float32 or
+    bfloat16), for the panel, fused and trailing kernels."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    _check_row_major(x, what)
+
+
+def launch_suffix(dtype: torch.dtype) -> str:
+    """The suffix of a bfloat16 kernel's C symbol and launch key."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
@@ -172,7 +211,7 @@ def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
     kernel when ``cluster`` is None."""
     if p.stride(1) != 1:
         p = p.contiguous()
-    check_cuda_f32(p, "panel_factor")
+    check_cuda_storage(p, "panel_factor")
     h, panel = p.shape
     dev = p.device
     pt = torch.empty((panel, h), dtype=p.dtype, device=dev)
@@ -183,17 +222,21 @@ def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
     args = (p.data_ptr(), p.stride(0), h, panel, int(kb), pt.data_ptr(),
             ipiv.data_ptr(), inv.data_ptr(), chosen.data_ptr(),
             minpiv.data_ptr())
-    name = "panel_factor" if cluster is None else "panel_factor_cluster"
+    sfx = launch_suffix(p.dtype)
+    name = ("panel_factor" if cluster is None
+            else "panel_factor_cluster") + sfx
     lib = _build.library("panel_factor" if cluster is None
                          else "panel_cluster")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if cluster is None:
-            rc = lib.gtt_panel_factor(*args, stream)
+            rc = getattr(lib, "gtt_panel_factor" + sfx)(*args, stream)
         elif cluster == 0:
-            rc = lib.gtt_panel_factor_cluster(*args, stream)
+            rc = getattr(lib, "gtt_panel_factor_cluster" + sfx)(*args,
+                                                               stream)
         else:
-            rc = lib.gtt_panel_factor_cluster_at(*args, int(cluster), stream)
+            rc = getattr(lib, "gtt_panel_factor_cluster_at" + sfx)(
+                *args, int(cluster), stream)
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
     perm_local = perm_from_inv(inv, chosen, kb, panel)
@@ -221,15 +264,18 @@ def panel_factor_cluster(p: torch.Tensor, kb: int = 0,
     return _panel_factor_cuda(p, kb, 0 if cluster is None else cluster)
 
 
-def panel_cluster_info(h: int, panel: int, cluster: int = 0) -> dict:
-    """What the C launcher reports for an (h, panel) strip at ``cluster``
+def panel_cluster_info(h: int, panel: int, cluster: int = 0,
+                       itemsize: int = 4) -> dict:
+    """What the C launcher reports for an (h, panel) strip of
+    ``itemsize``-byte words (4: float32, 2: bfloat16) at ``cluster``
     blocks (0: its rule's): the cluster size (0 on the one-block route),
     rows per block, dynamic shared memory bytes and the clusters the card
     holds at once (``cudaOccupancyMaxActiveClusters``). Builds
     ``csrc/panel_cluster.cu``; needs a CUDA device."""
     lib = _build.library("panel_cluster")
     out = (ctypes.c_int * 4)()
-    _build.check(lib, lib.gtt_panel_cluster_info(h, panel, cluster, out),
+    _build.check(lib, lib.gtt_panel_cluster_info(h, panel, cluster,
+                                                 itemsize, out),
                  "panel_cluster_info")
     return {"cluster": out[0], "rows_per_block": out[1],
             "smem_bytes": out[2], "max_active_clusters": out[3]}
@@ -244,9 +290,11 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
     into ``p``), the permutation as int64 gather indices, and min |pivot|
     (0 for singular input). ``p`` is not modified.
 
-    A CUDA tensor launches the kernel :func:`panel_geometry` names for
-    its shape (``csrc/panel_cluster.cu`` or ``csrc/panel_factor.cu``) or
-    raises; a CPU tensor runs :func:`panel_factor_plain`. ``seg`` is
+    ``p`` is float32 or bfloat16 (the factored panel and min |pivot|
+    come back in its dtype). A CUDA tensor launches the kernel
+    :func:`panel_geometry` names for its shape and itemsize
+    (``csrc/panel_cluster.cu`` or ``csrc/panel_factor.cu``) or raises; a
+    CPU tensor runs :func:`panel_factor_plain`. ``seg`` is
     accepted for parity with the JAX package and ignored."""
     del seg
     _check_panel_args(p, kb, "panel_factor")
@@ -254,5 +302,5 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
         return panel_factor_plain(p, kb)
     if p.device.type != "cuda":
         raise ValueError(f"panel_factor: unsupported device {p.device}")
-    route = panel_geometry(*p.shape).route
+    route = panel_geometry(*p.shape, p.element_size()).route
     return _panel_factor_cuda(p, kb, 0 if route == "cluster" else None)

@@ -34,6 +34,17 @@ inverts the same coupling by a factored Neumann series, equal up to
 rounding; every row takes T - mult[s0:s1].T @ U (zero multipliers leave
 done rows as they are); the pivot rows take U.
 
+At bfloat16 storage, the JAX kernel's precision contract
+(``panel_fused_pallas.py``'s ``_trailing_tile_update``): per segment, U0
+and the coupling are taken in float32 and U stays float32 through the
+forward substitution; U is rounded to bfloat16 (``ulow``) before it is
+applied; every row takes ``T - M^T @ ulow`` in float32, rounded ONCE to
+bfloat16 on store; the pivot rows take ``ulow``. Phase A is the panel
+kernel's bfloat16 step loop (:mod:`.panel`). The CUDA kernels keep the
+multiplier record and the U rows in float32 (exact for bfloat16 values)
+and count their launches under ``panel_trailing_fused_bf16`` and
+``trailing_update_bf16``. The float32 path is unchanged.
+
 ``ct`` (the trailing tile width) is accepted for API parity and changes
 no value: every output column depends on its own column alone, so the
 card's 64-column chunks give the same bits at any ``ct``. ``seg`` is
@@ -49,9 +60,9 @@ import torch
 
 from gauss_tpu_torch.kernels import _build
 from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_MAX,
-                                           check_cuda_f32,
+                                           check_cuda_storage,
                                            cluster_smem_bytes,
-                                           factor_steps_plain,
+                                           factor_steps_plain, launch_suffix,
                                            panel_geometry, perm_from_inv)
 
 #: The JAX package's tuner seeds for the fused kernel's trailing tile width
@@ -93,12 +104,14 @@ def trailing_smem_bytes(panel: int, fseg: int) -> int:
 
 def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
                    fseg: int = FUSED_FSEG_SEED, sms: int = H100_SMS,
-                   clusters: int | None = None) -> FusedGeometry:
-    """The launch of :func:`panel_trailing_fused` on an (h, wtot) block with
-    the panel at ``col0``, by the C launcher's rule. Phase A takes the
-    cluster route where :func:`~gauss_tpu_torch.kernels.panel.panel_geometry`
-    does (at panel 256 up to 3,392 rows, C = 16 from 256 rows on), else the
-    one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
+                   clusters: int | None = None,
+                   itemsize: int = 4) -> FusedGeometry:
+    """The launch of :func:`panel_trailing_fused` on an (h, wtot) block of
+    ``itemsize``-byte words with the panel at ``col0``, by the C
+    launcher's rule. Phase A takes the cluster route where
+    :func:`~gauss_tpu_torch.kernels.panel.panel_geometry` does (at panel
+    256 up to 3,392 rows at float32 and 6,848 at bfloat16, C = 16 from 256
+    rows on), else the one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
     B2 tiles. Grid: on the cluster route ``C * min(1 + ceil(jobs / C),
     clusters)`` (phase A's cluster, then a block per job, no more clusters
     than the card holds at once: ``clusters``, by default the H100's 7 for
@@ -116,7 +129,7 @@ def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
     row_tiles = -(-h // TRAIL_TILE_ROWS)
     jobs = chunks * (1 + row_tiles)
     trail = trailing_smem_bytes(panel, fseg)
-    strip = panel_geometry(h, panel)
+    strip = panel_geometry(h, panel, itemsize)
     if strip.route == "cluster":
         c = strip.cluster
         if clusters is None:
@@ -124,15 +137,16 @@ def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
         grid = c * min(1 + -(-jobs // c), clusters)
         return FusedGeometry("cluster", c, strip.rows_per_block, grid,
                              max(cluster_smem_bytes(strip.rows_per_block,
-                                                    panel), trail),
+                                                    panel, itemsize), trail),
                              chunks, row_tiles)
     return FusedGeometry("block", 1, h, min(1 + jobs, sms), trail, chunks,
                          row_tiles)
 
 
 def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
-                      fseg: int = FUSED_FSEG_SEED) -> dict:
-    """What the C launcher reports for a fused call: its geometry (the
+                      fseg: int = FUSED_FSEG_SEED, itemsize: int = 4) -> dict:
+    """What the C launcher reports for a fused call on a block of
+    ``itemsize``-byte words (4: float32, 2: bfloat16): its geometry (the
     fields of :class:`FusedGeometry` but ``route``) and ``fit``, the
     clusters the card holds at once on the cluster route, or the blocks an
     SM holds on the one-block route. Builds ``csrc/panel_fused.cu``; needs
@@ -140,7 +154,8 @@ def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
     lib = _build.library("panel_fused")
     out = (ctypes.c_int * 7)()
     _build.check(lib, lib.gtt_panel_fused_info(h, wtot, col0, panel, fseg,
-                                               out), "fused_launch_info")
+                                               itemsize, out),
+                 "fused_launch_info")
     return {"cluster": out[0] or 1, "rows_per_block": out[1],
             "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
             "row_tiles": out[5], "fit": out[6],
@@ -166,13 +181,17 @@ def trailing_update_plain(block: torch.Tensor, mult: torch.Tensor,
                           ipiv: torch.Tensor, col0: int,
                           fseg: int) -> torch.Tensor:
     """The plain PyTorch trailing leg; updates ``block`` IN PLACE right of
-    ``col0 + panel`` (panel = ``mult.shape[0]``) and returns it."""
+    ``col0 + panel`` (panel = ``mult.shape[0]``) and returns it. A
+    bfloat16 block takes the precision contract (module docstring)."""
     panel = mult.shape[0]
     c1 = col0 + panel
     if c1 >= block.shape[1]:
         return block
     trail = block[:, c1:]
     piv_all = ipiv.to(torch.int64)
+    if block.dtype == torch.bfloat16:
+        return _trailing_plain_lowered(block, trail, mult, piv_all, panel,
+                                       fseg)
     for s0 in range(0, panel, fseg):
         s1 = min(s0 + fseg, panel)
         piv = piv_all[s0:s1]
@@ -183,6 +202,24 @@ def trailing_update_plain(block: torch.Tensor, mult: torch.Tensor,
             u[j] -= lc[:j, j] @ u[:j]
         trail -= m.T @ u
         trail.index_copy_(0, piv, u)
+    return block
+
+
+def _trailing_plain_lowered(block, trail, mult, piv_all, panel: int,
+                            fseg: int):
+    """The bfloat16 form of :func:`trailing_update_plain`: U in float32
+    through the substitution, ``ulow`` applied, one rounding per segment."""
+    for s0 in range(0, panel, fseg):
+        s1 = min(s0 + fseg, panel)
+        piv = piv_all[s0:s1]
+        m = mult[s0:s1].float()              # (w, h)
+        u = trail.index_select(0, piv).float()
+        lc = m.index_select(1, piv)
+        for j in range(1, s1 - s0):
+            u[j] -= lc[:j, j] @ u[:j]
+        ulow = u.to(block.dtype)
+        trail.copy_(trail.float() - m.T @ ulow.float())
+        trail.index_copy_(0, piv, ulow)
     return block
 
 
@@ -207,15 +244,19 @@ def _trailing_scratch(panel: int, chunks: int, dev):
 
 
 def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
-    check_cuda_f32(block, "panel_trailing_fused")
+    check_cuda_storage(block, "panel_trailing_fused")
     if fseg > FSEG_MAX_CUDA:
         raise ValueError(f"panel_trailing_fused: fseg {fseg} exceeds the "
                          f"CUDA tile routine's {FSEG_MAX_CUDA}")
     h, wtot = block.shape
     dev = block.device
-    geom = fused_geometry(h, wtot, panel, col0, fseg)
+    sfx = launch_suffix(block.dtype)
+    geom = fused_geometry(h, wtot, panel, col0, fseg,
+                          itemsize=block.element_size())
     pt = torch.empty((panel, h), dtype=block.dtype, device=dev)
-    mult = torch.empty((panel, h), dtype=block.dtype, device=dev)
+    # The multiplier record is float32 at either storage (exact for
+    # bfloat16 values).
+    mult = torch.empty((panel, h), dtype=torch.float32, device=dev)
     ipiv = torch.empty(panel, dtype=torch.int32, device=dev)
     inv = torch.empty(h, dtype=torch.int32, device=dev)
     chosen = torch.empty(h, dtype=torch.int32, device=dev)
@@ -224,14 +265,13 @@ def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
     lib = _build.library("panel_fused")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gtt_panel_fused(block.data_ptr(), block.stride(0), h, wtot,
-                                 col0, kbrow, panel, fseg, pt.data_ptr(),
-                                 mult.data_ptr(), ipiv.data_ptr(),
-                                 inv.data_ptr(), chosen.data_ptr(),
-                                 minpiv.data_ptr(), u.data_ptr(),
-                                 ctr.data_ptr(), stream)
-    _build.check(lib, rc, "panel_trailing_fused")
-    _build.LAUNCHES["panel_trailing_fused"] += 1
+        rc = getattr(lib, "gtt_panel_fused" + sfx)(
+            block.data_ptr(), block.stride(0), h, wtot, col0, kbrow, panel,
+            fseg, pt.data_ptr(), mult.data_ptr(), ipiv.data_ptr(),
+            inv.data_ptr(), chosen.data_ptr(), minpiv.data_ptr(),
+            u.data_ptr(), ctr.data_ptr(), stream)
+    _build.check(lib, rc, "panel_trailing_fused" + sfx)
+    _build.LAUNCHES["panel_trailing_fused" + sfx] += 1
     perm_local = perm_from_inv(inv, chosen, kbrow, panel)
     return pt.T[perm_local], ipiv, perm_local, minpiv[0], block
 
@@ -251,8 +291,8 @@ def panel_trailing_fused(block: torch.Tensor, col0: int, kbrow: int, *,
     kernel aliases its operand) and ``block_upd`` is that same tensor;
     columns at or left of ``col0 + panel`` are not written.
 
-    A CUDA tensor launches the kernel or raises; a CPU tensor runs the
-    plain version."""
+    ``block`` is float32 or bfloat16 (module docstring). A CUDA tensor
+    launches the kernel or raises; a CPU tensor runs the plain version."""
     if block.dim() != 2:
         raise ValueError(f"expected a 2-D block, got {tuple(block.shape)}")
     h, wtot = block.shape
@@ -327,12 +367,13 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
         return trailing_update_plain(block, mult, ipiv, col0, fseg)
     if block.device.type != "cuda":
         raise ValueError(f"unsupported device {block.device}")
-    check_cuda_f32(block, "trailing_update")
+    check_cuda_storage(block, "trailing_update")
     if fseg > FSEG_MAX_CUDA:
         raise ValueError(f"trailing_update: fseg {fseg} exceeds the CUDA "
                          f"tile routine's {FSEG_MAX_CUDA}")
     if col0 + panel >= wtot:
         return block
+    sfx = launch_suffix(block.dtype)
     mult = mult.to(torch.float32).contiguous()
     ipiv = ipiv.to(torch.int32).contiguous()
     u, ctr = _trailing_scratch(panel, fused_geometry(h, wtot, panel, col0,
@@ -341,10 +382,10 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
     lib = _build.library("panel_fused")
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream(block.device).cuda_stream
-        rc = lib.gtt_trailing_update(block.data_ptr(), block.stride(0), h,
-                                     wtot, col0, panel, fseg,
-                                     mult.data_ptr(), ipiv.data_ptr(),
-                                     u.data_ptr(), ctr.data_ptr(), stream)
-    _build.check(lib, rc, "trailing_update")
-    _build.LAUNCHES["trailing_update"] += 1
+        rc = getattr(lib, "gtt_trailing_update" + sfx)(
+            block.data_ptr(), block.stride(0), h, wtot, col0, panel, fseg,
+            mult.data_ptr(), ipiv.data_ptr(), u.data_ptr(), ctr.data_ptr(),
+            stream)
+    _build.check(lib, rc, "trailing_update" + sfx)
+    _build.LAUNCHES["trailing_update" + sfx] += 1
     return block

@@ -54,12 +54,13 @@ ABLATIONS = {
     "full": [],
     "b2-no-math": [("    gtt_seg_chain(acc, dm, du, w, tr, tc);\n",
                     "    for (auto& r : acc) for (float& x : r) x = 0.0f;\n")],
-    "b1-no-fsub": [("    gtt_fsub(lt, u0, su, ug + (size_t)s0 * us, us, w, "
+    "b1-no-fsub": [("    gtt_fsub<T>(lt, u0, su, ug + (size_t)s0 * us, us, w, "
                     "a.fseg);\n", "")],
     "b1-no-update": [("      if (k + 7 < s1 || k >= a.panel) continue;",
                       "      continue;")],
-    "b1-no-gather": [("                 ? a.block[(size_t)sm.piv[k] * a.ld + "
-                      "c0 + c] : 0.0f;", "                 ? 0.0f : 0.0f;")],
+    "b1-no-gather": [("                 ? gtt_f(a.block[(size_t)sm.piv[k] * "
+                      "a.ld + c0 + c]) : 0.0f;",
+                      "                 ? 0.0f : 0.0f;")],
 }
 
 

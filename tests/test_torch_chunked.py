@@ -511,9 +511,14 @@ def test_handoff_off_card_lanes_raise_typed_error():
         tb.solve_handoff(a, b, engine="dist", panel_impl="jax")
     with pytest.raises(ValueError, match="unknown handoff engine"):
         tb.solve_handoff(a, b, engine="grid")
-    with pytest.raises(ValueError, match="float32 only"):
-        tb.solve_handoff(a, b, engine="single_chip", dtype="bfloat16",
+    # The single-card lane factors in float32 or bfloat16 (the dtypes the
+    # kernels take) and refuses any other storage dtype.
+    with pytest.raises(ValueError, match="float32 or bfloat16 only"):
+        tb.solve_handoff(a, b, engine="single_chip", dtype="float16",
                          device="cpu")
+    x = tb.solve_handoff(a, b, engine="single_chip", dtype="bfloat16",
+                         device="cpu")
+    assert np.array_equal(x, b)
     assert tb.device_memory_budget("cpu") == jb.DEFAULT_CHIP_BYTES
 
 

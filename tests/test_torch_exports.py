@@ -22,7 +22,7 @@ PENDING = {"gauss_tpu.obs": {
                "record_cost": _OBS_COST,
                "record_vmem_estimate": _OBS_COST},
            "gauss_tpu.structure": {"solve_auto": "item 7, the router"}}
-PACKAGES = ["", ".io", ".core", ".structure", ".obs"]
+PACKAGES = ["", ".io", ".core", ".structure", ".obs", ".tune"]
 
 
 def _reference_exports(pkg: str) -> set:

@@ -108,7 +108,7 @@ import torch
 
 from gauss_tpu_torch.core.matmul import (BF16X3, dot_bf16x3, gdot,
                                          resolve_precision)
-from gauss_tpu_torch.kernels.panel import panel_factor
+from gauss_tpu_torch.kernels.panel import accum_dtype, panel_factor
 from gauss_tpu_torch.kernels.panel_fused import panel_trailing_fused
 from gauss_tpu_torch.tune import apply as _tune
 from gauss_tpu_torch.tune.space import CHUNK_SEED
@@ -248,12 +248,6 @@ def upper_inv(u: torch.Tensor) -> torch.Tensor:
 #
 # At float32 storage the accumulate dtype is float32, every cast is an
 # identity and _gdot is the pre-contract gdot, so that path is unchanged.
-
-
-def accum_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The accumulate dtype: float32 for bfloat16 storage, else the
-    storage dtype itself."""
-    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _gdot(x: torch.Tensor, y: torch.Tensor, mode: str,

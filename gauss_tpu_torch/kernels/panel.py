@@ -200,6 +200,12 @@ def check_cuda_storage(x: torch.Tensor, what: str) -> None:
     _check_row_major(x, what)
 
 
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulate dtype: float32 for bfloat16 storage, else the
+    storage dtype itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def launch_suffix(dtype: torch.dtype) -> str:
     """The suffix of a bfloat16 kernel's C symbol and launch key."""
     return "_bf16" if dtype == torch.bfloat16 else ""

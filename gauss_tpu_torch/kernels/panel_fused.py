@@ -60,7 +60,7 @@ import torch
 
 from gauss_tpu_torch.kernels import _build
 from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_MAX,
-                                           check_cuda_storage,
+                                           accum_dtype, check_cuda_storage,
                                            cluster_smem_bytes,
                                            factor_steps_plain, launch_suffix,
                                            panel_geometry, perm_from_inv)
@@ -189,36 +189,17 @@ def trailing_update_plain(block: torch.Tensor, mult: torch.Tensor,
         return block
     trail = block[:, c1:]
     piv_all = ipiv.to(torch.int64)
-    if block.dtype == torch.bfloat16:
-        return _trailing_plain_lowered(block, trail, mult, piv_all, panel,
-                                       fseg)
+    acc = accum_dtype(block.dtype)
     for s0 in range(0, panel, fseg):
         s1 = min(s0 + fseg, panel)
         piv = piv_all[s0:s1]
-        m = mult[s0:s1]                      # (w, h)
-        u = trail.index_select(0, piv)       # U0 (w, nc)
-        lc = m.index_select(1, piv)          # lc[i, j] = mult[s0+i, p_j]
-        for j in range(1, s1 - s0):
-            u[j] -= lc[:j, j] @ u[:j]
-        trail -= m.T @ u
-        trail.index_copy_(0, piv, u)
-    return block
-
-
-def _trailing_plain_lowered(block, trail, mult, piv_all, panel: int,
-                            fseg: int):
-    """The bfloat16 form of :func:`trailing_update_plain`: U in float32
-    through the substitution, ``ulow`` applied, one rounding per segment."""
-    for s0 in range(0, panel, fseg):
-        s1 = min(s0 + fseg, panel)
-        piv = piv_all[s0:s1]
-        m = mult[s0:s1].float()              # (w, h)
-        u = trail.index_select(0, piv).float()
-        lc = m.index_select(1, piv)
+        m = mult[s0:s1].to(acc)                 # (w, h)
+        u = trail.index_select(0, piv).to(acc)  # U0 (w, nc)
+        lc = m.index_select(1, piv)             # lc[i, j] = mult[s0+i, p_j]
         for j in range(1, s1 - s0):
             u[j] -= lc[:j, j] @ u[:j]
         ulow = u.to(block.dtype)
-        trail.copy_(trail.float() - m.T @ ulow.float())
+        trail.copy_(trail.to(acc) - m.T @ ulow.to(acc))
         trail.index_copy_(0, piv, ulow)
     return block
 

@@ -64,25 +64,27 @@ ABLATIONS = {
 }
 
 
-def build_forms(forms, nvcc, flags):
-    """Build csrc/panel_fused.cu once per form, in parallel; returns the
-    libraries' paths by form."""
+def build_forms(forms, nvcc, flags, edits=None, out="fused_probe"):
+    """Build csrc/panel_fused.cu once per form (its text changes from
+    ``edits``, by default :data:`ABLATIONS`) into ``build/<out>/<form>/``,
+    in parallel; returns the libraries' paths by form."""
     import shutil
     import subprocess
 
     csrc = HERE / "gauss_tpu_torch" / "kernels" / "csrc"
     base = (csrc / "panel_fused.cu").read_text()
+    edits = ABLATIONS if edits is None else edits
     sources = {}
     for form in forms:  # every form's text, before any build starts
         src = base
-        for old, new in ABLATIONS[form]:
+        for old, new in edits[form]:
             if src.count(old) != 1:
                 raise SystemExit(f"probe: form {form}: {old!r} not found once")
             src = src.replace(old, new)
         sources[form] = src
     jobs = {}
     for form, src in sources.items():
-        d = HERE / "build" / "fused_probe" / form
+        d = HERE / "build" / out / form
         if d.exists():
             shutil.rmtree(d)
         shutil.copytree(csrc, d)
@@ -96,6 +98,22 @@ def build_forms(forms, nvcc, flags):
         if proc.returncode:
             raise SystemExit(f"probe: nvcc {form} failed:\n{log[-3000:]}")
     return {form: so for form, (so, _) in jobs.items()}
+
+
+def load_form(so) -> None:
+    """Load a built form of csrc/panel_fused.cu in place of the library
+    that ``gauss_tpu_torch.kernels._build`` built."""
+    import ctypes
+
+    from gauss_tpu_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _build._SIGNATURES["panel_fused"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.gtt_error_string.argtypes = [ctypes.c_int]
+    lib.gtt_error_string.restype = ctypes.c_char_p
+    _build._libs["panel_fused"] = lib
 
 
 def time_shapes(label: str, n: int, reps: int) -> None:
@@ -170,17 +188,9 @@ def main(argv=None) -> int:
     _build.build_all()
     forms = [f for f in args.forms.split(",") if f]
     if forms:
-        import ctypes
-
         built = build_forms(forms, _build.find_nvcc(), _build.NVCC_FLAGS)
         for form in forms:
-            lib = ctypes.CDLL(str(built[form]))
-            for fn, argtypes in _build._SIGNATURES["panel_fused"].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.gtt_error_string.argtypes = [ctypes.c_int]
-            lib.gtt_error_string.restype = ctypes.c_char_p
-            _build._libs["panel_fused"] = lib
+            load_form(built[form])
             time_shapes(f"form {form}", args.n, args.reps)
         return 0
     time_shapes("", args.n, args.reps)

@@ -151,6 +151,74 @@ def test_trailing_plain_f32_path_unchanged(rng):
     assert torch.equal(got, want)
 
 
+def _trailing_with_fault(block, mult, ipiv, col0, fseg, fault):
+    """The bfloat16 trailing leg with one break of the precision contract
+    (``no-ulow``: U applied unrounded; ``per-panel``: one rounding at the
+    panel's end; ``bf16-acc``: the products summed in bfloat16), or none
+    but another summation order (``reordered``: products in float64)."""
+    panel = mult.shape[0]
+    trail = block[:, col0 + panel:]
+    piv_all = ipiv.to(torch.int64)
+    t = trail.float()
+    for s0 in range(0, panel, fseg):
+        s1 = min(s0 + fseg, panel)
+        piv = piv_all[s0:s1]
+        m = mult[s0:s1].float()
+        u = t.index_select(0, piv)
+        lc = m.index_select(1, piv)
+        for j in range(1, s1 - s0):
+            u[j] -= lc[:j, j] @ u[:j]
+        ulow = u.to(BF16).float()
+        applied = u if fault == "no-ulow" else ulow
+        if fault == "reordered":
+            prod = (m.double().T @ applied.double()).float()
+        elif fault == "bf16-acc":
+            prod = torch.zeros_like(t)
+            for i in range(s1 - s0):
+                prod = (prod + torch.outer(m[i], applied[i])).to(BF16).float()
+        else:
+            prod = m.T @ applied
+        t = t - prod
+        t.index_copy_(0, piv, ulow if fault == "per-panel" else applied)
+        if fault != "per-panel":
+            t = t.to(BF16).float()
+    trail.copy_(t.to(BF16))
+    return block
+
+
+@pytest.mark.parametrize("fault", ["no-ulow", "per-panel", "bf16-acc",
+                                   "reordered"])
+def test_share_limit_catches_contract_faults(fault):
+    """chip_smoke's bfloat16 limits against a plain trailing leg that breaks
+    the contract: each break moves most trailing elements, so the share
+    limit trips though the max limit (4 ulps of the block's largest) may
+    not; another summation order alone passes both. The card's kernels
+    with these faults planted: scripts/probe_bf16_faults.py."""
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    h = w = 512
+    panel, fseg = 64, 32
+    block = torch.from_numpy(np.random.default_rng(258458).standard_normal(
+        (h, w)).astype(np.float32)).to(BF16)
+    p, ipiv, perm, _ = kp.panel_factor(block[:, :panel], 0)
+    mult, _ = kf.reconstruct_mult_pt(p, ipiv, perm, 0, panel)
+    want = kf.trailing_update_plain(block.clone(), mult, ipiv, 0, fseg)
+    got = _trailing_with_fault(block.clone(), mult, ipiv, 0, fseg, fault)
+    err, scale, share = chip_smoke.bf16_block_stats(got, want, panel)
+    if fault == "reordered":
+        assert err <= chip_smoke.TOL_BF16 * scale
+        assert share <= chip_smoke.TOL_BF16_SHARE / 100
+    else:
+        assert share > 10 * chip_smoke.TOL_BF16_SHARE
+
+
 def test_bf16_geometry_reaches_twice_the_rows():
     """A bfloat16 strip takes half the shared memory a row: the cluster
     route reaches about twice the rows of float32, and the fused kernel's
@@ -438,6 +506,10 @@ def cuda_device():
 #: bfloat16 neighbour, and such a flip in a pivot row's U enters every
 #: later row through |m| <= 1, once per segment.
 CARD_TOL_BF16 = 4 * BF16_ULP
+#: At most this share of the trailing elements may differ at all
+#: (chip_smoke.TOL_BF16_SHARE): an order flip is rare, a broken contract
+#: moves most elements (test_share_limit_catches_contract_faults).
+CARD_SHARE_BF16 = 0.05
 
 
 @pytest.mark.cuda
@@ -477,8 +549,10 @@ def test_bf16_fused_and_trailing_on_card(cuda_device, h, w, col0):
     for g, w_ in zip(got[:4], want[:4]):
         assert torch.equal(g, w_)
     scale = float(want[4].float().abs().max())
-    assert float((got[4].float() - want[4].float()).abs().max()) <= (
-        CARD_TOL_BF16 * scale)
+    diff = (got[4].float() - want[4].float()).abs()
+    assert float(diff.max()) <= CARD_TOL_BF16 * scale
+    assert float((diff[:, col0 + panel:] > 0).float().mean()) <= (
+        CARD_SHARE_BF16)
     pair = a.clone()
     p, ipiv, perm, _ = kp.panel_factor(pair[:, col0:col0 + panel], 0)
     mult, onehot = kf.reconstruct_mult_pt(p, ipiv, perm, 0, panel)
@@ -527,6 +601,10 @@ def test_chip_smoke_lowered_phase_rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "PANEL", 32)
     monkeypatch.setattr(chip_smoke, "LOWERED_CHECK", (128, 32, 2))
     monkeypatch.setattr(chip_smoke, "LOWERED_LARGE", (256, 128, 4))
+    # F64_CAP_BF16 is the card's cap at n=1024; a dominant system of order
+    # 128 is less dominant, so its bfloat16 factor lies further from the
+    # float64 one: the cap asserted below.
+    monkeypatch.setattr(chip_smoke, "F64_CAP_BF16", 2 ** -6)
     monkeypatch.setattr(tb, "UNROLL_MAX_N", 100)
     buf = io.StringIO()
     with redirect_stdout(buf):

@@ -75,9 +75,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      and each kernel engine launches twice per run.
    Each CLI run solves twice (the warm-up at shape, then the timed run).
    - sparse: ``gauss_tpu_torch.sparse.check`` with its smoke leg (n = 640:
-     CG, GMRES, BiCGStab) and its giant leg (CG at n = 100,000), then the
-     same with ``--giant-n 1000000`` (19 M stored entries, 444 MB of ELL
-     state on the card); each preconditioner kind once at the smoke size;
+     the routed ``solve_auto`` served by CG, then CG, GMRES, BiCGStab)
+     and its giant leg (CG at n = 100,000), then the same with
+     ``--giant-n 1000000`` (19 M stored entries, 444 MB of ELL state on
+     the card); each preconditioner kind once at the smoke size;
      one ``.dat`` round trip; and one n = 1,000,000 solve taken apart
      (certificate, staging, iterations, host residual). Every solve is
      verified at the 1e-4 gate by a host residual, and the SpMV kernel's
@@ -165,7 +166,35 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``solve_lowered(dtype="bfloat16")`` through the 1e-4 gate. The counted
    solves of (b)-(d) are the phase's launch counts; a ``{"lowered": ...}``
    JSON line carries its figures.
-8. The ``kernels`` JSON line, the card line, and the final
+8. The structure router (``structure.solve_auto`` on the recovery
+   ladder) on the card: (a) the batched panel kernel (kernel 1 over a
+   (B, h, panel) stack, one launch) bit for bit against its plain version
+   on a random (64, 128, 128) stack, a stack past a block's shared memory
+   (the global-scratch route) and a one-member stack against the
+   single-strip kernel; (b) one ``solve_auto`` per class, each with the
+   launch counts set to 0 just before and read just after: spd
+   (``synthetic.spd_matrix`` at STRUCT_SPD, served by ``cholesky``, the
+   class named by the caller where the detector calls the generator's
+   matrix banded (n=8192: its entries are exact zeros past |i-j| = 537);
+   and at each size a dense diagonally dominant SPD matrix (``spd_dense``)
+   that the detector must call spd, routed with no class named; each
+   factor's ms beside ``torch.linalg.cholesky`` and the port's LU on the
+   same matrix), dense (``synthetic.dense_matrix(N)``, served by
+   ``blocked`` with one factorization's kernel-1/kernel-2 plan), banded
+   (STRUCT_BANDED: the tridiagonal scan and the block LU), blockdiag
+   (STRUCT_BLOCKDIAG, 64 members in one bucket: one batched launch per
+   factor, the cache's warm-up factor included, every launch held bit for
+   bit against its plain version, the launch timed beside
+   ``torch.linalg.lu_factor`` on the same stack and its bound); each
+   served at rung 0 by its engine and verified by a float64 residual at
+   the 1e-4 gate; (c) the demotions at STRUCT_DEMOTE_N: the spd system
+   (at DEMOTE_RHO) tagged ``banded``, the dense system tagged ``spd``
+   (both through a ``structure.detect`` plan) and a
+   ``core.blocked.factor=nan`` plan on the dense system, each served verified by the rung DEMOTIONS names,
+   with its ``recovery`` triggers printed. The routed leg of the sparse
+   check runs in phases 4 and 5. A ``{"structure": ...}`` JSON line
+   carries the phase's figures.
+9. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -289,6 +318,25 @@ BACKWARD_RATIO = 4.0
 # pivots (n, panel, chunk), and the full-size cell resolve_factor picks.
 LOWERED_CHECK = (1024, 128, 2)
 LOWERED_LARGE = (8192, 256, 4)
+# Phase 8's cells: the reference's structure sizes at full width.
+STRUCT_SPD = (2048, 8192)
+STRUCT_BANDED = ((8192, 1), (8192, 16))
+STRUCT_BLOCKDIAG = ((2048, 32), (8192, 128))
+STRUCT_DEMOTE_N = 2048
+# The spd system of the demotions: the generator at rho = 0.7 (SPD, cond
+# ~32). At the default rho = 0.25 its float32 entries are exactly 0 past
+# |i-j| = 75, so at n=2048 the band engine (which stages float32) serves
+# it at rung 0 in both packages and nothing demotes.
+DEMOTE_RHO = 0.7
+STRUCT_BATCH_CHECK = ((64, 128, 128), (3, 512, 128))
+# The demotion cases: (name, true system, forced tag or fault plan, the
+# rungs that fail in order, the serving rung).
+DEMOTIONS = (
+    ("spd tagged banded", "spd", "banded", ("banded",), "blocked"),
+    ("dense tagged spd", "dense", "spd", ("cholesky",), "blocked"),
+    ("dense, core.blocked.factor nan", "dense",
+     "core.blocked.factor=nan:p=1:max=1", ("blocked",), "pivot_safe"),
+)
 
 
 def require(cond, msg: str) -> None:
@@ -1502,9 +1550,14 @@ def phase_sparse_path(spmv: dict, systems: dict):
         run_cli(check, argv)
         with open(summary_path) as f:
             summary = json.load(f)
-        require(summary["ok"] and summary["routed"]["detected"] == "sparse",
+        routed = summary["routed"]
+        require(summary["ok"] and routed["detected"] == "sparse"
+                and routed["engine"] == "cg" and not routed["demoted"]
+                and routed["rel_residual"] <= GATE,
                 f"sparse check at giant n={n}: {summary}")
-        leg = 0
+        # The routed leg's CG rung solves the smoke system as the cg leg
+        # does: the same iterations, once.
+        leg = krylov_launches("cg", summary["methods"]["cg"]["iterations"])
         for method, row in summary["methods"].items():
             require(row["verified"] and row["rel_residual"] <= GATE,
                     f"sparse smoke {method}: {row}")
@@ -1910,7 +1963,8 @@ def phase_telemetry(dat: str):
     events, spans, counters = read_stream(sp)
     solves = [ev for ev in events if ev["type"] == "sparse_solve"]
     require(spans == {"sparse_check_smoke"}, f"sparse spans {spans}")
-    require(len(solves) == 3 * repeats and counters.get("sparse.solves")
+    # Three methods per repeat, and the routed leg's one CG solve.
+    require(len(solves) == 3 * repeats + 1 and counters.get("sparse.solves")
             == len(solves) and "sparse.stagnations" not in counters,
             f"sparse counters {counters}, {len(solves)} sparse_solve events")
     spmv = sum(krylov_launches(ev["method"], ev["iterations"])
@@ -3098,6 +3152,275 @@ def phase_lowered(reps: int):
     return path, out
 
 
+def call_ms(fn, reps: int):
+    """Median ms of ``fn()`` by CUDA events on the card; None on the CPU."""
+    if DEVICE != "cuda":
+        return None
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    return cuda_event_ms(fn, reps=reps, warmup=1)
+
+
+def batched_bound(shape) -> tuple:
+    """The batched panel factor's bound: each member read and written once
+    (plus its pivots), or the step loop's operations on every member."""
+    bsz, h, panel = shape
+    nbytes = bsz * (2.0 * 4 * h * panel + 4 * (panel + 2 * h) + 4)
+    return bound(nbytes, bsz * panel_ops(h, panel, 0))
+
+
+def spd_dense(n: int, rng) -> np.ndarray:
+    """A dense symmetric matrix, strictly diagonally dominant with a
+    positive diagonal (so SPD, and detected ``spd``): a seeded symmetric
+    uniform [-1, 1) matrix plus n I."""
+    m = rng.uniform(-1.0, 1.0, (n, n))
+    a = m + m.T
+    a *= 0.5
+    a[np.diag_indices(n)] += n
+    return a
+
+
+def phase_structure(reps: int):
+    """The structure router on the card (module docstring, phase 8):
+    returns the launch counts of its counted solves and its figures."""
+    import torch
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked, lowered
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.resilience import inject
+    from gauss_tpu_torch.structure import blockdiag, cholesky, solve_auto
+    from gauss_tpu_torch.structure.detect import (STRUCTURE_KINDS,
+                                                  detect_structure)
+    from gauss_tpu_torch.utils.device import as_tensor, resolve_device
+    from gauss_tpu_torch.verify import checks
+
+    on_card = DEVICE == "cuda"
+    dev = resolve_device(DEVICE)
+    card = smi_line() if on_card else "cpu"
+    work = os.path.join(REPO, "build", "chip_smoke", "structure")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(SEED + 8)
+    path = dict.fromkeys(_build.LAUNCHES, 0)
+    out = {"card": card, "batched": {}, "batched_err": 0.0, "classes": {},
+           "demotions": {}}
+    require(not lowered.lowered_enabled(N), "a tune store starts the dense "
+            "lane below float32; phase 8 expects the float32 route")
+    plan = plan_counts(factor_plan(N, PANEL)) if on_card else dict.fromkeys(
+        _build.LAUNCHES, 0)
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+
+    # (a) The batched kernel alone against its plain version.
+    for shape in STRUCT_BATCH_CHECK:
+        p = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+        got = kp.panel_factor_batched(p.clone())
+        require(same_outputs(got, kp.panel_factor_batched_plain(p.clone())),
+                f"batched panel kernel at {shape} differs from the plain "
+                f"version")
+        one = kp.panel_factor_batched(p[:1].clone())
+        single = kp.panel_factor(p[0].clone())
+        require(all(torch.equal(g[0], w) for g, w in zip(one, single)),
+                f"one-member batched launch at {shape[1:]} differs from the "
+                f"single-strip kernel")
+        route = (kp.panel_batched_info(*shape[1:])["route"] if on_card
+                 else "plain")
+        print(f"phase 8: batched panel kernel at {shape} "
+              f"({route} route) == plain bit for bit; "
+              f"one member == the single-strip kernel [{card}]")
+
+    stacks = {}
+    real_batched = kp.panel_factor_batched
+
+    def checked_batched(p, kb=0):
+        x = p.clone()
+        got = real_batched(p, kb)
+        want = kp.panel_factor_batched_plain(x, kb)
+        require(same_outputs(got, want),
+                f"batched panel kernel on the main path at "
+                f"{tuple(p.shape)} differs from the plain version")
+        out["batched_err"] = max(out["batched_err"], float(
+            (got[0] - want[0]).abs().max()))
+        stacks[tuple(p.shape)] = x
+        return got
+
+    def routed(label, a, b, engine, expect, structure=None):
+        """One counted solve_auto, served at rung 0 by ``engine`` with the
+        launches ``expect`` (a callable of the blockdiag cache's misses in
+        the call, whose new entry's warm-up factors once)."""
+        cache = blockdiag._exe_cache(dev)
+        misses = cache.misses
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_auto(a, b, structure=structure, device=DEVICE)
+        sync()
+        secs = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        want = expect(cache.misses - misses) if callable(expect) else expect
+        for k in path:
+            path[k] += got[k]
+        rel = checks.residual_norm(a, res.x, b, relative=True)
+        require(res.rung == engine and res.rung_index == 0,
+                f"{label}: served by {res.rung} at rung {res.rung_index} "
+                f"({res.escalations}), expected {engine} at rung 0")
+        require(np.isfinite(rel) and rel <= GATE,
+                f"{label}: float64 relative residual {rel}")
+        require(got == want, f"{label}: launches "
+                f"{ {k: v for k, v in got.items() if v} }, expected "
+                f"{ {k: v for k, v in want.items() if v} }")
+        return {"n": a.shape[0], "engine": res.rung,
+                "rung_index": res.rung_index, "s_per_solve": secs,
+                "rel_residual": rel,
+                "launches": {k: v for k, v in got.items() if v}}
+
+    def b_for(n):
+        return rng.standard_normal(n)
+
+    # (b) One routed solve per class.
+    spd_cells = []
+    for n in STRUCT_SPD:
+        # The generator's entries 0.25^|i-j| are exactly 0 past |i-j| =
+        # 537 in float64, so above n = 8 x 537 the detector (the JAX
+        # package's too) calls it banded: the caller names the class. The
+        # dense diagonally dominant operand is detected spd at every size,
+        # so its cell runs detect -> cholesky with no class named.
+        spd_cells += [(f"spd n={n}", synthetic.spd_matrix(n), None),
+                      (f"spd dense n={n}", spd_dense(n, rng), "spd")]
+    for label, a, must_detect in spd_cells:
+        n = a.shape[0]
+        detected = detect_structure(a).kind
+        require(must_detect is None or detected == must_detect,
+                f"{label}: detected {detected}, expected {must_detect}")
+        row = routed(label, a, b_for(n), "cholesky", none,
+                     structure=None if detected == "spd" else "spd")
+        row["detected"] = detected
+        a_dev = as_tensor(a, dev)
+        form = cholesky.resolve_chol_factor(n, device=dev).__name__
+        row.update(
+            form=form,
+            factor_ms=call_ms(lambda: cholesky.cholesky_factor(
+                a_dev, device=dev), 3),
+            torch_cholesky_ms=call_ms(lambda: torch.linalg.cholesky(a_dev),
+                                      3),
+            lu_factor_ms=call_ms(lambda: blocked.resolve_factor(
+                n, device=dev)(a_dev, device=dev), 3),
+            torch_lu_factor_ms=call_ms(lambda: torch.linalg.lu_factor(a_dev),
+                                       3))
+        out["classes"][label] = row
+        print(f"phase 8: {label} (detected {detected}): cholesky ({form}) "
+              f"factor "
+              f"{row['factor_ms']} ms, torch.linalg.cholesky "
+              f"{row['torch_cholesky_ms']} ms, the port's LU "
+              f"{row['lu_factor_ms']} ms (torch.linalg.lu_factor "
+              f"{row['torch_lu_factor_ms']}); {row['s_per_solve']:.4f} s per "
+              f"solve, rel_residual {row['rel_residual']:.3e} [{card}]")
+    a = synthetic.dense_matrix(N)
+    row = routed(f"dense n={N}", a, b_for(N), "blocked", plan)
+    out["classes"][f"dense n={N}"] = row
+    print(f"phase 8: dense n={N}: blocked at rung 0, launches "
+          f"{row['launches']} (one factorization's plan), "
+          f"{row['s_per_solve']:.4f} s, rel_residual "
+          f"{row['rel_residual']:.3e} [{card}]")
+    for n, bw in STRUCT_BANDED:
+        a = synthetic.banded_matrix(n, bw)
+        row = routed(f"banded n={n} bw={bw}", a, b_for(n), "banded", none)
+        out["classes"][f"banded n={n} bw={bw}"] = row
+        print(f"phase 8: banded n={n} bandwidth {bw} "
+              f"({'tridiagonal scan' if bw == 1 else 'block LU'}): "
+              f"{row['s_per_solve']:.4f} s, rel_residual "
+              f"{row['rel_residual']:.3e} [{card}]")
+    try:
+        for n, blk in STRUCT_BLOCKDIAG:
+            a = synthetic.blockdiag_matrix(n, blk)
+
+            def expect(misses):
+                # The warm-up factor of a new cache entry and the solve's.
+                return {**none, "panel_factor_batched":
+                        (misses + 1) if on_card else 0}
+
+            label = f"blockdiag n={n} block={blk}"
+            kp.panel_factor_batched = checked_batched
+            row = routed(label, a, b_for(n), "blockdiag", expect)
+            kp.panel_factor_batched = real_batched
+            # A warm call: the cache hit factors once.
+            row["s_per_solve_warm"] = routed(label + " (warm)", a, b_for(n),
+                                             "blockdiag", expect)[
+                "s_per_solve"]
+            out["classes"][f"blockdiag n={n} block={blk}"] = row
+            print(f"phase 8: blockdiag n={n} blocks of {blk}: launches "
+                  f"{row['launches']} (a new cache entry's warm-up + the "
+                  f"factor), warm call {expect(0)['panel_factor_batched']} "
+                  f"launch, {row['s_per_solve']:.4f} s cold, "
+                  f"{row['s_per_solve_warm']:.4f} s warm, rel_residual "
+                  f"{row['rel_residual']:.3e} [{card}]")
+    finally:
+        kp.panel_factor_batched = real_batched
+    for shape, stack in sorted(stacks.items()):
+        bms, by = batched_bound(shape)
+        rec = {"bound_ms": bms, "bound_by": by, "ms": None, "plain_ms": None,
+               "library_ms": None,
+               "route": (kp.panel_batched_info(*shape[1:])["route"]
+                         if on_card else None)}
+        if on_card:
+            rec["ms"] = device_ms(lambda: kp.panel_factor_batched(stack),
+                                  reps)
+            with quiet_fd1():
+                rec["library_ms"] = device_ms(
+                    lambda: torch.linalg.lu_factor(stack), reps)
+            rec["plain_ms"] = call_ms(
+                lambda: kp.panel_factor_batched_plain(stack), 1)
+        out["batched"][str(shape)] = rec
+        print(f"phase 8: batched panel kernel at {shape}: {rec['ms']} ms "
+              f"(one launch), plain {rec['plain_ms']} ms, "
+              f"torch.linalg.lu_factor on the stack {rec['library_ms']} ms, "
+              f"bound {bms:.5f} ms ({by}) [{card}]")
+
+    # (c) The demotions.
+    systems = {"spd": synthetic.spd_matrix(STRUCT_DEMOTE_N, rho=DEMOTE_RHO),
+               "dense": synthetic.dense_matrix(STRUCT_DEMOTE_N)}
+    b = b_for(STRUCT_DEMOTE_N)
+    for name, system, fault, failed, serving in DEMOTIONS:
+        a = systems[system]
+        if "=" in fault:
+            fplan = inject.FaultPlan.parse(fault)
+        else:
+            fplan = inject.FaultPlan([inject.FaultSpec(
+                site="structure.detect", kind="mistag",
+                param=float(STRUCTURE_KINDS.index(fault)), max_triggers=1)])
+        stream = os.path.join(work, f"demotion_{len(out['demotions'])}.jsonl")
+        _build.reset_launches()
+        with obs.run(metrics_out=stream, tool="chip_smoke"):
+            with inject.plan(fplan) as ap:
+                res = solve_auto(a, b, device=DEVICE)
+        got = dict(_build.LAUNCHES)
+        for k in path:
+            path[k] += got[k]
+        events = [ev for ev in obs.read_events(stream)
+                  if ev["type"] == "recovery"]
+        rel = checks.residual_norm(a, res.x, b, relative=True)
+        triggers = [(ev["rung"], ev["trigger"], ev["outcome"])
+                    for ev in events]
+        require(ap.stats()["triggered"] == 1, f"{name}: the plan fired "
+                f"{ap.stats()}")
+        require(res.rung == serving and [r for r, _ in res.escalations]
+                == list(failed), f"{name}: served by {res.rung} after "
+                f"{res.escalations}, expected {serving} after {failed}")
+        require(np.isfinite(rel) and rel <= GATE, f"{name}: rel {rel}")
+        require(got == plan, f"{name}: launches {got}, expected {plan}")
+        out["demotions"][name] = {
+            "rung": res.rung, "rung_index": res.rung_index,
+            "escalations": res.escalations, "recovery": triggers,
+            "rel_residual": rel}
+        print(f"phase 8: demotion {name}: served by {res.rung} at rung "
+              f"{res.rung_index}, recovery {triggers}, rel_residual "
+              f"{rel:.3e} [{card}]")
+    print(json.dumps({"structure": out}, default=str))
+    return path, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -3137,6 +3460,9 @@ def main(argv=None) -> int:
     by_path["telemetry"], tele = phase_telemetry(dat)
     by_path["large_n"], large = phase_large_n()
     by_path["lowered"], low = phase_lowered(args.reps)
+    by_path["structure"], struct = phase_structure(args.reps)
+    require(by_path["structure"]["panel_factor_batched"] > 0,
+            "the structure path launched no batched panel kernel")
     for name in ("panel_factor_cluster_bf16", "panel_factor_bf16",
                  "panel_trailing_fused_bf16"):
         require(by_path["lowered"][name] > 0, f"the lowered path launched "
@@ -3271,6 +3597,22 @@ def main(argv=None) -> int:
          "differing_share": f16["share3"],
          "shape": f"({N}, {N}) bfloat16, panel at column 0 (the unfused "
                   f"pair's leg)"})
+    bshape = max(struct["batched"])
+    bat = struct["batched"][bshape]
+    kernels.append(
+        {"name": "panel_factor_batched", "route": "cuda",
+         "source": src + "panel_batched.cu",
+         "sources": [src + "panel_batched.cu", src + "panel_common.cuh"],
+         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+         **launch_keys("panel_factor_batched"),
+         "max_abs_err": struct["batched_err"],
+         "ms": bat["ms"], "plain_ms": bat["plain_ms"],
+         "bound_ms": bat["bound_ms"], "bound_by": bat["bound_by"],
+         "library_ms": bat["library_ms"],
+         "shape": f"{bshape}: the block-diagonal lane's stack, one launch "
+                  f"(library: torch.linalg.lu_factor on the stack); every "
+                  f"launch held bit for bit against its plain version",
+         "stacks": struct["batched"]})
     npad, wpad, k = rowelim_shape(N)
     for name, line in (("matmul_tiled", 131), ("matmul_stripe", 245)):
         hi = km[name]["high"]

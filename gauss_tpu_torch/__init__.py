@@ -12,8 +12,11 @@ group through the panel kernel and a rank-k update kernel) and the
 matmul driver with a tiled and a row-stripe GEMM kernel. And the sparse
 Krylov plane (:mod:`.sparse`): CSR assembly from the coordinate stream, an
 ELL sparse matrix-vector kernel, CG / GMRES / BiCGStab in float64 with
-factor-based preconditioners, with the structure detector
-(:mod:`.structure`) and the tuning seeds (:mod:`.tune`) it reads. The
+factor-based preconditioners, with the tuning seeds (:mod:`.tune`) it
+reads. The structure router (:mod:`.structure`: ``solve_auto`` over the
+blocked Cholesky, the band solvers and a block-diagonal lane whose stacks
+factor in one batched panel-kernel launch) runs on the recovery ladder
+of :mod:`.resilience`, with seeded fault injection. The
 telemetry core (:mod:`.obs`) records spans, counters and health monitors
 as JSONL under the CLIs' ``--metrics-out``.
 

@@ -65,6 +65,12 @@ factor is bit for bit the ``panel_impl="pallas"`` one;
 ``zero_pivot_safe=True`` pins the stock panel, which alone guards the
 division.
 
+The three factor entries (:func:`lu_factor_blocked_unrolled`,
+:func:`lu_factor_blocked`, :func:`lu_factor_blocked_chunked`) are the
+``core.blocked.factor`` fault-injection hook point
+(:mod:`gauss_tpu_torch.resilience.inject`) on their operand: one ``is
+None`` check when no plan is installed.
+
 :func:`lu_factor_blocked_phased` runs the ``"pallas"`` route with a
 synchronized telemetry span around each phase (the solver-phase profile of
 the CLIs' ``--phase-profile``). :func:`solve_handoff` routes a solve by its
@@ -110,6 +116,7 @@ from gauss_tpu_torch.core.matmul import (BF16X3, dot_bf16x3, gdot,
                                          resolve_precision)
 from gauss_tpu_torch.kernels.panel import accum_dtype, panel_factor
 from gauss_tpu_torch.kernels.panel_fused import panel_trailing_fused
+from gauss_tpu_torch.resilience import inject as _inject
 from gauss_tpu_torch.tune import apply as _tune
 from gauss_tpu_torch.tune.space import CHUNK_SEED
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
@@ -196,40 +203,41 @@ class BlockedLU(NamedTuple):
 
 
 def unit_lower_inv(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of a unit-lower-triangular block by recursive 2x2 partition:
+    """Inverse of a unit-lower-triangular block (or a stack of them, on
+    the last two axes) by recursive 2x2 partition:
     inv([[A,0],[C,B]]) = [[Ai,0],[-Bi C Ai, Bi]]; triangular solves at the
     base size."""
-    p = l.shape[0]
+    p = l.shape[-1]
     if p <= TRI_INV_BASE:
         eye = torch.eye(p, dtype=l.dtype, device=l.device)
         return torch.linalg.solve_triangular(l, eye, upper=False,
                                              unitriangular=True)
     h = p // 2
-    ai = unit_lower_inv(l[:h, :h])
-    bi = unit_lower_inv(l[h:, h:])
-    c = (bi @ l[h:, :h]) @ ai
+    ai = unit_lower_inv(l[..., :h, :h])
+    bi = unit_lower_inv(l[..., h:, h:])
+    c = (bi @ l[..., h:, :h]) @ ai
     out = torch.zeros_like(l)
-    out[:h, :h] = ai
-    out[h:, :h] = -c
-    out[h:, h:] = bi
+    out[..., :h, :h] = ai
+    out[..., h:, :h] = -c
+    out[..., h:, h:] = bi
     return out
 
 
 def upper_inv(u: torch.Tensor) -> torch.Tensor:
-    """Inverse of an upper-triangular block, same recursive scheme:
-    inv([[A,C],[0,B]]) = [[Ai, -Ai C Bi],[0, Bi]]."""
-    p = u.shape[0]
+    """Inverse of an upper-triangular block (or a stack of them), same
+    recursive scheme: inv([[A,C],[0,B]]) = [[Ai, -Ai C Bi],[0, Bi]]."""
+    p = u.shape[-1]
     if p <= TRI_INV_BASE:
         eye = torch.eye(p, dtype=u.dtype, device=u.device)
         return torch.linalg.solve_triangular(u, eye, upper=True)
     h = p // 2
-    ai = upper_inv(u[:h, :h])
-    bi = upper_inv(u[h:, h:])
-    c = (ai @ u[:h, h:]) @ bi
+    ai = upper_inv(u[..., :h, :h])
+    bi = upper_inv(u[..., h:, h:])
+    c = (ai @ u[..., :h, h:]) @ bi
     out = torch.zeros_like(u)
-    out[:h, :h] = ai
-    out[:h, h:] = -c
-    out[h:, h:] = bi
+    out[..., :h, :h] = ai
+    out[..., :h, h:] = -c
+    out[..., h:, h:] = bi
     return out
 
 
@@ -265,16 +273,16 @@ def _gdot(x: torch.Tensor, y: torch.Tensor, mode: str,
 
 
 def _diag_block_linv(d: torch.Tensor) -> torch.Tensor:
-    """Inverse of the unit-lower part of one factored diagonal block, in
-    the accumulate dtype."""
+    """Inverse of the unit-lower part of one factored diagonal block (or a
+    stack of them), in the accumulate dtype."""
     d = d.to(accum_dtype(d.dtype))
     return unit_lower_inv(torch.tril(d, -1) + torch.eye(
-        d.shape[0], dtype=d.dtype, device=d.device))
+        d.shape[-1], dtype=d.dtype, device=d.device))
 
 
 def _diag_block_uinv(d: torch.Tensor) -> torch.Tensor:
-    """Inverse of the upper part of one factored diagonal block, in the
-    accumulate dtype."""
+    """Inverse of the upper part of one factored diagonal block (or a stack
+    of them), in the accumulate dtype."""
     return upper_inv(torch.triu(d.to(accum_dtype(d.dtype))))
 
 
@@ -637,6 +645,8 @@ def lu_factor_blocked_unrolled(a, panel: int | None = DEFAULT_PANEL,
     arithmetic (float32, or the bfloat16 rounding of the reference at
     bfloat16 storage). ``donate``: factor ``a`` in place when it already
     lies on ``device`` in its storage dtype and needs no padding."""
+    if _inject.enabled():
+        a = _inject.corrupt_operand("core.blocked.factor", a)
     mode = resolve_precision(gemm_precision, allow_split=True)
     a, dev = _check_square(a, panel_impl, device)
     panel = _resolve_panel(a.shape[0], panel, a.element_size())
@@ -666,6 +676,8 @@ def lu_factor_blocked(a, panel: int | None = DEFAULT_PANEL,
     and ``"fused"`` resolve to ``"pallas"``), so ``m``/``perm``/``linv``/
     ``uinv`` equal the ``abft=False, panel_impl="pallas"`` factor bit for
     bit. Other arguments as for :func:`lu_factor_blocked_unrolled`."""
+    if _inject.enabled():
+        a = _inject.corrupt_operand("core.blocked.factor", a)
     mode = resolve_precision(gemm_precision, allow_split=True)
     if swap_impl not in ("gather", "loop"):
         raise ValueError(f"unknown swap_impl {swap_impl!r}; options: "
@@ -793,6 +805,8 @@ def lu_factor_blocked_chunked(a, panel: int | None = DEFAULT_PANEL,
     checksum rider per group (``abft_err`` of shape ``(groups + 1,)``),
     on the unfused pair. Other arguments as for
     :func:`lu_factor_blocked_unrolled`."""
+    if _inject.enabled():
+        a = _inject.corrupt_operand("core.blocked.factor", a)
     mode = resolve_precision(gemm_precision, allow_split=True)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")

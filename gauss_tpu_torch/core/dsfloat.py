@@ -231,6 +231,11 @@ def solve_ds(a, b, iters: int = DS_REFINE_STEPS, panel: int | None = None,
     dev = resolve_device(device)
     a64 = np.asarray(a, np.float64)
     b64 = np.asarray(b, np.float64)
+    if b64.ndim != 1:
+        # The double-single matvec takes one right-hand side; the JAX
+        # package fails the same shape with a ValueError from broadcasting.
+        raise ValueError(f"solve_ds takes one right-hand side of shape "
+                         f"(n,), got {b64.shape}")
     # The f32 factor operand is staged here and dead after the factor:
     # donate it (factored in place where it needs no padding), as the JAX
     # package does.

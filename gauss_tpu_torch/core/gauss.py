@@ -14,7 +14,9 @@ Pivoting policies:
                         programs' policy), with the RHS swapped consistently;
 - ``"none"``          — no pivoting.
 
-The JAX package's fault-injection hook is not part of this port yet.
+:func:`gauss_solve` is the ``core.gauss.solve`` fault-injection hook
+point (:mod:`gauss_tpu_torch.resilience.inject`): one ``is None`` check
+when no plan is installed.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from gauss_tpu_torch.resilience import inject as _inject
 from gauss_tpu_torch.utils.device import as_tensor, resolve_device
 
 PIVOT_POLICIES = ("partial", "first_nonzero", "none")
@@ -123,5 +126,7 @@ def gauss_solve(a, b, pivoting: str = "partial",
                 device=None) -> torch.Tensor:
     """Dense solve via forward elimination + back-substitution (the
     oracle path); returns a float32 tensor on the resolved device."""
+    if _inject.enabled():
+        a = _inject.corrupt_operand("core.gauss.solve", a)
     res = eliminate(a, b, pivoting=pivoting, device=device)
     return back_substitute(res.u, res.y)

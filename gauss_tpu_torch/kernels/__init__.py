@@ -3,7 +3,9 @@
 - :mod:`.panel` — ``panel_factor``: the cluster-resident kernel
   (``csrc/panel_cluster.cu`` on ``csrc/panel_cluster.cuh``) for strips a
   cluster of up to 16 blocks holds, the one-block kernel
-  (``csrc/panel_factor.cu``) for taller ones (``panel_geometry``);
+  (``csrc/panel_factor.cu``) for taller ones (``panel_geometry``); and
+  ``panel_factor_batched``, a (B, h, panel) stack in one launch
+  (``csrc/panel_batched.cu``, one block per member);
 - :mod:`.panel_fused` — ``panel_trailing_fused`` and ``trailing_update``
   (``csrc/panel_fused.cu``);
 - :mod:`.matmul` — ``matmul_tiled`` and ``matmul_stripe``

@@ -9,9 +9,13 @@ at the first CUDA use of a kernel (or all at once, in parallel, through
 :func:`build_all`) into ``build/kernels/`` under the repository root, or
 into ``$GAUSS_TPU_TORCH_BUILD_DIR``.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises, and a
-C entry point that returns a CUDA error code raises. Importing this module
-compiles nothing.
+There is no fallback: a missing ``nvcc`` or a failed build raises
+:class:`KernelBuildError`, and a C entry point that returns a CUDA error
+code raises :class:`KernelLaunchError` (both subclasses of RuntimeError,
+so that a recovery ladder can tell a broken kernel from a bad system and
+re-raise it; :func:`is_kernel_fault` also names the CUDA error torch raises
+at the next sync after a kernel that faults while it runs). Importing this
+module compiles nothing.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("panel_factor", "panel_cluster", "panel_fused", "matmul",
-           "rowelim", "spmv")
+SOURCES = ("panel_factor", "panel_cluster", "panel_batched", "panel_fused",
+           "matmul", "rowelim", "spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: count under their own ``_bf16`` keys. Reset with
 #: :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
+            "panel_factor_batched": 0,
             "panel_trailing_fused": 0, "trailing_update": 0,
             "panel_factor_bf16": 0, "panel_factor_cluster_bf16": 0,
             "panel_trailing_fused_bf16": 0, "trailing_update_bf16": 0,
@@ -47,7 +52,7 @@ LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
 #: from an existing build).
 BUILD_SECONDS: dict[str, float] = {}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PANEL = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _CLUSTER_AT = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 _FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
@@ -63,6 +68,11 @@ _SIGNATURES = {
         "gtt_panel_factor_cluster_at": _CLUSTER_AT,
         "gtt_panel_factor_cluster_at_bf16": _CLUSTER_AT,
         "gtt_panel_cluster_info": [_I, _I, _I, _I, _P],
+    },
+    "panel_batched": {
+        "gtt_panel_factor_batched": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                                     _P, _P, _P],
+        "gtt_panel_batched_info": [_I, _I, _P],
     },
     "panel_fused": {
         "gtt_panel_fused_info": [_I, _I, _I, _I, _I, _I, _P],
@@ -89,6 +99,34 @@ _SIGNATURES = {
     },
 }
 
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or failed to build a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a CUDA error code."""
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` says a kernel failed to build, launch or run.
+
+    A launch-configuration error comes back from the C entry point as
+    :class:`KernelLaunchError`. A kernel that traps or reads out of bounds
+    surfaces later, at the next sync, as torch's CUDA error: a
+    ``torch.AcceleratorError``, or a ``RuntimeError`` whose message starts
+    with "CUDA error" where torch has no such class. The error is sticky,
+    so every later use of the card fails the same way. An out-of-memory
+    error is not a fault of a kernel and is not counted here."""
+    if isinstance(exc, (KernelBuildError, KernelLaunchError)):
+        return True
+    import torch
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error")
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -107,7 +145,7 @@ def build_dir() -> Path:
 
 def find_nvcc() -> str:
     """``nvcc`` from ``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``;
-    raises RuntimeError when none has it."""
+    raises :class:`KernelBuildError` when none has it."""
     cands = []
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home:
@@ -119,7 +157,7 @@ def find_nvcc() -> str:
     for c in cands:
         if c.is_file() and os.access(c, os.X_OK):
             return str(c)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA kernels of gauss_tpu_torch are "
         "built from source at first use and need the CUDA toolkit")
@@ -152,7 +190,7 @@ def _finish_build(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building csrc/{name}.cu "
+        raise KernelBuildError(f"nvcc failed building csrc/{name}.cu "
                            f"(rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
@@ -172,10 +210,10 @@ def build_all(names=SOURCES) -> dict[str, float]:
             for n, proc, tmp, out in jobs:
                 try:
                     _finish_build(n, proc, tmp, out, t0)
-                except RuntimeError as e:
+                except KernelBuildError as e:
                     errors.append(str(e))
             if errors:
-                raise RuntimeError("\n".join(errors))
+                raise KernelBuildError("\n".join(errors))
         for n in names:
             BUILD_SECONDS.setdefault(n, 0.0)
             _load_locked(n)
@@ -206,7 +244,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise on a CUDA error code returned by a C entry point of ``lib``."""
+    """Raise :class:`KernelLaunchError` on a CUDA error code returned by a
+    C entry point of ``lib``."""
     if rc != 0:
         msg = lib.gtt_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")

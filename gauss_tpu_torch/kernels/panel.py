@@ -34,6 +34,13 @@ memory, so a cluster holds about twice the rows: up to 6,848 at panel
 points of the two dtypes are separate symbols and count their launches
 under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``).
 
+:func:`panel_factor_batched` factors a (B, h, panel) stack of strips in
+one launch (``csrc/panel_batched.cu``, one block per member on the same
+one-block step loop; launch key ``panel_factor_batched``): the form the
+block-diagonal lane runs, where the JAX package vmaps
+``panel_factor_pallas`` over a stack of buckets. Its plain version is
+:func:`panel_factor_plain` per member. It takes float32 only.
+
 Deviation from the JAX package: the two-level deferred form (``defer``)
 and the ``seg`` segmentation exist there for VMEM and MXU limits; the port
 runs the classic single-segment form only (``seg`` is accepted for API
@@ -156,15 +163,16 @@ def factor_steps_plain(t: torch.Tensor, kb: int, record: bool = False):
 
 def perm_from_inv(inv: torch.Tensor, chosen: torch.Tensor, kb: int,
                   panel: int) -> torch.Tensor:
-    """Gather indices (int64) from the inverse-position vector: unchosen
-    rows at or below ``kb`` keep their original relative order after the
-    ``panel`` chosen pivots."""
-    h = inv.shape[0]
-    rows = torch.arange(h, device=inv.device)
+    """Gather indices (int64) from the inverse-position vector, over its
+    last axis (an (h,) vector or a (B, h) stack): unchosen rows at or below
+    ``kb`` keep their original relative order after the ``panel`` chosen
+    pivots."""
+    h = inv.shape[-1]
+    rows = torch.arange(h, device=inv.device).expand_as(inv)
     unch = (rows >= kb) & (chosen == 0)
-    rank = torch.cumsum(unch.to(torch.int64), 0)
+    rank = torch.cumsum(unch.to(torch.int64), -1)
     full = torch.where(unch, kb + panel - 1 + rank, inv.to(torch.int64))
-    return torch.empty_like(rows).scatter_(0, full, rows)
+    return torch.empty_like(rows).scatter_(-1, full, rows)
 
 
 def panel_factor_plain(p: torch.Tensor, kb: int = 0):
@@ -310,3 +318,77 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
         raise ValueError(f"panel_factor: unsupported device {p.device}")
     route = panel_geometry(*p.shape, p.element_size()).route
     return _panel_factor_cuda(p, kb, 0 if route == "cluster" else None)
+
+
+def panel_batched_info(h: int, panel: int) -> dict:
+    """What the batched kernel's C side reports for an (h, panel) float32
+    member: ``route`` ``"smem"`` (a block factors it in shared memory) or
+    ``"global"`` (in place in global memory), and the dynamic shared
+    memory bytes per block. Builds ``csrc/panel_batched.cu``; needs a CUDA
+    device."""
+    lib = _build.library("panel_batched")
+    out = (ctypes.c_int * 2)()
+    _build.check(lib, lib.gtt_panel_batched_info(h, panel, out),
+                 "panel_batched_info")
+    return {"route": "smem" if out[0] else "global", "smem_bytes": out[1]}
+
+
+def _check_batched_args(p: torch.Tensor, kb: int) -> None:
+    if p.dim() != 3 or p.shape[0] < 1 or p.shape[1] - kb < p.shape[2] \
+            or kb < 0:
+        raise ValueError(f"panel_factor_batched expects (B, h, panel) with "
+                         f"B >= 1 and at least panel rows at or below "
+                         f"kb={kb}, got {tuple(p.shape)}")
+
+
+def panel_factor_batched_plain(p: torch.Tensor, kb: int = 0):
+    """The plain version of :func:`panel_factor_batched`:
+    :func:`panel_factor_plain` on each member, stacked."""
+    _check_batched_args(p, kb)
+    outs = [panel_factor_plain(p[i], kb) for i in range(p.shape[0])]
+    return tuple(torch.stack(list(f)) for f in zip(*outs))
+
+
+def _panel_factor_batched_cuda(p: torch.Tensor, kb: int):
+    if p.dtype != torch.float32:
+        raise TypeError(f"panel_factor_batched: the CUDA kernel takes "
+                        f"float32, got {p.dtype}")
+    if p.stride(2) != 1:
+        p = p.contiguous()
+    bsz, h, panel = p.shape
+    dev = p.device
+    pt = torch.empty((bsz, panel, h), dtype=p.dtype, device=dev)
+    ipiv = torch.empty((bsz, panel), dtype=torch.int32, device=dev)
+    inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+    chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+    minpiv = torch.empty(bsz, dtype=p.dtype, device=dev)
+    lib = _build.library("panel_batched")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gtt_panel_factor_batched(
+            p.data_ptr(), p.stride(0), p.stride(1), bsz, h, panel, int(kb),
+            pt.data_ptr(), ipiv.data_ptr(), inv.data_ptr(),
+            chosen.data_ptr(), minpiv.data_ptr(), stream)
+    _build.check(lib, rc, "panel_factor_batched")
+    _build.LAUNCHES["panel_factor_batched"] += 1
+    perm = perm_from_inv(inv, chosen, kb, panel)
+    out = torch.gather(pt.transpose(1, 2), 1,
+                       perm[:, :, None].expand(bsz, h, panel))
+    return out, ipiv, perm, minpiv
+
+
+def panel_factor_batched(p: torch.Tensor, kb: int = 0):
+    """Factor every member of a (B, h, panel) stack of column blocks whose
+    diagonals sit at row ``kb``: :func:`panel_factor` per member, stacked.
+
+    Returns ``(p_perm (B, h, panel), ipiv (B, panel), perm_local (B, h),
+    min_abs_pivot (B,))``; ``p`` is not modified. A CUDA tensor launches
+    ``csrc/panel_batched.cu`` once for the whole stack (float32 only) or
+    raises; a CPU tensor runs :func:`panel_factor_batched_plain`."""
+    _check_batched_args(p, kb)
+    if p.device.type == "cpu":
+        return panel_factor_batched_plain(p, kb)
+    if p.device.type != "cuda":
+        raise ValueError(f"panel_factor_batched: unsupported device "
+                         f"{p.device}")
+    return _panel_factor_batched_cuda(p, kb)

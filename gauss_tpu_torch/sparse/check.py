@@ -4,7 +4,9 @@ Port of ``gauss_tpu/sparse/check.py``.
 Two legs, both on the deterministic generator ``io.synthetic.sparse_coords``:
 
 - **smoke** (n ~ 640): the coordinate stream classifies ``sparse``
-  (``detect_structure_coords``), and each Krylov method — CG, GMRES,
+  (``detect_structure_coords``), ``solve_auto`` routes it to the CG rung
+  (the ``routed`` line prints the engine that served it), and each Krylov
+  method — CG, GMRES,
   BiCGStab — solves the same system to the 1e-4 relative-residual gate
   (verified here with a TRUE residual, independently of the solvers' own
   convergence tests).
@@ -30,9 +32,7 @@ giant leg's wall time and peak bytes (``kind: sparse_solve``).
 ``sparse_check_smoke`` and ``sparse_check_giant`` spans, a
 ``sparse_solve`` event per solve and the ``sparse.solves`` counter.
 
-Not ported yet: the smoke leg's routed solve (``solve_auto`` picking the
-CG rung) waits for the structure router, so the ``routed`` line reports
-the detected class only; ``--history`` and ``--regress-check`` wait for
+Not ported yet: ``--history`` and ``--regress-check`` wait for
 ``obs.regress``.
 
 Exit status: 2 when any leg fails verification/classification/memory, 0
@@ -117,11 +117,12 @@ def _true_rel(a, x, b) -> float:
 
 def run_smoke(n: int, nnz_per_row: int, seed: int, gate: float,
               repeats: int, device=None) -> Tuple[Dict, Dict[str, Dict]]:
-    """The small-n leg: coordinate classification + all three Krylov
-    methods at the gate. Returns (routed_row, per_method_rows)."""
+    """The small-n leg: coordinate classification + routing + all three
+    Krylov methods at the gate. Returns (routed_row, per_method_rows)."""
     from gauss_tpu_torch.io import synthetic
     from gauss_tpu_torch.sparse import solve_sparse
     from gauss_tpu_torch.sparse.csr import CsrMatrix
+    from gauss_tpu_torch.structure import solve_auto
     from gauss_tpu_torch.structure.detect import detect_structure_coords
 
     rows, cols, vals = synthetic.sparse_coords(n, nnz_per_row, seed=seed)
@@ -130,10 +131,15 @@ def run_smoke(n: int, nnz_per_row: int, seed: int, gate: float,
     b = rng.standard_normal(n)
 
     info = detect_structure_coords(n, rows, cols, vals)
+    res = solve_auto(a.to_dense(), b, info=info, gate=gate, device=device)
+    rel = _true_rel(a, res.x, b)
     routed = {
-        "n": n, "nnz": a.nnz, "detected": info.kind,
+        "n": n, "nnz": a.nnz, "detected": info.kind, "engine": res.rung,
+        "demoted": bool(res.rung_index > 0),
         "certified_spd": bool(info.spd_likely),
-        "routed_ok": info.kind == "sparse",
+        "rel_residual": rel,
+        "verified": bool(np.isfinite(rel) and rel <= gate),
+        "routed_ok": info.kind == "sparse" and res.rung == "cg",
     }
 
     methods: Dict[str, Dict] = {}
@@ -259,7 +265,7 @@ def main(argv=None) -> int:
     wall = round(time.perf_counter() - t0, 3)
 
     bad: List[str] = []
-    if not routed["routed_ok"]:
+    if not (routed["verified"] and routed["routed_ok"]):
         bad.append("routed")
     bad.extend(m for m, row in methods.items() if not row["verified"])
     if giant is not None and not (giant["verified"]
@@ -270,10 +276,12 @@ def main(argv=None) -> int:
                "methods": methods, "giant": giant, "wall_s": wall,
                "ok": not bad}
 
+    routed_ok = routed["verified"] and routed["routed_ok"]
     print(f"sparse-check [routed   ] n={routed['n']:6d} detected="
-          f"{routed['detected']:7s} engine=(router not ported) "
+          f"{routed['detected']:7s} engine={routed['engine']:9s} "
+          f"rel_residual={routed['rel_residual']:.2e} "
           f"certified_spd={routed['certified_spd']} "
-          f"{'OK' if routed['routed_ok'] else 'FAIL'}")
+          f"{'OK' if routed_ok else 'FAIL'}")
     for method, row in methods.items():
         print(f"sparse-check [{method:9s}] n={row['n']:6d} "
               f"precond={row['precond']:7s} iters={row['iterations']:4d} "

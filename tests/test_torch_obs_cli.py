@@ -221,12 +221,15 @@ def test_sparse_check_metrics_out(tmp_path):
     events, spans, _ = _stream(path)
     assert spans == {"sparse_check_smoke"}
     solves = [ev for ev in events if ev["type"] == "sparse_solve"]
+    # The routed leg's CG rung first, then each method's repeats.
     assert [ev["method"] for ev in solves] == (
-        ["cg"] * 2 + ["gmres"] * 2 + ["bicgstab"] * 2)
+        ["cg"] * 3 + ["gmres"] * 2 + ["bicgstab"] * 2)
     assert all(ev["converged"] and ev["n"] == 640 for ev in solves)
+    (routed,) = [ev for ev in events if ev["type"] == "structure_solve"]
+    assert routed["engine"] == "cg" and not routed["demoted"]
     counters = {ev["name"]: ev["value"] for ev in events
                 if ev["type"] == "metric" and ev["kind"] == "counter"}
-    assert counters == {"sparse.solves": 6}
+    assert counters == {"sparse.solves": 7, "structure.solves": 1}
     assert events[0]["tool"] == "sparse_check" and events[0]["seed"] == 258458
 
 

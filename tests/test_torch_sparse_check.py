@@ -57,13 +57,28 @@ def test_check_smoke_leg_lines_and_summary(tmp_path):
 
 
 def test_check_fails_with_exit_2_when_a_leg_misses_the_gate():
-    # An unreachable gate: every method stagnates typed inside solve_sparse,
-    # which the check does not swallow.
-    from gauss_tpu_torch.sparse import IterativeStagnationError
+    # An unreachable gate: the routed leg (first) sees every rung of the
+    # sparse ladder miss it, and the ladder's typed error reaches the
+    # caller, which the check does not swallow.
+    from gauss_tpu_torch.resilience.recover import (UnrecoverableSolveError,
+                                                    structured_rungs)
 
-    with pytest.raises(IterativeStagnationError):
+    with pytest.raises(UnrecoverableSolveError) as ei:
         _run(["--skip-giant", "--device", "cpu", "--gate", "1e-300",
               "--repeats", "1"])
+    assert ei.value.attempts == [(r, "residual")
+                                 for r in structured_rungs("sparse")]
+    # The methods' legs: each stagnates typed inside solve_sparse.
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.sparse import IterativeStagnationError, solve_sparse
+    from gauss_tpu_torch.sparse.csr import CsrMatrix
+
+    a = CsrMatrix.from_coords(640, *synthetic.sparse_coords(640, 8,
+                                                            seed=258458))
+    for method in ("cg", "gmres", "bicgstab"):
+        with pytest.raises(IterativeStagnationError):
+            solve_sparse(a, np.ones(640), method=method, gate=1e-300,
+                         device="cpu")
     # A system too dense to classify sparse: the routed leg fails, exit 2.
     rc, out = _run(["--skip-giant", "--device", "cpu", "--smoke-n", "64",
                     "--repeats", "1"])

@@ -194,7 +194,44 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    with its ``recovery`` triggers printed. The routed leg of the sparse
    check runs in phases 4 and 5. A ``{"structure": ...}`` JSON line
    carries the phase's figures.
-9. The ``kernels`` JSON line, the card line, and the final
+9. The solver service (``serve``: ``SolverServer``, admission, the
+   load generator, ``serve.cli``) on the card: (a) the three batched
+   kernels against their plain versions, one launch per stack: the
+   batched fused kernel (kernel 2 over a (B, h, w) stack) at
+   SERVE_FUSED_CHECK — (8, 4096, 4096) (phase A's one-block route),
+   (8, 2048, 2048) (the cluster route), (8, 512, 512) at panel 128, and
+   (8, 2048, 2048) in bfloat16 — each member's pivots equal and its block
+   within TOL (float32) or TOL_BF16/TOL_BF16_SHARE (bfloat16) of the
+   plain version and bit for bit kernel 2 on that member alone; the
+   bfloat16 batched panel kernel at SERVE_K1_CHECK bit for bit its plain
+   version and the bfloat16 kernel 1 on each member; each timed (CUDA
+   events, median of --reps) beside the single-stack kernel looped over
+   the members, its plain version, ``torch.linalg.lu_factor`` on the
+   (float32) stack and its bound (B times one member's); (b)
+   ``lu_factor_blocked_batched`` on a (8, n, n) stack at every rung of
+   the default ladder in float32 and at SERVE_BF16_N in bfloat16:
+   launches equal to the plan (nb - 1 batched fused + 1 batched panel), each
+   member's ``m``/``perm``/``min_abs_pivot`` bit for bit
+   ``lu_factor_blocked`` on it, ``linv``/``uinv`` within TOL_FACTOR,
+   timed beside ``lu_factor`` on the stack; (c) the service at its
+   default width (ladder 128-4096, batch 8, one refinement step, cache
+   32, the 1e-4 verify gate, structure-aware), driven by
+   ``loadgen.run_load`` closed-loop on SERVE_MIX (every rung and every
+   lane: float32, bfloat16, bf16x3, spd, sparse) plus one n=6000
+   request on the handoff lane: every request ``ok`` and verified, the
+   ``numpy`` lane at 0, the launch counts equal to the plan of every
+   factor the cache ran (warm-ups included) and of the handoff
+   factorization; lanes, cache, solves/s, p50/p99, occupancy; one full
+   4096 batch taken apart (padding, staging, factor, solves, the host
+   residual: the host staging share) and traced in a fresh process (its
+   16 kernels as planned, a trace missing some taken again as in phase 6;
+   device busy against host ms, the idle share); (d) a transient
+   ``serve.cache.compile`` fault retried and served, ``poison:nan`` and
+   ``poison:singular`` rejected typed; (e) ``python -m gauss_tpu_torch.serve.cli --requests
+   40 --metrics-out``: exit 0, the port's ``summarize`` renders ok = 40,
+   ``requesttrace --check`` exits 0. The service run (c) is the path's
+   launch counts; a ``{"serve": ...}`` JSON line carries the figures.
+10. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -337,6 +374,31 @@ DEMOTIONS = (
     ("dense, core.blocked.factor nan", "dense",
      "core.blocked.factor=nan:p=1:max=1", ("blocked",), "pivot_safe"),
 )
+
+
+# Phase 9's cells. (a) The batched fused kernel's stacks (B, n, panel,
+# dtype): the one-block phase A (n=4096), the cluster route (n=2048), a
+# panel-128 rung, and the bfloat16 form; the bfloat16 batched panel
+# kernel's stacks. (b) The default serving ladder (the JAX package's
+# serve/buckets.py), its batch, and the bfloat16 rung. (c) The service:
+# its mix reaches every rung and lane; one oversized request takes the
+# handoff lane. (d) The poison order. (e) The CLI run.
+SERVE_FUSED_CHECK = ((8, 4096, 256, "float32"), (8, 2048, 256, "float32"),
+                     (8, 512, 128, "float32"), (8, 2048, 256, "bfloat16"))
+SERVE_K1_CHECK = ((8, 128, 128), (64, 128, 128))
+SERVE_LADDER = (128, 256, 512, 1024, 2048, 4096)
+SERVE_BATCH = 8
+SERVE_BF16_N = 2048
+SERVE_MIX = ("random:100,random:250,random:500,random:1000,random:2000,"
+             "random:4000*2,internal:3000,spd:1500,dtype:bfloat16/2048,"
+             "dtype:bf16x3/1024,sparse:3000/20")
+SERVE_OVERSIZE = 6000
+SERVE_WARMUP, SERVE_REQUESTS, SERVE_CONCURRENCY = 16, 120, 8
+SERVE_REFINE = 1
+SERVE_POISON_N = 256
+SERVE_CLI_REQUESTS = 40
+SERVE_CLI_MIX = "random:100*2,random:300,spd:200,dtype:bfloat16/500"
+SERVE_CLI_ARGS: tuple = ()
 
 
 def require(cond, msg: str) -> None:
@@ -2241,7 +2303,20 @@ TRACE_KINDS = (
      "panel_trailing_fused_bf16", "block"),
     (("gtt_panel_cluster_bf16_kernel",), "panel_factor_cluster_bf16",
      "cluster"),
-    (("gtt_panel_factor_bf16_kernel",), "panel_factor_bf16", "block"))
+    (("gtt_panel_factor_bf16_kernel",), "panel_factor_bf16", "block"),
+    (("gtt_fused_batched_kernel<true>", "gtt_fused_batched_kernelILb1E"),
+     "panel_trailing_fused_batched", "cluster"),
+    (("gtt_fused_batched_kernel<false>", "gtt_fused_batched_kernelILb0E"),
+     "panel_trailing_fused_batched", "block"),
+    (("gtt_fused_batched_bf16_kernel<true>",
+      "gtt_fused_batched_bf16_kernelILb1E"),
+     "panel_trailing_fused_batched_bf16", "cluster"),
+    (("gtt_fused_batched_bf16_kernel<false>",
+      "gtt_fused_batched_bf16_kernelILb0E"),
+     "panel_trailing_fused_batched_bf16", "block"),
+    (("gtt_panel_batched_kernel",), "panel_factor_batched", "batched"),
+    (("gtt_panel_batched_bf16_kernel",), "panel_factor_batched_bf16",
+     "batched"))
 
 
 # About 10 ms of spin on the H100: the profiler keeps only the device
@@ -2297,22 +2372,84 @@ def trace_launches(fn, path: str):
     return out, busy, host_ms
 
 
-def trace_plan(fn, path: str, plan):
+def trace_kinds_anywhere(path: str) -> dict:
+    """The hand-written kernels of a Chrome trace by key and route, with no
+    marker window, and its kernel events in all: what a trace that lost a
+    planned kernel holds (an event outside the window, or none at all)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    out = {"kernel_events": len(kernels)}
+    for e in kernels:
+        for syms, key, route in TRACE_KINDS:
+            if any(sym in e["name"] for sym in syms):
+                out[f"{key}/{route}"] = out.get(f"{key}/{route}", 0) + 1
+    return out
+
+
+def in_fresh_process(expr: str, timeout: int = 600):
+    """``expr`` (this script imported as ``c``) evaluated in a fresh Python
+    process on the card, its value as JSON: a traced call that the
+    profiler lost kernels of after a whole run's earlier profiler sessions
+    (ROADMAP queue 3, fault 1) is traced again where no session ran."""
+    code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+            f"import chip_smoke as c; print(json.dumps({expr}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=timeout)
+    require(r.returncode == 0, f"the fresh process for {expr} exited "
+            f"{r.returncode}: {(r.stdout + r.stderr)[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def trace_plan(fn, path: str, plan, fresh: str = None):
     """``trace_launches`` of a call whose kernels ``plan`` lists, with the
     number of traces taken. A trace that holds the plan with entries
     missing (events the profiler lost; a launch the call skipped would
-    also fail the launch counts) is taken once more; a kernel out of the
-    plan's order or on another route fails at once."""
+    also fail the launch counts) is taken once more: in a fresh process
+    where ``fresh`` gives the expression that traces the same call there
+    (``in_fresh_process``), else in this one. A kernel out of the plan's
+    order or on another route fails at once."""
     want = [(k, r) for k, r, *_ in plan]
     got, busy, host_ms = trace_launches(fn, path)
     seen = [(k, r) for k, r, _ in got]
     rest = iter(want)
     if seen != want and all(any(g == p for p in rest) for g in seen):
         print(f"trace of {os.path.basename(path)}: {len(seen)} of the plan's "
-              f"{len(want)} kernels recorded, the rest missing; tracing once "
-              f"more")
+              f"{len(want)} kernels recorded, the rest missing (the whole "
+              f"trace, no window: {trace_kinds_anywhere(path)}); tracing "
+              f"once more" + (" in a fresh process" if fresh else ""))
+        if fresh and DEVICE == "cuda":
+            got, busy, host_ms = in_fresh_process(fresh)
+            return [tuple(g) for g in got], busy, host_ms, 2
         return (*trace_launches(fn, path), 2)
     return got, busy, host_ms, 1
+
+
+def chunked_factor_trace(n: int, panel: int, chunk: int, itemsize: int,
+                         path: str):
+    """``trace_launches`` of one chunked factorization of a traced cell,
+    after one untraced call: phase 6 (c)'s random float32 matrix of seed
+    SEED + n (itemsize 4), or phase 7 (d)'s dominant system of seed
+    SEED + n at bfloat16 (itemsize 2)."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+
+    if itemsize == 4:
+        a = torch.as_tensor(np.random.default_rng(SEED + n).standard_normal(
+            (n, n)), dtype=torch.float32, device=torch.device(DEVICE))
+    else:
+        a = torch.as_tensor(dominant_system(n, SEED + n)[0],
+                            dtype=torch.bfloat16, device=torch.device(DEVICE))
+
+    def call():
+        return blocked.lu_factor_blocked_chunked(a, panel=panel, chunk=chunk,
+                                                 device=DEVICE)
+
+    call()
+    sync()
+    return trace_launches(call, path)
 
 
 def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
@@ -2376,8 +2513,11 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
         with quiet_fd1():
             rec["lu_factor_ms"] = cuda_event_ms(
                 lambda: torch.linalg.lu_factor(a), 3, warmup=1)
+        tpath = os.path.join(work, f"factor_{n}.json")
         got, busy, host_ms, traces = trace_plan(
-            call, os.path.join(work, f"factor_{n}.json"), plan)
+            call, tpath, plan,
+            fresh=f"c.chunked_factor_trace({n}, {panel}, {chunk}, 4, "
+                  f"{tpath!r})")
         require([(k, r) for k, r, _ in got] == [(k, r) for k, r, _ in plan],
                 f"n={n}: {plan_mismatch(got, plan)}")
         dev_ms = {}
@@ -3112,10 +3252,12 @@ def phase_lowered(reps: int):
         with quiet_fd1():
             big["lu_factor_ms"] = cuda_event_ms(
                 lambda: torch.linalg.lu_factor(a32), 3, warmup=1)
+        tpath = os.path.join(work, f"factor_bf16_{n}.json")
         got, busy, host_ms, traces = trace_plan(
             lambda: blocked.lu_factor_blocked_chunked(
-                a16, panel=panel, chunk=chunk, device=DEVICE),
-            os.path.join(work, f"factor_bf16_{n}.json"), plan)
+                a16, panel=panel, chunk=chunk, device=DEVICE), tpath, plan,
+            fresh=f"c.chunked_factor_trace({n}, {panel}, {chunk}, 2, "
+                  f"{tpath!r})")
         require([(k, r) for k, r, _ in got] == [(k, r) for k, r, _ in plan],
                 f"bf16 n={n}: {plan_mismatch(got, plan)}")
         dev_ms = {}
@@ -3161,11 +3303,14 @@ def call_ms(fn, reps: int):
     return cuda_event_ms(fn, reps=reps, warmup=1)
 
 
-def batched_bound(shape) -> tuple:
+def batched_bound(shape, itemsize: int = 4) -> tuple:
     """The batched panel factor's bound: each member read and written once
-    (plus its pivots), or the step loop's operations on every member."""
+    (plus its pivots), or the step loop's operations on every member (at
+    the float32 CUDA-core rate at either storage: each rounds on its
+    own)."""
     bsz, h, panel = shape
-    nbytes = bsz * (2.0 * 4 * h * panel + 4 * (panel + 2 * h) + 4)
+    nbytes = bsz * (2.0 * itemsize * h * panel + 4 * (panel + 2 * h)
+                    + itemsize)
     return bound(nbytes, bsz * panel_ops(h, panel, 0))
 
 
@@ -3421,6 +3566,528 @@ def phase_structure(reps: int):
     return path, out
 
 
+def fused_batched_bound(bsz: int, h: int, wtot: int, panel: int,
+                        itemsize: int):
+    """The batched fused kernel's bound: B times one member's (kernel 2's
+    count at col0 = 0: the block read and written once with the pivot
+    vectors; the panel factor's and the trailing update's operations), a
+    bfloat16 stack by ``bound_bf16``."""
+    nbytes = bsz * (2.0 * itemsize * h * wtot + 4 * panel + 8 * h
+                    + itemsize)
+    step = bsz * panel_ops(h, panel, 0)
+    gemm = bsz * trailing_ops(h, 0, panel, wtot - panel)
+    if itemsize == 2:
+        return bound_bf16(nbytes, step, gemm)
+    return bound(nbytes, step + gemm)
+
+
+def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
+                      dtype_name: str) -> dict:
+    """Phase 9 (a): the batched fused kernel on a (B, n, n) stack, panel
+    at column 0: one launch; each member's pivots equal to the plain
+    version's, its block within TOL (float32) or TOL_BF16/TOL_BF16_SHARE
+    (bfloat16) of it, and every output bit for bit kernel 2 on that
+    member alone; timed beside kernel 2 looped over the members, the plain
+    version, ``torch.linalg.lu_factor`` on the stack and the bound."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel_fused as kf
+
+    dt = getattr(torch, dtype_name)
+    key = "panel_trailing_fused_batched" + ("_bf16" if dt == torch.bfloat16
+                                            else "")
+    dev = torch.device(DEVICE)
+    orig = torch.as_tensor(rng.standard_normal((bsz, n, n)),
+                           dtype=torch.float32, device=dev).to(dt)
+    work = orig.clone()
+    before = _build.LAUNCHES[key]
+    got = kf.panel_trailing_fused_batched(work, 0, 0, panel=panel)
+    sync()
+    require(_build.LAUNCHES[key] == before + (DEVICE == "cuda"),
+            f"{key}: one launch per stack")
+    where = f"{key} at ({bsz}, {n}, {n}) panel {panel}"
+    err = rel = share = 0.0
+    for i in range(bsz):
+        ref = kf.panel_trailing_fused_plain(orig[i].clone(), 0, 0,
+                                            panel=panel)
+        require(torch.equal(got[1][i], ref[1]) and torch.equal(got[2][i],
+                                                               ref[2]),
+                f"{where}: member {i}'s pivots differ from the plain version")
+        if dt == torch.bfloat16:
+            e, r, s = bf16_block_check(f"{where}, member {i}", work[i],
+                                       ref[4], panel)
+            share = max(share, s)
+        else:
+            scale = float(ref[4].abs().max())
+            e = max(float((work[i] - ref[4]).abs().max()),
+                    float((got[0][i] - ref[0]).abs().max()))
+            require(e <= TOL * scale, f"{where}, member {i}: max |kernel - "
+                    f"plain| {e} > {TOL} x {scale}")
+            r = e / scale
+        err, rel = max(err, e), max(rel, r)
+        single = orig[i].clone()
+        one = kf.panel_trailing_fused(single, 0, 0, panel=panel)
+        require(same_outputs(one[:4], [g[i] for g in got[:4]])
+                and torch.equal(single, work[i]),
+                f"{where}: member {i} differs from kernel 2 on it alone")
+    rec = {"stack": [bsz, n, n], "panel": panel, "dtype": dtype_name,
+           "err": err, "err_rel": rel, "differing_share": share,
+           "route": None, "grid": None, "ms": None, "loop_ms": None,
+           "plain_ms": None, "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = fused_batched_bound(
+        bsz, n, n, panel, orig.element_size())
+    if DEVICE == "cuda":
+        from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+        info = kf.fused_batched_launch_info(bsz, n, n, panel,
+                                            itemsize=orig.element_size())
+        rec["route"], rec["grid"] = info["route"], info["grid"]
+
+        def reset():
+            work.copy_(orig)
+
+        rec["ms"] = cuda_event_ms(lambda: kf.panel_trailing_fused_batched(
+            work, 0, 0, panel=panel), reps, setup=reset)
+        rec["loop_ms"] = cuda_event_ms(lambda: [kf.panel_trailing_fused(
+            work[i], 0, 0, panel=panel) for i in range(bsz)],
+            max(3, reps // 4), setup=reset)
+        rec["plain_ms"] = cuda_event_ms(
+            lambda: kf.panel_trailing_fused_batched_plain(
+                work, 0, 0, panel=panel), 1, warmup=0, setup=reset)
+        f32 = orig.float()
+        with quiet_fd1():
+            rec["library_ms"] = cuda_event_ms(
+                lambda: torch.linalg.lu_factor(f32), reps)
+    print(f"phase 9: {where} ({rec['route']} route, grid {rec['grid']}): "
+          f"one launch, members == plain (pivots equal, max err {err:g}, "
+          f"{rel:.3g} of scale, differing share {share:.4f}) and == kernel "
+          f"2 on each member alone bit for bit; ms {rec['ms']} (kernel 2 "
+          f"looped over the members {rec['loop_ms']}), plain "
+          f"{rec['plain_ms']}, lu_factor on the stack {rec['library_ms']}, "
+          f"bound {rec['bound_ms']:.5f} ({rec['bound_by']})")
+    return rec
+
+
+def serve_k1_check(reps: int, rng, shape) -> dict:
+    """Phase 9 (a): the bfloat16 batched panel kernel on a (B, h, panel)
+    stack: one launch, bit for bit its plain version and the bfloat16
+    kernel 1 on each member alone; timed beside kernel 1 looped over the
+    members, the plain version, ``lu_factor`` on the float32 stack and the
+    bound."""
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
+
+    dev = torch.device(DEVICE)
+    p = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    before = _build.LAUNCHES["panel_factor_batched_bf16"]
+    got = kp.panel_factor_batched(p.clone())
+    sync()
+    require(_build.LAUNCHES["panel_factor_batched_bf16"]
+            == before + (DEVICE == "cuda"), "one bf16 batched launch")
+    require(same_outputs(got, kp.panel_factor_batched_plain(p.clone())),
+            f"bf16 batched panel kernel at {shape} differs from the plain "
+            f"version")
+    for i in range(shape[0]):
+        one = kp.panel_factor(p[i].clone())
+        require(all(torch.equal(g[i], w) for g, w in zip(got, one)),
+                f"bf16 batched panel kernel at {shape}: member {i} differs "
+                f"from the bfloat16 kernel 1 on it alone")
+    bms, by = batched_bound(shape, itemsize=2)
+    rec = {"stack": list(shape), "err": 0.0, "bound_ms": bms, "bound_by": by,
+           "route": None, "ms": None, "loop_ms": None, "plain_ms": None,
+           "library_ms": None}
+    if DEVICE == "cuda":
+        rec["route"] = kp.panel_batched_info(*shape[1:], 2)["route"]
+        rec["ms"] = device_ms(lambda: kp.panel_factor_batched(p), reps)
+        rec["loop_ms"] = device_ms(lambda: [kp.panel_factor(p[i]) for i in
+                                            range(shape[0])],
+                                   max(3, reps // 4))
+        rec["plain_ms"] = call_ms(lambda: kp.panel_factor_batched_plain(p),
+                                  1)
+        f32 = p.float()
+        with quiet_fd1():
+            rec["library_ms"] = device_ms(lambda: torch.linalg.lu_factor(f32),
+                                          reps)
+    print(f"phase 9: bf16 batched panel kernel at {shape} ({rec['route']} "
+          f"route): one launch, == plain and == the bf16 kernel 1 on each "
+          f"member bit for bit; ms {rec['ms']} (kernel 1 looped "
+          f"{rec['loop_ms']}), plain {rec['plain_ms']}, lu_factor on the "
+          f"float32 stack {rec['library_ms']}, bound {bms:.5f} ({by})")
+    return rec
+
+
+def batched_factor_plan(n: int, panel: int, itemsize: int = 4) -> dict:
+    """The launches of one ``lu_factor_blocked_batched`` on the card: a
+    batched fused launch per panel with columns right of it (panel >= 64),
+    then one batched panel launch, whatever the stack's size."""
+    from gauss_tpu_torch.kernels import _build
+
+    sfx = "_bf16" if itemsize == 2 else ""
+    nb = -(-n // panel)
+    out = dict.fromkeys(_build.LAUNCHES, 0)
+    if DEVICE != "cuda":
+        return out
+    fused = nb - 1 if panel >= 64 else 0
+    out["panel_trailing_fused_batched" + sfx] = fused
+    out["panel_factor_batched" + sfx] = 1
+    if panel < 64:
+        out["panel_factor_batched" + sfx] = nb
+    return out
+
+
+def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
+    """Phase 9 (b): ``lu_factor_blocked_batched`` on a (SERVE_BATCH, n, n)
+    dominant stack: launches equal to the plan; each member's ``m``,
+    ``perm`` and ``min_abs_pivot`` bit for bit ``lu_factor_blocked`` on it
+    alone, ``linv``/``uinv`` within TOL_FACTOR of max |m|; timed beside
+    ``torch.linalg.lu_factor`` on the stack."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+
+    dev = torch.device(DEVICE)
+    dt = getattr(torch, dtype_name)
+    rng = np.random.default_rng(SEED + n)
+    a = rng.standard_normal((SERVE_BATCH, n, n))
+    a[:, np.arange(n), np.arange(n)] += float(n)
+    stack = torch.as_tensor(a, dtype=torch.float32, device=dev).to(dt)
+    panel = blocked.auto_panel(n, stack.element_size())
+    _build.reset_launches()
+    fac = blocked.lu_factor_blocked_batched(stack, device=DEVICE)
+    sync()
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {k: v for k, v in batched_factor_plan(
+        n, panel, stack.element_size()).items() if v}
+    require(got == want, f"lu_factor_blocked_batched n={n} {dtype_name}: "
+            f"launches {got}, plan {want}")
+    inv_err = 0.0
+    for i in range(SERVE_BATCH):
+        one = blocked.lu_factor_blocked(stack[i], panel=None, device=DEVICE)
+        require(torch.equal(fac.m[i], one.m) and torch.equal(fac.perm[i],
+                                                             one.perm)
+                and torch.equal(fac.min_abs_pivot[i], one.min_abs_pivot),
+                f"lu_factor_blocked_batched n={n} {dtype_name}: member {i} "
+                f"differs from lu_factor_blocked on it alone")
+        scale = float(one.m.float().abs().max())
+        inv_err = max(inv_err, *(float((getattr(fac, f)[i] - getattr(
+            one, f)).abs().max()) / scale for f in ("linv", "uinv")))
+    require(inv_err <= TOL_FACTOR, f"lu_factor_blocked_batched n={n}: "
+            f"linv/uinv {inv_err} of max |m| from the single factor")
+    rec = {"n": n, "dtype": dtype_name, "panel": panel, "launches": got,
+           "linv_uinv_err": inv_err, "ms": None, "library_ms": None}
+    if DEVICE == "cuda":
+        rec["ms"] = call_ms(lambda: blocked.lu_factor_blocked_batched(
+            stack, device=DEVICE), max(3, reps // 4))
+        f32 = stack.float()
+        with quiet_fd1():
+            rec["library_ms"] = call_ms(lambda: torch.linalg.lu_factor(f32),
+                                        max(3, reps // 4))
+    print(f"phase 9: lu_factor_blocked_batched ({SERVE_BATCH}, {n}, {n}) "
+          f"{dtype_name} panel {panel}: launches {got} == plan; members == "
+          f"lu_factor_blocked bit for bit (m, perm, min |pivot|), linv/uinv "
+          f"within {inv_err:.3g} of max |m|; {rec['ms']} ms, lu_factor on "
+          f"the stack {rec['library_ms']} ms")
+    return rec
+
+
+def serve_batch_systems():
+    """Phase 9 (c)'s batch: the cache key of a full batch of the ladder's
+    top rung and its members, dominant systems of order top - top // 40
+    (seeded)."""
+    from gauss_tpu_torch.serve import cache
+
+    top = max(SERVE_LADDER)
+    key = cache.CacheKey(bucket_n=top, nrhs=1, batch=SERVE_BATCH,
+                         dtype="float32", engine="blocked",
+                         refine_steps=SERVE_REFINE)
+    return key, [dominant_system(top - top // 40, SEED + 9 + i)
+                 for i in range(SERVE_BATCH)]
+
+
+def serve_batch_pad(key, systems):
+    """The batch's float64 host stacks, padded as ``_serve_batched`` pads
+    them."""
+    from gauss_tpu_torch.serve import buckets
+
+    a_pad = np.empty((key.batch, key.bucket_n, key.bucket_n))
+    b_pad = np.zeros((key.batch, key.bucket_n, 1))
+    for i, (a, b) in enumerate(systems):
+        a_pad[i], b_pad[i] = buckets.pad_system(a, b, key.bucket_n, 1)
+    return a_pad, b_pad
+
+
+def serve_batch_trace(path: str) -> dict:
+    """One traced ``exe.solve`` of phase 9 (c)'s batch, its 16 kernels as
+    planned (a batched fused launch per panel with columns right of it,
+    phase A's route by the live strip's height, then the batched panel
+    launch; a trace missing some is taken again): device busy ms against
+    host ms. On the card ``serve_batch_figures`` runs it in a fresh
+    process: in whole runs the trace lost the call's first kernel in both
+    takes after the earlier phases' profiler sessions (queue-3 fault 1),
+    and held all 16 in a process that ran phase 9 alone."""
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.serve import cache
+
+    key, systems = serve_batch_systems()
+    a_pad, b_pad = serve_batch_pad(key, systems)
+    exe = cache.BatchedExecutable(key, device=DEVICE)
+    plan = []
+    if DEVICE == "cuda":
+        for kb in range(0, key.bucket_n - exe.panel, exe.panel):
+            h = key.bucket_n - kb
+            plan.append(("panel_trailing_fused_batched",
+                         kp.panel_geometry(h, exe.panel).route, h))
+        plan.append(("panel_factor_batched", "batched", exe.panel))
+    kernels, busy, host_ms, traces = trace_plan(
+        lambda: exe.solve(a_pad, b_pad), path, plan)
+    require([(k, r) for k, r, _ in kernels] == [(k, r) for k, r, _ in plan],
+            f"the traced batch: {plan_mismatch(kernels, plan)}")
+    return {"traced_kernels": len(kernels), "traces": traces,
+            "traced_host_ms": host_ms, "device_busy_ms": busy,
+            "idle_share": (1.0 - busy / host_ms) if host_ms else None}
+
+
+def serve_batch_figures(server, work: str) -> dict:
+    """Phase 9 (c): one full batch of the ladder's top rung, through the
+    server's cache, taken apart: the host padding, the staging of the
+    float64 stack, the factor, the solves and the host refinement
+    residual; then ``serve_batch_trace``."""
+    from gauss_tpu_torch.utils.device import as_tensor
+
+    t = {}
+    key, systems = serve_batch_systems()
+    n = systems[0][0].shape[0]
+    t0 = time.perf_counter()
+    a_pad, b_pad = serve_batch_pad(key, systems)
+    t["pad"] = time.perf_counter() - t0
+    exe = server.cache.get(key)
+    t0 = time.perf_counter()
+    as_tensor(a_pad, server.device)
+    sync()
+    t["stage"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac = exe.factor(a_pad)
+    sync()
+    t["factor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = exe.solve_factored(fac, b_pad)
+    t["solve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.einsum("bij,bjk->bik", a_pad, x)
+    t["residual"] = time.perf_counter() - t0
+    batch_s = t["pad"] + t["factor"] + (1 + SERVE_REFINE) * t["solve"] \
+        + SERVE_REFINE * t["residual"]
+    host_s = t["pad"] + t["stage"] + SERVE_REFINE * t["residual"]
+    path = os.path.join(work, "batch.json")
+    if DEVICE == "cuda":
+        code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+                f"import chip_smoke as c; "
+                f"print(json.dumps(c.serve_batch_trace({path!r})))")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=600)
+        require(r.returncode == 0, f"the traced batch's process exited "
+                f"{r.returncode}: {(r.stdout + r.stderr)[-3000:]}")
+        tr = json.loads(r.stdout.strip().splitlines()[-1])
+    else:
+        tr = serve_batch_trace(path)
+    rec = {"bucket_n": key.bucket_n, "n": n, "batch": SERVE_BATCH,
+           "ms": {k: 1e3 * v for k, v in t.items()},
+           "batch_ms": 1e3 * batch_s,
+           "host_staging_share": host_s / batch_s, **tr}
+    print(f"phase 9: one ({SERVE_BATCH}, {key.bucket_n}, {key.bucket_n}) "
+          f"batch taken apart (ms): "
+          f"{', '.join(f'{k} {1e3 * v:.1f}' for k, v in t.items())}; host "
+          f"staging (padding, the float64 stack's staging, {SERVE_REFINE} "
+          f"host residual) {rec['host_staging_share']:.3f} of the batch; "
+          f"traced exe.solve in a fresh process ({tr['traced_kernels']} "
+          f"kernels, as planned; {tr['traces']} take(s)): host "
+          f"{tr['traced_host_ms']:.1f} ms, device busy "
+          f"{tr['device_busy_ms']:.1f} ms, idle share {tr['idle_share']}")
+    return rec
+
+
+def phase_serve(reps: int):
+    """The solver service on the card (module docstring, phase 9): returns
+    the launch counts of the service run (c) and the phase's figures."""
+    import torch
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.obs import requesttrace
+    from gauss_tpu_torch.obs import summarize as summ
+    from gauss_tpu_torch.resilience import inject
+    from gauss_tpu_torch.serve import (STATUS_OK, STATUS_POISON, ServeConfig,
+                                       SolverServer, cache)
+    from gauss_tpu_torch.serve import cli as serve_cli
+    from gauss_tpu_torch.serve import loadgen
+
+    on_card = DEVICE == "cuda"
+    card = smi_line() if on_card else "cpu"
+    work = os.path.join(REPO, "build", "chip_smoke", "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(SEED + 9)
+    out = {"card": card, "fused": {}, "k1_bf16": {}, "rungs": {}}
+
+    # (a) The three new kernels against their plain versions.
+    for bsz, n, panel, dt in SERVE_FUSED_CHECK:
+        out["fused"][f"({bsz}, {n}, {n}) {dt}"] = serve_fused_check(
+            reps, rng, bsz, n, panel, dt)
+    for shape in SERVE_K1_CHECK:
+        out["k1_bf16"][str(tuple(shape))] = serve_k1_check(reps, rng, shape)
+
+    # (b) The batched LU at every rung of the ladder.
+    for n in SERVE_LADDER:
+        out["rungs"][f"{n} float32"] = serve_rung(reps, n, "float32")
+    out["rungs"][f"{SERVE_BF16_N} bfloat16"] = serve_rung(reps, SERVE_BF16_N,
+                                                         "bfloat16")
+
+    # (c) The service at its default width, driven by the load generator;
+    # the launch counts are read against the plan of every factor the
+    # cache ran (each new entry's warm-up factor included).
+    cfg = ServeConfig(ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                      refine_steps=SERVE_REFINE, cache_capacity=32,
+                      verify_gate=GATE, structure_aware=True, device=DEVICE)
+    factors = []
+    real_factor = cache.BatchedExecutable.factor
+
+    def counted_factor(exe, a_pad):
+        factors.append((exe.key, exe.panel))
+        return real_factor(exe, a_pad)
+
+    stream = os.path.join(work, "service.jsonl")
+    lcfg = loadgen.LoadgenConfig(
+        mix=SERVE_MIX, requests=SERVE_REQUESTS, warmup=SERVE_WARMUP,
+        concurrency=SERVE_CONCURRENCY, seed=SEED, serve=cfg)
+    big = dominant_system(SERVE_OVERSIZE, SEED + 6)
+    cache.BatchedExecutable.factor = counted_factor
+    try:
+        with obs.run(metrics_out=stream, tool="chip_smoke_serve"), \
+                SolverServer(cfg) as server:
+            _build.reset_launches()
+            summary = loadgen.run_load(server, lcfg)
+            handoff = server.solve(*big, timeout=900)
+            sync()
+            got = dict(_build.LAUNCHES)
+            served_factors = list(factors)
+            out["batch"] = serve_batch_figures(server, work)
+    finally:
+        cache.BatchedExecutable.factor = real_factor
+    require(handoff.status == STATUS_OK and handoff.lane == "handoff",
+            f"the oversized request: {handoff.status} on {handoff.lane} "
+            f"({handoff.error})")
+    lanes = dict(summary["lanes"])
+    lanes["handoff"] = lanes.get("handoff", 0) + 1
+    counts = summary["counts"]
+    require(counts["ok"] == SERVE_REQUESTS and summary["incorrect"] == 0
+            and counts["failed"] == 0,
+            f"service: {counts}, {summary['incorrect']} incorrect")
+    require(not lanes.get("numpy") and {"batched", "sparse", "handoff"}
+            <= set(lanes), f"service lanes {lanes}")
+    events = obs.read_events(stream)
+    served = {(ev["bucket_n"], ev.get("structure")) for ev in events
+              if ev["type"] == "serve_batch"}
+    require({b for b, _ in served} >= set(SERVE_LADDER),
+            f"service: the batches reached the rungs "
+            f"{sorted({b for b, _ in served})}, not all of {SERVE_LADDER}")
+    dtypes = {k.dtype for k, _ in served_factors}
+    spd = any(k.structure == "spd" for k, _ in served_factors)
+    require(dtypes == {"float32", "bfloat16", "bf16x3"} and spd,
+            f"service: the lanes factored {sorted(dtypes)}, spd: {spd}")
+    plan = dict.fromkeys(_build.LAUNCHES, 0)
+    for key, panel in served_factors:
+        if key.structure != "spd":
+            for k, v in batched_factor_plan(
+                    key.bucket_n, panel,
+                    2 if key.dtype == "bfloat16" else 4).items():
+                plan[k] += v
+    hf = blocked.resolve_factor(SERVE_OVERSIZE, device=DEVICE)
+    hpanel = blocked.auto_panel(SERVE_OVERSIZE)
+    chunk = (getattr(hf, "keywords", {}).get("chunk", blocked.CHUNK_DEFAULT)
+             if getattr(hf, "func", hf) is blocked.lu_factor_blocked_chunked
+             else None)
+    if on_card:
+        for k, v in plan_counts(factor_plan(SERVE_OVERSIZE, hpanel,
+                                            chunk)).items():
+            plan[k] += v
+    dense = [k for k in plan if k != "spmv_ell"]
+    require({k: got[k] for k in dense} == {k: plan[k] for k in dense},
+            f"service launches { {k: got[k] for k in dense if got[k]} } != "
+            f"the plan of its factors "
+            f"{ {k: plan[k] for k in dense if plan[k]} }")
+    require(not on_card or got["spmv_ell"] > 0,
+            "the sparse lane launched no SpMV")
+    lat = summary["latency_s"]
+    c = server.cache.stats()
+    out["service"] = {
+        "mix": SERVE_MIX, "requests": SERVE_REQUESTS, "warmup": SERVE_WARMUP,
+        "concurrency": SERVE_CONCURRENCY, "refine_steps": SERVE_REFINE,
+        "counts": counts, "lanes": lanes,
+        "cache": {k: c[k] for k in ("hits", "misses", "evictions")},
+        "solves_per_s": summary["throughput_rps"], "p50_s": lat["p50"],
+        "p99_s": lat["p99"], "occupancy_mean":
+            summary["batch_occupancy_mean"], "batches": summary["batches"],
+        "factors": len(served_factors),
+        "launches": {k: v for k, v in got.items() if v}}
+    print(f"phase 9: service ({SERVE_REQUESTS} requests + {SERVE_WARMUP} "
+          f"warm-up, closed loop x{SERVE_CONCURRENCY}, mix {SERVE_MIX}, plus "
+          f"one n={SERVE_OVERSIZE}): {counts}, lanes {lanes}, cache "
+          f"{out['service']['cache']}, {summary['throughput_rps']} solves/s, "
+          f"p50 {lat['p50']} s, p99 {lat['p99']} s, mean occupancy "
+          f"{summary['batch_occupancy_mean']}; launches "
+          f"{out['service']['launches']} == the plan of its "
+          f"{len(served_factors)} factors and the handoff factorization "
+          f"[{card}]")
+
+    # (d) Faults: a transient build fault retried and served; poison.
+    with SolverServer(ServeConfig(**{**cfg.__dict__,
+                                     "structure_aware": False})) as srv:
+        fplan = inject.FaultPlan.parse(
+            "serve.cache.compile=compile_fail:max=1")
+        with inject.plan(fplan) as ap:
+            res = srv.solve(*dominant_system(SERVE_LADDER[1] - 6, SEED + 7),
+                            timeout=600)
+        require(res.status == STATUS_OK and res.lane == "batched"
+                and srv.retries == 1 and ap.stats()["triggered"] == 1,
+                f"transient fault: {res.status} on {res.lane}, "
+                f"{srv.retries} retries ({res.error})")
+        poisoned = {}
+        for kind in ("nan", "singular"):
+            spec = loadgen.WorkloadSpec("poison", f"{kind}/{SERVE_POISON_N}")
+            r = srv.solve(*loadgen.materialize(spec, rng), timeout=600)
+            require(r.status == STATUS_POISON, f"poison:{kind}: {r.status} "
+                    f"({r.error})")
+            poisoned[kind] = r.error[:80]
+    out["faults"] = {"transient_retries": 1, "poison": poisoned}
+    print(f"phase 9: a serve.cache.compile fault retried once and served on "
+          f"the batched lane; poison: {poisoned} [{card}]")
+
+    # (e) The CLI, its stream through the summarizer and requesttrace.
+    cli_stream = os.path.join(work, "cli.jsonl")
+    run_cli(serve_cli, ["--requests", str(SERVE_CLI_REQUESTS), "--warmup",
+                        "0", "--mix", SERVE_CLI_MIX, "--device", DEVICE,
+                        "--metrics-out", cli_stream, *SERVE_CLI_ARGS])
+    text = run_cli(summ, [cli_stream])
+    m = re.search(r"serving:\n\s+requests: ok=(\d+)", text)
+    require(m and int(m.group(1)) == SERVE_CLI_REQUESTS,
+            f"summarize's serving section: {m and m.group(0)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = requesttrace.main([cli_stream, "--check"])
+    require(rc == 0, f"requesttrace --check: {buf.getvalue()}")
+    print(f"phase 9: serve.cli exit 0; summarize: ok={m.group(1)}; "
+          f"{buf.getvalue().strip()}")
+    print(json.dumps({"serve": out}, default=str))
+    return {k: got[k] for k in _build.LAUNCHES}, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -3463,6 +4130,12 @@ def main(argv=None) -> int:
     by_path["structure"], struct = phase_structure(args.reps)
     require(by_path["structure"]["panel_factor_batched"] > 0,
             "the structure path launched no batched panel kernel")
+    by_path["serve"], serve = phase_serve(args.reps)
+    for name in ("panel_trailing_fused_batched",
+                 "panel_trailing_fused_batched_bf16",
+                 "panel_factor_batched_bf16", "panel_factor_batched"):
+        require(by_path["serve"][name] > 0, f"the serve path launched no "
+                f"{name}")
     for name in ("panel_factor_cluster_bf16", "panel_factor_bf16",
                  "panel_trailing_fused_bf16"):
         require(by_path["lowered"][name] > 0, f"the lowered path launched "
@@ -3613,6 +4286,44 @@ def main(argv=None) -> int:
                   f"(library: torch.linalg.lu_factor on the stack); every "
                   f"launch held bit for bit against its plain version",
          "stacks": struct["batched"]})
+    k1b = serve["k1_bf16"][str(max(tuple(x) for x in SERVE_K1_CHECK))]
+    kernels.append(
+        {"name": "panel_factor_batched_bf16", "route": "cuda",
+         "source": src + "panel_batched.cu",
+         "sources": [src + "panel_batched.cu", src + "panel_common.cuh"],
+         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+         **launch_keys("panel_factor_batched_bf16"),
+         "max_abs_err": max(r["err"] for r in serve["k1_bf16"].values()),
+         "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
+         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"],
+         "library_ms": k1b["library_ms"], "loop_ms": k1b["loop_ms"],
+         "shape": f"{tuple(k1b['stack'])} bfloat16, one launch (library: "
+                  f"torch.linalg.lu_factor on the float32 stack; loop_ms: "
+                  f"the bfloat16 kernel 1 looped over the members)",
+         "stacks": serve["k1_bf16"]})
+    for name, dt in (("panel_trailing_fused_batched", "float32"),
+                     ("panel_trailing_fused_batched_bf16", "bfloat16")):
+        recs = {k: r for k, r in serve["fused"].items() if r["dtype"] == dt}
+        head = next(r for r in recs.values() if r["stack"][1] == N)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": src + "panel_fused_batched.cu",
+             "sources": [src + "panel_fused_batched.cu",
+                         src + "panel_fused.cuh", src + "panel_cluster.cuh",
+                         src + "panel_common.cuh"],
+             "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
+             **launch_keys(name),
+             "max_abs_err": max(r["err"] for r in recs.values()),
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"], "loop_ms": head["loop_ms"],
+             "shape": f"{tuple(head['stack'])} {dt}, panel {head['panel']} "
+                      f"at column 0, one launch (library: "
+                      f"torch.linalg.lu_factor on the float32 stack; "
+                      f"loop_ms: kernel 2 looped over the members)",
+             "stacks": recs,
+             "rungs": {k: r for k, r in serve["rungs"].items()
+                       if r["dtype"] == dt}})
     npad, wpad, k = rowelim_shape(N)
     for name, line in (("matmul_tiled", 131), ("matmul_stripe", 245)):
         hi = km[name]["high"]

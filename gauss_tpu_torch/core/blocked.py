@@ -71,6 +71,11 @@ The three factor entries (:func:`lu_factor_blocked_unrolled`,
 (:mod:`gauss_tpu_torch.resilience.inject`) on their operand: one ``is
 None`` check when no plan is installed.
 
+:func:`lu_factor_blocked_batched` and :func:`lu_solve_batched` are the
+JAX package's ``jax.vmap`` of the flat form and of :func:`lu_solve` over
+a (B, n, n) stack, one batched kernel launch per panel step (the serving
+lane's factor and solve).
+
 :func:`lu_factor_blocked_phased` runs the ``"pallas"`` route with a
 synchronized telemetry span around each phase (the solver-phase profile of
 the CLIs' ``--phase-profile``). :func:`solve_handoff` routes a solve by its
@@ -114,6 +119,8 @@ import torch
 
 from gauss_tpu_torch.core.matmul import (BF16X3, dot_bf16x3, gdot,
                                          resolve_precision)
+from gauss_tpu_torch.kernels import panel as _kp
+from gauss_tpu_torch.kernels import panel_fused as _kpf
 from gauss_tpu_torch.kernels.panel import accum_dtype, panel_factor
 from gauss_tpu_torch.kernels.panel_fused import panel_trailing_fused
 from gauss_tpu_torch.resilience import inject as _inject
@@ -790,6 +797,143 @@ def lu_solve(factors: BlockedLU, b, method: str = "auto") -> torch.Tensor:
             x[s] = factors.uinv[i] @ r
     x = x[:n]
     return x[:, 0] if was_vector else x
+
+
+# --- The batched form: jax.vmap(lu_factor_blocked) ----------------------
+
+
+def _pad_to_panel_batched(a: torch.Tensor, panel: int) -> torch.Tensor:
+    """:func:`_pad_to_panel` on every member of a (B, n, n) stack, into a
+    new tensor (the stack is factored in place)."""
+    bsz, n, _ = a.shape
+    npad = -(-n // panel) * panel
+    if npad == n:
+        return a.clone()
+    out = torch.zeros((bsz, npad, npad), dtype=a.dtype, device=a.device)
+    out[:, :n, :n] = a
+    idx = torch.arange(n, npad, device=a.device)
+    out[:, idx, idx] = 1.0
+    return out
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b][idx[b]]`` for every member of a (B, h, w) stack."""
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def lu_factor_blocked_batched(a, panel: int | None = None,
+                              panel_impl: str = "auto",
+                              gemm_precision: str = "highest",
+                              device=None) -> BlockedLU:
+    """Blocked LU of every member of a (B, n, n) stack at once — the JAX
+    package's ``jax.vmap(lu_factor_blocked)``, the serving lane's factor.
+
+    Returns a :class:`BlockedLU` whose fields carry a leading batch axis:
+    ``m`` (B, npad, npad), ``perm`` (B, npad), ``min_abs_pivot`` (B,),
+    ``linv``/``uinv`` (B, nb, panel, panel). Each panel step is ONE
+    launch for the whole stack: the batched fused kernel
+    (:func:`gauss_tpu_torch.kernels.panel_fused.panel_trailing_fused_batched`)
+    while columns remain right of the panel and the route is fused (as in
+    :func:`_factor_panel`), else the batched panel kernel
+    (:func:`gauss_tpu_torch.kernels.panel.panel_factor_batched`) — at
+    n=2048, panel 256, seven fused launches and one panel launch per
+    stack. The pivot gathers, the panel install, the unfused route's
+    GEMMs and the diagonal-block inverses are batched torch ops. So each
+    member's ``m``, ``perm`` and ``min_abs_pivot`` are bit for bit
+    :func:`lu_factor_blocked` on that member (the kernels compute each
+    member as the single-block kernels do; gathers are exact) wherever the
+    route is fused, and ``linv``/``uinv`` agree to float32 rounding
+    (batched and single products may round apart).
+
+    ``a``: a (B, n, n) array or tensor, staged on ``device`` (default
+    ``cuda``; ``"cpu"`` runs the kernels' plain versions) in bfloat16 when
+    it is bfloat16, else float32, under the precision contract. ``panel``
+    None resolves :func:`auto_panel` at the storage itemsize;
+    ``panel_impl`` and ``gemm_precision`` as for
+    :func:`lu_factor_blocked_unrolled` (``"jax"`` runs the stock swap
+    panel on the stack)."""
+    if panel_impl not in PANEL_IMPLS:
+        raise ValueError(f"unknown panel_impl {panel_impl!r}; "
+                         f"options: {PANEL_IMPLS}")
+    mode = resolve_precision(gemm_precision, allow_split=True)
+    dev = resolve_device(device)
+    a = _stage(a, dev, storage_dtype(a))
+    if a.dim() != 3 or a.shape[1] != a.shape[2] or a.shape[0] < 1:
+        raise ValueError(f"expected a (B, n, n) stack, got "
+                         f"{tuple(a.shape)}")
+    panel = _resolve_panel(a.shape[1], panel, a.element_size())
+    m = _pad_to_panel_batched(a, panel)
+    bsz, npad, _ = m.shape
+    dt = m.dtype
+    perm = torch.arange(npad, device=dev).repeat(bsz, 1)
+    min_piv = torch.full((bsz,), float("inf"), dtype=dt, device=dev)
+    linvs = []
+    for kb in range(0, npad, panel):
+        live = m[:, kb:]
+        fused = _use_fused(panel_impl, panel, npad - kb)
+        if fused:
+            # One launch: every member's factor + U12 + trailing update;
+            # the trailing columns of `live` (a view of m) in place.
+            p, _, perm_local, mp, _ = _kpf.panel_trailing_fused_batched(
+                live, kb, 0, panel=panel)
+        elif panel_impl == "jax":
+            p, ipiv, mp = _swap_steps(live[:, :, kb:kb + panel], 0, False)
+            perm_local = torch.stack([_fold_transpositions(ipiv[i],
+                                                           npad - kb)
+                                      for i in range(bsz)])
+        else:
+            p, _, perm_local, mp = _kp.panel_factor_batched(
+                live[:, :, kb:kb + panel], 0)
+        min_piv = torch.minimum(min_piv, mp)
+        perm[:, kb:] = torch.gather(perm[:, kb:], 1, perm_local)
+        live = _gather_rows(live, perm_local)
+        live[:, :, kb:kb + panel] = p
+        linv = _diag_block_linv(live[:, :panel, kb:kb + panel])
+        if not fused and kb + panel < npad:
+            u12 = _gdot(linv, live[:, :panel, kb + panel:], mode, dt)
+            live[:, :panel, kb + panel:] = u12
+            live[:, panel:, kb + panel:] -= _gdot(
+                live[:, panel:, kb:kb + panel], u12, mode, dt)
+        m[:, kb:] = live
+        linvs.append(linv)
+    uinv = torch.stack([_diag_block_uinv(m[:, kb:kb + panel, kb:kb + panel])
+                        for kb in range(0, npad, panel)], dim=1)
+    return BlockedLU(m=m, perm=perm, min_abs_pivot=min_piv,
+                     linv=torch.stack(linvs, dim=1), uinv=uinv)
+
+
+def lu_solve_batched(factors: BlockedLU, b) -> torch.Tensor:
+    """:func:`lu_solve` on every member of a batched :class:`BlockedLU`
+    (:func:`lu_factor_blocked_batched`) — ``jax.vmap(lu_solve)``: ``b`` is
+    (B, n) or (B, n, k); both substitutions run blockwise through the
+    stored diagonal-block inverses, one batched product per block, in the
+    accumulate dtype (float32 against a bfloat16 factor)."""
+    m, perm = factors.m, factors.perm
+    bsz, npad, _ = m.shape
+    cdt = accum_dtype(m.dtype)
+    b = _stage(b, m.device, cdt)
+    was_vector = b.dim() == 2
+    b3 = b[:, :, None] if was_vector else b
+    if b3.dim() != 3 or b3.shape[0] != bsz:
+        raise ValueError(f"b must be (B, n) or (B, n, k) with B={bsz}, got "
+                         f"{tuple(b.shape)}")
+    n, k = b3.shape[1:]
+    bp = torch.zeros((bsz, npad, k), dtype=cdt, device=m.device)
+    bp[:, :n] = b3
+    bp = _gather_rows(bp, perm)
+    nb, panel = factors.linv.shape[1:3]
+    y = torch.zeros_like(bp)
+    for i in range(nb):
+        s = slice(i * panel, (i + 1) * panel)
+        r = bp[:, s] - m[:, s, :i * panel].to(cdt) @ y[:, :i * panel]
+        y[:, s] = factors.linv[:, i] @ r
+    x = torch.zeros_like(bp)
+    for i in range(nb - 1, -1, -1):
+        s = slice(i * panel, (i + 1) * panel)
+        r = y[:, s] - m[:, s, (i + 1) * panel:].to(cdt) @ x[:, (i + 1) * panel:]
+        x[:, s] = factors.uinv[:, i] @ r
+    x = x[:, :n]
+    return x[:, :, 0] if was_vector else x
 
 
 def lu_factor_blocked_chunked(a, panel: int | None = DEFAULT_PANEL,

@@ -3,7 +3,11 @@
 The tests hand a factor made by one package to the other's ``lu_solve``:
 :func:`blocked_lu_to_numpy` gives the :class:`BlockedLU` fields in their
 declared order (so ``BlockedLU(*arrays)`` rebuilds either package's
-tuple), :func:`blocked_lu_from_numpy` builds the port's.
+tuple), :func:`blocked_lu_from_numpy` builds the port's. A batched
+factor (the serving lane's, ``jax.vmap(lu_factor_blocked)`` in the JAX
+package) crosses the same way with a leading batch axis
+(:func:`blocked_lu_batched_to_numpy`,
+:func:`blocked_lu_batched_from_numpy`).
 
 The sparse plane's state crosses the same way: :func:`ell_from_numpy`
 stages padded-row arrays as the Krylov cores take them, and a
@@ -53,6 +57,48 @@ def blocked_lu_to_numpy(fac) -> tuple:
     return (host(fac.m), host(fac.perm), host(fac.min_abs_pivot),
             host(fac.linv), host(fac.uinv),
             host(getattr(fac, "abft_err", None)))
+
+
+def blocked_lu_batched_from_numpy(m, perm, min_abs_pivot, linv=None,
+                                  uinv=None, device=None) -> BlockedLU:
+    """A port batched :class:`BlockedLU` (the fields of
+    ``core.blocked.lu_factor_blocked_batched``, and of the JAX package's
+    ``jax.vmap(lu_factor_blocked)``, with a leading batch axis) on
+    ``device`` (default ``cuda``) from numpy arrays: ``m`` in its storage
+    dtype (bfloat16 where the array is ``ml_dtypes`` bfloat16, else
+    float32), ``min_abs_pivot`` with it, the inverses float32, ``perm``
+    int64."""
+    from gauss_tpu_torch.core.blocked import storage_dtype
+
+    dev = resolve_device(device)
+    sdt = storage_dtype(np.asarray(m))
+
+    def stage(x, dt):
+        return (None if x is None else torch.as_tensor(
+            np.array(x, np.float32), device=dev).to(dt))
+
+    return BlockedLU(
+        m=stage(m, sdt),
+        perm=torch.as_tensor(np.array(perm, np.int64), device=dev),
+        min_abs_pivot=stage(np.asarray(min_abs_pivot).reshape(-1), sdt),
+        linv=stage(linv, torch.float32), uinv=stage(uinv, torch.float32))
+
+
+def blocked_lu_batched_to_numpy(fac) -> tuple:
+    """``(m, perm, min_abs_pivot, linv, uinv)`` of a batched factor of
+    either package as numpy arrays with a leading batch axis: float32 for
+    the float fields (bfloat16 upcast exactly), int64 ``perm``."""
+    def host(x, dt):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if dt == np.float32 else x).numpy().astype(dt)
+        return np.asarray(x).astype(dt)
+
+    return (host(fac.m, np.float32), host(fac.perm, np.int64),
+            host(fac.min_abs_pivot, np.float32).reshape(-1),
+            host(fac.linv, np.float32), host(fac.uinv, np.float32))
 
 
 def ell_from_numpy(cols, vals, device=None, dtype=torch.float64):

@@ -31,17 +31,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("panel_factor", "panel_cluster", "panel_batched", "panel_fused",
-           "matmul", "rowelim", "spmv")
+           "panel_fused_batched", "matmul", "rowelim", "spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: Launches per kernel wrapper, counted where the wrapper launches its
 #: kernel and nowhere else (plain-version calls on CPU tensors do not
 #: count). The bfloat16 forms of the panel, fused and trailing kernels
-#: count under their own ``_bf16`` keys. Reset with
+#: count under their own ``_bf16`` keys; the batched kernels count one
+#: launch per stack. Reset with
 #: :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
-            "panel_factor_batched": 0,
+            "panel_factor_batched": 0, "panel_factor_batched_bf16": 0,
+            "panel_trailing_fused_batched": 0,
+            "panel_trailing_fused_batched_bf16": 0,
             "panel_trailing_fused": 0, "trailing_update": 0,
             "panel_factor_bf16": 0, "panel_factor_cluster_bf16": 0,
             "panel_trailing_fused_bf16": 0, "trailing_update_bf16": 0,
@@ -57,6 +60,9 @@ _PANEL = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _CLUSTER_AT = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 _FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _TRAILING = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_FUSED_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P]
 _SIGNATURES = {
     "panel_factor": {
         "gtt_panel_factor": _PANEL,
@@ -70,9 +76,9 @@ _SIGNATURES = {
         "gtt_panel_cluster_info": [_I, _I, _I, _I, _P],
     },
     "panel_batched": {
-        "gtt_panel_factor_batched": [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
-                                     _P, _P, _P],
-        "gtt_panel_batched_info": [_I, _I, _P],
+        "gtt_panel_factor_batched": _BATCHED,
+        "gtt_panel_factor_batched_bf16": _BATCHED,
+        "gtt_panel_batched_info": [_I, _I, _I, _P],
     },
     "panel_fused": {
         "gtt_panel_fused_info": [_I, _I, _I, _I, _I, _I, _P],
@@ -80,6 +86,11 @@ _SIGNATURES = {
         "gtt_panel_fused_bf16": _FUSED,
         "gtt_trailing_update": _TRAILING,
         "gtt_trailing_update_bf16": _TRAILING,
+    },
+    "panel_fused_batched": {
+        "gtt_panel_fused_batched_info": [_I, _I, _I, _I, _I, _I, _I, _P],
+        "gtt_panel_fused_batched": _FUSED_BATCHED,
+        "gtt_panel_fused_batched_bf16": _FUSED_BATCHED,
     },
     "matmul": {
         "gtt_matmul_tiled": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P],

@@ -36,10 +36,12 @@ under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``).
 
 :func:`panel_factor_batched` factors a (B, h, panel) stack of strips in
 one launch (``csrc/panel_batched.cu``, one block per member on the same
-one-block step loop; launch key ``panel_factor_batched``): the form the
-block-diagonal lane runs, where the JAX package vmaps
+one-block step loop; launch key ``panel_factor_batched``, and
+``panel_factor_batched_bf16`` at bfloat16 storage, with the rounding
+above): the form the serving lanes run on a one-panel bucket and on the
+last panel of a wider one, where the JAX package vmaps
 ``panel_factor_pallas`` over a stack of buckets. Its plain version is
-:func:`panel_factor_plain` per member. It takes float32 only.
+:func:`panel_factor_plain` per member.
 
 Deviation from the JAX package: the two-level deferred form (``defer``)
 and the ``seg`` segmentation exist there for VMEM and MXU limits; the port
@@ -320,15 +322,15 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
     return _panel_factor_cuda(p, kb, 0 if route == "cluster" else None)
 
 
-def panel_batched_info(h: int, panel: int) -> dict:
-    """What the batched kernel's C side reports for an (h, panel) float32
-    member: ``route`` ``"smem"`` (a block factors it in shared memory) or
-    ``"global"`` (in place in global memory), and the dynamic shared
-    memory bytes per block. Builds ``csrc/panel_batched.cu``; needs a CUDA
-    device."""
+def panel_batched_info(h: int, panel: int, itemsize: int = 4) -> dict:
+    """What the batched kernel's C side reports for an (h, panel) member of
+    ``itemsize``-byte words (4: float32, 2: bfloat16): ``route``
+    ``"smem"`` (a block factors it in shared memory) or ``"global"`` (in
+    place in global memory), and the dynamic shared memory bytes per
+    block. Builds ``csrc/panel_batched.cu``; needs a CUDA device."""
     lib = _build.library("panel_batched")
     out = (ctypes.c_int * 2)()
-    _build.check(lib, lib.gtt_panel_batched_info(h, panel, out),
+    _build.check(lib, lib.gtt_panel_batched_info(h, panel, itemsize, out),
                  "panel_batched_info")
     return {"route": "smem" if out[0] else "global", "smem_bytes": out[1]}
 
@@ -350,9 +352,9 @@ def panel_factor_batched_plain(p: torch.Tensor, kb: int = 0):
 
 
 def _panel_factor_batched_cuda(p: torch.Tensor, kb: int):
-    if p.dtype != torch.float32:
+    if p.dtype not in KERNEL_DTYPES:
         raise TypeError(f"panel_factor_batched: the CUDA kernel takes "
-                        f"float32, got {p.dtype}")
+                        f"float32 or bfloat16, got {p.dtype}")
     if p.stride(2) != 1:
         p = p.contiguous()
     bsz, h, panel = p.shape
@@ -362,15 +364,16 @@ def _panel_factor_batched_cuda(p: torch.Tensor, kb: int):
     inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
     chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
     minpiv = torch.empty(bsz, dtype=p.dtype, device=dev)
+    sfx = launch_suffix(p.dtype)
     lib = _build.library("panel_batched")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gtt_panel_factor_batched(
+        rc = getattr(lib, "gtt_panel_factor_batched" + sfx)(
             p.data_ptr(), p.stride(0), p.stride(1), bsz, h, panel, int(kb),
             pt.data_ptr(), ipiv.data_ptr(), inv.data_ptr(),
             chosen.data_ptr(), minpiv.data_ptr(), stream)
-    _build.check(lib, rc, "panel_factor_batched")
-    _build.LAUNCHES["panel_factor_batched"] += 1
+    _build.check(lib, rc, "panel_factor_batched" + sfx)
+    _build.LAUNCHES["panel_factor_batched" + sfx] += 1
     perm = perm_from_inv(inv, chosen, kb, panel)
     out = torch.gather(pt.transpose(1, 2), 1,
                        perm[:, :, None].expand(bsz, h, panel))
@@ -383,8 +386,10 @@ def panel_factor_batched(p: torch.Tensor, kb: int = 0):
 
     Returns ``(p_perm (B, h, panel), ipiv (B, panel), perm_local (B, h),
     min_abs_pivot (B,))``; ``p`` is not modified. A CUDA tensor launches
-    ``csrc/panel_batched.cu`` once for the whole stack (float32 only) or
-    raises; a CPU tensor runs :func:`panel_factor_batched_plain`."""
+    ``csrc/panel_batched.cu`` once for the whole stack (float32 or
+    bfloat16, launch keys ``panel_factor_batched`` and
+    ``panel_factor_batched_bf16``) or raises; a CPU tensor runs
+    :func:`panel_factor_batched_plain`."""
     _check_batched_args(p, kb)
     if p.device.type == "cpu":
         return panel_factor_batched_plain(p, kb)

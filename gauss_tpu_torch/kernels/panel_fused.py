@@ -21,6 +21,13 @@ Port of ``gauss_tpu/kernels/panel_fused_pallas.py``:
   jobs as their own launch, from multipliers and pivots that
   :func:`reconstruct_mult_pt` rebuilds exactly (gathers and selects only)
   from a factored panel.
+- :func:`panel_trailing_fused_batched` (``panel_trailing_fused_pallas``
+  under ``jax.vmap``): kernel 2 on every member of a (B, h, w) stack in
+  one launch (``csrc/panel_fused_batched.cu``), each member bit for bit
+  kernel 2 on it alone — the panel step of the serving lane's batched
+  blocked LU (``core.blocked.lu_factor_blocked_batched``). No batched
+  form of :func:`trailing_update` exists: no serving route runs the
+  unfused pair's trailing kernel.
 
 The contract, as in the JAX package: fused == panel + reconstruct +
 trailing, bit for bit, at matching ``fseg`` — on the card the kernels
@@ -370,3 +377,123 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
     _build.check(lib, rc, "trailing_update" + sfx)
     _build.LAUNCHES["trailing_update" + sfx] += 1
     return block
+
+
+# --- the batched form ---------------------------------------------------------
+
+def _check_batched_block(stack: torch.Tensor, col0: int, kbrow: int,
+                         panel: int) -> None:
+    if stack.dim() != 3 or stack.shape[0] < 1:
+        raise ValueError(f"panel_trailing_fused_batched expects a (B, h, "
+                         f"w) stack with B >= 1, got {tuple(stack.shape)}")
+    _, h, wtot = stack.shape
+    if panel > wtot or col0 < 0 or col0 + panel > wtot:
+        raise ValueError(f"panel ({panel}) at column {col0} exceeds the "
+                         f"block width ({wtot})")
+    if kbrow < 0 or h - kbrow < panel:
+        raise ValueError(f"need at least panel ({panel}) rows at or below "
+                         f"kbrow={kbrow}, block has {h}")
+
+
+def panel_trailing_fused_batched_plain(stack: torch.Tensor, col0: int,
+                                       kbrow: int, *, panel: int,
+                                       fseg: int = FUSED_FSEG_SEED):
+    """The plain version of :func:`panel_trailing_fused_batched`:
+    :func:`panel_trailing_fused_plain` on each member (each updated in
+    place), the outputs stacked."""
+    _check_batched_block(stack, col0, kbrow, panel)
+    outs = [panel_trailing_fused_plain(stack[i], col0, kbrow, panel=panel,
+                                       fseg=fseg)[:4]
+            for i in range(stack.shape[0])]
+    return (*(torch.stack(list(f)) for f in zip(*outs)), stack)
+
+
+def fused_batched_launch_info(batch: int, h: int, wtot: int, panel: int,
+                              col0: int = 0, fseg: int = FUSED_FSEG_SEED,
+                              itemsize: int = 4) -> dict:
+    """What the batched kernel's C launcher reports for a ``(batch, h,
+    wtot)`` stack, in :func:`fused_launch_info`'s fields: phase A's route
+    per member (kernel 2's, by the strip's height and ``itemsize``), the
+    grid over the whole stack and ``fit``. Builds
+    ``csrc/panel_fused_batched.cu``; needs a CUDA device."""
+    lib = _build.library("panel_fused_batched")
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.gtt_panel_fused_batched_info(
+        batch, h, wtot, col0, panel, fseg, itemsize, out),
+        "fused_batched_launch_info")
+    return {"cluster": out[0] or 1, "rows_per_block": out[1],
+            "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
+            "row_tiles": out[5], "fit": out[6],
+            "route": "cluster" if out[0] else "block"}
+
+
+def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,
+                        fseg: int):
+    if stack.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"panel_trailing_fused_batched: the CUDA kernel "
+                        f"takes float32 or bfloat16, got {stack.dtype}")
+    if stack.stride(2) != 1:
+        raise ValueError(f"panel_trailing_fused_batched: the stack is "
+                         f"updated in place and needs unit column stride, "
+                         f"got strides {stack.stride()}")
+    if fseg > FSEG_MAX_CUDA:
+        raise ValueError(f"panel_trailing_fused_batched: fseg {fseg} "
+                         f"exceeds the CUDA tile routine's {FSEG_MAX_CUDA}")
+    bsz, h, wtot = stack.shape
+    dev = stack.device
+    sfx = launch_suffix(stack.dtype)
+    chunks = -(-(wtot - col0 - panel) // TRAIL_CHUNK_COLS)
+    pt = torch.empty((bsz, panel, h), dtype=stack.dtype, device=dev)
+    mult = torch.empty((bsz, panel, h), dtype=torch.float32, device=dev)
+    ipiv = torch.empty((bsz, panel), dtype=torch.int32, device=dev)
+    inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+    chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+    minpiv = torch.empty(bsz, dtype=stack.dtype, device=dev)
+    u = torch.empty((bsz, panel, max(chunks, 1) * TRAIL_CHUNK_COLS),
+                    dtype=torch.float32, device=dev)
+    # Each member's counters (kernel 2's), then the stack's two tickets.
+    ctr = torch.zeros(bsz * (3 + chunks) + 2, dtype=torch.int32, device=dev)
+    lib = _build.library("panel_fused_batched")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, "gtt_panel_fused_batched" + sfx)(
+            stack.data_ptr(), stack.stride(0), stack.stride(1), bsz, h, wtot,
+            col0, kbrow, panel, fseg, pt.data_ptr(), mult.data_ptr(),
+            ipiv.data_ptr(), inv.data_ptr(), chosen.data_ptr(),
+            minpiv.data_ptr(), u.data_ptr(), ctr.data_ptr(),
+            ctr[bsz * (3 + chunks):].data_ptr(), stream)
+    _build.check(lib, rc, "panel_trailing_fused_batched" + sfx)
+    _build.LAUNCHES["panel_trailing_fused_batched" + sfx] += 1
+    perm = perm_from_inv(inv, chosen, kbrow, panel)
+    p = torch.gather(pt.transpose(1, 2), 1,
+                     perm[:, :, None].expand(bsz, h, panel))
+    return p, ipiv, perm, minpiv, stack
+
+
+def panel_trailing_fused_batched(stack: torch.Tensor, col0: int, kbrow: int,
+                                 *, panel: int, ct: int | None = None,
+                                 seg: int | None = None,
+                                 fseg: int | None = None):
+    """:func:`panel_trailing_fused` on every member of a ``(B, h, w)``
+    stack — the JAX package's ``jax.vmap(panel_trailing_fused_pallas)`` —
+    in ONE launch for the whole stack.
+
+    Returns kernel 2's outputs with a leading batch axis: ``(p (B, h,
+    panel), ipiv (B, panel), perm_local (B, h), min_abs_pivot (B,),
+    stack)``; each member is updated IN PLACE as kernel 2 updates its
+    block. ``stack`` may be a strided view (unit column stride; any row
+    and member strides), float32 or bfloat16. A CUDA tensor launches
+    ``csrc/panel_fused_batched.cu`` (launch keys
+    ``panel_trailing_fused_batched`` and ``..._bf16``), whose every member
+    is bit for bit kernel 2 on that member, or raises; a CPU tensor runs
+    :func:`panel_trailing_fused_batched_plain`."""
+    _check_batched_block(stack, col0, kbrow, panel)
+    _, h, wtot = stack.shape
+    _, _, fseg = resolve_tiles(h, wtot, panel, ct, seg, fseg)
+    col0, kbrow = int(col0), int(kbrow)
+    if stack.device.type == "cpu":
+        return panel_trailing_fused_batched_plain(stack, col0, kbrow,
+                                                  panel=panel, fseg=fseg)
+    if stack.device.type != "cuda":
+        raise ValueError(f"unsupported device {stack.device}")
+    return _fused_batched_cuda(stack, col0, kbrow, panel, fseg)

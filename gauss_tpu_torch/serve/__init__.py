@@ -1,5 +1,65 @@
-"""The serving layer's pieces the structure router needs: shape buckets
-(:mod:`.buckets`, a copy of the JAX package's) and the executable cache's
-float32 LU lane (:mod:`.cache`). The server, the request journal, the
-network tier and the lowered and spd lanes are ROADMAP queue-1 item 11.
-Importing this package loads no torch."""
+"""gauss_tpu_torch.serve — the batched solver service (the port of
+``gauss_tpu/serve``).
+
+A long-lived in-process server that pads arbitrary-``n`` requests onto a
+small shape-bucket ladder (:mod:`.buckets`), drains a bounded queue into
+batched blocked solves through an LRU cache of batched executables
+(:mod:`.cache`: one batched kernel launch per panel step on the card),
+routes oversized systems through ``solve_handoff``, serves sparse
+systems on the Krylov ladder and degrades to the host recovery ladder
+when the device lane is persistently unhealthy — with admission control
+(:mod:`.admission`: queue bounds, deadlines, the poison scan) in front and
+an open/closed-loop load generator (:mod:`.loadgen`, ``python -m
+gauss_tpu_torch.serve.cli``) beside it. Importing this package loads no
+torch.
+
+Quick tour::
+
+    from gauss_tpu_torch.serve import ServeConfig, SolverServer
+
+    with SolverServer(ServeConfig(verify_gate=1e-4)) as srv:  # the card
+        res = srv.solve(a, b)            # pads, batches, caches, verifies
+        assert res.ok
+
+Not ported yet (ROADMAP queue-1 item 11): ``CacheView``,
+``shared_cache``, ``Lane``, ``LaneSet``, ``compat_sig``, ``JournalError``
+and ``RequestJournal`` (the mesh lanes and the request journal), the
+network tier and the check CLIs.
+"""
+
+from gauss_tpu_torch.serve.admission import (  # noqa: F401
+    STATUS_CANCELLED,
+    STATUS_EXPIRED,
+    STATUS_FAILED,
+    STATUS_OK,
+    STATUS_POISON,
+    STATUS_REJECTED,
+    FeatureNotPortedError,
+    LaneHealth,
+    ServeConfig,
+    ServeRequest,
+    ServeResult,
+    poison_scan,
+)
+from gauss_tpu_torch.serve.buckets import (  # noqa: F401
+    DEFAULT_LADDER,
+    bucket_for,
+    pad_system,
+    pow2_bucket,
+    unpad_solution,
+)
+from gauss_tpu_torch.serve.cache import (  # noqa: F401
+    BatchedExecutable,
+    CacheKey,
+    ExecutableCache,
+    LaneNotPortedError,
+)
+from gauss_tpu_torch.serve.server import SolverServer  # noqa: F401
+
+__all__ = ["BatchedExecutable", "CacheKey", "DEFAULT_LADDER",
+           "ExecutableCache", "FeatureNotPortedError", "LaneHealth",
+           "LaneNotPortedError", "STATUS_CANCELLED", "STATUS_EXPIRED",
+           "STATUS_FAILED", "STATUS_OK", "STATUS_POISON", "STATUS_REJECTED",
+           "ServeConfig", "ServeRequest", "ServeResult", "SolverServer",
+           "bucket_for", "pad_system", "poison_scan", "pow2_bucket",
+           "unpad_solution"]

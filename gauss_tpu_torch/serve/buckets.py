@@ -33,7 +33,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from gauss_tpu_torch.core.blocked import DEFAULT_PANEL
+#: ``core.blocked.DEFAULT_PANEL`` (tests/test_torch_serve.py holds them
+#: equal); not imported, so that importing the serving package loads no
+#: torch.
+DEFAULT_PANEL = 128
 
 # Powers-of-two multiples of the panel width: 128 .. 4096. Past the top
 # rung a request is OVERSIZED for the batched lane and routes through

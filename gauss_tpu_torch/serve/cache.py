@@ -1,32 +1,38 @@
-"""Shape-bucketed LRU cache of batched-solve executables: the part of
-``gauss_tpu/serve/cache.py`` the block-diagonal lane needs.
+"""Shape-bucketed LRU cache of batched-solve executables (the port of
+``gauss_tpu/serve/cache.py``).
 
-A cache entry is one :class:`BatchedExecutable` — a batched blocked-LU
-factor + solve pair at one ``(batch, bucket_n, nrhs)`` shape, warmed on
-identity systems when it is built — and the cache holds at most
-``capacity`` of them in LRU order, keyed by :class:`CacheKey`. Every
-hit/miss/evict is an obs ``serve_cache`` event plus a ``serve.cache.*``
-counter; a build runs the ``serve.cache.compile`` fault-injection hook.
+A cache entry is one :class:`BatchedExecutable` — a batched factor +
+solve pair at one ``(batch, bucket_n, nrhs)`` shape, warmed on identity
+systems when it is built — and the cache holds at most ``capacity`` of
+them in LRU order, keyed by :class:`CacheKey`. Every hit/miss/evict is an
+obs ``serve_cache`` event plus a ``serve.cache.*`` counter; a build runs
+the ``serve.cache.compile`` fault-injection hook.
 
-The float32 LU lane: where the bucket is at most one panel wide (the
-auto panel is 128 below n=1024, and each member is identity-padded to
-it), the whole stack is factored by ONE launch of the batched panel
-kernel (:func:`gauss_tpu_torch.kernels.panel.panel_factor_batched`) — the
-JAX package's ``jax.vmap(lu_factor_blocked)``, whose members are each one
-``panel_factor_pallas`` call — followed by the batched diagonal-block
-inverses; the solve is two batched products per right-hand-side stack.
+The lanes, as in the JAX package (``jax.vmap`` of the blocked factor and
+solve):
+
+- LU (every key but ``structure="spd"``):
+  :func:`gauss_tpu_torch.core.blocked.lu_factor_blocked_batched` and
+  :func:`~gauss_tpu_torch.core.blocked.lu_solve_batched` — one batched
+  kernel launch per panel step for the whole stack: a bucket at most one
+  panel wide (the auto panel is 128 below n=1024; each member is
+  identity-padded to it) is ONE launch of the batched panel kernel, a
+  wider one a batched fused launch per panel step and a batched panel
+  launch for the last panel. ``dtype`` picks the storage: ``"float32"``,
+  ``"bfloat16"`` (bfloat16 storage, the bfloat16 kernels) or ``"bf16x3"``
+  (float32 storage, the split-GEMM trailing updates of the unfused
+  route).
+- spd: :func:`gauss_tpu_torch.structure.cholesky
+  .cholesky_factor_blocked_batched` and ``cholesky_solve_batched`` (torch
+  ops; the JAX Cholesky runs no Pallas kernel).
+
 :meth:`BatchedExecutable.solve` refines in host float64 through the same
 factors, as the JAX package does.
 
-Deliberate deviation: a bucket wider than one panel is factored member by
-member (``core.blocked.lu_factor_blocked`` on each), where the JAX package
-vmaps the whole blocked factorization; it closes with the serve slice.
-
-Not ported yet (ROADMAP queue-1 item 11): the lowered dtype lanes
-(``bfloat16``, ``bf16x3``), the ``spd`` structure lane, ``placement``,
-``cost_budget``, ``shared_cache``, ``CacheView`` and the miss coalescing
-of concurrent lanes; a key that asks for a lane not ported raises
-:class:`LaneNotPortedError` when it is built.
+Not ported yet (ROADMAP queue-1 item 11, with the mesh and attribution
+planes they serve): ``placement``, ``cost_budget``, ``shared_cache``,
+``CacheView`` and the miss coalescing of concurrent lanes; a key with
+``mesh`` set raises :class:`LaneNotPortedError` when it is built.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ KEY_DTYPES = ("float32", "bfloat16", "bf16x3")
 
 
 class LaneNotPortedError(NotImplementedError):
-    """A cache key asks for a lane the port does not have yet."""
+    """A cache key asks for a lane the port does not have yet (the sharded
+    ``mesh`` lane)."""
 
 
 def storage_dtype(key_dtype: str):
@@ -63,37 +70,26 @@ class CacheKey(NamedTuple):
     bucket_n: int
     nrhs: int
     batch: int
-    #: batched-lane precision: "float32" (the lane the port has),
-    #: "bfloat16" or "bf16x3" (queue-1 item 11)
+    #: batched-lane precision: "float32", "bfloat16" (bfloat16 storage) or
+    #: "bf16x3" (float32 storage, split-GEMM updates)
     dtype: str
     engine: str
     refine_steps: int
+    #: the sharded lane's mesh; not ported (set: LaneNotPortedError)
     mesh: Optional[str] = None
-    #: structure routing tag; "spd" names the batched Cholesky lane (queue-1
-    #: item 11), other tags share the LU lane under their own entries
+    #: structure routing tag; "spd" is the batched Cholesky lane, other
+    #: tags share the LU lane under their own entries
     structure: Optional[str] = None
 
 
-class BatchedLU(NamedTuple):
-    """The factors of a one-panel bucket stack: ``m`` (B, p, p), ``perm``
-    (B, p) gather indices, ``min_abs_pivot`` (B,), ``linv``/``uinv``
-    (B, p, p)."""
-
-    m: object
-    perm: object
-    min_abs_pivot: object
-    linv: object
-    uinv: object
-
-
 class BatchedExecutable:
-    """One lane: batched blocked factor + solve at a fixed shape.
+    """One lane: batched factor + solve at a fixed shape.
 
     ``factor`` factors all B systems of a stack (one batched kernel launch
-    on the card when the bucket is one panel wide); ``solve`` back-solves
-    all B right-hand sides. Refinement reuses the batched factors: each
-    step is one host-f64 batched residual plus one batched solve.
-    ``device``: default ``cuda``."""
+    per panel step on the card, in the key's storage dtype); ``solve``
+    back-solves all B right-hand sides. Refinement reuses the batched
+    factors: each step is one host-f64 batched residual plus one batched
+    solve. ``device``: default ``cuda``."""
 
     def __init__(self, key: CacheKey, panel: Optional[int] = None,
                  device=None):
@@ -101,83 +97,70 @@ class BatchedExecutable:
         from gauss_tpu_torch.tune import apply as _tune
         from gauss_tpu_torch.utils.device import resolve_device
 
-        if key.dtype != "float32" or key.structure == "spd":
+        if key.mesh is not None:
             raise LaneNotPortedError(
-                f"the {key.dtype} / structure={key.structure!r} batched lane "
-                f"is not ported to gauss_tpu_torch yet (ROADMAP queue-1 item "
-                f"11); the port has the float32 LU lane")
+                f"the sharded batched lane (mesh={key.mesh!r}) is not "
+                f"ported to gauss_tpu_torch yet (ROADMAP queue-1 item 11: "
+                f"serve/lanes)")
         self.key = key
         self.device = resolve_device(device)
+        self.dtype = storage_dtype(key.dtype)
         if panel is None:
             # The tuned store's panel for this bucket, else the auto rule.
             panel = _tune.override("lu_factor", key.bucket_n, "panel",
                                    dtype=key.dtype, engine=key.engine)
             panel = int(panel) if panel else None
-        self.panel = blocked._resolve_panel(key.bucket_n, panel)
-        #: the batched kernel's route: the bucket is one panel wide
-        self.one_panel = key.bucket_n <= self.panel
+        self.panel = blocked._resolve_panel(key.bucket_n, panel,
+                                            self.dtype.itemsize)
         with obs.compile_span("serve_executable", bucket_n=key.bucket_n,
                               nrhs=key.nrhs, batch=key.batch,
                               dtype=key.dtype, engine=key.engine):
-            eye = np.ascontiguousarray(np.broadcast_to(
-                np.eye(key.bucket_n), (key.batch, key.bucket_n,
-                                       key.bucket_n)))
+            eye = np.broadcast_to(np.eye(key.bucket_n), (
+                key.batch, key.bucket_n, key.bucket_n)).copy()
             self.solve_factored(self.factor(eye),
                                 np.zeros((key.batch, key.bucket_n,
                                           key.nrhs)))
 
-    def factor(self, a_pad: np.ndarray):
-        """Factor the (B, bucket_n, bucket_n) host stack in float32."""
-        import torch
-
-        from gauss_tpu_torch.core import blocked
-        from gauss_tpu_torch.kernels.panel import panel_factor_batched
+    def _stage(self, x: np.ndarray):
         from gauss_tpu_torch.utils.device import as_tensor
 
-        a = as_tensor(np.asarray(a_pad), self.device)
-        if not self.one_panel:
-            return [blocked.lu_factor_blocked(a[i], panel=self.panel,
-                                              device=self.device)
-                    for i in range(a.shape[0])]
-        bsz, n, _ = a.shape
-        p = self.panel
-        m = a
-        if n < p:
-            m = torch.eye(p, dtype=a.dtype, device=a.device).repeat(
-                bsz, 1, 1)
-            m[:, :n, :n] = a
-        lu, _, perm, minpiv = panel_factor_batched(m, 0)
-        return BatchedLU(m=lu, perm=perm, min_abs_pivot=minpiv,
-                         linv=blocked._diag_block_linv(lu),
-                         uinv=blocked._diag_block_uinv(lu))
+        return as_tensor(np.asarray(x), self.device, self.dtype)
+
+    def factor(self, a_pad: np.ndarray):
+        """Factor the (B, bucket_n, bucket_n) host stack in the key's
+        storage dtype."""
+        if self.key.structure == "spd":
+            from gauss_tpu_torch.structure import cholesky
+
+            return cholesky.cholesky_factor_blocked_batched(
+                self._stage(a_pad), panel=self.panel, device=self.device)
+        from gauss_tpu_torch.core import blocked
+
+        return blocked.lu_factor_blocked_batched(
+            self._stage(a_pad), panel=self.panel,
+            gemm_precision=("bf16x3" if self.key.dtype == "bf16x3"
+                            else "highest"), device=self.device)
 
     def solve_factored(self, fac, b_pad: np.ndarray) -> np.ndarray:
-        """Solve a (B, bucket_n, nrhs) host stack through ``fac``; returns
-        float64."""
-        import torch
+        """Solve a (B, bucket_n, nrhs) host stack, staged in the storage
+        dtype, through ``fac``; returns float64."""
+        if self.key.structure == "spd":
+            from gauss_tpu_torch.structure import cholesky
 
-        from gauss_tpu_torch.core import blocked
-        from gauss_tpu_torch.utils.device import as_tensor
+            x = cholesky.cholesky_solve_batched(fac, self._stage(b_pad))
+        else:
+            from gauss_tpu_torch.core import blocked
 
-        b = as_tensor(np.asarray(b_pad), self.device)
-        if not self.one_panel:
-            x = torch.stack([blocked.lu_solve(f, b[i])
-                             for i, f in enumerate(fac)])
-            return x.cpu().numpy().astype(np.float64)
-        bsz, n, k = b.shape
-        p = self.panel
-        bp = torch.zeros((bsz, p, k), dtype=b.dtype, device=b.device)
-        bp[:, :n] = b
-        bp = torch.gather(bp, 1, fac.perm[:, :, None].expand(bsz, p, k))
-        x = fac.uinv @ (fac.linv @ bp)
-        return x[:, :n].cpu().numpy().astype(np.float64)
+            x = blocked.lu_solve_batched(fac, self._stage(b_pad))
+        return x.cpu().numpy().astype(np.float64)
 
     def solve(self, a_pad: np.ndarray, b_pad: np.ndarray) -> np.ndarray:
         """Solve the padded batch; returns float64 (B, bucket_n, nrhs).
 
         ``a_pad``/``b_pad`` are host float64 stacks at the cached shape;
-        the device factors and solves in float32, and ``refine_steps``
-        rounds of host-f64 refinement through the same factors follow."""
+        the device factors and solves in the key's dtype, and
+        ``refine_steps`` rounds of host-f64 refinement through the same
+        factors follow (the lowered keys lean on them for the 1e-4 gate)."""
         fac = self.factor(a_pad)
         x = self.solve_factored(fac, b_pad)
         for _ in range(self.key.refine_steps):

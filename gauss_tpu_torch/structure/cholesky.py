@@ -13,6 +13,10 @@ triangular inverse are XLA's (here ``torch.linalg.cholesky_ex`` and
 :func:`gauss_tpu_torch.core.matmul.gdot` under ``gemm_precision`` (true
 float32 for ``"highest"``; TF32 stays off).
 
+:func:`cholesky_factor_blocked_batched` and :func:`cholesky_solve_batched`
+are the JAX package's ``jax.vmap`` of the factor and the solve over a
+(B, n, n) stack (the serving spd lane).
+
 Two forms, as in the JAX package, picked by :func:`resolve_chol_factor`:
 the flat form :func:`cholesky_factor_blocked` (masked full-size updates,
 the JAX form's arithmetic) and the unrolled form
@@ -79,21 +83,24 @@ class BlockedCholesky(NamedTuple):
 
 
 def _chol_panel(d, panel: int):
-    """Factor one (panel, panel) diagonal block: ``(l11, linv, min_diag)``,
-    NaN folded to 0. Single source for both forms."""
+    """Factor one (panel, panel) diagonal block, or a (B, panel, panel)
+    stack of them: ``(l11, linv, min_diag)``, NaN folded to 0. Single
+    source for every form."""
     import torch
 
     eye = torch.eye(panel, dtype=d.dtype, device=d.device)
-    l11, info = torch.linalg.cholesky_ex((d + d.T) / 2)
+    l11, info = torch.linalg.cholesky_ex((d + d.mT) / 2)
     # A failed factor is all NaN (XLA's contract), then folded to 0, so the
     # witness does not depend on where the factorization stopped.
-    l11 = torch.where(info > 0, torch.full_like(l11, float("nan")), l11)
-    dg = torch.diagonal(l11)
+    l11 = torch.where(info[..., None, None] > 0,
+                      torch.full_like(l11, float("nan")), l11)
+    dg = torch.diagonal(l11, dim1=-2, dim2=-1)
     dg = torch.where(torch.isnan(dg), torch.zeros_like(dg), dg)
-    mind = torch.min(dg)
+    mind = torch.amin(dg, dim=-1)
     l11 = torch.where(torch.isnan(l11), torch.zeros_like(l11), l11)
     linv = torch.linalg.solve_triangular(
-        l11 + eye * (mind <= 0).to(d.dtype), eye, upper=False)
+        l11 + eye * (mind <= 0).to(d.dtype)[..., None, None], eye,
+        upper=False)
     return l11, linv, mind
 
 
@@ -241,6 +248,81 @@ def cholesky_solve(fac: BlockedCholesky, b):
         x[s] = fac.linv[i].T @ (y[s] - m[e:, s].T @ x[e:])
     x = x[:n]
     return x[:, 0] if was_vector else x
+
+
+def cholesky_factor_blocked_batched(a, panel: int | None = None,
+                                    gemm_precision: str = "highest",
+                                    device=None) -> BlockedCholesky:
+    """Blocked Cholesky of every member of a (B, n, n) stack at once — the
+    JAX package's ``jax.vmap(cholesky_factor_blocked)``, the serving spd
+    lane's factor — in batched torch ops (the JAX Cholesky runs no Pallas
+    kernel): per panel one batched diagonal-block factor and inverse, one
+    batched ``L21`` product and one batched SYRK-shaped update over the
+    rows below the panel (the unrolled form's shrinking trailing block).
+    Fields carry a leading batch axis: ``m`` (B, npad, npad), ``linv``
+    (B, nb, panel, panel), ``min_diag`` (B,). Never raises on non-SPD
+    members — check ``min_diag``. ``device``: default ``cuda``."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.core.matmul import gdot, resolve_precision
+    from gauss_tpu_torch.utils.device import as_tensor, resolve_device
+
+    mode = resolve_precision(gemm_precision)
+    dev = resolve_device(device)
+    a = as_tensor(a, dev)
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"expected a (B, n, n) stack, got {tuple(a.shape)}")
+    panel = blocked._resolve_panel(a.shape[1], panel, a.element_size())
+    m = blocked._pad_to_panel_batched(a, panel)
+    bsz, npad, _ = m.shape
+    min_diag = torch.full((bsz,), float("inf"), dtype=m.dtype, device=dev)
+    linvs = []
+    for kb in range(0, npad, panel):
+        e = kb + panel
+        l11, linv, mind = _chol_panel(m[:, kb:e, kb:e], panel)
+        min_diag = torch.minimum(min_diag, mind)
+        linvs.append(linv)
+        m[:, kb:e, kb:e] = l11
+        if e < npad:
+            l21 = gdot(m[:, e:, kb:e], linv.mT, mode)
+            m[:, e:, kb:e] = l21
+            m[:, e:, e:] -= gdot(l21, l21.mT, mode)
+    return BlockedCholesky(m=m, linv=torch.stack(linvs, dim=1),
+                           min_diag=min_diag)
+
+
+def cholesky_solve_batched(fac: BlockedCholesky, b):
+    """:func:`cholesky_solve` on every member of a batched factor
+    (:func:`cholesky_factor_blocked_batched`): ``b`` is (B, n) or (B, n,
+    k); one batched product per block and direction."""
+    import torch
+
+    from gauss_tpu_torch.utils.device import as_tensor
+
+    m = fac.m
+    bsz, npad, _ = m.shape
+    nb, panel = fac.linv.shape[1:3]
+    b = as_tensor(b, m.device, m.dtype)
+    was_vector = b.dim() == 2
+    b3 = b[:, :, None] if was_vector else b
+    if b3.dim() != 3 or b3.shape[0] != bsz:
+        raise ValueError(f"b must be (B, n) or (B, n, k) with B={bsz}, got "
+                         f"{tuple(b.shape)}")
+    n, k = b3.shape[1:]
+    y = torch.zeros((bsz, npad, k), dtype=m.dtype, device=m.device)
+    y[:, :n] = b3
+    for i in range(nb):
+        s = slice(i * panel, (i + 1) * panel)
+        y[:, s] = fac.linv[:, i] @ (y[:, s] - m[:, s, :i * panel]
+                                    @ y[:, :i * panel])
+    x = torch.zeros_like(y)
+    for i in range(nb - 1, -1, -1):
+        s = slice(i * panel, (i + 1) * panel)
+        e = (i + 1) * panel
+        x[:, s] = fac.linv[:, i].mT @ (y[:, s] - m[:, e:, s].mT @ x[:, e:])
+    x = x[:, :n]
+    return x[:, :, 0] if was_vector else x
 
 
 def solve_spd(a, b, panel: int | None = None, unroll="auto", device=None):

@@ -39,7 +39,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parents[1]
 PANEL = 256
 ULP = 2.0 ** -7
-# form -> [(text in csrc/panel_fused.cu, its replacement)]
+# form -> [(text in csrc/panel_fused.cu or .cuh, its replacement)]
 FAULTS = {
     "full": [],
     "no-ulow": [("      const float ulow = gtt_r<T>(v[jj]);",

@@ -8,13 +8,15 @@ one blocked factorization taken apart, on the card.
 Imports ``gauss_tpu_torch`` from the checkout at ``--root`` (default: this
 one; another checkout, for example a parent commit unpacked beside it,
 compares two versions in one run on one card), builds its kernels, and on
-random blocks seeded 258458, at the 7 fused launch shapes of an n x n
-factorization at panel 256 (the live rows m[kb:] of width n, the panel at
-col0 = kb):
+random blocks seeded 258458, at the n / 256 - 1 fused launch shapes of an
+n x n factorization at panel 256 (the live rows m[kb:] of width n, the
+panel at col0 = kb):
 
 - prints, per shape and summed, the device time of one launch of the
-  fused kernel, of the panel kernel on the same strip (phase A alone) and
-  of the trailing kernel on the same eliminations (phase B alone): the
+  fused kernel, of the panel kernel on the same strip (phase A alone), of
+  the trailing kernel on the same eliminations (phase B alone) and, where
+  the checkout has it, of the batched fused kernel on a stack of that one
+  block (``panel_trailing_fused_batched``, B = 1): the
   mean over ``--reps`` launches queued behind a spin kernel, so no host
   gap between launches counts (``chip_smoke.device_ms``), and the median
   of ``--reps`` calls by CUDA events around each call, the wrapper's host
@@ -49,7 +51,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parents[1]
 PANEL = 256
-# form -> [(text in csrc/panel_fused.cu, its replacement)]
+# form -> [(text in csrc/panel_fused.cu or .cuh, its replacement)]
 ABLATIONS = {
     "full": [],
     "b2-no-math": [("    gtt_seg_chain(acc, dm, du, w, tr, tc);\n",
@@ -66,21 +68,25 @@ ABLATIONS = {
 
 def build_forms(forms, nvcc, flags, edits=None, out="fused_probe"):
     """Build csrc/panel_fused.cu once per form (its text changes from
-    ``edits``, by default :data:`ABLATIONS`) into ``build/<out>/<form>/``,
-    in parallel; returns the libraries' paths by form."""
+    ``edits``, by default :data:`ABLATIONS`, each made in whichever of
+    ``panel_fused.cu`` and its header ``panel_fused.cuh`` holds the text)
+    into ``build/<out>/<form>/``, in parallel; returns the libraries' paths
+    by form."""
     import shutil
     import subprocess
 
     csrc = HERE / "gauss_tpu_torch" / "kernels" / "csrc"
-    base = (csrc / "panel_fused.cu").read_text()
+    names = ("panel_fused.cu", "panel_fused.cuh")
+    base = {name: (csrc / name).read_text() for name in names}
     edits = ABLATIONS if edits is None else edits
     sources = {}
     for form in forms:  # every form's text, before any build starts
-        src = base
+        src = dict(base)
         for old, new in edits[form]:
-            if src.count(old) != 1:
+            where = [name for name in names if src[name].count(old) == 1]
+            if sum(src[name].count(old) for name in names) != 1:
                 raise SystemExit(f"probe: form {form}: {old!r} not found once")
-            src = src.replace(old, new)
+            src[where[0]] = src[where[0]].replace(old, new)
         sources[form] = src
     jobs = {}
     for form, src in sources.items():
@@ -88,7 +94,8 @@ def build_forms(forms, nvcc, flags, edits=None, out="fused_probe"):
         if d.exists():
             shutil.rmtree(d)
         shutil.copytree(csrc, d)
-        (d / "panel_fused.cu").write_text(src)
+        for name, text in src.items():
+            (d / name).write_text(text)
         so = d / "libgtt_panel_fused.so"
         jobs[form] = (so, subprocess.Popen(
             [nvcc, *flags, "-o", str(so), str(d / "panel_fused.cu")],
@@ -129,7 +136,7 @@ def time_shapes(label: str, n: int, reps: int) -> None:
     rng = np.random.default_rng(258458)
     dev = torch.device("cuda")
     total = {"fused": [0.0, 0.0], "phase A": [0.0, 0.0],
-             "phase B": [0.0, 0.0]}
+             "phase B": [0.0, 0.0], "batched B=1": [0.0, 0.0]}
     head = f"probe: {label}: " if label else "probe: "
     for kb in range(0, n - PANEL, PANEL):
         h = n - kb
@@ -145,6 +152,9 @@ def time_shapes(label: str, n: int, reps: int) -> None:
             "phase A": lambda: kp.panel_factor(strip, 0),
             "phase B": lambda: kf.trailing_update(work, mult, ipiv, kb),
         }
+        if hasattr(kf, "panel_trailing_fused_batched"):
+            calls["batched B=1"] = lambda: kf.panel_trailing_fused_batched(
+                work[None], kb, 0, panel=PANEL)
         line = []
         for name, fn in calls.items():
             dms = device_ms(fn, reps)
@@ -154,9 +164,9 @@ def time_shapes(label: str, n: int, reps: int) -> None:
             total[name][1] += cms
             line.append(f"{name} {dms:.4f} device, {cms:.4f} per call")
         print(f"{head}({h}, {n}) kb={kb}: " + "; ".join(line) + " (ms)")
-    print(f"{head}the 7 shapes summed: " + "; ".join(
-        f"{name} {d:.4f} device, {c:.4f} per call"
-        for name, (d, c) in total.items()) + " (ms)")
+    print(f"{head}the {len(range(0, n - PANEL, PANEL))} shapes summed: "
+          + "; ".join(f"{name} {d:.4f} device, {c:.4f} per call"
+                      for name, (d, c) in total.items() if d) + " (ms)")
 
 
 def main(argv=None) -> int:

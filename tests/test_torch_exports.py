@@ -24,8 +24,17 @@ PENDING = {"gauss_tpu.obs": {
            "gauss_tpu.resilience": {
                "WorkerLostError": "item 10, resilience/watchdog",
                "FleetError": "item 10, resilience/fleet",
-               "solve_supervised": "item 10, resilience/fleet"}}
-PACKAGES = ["", ".io", ".core", ".structure", ".obs", ".tune", ".resilience"]
+               "solve_supervised": "item 10, resilience/fleet"},
+           "gauss_tpu.serve": {
+               "CacheView": "item 11, serve/cache's mesh-lane view",
+               "shared_cache": "item 11, serve/cache's process cache",
+               "Lane": "item 11, serve/lanes",
+               "LaneSet": "item 11, serve/lanes",
+               "compat_sig": "item 11, serve/lanes",
+               "JournalError": "item 11, serve/durable",
+               "RequestJournal": "item 11, serve/durable"}}
+PACKAGES = ["", ".io", ".core", ".structure", ".obs", ".tune", ".resilience",
+            ".serve"]
 
 
 def _reference_exports(pkg: str) -> set:

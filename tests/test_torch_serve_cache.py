@@ -1,9 +1,9 @@
 """The serving pieces the block-diagonal lane needs, against the JAX
 package's on the CPU: the shape buckets byte for byte, the executable
 cache (LRU, stats, the ``serve.cache.compile`` hook, the lanes not ported
-yet refused typed), the block-diagonal solves through it (a uniform
+refused typed), the block-diagonal solves through it (a uniform
 partition is one entry and one batched-factor call; mixed partitions; the
-per-member factor above one panel), and the batched panel kernel's plain
+batched blocked factor above one panel), and the batched panel kernel's plain
 version against the per-member plain panel and against ``jax.vmap`` of
 the JAX kernel in interpret mode. A ``cuda``-marked test holds the kernel
 to its plain version on the card."""
@@ -181,10 +181,13 @@ def test_cache_lru_stats_and_compile_hook():
 
 
 def test_lanes_not_ported_are_refused_typed():
+    """Only the sharded (mesh) lane is refused now; the lowered and spd
+    lanes build (tests/test_torch_serve.py serves them)."""
+    with pytest.raises(cache.LaneNotPortedError, match="item 11"):
+        cache.BatchedExecutable(_key(mesh="batch"), device=CPU)
     for key in (_key(dtype="bfloat16"), _key(dtype="bf16x3"),
                 _key(structure="spd")):
-        with pytest.raises(cache.LaneNotPortedError, match="item 11"):
-            cache.BatchedExecutable(key, device=CPU)
+        assert cache.BatchedExecutable(key, device=CPU).key == key
     assert cache.storage_dtype("bf16x3") == torch.float32
     assert cache.storage_dtype("bfloat16") == torch.bfloat16
     with pytest.raises(ValueError):
@@ -247,9 +250,22 @@ def test_mixed_partition_and_multi_rhs_match_the_reference(batched_calls):
     assert len(batched_calls) == 6
 
 
-def test_bucket_wider_than_a_panel_factors_per_member(batched_calls):
-    """The deviation: a bucket above the 128-wide auto panel runs
-    lu_factor_blocked on each member, no batched launch."""
+def test_bucket_wider_than_a_panel_factors_per_member(batched_calls,
+                                                      monkeypatch):
+    """A bucket above the 128-wide auto panel is no longer factored member
+    by member: the whole stack takes one batched fused launch for its
+    first panel and one batched panel launch for its last (the
+    per-member deviation this test once held is closed)."""
+    from gauss_tpu_torch.kernels import panel_fused as kpf
+
+    fused = []
+    real = kpf.panel_trailing_fused_batched
+
+    def spy(stack, col0, kbrow, **kw):
+        fused.append((tuple(stack.shape), col0))
+        return real(stack, col0, kbrow, **kw)
+
+    monkeypatch.setattr(kpf, "panel_trailing_fused_batched", spy)
     n, blk = 2 * 200, 200
     a = synthetic.blockdiag_matrix(n, blk)
     b = np.random.default_rng(8).standard_normal(n)
@@ -257,8 +273,10 @@ def test_bucket_wider_than_a_panel_factors_per_member(batched_calls):
     (key,) = blockdiag._exe_cache(CPU).keys()
     assert key.bucket_n == 256
     exe = blockdiag._exe_cache(CPU).get(key)
-    assert not exe.one_panel and exe.panel == 128
-    assert batched_calls == []
+    assert exe.panel == 128
+    # The warm-up factor (identities), then the solve's.
+    assert fused == [((2, 256, 256), 0)] * 2
+    assert batched_calls == [(2, 128, 128)] * 2
     assert _rel(x, jblockdiag.solve_blockdiag(a, b)) <= 1e-6
 
 

@@ -11,14 +11,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. Build: compiles ``gauss_tpu_torch/kernels/csrc/*.cu`` with ``nvcc``
    for ``sm_90a`` (one process per source, in parallel).
 3. Kernels vs plain versions at the shapes of the n=2048 main path: the
-   panel factor's two routes bit for bit (the cluster kernel at (256,
-   256) and (2048, 256), the one-block kernel at (4096, 256)), each with
-   its geometry, clusters at once, ptxas usage, us per pivot step and
-   ``torch.linalg.lu_factor`` beside it, and the cluster kernel at the
-   sizes of PANEL_CLUSTER_SWEEP; the fused panel+trailing
+   panel factor's routes bit for bit (the cluster kernel at (256, 256)
+   and (2048, 256), the grid kernel at (4096, 256), with the one-block
+   kernel on the same strip beside it, bit for bit and timed), each with
+   its geometry (the C launcher's beside the Python rule), clusters or
+   blocks at once, ptxas usage, us per pivot step and
+   ``torch.linalg.lu_factor`` beside it, the cluster kernel at the sizes
+   of PANEL_CLUSTER_SWEEP and the grid kernel at the G of
+   PANEL_GRID_SWEEP; the fused panel+trailing
    kernel and the standalone trailing kernel at all 7 fused launch shapes
    (h = 2048 - kb, kb = 0, 256, ..., 1536) and the fused kernel at a
-   (4096, 4096) block, whose strip takes phase A's one-block route, each
+   (4096, 4096) block, whose strip takes phase A's grid route, each
    with the C launcher's geometry (route, grid, shared memory, clusters at
    once) held against ``fused_geometry`` and its ptxas usage. Checks
    identical pivots, values within the stated tolerances, and fused ==
@@ -64,7 +67,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    - rowelim: ``--backend cuda-rowelim`` on the internal system
      (``--verify``) and on the .dat system: 8 cluster-panel + 8 rank-k
      launches per solve; then the internal system at n=4096, whose three
-     tallest live strips take the one-block kernel and the other 13 the
+     tallest live strips take the grid kernel and the other 13 the
      cluster kernel. The backend does not refine (as in the JAX package), so
      the .dat system is held to a float32 backward error (BACKWARD_TOL),
      not to the 1e-4 forward gate.
@@ -121,12 +124,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    float32 rounding at this size), again with the strip form forced. (c)
    n=8192 and n=12,800 at full size: launches by kernel and phase-A route
    against the form's plan; every launch of one factorization held
-   against its plain version as in (b), the one-block routes on strided
-   group views among them; the factor's float64 backward error within
+   against its plain version as in (b), the grid routes on strided
+   group views among them (no launch of either cell on the one-block
+   route); the factor's float64 backward error within
    BACKWARD_RATIO of ``torch.linalg.lu_factor``'s; a whole
    ``lu_factor_blocked_chunked`` call (CUDA events, median of 3) beside
    ``lu_factor`` on the same matrix, and one traced call: each kernel's
-   device ms, each one-block launch's ms by strip height, device busy
+   device ms, each grid-route launch's ms by strip height, device busy
    and idle share. (d) The counted path:
    ``gauss_internal -s 8192 --verify``, ``solve_refined`` on the n=12,800
    internal system, the flat form at n=2048 (``unroll=False`` through the
@@ -139,10 +143,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    phase's figures.
 7. The lowered-precision solve (``core/lowered``) on the bfloat16 forms
    of kernels 1-3: (a) kernel 1 at bfloat16 bit for bit against its plain
-   version on the cluster route at (N, PANEL) and on the one-block route
+   version on the cluster route at (N, PANEL) and on the grid route
    at the first height past a bfloat16 cluster's reach (6,849 rows at
-   panel 256; the C launcher's ``panel_cluster_info`` printed beside the
-   Python rule), kernel 2 at (N, N) and on its one-block route, kernel 3
+   panel 256; the C launchers' ``panel_cluster_info`` and
+   ``panel_grid_info`` printed beside the Python rule), kernels 1 and 2
+   at the n=8192 form's tallest strips ((7424, 256) and (8192, 1024)) on
+   the grid route and the one-block route, both dtypes, bit for bit
+   (``one_block_figures``), kernel 2 at (N, N) and on its grid route,
+   kernel 3
    at (N, N), their blocks within TOL_BF16 and TOL_BF16_SHARE
    (bf16_block_check) and fused == pair bit for bit,
    each timed (CUDA events, median of --reps) beside the float32 kernel
@@ -295,6 +303,10 @@ STRIPE_SHAPES = ((1, 2048, 2048), (2049, 777, 1000), (130, 17, 130))
 # (width PANEL): the rule's size among them.
 PANEL_CLUSTER_SWEEP = {256: (2, 3, 4, 8, 16), 1024: (5, 8, 12, 16),
                        2048: (10, 12, 14, 16)}
+# Group sizes G kernel 1's grid route is timed at, by strip shape: the
+# rule's G among them.
+PANEL_GRID_SWEEP = {(2 * N, PANEL): (32, 128), (7424, PANEL): (58, 116),
+                    (12800, PANEL // 2): (67, 132)}
 RANKK_TOL = 1e-5
 # (R, k, C) shapes kernel 7 is also held to its plain version at: ragged
 # rows, K and columns, one row, and a K that is no multiple of a ring
@@ -587,11 +599,11 @@ def phase_kernels(reps: int):
           f"alone, the trailing kernel: {k3['ms']:.4f}); device ms "
           f"{k2['device_ms']:.4f} (phase A {k2['phase_a_device_ms']:.4f}, "
           f"phase B {k3['device_ms']:.4f}); bound {k2['bound_ms']:.5f}")
-    # The one-block route of phase A: a strip taller than a cluster holds.
+    # The grid route of phase A: a strip taller than a cluster holds.
     k2["tall"] = fused_shape(max(3, reps // 4), rng, 2 * N, 2 * N, 0)
     k2["routes"].add(k2["tall"]["route"])
-    require(DEVICE != "cuda" or k2["tall"]["route"] == "block",
-            "the tall strip's fused launch did not take the one-block route")
+    require(DEVICE != "cuda" or k2["tall"]["route"] == "grid",
+            "the tall strip's fused launch did not take the grid route")
 
     # One whole n=N factorization: the kernels plus the torch work between
     # launches (row gathers, diagonal-block inverses, the U-inverse pass),
@@ -635,9 +647,11 @@ def fused_shape(reps: int, rng, h: int, wtot: int, kb: int) -> dict:
 
     dev = torch.device(DEVICE)
     geom = kf.fused_geometry(h, wtot, PANEL, kb)
-    where = (f"{geom.route} route (phase A on a cluster of {geom.cluster}"
-             if geom.route == "cluster" else
-             "block route (phase A on one block") + (
+    where = {"cluster": f"cluster route (phase A on a cluster of "
+                        f"{geom.cluster}",
+             "grid": f"grid route (phase A on a group of {geom.group} "
+                     f"blocks x {geom.rows_per_block} rows",
+             "block": "block route (phase A on one block"}[geom.route] + (
         f"), grid {geom.grid}, {geom.smem_bytes} B dynamic shared memory, "
         f"{geom.chunks} chunks x {geom.row_tiles} row tiles")
     if DEVICE == "cuda":
@@ -747,9 +761,20 @@ def panel_launch_key(h: int, panel: int, itemsize: int = 4) -> str:
     it, with the bfloat16 forms' suffix at 2 bytes."""
     from gauss_tpu_torch.kernels import panel as kp
 
-    return ("panel_factor_cluster"
-            if kp.panel_geometry(h, panel, itemsize).route == "cluster"
-            else "panel_factor") + ("_bf16" if itemsize == 2 else "")
+    return {"cluster": "panel_factor_cluster", "grid": "panel_factor_grid",
+            "block": "panel_factor"}[kp.panel_geometry(
+                h, panel, itemsize).route] + ("_bf16" if itemsize == 2
+                                              else "")
+
+
+def batched_route(h: int, panel: int, itemsize: int = 4) -> str:
+    """Phase A's route of a member of a batched fused launch: the cluster
+    route where ``panel_geometry`` says so, else the one-block route (the
+    batched launch has no grid route)."""
+    from gauss_tpu_torch.kernels import panel as kp
+
+    return ("cluster" if kp.panel_geometry(h, panel, itemsize).route
+            == "cluster" else "block")
 
 
 def panel_bound(h: int, panel: int, kb: int = 0):
@@ -760,13 +785,17 @@ def panel_bound(h: int, panel: int, kb: int = 0):
 
 
 def phase_panel(reps: int, rng):
-    """Kernel 1's two routes against the plain version, bit for bit, at
-    PANEL_SHAPES: each shape's route and geometry, clusters the card holds
-    at once, ms and us per pivot step beside the plain version,
-    ``torch.linalg.lu_factor`` and the bound; the cluster sizes of
-    PANEL_CLUSTER_SWEEP; both kernels' ptxas usage. Returns the record of
-    the main path's (PANEL, PANEL) shape, with every shape's record under
-    "shapes"."""
+    """Kernel 1's routes against the plain version, bit for bit: the
+    cluster kernel at (PANEL, PANEL) and (N, PANEL), the grid kernel at
+    (2N, PANEL), each shape's route and geometry (the C launcher's beside
+    the Python rule), clusters or blocks the card holds at once, ms and us
+    per pivot step beside the plain version, ``torch.linalg.lu_factor``
+    and the bound; on the grid shape also the one-block kernel
+    (``panel_factor_one_block``, the route the rule took there before the
+    grid route), bit for bit and timed; the cluster sizes of
+    PANEL_CLUSTER_SWEEP and the G of PANEL_GRID_SWEEP; the three kernels'
+    ptxas usage. Returns the record of the main path's (PANEL, PANEL)
+    shape, with every shape's record under "shapes"."""
     import torch
 
     from gauss_tpu_torch.kernels import _build
@@ -776,7 +805,7 @@ def phase_panel(reps: int, rng):
     dev = torch.device(DEVICE)
     on_card = DEVICE == "cuda"
     if on_card:
-        for source in ("panel_cluster", "panel_factor"):
+        for source in ("panel_cluster", "panel_grid", "panel_factor"):
             for kernel, (regs, spill, smem) in sorted(
                     ptxas_usage(source).items()):
                 print(f"phase 3: ptxas -v, csrc/{source}.cu {kernel}: "
@@ -815,23 +844,51 @@ def phase_panel(reps: int, rng):
                         and info["max_active_clusters"] >= 1,
                         f"C launcher's geometry {info} != {geom}")
                 where += f", {info['max_active_clusters']} clusters at once"
+        elif geom.route == "grid":
+            where = (f"a grid of {geom.blocks} co-resident blocks x "
+                     f"{geom.rows_per_block} rows, {geom.smem_bytes} B "
+                     f"dynamic shared memory")
+            if on_card:
+                info = kp.panel_grid_info(h, panel)
+                require(info["grid"] == geom.blocks
+                        and info["rows_per_block"] == geom.rows_per_block
+                        and info["smem_bytes"] == geom.smem_bytes
+                        and info["max_resident_blocks"] >= geom.blocks,
+                        f"C launcher's geometry {info} != {geom}")
+                where += (f", {info['max_resident_blocks']} such blocks at "
+                          f"once")
         else:
             where = "one block over a global scratch"
+        rec = {"key": key, "geom": geom, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "err": err}
+        old = ""
+        if geom.route == "grid" and on_card:
+            # The one-block kernel, the route the rule took here before.
+            b0 = _build.LAUNCHES["panel_factor"]
+            one = kp.panel_factor_one_block(x, 0)
+            sync()
+            require(_build.LAUNCHES["panel_factor"] == b0 + 1
+                    and same_outputs(one, ref), f"panel_factor_one_block "
+                    f"at ({h}, {panel}) differs from the plain version")
+            rec["one_block_ms"] = cuda_event_ms(
+                lambda: kp.panel_factor_one_block(x, 0), max(3, reps // 4))
+            rec["one_block_err"] = float((one[0] - ref[0]).abs().max())
+            old = (f"; the one-block kernel on the same strip, bit for bit: "
+                   f"{rec['one_block_ms']:.4f} ms")
         print(f"phase 3: {key} ({h}, {panel}) on {where}: bit for bit; ms "
               f"{ms:.4f} ({1e3 * ms / panel:.2f} us per pivot step), plain "
               f"{plain_ms:.4f}, lu_factor {lib_ms:.4f}, bound {b_ms:.5f} "
-              f"({b_by}), max_abs_err {err:g}")
-        records[(h, panel)] = {"key": key, "geom": geom, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": lib_ms,
-                               "err": err}
+              f"({b_by}), max_abs_err {err:g}{old}")
+        records[(h, panel)] = rec
     require(not on_card or (records[(PANEL, PANEL)]["key"] ==
                             records[(N, PANEL)]["key"] ==
                             "panel_factor_cluster" and
-                            records[(2 * N, PANEL)]["key"] == "panel_factor"),
+                            records[(2 * N, PANEL)]["key"] ==
+                            "panel_factor_grid"),
             f"routes {[r['key'] for r in records.values()]}: expected the "
-            f"cluster kernel at ({PANEL}, {PANEL}) and ({N}, {PANEL}), one "
-            f"block at ({2 * N}, {PANEL})")
+            f"cluster kernel at ({PANEL}, {PANEL}) and ({N}, {PANEL}), the "
+            f"grid kernel at ({2 * N}, {PANEL})")
     if on_card:
         for h, sizes in PANEL_CLUSTER_SWEEP.items():
             x = torch.as_tensor(rng.standard_normal((h, PANEL)),
@@ -849,6 +906,22 @@ def phase_panel(reps: int, rng):
                   + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
                   + f"; fastest C={best}, the rule's "
                   f"C={kp.panel_geometry(h, PANEL).cluster}")
+        for (h, panel), sizes in PANEL_GRID_SWEEP.items():
+            x = torch.as_tensor(rng.standard_normal((h, panel)),
+                                dtype=torch.float32, device=dev)
+            ref = kp.panel_factor_plain(x, 0)
+            rule = kp.panel_geometry(h, panel).blocks
+            times = {}
+            for g in sorted(set(sizes) | {rule}):
+                require(same_outputs(kp.panel_factor_grid(x, 0, g), ref),
+                        f"grid of {g} at ({h}, {panel}) differs from the "
+                        f"plain version")
+                times[g] = cuda_event_ms(
+                    lambda: kp.panel_factor_grid(x, 0, g), reps)
+            best = min(times, key=times.get)
+            print(f"phase 3: grid sizes at ({h}, {panel}), ms: "
+                  + ", ".join(f"G={g} {t:.4f}" for g, t in times.items())
+                  + f"; fastest G={best}, the rule's G={rule}")
     return dict(records[(PANEL, PANEL)], shapes=records)
 
 
@@ -1413,9 +1486,9 @@ def phase_main_path():
             f"expected {per} fused launches per factorization, got "
             f"{launches['panel_trailing_fused']} for {factorizations}")
     # The last (PANEL, PANEL) panel goes unfused, through the cluster
-    # kernel; the one-block kernel runs no strip of this path.
+    # kernel; the grid and one-block kernels run no strip of this path.
     last = panel_launch_key(PANEL, PANEL)
-    for key in ("panel_factor", "panel_factor_cluster"):
+    for key in ("panel_factor", "panel_factor_cluster", "panel_factor_grid"):
         want = factorizations if key == last else 0
         require(launches[key] == want, f"expected {want} {key} launches "
                 f"over {factorizations} factorizations, got "
@@ -2111,7 +2184,8 @@ def checked_launches(seen: dict, errs: dict | None = None):
     bit for bit equal to the unfused pair (panel kernel + reconstruction + trailing
     kernel) on the same input. ``seen`` counts the checked launches, the
     strided ones (leading dimension above the width), those on phase A's
-    one-block route and those with no trailing columns; ``errs``, when
+    grid route and on its one-block route, and those with no trailing
+    columns; ``errs``, when
     given, keeps the largest fused error over its scale by dtype."""
     import torch
 
@@ -2124,6 +2198,7 @@ def checked_launches(seen: dict, errs: dict | None = None):
     def note(kind, x, route, empty):
         for key, hit in ((kind, True),
                          (kind + " strided", x.stride(0) > x.shape[1]),
+                         (kind + " grid", route == "grid"),
                          (kind + " one-block", route == "block"),
                          (kind + " no trailing", empty)):
             if hit:
@@ -2295,14 +2370,18 @@ TRACE_KINDS = (
      "panel_trailing_fused", "cluster"),
     (("gtt_fused_kernel<false>", "gtt_fused_kernelILb0E"),
      "panel_trailing_fused", "block"),
+    (("gtt_fused_grid_kernel",), "panel_trailing_fused", "grid"),
     (("gtt_panel_cluster_kernel",), "panel_factor_cluster", "cluster"),
+    (("gtt_panel_grid_kernel",), "panel_factor_grid", "grid"),
     (("gtt_panel_factor_kernel",), "panel_factor", "block"),
     (("gtt_fused_bf16_kernel<true>", "gtt_fused_bf16_kernelILb1E"),
      "panel_trailing_fused_bf16", "cluster"),
     (("gtt_fused_bf16_kernel<false>", "gtt_fused_bf16_kernelILb0E"),
      "panel_trailing_fused_bf16", "block"),
+    (("gtt_fused_grid_bf16_kernel",), "panel_trailing_fused_bf16", "grid"),
     (("gtt_panel_cluster_bf16_kernel",), "panel_factor_cluster_bf16",
      "cluster"),
+    (("gtt_panel_grid_bf16_kernel",), "panel_factor_grid_bf16", "grid"),
     (("gtt_panel_factor_bf16_kernel",), "panel_factor_bf16", "block"),
     (("gtt_fused_batched_kernel<true>", "gtt_fused_batched_kernelILb1E"),
      "panel_trailing_fused_batched", "cluster"),
@@ -2469,6 +2548,8 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
                                                  device=DEVICE)
 
     plan = factor_plan(n, panel, chunk)
+    require(all(r != "block" for _, r, _ in plan), f"n={n}: the plan sends "
+            f"a strip to the one-block route: {route_counts(plan)}")
     _build.reset_launches()
     fac = call()
     sync()
@@ -2502,8 +2583,9 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
     # whole matrix; a panel always is.
     want = {"fused": len(fused),
             "fused strided": len(fused) if rec["groups"] > 1 else 0,
+            "fused grid": fused.count("grid"),
             "fused one-block": fused.count("block"), "panel": len(panels),
-            "panel strided": len(panels),
+            "panel strided": len(panels), "panel grid": panels.count("grid"),
             "panel one-block": panels.count("block")}
     require(seen == {k: v for k, v in want.items() if v},
             f"n={n}: checked launches {seen}, the plan gives {want}")
@@ -2528,9 +2610,9 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
             traces=traces,
             idle_share=1.0 - busy / host_ms,
             other_device_ms=busy - sum(dev_ms.values()),
-            block_route_ms_by_height=[
+            grid_route_ms_by_height=[
                 [key, h, round(ms, 4)] for (key, route, h), (_, _, ms)
-                in zip(plan, got) if route == "block"])
+                in zip(plan, got) if route == "grid"])
     print(f"phase 6: n={n}, panel {panel}, chunk {chunk} "
           f"({rec['groups']} groups): launches {rec['launches']}; every "
           f"launch of one factorization against its plain version: {seen}; "
@@ -2542,8 +2624,8 @@ def large_cell(n: int, panel: int, chunk: int, work: str) -> dict:
              f"{ {k: round(v, 3) for k, v in rec['device_ms'].items()} } "
              f"ms, other device work {rec['other_device_ms']:.3f} ms, busy "
              f"{busy:.3f} of {host_ms:.3f} ms host (idle share "
-             f"{rec['idle_share']:.4f}); one-block launches [key, height, "
-             f"ms]: {rec['block_route_ms_by_height']}"
+             f"{rec['idle_share']:.4f}); grid-route launches [key, height, "
+             f"ms]: {rec['grid_route_ms_by_height']}"
              if on_card else "") + f" [{smi_line() if on_card else 'cpu'}]")
     return rec
 
@@ -2800,18 +2882,26 @@ def lowered_panel_shape(reps: int, rng, h: int, reach: int) -> dict:
             f"bf16 panel_factor at ({h}, {PANEL}) did not launch {key}")
     require(same_outputs(got, ref), f"{key} at ({h}, {PANEL}) differs from "
             f"the plain version")
-    rule = f"rule {geom.route}, C={geom.cluster}, {geom.rows_per_block} rows"
+    rule = (f"rule {geom.route}, {geom.blocks} blocks, "
+            f"{geom.rows_per_block} rows")
     if on_card:
         for hh in sorted({h, reach}):
             info = kp.panel_cluster_info(hh, PANEL, itemsize=2)
+            ginfo = kp.panel_grid_info(hh, PANEL, itemsize=2)
             g = kp.panel_geometry(hh, PANEL, 2)
             want = ((g.cluster, g.rows_per_block, g.smem_bytes)
                     if g.route == "cluster" else (0, 0, 0))
+            gwant = ((g.blocks, g.rows_per_block, g.smem_bytes)
+                     if g.route == "grid" else (0, 0, 0))
             require((info["cluster"], info["rows_per_block"],
-                     info["smem_bytes"]) == want,
-                    f"bf16 cluster info at ({hh}, {PANEL}): {info} != {g}")
+                     info["smem_bytes"]) == want and
+                    (ginfo["grid"], ginfo["rows_per_block"],
+                     ginfo["smem_bytes"]) == gwant,
+                    f"bf16 cluster / grid info at ({hh}, {PANEL}): {info}, "
+                    f"{ginfo} != {g}")
             rule += (f"; panel_cluster_info({hh}, {PANEL}, itemsize=2) "
-                     f"{info} beside panel_geometry {tuple(g)}")
+                     f"{info}, panel_grid_info {ginfo} beside panel_geometry "
+                     f"{tuple(g)}")
     rec = {"key": key, "route": geom.route, "err": float(
         (got[0].float() - ref[0].float()).abs().max())}
     plain_reps = max(3, reps // 4)
@@ -2938,11 +3028,19 @@ def lowered_fused_shape(reps: int, rng, h: int, wtot: int) -> dict:
 
 
 def one_block_figures(reps: int, rng) -> dict:
-    """Kernels 1 and 2 at the n=8192 chunked form's tallest one-block
-    launches, at both dtypes: kernel 1 on the (7424, 256) strip (the first
-    group's last panel) beside ``lu_factor`` on the float32 strip, kernel
-    2 on the (8192, 1024) group block (the first group's first panel);
-    each with its bound (bytes at the dtype's itemsize)."""
+    """Kernels 1 and 2 at the n=8192 chunked form's tallest phase-A
+    launches, at both dtypes, on both routes: kernel 1 on the (7424, 256)
+    strip (the first group's last panel) by the rule (the grid route) and
+    on the one-block kernel (``panel_factor_one_block``), both bit for bit
+    the plain version, beside ``lu_factor`` on the float32 strip; kernel 2
+    on the (8192, 1024) group block (the first group's first panel) by the
+    rule (the grid route), its panel and pivots bit for bit the plain
+    version's, its block bit for bit the unfused pair's and within TOL
+    (float32) or bf16_block_check's limits (bfloat16) of the plain one,
+    beside the batched launch on a stack of that one block (kernel 2's
+    body at B = 1 on the one-block route, the route kernel 2 took before
+    the grid route), bit for bit the same; each with its bound (bytes at
+    the dtype's itemsize)."""
     import torch
 
     from gauss_tpu_torch.kernels import panel as kp
@@ -2961,15 +3059,54 @@ def one_block_figures(reps: int, rng) -> dict:
         x, blk = strip.to(dt), block.to(dt)
         work = blk.clone()
         isz = x.element_size()
+        where = f"{name} at ({hp}, {PANEL}) and ({hf}, {wf})"
+        ref = kp.panel_factor_plain(x, 0)
+        got, one = kp.panel_factor(x, 0), kp.panel_factor_one_block(x, 0)
+        sync()
+        require(same_outputs(got, ref) and same_outputs(one, ref),
+                f"kernel 1 {where}: a route differs from the plain version")
+        fused = kf.panel_trailing_fused(work, 0, 0, panel=PANEL)
+        old = blk.clone()[None]
+        fold = kf.panel_trailing_fused_batched(old, 0, 0, panel=PANEL)
+        plain = kf.panel_trailing_fused_plain(blk.clone(), 0, 0, panel=PANEL)
+        pair = blk.clone()
+        p2, i2, q2, _ = kp.panel_factor(pair[:, :PANEL], 0)
+        mult, onehot = kf.reconstruct_mult_pt(p2, i2, q2, 0, PANEL)
+        kf.trailing_update(pair, mult, onehot, 0)
+        sync()
+        require(same_outputs(fused[:4], plain[:4])
+                and torch.equal(pair, work) and torch.equal(old[0], work)
+                and same_outputs(fused[:4], [f[0] for f in fold[:4]]),
+                f"kernel 2 {where}: panel or pivots differ from the plain "
+                f"version, or the block from the pair's or the one-block "
+                f"route's")
+        if dt == torch.bfloat16:
+            bf16_block_check(f"kernel 2 {where}", work, plain[4], PANEL)
+        else:
+            scale = float(plain[4].abs().max())
+            require(float((work - plain[4]).abs().max()) <= TOL * scale,
+                    f"kernel 2 {where}: max |kernel - plain| over TOL")
         f2 = trailing_ops(hf, 0, PANEL, wf - PANEL)
         rec = {"panel_route": kp.panel_geometry(hp, PANEL, isz).route,
                "fused_route": kf.fused_geometry(hf, wf, PANEL, 0,
                                                 itemsize=isz).route,
                "panel_ms": cuda_event_ms(lambda: kp.panel_factor(x, 0),
                                          reps),
+               "panel_one_block_ms": cuda_event_ms(
+                   lambda: kp.panel_factor_one_block(x, 0), reps),
                "fused_ms": cuda_event_ms(
                    lambda: kf.panel_trailing_fused(work, 0, 0, panel=PANEL),
-                   reps, setup=lambda: work.copy_(blk))}
+                   reps, setup=lambda: work.copy_(blk)),
+               "fused_one_block_ms": cuda_event_ms(
+                   lambda: kf.panel_trailing_fused_batched(
+                       old, 0, 0, panel=PANEL), reps,
+                   setup=lambda: old[0].copy_(blk)),
+               "panel_plain_ms": cuda_event_ms(
+                   lambda: kp.panel_factor_plain(x, 0), 1, warmup=1),
+               "panel_err": float((got[0].float() - ref[0].float())
+                                  .abs().max()),
+               "panel_one_block_err": float((one[0].float() - ref[0].float())
+                                            .abs().max())}
         pb = (bound_bf16(2.0 * hp * PANEL * isz + 4 * PANEL + 8 * hp + isz,
                          panel_ops(hp, PANEL, 0), 0.0) if isz == 2 else
               panel_bound(hp, PANEL))
@@ -2982,8 +3119,9 @@ def one_block_figures(reps: int, rng) -> dict:
     with quiet_fd1():
         out["lu_factor_strip_ms"] = cuda_event_ms(
             lambda: torch.linalg.lu_factor(strip), reps)
-    print(f"phase 7: the n=8192 form's tallest one-block launches, kernel 1 "
-          f"at ({hp}, {PANEL}) and kernel 2 at ({hf}, {wf}): "
+    print(f"phase 7: the n=8192 form's tallest phase-A launches, kernel 1 "
+          f"at ({hp}, {PANEL}) and kernel 2 at ({hf}, {wf}), by the rule "
+          f"and on the one-block route, bit for bit: "
           + "; ".join(f"{k} {v}" for k, v in out.items()) + f" [{smi_line()}]")
     return out
 
@@ -3050,9 +3188,9 @@ def phase_lowered(reps: int):
                     tall: lowered_fused_shape(max(3, reps // 4), rng,
                                               reach + 1, 4 * PANEL)}
     require(not on_card or (out["panel"][N]["route"] == "cluster"
-                            and out["panel"][reach + 1]["route"] == "block"
-                            and out["fused"][tall]["route"] == "block"),
-            "bf16 routes: expected the cluster at N and one block past the "
+                            and out["panel"][reach + 1]["route"] == "grid"
+                            and out["fused"][tall]["route"] == "grid"),
+            "bf16 routes: expected the cluster at N and the grid past the "
             "reach")
 
     # (b) solve_lowered at N, each rung, on the dominant system.
@@ -3221,8 +3359,10 @@ def phase_lowered(reps: int):
     plan = factor_plan(n, panel, chunk, 2)
     plan32 = factor_plan(n, panel, chunk, 4)
     rc16, rc32 = route_counts(plan), route_counts(plan32)
-    one16 = sum(v for k, v in rc16.items() if k.endswith("/block"))
-    one32 = sum(v for k, v in rc32.items() if k.endswith("/block"))
+    require(all(r != "block" for _, r, _ in plan + plan32), f"bf16 n={n}: "
+            f"a strip on the one-block route: {rc16}, float32 {rc32}")
+    one16 = sum(v for k, v in rc16.items() if k.endswith("/grid"))
+    one32 = sum(v for k, v in rc32.items() if k.endswith("/grid"))
     seen = {}
     with checked_launches(seen, errs):
         blocked.lu_factor_blocked_chunked(a16, panel=panel, chunk=chunk,
@@ -3233,13 +3373,14 @@ def phase_lowered(reps: int):
     groups = -(-(-(-n // panel)) // chunk)
     want = {"fused": len(fused),
             "fused strided": len(fused) if groups > 1 else 0,
+            "fused grid": fused.count("grid"),
             "fused one-block": fused.count("block"), "panel": len(panels),
-            "panel strided": len(panels),
+            "panel strided": len(panels), "panel grid": panels.count("grid"),
             "panel one-block": panels.count("block")}
     require(seen == {k: v for k, v in want.items() if v},
             f"bf16 n={n}: checked launches {seen}, the plan gives {want}")
     big = {"n": n, "panel": panel, "chunk": chunk, "launches": rc16,
-           "f32_launches": rc32, "one_block": one16, "f32_one_block": one32,
+           "f32_launches": rc32, "grid_route": one16, "f32_grid_route": one32,
            "checked_launches": seen, "bound_ms": bound(
                4.0 * n * n, 2.0 * n ** 3 / 3, PEAK_BF16_FLOP_S)[0]}
     if on_card:
@@ -3277,7 +3418,8 @@ def phase_lowered(reps: int):
     big["solve"] = info
     out["large"] = big
     print(f"phase 7: bf16 n={n}, panel {panel}, chunk {chunk}: launches "
-          f"{rc16} ({one16} one-block; float32: {one32}); every launch of "
+          f"{rc16} ({one16} on the grid route; float32: {one32}); every "
+          f"launch of "
           f"one factorization against its plain version: {seen}"
           + (f"; factor {big['factor_ms']:.3f} ms (median of 3), float32 "
              f"{big['f32_factor_ms']:.3f}, lu_factor (float32) "
@@ -3841,7 +3983,7 @@ def serve_batch_trace(path: str) -> dict:
         for kb in range(0, key.bucket_n - exe.panel, exe.panel):
             h = key.bucket_n - kb
             plan.append(("panel_trailing_fused_batched",
-                         kp.panel_geometry(h, exe.panel).route, h))
+                         batched_route(h, exe.panel), h))
         plan.append(("panel_factor_batched", "batched", exe.panel))
     kernels, busy, host_ms, traces = trace_plan(
         lambda: exe.solve(a_pad, b_pad), path, plan)
@@ -4136,7 +4278,7 @@ def main(argv=None) -> int:
                  "panel_factor_batched_bf16", "panel_factor_batched"):
         require(by_path["serve"][name] > 0, f"the serve path launched no "
                 f"{name}")
-    for name in ("panel_factor_cluster_bf16", "panel_factor_bf16",
+    for name in ("panel_factor_cluster_bf16", "panel_factor_grid_bf16",
                  "panel_trailing_fused_bf16"):
         require(by_path["lowered"][name] > 0, f"the lowered path launched "
                 f"no {name}")
@@ -4149,7 +4291,14 @@ def main(argv=None) -> int:
             p: c[name] for p, c in by_path.items() if c[name]}}
 
     src = "gauss_tpu_torch/kernels/csrc/"
-    tall, block = k1["shapes"][(N, PANEL)], k1["shapes"][(2 * N, PANEL)]
+    tall, grid = k1["shapes"][(N, PANEL)], k1["shapes"][(2 * N, PANEL)]
+    ob32, ob16 = low["one_block"]["float32"], low["one_block"]["bfloat16"]
+    strip_lib = low["one_block"]["lu_factor_strip_ms"]
+
+    def tallest(rec, prefix):
+        """Kernel 1's or 2's record at the n=8192 form's tallest strip."""
+        return {k[len(prefix):]: v for k, v in rec.items()
+                if k.startswith(prefix)}
     kernels = [
         {"name": "panel_factor_cluster", "route": "cuda",
          "source": src + "panel_cluster.cu",
@@ -4167,18 +4316,39 @@ def main(argv=None) -> int:
          "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"],
          "phase_profile_share": tele["phase_share"],
          "large_n": large_n_summary(large, "panel_factor_cluster")},
+        {"name": "panel_factor_grid", "route": "cuda",
+         "source": src + "panel_grid.cu",
+         "sources": [src + "panel_grid.cu", src + "panel_grid.cuh",
+                     src + "panel_cluster.cuh", src + "panel_common.cuh"],
+         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+         **launch_keys("panel_factor_grid"),
+         "max_abs_err": grid["err"], "ms": grid["ms"],
+         "plain_ms": grid["plain_ms"], "bound_ms": grid["bound_ms"],
+         "bound_by": grid["bound_by"], "library_ms": grid["library_ms"],
+         "one_block_ms": grid["one_block_ms"],
+         "shape": f"({2 * N}, {PANEL}), taller than a cluster holds: a grid "
+                  f"of {grid['geom'].blocks} blocks (one_block_ms: the "
+                  f"one-block kernel on the same strip)",
+         "(7424, 256)": {
+             "ms": ob32["panel_ms"], "one_block_ms":
+             ob32["panel_one_block_ms"], "library_ms": strip_lib,
+             "bound_ms": ob32["panel_bound_ms"], "err": ob32["panel_err"]},
+         "large_n": large_n_summary(large, "panel_factor_grid")},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
          **launch_keys("panel_factor"),
-         "max_abs_err": block["err"], "ms": block["ms"],
-         "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
-         "bound_by": block["bound_by"], "library_ms": block["library_ms"],
-         "shape": f"({2 * N}, {PANEL}), taller than a cluster holds",
+         "max_abs_err": grid["one_block_err"], "ms": grid["one_block_ms"],
+         "plain_ms": grid["plain_ms"], "bound_ms": grid["bound_ms"],
+         "bound_by": grid["bound_by"], "library_ms": grid["library_ms"],
+         "shape": f"({2 * N}, {PANEL}) through panel_factor_one_block: the "
+                  f"rule sends it only strips beyond the grid's reach, which "
+                  f"no main path factors",
          "large_n": large_n_summary(large, "panel_factor")},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
-         "sources": [src + "panel_fused.cu", src + "panel_cluster.cuh",
+         "sources": [src + "panel_fused.cu", src + "panel_fused.cuh",
+                     src + "panel_grid.cuh", src + "panel_cluster.cuh",
                      src + "panel_common.cuh"],
          "phase_a_routes": sorted(k2["routes"]),
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
@@ -4193,9 +4363,10 @@ def main(argv=None) -> int:
          "device_ms": k2["device_ms"],
          "phase_a_device_ms": k2["phase_a_device_ms"],
          "phase_b_device_ms": k3["device_ms"],
-         f"({2 * N}, {2 * N}) one-block route": {
+         f"({2 * N}, {2 * N}) grid route": {
              key: k2["tall"]["fused"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "err")},
+         "(8192, 1024) grid route": tallest(ob32, "fused_"),
          "factorization_ms": k2["factorization_ms"],
          "factorization_lu_factor_ms": k2["lu_factor_ms"],
          "large_n": large_n_summary(large, "panel_trailing_fused")},
@@ -4217,13 +4388,13 @@ def main(argv=None) -> int:
     for name, rec, shape in (
             ("panel_factor_cluster_bf16", p16,
              f"({N}, {PANEL}) bfloat16, the cluster route"),
-            ("panel_factor_bf16", b16,
+            ("panel_factor_grid_bf16", b16,
              f"({reach + 1}, {PANEL}) bfloat16, the first height past a "
-             f"bfloat16 cluster's reach")):
+             f"bfloat16 cluster's reach: the grid route")):
         kernels.append(
             {"name": name, "route": "cuda",
              "source": src + ("panel_cluster.cu" if "cluster" in name
-                              else "panel_factor.cu"),
+                              else "panel_grid.cu"),
              "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
              **launch_keys(name), "max_abs_err": rec["err"],
              "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -4234,9 +4405,25 @@ def main(argv=None) -> int:
                  k.split("/")[1]: v for k, v in low["large"][
                      "launches"].items() if k.split("/")[0] == name}}})
     kernels.append(
+        {"name": "panel_factor_bf16", "route": "cuda",
+         "source": src + "panel_factor.cu",
+         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+         **launch_keys("panel_factor_bf16"),
+         "max_abs_err": ob16["panel_one_block_err"],
+         "ms": ob16["panel_one_block_ms"], "plain_ms": ob16["panel_plain_ms"],
+         "bound_ms": ob16["panel_bound_ms"],
+         "bound_by": ob16["panel_bound_by"], "library_ms": strip_lib,
+         "grid_route_ms": ob16["panel_ms"],
+         "shape": "(7424, 256) bfloat16 through panel_factor_one_block "
+                  "(library: lu_factor on the float32 strip; grid_route_ms: "
+                  "the rule's kernel on the same strip): the rule sends it "
+                  "only strips beyond the grid's reach, which no main path "
+                  "factors"})
+    kernels.append(
         {"name": "panel_trailing_fused_bf16", "route": "cuda",
          "source": src + "panel_fused.cu",
-         "sources": [src + "panel_fused.cu", src + "panel_cluster.cuh",
+         "sources": [src + "panel_fused.cu", src + "panel_fused.cuh",
+                     src + "panel_grid.cuh", src + "panel_cluster.cuh",
                      src + "panel_common.cuh"],
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
          **launch_keys("panel_trailing_fused_bf16"),
@@ -4250,9 +4437,10 @@ def main(argv=None) -> int:
                   f"cluster route (tolerance {TOL_BF16} of the block's "
                   f"scale, at most {TOL_BF16_SHARE} of the trailing "
                   f"elements differing)",
-         f"({reach + 1}, {4 * PANEL}) one-block route": {
+         f"({reach + 1}, {4 * PANEL}) grid route": {
              key: t16[key] for key in ("ms", "f32_ms", "plain_ms",
                                        "bound_ms", "err", "err_rel")},
+         "(8192, 1024) grid route": tallest(ob16, "fused_"),
          "factorization_n8192_ms": low["large"].get("factor_ms"),
          "factorization_n8192_f32_ms": low["large"].get("f32_factor_ms"),
          "factorization_n8192_lu_factor_ms": low["large"].get(

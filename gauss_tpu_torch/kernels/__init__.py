@@ -2,8 +2,11 @@
 
 - :mod:`.panel` — ``panel_factor``: the cluster-resident kernel
   (``csrc/panel_cluster.cu`` on ``csrc/panel_cluster.cuh``) for strips a
-  cluster of up to 16 blocks holds, the one-block kernel
-  (``csrc/panel_factor.cu``) for taller ones (``panel_geometry``); and
+  cluster of up to 16 blocks holds, the grid kernel
+  (``csrc/panel_grid.cu`` on ``csrc/panel_grid.cuh``: up to 132
+  co-resident blocks, each pivot step exchanged through L2) for taller
+  ones, the one-block kernel (``csrc/panel_factor.cu``) beyond the grid's
+  reach (``panel_geometry``); and
   ``panel_factor_batched``, a (B, h, panel) stack in one launch
   (``csrc/panel_batched.cu``, one block per member);
 - :mod:`.panel_fused` — ``panel_trailing_fused`` and ``trailing_update``

@@ -30,8 +30,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("panel_factor", "panel_cluster", "panel_batched", "panel_fused",
-           "panel_fused_batched", "matmul", "rowelim", "spmv")
+SOURCES = ("panel_factor", "panel_cluster", "panel_grid", "panel_batched",
+           "panel_fused", "panel_fused_batched", "matmul", "rowelim", "spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launch per stack. Reset with
 #: :func:`reset_launches`.
 LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
+            "panel_factor_grid": 0, "panel_factor_grid_bf16": 0,
             "panel_factor_batched": 0, "panel_factor_batched_bf16": 0,
             "panel_trailing_fused_batched": 0,
             "panel_trailing_fused_batched_bf16": 0,
@@ -58,7 +59,9 @@ BUILD_SECONDS: dict[str, float] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PANEL = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _CLUSTER_AT = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-_FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_GRID = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+_FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+          _P, _P]
 _TRAILING = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _BATCHED = [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _FUSED_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -74,6 +77,11 @@ _SIGNATURES = {
         "gtt_panel_factor_cluster_at": _CLUSTER_AT,
         "gtt_panel_factor_cluster_at_bf16": _CLUSTER_AT,
         "gtt_panel_cluster_info": [_I, _I, _I, _I, _P],
+    },
+    "panel_grid": {
+        "gtt_panel_factor_grid": _GRID,
+        "gtt_panel_factor_grid_bf16": _GRID,
+        "gtt_panel_grid_info": [_I, _I, _I, _I, _P],
     },
     "panel_batched": {
         "gtt_panel_factor_batched": _BATCHED,

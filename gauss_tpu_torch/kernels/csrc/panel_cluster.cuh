@@ -89,8 +89,9 @@ __host__ __device__ inline size_t gtt_cluster_smem_bytes(int rows, int panel,
 // The routing rule (kernels/panel.py::panel_geometry states it in Python):
 // the cluster size for an (h, panel) strip of `itemsize`-byte elements, or
 // 0 when no cluster of at most GTT_CLUSTER_MAX blocks holds it and the
-// one-block kernel runs. C starts at ceil(h / GTT_CLUSTER_ROWS), at most
-// GTT_CLUSTER_MAX, and grows until a block's rows fit its shared memory.
+// grid route (panel_grid.cuh) or the one-block kernel runs. C starts at
+// ceil(h / GTT_CLUSTER_ROWS), at most GTT_CLUSTER_MAX, and grows until a
+// block's rows fit its shared memory.
 __host__ inline int gtt_cluster_size(int h, int panel, int itemsize) {
   if (panel < 1 || panel > GTT_PANEL_MAX || h < 1) return 0;
   int c = (h + GTT_CLUSTER_ROWS - 1) / GTT_CLUSTER_ROWS;
@@ -174,21 +175,22 @@ __device__ void gtt_cluster_load(const GttClusterStrip<T>& s,
   for (int rl = threadIdx.x; rl < 2 * s.r4; rl += blockDim.x) s.m[rl] = 0.0f;
 }
 
-// Warp 0, step jn's candidate: update column jn of the block's rows by
-// step jn - 1 (pivot row u, multipliers m; no update when m is null),
-// reduce the live rows' |column| to the block's best row, copy that row's
-// columns > jn after step jn - 1 into slot[jn & 1] (before the other
-// warps update them), and push the candidate (key, row, signed value)
-// into cand[jn & 1][rank] of every block of the cluster. The row is
-// INT_MAX when the block holds no row.
+// Warp 0, step jn's candidate in the block: update column jn of the
+// block's rows by step jn - 1 (pivot row u, multipliers m; no update when
+// m is null) and reduce the live rows' |column| to the block's best
+// (key, row, signed value), in every lane. The row is INT_MAX when the
+// block holds no live row.
 template <typename T>
-__device__ __forceinline__ void gtt_cluster_candidate(
-    const GttClusterStrip<T>& s, int jn, int rank,
-    const float* __restrict__ u, const float* __restrict__ m) {
+__device__ __forceinline__ void gtt_strip_best(const GttClusterStrip<T>& s,
+                                               int jn,
+                                               const float* __restrict__ u,
+                                               const float* __restrict__ m,
+                                               unsigned& key, int& idx,
+                                               float& val) {
   const int lane = threadIdx.x & 31;
-  unsigned key = 0;
-  int idx = INT_MAX;
-  float val = 0.0f;
+  key = 0;
+  idx = INT_MAX;
+  val = 0.0f;
   T* col = s.t + jn * s.lds;
 #pragma unroll 4
   for (int rl = lane; rl < s.nr; rl += 32) {
@@ -203,6 +205,40 @@ __device__ __forceinline__ void gtt_cluster_candidate(
     if (k > key) { key = k; idx = r; val = v; }  // rows ascend: ties keep
   }
   gtt_warp_best(key, idx, val);
+}
+
+// Warp 0: row idx's columns > jn after step jn - 1 into slot (shared or
+// global memory), before the other warps update them; nothing when idx is
+// INT_MAX.
+template <typename T>
+__device__ __forceinline__ void gtt_strip_slot_row(
+    const GttClusterStrip<T>& s, int jn, int idx, const float* __restrict__ u,
+    const float* __restrict__ m, float* __restrict__ slot) {
+  if (idx == INT_MAX) return;
+  const int lane = threadIdx.x & 31;
+  const int bl = idx - s.row0;
+  const float mb = m != nullptr ? m[bl] : 0.0f;
+#pragma unroll 4
+  for (int c = jn + 1 + lane; c < s.panel; c += 32) {
+    const float v = gtt_f(s.t[c * s.lds + bl]);
+    slot[c] = m != nullptr
+                  ? gtt_r<T>(__fsub_rn(v, gtt_r<T>(__fmul_rn(u[c], mb))))
+                  : v;
+  }
+}
+
+// Warp 0, step jn's candidate: the block's best row (gtt_strip_best), its
+// columns > jn into slot[jn & 1], and the candidate (key, row, signed
+// value) pushed into cand[jn & 1][rank] of every block of the cluster.
+template <typename T>
+__device__ __forceinline__ void gtt_cluster_candidate(
+    const GttClusterStrip<T>& s, int jn, int rank,
+    const float* __restrict__ u, const float* __restrict__ m) {
+  const int lane = threadIdx.x & 31;
+  unsigned key;
+  int idx;
+  float val;
+  gtt_strip_best(s, jn, u, m, key, idx, val);
   // Push the candidate first: the stores drain while the slot is written.
   gtt_cg::cluster_group cluster = gtt_cg::this_cluster();
   if (lane < (int)cluster.num_blocks()) {
@@ -212,18 +248,7 @@ __device__ __forceinline__ void gtt_cluster_candidate(
     rc[1] = __int_as_float(idx);
     rc[2] = val;
   }
-  if (idx != INT_MAX) {
-    const int bl = idx - s.row0;
-    const float mb = m != nullptr ? m[bl] : 0.0f;
-    float* slot = s.slot + (jn & 1) * s.panel;
-#pragma unroll 4
-    for (int c = jn + 1 + lane; c < s.panel; c += 32) {
-      const float v = gtt_f(s.t[c * s.lds + bl]);
-      slot[c] = m != nullptr
-                    ? gtt_r<T>(__fsub_rn(v, gtt_r<T>(__fmul_rn(u[c], mb))))
-                    : v;
-    }
-  }
+  gtt_strip_slot_row(s, jn, idx, u, m, s.slot + (jn & 1) * s.panel);
   __syncwarp();
 }
 

@@ -1,11 +1,12 @@
 // Device routines shared by the one-block panel-factor kernel
-// (panel_factor.cu) and the one-block route of the fused panel+trailing
-// kernel (panel_fused.cu).
+// (panel_factor.cu), the one-block route of the fused panel+trailing
+// kernel (panel_fused.cu) and the batched kernels.
 //
 // gtt_factor_panel is the ONE one-block pivot-step loop: the panel-factor
 // kernel and the fused kernel's one-block phase A both run it, so their
 // factored panels are bit-identical (and equal to the cluster loop of
-// panel_cluster.cuh, which computes the same values).
+// panel_cluster.cuh and the grid loop of panel_grid.cuh, which compute the
+// same values).
 //
 // Arithmetic contract of the step loop: every multiply, subtract and
 // divide is an explicitly rounded IEEE operation (__fmul_rn, __fsub_rn,

@@ -5,10 +5,13 @@
 // TPU's two-level deferred form exists for VMEM and MXU limits and is not
 // carried over; its different rounding is covered by the tests' tolerance.
 //
-// Route: only strips that no thread-block cluster of up to 16 blocks holds
-// in shared memory (kernels/panel.py::panel_geometry; at panel 256, above
-// 3,392 rows). Every other strip runs the cluster kernel of
-// panel_cluster.cu, which computes the same values bit for bit.
+// Route: only strips that neither a thread-block cluster of up to 16
+// blocks nor a grid of up to 132 co-resident blocks holds in shared memory
+// (kernels/panel.py::panel_geometry; e.g. panel 1024 above 6,864 rows).
+// Every other strip runs the cluster kernel of panel_cluster.cu or the
+// grid kernel of panel_grid.cu, which compute the same values bit for
+// bit; kernels/panel.py::panel_factor_one_block reaches this kernel on any
+// strip, to time it beside them.
 //
 // What bounds it on the H100: not bytes or FLOPs (a (4096, 256) strip is
 // 4 MB and ~0.27 GFLOP, microseconds of either) but the chain of `panel`
@@ -22,10 +25,9 @@
 // in one launch (no launch per step, no host round trip), over the panel
 // in a global scratch, transposed, where it stays in the 50 MB L2; rows
 // stay in place (done mask, no swaps), each thread owns fixed rows, and
-// the rank-1 update keeps GTT_BATCH loads in flight. That is what a strip
-// too tall for a cluster's shared memory gets; the fused kernel's phase A
-// (panel_fused.cu) runs this same step loop, gtt_factor_panel, on the
-// strips that no cluster holds.
+// the rank-1 update keeps GTT_BATCH loads in flight. The fused kernel's
+// phase A (panel_fused.cu) and the batched kernels run this same step
+// loop, gtt_factor_panel, on the strips no other route of theirs holds.
 //
 // The bfloat16 form (gtt_panel_factor_bf16, kernel
 // gtt_panel_factor_bf16_kernel) runs the same loop on a bfloat16 scratch

@@ -24,8 +24,14 @@
 //     panel) > 0: every strip of the n=2048 path, C = 16 at panel 256) the
 //     launch is a thread-block-cluster launch and that cluster runs the
 //     panel_cluster.cuh step loop unchanged: load, factor, store. Taller
-//     strips launch without clusters and one block runs the one-block loop
-//     gtt_factor_panel. Either way the phase-A blocks then DERIVE the
+//     strips take the grid route (gtt_grid_route(h, panel) > 0: at panel
+//     256 up to 27,984 rows at float32): the launch is cooperative, the
+//     first G blocks to take a phase-A ticket form the group (rank =
+//     ticket) and run the panel_grid.cuh step loop, each block's rows in
+//     its shared memory, the step records and pivot rows exchanged through
+//     L2. Strips beyond the grid's reach (e.g. panel 1024 above 6,864
+//     rows) launch without either and one block runs the one-block loop
+//     gtt_factor_panel. Every route's phase-A blocks then DERIVE the
 //     (panel, h) multiplier record from the factored strip by the rule of
 //     kernels/panel_fused.py::reconstruct_mult_pt (row r's value in column
 //     j when r was still live at step j, else 0), so the record is what
@@ -47,12 +53,15 @@
 //     28 + 224 jobs for 112 blocks.
 //   A block waits only for work whose ticket was taken earlier, by a block
 //   that is running, so the launch cannot deadlock whatever the card holds
-//   at once, and needs no grid-wide barrier. (The runtime does take
+//   at once, and needs no grid-wide barrier; on the grid route the group's
+//   blocks also wait on each other, which the cooperative launch makes
+//   safe (gtt_fused_grid_body states the argument). (The runtime does take
 //   cudaLaunchAttributeCooperative beside a cluster dimension of 16 on the
 //   H100, up to the 7 clusters it holds at once; a grid.sync() would make
 //   every tile wait for every B1, and the flags do not.) The grid fills
 //   the card: C * min(1 + ceil(jobs / C), clusters it holds at once) on
-//   the cluster route, min(1 + jobs, SMs) on the one-block route.
+//   the cluster route, min(G + jobs, SMs) on the grid route, min(1 + jobs,
+//   SMs) on the one-block route.
 //
 // Arithmetic contract: every trailing element sees, per fseg-wide segment
 // of steps in order, acc = the fmaf chain over the segment's steps from 0,
@@ -65,7 +74,7 @@
 //
 // The bfloat16 forms (gtt_panel_fused_bf16 / gtt_fused_bf16_kernel and
 // gtt_trailing_update_bf16 / gtt_trailing_bf16_kernel) take a bfloat16
-// block: phase A is the bfloat16 step loop of either route (its strip is
+// block: phase A is the bfloat16 step loop of its route (its strip is
 // half the bytes, so the cluster route reaches 6,848 rows at panel 256),
 // and phase B keeps the JAX kernel's precision contract: the multiplier
 // record, the U rows and every accumulation stay float32 (the record and
@@ -79,9 +88,10 @@
 
 // ---- the kernels ---------------------------------------------------------
 
-// One call is a stack of one (GttFusedBatchedArgs, batch 1): the body is the
-// batched kernel's (panel_fused_batched.cu), which at B = 1 runs phase A on
-// the first cluster or block to start and the trailing jobs of that call.
+// One call is a stack of one (GttFusedBatchedArgs, batch 1): on the cluster
+// and one-block routes the body is the batched kernel's
+// (panel_fused_batched.cu), which at B = 1 runs phase A on the first
+// cluster or block to start and the trailing jobs of that call.
 // CLUSTER: launched with a cluster dimension; phase A on the cluster step
 // loop. Else launched without clusters; phase A on the one-block loop.
 template <bool CLUSTER>
@@ -94,6 +104,19 @@ template <bool CLUSTER>
 __global__ void __launch_bounds__(GTT_THREADS, 1)
 gtt_fused_bf16_kernel(const GttFusedBatchedArgs<gtt_bf16> ba) {
   gtt_fused_body<CLUSTER>(ba);
+}
+
+// Launched cooperatively, without clusters; phase A on the grid step loop
+// (panel_grid.cuh) over the first G blocks to start. Kernel 2 alone has
+// this route: the batched launch keeps the one-block loop for tall members.
+__global__ void __launch_bounds__(GTT_THREADS, 1)
+gtt_fused_grid_kernel(const GttFusedBatchedArgs<float> ba) {
+  gtt_fused_grid_body(ba);
+}
+
+__global__ void __launch_bounds__(GTT_THREADS, 1)
+gtt_fused_grid_bf16_kernel(const GttFusedBatchedArgs<gtt_bf16> ba) {
+  gtt_fused_grid_body(ba);
 }
 
 __global__ void __launch_bounds__(GTT_THREADS, 1)
@@ -110,13 +133,16 @@ gtt_trailing_bf16_kernel(const GttFusedArgs<gtt_bf16> a) {
 
 // ---- launchers -----------------------------------------------------------
 
-// The fused kernel of (cluster route?, itemsize).
-static const void* gtt_fused_kernel_of(bool cluster, int itemsize) {
+// The fused kernel of (route, itemsize).
+static const void* gtt_fused_kernel_of(int route, int itemsize) {
   if (itemsize == 2)
-    return cluster ? (const void*)gtt_fused_bf16_kernel<true>
-                   : (const void*)gtt_fused_bf16_kernel<false>;
-  return cluster ? (const void*)gtt_fused_kernel<true>
-                 : (const void*)gtt_fused_kernel<false>;
+    return route == GTT_ROUTE_GRID ? (const void*)gtt_fused_grid_bf16_kernel
+           : route == GTT_ROUTE_CLUSTER
+               ? (const void*)gtt_fused_bf16_kernel<true>
+               : (const void*)gtt_fused_bf16_kernel<false>;
+  return route == GTT_ROUTE_GRID      ? (const void*)gtt_fused_grid_kernel
+         : route == GTT_ROUTE_CLUSTER ? (const void*)gtt_fused_kernel<true>
+                                      : (const void*)gtt_fused_kernel<false>;
 }
 
 // The launch facts of a fused call (out as gtt_fused_info's, panel_fused.cuh).
@@ -130,28 +156,35 @@ extern "C" int gtt_panel_fused_info(int h, int wtot, int col0, int panel,
 // col0 + panel. pt: (panel, h); mult: (panel, h) float32; ipiv (panel,);
 // inv, chosen (h,); minpiv (1,); u: (panel, chunks * 64) float32 scratch;
 // ctr: (3 + chunks,) int32, ZEROED (its CLUSTER and JOB words are the
-// launch's tickets). Returns cudaErrorLaunchOutOfResources when the card
-// holds no such cluster or block, else the launch's error code.
+// launch's tickets); rec (2 x G, ZEROED) and slot (2 x G x panel floats):
+// the grid route's exchange (G: gtt_panel_fused_info's out[7]), ignored
+// on the other routes. Returns cudaErrorLaunchOutOfResources when the card
+// holds no such cluster or block, cudaErrorCooperativeLaunchTooLarge when
+// it cannot hold the grid route's group at once, else the launch's error
+// code.
 extern "C" int gtt_panel_fused(float* block, int ld, int h, int wtot,
                                int col0, int kbrow, int panel, int fseg,
                                float* pt, float* mult, int* ipiv, int* inv,
                                int* chosen, float* minpiv, float* u,
-                               int* ctr, void* stream) {
+                               int* ctr, unsigned long long* rec,
+                               float* slot, void* stream) {
   return gtt_fused_launch(gtt_fused_kernel_of, block, 0, ld, 1, h, wtot,
                           col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-                          chosen, minpiv, u, ctr, ctr, stream);
+                          chosen, minpiv, u, ctr, ctr, rec, slot, stream);
 }
 
-// The same at bfloat16 storage: block, pt and minpiv are bfloat16; mult
-// and u stay float32.
+// The same at bfloat16 storage: block, pt and minpiv are bfloat16; mult,
+// u and slot stay float32.
 extern "C" int gtt_panel_fused_bf16(gtt_bf16* block, int ld, int h, int wtot,
                                     int col0, int kbrow, int panel, int fseg,
                                     gtt_bf16* pt, float* mult, int* ipiv,
                                     int* inv, int* chosen, gtt_bf16* minpiv,
-                                    float* u, int* ctr, void* stream) {
+                                    float* u, int* ctr,
+                                    unsigned long long* rec, float* slot,
+                                    void* stream) {
   return gtt_fused_launch(gtt_fused_kernel_of, block, 0, ld, 1, h, wtot,
                           col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-                          chosen, minpiv, u, ctr, ctr, stream);
+                          chosen, minpiv, u, ctr, ctr, rec, slot, stream);
 }
 
 // The unfused pair's trailing launch: the same jobs as the fused kernel's
@@ -168,9 +201,11 @@ static int gtt_trailing_launch(T* block, int ld, int h, int wtot, int col0,
   int sms = 0;
   bad = gtt_sm_count(&sms);
   if (bad) return bad;
-  GttFusedGeom g = gtt_fused_geom(h, wtot, col0, panel, fseg, (int)sizeof(T));
+  GttFusedGeom g =
+      gtt_fused_geom(h, wtot, col0, panel, fseg, (int)sizeof(T), false);
   const int jobs = g.chunks * (1 + g.row_tiles);
   if (jobs < 1) return 0;
+  g.route = GTT_ROUTE_BLOCK;
   g.cluster = 0;
   g.smem = gtt_trailing_smem_bytes(panel, fseg);
   const void* kernel = sizeof(T) == 2 ? (const void*)gtt_trailing_bf16_kernel

@@ -9,14 +9,11 @@
 
 #include <mutex>
 
-#include "panel_cluster.cuh"
+#include "panel_grid.cuh"
 
 #define GTT_FSEG_MAX 64  // widest trailing segment
 #define GTT_TM 256       // rows of a B2 tile and of a B1 pivot-row pass
 #define GTT_TN 64        // columns of a chunk (B1) and of a tile (B2)
-// A wait longer than this is a fault (no phase lasts a fraction of it):
-// the kernel traps, and the launch reports an error instead of hanging.
-#define GTT_WAIT_LIMIT_NS 20000000000ull
 
 // Counters (int32, zeroed before the launch); chunk q's flag at CHUNK + q.
 enum { GTT_CTR_CLUSTER = 0, GTT_CTR_JOB = 1, GTT_CTR_FACTORED = 2,
@@ -34,8 +31,11 @@ struct GttFusedArgs {
   T* minpiv;
   float* u;      // (panel, chunks * GTT_TN): each chunk's U rows (B1)
   int* ctr;
-  int chunks, row_tiles, rows;  // rows: of a phase-A cluster block
-  int factored;  // phase-A arrivals the trailing jobs wait for (0: none)
+  int chunks, row_tiles, rows;  // rows: of a phase-A cluster or grid block
+  int factored;  // phase-A arrivals the trailing jobs wait for (0: none);
+                 // on the grid route also the group's G
+  unsigned long long* rec;  // the grid route's exchange (GttGridX): 2 x G
+  float* slot;              // step records (zeroed), 2 x G x panel slots
 };
 
 __host__ __device__ inline int gtt_trailing_chunks(int wtot, int col0,
@@ -84,12 +84,6 @@ __device__ __forceinline__ int gtt_ld_acquire(const int* p) {
                : "l"(p)
                : "memory");
   return v;
-}
-
-__device__ __forceinline__ unsigned long long gtt_now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
 }
 
 // One pause of a spin that began at t0 (0: now); traps past the limit.
@@ -679,27 +673,75 @@ __device__ __forceinline__ void gtt_fused_body(
   gtt_trailing_jobs(ba, sm);
 }
 
+// The fused kernel's body on the grid route (one call, B = 1): the first
+// G blocks to take a phase-A ticket (G = a.factored) form the group, rank
+// = ticket, and run the grid step loop (panel_grid.cuh) on the strip, each
+// block's rows in its shared memory `dyn`; each then writes its rows'
+// outputs and multiplier record and adds one to ctr[FACTORED]. Every block
+// then takes trailing jobs. Deadlock freedom: the launch is cooperative,
+// so every block of the grid (at least G) runs at once; each takes its
+// phase-A ticket before any job ticket, so the G group tickets go to G
+// running blocks, which wait only on each other's step records, and a job
+// waits only on the group's arrivals or on work a running block ticketed
+// earlier.
+template <typename T>
+__device__ __forceinline__ void gtt_fused_grid_body(
+    const GttFusedBatchedArgs<T>& ba) {
+  float* dyn = reinterpret_cast<float*>(gtt_dyn4);
+  const GttTrailSmem sm = gtt_trail_layout(dyn, ba.a.panel);
+  const GttFusedArgs<T>& a = ba.a;
+  if (threadIdx.x == 0) *sm.ticket = atomicAdd(ba.gctr + GTT_GCTR_MEMBER, 1);
+  __syncthreads();
+  const int rank = *sm.ticket;
+  __syncthreads();  // read before phase A overwrites the word
+  if (rank < a.factored) {
+    const GttClusterStrip<T> s =
+        gtt_cluster_layout<T>(dyn, a.h, a.panel, a.kbrow, a.rows, rank);
+    gtt_cluster_load(s, a.block + a.col0, a.ld);
+    const GttGridX x = {a.rec, a.slot, a.factored, rank};
+    const float minp = gtt_grid_factor(s, x, a.ipiv);
+    gtt_cluster_store(s, a.h, a.pt, a.inv, a.chosen);
+    gtt_cluster_store_mult(s, a.h, a.mult);
+    if (rank == 0 && threadIdx.x == 0) *a.minpiv = gtt_to<T>(minp);
+    gtt_signal(a.ctr + GTT_CTR_FACTORED);
+  }
+  gtt_trailing_jobs(ba, sm);
+}
+
 // ---- host helpers of the launchers ----------------------------------------
 
+// Phase A's routes.
+enum { GTT_ROUTE_BLOCK = 0, GTT_ROUTE_CLUSTER = 1, GTT_ROUTE_GRID = 2 };
+
 // The launch geometry (kernels/panel_fused.py::fused_geometry states it in
-// Python); a cluster size of 0 sends phase A to the one-block loop.
+// Python): phase A on a cluster of `cluster` blocks where one holds the
+// strip; else, where the launch has a grid-route kernel (`grid_ok`: kernel
+// 2, one call), on a group of `group` = G co-resident blocks where G <=
+// GTT_GRID_MAX hold it; else on one block. `group` is phase A's blocks on
+// every route (C, G or 1).
 struct GttFusedGeom {
-  int cluster, rows, grid, chunks, row_tiles;
+  int route, cluster, group, rows, grid, chunks, row_tiles;
   size_t smem;
 };
 
 static inline GttFusedGeom gtt_fused_geom(int h, int wtot, int col0,
-                                          int panel, int fseg, int itemsize) {
+                                          int panel, int fseg, int itemsize,
+                                          bool grid_ok) {
   GttFusedGeom g;
   g.cluster = gtt_cluster_size(h, panel, itemsize);
   g.chunks = gtt_trailing_chunks(wtot, col0, panel);
   g.row_tiles = (h + GTT_TM - 1) / GTT_TM;
   const size_t tb = gtt_trailing_smem_bytes(panel, fseg);
-  if (g.cluster > 0) {
-    g.rows = (h + g.cluster - 1) / g.cluster;
+  const int G = grid_ok ? gtt_grid_route(h, panel, itemsize) : 0;
+  if (g.cluster > 0 || G > 0) {
+    g.route = g.cluster > 0 ? GTT_ROUTE_CLUSTER : GTT_ROUTE_GRID;
+    g.group = g.cluster > 0 ? g.cluster : G;
+    g.rows = (h + g.group - 1) / g.group;
     const size_t sa = gtt_cluster_smem_bytes(g.rows, panel, itemsize);
     g.smem = sa > tb ? sa : tb;
   } else {
+    g.route = GTT_ROUTE_BLOCK;
+    g.group = 1;
     g.rows = h;
     g.smem = tb;
   }
@@ -722,31 +764,40 @@ static inline int gtt_sm_count(int* sms) {
   return (int)e;
 }
 
+// The launch configuration: a cluster dimension on the cluster route,
+// cooperative on the grid route, neither on the one-block route.
 static inline cudaLaunchConfig_t gtt_fused_config(const GttFusedGeom& g,
                                                   cudaStream_t st,
                                                   cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = g.cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(g.grid);
   cfg.blockDim = dim3(GTT_THREADS);
   cfg.dynamicSmemBytes = g.smem;
   cfg.stream = st;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (g.route == GTT_ROUTE_CLUSTER) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = g.cluster;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.numAttrs = 1;
+  } else if (g.route == GTT_ROUTE_GRID) {
+    attr->id = cudaLaunchAttributeCooperative;
+    attr->val.cooperative = 1;
+    cfg.numAttrs = 1;
+  }
   return cfg;
 }
 
-// The fused kernel of a library: (cluster route?, itemsize) -> kernel.
-typedef const void* (*GttKernelOf)(bool cluster, int itemsize);
+// The fused kernel of a library: (route, itemsize) -> kernel, nullptr
+// where the library has none (the batched library's grid route).
+typedef const void* (*GttKernelOf)(int route, int itemsize);
 
-// How many of a launch's clusters (g.cluster > 0) or blocks per SM (else)
+// How many of a launch's clusters (cluster route) or blocks per SM (else)
 // the card holds at once for `kernel`; 0: none fits. Sets the kernel's
 // attributes the first time it is seen (a whole block's shared memory for
-// a cluster kernel's strip, else the trailing jobs' widest) and caches
-// each answer per (kernel, cluster size, shared memory).
+// a cluster or grid kernel's strip, else the trailing jobs' widest) and
+// caches each answer per (kernel, cluster size, shared memory).
 static int gtt_fit(const void* kernel, const GttFusedGeom& g, int* fit) {
   struct Entry {
     const void* kernel;
@@ -771,11 +822,11 @@ static int gtt_fit(const void* kernel, const GttFusedGeom& g, int* fit) {
   if (!set) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        g.cluster > 0 ? GTT_SMEM_MAX
-                      : (int)gtt_trailing_smem_bytes(GTT_PANEL_MAX,
-                                                     GTT_FSEG_MAX));
+        g.route != GTT_ROUTE_BLOCK
+            ? GTT_SMEM_MAX
+            : (int)gtt_trailing_smem_bytes(GTT_PANEL_MAX, GTT_FSEG_MAX));
     if (e != cudaSuccess) return (int)e;
-    if (g.cluster > 0) {
+    if (g.route == GTT_ROUTE_CLUSTER) {
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (e != cudaSuccess) return (int)e;
@@ -783,7 +834,7 @@ static int gtt_fit(const void* kernel, const GttFusedGeom& g, int* fit) {
     if (nseen < 16) seen[nseen++] = kernel;
   }
   int n = 0;
-  if (g.cluster > 0) {
+  if (g.route == GTT_ROUTE_CLUSTER) {
     GttFusedGeom one = g;
     one.grid = g.cluster;
     cudaLaunchAttribute attr;
@@ -802,33 +853,41 @@ static int gtt_fit(const void* kernel, const GttFusedGeom& g, int* fit) {
 // The grid of a launch of `heads` phase A's and `jobs` trailing jobs: on
 // the cluster route C * min(heads + ceil(jobs / C), fit), a cluster per
 // member's phase A and then a block per job, no more clusters than the card
-// holds at once; else min(heads + jobs, sms).
+// holds at once; on the grid route min(G + jobs, sms), the group and then
+// a block per job, one block an SM; else min(heads + jobs, sms).
 static void gtt_fused_grid(GttFusedGeom& g, int heads, long long jobs,
                            int fit, int sms) {
-  if (g.cluster > 0) {
+  if (g.route == GTT_ROUTE_CLUSTER) {
     const int c = g.cluster;
     const long long want = heads + (jobs + c - 1) / c;
     g.grid = c * (int)(want < fit ? want : fit);
   } else {
-    const long long want = heads + jobs;
+    const long long want =
+        (g.route == GTT_ROUTE_GRID ? g.group : heads) + jobs;
     g.grid = (int)(want < sms ? want : sms);
   }
 }
 
 // The launch of `batch` fused calls: cudaErrorLaunchOutOfResources when the
-// card holds no such cluster or block, else 0 with the geometry in *g and,
-// in *fit, the clusters the card holds at once (cluster route) or the
-// blocks an SM holds (one-block route).
+// card holds no such cluster or block, cudaErrorCooperativeLaunchTooLarge
+// when it cannot hold a grid route's group at once (G above its SMs), else
+// 0 with the geometry in *g and, in *fit, the clusters the card holds at
+// once (cluster route) or the blocks an SM holds (else). The grid route is
+// taken only at B = 1 and where the library has its kernel.
 static int gtt_fused_plan(GttKernelOf kernel_of, int batch, int h, int wtot,
                           int col0, int panel, int fseg, int itemsize,
                           GttFusedGeom* g, int* fit) {
   int sms = 0;
   int rc = gtt_sm_count(&sms);
   if (rc) return rc;
-  *g = gtt_fused_geom(h, wtot, col0, panel, fseg, itemsize);
-  rc = gtt_fit(kernel_of(g->cluster > 0, itemsize), *g, fit);
+  const bool grid_ok =
+      batch == 1 && kernel_of(GTT_ROUTE_GRID, itemsize) != nullptr;
+  *g = gtt_fused_geom(h, wtot, col0, panel, fseg, itemsize, grid_ok);
+  rc = gtt_fit(kernel_of(g->route, itemsize), *g, fit);
   if (rc) return rc;
   if (*fit < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (g->route == GTT_ROUTE_GRID && g->group > sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   gtt_fused_grid(*g, batch,
                  (long long)batch * g->chunks * (1 + g->row_tiles), *fit,
                  sms);
@@ -836,11 +895,12 @@ static int gtt_fused_plan(GttKernelOf kernel_of, int batch, int h, int wtot,
 }
 
 // The launch facts of `batch` fused calls on blocks of `itemsize`-byte
-// elements (4: float32, 2: bfloat16): out[0] the cluster size (0 on the
-// one-block route), out[1] rows per phase-A block, out[2] the grid, out[3]
+// elements (4: float32, 2: bfloat16): out[0] the cluster size (0 off the
+// cluster route), out[1] rows per phase-A block, out[2] the grid, out[3]
 // dynamic shared memory bytes per block, out[4] column chunks, out[5] row
 // tiles, out[6] clusters the card holds at once (cluster route) or blocks
-// an SM holds (one-block route).
+// an SM holds (else), out[7] phase A's blocks (C, G or 1), out[8] the
+// route (GTT_ROUTE_*).
 static int gtt_fused_info(GttKernelOf kernel_of, int batch, int h, int wtot,
                           int col0, int panel, int fseg, int itemsize,
                           int* out) {
@@ -858,17 +918,21 @@ static int gtt_fused_info(GttKernelOf kernel_of, int batch, int h, int wtot,
   out[3] = (int)g.smem;
   out[4] = g.chunks;
   out[5] = g.row_tiles;
+  out[7] = g.group;
+  out[8] = g.route;
   return 0;
 }
 
-// One launch of `batch` fused calls (the arguments of GttFusedBatchedArgs).
+// One launch of `batch` fused calls (the arguments of GttFusedBatchedArgs;
+// rec and slot: the grid route's exchange, rec zeroed, unused elsewhere).
 template <typename T>
 static int gtt_fused_launch(GttKernelOf kernel_of, T* block,
                             long long bstride, int ld, int batch, int h,
                             int wtot, int col0, int kbrow, int panel,
                             int fseg, T* pt, float* mult, int* ipiv,
                             int* inv, int* chosen, T* minpiv, float* u,
-                            int* ctr, int* gctr, void* stream) {
+                            int* ctr, int* gctr, unsigned long long* rec,
+                            float* slot, void* stream) {
   int bad = gtt_check(h, wtot, col0, panel, fseg);
   if (bad) return bad;
   if (batch < 1 || kbrow < 0 || h - kbrow < panel)
@@ -879,22 +943,18 @@ static int gtt_fused_launch(GttKernelOf kernel_of, T* block,
   bad = gtt_fused_plan(kernel_of, batch, h, wtot, col0, panel, fseg,
                        itemsize, &g, &fit);
   if (bad) return bad;
+  if (g.route == GTT_ROUTE_GRID && (rec == nullptr || slot == nullptr))
+    return (int)cudaErrorInvalidValue;
   const GttFusedBatchedArgs<T> ba = {
       {block, ld, h, wtot, col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-       chosen, minpiv, u, ctr, g.chunks, g.row_tiles, g.rows,
-       g.cluster > 0 ? g.cluster : 1},
+       chosen, minpiv, u, ctr, g.chunks, g.row_tiles, g.rows, g.group, rec,
+       slot},
       bstride, batch, gctr};
   void* args[] = {(void*)&ba};
-  cudaError_t e;
-  if (g.cluster > 0) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        gtt_fused_config(g, (cudaStream_t)stream, &attr);
-    e = cudaLaunchKernelExC(&cfg, kernel_of(true, itemsize), args);
-  } else {
-    e = cudaLaunchKernel(kernel_of(false, itemsize), dim3(g.grid),
-                         dim3(GTT_THREADS), args, g.smem,
-                         (cudaStream_t)stream);
-  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      gtt_fused_config(g, (cudaStream_t)stream, &attr);
+  const cudaError_t e =
+      cudaLaunchKernelExC(&cfg, kernel_of(g.route, itemsize), args);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

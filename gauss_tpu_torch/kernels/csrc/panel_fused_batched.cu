@@ -54,8 +54,12 @@ gtt_fused_batched_bf16_kernel(const GttFusedBatchedArgs<gtt_bf16> ba) {
   gtt_fused_body<CLUSTER>(ba);
 }
 
-// The kernel of (cluster route?, itemsize).
-static const void* gtt_batched_kernel_of(bool cluster, int itemsize) {
+// The kernel of (route, itemsize); none on the grid route: a tall member
+// takes the one-block loop at every B (an (8, 4096, 4096) stack's members
+// cannot each take a group of G blocks at once).
+static const void* gtt_batched_kernel_of(int route, int itemsize) {
+  if (route == GTT_ROUTE_GRID) return nullptr;
+  const bool cluster = route == GTT_ROUTE_CLUSTER;
   if (itemsize == 2)
     return cluster ? (const void*)gtt_fused_batched_bf16_kernel<true>
                    : (const void*)gtt_fused_batched_bf16_kernel<false>;
@@ -89,7 +93,8 @@ extern "C" int gtt_panel_fused_batched(float* block, long long bstride,
                                        int* gctr, void* stream) {
   return gtt_fused_launch(gtt_batched_kernel_of, block, bstride, ld, batch,
                           h, wtot, col0, kbrow, panel, fseg, pt, mult, ipiv,
-                          inv, chosen, minpiv, u, ctr, gctr, stream);
+                          inv, chosen, minpiv, u, ctr, gctr, nullptr,
+                          nullptr, stream);
 }
 
 // The same at bfloat16 storage: block, pt and minpiv are bfloat16; mult
@@ -101,5 +106,6 @@ extern "C" int gtt_panel_fused_batched_bf16(
     int* gctr, void* stream) {
   return gtt_fused_launch(gtt_batched_kernel_of, block, bstride, ld, batch,
                           h, wtot, col0, kbrow, panel, fseg, pt, mult, ipiv,
-                          inv, chosen, minpiv, u, ctr, gctr, stream);
+                          inv, chosen, minpiv, u, ctr, gctr, nullptr,
+                          nullptr, stream);
 }

@@ -1,14 +1,23 @@
 """Panel factorization: partial-pivot LU of one (h, panel) column block.
 
 Port of ``gauss_tpu/kernels/panel_pallas.py::panel_factor_pallas`` (the
-classic per-step rank-1 form). Two CUDA kernels compute it, chosen by
-shape alone (:func:`panel_geometry`): ``csrc/panel_cluster.cu``, one
-thread-block cluster of up to 16 blocks holding the strip in shared
-memory, for every strip such a cluster holds (at panel 256, up to 3,392
-rows); and ``csrc/panel_factor.cu``, one block over a global scratch, for
-taller strips. Both are bit for bit equal to :func:`panel_factor_plain`,
-the same step loop in plain PyTorch, in the same order, which is what a
-CPU tensor runs.
+classic per-step rank-1 form). Three CUDA kernels compute it, chosen by
+shape alone (:func:`panel_geometry`), one per route:
+
+- ``"cluster"``: ``csrc/panel_cluster.cu``, one thread-block cluster of
+  up to 16 blocks holding the strip in shared memory, for every strip
+  such a cluster holds (at panel 256, up to 3,392 rows);
+- ``"grid"``: ``csrc/panel_grid.cu``, G co-resident blocks (G <= 132,
+  one launch of exactly G, cooperative) holding the strip in shared
+  memory and exchanging each pivot step through L2, for the taller strips
+  such a group holds (at panel 256 up to 27,984 rows; :func:`grid_size`);
+- ``"block"``: ``csrc/panel_factor.cu``, one block over a global scratch,
+  for strips beyond the grid's reach (e.g. panel 1024 above 6,864 rows).
+  :func:`panel_factor_one_block` reaches it on any strip, to time it.
+
+All are bit for bit equal to :func:`panel_factor_plain`, the same step
+loop in plain PyTorch, in the same order, which is what a CPU tensor
+runs.
 
 The scheme (kept from the JAX package): the panel is held TRANSPOSED,
 (panel, h), so column j is one contiguous row; rows are never swapped — a
@@ -32,7 +41,8 @@ the rounded values. The cluster kernel's strip is bfloat16 in shared
 memory, so a cluster holds about twice the rows: up to 6,848 at panel
 256, against 3,392 at float32 (:func:`panel_geometry`). The CUDA entry
 points of the two dtypes are separate symbols and count their launches
-under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``).
+under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``,
+``panel_factor_grid_bf16``).
 
 :func:`panel_factor_batched` factors a (B, h, panel) stack of strips in
 one launch (``csrc/panel_batched.cu``, one block per member on the same
@@ -73,15 +83,25 @@ PANEL_MAX = 1024
 PANEL_CLUSTER_MAX = 16
 PANEL_CLUSTER_ROWS = 16
 PANEL_SMEM_MAX = 232448
+#: The grid route's rule, as compiled into ``csrc/panel_grid.cuh``: the
+#: most blocks (the H100's SMs), the rows a block aims to hold and the
+#: most blocks the rule starts from (both measured on the H100,
+#: ``PERF.md``), and the tallest strip a step record names.
+PANEL_GRID_MAX = 132
+PANEL_GRID_ROWS = 64
+PANEL_GRID_START_MAX = 100
+PANEL_GRID_H_MAX = 0xffffe
 #: The storage dtypes the panel kernels take.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class PanelGeometry(NamedTuple):
-    route: str           # "cluster" (csrc/panel_cluster.cu) or "block"
-    cluster: int         # blocks in the cluster (1 on the one-block route)
+    route: str           # "cluster" (csrc/panel_cluster.cu), "grid"
+                         # (csrc/panel_grid.cu) or "block"
+    cluster: int         # blocks in the cluster (1 off the cluster route)
     rows_per_block: int
     smem_bytes: int      # dynamic shared memory per block (0 for "block")
+    blocks: int          # blocks that hold the strip: C, G or 1
 
 
 def cluster_smem_bytes(rows: int, panel: int, itemsize: int = 4) -> int:
@@ -96,21 +116,44 @@ def cluster_smem_bytes(rows: int, panel: int, itemsize: int = 4) -> int:
     return strip + 4 * (4 * panel + 2 * r4 + rows + 2 * 16 * 4)
 
 
+def grid_size(h: int, panel: int, itemsize: int = 4) -> int:
+    """The grid route's G for an (h, panel) strip of ``itemsize``-byte
+    words, by the C launcher's rule (``gtt_grid_size``): from
+    ``ceil(h / PANEL_GRID_ROWS)``, at most ``PANEL_GRID_START_MAX``, up to the
+    first G whose blocks' rows fit their shared memory (a cluster block's
+    layout, :func:`cluster_smem_bytes`); 0 when none up to
+    ``PANEL_GRID_MAX`` does, or the strip is taller than a step record
+    names."""
+    if not (1 <= panel <= PANEL_MAX and 1 <= h <= PANEL_GRID_H_MAX):
+        return 0
+    for g in range(min(PANEL_GRID_START_MAX, -(-h // PANEL_GRID_ROWS)),
+                   PANEL_GRID_MAX + 1):
+        if cluster_smem_bytes(-(-h // g), panel, itemsize) <= PANEL_SMEM_MAX:
+            return g
+    return 0
+
+
 def panel_geometry(h: int, panel: int, itemsize: int = 4) -> PanelGeometry:
     """The kernel an (h, panel) strip of ``itemsize``-byte words takes on
-    the card, by the C launcher's rule: a cluster of C blocks, C from
+    the card, by the C launchers' rule: a cluster of C blocks, C from
     ``ceil(h / PANEL_CLUSTER_ROWS)`` (at most ``PANEL_CLUSTER_MAX``) up to
-    the first whose blocks' rows fit their shared memory; the one-block
-    kernel when no C up to ``PANEL_CLUSTER_MAX`` fits (at panel 256, above
-    3,392 rows at float32 and above 6,848 at bfloat16)."""
+    the first whose blocks' rows fit their shared memory; where no C up to
+    ``PANEL_CLUSTER_MAX`` fits (at panel 256, above 3,392 rows at float32
+    and above 6,848 at bfloat16), a grid of :func:`grid_size` blocks; the
+    one-block kernel where neither does."""
     if 1 <= panel <= PANEL_MAX and h >= 1:
         first = min(PANEL_CLUSTER_MAX, max(1, -(-h // PANEL_CLUSTER_ROWS)))
         for c in range(first, PANEL_CLUSTER_MAX + 1):
             rows = -(-h // c)
             smem = cluster_smem_bytes(rows, panel, itemsize)
             if smem <= PANEL_SMEM_MAX:
-                return PanelGeometry("cluster", c, rows, smem)
-    return PanelGeometry("block", 1, h, 0)
+                return PanelGeometry("cluster", c, rows, smem, c)
+    g = grid_size(h, panel, itemsize)
+    if g:
+        rows = -(-h // g)
+        return PanelGeometry("grid", 1, rows,
+                             cluster_smem_bytes(rows, panel, itemsize), g)
+    return PanelGeometry("block", 1, h, 0, 1)
 
 
 def argmax_nan_first(x: torch.Tensor) -> torch.Tensor:
@@ -221,10 +264,11 @@ def launch_suffix(dtype: torch.dtype) -> str:
     return "_bf16" if dtype == torch.bfloat16 else ""
 
 
-def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
-    """Launch a panel-factor kernel: the cluster kernel at ``cluster``
-    blocks, at the rule's size when ``cluster`` is 0, or the one-block
-    kernel when ``cluster`` is None."""
+def _panel_factor_cuda(p: torch.Tensor, kb: int, route: str,
+                       blocks: int = 0):
+    """Launch the panel-factor kernel of ``route``: the cluster kernel or
+    the grid kernel at ``blocks`` blocks (0: the rule's size), or the
+    one-block kernel."""
     if p.stride(1) != 1:
         p = p.contiguous()
     check_cuda_storage(p, "panel_factor")
@@ -239,20 +283,31 @@ def _panel_factor_cuda(p: torch.Tensor, kb: int, cluster: int | None):
             ipiv.data_ptr(), inv.data_ptr(), chosen.data_ptr(),
             minpiv.data_ptr())
     sfx = launch_suffix(p.dtype)
-    name = ("panel_factor" if cluster is None
-            else "panel_factor_cluster") + sfx
-    lib = _build.library("panel_factor" if cluster is None
-                         else "panel_cluster")
+    name = {"cluster": "panel_factor_cluster", "grid": "panel_factor_grid",
+            "block": "panel_factor"}[route] + sfx
+    lib = _build.library({"cluster": "panel_cluster", "grid": "panel_grid",
+                          "block": "panel_factor"}[route])
+    if route == "grid":
+        # The exchange: 2 x G step records (zeroed) and pivot-row slots; G
+        # 0 lets the launcher take the rule's, which is grid_size's where
+        # the rule gives the grid route (elsewhere the launcher refuses).
+        g = blocks or grid_size(h, panel, p.element_size())
+        rec = torch.zeros(2 * max(g, 1), dtype=torch.int64, device=dev)
+        slot = torch.empty((2 * max(g, 1), panel), dtype=torch.float32,
+                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cluster is None:
+        if route == "block":
             rc = getattr(lib, "gtt_panel_factor" + sfx)(*args, stream)
-        elif cluster == 0:
+        elif route == "grid":
+            rc = getattr(lib, "gtt_panel_factor_grid" + sfx)(
+                *args, rec.data_ptr(), slot.data_ptr(), blocks, stream)
+        elif blocks == 0:
             rc = getattr(lib, "gtt_panel_factor_cluster" + sfx)(*args,
                                                                stream)
         else:
             rc = getattr(lib, "gtt_panel_factor_cluster_at" + sfx)(
-                *args, int(cluster), stream)
+                *args, blocks, stream)
     _build.check(lib, rc, name)
     _build.LAUNCHES[name] += 1
     perm_local = perm_from_inv(inv, chosen, kb, panel)
@@ -266,25 +321,50 @@ def _check_panel_args(p: torch.Tensor, kb: int, what: str) -> None:
                          f"{tuple(p.shape)}")
 
 
+def _check_card(p: torch.Tensor, what: str) -> None:
+    if p.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel needs a CUDA tensor, got one "
+                         f"on {p.device}")
+
+
 def panel_factor_cluster(p: torch.Tensor, kb: int = 0,
                          cluster: int | None = None):
     """:func:`panel_factor` through the cluster kernel at ``cluster``
-    blocks (None: the rule's, even for a strip the rule sends to the
-    one-block kernel, which then raises). For measuring cluster sizes and
-    for the tests; needs a CUDA tensor. A cluster that does not fit on the
-    card raises RuntimeError."""
+    blocks (None: the rule's, even for a strip the rule sends to another
+    route, which then raises). For measuring cluster sizes and for the
+    tests; needs a CUDA tensor. A cluster that does not fit on the card
+    raises RuntimeError."""
     _check_panel_args(p, kb, "panel_factor_cluster")
-    if p.device.type != "cuda":
-        raise ValueError(f"panel_factor_cluster: the kernel needs a CUDA "
-                         f"tensor, got one on {p.device}")
-    return _panel_factor_cuda(p, kb, 0 if cluster is None else cluster)
+    _check_card(p, "panel_factor_cluster")
+    return _panel_factor_cuda(p, kb, "cluster", int(cluster or 0))
+
+
+def panel_factor_grid(p: torch.Tensor, kb: int = 0, grid: int | None = None):
+    """:func:`panel_factor` through the grid kernel at ``grid`` blocks
+    (None: the rule's G; a strip the rule sends to another route then
+    raises). For measuring G and for the tests; needs a CUDA tensor. A G
+    above 132, one the card cannot hold at once, or one whose blocks' rows
+    do not fit their shared memory raises RuntimeError."""
+    _check_panel_args(p, kb, "panel_factor_grid")
+    _check_card(p, "panel_factor_grid")
+    return _panel_factor_cuda(p, kb, "grid", int(grid or 0))
+
+
+def panel_factor_one_block(p: torch.Tensor, kb: int = 0):
+    """:func:`panel_factor` through the one-block kernel
+    (``csrc/panel_factor.cu``) on any strip: the route the rule takes only
+    beyond the grid's reach, kept reachable to time it beside the others.
+    Needs a CUDA tensor."""
+    _check_panel_args(p, kb, "panel_factor_one_block")
+    _check_card(p, "panel_factor_one_block")
+    return _panel_factor_cuda(p, kb, "block")
 
 
 def panel_cluster_info(h: int, panel: int, cluster: int = 0,
                        itemsize: int = 4) -> dict:
     """What the C launcher reports for an (h, panel) strip of
     ``itemsize``-byte words (4: float32, 2: bfloat16) at ``cluster``
-    blocks (0: its rule's): the cluster size (0 on the one-block route),
+    blocks (0: its rule's): the cluster size (0 off the cluster route),
     rows per block, dynamic shared memory bytes and the clusters the card
     holds at once (``cudaOccupancyMaxActiveClusters``). Builds
     ``csrc/panel_cluster.cu``; needs a CUDA device."""
@@ -295,6 +375,22 @@ def panel_cluster_info(h: int, panel: int, cluster: int = 0,
                  "panel_cluster_info")
     return {"cluster": out[0], "rows_per_block": out[1],
             "smem_bytes": out[2], "max_active_clusters": out[3]}
+
+
+def panel_grid_info(h: int, panel: int, grid: int = 0,
+                    itemsize: int = 4) -> dict:
+    """What the grid kernel's C launcher reports for an (h, panel) strip of
+    ``itemsize``-byte words at ``grid`` blocks (0: its rule's): G (0 when
+    the rule sends the strip to another route), rows per block, dynamic
+    shared memory bytes and the blocks the card holds at once at that
+    shared memory (blocks an SM times SMs: the largest G a cooperative
+    launch takes). Builds ``csrc/panel_grid.cu``; needs a CUDA device."""
+    lib = _build.library("panel_grid")
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.gtt_panel_grid_info(h, panel, grid, itemsize, out),
+                 "panel_grid_info")
+    return {"grid": out[0], "rows_per_block": out[1], "smem_bytes": out[2],
+            "max_resident_blocks": out[3]}
 
 
 def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
@@ -309,17 +405,19 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
     ``p`` is float32 or bfloat16 (the factored panel and min |pivot|
     come back in its dtype). A CUDA tensor launches the kernel
     :func:`panel_geometry` names for its shape and itemsize
-    (``csrc/panel_cluster.cu`` or ``csrc/panel_factor.cu``) or raises; a
-    CPU tensor runs :func:`panel_factor_plain`. ``seg`` is
-    accepted for parity with the JAX package and ignored."""
+    (``csrc/panel_cluster.cu``, ``csrc/panel_grid.cu`` or
+    ``csrc/panel_factor.cu``) or raises; a CPU tensor runs
+    :func:`panel_factor_plain`. ``seg`` is accepted for parity with the
+    JAX package and ignored."""
     del seg
     _check_panel_args(p, kb, "panel_factor")
     if p.device.type == "cpu":
         return panel_factor_plain(p, kb)
     if p.device.type != "cuda":
         raise ValueError(f"panel_factor: unsupported device {p.device}")
-    route = panel_geometry(*p.shape, p.element_size()).route
-    return _panel_factor_cuda(p, kb, 0 if route == "cluster" else None)
+    geom = panel_geometry(*p.shape, p.element_size())
+    return _panel_factor_cuda(p, kb, geom.route,
+                              geom.blocks if geom.route == "grid" else 0)
 
 
 def panel_batched_info(h: int, panel: int, itemsize: int = 4) -> dict:

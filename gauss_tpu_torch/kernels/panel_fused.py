@@ -8,11 +8,14 @@ Port of ``gauss_tpu/kernels/panel_fused_pallas.py``:
   rows come out holding U12 and live rows A22 - L21 @ U12, in the block's
   ORIGINAL row order; columns at or left of ``col0 + panel`` are not
   written. CUDA kernel: ``csrc/panel_fused.cu``. Phase A (the factor)
-  goes to the first thread-block cluster that starts, which runs the
-  cluster step loop of ``csrc/panel_cluster.cuh`` on every strip such a
-  cluster holds, or to one block running the one-block loop on taller
-  strips (:func:`fused_geometry` states the route); it derives the
-  multiplier record by the rule of :func:`reconstruct_mult_pt`. Phase B
+  takes one of three routes (:func:`fused_geometry` states the rule):
+  the first thread-block cluster that starts runs the cluster step loop
+  of ``csrc/panel_cluster.cuh`` on every strip such a cluster holds; on
+  taller strips the launch is cooperative and its first G blocks to start
+  run the grid step loop of ``csrc/panel_grid.cuh``, each block's rows in
+  its shared memory, each pivot step exchanged through L2; one block runs
+  the one-block loop on strips beyond the grid's reach. Phase A derives
+  the multiplier record by the rule of :func:`reconstruct_mult_pt`. Phase B
   (the trailing update) is split into jobs that every block of the grid
   takes by ticket: per 64-column chunk the pivot rows alone (B1, which
   writes each segment's U rows), then (256, 64) tiles of the whole block
@@ -25,7 +28,9 @@ Port of ``gauss_tpu/kernels/panel_fused_pallas.py``:
   under ``jax.vmap``): kernel 2 on every member of a (B, h, w) stack in
   one launch (``csrc/panel_fused_batched.cu``), each member bit for bit
   kernel 2 on it alone — the panel step of the serving lane's batched
-  blocked LU (``core.blocked.lu_factor_blocked_batched``). No batched
+  blocked LU (``core.blocked.lu_factor_blocked_batched``). Its tall
+  members keep the one-block phase A at every B (an (8, 4096, 4096)
+  stack's members cannot each take a group of G blocks at once). No batched
   form of :func:`trailing_update` exists: no serving route runs the
   unfused pair's trailing kernel.
 
@@ -72,6 +77,9 @@ from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_MAX,
                                            factor_steps_plain, launch_suffix,
                                            panel_geometry, perm_from_inv)
 
+#: Phase A's routes by the C launcher's code (``GTT_ROUTE_*``).
+ROUTES = ("block", "cluster", "grid")
+
 #: The JAX package's tuner seeds for the fused kernel's trailing tile width
 #: and trailing-apply segment width.
 FUSED_CT_SEED = 256
@@ -91,14 +99,16 @@ H100_CLUSTERS_OF_16 = 7
 
 
 class FusedGeometry(NamedTuple):
-    route: str           # phase A: "cluster" (the cluster step loop) or
-                         # "block" (the one-block loop)
-    cluster: int         # blocks in a cluster (1 on the one-block route)
+    route: str           # phase A: "cluster" (the cluster step loop),
+                         # "grid" (the grid step loop) or "block" (the
+                         # one-block loop)
+    cluster: int         # blocks in a cluster (1 off the cluster route)
     rows_per_block: int  # strip rows a phase-A block holds
     grid: int            # blocks launched
     smem_bytes: int      # dynamic shared memory per block
     chunks: int          # 64-column chunks right of the panel (B1 jobs)
     row_tiles: int       # 256-row tiles of the block (B2 jobs per chunk)
+    group: int           # phase A's blocks: C, G or 1
 
 
 def trailing_smem_bytes(panel: int, fseg: int) -> int:
@@ -115,16 +125,19 @@ def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
                    itemsize: int = 4) -> FusedGeometry:
     """The launch of :func:`panel_trailing_fused` on an (h, wtot) block of
     ``itemsize``-byte words with the panel at ``col0``, by the C
-    launcher's rule. Phase A takes the cluster route where
-    :func:`~gauss_tpu_torch.kernels.panel.panel_geometry` does (at panel
-    256 up to 3,392 rows at float32 and 6,848 at bfloat16, C = 16 from 256
-    rows on), else the one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
+    launcher's rule. Phase A takes the route
+    :func:`~gauss_tpu_torch.kernels.panel.panel_geometry` gives the strip:
+    the cluster route (at panel 256 up to 3,392 rows at float32 and 6,848
+    at bfloat16, C = 16 from 256 rows on), the grid route on a group of G
+    blocks above that (G = ``panel_geometry(...).blocks``), else the
+    one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
     B2 tiles. Grid: on the cluster route ``C * min(1 + ceil(jobs / C),
     clusters)`` (phase A's cluster, then a block per job, no more clusters
     than the card holds at once: ``clusters``, by default the H100's 7 for
-    C = 16 and ``sms // C`` otherwise), on the one-block route
-    ``min(1 + jobs, sms)``. Dynamic shared memory: the larger of phase A's
-    strip and the trailing jobs' (:func:`trailing_smem_bytes`)."""
+    C = 16 and ``sms // C`` otherwise), on the grid route ``min(G + jobs,
+    sms)``, on the one-block route ``min(1 + jobs, sms)``. Dynamic shared
+    memory: the larger of phase A's strip and the trailing jobs'
+    (:func:`trailing_smem_bytes`)."""
     if (h < 1 or not 1 <= panel <= PANEL_MAX or col0 < 0
             or col0 + panel > wtot):
         raise ValueError(f"fused_geometry: no launch for h={h}, wtot={wtot}, "
@@ -142,31 +155,37 @@ def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
         if clusters is None:
             clusters = H100_CLUSTERS_OF_16 if c == 16 else max(1, sms // c)
         grid = c * min(1 + -(-jobs // c), clusters)
-        return FusedGeometry("cluster", c, strip.rows_per_block, grid,
-                             max(cluster_smem_bytes(strip.rows_per_block,
-                                                    panel, itemsize), trail),
-                             chunks, row_tiles)
-    return FusedGeometry("block", 1, h, min(1 + jobs, sms), trail, chunks,
-                         row_tiles)
+    elif strip.route == "grid":
+        grid = min(strip.blocks + jobs, sms)
+    else:
+        return FusedGeometry("block", 1, h, min(1 + jobs, sms), trail,
+                             chunks, row_tiles, 1)
+    return FusedGeometry(strip.route, strip.cluster, strip.rows_per_block,
+                         grid, max(strip.smem_bytes, trail), chunks,
+                         row_tiles, strip.blocks)
 
 
 def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
                       fseg: int = FUSED_FSEG_SEED, itemsize: int = 4) -> dict:
     """What the C launcher reports for a fused call on a block of
     ``itemsize``-byte words (4: float32, 2: bfloat16): its geometry (the
-    fields of :class:`FusedGeometry` but ``route``) and ``fit``, the
-    clusters the card holds at once on the cluster route, or the blocks an
-    SM holds on the one-block route. Builds ``csrc/panel_fused.cu``; needs
-    a CUDA device."""
+    fields of :class:`FusedGeometry`) and ``fit``, the clusters the card
+    holds at once on the cluster route, or the blocks an SM holds on the
+    others. Builds ``csrc/panel_fused.cu``; needs a CUDA device."""
     lib = _build.library("panel_fused")
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 9)()
     _build.check(lib, lib.gtt_panel_fused_info(h, wtot, col0, panel, fseg,
                                                itemsize, out),
                  "fused_launch_info")
+    return _info_dict(out)
+
+
+def _info_dict(out) -> dict:
+    """The C launcher's nine launch facts (``gtt_fused_info``) by name."""
     return {"cluster": out[0] or 1, "rows_per_block": out[1],
             "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
-            "row_tiles": out[5], "fit": out[6],
-            "route": "cluster" if out[0] else "block"}
+            "row_tiles": out[5], "fit": out[6], "group": out[7],
+            "route": ROUTES[out[8]]}
 
 
 def resolve_tiles(h: int, wtot: int, panel: int, ct=None, seg=None,
@@ -223,12 +242,20 @@ def panel_trailing_fused_plain(block: torch.Tensor, col0: int, kbrow: int,
     return t.T[perm_local], ipiv, perm_local, minpiv, block
 
 
-def _trailing_scratch(panel: int, chunks: int, dev):
+def _trailing_scratch(panel: int, chunks: int, dev, group: int = 0):
     """The trailing jobs' scratch: each chunk's U rows, and the counters
-    (job tickets, phase A's arrivals, one flag per chunk), zeroed."""
+    (job tickets, phase A's arrivals, one flag per chunk), zeroed; with
+    ``group`` G > 0 (the grid route) also the exchange of the grid step
+    loop: 2 x G step records, zeroed in the counters' buffer after them
+    (8-byte aligned), and 2 x G pivot-row slots."""
     u = torch.empty((panel, chunks * TRAIL_CHUNK_COLS), dtype=torch.float32,
                     device=dev)
-    return u, torch.zeros(3 + chunks, dtype=torch.int32, device=dev)
+    head = 3 + chunks + (3 + chunks) % 2
+    ctr = torch.zeros(head + 4 * group, dtype=torch.int32, device=dev)
+    if not group:
+        return u, ctr, None, None
+    slot = torch.empty((2 * group, panel), dtype=torch.float32, device=dev)
+    return u, ctr, ctr[head:], slot
 
 
 def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
@@ -249,7 +276,9 @@ def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
     inv = torch.empty(h, dtype=torch.int32, device=dev)
     chosen = torch.empty(h, dtype=torch.int32, device=dev)
     minpiv = torch.empty(1, dtype=block.dtype, device=dev)
-    u, ctr = _trailing_scratch(panel, geom.chunks, dev)
+    grid_route = geom.route == "grid"
+    u, ctr, rec, slot = _trailing_scratch(panel, geom.chunks, dev,
+                                          geom.group if grid_route else 0)
     lib = _build.library("panel_fused")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -257,7 +286,9 @@ def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
             block.data_ptr(), block.stride(0), h, wtot, col0, kbrow, panel,
             fseg, pt.data_ptr(), mult.data_ptr(), ipiv.data_ptr(),
             inv.data_ptr(), chosen.data_ptr(), minpiv.data_ptr(),
-            u.data_ptr(), ctr.data_ptr(), stream)
+            u.data_ptr(), ctr.data_ptr(),
+            rec.data_ptr() if grid_route else None,
+            slot.data_ptr() if grid_route else None, stream)
     _build.check(lib, rc, "panel_trailing_fused" + sfx)
     _build.LAUNCHES["panel_trailing_fused" + sfx] += 1
     perm_local = perm_from_inv(inv, chosen, kbrow, panel)
@@ -364,9 +395,9 @@ def trailing_update(block: torch.Tensor, mult: torch.Tensor,
     sfx = launch_suffix(block.dtype)
     mult = mult.to(torch.float32).contiguous()
     ipiv = ipiv.to(torch.int32).contiguous()
-    u, ctr = _trailing_scratch(panel, fused_geometry(h, wtot, panel, col0,
-                                                     fseg).chunks,
-                               block.device)
+    u, ctr, _, _ = _trailing_scratch(
+        panel, fused_geometry(h, wtot, panel, col0, fseg).chunks,
+        block.device)
     lib = _build.library("panel_fused")
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream(block.device).cuda_stream
@@ -413,18 +444,16 @@ def fused_batched_launch_info(batch: int, h: int, wtot: int, panel: int,
                               itemsize: int = 4) -> dict:
     """What the batched kernel's C launcher reports for a ``(batch, h,
     wtot)`` stack, in :func:`fused_launch_info`'s fields: phase A's route
-    per member (kernel 2's, by the strip's height and ``itemsize``), the
-    grid over the whole stack and ``fit``. Builds
+    per member (kernel 2's cluster route by the strip's height and
+    ``itemsize``, else the one-block route: the batched launch has no grid
+    route), the grid over the whole stack and ``fit``. Builds
     ``csrc/panel_fused_batched.cu``; needs a CUDA device."""
     lib = _build.library("panel_fused_batched")
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 9)()
     _build.check(lib, lib.gtt_panel_fused_batched_info(
         batch, h, wtot, col0, panel, fseg, itemsize, out),
         "fused_batched_launch_info")
-    return {"cluster": out[0] or 1, "rows_per_block": out[1],
-            "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
-            "row_tiles": out[5], "fit": out[6],
-            "route": "cluster" if out[0] else "block"}
+    return _info_dict(out)
 
 
 def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,

@@ -635,8 +635,13 @@ def test_chip_smoke_large_n_phase_rehearsal(monkeypatch, tmp_path):
     text = buf.getvalue()
     assert '{"large_n": ' in text and "queue-1 item 10" in text
     # The plans at the card's sizes: n=8192 runs 24 fused launches (15 on
-    # the one-block route) and 8 panel-kernel launches (4 one-block).
+    # the grid route) and 8 panel-kernel launches (4 on the grid route);
+    # n=12,800 87 fused (41 grid) and 13 panel (5 grid); neither sends a
+    # strip to the one-block route.
     plan = chip_smoke.factor_plan(8192, 256, 4)
     assert chip_smoke.route_counts(plan) == {
-        "panel_trailing_fused/block": 15, "panel_trailing_fused/cluster": 9,
-        "panel_factor/block": 4, "panel_factor_cluster/cluster": 4}
+        "panel_trailing_fused/grid": 15, "panel_trailing_fused/cluster": 9,
+        "panel_factor_grid/grid": 4, "panel_factor_cluster/cluster": 4}
+    assert chip_smoke.route_counts(chip_smoke.factor_plan(12800, 128, 8)) == {
+        "panel_trailing_fused/grid": 41, "panel_trailing_fused/cluster": 46,
+        "panel_factor_grid/grid": 5, "panel_factor_cluster/cluster": 8}

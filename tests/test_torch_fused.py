@@ -179,14 +179,24 @@ def test_fused_geometry_main_path(kb, grid):
 
 
 def test_fused_geometry_one_block_route():
-    """A strip taller than a 16-block cluster holds: phase A on one block,
-    the grid one block per job up to one per SM."""
+    """A strip taller than a 16-block cluster holds: phase A on a group of
+    G = ceil(h / 64) blocks (the grid route), the grid G blocks plus one a
+    job up to one per SM; one block only past the grid's reach (panel
+    1024 above 6,864 rows), the grid one block per job up to one per SM."""
     g = tpf.fused_geometry(4096, 4096, 256)
-    assert (g.route, g.cluster, g.rows_per_block) == ("block", 1, 4096)
+    assert (g.route, g.cluster, g.rows_per_block, g.group) == (
+        "grid", 1, 64, 64)
     assert (g.chunks, g.row_tiles, g.grid) == (60, 16, 132)
-    assert g.smem_bytes == tpf.trailing_smem_bytes(256, 32)
+    assert g.smem_bytes == max(cluster_smem_bytes(64, 256),
+                               tpf.trailing_smem_bytes(256, 32))
     assert tpf.fused_geometry(3392, 3392, 256).route == "cluster"
-    assert tpf.fused_geometry(3393, 3393, 256).route == "block"
+    assert tpf.fused_geometry(3393, 3393, 256).route == "grid"
+    g = tpf.fused_geometry(6865, 6865, 1024)
+    assert (g.route, g.cluster, g.rows_per_block, g.group) == (
+        "block", 1, 6865, 1)
+    assert (g.chunks, g.row_tiles, g.grid) == (92, 27, 132)
+    assert g.smem_bytes == tpf.trailing_smem_bytes(1024, 32)
+    assert tpf.fused_geometry(6864, 6864, 1024).route == "grid"
 
 
 def test_fused_geometry_ragged_and_empty_trailing():
@@ -239,11 +249,12 @@ def _card_pair(orig, kb, panel, fseg=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,wtot,kb,panel,route", [
     (2048, 2048, 0, 256, "cluster"), (1024, 2048, 1024, 256, "cluster"),
-    (96, 96, 32, 16, "cluster"), (4096, 4096, 0, 256, "block")])
+    (96, 96, 32, 16, "cluster"), (4096, 4096, 0, 256, "grid"),
+    (8192, 1024, 0, 256, "grid"), (6865, 1088, 0, 1024, "block")])
 def test_kernels_match_plain_on_card(cuda_device, h, wtot, kb, panel, route):
-    """Both phase-A routes against the plain version (pivots equal, values
-    within TOL, columns left of the panel's end untouched), and fused ==
-    pair bit for bit; one launch each."""
+    """The three phase-A routes against the plain version (pivots equal,
+    values within TOL, columns left of the panel's end untouched), and
+    fused == pair bit for bit; one launch each."""
     assert tpf.fused_geometry(h, wtot, panel, kb).route == route
     rng = np.random.default_rng(h + kb)
     orig = torch.as_tensor(rng.standard_normal((h, wtot)),
@@ -305,7 +316,7 @@ def _same_with_nan(a, b):
 def test_poisoned_block_matches_pair_on_card(cuda_device, poison, h):
     """A NaN in the panel, or a panel column of zeros (a zero pivot): the
     fused kernel gives the pair's min |pivot| and the pair's NaN pattern,
-    its other values bit for bit, on both phase-A routes."""
+    its other values bit for bit, on the cluster and grid routes."""
     kb, panel = 0, 256
     rng = np.random.default_rng(7 + h)
     a = rng.standard_normal((h, h)).astype(np.float32)
@@ -325,13 +336,43 @@ def test_poisoned_block_matches_pair_on_card(cuda_device, poison, h):
 @pytest.mark.cuda
 def test_launch_info_matches_geometry_on_card(cuda_device):
     """The C launcher's geometry is fused_geometry's, at the main path's
-    first and last shapes and the one-block route's tall strip, and the
-    card holds at least one such cluster or block."""
+    first and last shapes, the grid route's tall strips and the one-block
+    route's, and the card holds at least one such cluster or block."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for h, wtot, kb in ((2048, 2048, 0), (512, 2048, 1536),
-                        (4096, 4096, 0)):
-        info = tpf.fused_launch_info(h, wtot, 256, kb)
-        g = tpf.fused_geometry(h, wtot, 256, kb, sms=sms,
+    for h, wtot, kb, panel in ((2048, 2048, 0, 256), (512, 2048, 1536, 256),
+                               (4096, 4096, 0, 256), (8192, 1024, 0, 256),
+                               (12800, 1024, 0, 128),
+                               (6865, 6865, 0, 1024)):
+        info = tpf.fused_launch_info(h, wtot, panel, kb)
+        g = tpf.fused_geometry(h, wtot, panel, kb, sms=sms,
                                clusters=info["fit"])
         assert info["fit"] >= 1
         assert {k: info[k] for k in g._fields} == g._asdict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,wtot,dtype,route", [
+    (4096, 4096, torch.float32, "grid"), (8192, 1024, torch.float32, "grid"),
+    (4096, 4096, torch.bfloat16, "cluster"),   # a bfloat16 cluster holds it
+    (8192, 1024, torch.bfloat16, "grid")])
+def test_grid_route_matches_pair_on_card(cuda_device, h, wtot, dtype, route):
+    """The tall strips at both storage types: panel, pivots and min
+    |pivot| bit for bit the plain version's, the block bit for bit the
+    unfused pair's (kernel 1 on the same route + reconstruction + kernel
+    3); one launch."""
+    assert tpf.fused_geometry(h, wtot, 256, itemsize=2 if dtype ==
+                              torch.bfloat16 else 4).route == route
+    orig = torch.as_tensor(np.random.default_rng(h + wtot).standard_normal(
+        (h, wtot)), dtype=torch.float32, device=cuda_device).to(dtype)
+    key = "panel_trailing_fused" + ("_bf16" if dtype == torch.bfloat16
+                                    else "")
+    before = _build.LAUNCHES[key]
+    work = orig.clone()
+    got = tpf.panel_trailing_fused(work, 0, 0, panel=256)
+    assert _build.LAUNCHES[key] == before + 1
+    want = tpf.panel_trailing_fused_plain(orig.clone(), 0, 0, panel=256)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    p2, ipiv2, _, mp2, pair, _ = _card_pair(orig, 0, 256)
+    assert torch.equal(pair, work) and torch.equal(p2, got[0])
+    assert torch.equal(ipiv2, got[1]) and float(mp2) == float(got[3])

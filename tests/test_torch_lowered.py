@@ -221,8 +221,9 @@ def test_share_limit_catches_contract_faults(fault):
 
 def test_bf16_geometry_reaches_twice_the_rows():
     """A bfloat16 strip takes half the shared memory a row: the cluster
-    route reaches about twice the rows of float32, and the fused kernel's
-    phase A follows it."""
+    route reaches about twice the rows of float32, the grid route takes
+    over above it at both widths, and the fused kernel's phase A follows
+    them."""
     def reach(panel, itemsize):
         h = 1
         while kp.panel_geometry(h + 1, panel, itemsize).route == "cluster":
@@ -237,8 +238,10 @@ def test_bf16_geometry_reaches_twice_the_rows():
         212, 256, 4) == 224240
     assert kp.cluster_smem_bytes(428, 256, 2) <= kp.PANEL_SMEM_MAX
     assert kf.fused_geometry(6848, 6848, 256, itemsize=2).route == "cluster"
-    assert kf.fused_geometry(6849, 6849, 256, itemsize=2).route == "block"
-    assert kf.fused_geometry(6848, 6848, 256).route == "block"
+    assert kf.fused_geometry(6849, 6849, 256, itemsize=2).route == "grid"
+    assert kf.fused_geometry(6848, 6848, 256).route == "grid"
+    assert kp.panel_geometry(6849, 256, 2).blocks == kf.fused_geometry(
+        6849, 6849, 256, itemsize=2).group == 100
 
 
 def test_kernel_dtype_checks():
@@ -519,8 +522,8 @@ def test_bf16_panel_kernel_bit_identical_on_card(cuda_device, h, panel):
     x = torch.as_tensor(np.random.default_rng(h).standard_normal(
         (h, panel)), dtype=BF16, device=cuda_device)
     geom = kp.panel_geometry(h, panel, 2)
-    name = ("panel_factor_cluster" if geom.route == "cluster"
-            else "panel_factor") + "_bf16"
+    name = {"cluster": "panel_factor_cluster", "grid": "panel_factor_grid",
+            "block": "panel_factor"}[geom.route] + "_bf16"
     before = _build.LAUNCHES[name]
     got = kp.panel_factor(x, 0)
     want = kp.panel_factor_plain(x, 0)
@@ -531,6 +534,11 @@ def test_bf16_panel_kernel_bit_identical_on_card(cuda_device, h, panel):
         info = kp.panel_cluster_info(h, panel, itemsize=2)
         assert (info["cluster"], info["rows_per_block"],
                 info["smem_bytes"]) == (geom.cluster, geom.rows_per_block,
+                                        geom.smem_bytes)
+    if geom.route == "grid":
+        info = kp.panel_grid_info(h, panel, itemsize=2)
+        assert (info["grid"], info["rows_per_block"],
+                info["smem_bytes"]) == (geom.blocks, geom.rows_per_block,
                                         geom.smem_bytes)
 
 
@@ -611,7 +619,7 @@ def test_chip_smoke_lowered_phase_rehearsal(monkeypatch, tmp_path):
         launches, out = chip_smoke.phase_lowered(3)
     assert not any(launches.values())
     assert out["bf16_reach"] == chip_smoke.bf16_reach(32)
-    assert kp.panel_geometry(out["bf16_reach"] + 1, 32, 2).route == "block"
+    assert kp.panel_geometry(out["bf16_reach"] + 1, 32, 2).route == "grid"
     assert all(r["err"] == 0.0 for r in out["panel"].values())
     assert all(r["err"] == r["err3"] == r["err_rel"] == 0.0
                for r in out["fused"].values())
@@ -632,12 +640,12 @@ def test_chip_smoke_lowered_phase_rehearsal(monkeypatch, tmp_path):
     text = buf.getvalue()
     assert '{"lowered": ' in text and "served bf16x3" in text
     # The plans at the card's size: n=8192 at bfloat16 sends 6 launches to
-    # the one-block route (float32: 19), the rest to the cluster.
+    # the grid route (float32: 19), the rest to the cluster.
     plan16 = chip_smoke.factor_plan(8192, 256, 4, 2)
     counts = chip_smoke.route_counts(plan16)
-    assert counts == {"panel_trailing_fused_bf16/block": 5,
+    assert counts == {"panel_trailing_fused_bf16/grid": 5,
                       "panel_trailing_fused_bf16/cluster": 19,
-                      "panel_factor_bf16/block": 1,
+                      "panel_factor_grid_bf16/grid": 1,
                       "panel_factor_cluster_bf16/cluster": 7}
     assert sum(v for k, v in chip_smoke.route_counts(chip_smoke.factor_plan(
-        8192, 256, 4)).items() if k.endswith("/block")) == 19
+        8192, 256, 4)).items() if k.endswith("/grid")) == 19

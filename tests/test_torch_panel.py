@@ -10,8 +10,15 @@ import torch
 from gauss_tpu.kernels.panel_pallas import panel_factor_pallas
 from gauss_tpu_torch.io import synthetic
 from gauss_tpu_torch.kernels import _build
-from gauss_tpu_torch.kernels.panel import (PanelGeometry, panel_factor,
+from gauss_tpu_torch.kernels import panel_fused
+from gauss_tpu_torch.kernels.panel import (PANEL_GRID_MAX,
+                                           PANEL_GRID_START_MAX,
+                                           PANEL_SMEM_MAX, PanelGeometry,
+                                           cluster_smem_bytes,
+                                           panel_factor,
                                            panel_factor_cluster,
+                                           panel_factor_grid,
+                                           panel_factor_one_block,
                                            panel_factor_plain,
                                            panel_geometry)
 
@@ -116,31 +123,78 @@ def test_too_few_rows_rejected():
         panel_factor(torch.zeros(20, 16), 8)
 
 
-# Shared memory of a cluster block, by hand: 4 B x (panel x (column
-# stride + 4) + 2 x rows rounded up to 4 + rows + 128), the column stride
-# being the rounded rows with bit 2 set.
+# Shared memory of a cluster or grid block, by hand: 4 B x (panel x
+# (column stride + 4) + 2 x rows rounded up to 4 + rows + 128), the column
+# stride being the rounded rows with bit 2 set.
 @pytest.mark.parametrize("h,panel,want", [
-    (256, 256, PanelGeometry("cluster", 16, 16, 4 * (256 * 24 + 176))),
-    (2048, 256, PanelGeometry("cluster", 16, 128, 4 * (256 * 136 + 512))),
-    (1001, 256, PanelGeometry("cluster", 16, 63, 4 * (256 * 72 + 319))),
-    (3392, 256, PanelGeometry("cluster", 16, 212, 4 * (256 * 216 + 764))),
-    (3393, 256, PanelGeometry("block", 1, 3393, 0)),
-    (4096, 256, PanelGeometry("block", 1, 4096, 0)),
-    (100, 16, PanelGeometry("cluster", 7, 15, 4 * (16 * 24 + 175))),
-    (16, 16, PanelGeometry("cluster", 1, 16, 4 * (16 * 24 + 176))),
-    (1024, 1024, PanelGeometry("block", 1, 1024, 0)),
-    (2048, 2048, PanelGeometry("block", 1, 2048, 0)),
+    (256, 256, PanelGeometry("cluster", 16, 16, 4 * (256 * 24 + 176), 16)),
+    (2048, 256, PanelGeometry("cluster", 16, 128, 4 * (256 * 136 + 512),
+                              16)),
+    (1001, 256, PanelGeometry("cluster", 16, 63, 4 * (256 * 72 + 319), 16)),
+    (3392, 256, PanelGeometry("cluster", 16, 212, 4 * (256 * 216 + 764),
+                              16)),
+    (3393, 256, PanelGeometry("grid", 1, 63, 4 * (256 * 72 + 319), 54)),
+    (4096, 256, PanelGeometry("grid", 1, 64, 4 * (256 * 72 + 320), 64)),
+    (100, 16, PanelGeometry("cluster", 7, 15, 4 * (16 * 24 + 175), 7)),
+    (16, 16, PanelGeometry("cluster", 1, 16, 4 * (16 * 24 + 176), 1)),
+    (1024, 1024, PanelGeometry("grid", 1, 52, 4 * (1024 * 56 + 284), 20)),
+    (6865, 1024, PanelGeometry("block", 1, 6865, 0, 1)),
+    (2048, 2048, PanelGeometry("block", 1, 2048, 0, 1)),
 ])
 def test_panel_geometry(h, panel, want):
     """The routing rule: the cluster kernel wherever a cluster of at most
-    16 blocks holds the strip in shared memory (227 KB a block), the
-    one-block kernel beyond."""
+    16 blocks holds the strip in shared memory (227 KB a block), the grid
+    kernel on G <= 132 blocks above that (from min(ceil(h / 64), 100)
+    up), the one-block kernel beyond."""
     got = panel_geometry(h, panel)
     assert got == want
-    if got.route == "cluster":
+    if got.route != "block":
         assert got.smem_bytes <= 232448
-        assert (got.cluster - 1) * got.rows_per_block < h
-        assert got.cluster * got.rows_per_block >= h
+        assert (got.blocks - 1) * got.rows_per_block < h
+        assert got.blocks * got.rows_per_block >= h
+
+
+# Heights past a cluster's reach, up to and past the grid's, at every
+# panel width the factor forms use and both storage widths.
+GRID_HEIGHTS = (3393, 4096, 6849, 7424, 8192, 10000, 12800, 20000, 27984,
+                27985, 56496, 56497, 100000, 200000)
+
+
+@pytest.mark.parametrize("panel", [128, 256, 1024])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_grid_rule_bounds(panel, itemsize):
+    """Every grid-route strip: G <= 132 blocks whose rows cover the strip
+    and fit a block's shared memory, G the smallest such from
+    min(ceil(h / 64), 100); the one-block route only where no G <= 132
+    holds the strip; and the fused kernel's phase A on the same route at
+    the same G."""
+    routes = set()
+    for h in GRID_HEIGHTS:
+        g = panel_geometry(h, panel, itemsize)
+        routes.add(g.route)
+        if g.route == "grid":
+            assert 1 <= g.blocks <= PANEL_GRID_MAX
+            assert g.blocks * g.rows_per_block >= h
+            assert g.rows_per_block == -(-h // g.blocks)
+            assert g.smem_bytes == cluster_smem_bytes(g.rows_per_block,
+                                                      panel, itemsize)
+            assert g.smem_bytes <= PANEL_SMEM_MAX
+            start = min(PANEL_GRID_START_MAX, -(-h // 64))
+            assert g.blocks >= start
+            if g.blocks > start:         # grown: one block fewer overflows
+                assert cluster_smem_bytes(-(-h // (g.blocks - 1)), panel,
+                                          itemsize) > PANEL_SMEM_MAX
+        elif g.route == "block":
+            assert cluster_smem_bytes(-(-h // PANEL_GRID_MAX), panel,
+                                      itemsize) > PANEL_SMEM_MAX
+        f = panel_fused.fused_geometry(h, h, panel, itemsize=itemsize)
+        assert (f.route, f.group, f.rows_per_block) == (
+            g.route, g.blocks, g.rows_per_block if g.route != "block"
+            else h)
+        if f.route == "grid":
+            assert f.grid == min(g.blocks + f.chunks * (1 + f.row_tiles),
+                                 132)
+    assert "grid" in routes and "block" in routes
 
 
 def test_main_path_strips_take_the_cluster_route():
@@ -176,9 +230,8 @@ def _identical(got, want):
 
 
 def _launched(h, panel):
-    return ("panel_factor_cluster"
-            if panel_geometry(h, panel).route == "cluster"
-            else "panel_factor")
+    return {"cluster": "panel_factor_cluster", "grid": "panel_factor_grid",
+            "block": "panel_factor"}[panel_geometry(h, panel).route]
 
 
 @pytest.mark.cuda
@@ -217,13 +270,13 @@ def _poisoned(kind, h, panel, seed):
     (512, 64, 16, "nan_column"),
     (700, 96, 0, "ties"),
     (700, 96, 33, "ties"),
-    (4096, 256, 16, "random"),     # routed to the one-block kernel
+    (4096, 256, 16, "random"),     # routed to the grid kernel
 ])
 def test_routes_match_plain_on_card(cuda_device, h, panel, kb, kind):
     x = torch.as_tensor(_poisoned(kind, h, panel, h + kb),
                         dtype=torch.float32, device=cuda_device)
     name = _launched(h, panel)
-    assert (name == "panel_factor") == (h == 4096)
+    assert (name == "panel_factor_grid") == (h == 4096)
     before = dict(_build.LAUNCHES)
     got = panel_factor(x, kb)
     torch.cuda.synchronize()
@@ -253,6 +306,86 @@ def test_cluster_sizes_match_plain_on_card(cuda_device, h, panel, cluster):
 def test_cluster_that_does_not_fit_raises(cuda_device):
     x = torch.zeros((4096, 256), device=cuda_device)
     with pytest.raises(RuntimeError, match="panel_factor_cluster"):
-        panel_factor_cluster(x)      # the rule sends it to one block
+        panel_factor_cluster(x)      # the rule sends it to the grid
     with pytest.raises(RuntimeError, match="panel_factor_cluster"):
         panel_factor_cluster(x, 0, 17)
+
+
+def test_grid_and_one_block_wrappers_need_a_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_factor_grid(torch.zeros(32, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        panel_factor_one_block(torch.zeros(32, 8))
+    with pytest.raises(ValueError, match="rows"):
+        panel_factor_grid(torch.zeros(20, 16), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,panel,kb,kind,dtype", [
+    (4096, 256, 0, "random", torch.float32),
+    (7424, 256, 0, "random", torch.float32),
+    (12800, 128, 0, "random", torch.float32),
+    (4096, 256, 0, "ties", torch.float32),        # min matrix
+    (4096, 256, 0, "nan_column", torch.float32),
+    (4096, 256, 0, "zero_column", torch.float32),
+    (4096, 256, 300, "random", torch.float32),    # kb > 0 across blocks
+    (6912, 256, 0, "random", torch.bfloat16),
+    (7424, 256, 0, "random", torch.bfloat16),
+])
+def test_grid_route_matches_plain_on_card(cuda_device, h, panel, kb, kind,
+                                          dtype):
+    """The grid kernel, by the rule, bit for bit its plain version, NaN
+    and ties included; one launch under its own key."""
+    x = torch.as_tensor(_poisoned(kind, h, panel, h + kb),
+                        dtype=torch.float32, device=cuda_device).to(dtype)
+    geom = panel_geometry(h, panel, x.element_size())
+    assert geom.route == "grid"
+    key = "panel_factor_grid" + ("_bf16" if dtype == torch.bfloat16 else "")
+    before = dict(_build.LAUNCHES)
+    got = panel_factor(x, kb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+    want = panel_factor_plain(x, kb)
+    assert _identical(got, want)
+    if kind != "random":
+        assert float(got[3]) == float(want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,panel,grid", [
+    (2048, 256, 16), (2048, 256, 33),   # strips a cluster also holds
+    (4096, 256, 32), (4096, 256, 128),
+    (200, 32, 132),                     # most blocks hold no row
+])
+def test_grid_sizes_match_plain_on_card(cuda_device, h, panel, grid):
+    x = torch.as_tensor(np.random.default_rng(grid).standard_normal(
+        (h, panel)), dtype=torch.float32, device=cuda_device)
+    got = panel_factor_grid(x, 0, grid)
+    torch.cuda.synchronize()
+    assert _identical(got, panel_factor_plain(x, 0))
+
+
+@pytest.mark.cuda
+def test_grid_that_does_not_fit_raises(cuda_device):
+    with pytest.raises(RuntimeError, match="panel_factor_grid"):
+        panel_factor_grid(torch.zeros((4096, 256), device=cuda_device), 0,
+                          133)               # more blocks than the route
+    with pytest.raises(RuntimeError, match="panel_factor_grid"):
+        panel_factor_grid(torch.zeros((4096, 256), device=cuda_device), 0,
+                          4)                 # 1024 rows a block
+    with pytest.raises(RuntimeError, match="panel_factor_grid"):
+        panel_factor_grid(torch.zeros((2048, 256), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_one_block_entry_matches_plain_on_card(cuda_device):
+    """The one-block kernel, kept for timing, on a strip the rule sends to
+    the grid."""
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (4096, 256)), dtype=torch.float32, device=cuda_device)
+    before = _build.LAUNCHES["panel_factor"]
+    got = panel_factor_one_block(x, 16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["panel_factor"] == before + 1
+    assert _identical(got, panel_factor_plain(x, 16))

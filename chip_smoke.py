@@ -206,19 +206,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    load generator, ``serve.cli``) on the card: (a) the three batched
    kernels against their plain versions, one launch per stack: the
    batched fused kernel (kernel 2 over a (B, h, w) stack) at
-   SERVE_FUSED_CHECK — (8, 4096, 4096) (phase A's one-block route),
-   (8, 2048, 2048) (the cluster route), (8, 512, 512) at panel 128, and
-   (8, 2048, 2048) in bfloat16 — each member's pivots equal and its block
-   within TOL (float32) or TOL_BF16/TOL_BF16_SHARE (bfloat16) of the
-   plain version and bit for bit kernel 2 on that member alone; the
+   SERVE_FUSED_CHECK — (8, 4096, 4096) (tall members: phase A's grid
+   route, 6 groups of 22 blocks: members 0-5, then 6 and 7), (8, 2048,
+   2048) (more
+   members than the 7 clusters the card holds at once: 8 groups of 16),
+   (8, 512, 512) at panel 128, (8, 2048, 2048) in bfloat16, and
+   (4, 1024, 1024) (one wave of clusters) — the route the launch took
+   (``_build.ROUTE_LAUNCHES``) and the C launcher's route, K and G equal
+   to ``fused_batched_geometry``'s, each member's pivots equal and
+   its block within TOL (float32) or TOL_BF16/TOL_BF16_SHARE (bfloat16) of
+   the plain version and bit for bit kernel 2 on that member alone; the
    bfloat16 batched panel kernel at SERVE_K1_CHECK bit for bit its plain
    version and the bfloat16 kernel 1 on each member; each timed (CUDA
    events, median of --reps) beside the single-stack kernel looped over
-   the members, its plain version, ``torch.linalg.lu_factor`` on the
-   (float32) stack and its bound (B times one member's); (b)
+   the members, the one-block route on the same stack (the fused kernel;
+   ``panel_trailing_fused_one_block``), its plain version,
+   ``torch.linalg.lu_factor`` on the (float32) stack and its bound (B
+   times one member's); (b)
    ``lu_factor_blocked_batched`` on a (8, n, n) stack at every rung of
    the default ladder in float32 and at SERVE_BF16_N in bfloat16:
-   launches equal to the plan (nb - 1 batched fused + 1 batched panel), each
+   launches equal to the plan (nb - 1 batched fused + 1 batched panel),
+   the fused launches by the phase-A route each took, counted at the
+   launch, equal to the rule's plan (each launch's C geometry equal to
+   it, none on the one-block route), each
    member's ``m``/``perm``/``min_abs_pivot`` bit for bit
    ``lu_factor_blocked`` on it, ``linv``/``uinv`` within TOL_FACTOR,
    timed beside ``lu_factor`` on the stack; (c) the service at its
@@ -229,7 +239,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    request on the handoff lane: every request ``ok`` and verified, the
    ``numpy`` lane at 0, the launch counts equal to the plan of every
    factor the cache ran (warm-ups included) and of the handoff
-   factorization; lanes, cache, solves/s, p50/p99, occupancy; one full
+   factorization, the batched fused launches by the route each took equal
+   to the rule's plan, none on the one-block route; lanes, cache, solves/s, p50/p99, occupancy; one full
    4096 batch taken apart (padding, staging, factor, solves, the host
    residual: the host staging share) and traced in a fresh process (its
    16 kernels as planned, a trace missing some taken again as in phase 6;
@@ -389,14 +400,16 @@ DEMOTIONS = (
 
 
 # Phase 9's cells. (a) The batched fused kernel's stacks (B, n, panel,
-# dtype): the one-block phase A (n=4096), the cluster route (n=2048), a
-# panel-128 rung, and the bfloat16 form; the bfloat16 batched panel
+# dtype): tall members (n=4096) and more members than the card's clusters
+# at once (n=2048) on the grid route, a panel-128 rung, the bfloat16 form,
+# and one wave of clusters (B = 4); the bfloat16 batched panel
 # kernel's stacks. (b) The default serving ladder (the JAX package's
 # serve/buckets.py), its batch, and the bfloat16 rung. (c) The service:
 # its mix reaches every rung and lane; one oversized request takes the
 # handoff lane. (d) The poison order. (e) The CLI run.
 SERVE_FUSED_CHECK = ((8, 4096, 256, "float32"), (8, 2048, 256, "float32"),
-                     (8, 512, 128, "float32"), (8, 2048, 256, "bfloat16"))
+                     (8, 512, 128, "float32"), (8, 2048, 256, "bfloat16"),
+                     (4, 1024, 256, "float32"))
 SERVE_K1_CHECK = ((8, 128, 128), (64, 128, 128))
 SERVE_LADDER = (128, 256, 512, 1024, 2048, 4096)
 SERVE_BATCH = 8
@@ -767,14 +780,14 @@ def panel_launch_key(h: int, panel: int, itemsize: int = 4) -> str:
                                               else "")
 
 
-def batched_route(h: int, panel: int, itemsize: int = 4) -> str:
-    """Phase A's route of a member of a batched fused launch: the cluster
-    route where ``panel_geometry`` says so, else the one-block route (the
-    batched launch has no grid route)."""
-    from gauss_tpu_torch.kernels import panel as kp
+def batched_route(bsz: int, h: int, panel: int, itemsize: int = 4) -> str:
+    """Phase A's route of a batched fused launch of ``bsz`` members of
+    height ``h`` (``fused_batched_geometry``: the cluster route in one wave,
+    else the grid route, else one block)."""
+    from gauss_tpu_torch.kernels import panel_fused as kf
 
-    return ("cluster" if kp.panel_geometry(h, panel, itemsize).route
-            == "cluster" else "block")
+    return kf.fused_batched_geometry(bsz, h, h, panel,
+                                     itemsize=itemsize).route
 
 
 def panel_bound(h: int, panel: int, kb: int = 0):
@@ -2387,12 +2400,16 @@ TRACE_KINDS = (
      "panel_trailing_fused_batched", "cluster"),
     (("gtt_fused_batched_kernel<false>", "gtt_fused_batched_kernelILb0E"),
      "panel_trailing_fused_batched", "block"),
+    (("gtt_fused_batched_grid_kernel",), "panel_trailing_fused_batched",
+     "grid"),
     (("gtt_fused_batched_bf16_kernel<true>",
       "gtt_fused_batched_bf16_kernelILb1E"),
      "panel_trailing_fused_batched_bf16", "cluster"),
     (("gtt_fused_batched_bf16_kernel<false>",
       "gtt_fused_batched_bf16_kernelILb0E"),
      "panel_trailing_fused_batched_bf16", "block"),
+    (("gtt_fused_batched_grid_bf16_kernel",),
+     "panel_trailing_fused_batched_bf16", "grid"),
     (("gtt_panel_batched_kernel",), "panel_factor_batched", "batched"),
     (("gtt_panel_batched_bf16_kernel",), "panel_factor_batched_bf16",
      "batched"))
@@ -3037,10 +3054,10 @@ def one_block_figures(reps: int, rng) -> dict:
     rule (the grid route), its panel and pivots bit for bit the plain
     version's, its block bit for bit the unfused pair's and within TOL
     (float32) or bf16_block_check's limits (bfloat16) of the plain one,
-    beside the batched launch on a stack of that one block (kernel 2's
-    body at B = 1 on the one-block route, the route kernel 2 took before
-    the grid route), bit for bit the same; each with its bound (bytes at
-    the dtype's itemsize)."""
+    beside kernel 2's one-block route on the same block
+    (``panel_trailing_fused_one_block``, the route kernel 2 took before the
+    grid route), bit for bit the same; each with its bound (bytes at the
+    dtype's itemsize)."""
     import torch
 
     from gauss_tpu_torch.kernels import panel as kp
@@ -3066,8 +3083,8 @@ def one_block_figures(reps: int, rng) -> dict:
         require(same_outputs(got, ref) and same_outputs(one, ref),
                 f"kernel 1 {where}: a route differs from the plain version")
         fused = kf.panel_trailing_fused(work, 0, 0, panel=PANEL)
-        old = blk.clone()[None]
-        fold = kf.panel_trailing_fused_batched(old, 0, 0, panel=PANEL)
+        old = blk.clone()
+        fold = kf.panel_trailing_fused_one_block(old, 0, 0, panel=PANEL)
         plain = kf.panel_trailing_fused_plain(blk.clone(), 0, 0, panel=PANEL)
         pair = blk.clone()
         p2, i2, q2, _ = kp.panel_factor(pair[:, :PANEL], 0)
@@ -3075,8 +3092,8 @@ def one_block_figures(reps: int, rng) -> dict:
         kf.trailing_update(pair, mult, onehot, 0)
         sync()
         require(same_outputs(fused[:4], plain[:4])
-                and torch.equal(pair, work) and torch.equal(old[0], work)
-                and same_outputs(fused[:4], [f[0] for f in fold[:4]]),
+                and torch.equal(pair, work) and torch.equal(old, work)
+                and same_outputs(fused[:4], fold[:4]),
                 f"kernel 2 {where}: panel or pivots differ from the plain "
                 f"version, or the block from the pair's or the one-block "
                 f"route's")
@@ -3098,9 +3115,9 @@ def one_block_figures(reps: int, rng) -> dict:
                    lambda: kf.panel_trailing_fused(work, 0, 0, panel=PANEL),
                    reps, setup=lambda: work.copy_(blk)),
                "fused_one_block_ms": cuda_event_ms(
-                   lambda: kf.panel_trailing_fused_batched(
+                   lambda: kf.panel_trailing_fused_one_block(
                        old, 0, 0, panel=PANEL), reps,
-                   setup=lambda: old[0].copy_(blk)),
+                   setup=lambda: old.copy_(blk)),
                "panel_plain_ms": cuda_event_ms(
                    lambda: kp.panel_factor_plain(x, 0), 1, warmup=1),
                "panel_err": float((got[0].float() - ref[0].float())
@@ -3726,11 +3743,15 @@ def fused_batched_bound(bsz: int, h: int, wtot: int, panel: int,
 def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
                       dtype_name: str) -> dict:
     """Phase 9 (a): the batched fused kernel on a (B, n, n) stack, panel
-    at column 0: one launch; each member's pivots equal to the plain
-    version's, its block within TOL (float32) or TOL_BF16/TOL_BF16_SHARE
-    (bfloat16) of it, and every output bit for bit kernel 2 on that
-    member alone; timed beside kernel 2 looped over the members, the plain
-    version, ``torch.linalg.lu_factor`` on the stack and the bound."""
+    at column 0: one launch on the route of the rule, the C launcher's
+    route, K and G equal to ``fused_batched_geometry``'s; each member's
+    pivots equal to the plain version's, its block within TOL (float32) or
+    TOL_BF16/TOL_BF16_SHARE (bfloat16) of it, and every output bit for bit
+    kernel 2 on that member alone; timed beside kernel 2 looped over the
+    members, the one-block route on the same stack
+    (``panel_trailing_fused_one_block``: the route tall members took
+    before the grid route), the plain version, ``torch.linalg.lu_factor``
+    on the stack and the bound."""
     import torch
 
     from gauss_tpu_torch.kernels import _build
@@ -3744,10 +3765,13 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
                            dtype=torch.float32, device=dev).to(dt)
     work = orig.clone()
     before = _build.LAUNCHES[key]
+    taken = dict(_build.ROUTE_LAUNCHES)
     got = kf.panel_trailing_fused_batched(work, 0, 0, panel=panel)
     sync()
     require(_build.LAUNCHES[key] == before + (DEVICE == "cuda"),
             f"{key}: one launch per stack")
+    taken = [k.split("/")[1] for k, v in _build.ROUTE_LAUNCHES.items()
+             if v != taken.get(k, 0)]
     where = f"{key} at ({bsz}, {n}, {n}) panel {panel}"
     err = rel = share = 0.0
     for i in range(bsz):
@@ -3773,9 +3797,15 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
         require(same_outputs(one[:4], [g[i] for g in got[:4]])
                 and torch.equal(single, work[i]),
                 f"{where}: member {i} differs from kernel 2 on it alone")
+    geom = kf.fused_batched_geometry(bsz, n, n, panel,
+                                     itemsize=orig.element_size())
     rec = {"stack": [bsz, n, n], "panel": panel, "dtype": dtype_name,
            "err": err, "err_rel": rel, "differing_share": share,
-           "route": None, "grid": None, "ms": None, "loop_ms": None,
+           "rule": {"route": geom.route, "groups": geom.groups,
+                    "group": geom.group, "grid": geom.grid},
+           "launched": taken[0] if taken else None,
+           "route": None, "groups": None, "group": None, "grid": None,
+           "ms": None, "loop_ms": None, "one_block_ms": None,
            "plain_ms": None, "library_ms": None}
     rec["bound_ms"], rec["bound_by"] = fused_batched_bound(
         bsz, n, n, panel, orig.element_size())
@@ -3784,7 +3814,12 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
 
         info = kf.fused_batched_launch_info(bsz, n, n, panel,
                                             itemsize=orig.element_size())
-        rec["route"], rec["grid"] = info["route"], info["grid"]
+        for k in ("route", "groups", "group", "grid"):
+            rec[k] = info[k]
+        require(rec["rule"] == {k: info[k] for k in rec["rule"]}
+                and rec["launched"] == geom.route,
+                f"{where}: the C launcher's route {info} (launched on "
+                f"{rec['launched']}) is not the rule's {rec['rule']}")
 
         def reset():
             work.copy_(orig)
@@ -3794,6 +3829,10 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
         rec["loop_ms"] = cuda_event_ms(lambda: [kf.panel_trailing_fused(
             work[i], 0, 0, panel=panel) for i in range(bsz)],
             max(3, reps // 4), setup=reset)
+        rec["one_block_ms"] = cuda_event_ms(
+            lambda: kf.panel_trailing_fused_one_block(work, 0, 0,
+                                                      panel=panel),
+            max(3, reps // 4), setup=reset)
         rec["plain_ms"] = cuda_event_ms(
             lambda: kf.panel_trailing_fused_batched_plain(
                 work, 0, 0, panel=panel), 1, warmup=0, setup=reset)
@@ -3801,13 +3840,17 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
         with quiet_fd1():
             rec["library_ms"] = cuda_event_ms(
                 lambda: torch.linalg.lu_factor(f32), reps)
-    print(f"phase 9: {where} ({rec['route']} route, grid {rec['grid']}): "
-          f"one launch, members == plain (pivots equal, max err {err:g}, "
-          f"{rel:.3g} of scale, differing share {share:.4f}) and == kernel "
-          f"2 on each member alone bit for bit; ms {rec['ms']} (kernel 2 "
-          f"looped over the members {rec['loop_ms']}), plain "
-          f"{rec['plain_ms']}, lu_factor on the stack {rec['library_ms']}, "
-          f"bound {rec['bound_ms']:.5f} ({rec['bound_by']})")
+    print(f"phase 9: {where} (launched on {rec['launched']}; C launcher: "
+          f"{rec['route']} route, K "
+          f"{rec['groups']}, G {rec['group']}, grid {rec['grid']}; rule "
+          f"{rec['rule']}): one launch, members == plain (pivots equal, max "
+          f"err {err:g}, {rel:.3g} of scale, differing share {share:.4f}) "
+          f"and == kernel 2 on each member alone bit for bit; ms "
+          f"{rec['ms']} (kernel 2 looped over the members "
+          f"{rec['loop_ms']}, the one-block route {rec['one_block_ms']}), "
+          f"plain {rec['plain_ms']}, lu_factor on the stack "
+          f"{rec['library_ms']}, bound {rec['bound_ms']:.5f} "
+          f"({rec['bound_by']})")
     return rec
 
 
@@ -3881,11 +3924,30 @@ def batched_factor_plan(n: int, panel: int, itemsize: int = 4) -> dict:
     return out
 
 
+def batched_factor_routes(bsz: int, n: int, panel: int,
+                          itemsize: int = 4) -> dict:
+    """Phase A's routes of the batched fused launches of one
+    ``lu_factor_blocked_batched`` on a (bsz, n, n) stack, by the rule
+    (``fused_batched_geometry`` of each live block: the panel at column kb,
+    h = n - kb): launches by route."""
+    from gauss_tpu_torch.kernels import panel_fused as kf
+
+    out = {}
+    npad = -(-n // panel) * panel
+    for kb in range(0, npad - panel if panel >= 64 else 0, panel):
+        r = kf.fused_batched_geometry(bsz, npad - kb, npad, panel, kb,
+                                      itemsize=itemsize).route
+        out[r] = out.get(r, 0) + 1
+    return out
+
+
 def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
     """Phase 9 (b): ``lu_factor_blocked_batched`` on a (SERVE_BATCH, n, n)
-    dominant stack: launches equal to the plan; each member's ``m``,
-    ``perm`` and ``min_abs_pivot`` bit for bit ``lu_factor_blocked`` on it
-    alone, ``linv``/``uinv`` within TOL_FACTOR of max |m|; timed beside
+    dominant stack: launches equal to the plan, the batched fused launches
+    by phase-A route (the rule's, each launch's C geometry equal to it on
+    the card; none on the one-block route); each member's ``m``, ``perm``
+    and ``min_abs_pivot`` bit for bit ``lu_factor_blocked`` on it alone,
+    ``linv``/``uinv`` within TOL_FACTOR of max |m|; timed beside
     ``torch.linalg.lu_factor`` on the stack."""
     import torch
 
@@ -3903,6 +3965,7 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
     fac = blocked.lu_factor_blocked_batched(stack, device=DEVICE)
     sync()
     got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    counted = {k.split("/")[1]: v for k, v in _build.ROUTE_LAUNCHES.items()}
     want = {k: v for k, v in batched_factor_plan(
         n, panel, stack.element_size()).items() if v}
     require(got == want, f"lu_factor_blocked_batched n={n} {dtype_name}: "
@@ -3920,8 +3983,29 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
             one, f)).abs().max()) / scale for f in ("linv", "uinv")))
     require(inv_err <= TOL_FACTOR, f"lu_factor_blocked_batched n={n}: "
             f"linv/uinv {inv_err} of max |m| from the single factor")
+    isz = stack.element_size()
+    routes = batched_factor_routes(SERVE_BATCH, n, panel, isz)
+    require("block" not in routes, f"lu_factor_blocked_batched n={n}: "
+            f"the rule puts a batched fused launch on the one-block route: "
+            f"{routes}")
+    if DEVICE == "cuda":
+        require(counted == routes, f"lu_factor_blocked_batched n={n}: "
+                f"batched fused launches by the route the launcher took "
+                f"{counted}, the rule's plan {routes}")
+        from gauss_tpu_torch.kernels import panel_fused as kf
+
+        npad = -(-n // panel) * panel
+        for kb in range(0, npad - panel if panel >= 64 else 0, panel):
+            info = kf.fused_batched_launch_info(SERVE_BATCH, npad - kb, npad,
+                                                panel, kb, itemsize=isz)
+            want_route = batched_route(SERVE_BATCH, npad - kb, panel, isz)
+            require(info["route"] == want_route, f"lu_factor_blocked_batched "
+                    f"n={n}, kb={kb}: the C launcher's route {info['route']}"
+                    f", the rule's {want_route}")
     rec = {"n": n, "dtype": dtype_name, "panel": panel, "launches": got,
-           "linv_uinv_err": inv_err, "ms": None, "library_ms": None}
+           "fused_routes": counted, "fused_routes_plan": routes,
+           "linv_uinv_err": inv_err, "ms": None,
+           "library_ms": None}
     if DEVICE == "cuda":
         rec["ms"] = call_ms(lambda: blocked.lu_factor_blocked_batched(
             stack, device=DEVICE), max(3, reps // 4))
@@ -3930,7 +4014,9 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
             rec["library_ms"] = call_ms(lambda: torch.linalg.lu_factor(f32),
                                         max(3, reps // 4))
     print(f"phase 9: lu_factor_blocked_batched ({SERVE_BATCH}, {n}, {n}) "
-          f"{dtype_name} panel {panel}: launches {got} == plan; members == "
+          f"{dtype_name} panel {panel}: launches {got} == plan (batched "
+          f"fused by the phase-A route each took {counted} == the rule's "
+          f"{routes}); members == "
           f"lu_factor_blocked bit for bit (m, perm, min |pivot|), linv/uinv "
           f"within {inv_err:.3g} of max |m|; {rec['ms']} ms, lu_factor on "
           f"the stack {rec['library_ms']} ms")
@@ -3963,16 +4049,19 @@ def serve_batch_pad(key, systems):
     return a_pad, b_pad
 
 
-def serve_batch_trace(path: str) -> dict:
+def serve_batch_trace(path: str, retake: bool = True) -> dict:
     """One traced ``exe.solve`` of phase 9 (c)'s batch, its 16 kernels as
     planned (a batched fused launch per panel with columns right of it,
-    phase A's route by the live strip's height, then the batched panel
-    launch; a trace missing some is taken again): device busy ms against
-    host ms. On the card ``serve_batch_figures`` runs it in a fresh
-    process: in whole runs the trace lost the call's first kernel in both
-    takes after the earlier phases' profiler sessions (queue-3 fault 1),
-    and held all 16 in a process that ran phase 9 alone."""
-    from gauss_tpu_torch.kernels import panel as kp
+    phase A's route by the rule for the batch and the live strip's height,
+    then the batched panel launch; a trace missing some is taken again):
+    device busy ms against host ms. On the card ``serve_batch_figures``
+    runs it in a fresh process: in earlier whole runs, before the tall
+    steps left the one-block route, the trace lost the call's first kernel
+    in both takes after the earlier phases' profiler runs (queue-3 fault
+    1), and held all 16 in a process that ran phase 9 alone. With ``retake`` False (the take in the server's own
+    process, which records whether the fault is still there) a trace
+    missing kernels is recorded, not taken again: ``lost`` counts them,
+    and ``anywhere`` says what the whole trace holds."""
     from gauss_tpu_torch.serve import cache
 
     key, systems = serve_batch_systems()
@@ -3983,13 +4072,26 @@ def serve_batch_trace(path: str) -> dict:
         for kb in range(0, key.bucket_n - exe.panel, exe.panel):
             h = key.bucket_n - kb
             plan.append(("panel_trailing_fused_batched",
-                         batched_route(h, exe.panel), h))
+                         batched_route(key.batch, h, exe.panel), h))
         plan.append(("panel_factor_batched", "batched", exe.panel))
-    kernels, busy, host_ms, traces = trace_plan(
-        lambda: exe.solve(a_pad, b_pad), path, plan)
-    require([(k, r) for k, r, _ in kernels] == [(k, r) for k, r, _ in plan],
-            f"the traced batch: {plan_mismatch(kernels, plan)}")
-    return {"traced_kernels": len(kernels), "traces": traces,
+    rec = {"planned_kernels": len(plan)}
+    if retake:
+        kernels, busy, host_ms, traces = trace_plan(
+            lambda: exe.solve(a_pad, b_pad), path, plan)
+        require([(k, r) for k, r, _ in kernels]
+                == [(k, r) for k, r, _ in plan],
+                f"the traced batch: {plan_mismatch(kernels, plan)}")
+    else:
+        kernels, busy, host_ms = trace_launches(
+            lambda: exe.solve(a_pad, b_pad), path)
+        traces, rest = 1, iter([(k, r) for k, r, _ in plan])
+        require(all(any(g == p for p in rest)
+                    for g in [(k, r) for k, r, _ in kernels]),
+                f"the traced batch: {plan_mismatch(kernels, plan)}")
+        rec["lost"] = len(plan) - len(kernels)
+        if rec["lost"]:
+            rec["anywhere"] = trace_kinds_anywhere(path)
+    return {**rec, "traced_kernels": len(kernels), "traces": traces,
             "traced_host_ms": host_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / host_ms) if host_ms else None}
 
@@ -4026,6 +4128,8 @@ def serve_batch_figures(server, work: str) -> dict:
         + SERVE_REFINE * t["residual"]
     host_s = t["pad"] + t["stage"] + SERVE_REFINE * t["residual"]
     path = os.path.join(work, "batch.json")
+    own = serve_batch_trace(os.path.join(work, "batch_own.json"),
+                            retake=False)
     if DEVICE == "cuda":
         code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
                 f"import chip_smoke as c; "
@@ -4040,7 +4144,8 @@ def serve_batch_figures(server, work: str) -> dict:
     rec = {"bucket_n": key.bucket_n, "n": n, "batch": SERVE_BATCH,
            "ms": {k: 1e3 * v for k, v in t.items()},
            "batch_ms": 1e3 * batch_s,
-           "host_staging_share": host_s / batch_s, **tr}
+           "host_staging_share": host_s / batch_s, **tr,
+           "own_process_trace": own}
     print(f"phase 9: one ({SERVE_BATCH}, {key.bucket_n}, {key.bucket_n}) "
           f"batch taken apart (ms): "
           f"{', '.join(f'{k} {1e3 * v:.1f}' for k, v in t.items())}; host "
@@ -4049,7 +4154,12 @@ def serve_batch_figures(server, work: str) -> dict:
           f"traced exe.solve in a fresh process ({tr['traced_kernels']} "
           f"kernels, as planned; {tr['traces']} take(s)): host "
           f"{tr['traced_host_ms']:.1f} ms, device busy "
-          f"{tr['device_busy_ms']:.1f} ms, idle share {tr['idle_share']}")
+          f"{tr['device_busy_ms']:.1f} ms, idle share {tr['idle_share']}; "
+          f"in the server's own process {own['traced_kernels']} of "
+          f"{own['planned_kernels']} kernels recorded (lost {own['lost']}"
+          f"{', the whole trace: ' + str(own['anywhere']) if own['lost'] else ''}"
+          f"), host {own['traced_host_ms']:.1f} ms, device busy "
+          f"{own['device_busy_ms']:.1f} ms, idle share {own['idle_share']}")
     return rec
 
 
@@ -4117,6 +4227,7 @@ def phase_serve(reps: int):
             handoff = server.solve(*big, timeout=900)
             sync()
             got = dict(_build.LAUNCHES)
+            counted = dict(_build.ROUTE_LAUNCHES)
             served_factors = list(factors)
             out["batch"] = serve_batch_figures(server, work)
     finally:
@@ -4143,12 +4254,24 @@ def phase_serve(reps: int):
     require(dtypes == {"float32", "bfloat16", "bf16x3"} and spd,
             f"service: the lanes factored {sorted(dtypes)}, spd: {spd}")
     plan = dict.fromkeys(_build.LAUNCHES, 0)
+    routes = {}
     for key, panel in served_factors:
         if key.structure != "spd":
-            for k, v in batched_factor_plan(
-                    key.bucket_n, panel,
-                    2 if key.dtype == "bfloat16" else 4).items():
+            isz = 2 if key.dtype == "bfloat16" else 4
+            for k, v in batched_factor_plan(key.bucket_n, panel,
+                                            isz).items():
                 plan[k] += v
+            sfx = "_bf16" if isz == 2 else ""
+            for r, v in batched_factor_routes(key.batch, key.bucket_n,
+                                              panel, isz).items():
+                k = f"panel_trailing_fused_batched{sfx}/{r}"
+                routes[k] = routes.get(k, 0) + v
+    require(not on_card or counted == routes, f"service: batched fused "
+            f"launches by the "
+            f"route the launcher took {counted}, the plan by the rule "
+            f"{routes}")
+    require(not any(k.endswith("/block") for k in counted), f"service: "
+            f"batched fused launches on the one-block route: {counted}")
     hf = blocked.resolve_factor(SERVE_OVERSIZE, device=DEVICE)
     hpanel = blocked.auto_panel(SERVE_OVERSIZE)
     chunk = (getattr(hf, "keywords", {}).get("chunk", blocked.CHUNK_DEFAULT)
@@ -4176,7 +4299,8 @@ def phase_serve(reps: int):
         "p99_s": lat["p99"], "occupancy_mean":
             summary["batch_occupancy_mean"], "batches": summary["batches"],
         "factors": len(served_factors),
-        "launches": {k: v for k, v in got.items() if v}}
+        "launches": {k: v for k, v in got.items() if v},
+        "batched_fused_routes": counted, "batched_fused_routes_plan": routes}
     print(f"phase 9: service ({SERVE_REQUESTS} requests + {SERVE_WARMUP} "
           f"warm-up, closed loop x{SERVE_CONCURRENCY}, mix {SERVE_MIX}, plus "
           f"one n={SERVE_OVERSIZE}): {counts}, lanes {lanes}, cache "
@@ -4185,7 +4309,8 @@ def phase_serve(reps: int):
           f"{summary['batch_occupancy_mean']}; launches "
           f"{out['service']['launches']} == the plan of its "
           f"{len(served_factors)} factors and the handoff factorization "
-          f"[{card}]")
+          f"(batched fused by the phase-A route each launch took {counted}"
+          f" == the rule's plan) [{card}]")
 
     # (d) Faults: a transient build fault retried and served; poison.
     with SolverServer(ServeConfig(**{**cfg.__dict__,
@@ -4282,6 +4407,18 @@ def main(argv=None) -> int:
                  "panel_trailing_fused_bf16"):
         require(by_path["lowered"][name] > 0, f"the lowered path launched "
                 f"no {name}")
+    # Queue-3 fault 1: the traced calls' takes (a second take follows a
+    # first that lost a kernel record), and the batch traced in the
+    # server's own process, which is not taken again.
+    takes = {f"phase 6 (c) n={cell['n']}": cell.get("traces")
+             for cell in large["cells"]}
+    takes["phase 7 (d)"] = low["large"].get("traces")
+    takes["phase 9 (c)"] = serve["batch"]["traces"]
+    own = serve["batch"]["own_process_trace"]
+    print(f"traced calls (queue-3 fault 1): takes {takes}; calls whose first "
+          f"take lost a record: {sum(t == 2 for t in takes.values())} of "
+          f"{len(takes)}; the batch in the server's own process lost "
+          f"{own['lost']} of {own['planned_kernels']} kernel records")
     # A kernel's launches: the sum over the main paths that run it.
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in blocked_launches}
@@ -4489,26 +4626,38 @@ def main(argv=None) -> int:
                   f"torch.linalg.lu_factor on the float32 stack; loop_ms: "
                   f"the bfloat16 kernel 1 looped over the members)",
          "stacks": serve["k1_bf16"]})
-    for name, dt in (("panel_trailing_fused_batched", "float32"),
-                     ("panel_trailing_fused_batched_bf16", "bfloat16")):
+    for name, dt, sfx in (("panel_trailing_fused_batched", "float32", ""),
+                          ("panel_trailing_fused_batched_bf16", "bfloat16",
+                           "_bf16")):
         recs = {k: r for k, r in serve["fused"].items() if r["dtype"] == dt}
-        head = next(r for r in recs.values() if r["stack"][1] == N)
+        head = next(r for r in recs.values() if r["stack"][:2] == [8, N])
         kernels.append(
             {"name": name, "route": "cuda",
              "source": src + "panel_fused_batched.cu",
              "sources": [src + "panel_fused_batched.cu",
-                         src + "panel_fused.cuh", src + "panel_cluster.cuh",
+                         src + "panel_fused.cuh", src + "panel_grid.cuh",
+                         src + "panel_cluster.cuh",
                          src + "panel_common.cuh"],
+             "symbols": {"cluster": f"gtt_fused_batched{sfx}_kernel<true>",
+                         "grid": f"gtt_fused_batched_grid{sfx}_kernel",
+                         "block": f"gtt_fused_batched{sfx}_kernel<false>"},
              "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:192",
              **launch_keys(name),
+             "launches_by_route": {
+                 k.split("/")[1]: v for k, v in
+                 serve["service"]["batched_fused_routes"].items()
+                 if k.split("/")[0] == name},
              "max_abs_err": max(r["err"] for r in recs.values()),
              "ms": head["ms"], "plain_ms": head["plain_ms"],
              "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
              "library_ms": head["library_ms"], "loop_ms": head["loop_ms"],
+             "one_block_ms": head["one_block_ms"],
+             "phase_a": {k: head[k] for k in ("route", "groups", "group")},
              "shape": f"{tuple(head['stack'])} {dt}, panel {head['panel']} "
                       f"at column 0, one launch (library: "
                       f"torch.linalg.lu_factor on the float32 stack; "
-                      f"loop_ms: kernel 2 looped over the members)",
+                      f"loop_ms: kernel 2 looped over the members; "
+                      f"one_block_ms: the one-block route on the stack)",
              "stacks": recs,
              "rungs": {k: r for k, r in serve["rungs"].items()
                        if r["dtype"] == dt}})

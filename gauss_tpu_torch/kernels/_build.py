@@ -52,6 +52,13 @@ LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
             "matmul_tiled": 0, "matmul_stripe": 0, "eliminate_step": 0,
             "rankk_update": 0, "spmv_ell": 0}
 
+#: Launches of the batched fused kernel by phase-A route, keyed
+#: ``panel_trailing_fused_batched[_bf16]/<route>`` (route ``cluster``,
+#: ``grid`` or ``block``, as the C launcher reports the route it took),
+#: counted beside :data:`LAUNCHES` at the launch. Reset with
+#: :func:`reset_launches`.
+ROUTE_LAUNCHES: dict[str, int] = {}
+
 #: Seconds each source took to build in this process (0.0 when loaded
 #: from an existing build).
 BUILD_SECONDS: dict[str, float] = {}
@@ -65,7 +72,7 @@ _FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
 _TRAILING = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _BATCHED = [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _FUSED_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                  _P, _P, _P, _P, _P, _P]
+                  _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 _SIGNATURES = {
     "panel_factor": {
         "gtt_panel_factor": _PANEL,
@@ -153,6 +160,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def build_dir() -> Path:

@@ -55,7 +55,7 @@
 //   that is running, so the launch cannot deadlock whatever the card holds
 //   at once, and needs no grid-wide barrier; on the grid route the group's
 //   blocks also wait on each other, which the cooperative launch makes
-//   safe (gtt_fused_grid_body states the argument). (The runtime does take
+//   safe (gtt_fused_group_body states the argument). (The runtime does take
 //   cudaLaunchAttributeCooperative beside a cluster dimension of 16 on the
 //   H100, up to the 7 clusters it holds at once; a grid.sync() would make
 //   every tile wait for every B1, and the flags do not.) The grid fills
@@ -88,10 +88,10 @@
 
 // ---- the kernels ---------------------------------------------------------
 
-// One call is a stack of one (GttFusedBatchedArgs, batch 1): on the cluster
-// and one-block routes the body is the batched kernel's
-// (panel_fused_batched.cu), which at B = 1 runs phase A on the first
-// cluster or block to start and the trailing jobs of that call.
+// One call is a stack of one (GttFusedBatchedArgs, batch 1): on every
+// route the body is the batched kernel's (panel_fused_batched.cu), which at
+// B = 1 runs phase A on the first cluster, group or block to start and the
+// trailing jobs of that call.
 // CLUSTER: launched with a cluster dimension; phase A on the cluster step
 // loop. Else launched without clusters; phase A on the one-block loop.
 template <bool CLUSTER>
@@ -107,16 +107,16 @@ gtt_fused_bf16_kernel(const GttFusedBatchedArgs<gtt_bf16> ba) {
 }
 
 // Launched cooperatively, without clusters; phase A on the grid step loop
-// (panel_grid.cuh) over the first G blocks to start. Kernel 2 alone has
-// this route: the batched launch keeps the one-block loop for tall members.
+// (panel_grid.cuh) over the first G blocks to start: the batched kernel's
+// group body at K = 1, B = 1.
 __global__ void __launch_bounds__(GTT_THREADS, 1)
 gtt_fused_grid_kernel(const GttFusedBatchedArgs<float> ba) {
-  gtt_fused_grid_body(ba);
+  gtt_fused_group_body(ba);
 }
 
 __global__ void __launch_bounds__(GTT_THREADS, 1)
 gtt_fused_grid_bf16_kernel(const GttFusedBatchedArgs<gtt_bf16> ba) {
-  gtt_fused_grid_body(ba);
+  gtt_fused_group_body(ba);
 }
 
 __global__ void __launch_bounds__(GTT_THREADS, 1)
@@ -170,7 +170,8 @@ extern "C" int gtt_panel_fused(float* block, int ld, int h, int wtot,
                                float* slot, void* stream) {
   return gtt_fused_launch(gtt_fused_kernel_of, block, 0, ld, 1, h, wtot,
                           col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-                          chosen, minpiv, u, ctr, ctr, rec, slot, stream);
+                          chosen, minpiv, u, ctr, ctr, rec, slot, -1, 0, 0,
+                          nullptr, stream);
 }
 
 // The same at bfloat16 storage: block, pt and minpiv are bfloat16; mult,
@@ -184,7 +185,8 @@ extern "C" int gtt_panel_fused_bf16(gtt_bf16* block, int ld, int h, int wtot,
                                     void* stream) {
   return gtt_fused_launch(gtt_fused_kernel_of, block, 0, ld, 1, h, wtot,
                           col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-                          chosen, minpiv, u, ctr, ctr, rec, slot, stream);
+                          chosen, minpiv, u, ctr, ctr, rec, slot, -1, 0, 0,
+                          nullptr, stream);
 }
 
 // The unfused pair's trailing launch: the same jobs as the fused kernel's
@@ -201,13 +203,13 @@ static int gtt_trailing_launch(T* block, int ld, int h, int wtot, int col0,
   int sms = 0;
   bad = gtt_sm_count(&sms);
   if (bad) return bad;
-  GttFusedGeom g =
-      gtt_fused_geom(h, wtot, col0, panel, fseg, (int)sizeof(T), false);
+  GttFusedGeom g = {};
+  g.chunks = gtt_trailing_chunks(wtot, col0, panel);
+  g.row_tiles = (h + GTT_TM - 1) / GTT_TM;
   const int jobs = g.chunks * (1 + g.row_tiles);
   if (jobs < 1) return 0;
-  g.route = GTT_ROUTE_BLOCK;
-  g.cluster = 0;
-  g.smem = gtt_trailing_smem_bytes(panel, fseg);
+  gtt_route_geom(&g, GTT_ROUTE_BLOCK, 0, 0, 0, h, panel, fseg,
+                 (int)sizeof(T));
   const void* kernel = sizeof(T) == 2 ? (const void*)gtt_trailing_bf16_kernel
                                       : (const void*)gtt_trailing_kernel;
   int fit = 0;

@@ -33,9 +33,10 @@ struct GttFusedArgs {
   int* ctr;
   int chunks, row_tiles, rows;  // rows: of a phase-A cluster or grid block
   int factored;  // phase-A arrivals the trailing jobs wait for (0: none);
-                 // on the grid route also the group's G
-  unsigned long long* rec;  // the grid route's exchange (GttGridX): 2 x G
-  float* slot;              // step records (zeroed), 2 x G x panel slots
+                 // on the grid route also a group's G
+  unsigned long long* rec;  // the grid route's exchange (GttGridX), each
+  float* slot;  // member's own: 2 x G step records (zeroed), 2 x G x panel
+                // slots; nullptr off the grid route
 };
 
 __host__ __device__ inline int gtt_trailing_chunks(int wtot, int col0,
@@ -527,13 +528,14 @@ __device__ void gtt_trailing_tile(const GttFusedArgs<T>& a,
 // arguments, and member b's slices start at b times their per-member size,
 // its block at b * bstride elements (in 64-bit: a (8, 4096, 4096) stack is
 // 2^27 floats). gctr holds the launch's two tickets (int32, zeroed): phase
-// A's members and the trailing jobs of the whole stack. One call is a stack
-// of one whose gctr is its own ctr (the CLUSTER and JOB words).
+// A's members (phase A's blocks on the grid route) and the trailing jobs of
+// the whole stack. One call is a stack of one whose gctr is its own ctr
+// (the CLUSTER and JOB words). groups: the grid route's K groups.
 template <typename T>
 struct GttFusedBatchedArgs {
   GttFusedArgs<T> a;
   long long bstride;
-  int batch;
+  int batch, groups;
   int* gctr;
 };
 enum { GTT_GCTR_MEMBER = GTT_CTR_CLUSTER, GTT_GCTR_JOB = GTT_CTR_JOB };
@@ -553,6 +555,10 @@ __device__ __forceinline__ GttFusedArgs<T> gtt_member(
   m.minpiv += b;
   m.u += (size_t)b * m.panel * m.chunks * GTT_TN;
   m.ctr += (size_t)b * (3 + m.chunks);
+  if (m.rec != nullptr) {  // the grid route: G = m.factored
+    m.rec += (size_t)b * 2 * m.factored;
+    m.slot += (size_t)b * 2 * m.factored * m.panel;
+  }
   return m;
 }
 
@@ -673,37 +679,49 @@ __device__ __forceinline__ void gtt_fused_body(
   gtt_trailing_jobs(ba, sm);
 }
 
-// The fused kernel's body on the grid route (one call, B = 1): the first
-// G blocks to take a phase-A ticket (G = a.factored) form the group, rank
-// = ticket, and run the grid step loop (panel_grid.cuh) on the strip, each
-// block's rows in its shared memory `dyn`; each then writes its rows'
-// outputs and multiplier record and adds one to ctr[FACTORED]. Every block
-// then takes trailing jobs. Deadlock freedom: the launch is cooperative,
-// so every block of the grid (at least G) runs at once; each takes its
-// phase-A ticket before any job ticket, so the G group tickets go to G
-// running blocks, which wait only on each other's step records, and a job
-// waits only on the group's arrivals or on work a running block ticketed
-// earlier.
+// The fused kernel's body on the grid route: K = ba.groups groups of G =
+// a.factored co-resident blocks. The first K * G blocks to take a phase-A
+// ticket form the groups, ticket t holding rank t % G of group t / G. Group
+// k runs the grid step loop (panel_grid.cuh) on members k, k + K, k + 2K,
+// ... in turn, each on the member's own exchange, each block's rows in its
+// shared memory `dyn`; after each member every block of the group writes
+// its rows' outputs and multiplier record and adds one to the member's
+// ctr[FACTORED]. Then every block takes trailing jobs (member after member,
+// the order in which the rounds of the groups finish phase A). One call is
+// K = 1, B = 1. Deadlock freedom: the launch is cooperative, so every block
+// of the grid (at least K * G) runs at once; each block takes its phase-A
+// ticket before any job ticket, so the K * G group tickets go to running
+// blocks, and the blocks of a group wait only on each other's step records
+// of the member they all factor, never on a job; a job waits only on its
+// member's ctr[FACTORED], which its group reaches without waiting on any
+// job, or on a B1 job that a running block ticketed earlier. A member's
+// step records carry only the step (panel_grid.cuh), so each member has its
+// own exchange: a group that reused one would read the previous member's
+// records of step j as this member's.
 template <typename T>
-__device__ __forceinline__ void gtt_fused_grid_body(
+__device__ __forceinline__ void gtt_fused_group_body(
     const GttFusedBatchedArgs<T>& ba) {
   float* dyn = reinterpret_cast<float*>(gtt_dyn4);
   const GttTrailSmem sm = gtt_trail_layout(dyn, ba.a.panel);
-  const GttFusedArgs<T>& a = ba.a;
+  const int G = ba.a.factored;
   if (threadIdx.x == 0) *sm.ticket = atomicAdd(ba.gctr + GTT_GCTR_MEMBER, 1);
   __syncthreads();
-  const int rank = *sm.ticket;
+  const int t = *sm.ticket;
   __syncthreads();  // read before phase A overwrites the word
-  if (rank < a.factored) {
-    const GttClusterStrip<T> s =
-        gtt_cluster_layout<T>(dyn, a.h, a.panel, a.kbrow, a.rows, rank);
-    gtt_cluster_load(s, a.block + a.col0, a.ld);
-    const GttGridX x = {a.rec, a.slot, a.factored, rank};
-    const float minp = gtt_grid_factor(s, x, a.ipiv);
-    gtt_cluster_store(s, a.h, a.pt, a.inv, a.chosen);
-    gtt_cluster_store_mult(s, a.h, a.mult);
-    if (rank == 0 && threadIdx.x == 0) *a.minpiv = gtt_to<T>(minp);
-    gtt_signal(a.ctr + GTT_CTR_FACTORED);
+  if (t < ba.groups * G) {
+    const int rank = t % G;
+    for (int b = t / G; b < ba.batch; b += ba.groups) {
+      const GttFusedArgs<T> a = gtt_member(ba, b);
+      const GttClusterStrip<T> s =
+          gtt_cluster_layout<T>(dyn, a.h, a.panel, a.kbrow, a.rows, rank);
+      gtt_cluster_load(s, a.block + a.col0, a.ld);
+      const GttGridX x = {a.rec, a.slot, G, rank};
+      const float minp = gtt_grid_factor(s, x, a.ipiv);
+      gtt_cluster_store(s, a.h, a.pt, a.inv, a.chosen);
+      gtt_cluster_store_mult(s, a.h, a.mult);
+      if (rank == 0 && threadIdx.x == 0) *a.minpiv = gtt_to<T>(minp);
+      gtt_signal(a.ctr + GTT_CTR_FACTORED);
+    }
   }
   gtt_trailing_jobs(ba, sm);
 }
@@ -713,40 +731,80 @@ __device__ __forceinline__ void gtt_fused_grid_body(
 // Phase A's routes.
 enum { GTT_ROUTE_BLOCK = 0, GTT_ROUTE_CLUSTER = 1, GTT_ROUTE_GRID = 2 };
 
-// The launch geometry (kernels/panel_fused.py::fused_geometry states it in
-// Python): phase A on a cluster of `cluster` blocks where one holds the
-// strip; else, where the launch has a grid-route kernel (`grid_ok`: kernel
-// 2, one call), on a group of `group` = G co-resident blocks where G <=
-// GTT_GRID_MAX hold it; else on one block. `group` is phase A's blocks on
-// every route (C, G or 1).
+// The launch geometry (kernels/panel_fused.py::fused_batched_geometry
+// states it in Python): phase A's route, its blocks `group` (C, G or 1),
+// the grid route's `groups` K (0 elsewhere), rows a phase-A block holds,
+// the grid, the trailing jobs' chunks and row tiles, and dynamic shared
+// memory per block.
 struct GttFusedGeom {
-  int route, cluster, group, rows, grid, chunks, row_tiles;
+  int route, cluster, group, groups, rows, grid, chunks, row_tiles;
   size_t smem;
 };
 
-static inline GttFusedGeom gtt_fused_geom(int h, int wtot, int col0,
-                                          int panel, int fseg, int itemsize,
-                                          bool grid_ok) {
-  GttFusedGeom g;
-  g.cluster = gtt_cluster_size(h, panel, itemsize);
-  g.chunks = gtt_trailing_chunks(wtot, col0, panel);
-  g.row_tiles = (h + GTT_TM - 1) / GTT_TM;
-  const size_t tb = gtt_trailing_smem_bytes(panel, fseg);
-  const int G = grid_ok ? gtt_grid_route(h, panel, itemsize) : 0;
-  if (g.cluster > 0 || G > 0) {
-    g.route = g.cluster > 0 ? GTT_ROUTE_CLUSTER : GTT_ROUTE_GRID;
-    g.group = g.cluster > 0 ? g.cluster : G;
-    g.rows = (h + g.group - 1) / g.group;
-    const size_t sa = gtt_cluster_smem_bytes(g.rows, panel, itemsize);
-    g.smem = sa > tb ? sa : tb;
-  } else {
-    g.route = GTT_ROUTE_BLOCK;
-    g.group = 1;
-    g.rows = h;
-    g.smem = tb;
-  }
-  g.grid = 0;
+// The smallest group whose blocks' rows fit their shared memory (the
+// cluster loop's layout), 0 where the grid route holds no such strip.
+__host__ inline int gtt_group_min(int h, int panel, int itemsize) {
+  if (gtt_grid_size(h, panel, itemsize) == 0) return 0;
+  int g = 1;
+  while (gtt_cluster_smem_bytes((h + g - 1) / g, panel, itemsize) >
+         GTT_SMEM_MAX)
+    ++g;
   return g;
+}
+
+// The grid route's groups for `batch` members on a card of `sms` SMs
+// (kernels/panel_fused.py::group_size states it in Python): as many groups
+// as the card holds of the smallest G whose blocks' rows fit their shared
+// memory, at most one a member (K = min(batch, sms / that G)), then the
+// widest G that K groups leave (sms / K), at most the single strip's G
+// (gtt_grid_size, about GTT_GRID_ROWS rows a block), so one call (B = 1)
+// takes kernel 2's G. Where the members take more than one round, the
+// blocks of the groups that the last round leaves idle take the trailing
+// jobs of the members already factored: on the H100, (8, 4096) at panel
+// 256 took 4.74 ms on 6 groups of 22 blocks (6 members, then 2) against
+// 5.22-5.34 on 4 groups of 33 (4, then 4), and 4.22 against 4.83 at (8,
+// 3840); at (8, 3584) the rule's 7 groups of 18 took 3.84-3.96 against
+// 3.80-3.93 on 6 of 22 and 4.42-4.58 on 4 of 33 (scripts/probe_batched.py).
+// *K = *G = 0 where no group holds the strip.
+__host__ inline void gtt_group_size(int batch, int h, int panel, int itemsize,
+                                    int sms, int* K, int* G) {
+  const int gmin = gtt_group_min(h, panel, itemsize);
+  *K = *G = 0;
+  if (gmin == 0 || gmin > sms || batch < 1) return;
+  const int g1 = gtt_grid_size(h, panel, itemsize);
+  *K = batch < sms / gmin ? batch : sms / gmin;
+  *G = sms / *K < g1 ? sms / *K : g1;
+}
+
+// Fill g's route fields for phase A on `route`: a cluster of `cluster`
+// blocks, K groups of G blocks, or one block; the shared memory is the
+// larger of a phase-A block's strip and the trailing jobs'.
+// cudaErrorInvalidValue where the route does not hold the strip.
+static inline int gtt_route_geom(GttFusedGeom* g, int route, int cluster,
+                                 int K, int G, int h, int panel, int fseg,
+                                 int itemsize) {
+  const size_t tb = gtt_trailing_smem_bytes(panel, fseg);
+  g->route = route;
+  g->cluster = route == GTT_ROUTE_CLUSTER ? cluster : 0;
+  g->groups = route == GTT_ROUTE_GRID ? K : 0;
+  g->group = route == GTT_ROUTE_CLUSTER ? cluster
+             : route == GTT_ROUTE_GRID  ? G
+                                        : 1;
+  if (route == GTT_ROUTE_BLOCK) {
+    g->rows = h;
+    g->smem = tb;
+    return 0;
+  }
+  if ((route == GTT_ROUTE_CLUSTER && cluster < 1) ||
+      (route == GTT_ROUTE_GRID &&
+       (K < 1 || G < 1 || G > GTT_GRID_MAX || h > GTT_GRID_H_MAX)) ||
+      (route != GTT_ROUTE_CLUSTER && route != GTT_ROUTE_GRID))
+    return (int)cudaErrorInvalidValue;
+  g->rows = (h + g->group - 1) / g->group;
+  const size_t sa = gtt_cluster_smem_bytes(g->rows, panel, itemsize);
+  if (sa > GTT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  g->smem = sa > tb ? sa : tb;
+  return 0;
 }
 
 static inline int gtt_check(int h, int wtot, int col0, int panel, int fseg) {
@@ -789,8 +847,7 @@ static inline cudaLaunchConfig_t gtt_fused_config(const GttFusedGeom& g,
   return cfg;
 }
 
-// The fused kernel of a library: (route, itemsize) -> kernel, nullptr
-// where the library has none (the batched library's grid route).
+// The fused kernel of a library: (route, itemsize) -> kernel.
 typedef const void* (*GttKernelOf)(int route, int itemsize);
 
 // How many of a launch's clusters (cluster route) or blocks per SM (else)
@@ -850,57 +907,82 @@ static int gtt_fit(const void* kernel, const GttFusedGeom& g, int* fit) {
   return 0;
 }
 
-// The grid of a launch of `heads` phase A's and `jobs` trailing jobs: on
-// the cluster route C * min(heads + ceil(jobs / C), fit), a cluster per
+// The grid of a launch of `batch` members and `jobs` trailing jobs: on
+// the cluster route C * min(batch + ceil(jobs / C), fit), a cluster per
 // member's phase A and then a block per job, no more clusters than the card
-// holds at once; on the grid route min(G + jobs, sms), the group and then
-// a block per job, one block an SM; else min(heads + jobs, sms).
-static void gtt_fused_grid(GttFusedGeom& g, int heads, long long jobs,
+// holds at once; on the grid route min(K * G + jobs, sms), the groups and
+// then a block per job, one block an SM; else min(batch + jobs, sms).
+static void gtt_fused_grid(GttFusedGeom& g, int batch, long long jobs,
                            int fit, int sms) {
   if (g.route == GTT_ROUTE_CLUSTER) {
     const int c = g.cluster;
-    const long long want = heads + (jobs + c - 1) / c;
+    const long long want = batch + (jobs + c - 1) / c;
     g.grid = c * (int)(want < fit ? want : fit);
   } else {
     const long long want =
-        (g.route == GTT_ROUTE_GRID ? g.group : heads) + jobs;
+        (g.route == GTT_ROUTE_GRID ? g.groups * g.group : batch) + jobs;
     g.grid = (int)(want < sms ? want : sms);
   }
 }
 
-// The launch of `batch` fused calls: cudaErrorLaunchOutOfResources when the
-// card holds no such cluster or block, cudaErrorCooperativeLaunchTooLarge
-// when it cannot hold a grid route's group at once (G above its SMs), else
-// 0 with the geometry in *g and, in *fit, the clusters the card holds at
-// once (cluster route) or the blocks an SM holds (else). The grid route is
-// taken only at B = 1 and where the library has its kernel.
+// The launch of `batch` fused calls on `route` (< 0: the rule's; on the
+// grid route `groups` K and `group` G, 0 for the rule's). The rule: the
+// cluster route where a cluster holds the strip and the card holds the
+// batch's clusters at once (one wave); else the grid route where a group
+// holds it (gtt_group_size); else the cluster route where a cluster holds
+// it; else one block. Returns cudaErrorInvalidValue when the route does not
+// hold the strip, cudaErrorLaunchOutOfResources when the card holds no such
+// cluster or block, cudaErrorCooperativeLaunchTooLarge when it cannot hold
+// the grid route's K * G blocks at once, else 0 with the geometry in *g
+// and, in *fit, the clusters the card holds at once (cluster route) or the
+// blocks an SM holds (else).
 static int gtt_fused_plan(GttKernelOf kernel_of, int batch, int h, int wtot,
                           int col0, int panel, int fseg, int itemsize,
-                          GttFusedGeom* g, int* fit) {
+                          int route, int groups, int group, GttFusedGeom* g,
+                          int* fit) {
   int sms = 0;
   int rc = gtt_sm_count(&sms);
   if (rc) return rc;
-  const bool grid_ok =
-      batch == 1 && kernel_of(GTT_ROUTE_GRID, itemsize) != nullptr;
-  *g = gtt_fused_geom(h, wtot, col0, panel, fseg, itemsize, grid_ok);
+  const int C = gtt_cluster_size(h, panel, itemsize);
+  int K = 0, G = 0;
+  gtt_group_size(batch, h, panel, itemsize, sms, &K, &G);
+  g->chunks = gtt_trailing_chunks(wtot, col0, panel);
+  g->row_tiles = (h + GTT_TM - 1) / GTT_TM;
+  g->grid = 0;
+  if (route < 0) {
+    route = C > 0   ? GTT_ROUTE_CLUSTER
+            : G > 0 ? GTT_ROUTE_GRID
+                    : GTT_ROUTE_BLOCK;
+    if (route == GTT_ROUTE_CLUSTER && G > 0 && batch > 1) {
+      rc = gtt_route_geom(g, route, C, 0, 0, h, panel, fseg, itemsize);
+      if (!rc) rc = gtt_fit(kernel_of(route, itemsize), *g, fit);
+      if (rc) return rc;
+      if (batch > *fit) route = GTT_ROUTE_GRID;
+    }
+  } else if (route == GTT_ROUTE_GRID) {
+    K = groups > 0 ? groups : K;
+    G = group > 0 ? group : G;
+    if (K > batch) return (int)cudaErrorInvalidValue;
+  }
+  rc = gtt_route_geom(g, route, C, K, G, h, panel, fseg, itemsize);
+  if (rc) return rc;
   rc = gtt_fit(kernel_of(g->route, itemsize), *g, fit);
   if (rc) return rc;
   if (*fit < 1) return (int)cudaErrorLaunchOutOfResources;
-  if (g->route == GTT_ROUTE_GRID && g->group > sms)
+  if (g->route == GTT_ROUTE_GRID && (long long)K * G > sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  gtt_fused_grid(*g, batch,
-                 (long long)batch * g->chunks * (1 + g->row_tiles), *fit,
-                 sms);
+  gtt_fused_grid(*g, batch, (long long)batch * g->chunks * (1 + g->row_tiles),
+                 *fit, sms);
   return 0;
 }
 
 // The launch facts of `batch` fused calls on blocks of `itemsize`-byte
-// elements (4: float32, 2: bfloat16): out[0] the cluster size (0 off the
-// cluster route), out[1] rows per phase-A block, out[2] the grid, out[3]
-// dynamic shared memory bytes per block, out[4] column chunks, out[5] row
-// tiles, out[6] clusters the card holds at once (cluster route) or blocks
-// an SM holds (else), out[7] phase A's blocks (C, G or 1), out[8] the
-// route (GTT_ROUTE_*).
+// elements (4: float32, 2: bfloat16) by the rule: out[0] the cluster size
+// (0 off the cluster route), out[1] rows per phase-A block, out[2] the
+// grid, out[3] dynamic shared memory bytes per block, out[4] column chunks,
+// out[5] row tiles, out[6] clusters the card holds at once (cluster route)
+// or blocks an SM holds (else), out[7] phase A's blocks (C, G or 1), out[8]
+// the route (GTT_ROUTE_*), out[9] the grid route's groups K (0 elsewhere).
 static int gtt_fused_info(GttKernelOf kernel_of, int batch, int h, int wtot,
                           int col0, int panel, int fseg, int itemsize,
                           int* out) {
@@ -910,7 +992,7 @@ static int gtt_fused_info(GttKernelOf kernel_of, int batch, int h, int wtot,
     return (int)cudaErrorInvalidValue;
   GttFusedGeom g;
   const int rc = gtt_fused_plan(kernel_of, batch, h, wtot, col0, panel, fseg,
-                                itemsize, &g, &out[6]);
+                                itemsize, -1, 0, 0, &g, &out[6]);
   if (rc) return rc;
   out[0] = g.cluster;
   out[1] = g.rows;
@@ -920,11 +1002,16 @@ static int gtt_fused_info(GttKernelOf kernel_of, int batch, int h, int wtot,
   out[5] = g.row_tiles;
   out[7] = g.group;
   out[8] = g.route;
+  out[9] = g.groups;
   return 0;
 }
 
-// One launch of `batch` fused calls (the arguments of GttFusedBatchedArgs;
-// rec and slot: the grid route's exchange, rec zeroed, unused elsewhere).
+// One launch of `batch` fused calls (the arguments of GttFusedBatchedArgs)
+// on `route`, `groups` and `group` as gtt_fused_plan takes them. rec and
+// slot: the grid route's exchange, each member's 2 x G records (zeroed)
+// and 2 x G x panel slots, member after member; ignored elsewhere. taken
+// (unless null): the route, K and G launched (GTT_ROUTE_*, groups, group),
+// written once the launch is planned.
 template <typename T>
 static int gtt_fused_launch(GttKernelOf kernel_of, T* block,
                             long long bstride, int ld, int batch, int h,
@@ -932,7 +1019,8 @@ static int gtt_fused_launch(GttKernelOf kernel_of, T* block,
                             int fseg, T* pt, float* mult, int* ipiv,
                             int* inv, int* chosen, T* minpiv, float* u,
                             int* ctr, int* gctr, unsigned long long* rec,
-                            float* slot, void* stream) {
+                            float* slot, int route, int groups, int group,
+                            int* taken, void* stream) {
   int bad = gtt_check(h, wtot, col0, panel, fseg);
   if (bad) return bad;
   if (batch < 1 || kbrow < 0 || h - kbrow < panel)
@@ -941,15 +1029,21 @@ static int gtt_fused_launch(GttKernelOf kernel_of, T* block,
   GttFusedGeom g;
   int fit = 0;
   bad = gtt_fused_plan(kernel_of, batch, h, wtot, col0, panel, fseg,
-                       itemsize, &g, &fit);
+                       itemsize, route, groups, group, &g, &fit);
   if (bad) return bad;
-  if (g.route == GTT_ROUTE_GRID && (rec == nullptr || slot == nullptr))
+  if (taken != nullptr) {
+    taken[0] = g.route;
+    taken[1] = g.groups;
+    taken[2] = g.group;
+  }
+  const bool grid = g.route == GTT_ROUTE_GRID;
+  if (grid && (rec == nullptr || slot == nullptr))
     return (int)cudaErrorInvalidValue;
   const GttFusedBatchedArgs<T> ba = {
       {block, ld, h, wtot, col0, kbrow, panel, fseg, pt, mult, ipiv, inv,
-       chosen, minpiv, u, ctr, g.chunks, g.row_tiles, g.rows, g.group, rec,
-       slot},
-      bstride, batch, gctr};
+       chosen, minpiv, u, ctr, g.chunks, g.row_tiles, g.rows, g.group,
+       grid ? rec : nullptr, grid ? slot : nullptr},
+      bstride, batch, g.groups, gctr};
   void* args[] = {(void*)&ba};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =

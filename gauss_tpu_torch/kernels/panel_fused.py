@@ -28,11 +28,18 @@ Port of ``gauss_tpu/kernels/panel_fused_pallas.py``:
   under ``jax.vmap``): kernel 2 on every member of a (B, h, w) stack in
   one launch (``csrc/panel_fused_batched.cu``), each member bit for bit
   kernel 2 on it alone — the panel step of the serving lane's batched
-  blocked LU (``core.blocked.lu_factor_blocked_batched``). Its tall
-  members keep the one-block phase A at every B (an (8, 4096, 4096)
-  stack's members cannot each take a group of G blocks at once). No batched
-  form of :func:`trailing_update` exists: no serving route runs the
-  unfused pair's trailing kernel.
+  blocked LU (``core.blocked.lu_factor_blocked_batched``). Phase A takes
+  the route the C launcher's rule gives the stack (mirrored by
+  :func:`fused_batched_geometry` for the tests and the chip checks):
+  clusters where one holds the strip and the card holds the stack's
+  clusters at once, else K groups of G co-resident blocks that take the
+  members in turn on the grid step loop (:func:`group_size`), else one
+  block. Kernel 2 is the
+  same launch at B = 1. No batched form of :func:`trailing_update` exists:
+  no serving route runs the unfused pair's trailing kernel.
+- :func:`panel_trailing_fused_one_block`: kernel 2's one-block route on a
+  block or a stack, whatever the rule says, to time it beside the others;
+  no main path calls it.
 
 The contract, as in the JAX package: fused == panel + reconstruct +
 trailing, bit for bit, at matching ``fseg`` — on the card the kernels
@@ -71,11 +78,14 @@ from typing import NamedTuple
 import torch
 
 from gauss_tpu_torch.kernels import _build
-from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_MAX,
-                                           accum_dtype, check_cuda_storage,
+from gauss_tpu_torch.kernels.panel import (DEFAULT_SEG, PANEL_GRID_MAX,
+                                           PANEL_MAX, PANEL_SMEM_MAX,
+                                           accum_dtype,
+                                           check_cuda_storage,
                                            cluster_smem_bytes,
-                                           factor_steps_plain, launch_suffix,
-                                           panel_geometry, perm_from_inv)
+                                           factor_steps_plain, grid_size,
+                                           launch_suffix, panel_geometry,
+                                           perm_from_inv)
 
 #: Phase A's routes by the C launcher's code (``GTT_ROUTE_*``).
 ROUTES = ("block", "cluster", "grid")
@@ -109,6 +119,7 @@ class FusedGeometry(NamedTuple):
     chunks: int          # 64-column chunks right of the panel (B1 jobs)
     row_tiles: int       # 256-row tiles of the block (B2 jobs per chunk)
     group: int           # phase A's blocks: C, G or 1
+    groups: int = 0      # the grid route's groups K (0 off it)
 
 
 def trailing_smem_bytes(panel: int, fseg: int) -> int:
@@ -119,50 +130,102 @@ def trailing_smem_bytes(panel: int, fseg: int) -> int:
     return 4 * (head + 2 * fseg * (TRAIL_TILE_ROWS + TRAIL_CHUNK_COLS))
 
 
+def group_size(batch: int, h: int, panel: int, itemsize: int = 4,
+               sms: int = H100_SMS) -> tuple[int, int]:
+    """The grid route's ``(K, G)`` for ``batch`` members of (h, panel)
+    strips of ``itemsize``-byte words on a card of ``sms`` SMs, by the C
+    launcher's rule (``gtt_group_size``): as many groups as the card holds
+    of the smallest G whose blocks' rows fit their shared memory, at most
+    one a member (``K = min(batch, sms // G)``), then the widest G that K
+    groups leave (``sms // K``), at most the single strip's G
+    (:func:`~gauss_tpu_torch.kernels.panel.grid_size`, about 64 rows a
+    block), so one call takes kernel 2's G. Where the members take more
+    than one round, the groups the last round leaves idle take the first
+    members' trailing jobs (measured on the H100: ``PERF.md``,
+    ``scripts/probe_batched.py``). ``(0, 0)`` where no group holds the
+    strip."""
+    g1 = grid_size(h, panel, itemsize)
+    if not g1 or batch < 1:
+        return 0, 0
+    gmin = 1
+    while cluster_smem_bytes(-(-h // gmin), panel, itemsize) > PANEL_SMEM_MAX:
+        gmin += 1
+    if gmin > sms:
+        return 0, 0
+    k = min(batch, sms // gmin)
+    return k, min(sms // k, g1)
+
+
+def fused_batched_geometry(batch: int, h: int, wtot: int, panel: int,
+                           col0: int = 0, fseg: int = FUSED_FSEG_SEED,
+                           sms: int = H100_SMS, clusters: int | None = None,
+                           itemsize: int = 4) -> FusedGeometry:
+    """The launch of :func:`panel_trailing_fused_batched` on a ``(batch, h,
+    wtot)`` stack of ``itemsize``-byte words with the panel at ``col0``, by
+    the C launcher's rule (``gtt_fused_plan``). Phase A:
+
+    - the cluster route where a cluster holds the strip
+      (:func:`~gauss_tpu_torch.kernels.panel.panel_geometry`: at panel 256
+      up to 3,392 rows at float32 and 6,848 at bfloat16) and ``batch`` is
+      at most ``clusters``, the clusters the card holds at once (by default
+      the H100's 7 for C = 16, ``sms // C`` otherwise): one wave;
+    - else the grid route where a group holds it: ``groups`` K groups of
+      ``group`` G blocks (:func:`group_size`), group k taking members k,
+      k + K, ... in turn;
+    - else the cluster route where a cluster holds it, else one block.
+
+    Jobs: ``batch * chunks * (1 + row_tiles)``. Grid: ``C * min(batch +
+    ceil(jobs / C), clusters)`` on the cluster route, ``min(K * G + jobs,
+    sms)`` on the grid route, ``min(batch + jobs, sms)`` on the one-block
+    route. Dynamic shared memory: the larger of phase A's strip and the
+    trailing jobs' (:func:`trailing_smem_bytes`). At ``batch`` 1 this is
+    kernel 2's launch (:func:`fused_geometry`)."""
+    if (batch < 1 or h < 1 or not 1 <= panel <= PANEL_MAX or col0 < 0
+            or col0 + panel > wtot):
+        raise ValueError(f"fused_batched_geometry: no launch for batch="
+                         f"{batch}, h={h}, wtot={wtot}, panel={panel}, "
+                         f"col0={col0}")
+    if not 1 <= fseg <= FSEG_MAX_CUDA:
+        raise ValueError(f"fused_batched_geometry: fseg {fseg} outside [1, "
+                         f"{FSEG_MAX_CUDA}]")
+    chunks = -(-(wtot - col0 - panel) // TRAIL_CHUNK_COLS)
+    row_tiles = -(-h // TRAIL_TILE_ROWS)
+    jobs = batch * chunks * (1 + row_tiles)
+    trail = trailing_smem_bytes(panel, fseg)
+    strip = panel_geometry(h, panel, itemsize)
+    k, g = group_size(batch, h, panel, itemsize, sms)
+    if strip.route == "cluster":
+        c = strip.cluster
+        if clusters is None:
+            clusters = H100_CLUSTERS_OF_16 if c == 16 else max(1, sms // c)
+        if not g or batch <= clusters:
+            return FusedGeometry("cluster", c, strip.rows_per_block,
+                                 c * min(batch + -(-jobs // c), clusters),
+                                 max(strip.smem_bytes, trail), chunks,
+                                 row_tiles, c)
+    if g:
+        rows = -(-h // g)
+        return FusedGeometry("grid", 1, rows, min(k * g + jobs, sms),
+                             max(cluster_smem_bytes(rows, panel, itemsize),
+                                 trail), chunks, row_tiles, g, k)
+    return FusedGeometry("block", 1, h, min(batch + jobs, sms), trail,
+                         chunks, row_tiles, 1)
+
+
 def fused_geometry(h: int, wtot: int, panel: int, col0: int = 0,
                    fseg: int = FUSED_FSEG_SEED, sms: int = H100_SMS,
                    clusters: int | None = None,
                    itemsize: int = 4) -> FusedGeometry:
     """The launch of :func:`panel_trailing_fused` on an (h, wtot) block of
-    ``itemsize``-byte words with the panel at ``col0``, by the C
-    launcher's rule. Phase A takes the route
-    :func:`~gauss_tpu_torch.kernels.panel.panel_geometry` gives the strip:
-    the cluster route (at panel 256 up to 3,392 rows at float32 and 6,848
-    at bfloat16, C = 16 from 256 rows on), the grid route on a group of G
-    blocks above that (G = ``panel_geometry(...).blocks``), else the
-    one-block route. Jobs: ``chunks`` B1 jobs plus ``chunks * row_tiles``
-    B2 tiles. Grid: on the cluster route ``C * min(1 + ceil(jobs / C),
-    clusters)`` (phase A's cluster, then a block per job, no more clusters
-    than the card holds at once: ``clusters``, by default the H100's 7 for
-    C = 16 and ``sms // C`` otherwise), on the grid route ``min(G + jobs,
-    sms)``, on the one-block route ``min(1 + jobs, sms)``. Dynamic shared
-    memory: the larger of phase A's strip and the trailing jobs'
-    (:func:`trailing_smem_bytes`)."""
-    if (h < 1 or not 1 <= panel <= PANEL_MAX or col0 < 0
-            or col0 + panel > wtot):
-        raise ValueError(f"fused_geometry: no launch for h={h}, wtot={wtot}, "
-                         f"panel={panel}, col0={col0}")
-    if not 1 <= fseg <= FSEG_MAX_CUDA:
-        raise ValueError(f"fused_geometry: fseg {fseg} outside [1, "
-                         f"{FSEG_MAX_CUDA}]")
-    chunks = -(-(wtot - col0 - panel) // TRAIL_CHUNK_COLS)
-    row_tiles = -(-h // TRAIL_TILE_ROWS)
-    jobs = chunks * (1 + row_tiles)
-    trail = trailing_smem_bytes(panel, fseg)
-    strip = panel_geometry(h, panel, itemsize)
-    if strip.route == "cluster":
-        c = strip.cluster
-        if clusters is None:
-            clusters = H100_CLUSTERS_OF_16 if c == 16 else max(1, sms // c)
-        grid = c * min(1 + -(-jobs // c), clusters)
-    elif strip.route == "grid":
-        grid = min(strip.blocks + jobs, sms)
-    else:
-        return FusedGeometry("block", 1, h, min(1 + jobs, sms), trail,
-                             chunks, row_tiles, 1)
-    return FusedGeometry(strip.route, strip.cluster, strip.rows_per_block,
-                         grid, max(strip.smem_bytes, trail), chunks,
-                         row_tiles, strip.blocks)
+    ``itemsize``-byte words with the panel at ``col0``: the batched launch's
+    rule at one member (:func:`fused_batched_geometry`). Phase A takes the
+    route :func:`~gauss_tpu_torch.kernels.panel.panel_geometry` gives the
+    strip: the cluster route (C = 16 from 256 rows on), the grid route on
+    one group of G = ``panel_geometry(...).blocks`` blocks above that (K =
+    1), else the one-block route. Grid: ``C * min(1 + ceil(jobs / C),
+    clusters)``, ``min(G + jobs, sms)`` or ``min(1 + jobs, sms)``."""
+    return fused_batched_geometry(1, h, wtot, panel, col0, fseg, sms,
+                                  clusters, itemsize)
 
 
 def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
@@ -173,7 +236,7 @@ def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
     holds at once on the cluster route, or the blocks an SM holds on the
     others. Builds ``csrc/panel_fused.cu``; needs a CUDA device."""
     lib = _build.library("panel_fused")
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     _build.check(lib, lib.gtt_panel_fused_info(h, wtot, col0, panel, fseg,
                                                itemsize, out),
                  "fused_launch_info")
@@ -181,11 +244,11 @@ def fused_launch_info(h: int, wtot: int, panel: int, col0: int = 0,
 
 
 def _info_dict(out) -> dict:
-    """The C launcher's nine launch facts (``gtt_fused_info``) by name."""
+    """The C launcher's ten launch facts (``gtt_fused_info``) by name."""
     return {"cluster": out[0] or 1, "rows_per_block": out[1],
             "grid": out[2], "smem_bytes": out[3], "chunks": out[4],
             "row_tiles": out[5], "fit": out[6], "group": out[7],
-            "route": ROUTES[out[8]]}
+            "route": ROUTES[out[8]], "groups": out[9]}
 
 
 def resolve_tiles(h: int, wtot: int, panel: int, ct=None, seg=None,
@@ -443,21 +506,47 @@ def fused_batched_launch_info(batch: int, h: int, wtot: int, panel: int,
                               col0: int = 0, fseg: int = FUSED_FSEG_SEED,
                               itemsize: int = 4) -> dict:
     """What the batched kernel's C launcher reports for a ``(batch, h,
-    wtot)`` stack, in :func:`fused_launch_info`'s fields: phase A's route
-    per member (kernel 2's cluster route by the strip's height and
-    ``itemsize``, else the one-block route: the batched launch has no grid
-    route), the grid over the whole stack and ``fit``. Builds
+    wtot)`` stack by its rule, in :func:`fused_launch_info`'s fields: phase
+    A's route, its blocks (``group``: C, G or 1) and the grid route's
+    ``groups`` K, the grid over the whole stack and ``fit``. Builds
     ``csrc/panel_fused_batched.cu``; needs a CUDA device."""
     lib = _build.library("panel_fused_batched")
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     _build.check(lib, lib.gtt_panel_fused_batched_info(
         batch, h, wtot, col0, panel, fseg, itemsize, out),
         "fused_batched_launch_info")
     return _info_dict(out)
 
 
-def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,
-                        fseg: int):
+def _batched_scratch(bsz: int, panel: int, chunks: int, dev):
+    """The batched launch's scratch: each member's U rows; each member's
+    counters (kernel 2's), then the stack's two tickets, zeroed; and each
+    member's exchange of the grid step loop, room for any G the C launcher
+    may take (up to ``PANEL_GRID_MAX``; members lie 2 x G apart): 2 x G
+    step records, zeroed in the counters' buffer after the tickets (8-byte
+    aligned), and 2 x G pivot-row slots. Returns ``(u, ctr, gctr, rec,
+    slot)``."""
+    u = torch.empty((bsz, panel, max(chunks, 1) * TRAIL_CHUNK_COLS),
+                    dtype=torch.float32, device=dev)
+    gctr0 = bsz * (3 + chunks)
+    head = gctr0 + 2 + gctr0 % 2
+    ctr = torch.zeros(head + 4 * PANEL_GRID_MAX * bsz, dtype=torch.int32,
+                      device=dev)
+    slot = torch.empty((bsz, 2 * PANEL_GRID_MAX, panel), dtype=torch.float32,
+                       device=dev)
+    return u, ctr, ctr[gctr0:], ctr[head:], slot
+
+
+def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int, fseg: int,
+                        route: str | None = None, groups: int = 0,
+                        group: int = 0):
+    """Launch the batched kernel on ``route`` (None: the C launcher's rule,
+    which :func:`fused_batched_geometry` mirrors; on the grid route
+    ``groups`` K and ``group`` G, 0 for the rule's). The launcher takes a
+    given geometry as given and refuses one the card cannot run. Counts
+    the launch under its key in ``_build.LAUNCHES`` and under
+    ``<key>/<route>``, the route the launcher reports it took, in
+    ``_build.ROUTE_LAUNCHES``."""
     if stack.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"panel_trailing_fused_batched: the CUDA kernel "
                         f"takes float32 or bfloat16, got {stack.dtype}")
@@ -468,6 +557,8 @@ def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,
     if fseg > FSEG_MAX_CUDA:
         raise ValueError(f"panel_trailing_fused_batched: fseg {fseg} "
                          f"exceeds the CUDA tile routine's {FSEG_MAX_CUDA}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; routes: {ROUTES}")
     bsz, h, wtot = stack.shape
     dev = stack.device
     sfx = launch_suffix(stack.dtype)
@@ -478,10 +569,8 @@ def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,
     inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
     chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
     minpiv = torch.empty(bsz, dtype=stack.dtype, device=dev)
-    u = torch.empty((bsz, panel, max(chunks, 1) * TRAIL_CHUNK_COLS),
-                    dtype=torch.float32, device=dev)
-    # Each member's counters (kernel 2's), then the stack's two tickets.
-    ctr = torch.zeros(bsz * (3 + chunks) + 2, dtype=torch.int32, device=dev)
+    u, ctr, gctr, rec, slot = _batched_scratch(bsz, panel, chunks, dev)
+    taken = (ctypes.c_int * 3)()
     lib = _build.library("panel_fused_batched")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -490,9 +579,16 @@ def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int,
             col0, kbrow, panel, fseg, pt.data_ptr(), mult.data_ptr(),
             ipiv.data_ptr(), inv.data_ptr(), chosen.data_ptr(),
             minpiv.data_ptr(), u.data_ptr(), ctr.data_ptr(),
-            ctr[bsz * (3 + chunks):].data_ptr(), stream)
-    _build.check(lib, rc, "panel_trailing_fused_batched" + sfx)
-    _build.LAUNCHES["panel_trailing_fused_batched" + sfx] += 1
+            gctr.data_ptr(), rec.data_ptr(), slot.data_ptr(),
+            -1 if route is None else ROUTES.index(route),
+            groups if route == "grid" else 0,
+            group if route == "grid" else 0, taken, stream)
+    key = "panel_trailing_fused_batched" + sfx
+    _build.check(lib, rc, key)
+    _build.LAUNCHES[key] += 1
+    by_route = f"{key}/{ROUTES[taken[0]]}"
+    _build.ROUTE_LAUNCHES[by_route] = _build.ROUTE_LAUNCHES.get(by_route,
+                                                                0) + 1
     perm = perm_from_inv(inv, chosen, kbrow, panel)
     p = torch.gather(pt.transpose(1, 2), 1,
                      perm[:, :, None].expand(bsz, h, panel))
@@ -512,9 +608,13 @@ def panel_trailing_fused_batched(stack: torch.Tensor, col0: int, kbrow: int,
     stack)``; each member is updated IN PLACE as kernel 2 updates its
     block. ``stack`` may be a strided view (unit column stride; any row
     and member strides), float32 or bfloat16. A CUDA tensor launches
-    ``csrc/panel_fused_batched.cu`` (launch keys
-    ``panel_trailing_fused_batched`` and ``..._bf16``), whose every member
-    is bit for bit kernel 2 on that member, or raises; a CPU tensor runs
+    ``csrc/panel_fused_batched.cu`` on the route its C launcher's rule
+    gives (:func:`fused_batched_geometry` states it in Python; launch keys
+    ``panel_trailing_fused_batched`` and ``..._bf16``, and by the route
+    taken in ``_build.ROUTE_LAUNCHES``), whose every member is bit for bit
+    kernel 2 on that member, or raises (a route the card
+    cannot run raises :class:`~gauss_tpu_torch.kernels._build.KernelLaunchError`;
+    no other route is tried); a CPU tensor runs
     :func:`panel_trailing_fused_batched_plain`."""
     _check_batched_block(stack, col0, kbrow, panel)
     _, h, wtot = stack.shape
@@ -526,3 +626,53 @@ def panel_trailing_fused_batched(stack: torch.Tensor, col0: int, kbrow: int,
     if stack.device.type != "cuda":
         raise ValueError(f"unsupported device {stack.device}")
     return _fused_batched_cuda(stack, col0, kbrow, panel, fseg)
+
+
+def panel_trailing_fused_batched_at(stack: torch.Tensor, col0: int,
+                                    kbrow: int, *, panel: int, route: str,
+                                    groups: int = 0, group: int = 0,
+                                    fseg: int | None = None):
+    """:func:`panel_trailing_fused_batched` on phase-A route ``route``
+    (``"cluster"``, ``"grid"`` or ``"block"``) whatever the rule says; on
+    the grid route at ``groups`` K groups of ``group`` G blocks (0: the
+    C launcher's rule's, as :func:`group_size`). For measuring routes and
+    K and G, and for
+    the tests; needs a CUDA tensor. A route that does not hold the strip,
+    K above the batch, or K x G blocks the card cannot hold at once raise
+    :class:`~gauss_tpu_torch.kernels._build.KernelLaunchError`."""
+    _check_batched_block(stack, col0, kbrow, panel)
+    if stack.device.type != "cuda":
+        raise ValueError(f"panel_trailing_fused_batched_at: the kernel "
+                         f"needs a CUDA tensor, got one on {stack.device}")
+    _, h, wtot = stack.shape
+    _, _, fseg = resolve_tiles(h, wtot, panel, None, None, fseg)
+    return _fused_batched_cuda(stack, int(col0), int(kbrow), panel, fseg,
+                               route, int(groups), int(group))
+
+
+def panel_trailing_fused_one_block(block: torch.Tensor, col0: int,
+                                   kbrow: int, *, panel: int,
+                                   fseg: int | None = None):
+    """Kernel 2 with phase A on the one-block loop, on an (h, w) block or
+    on every member of a (B, h, w) stack in one launch, whatever the rule
+    says: the route the rule takes only beyond the grid's reach (and that
+    tall members of a batched launch took before the grid route), kept
+    reachable to time it beside the others. Returns what
+    :func:`panel_trailing_fused` (a block) or
+    :func:`panel_trailing_fused_batched` (a stack) returns. A CUDA tensor
+    launches the batched kernel on its one-block route (launch key
+    ``panel_trailing_fused_batched[_bf16]``); a CPU tensor runs the plain
+    version. No main path calls it."""
+    if block.dim() == 2:
+        out = panel_trailing_fused_one_block(block[None], col0, kbrow,
+                                             panel=panel, fseg=fseg)
+        return (*(f[0] for f in out[:4]), block)
+    _check_batched_block(block, col0, kbrow, panel)
+    if block.device.type == "cpu":
+        _, h, wtot = block.shape
+        _, _, fseg = resolve_tiles(h, wtot, panel, None, None, fseg)
+        return panel_trailing_fused_batched_plain(block, int(col0),
+                                                  int(kbrow), panel=panel,
+                                                  fseg=fseg)
+    return panel_trailing_fused_batched_at(block, col0, kbrow, panel=panel,
+                                           route="block", fseg=fseg)

@@ -3,21 +3,22 @@
 one blocked factorization taken apart, on the card.
 
     python3 scripts/probe_fused.py [--root DIR] [--reps 20] [--n 2048]
-        [--forms full,b2-no-math,...]
+        [--shapes H:W,...] [--forms full,b2-no-math,...]
 
 Imports ``gauss_tpu_torch`` from the checkout at ``--root`` (default: this
 one; another checkout, for example a parent commit unpacked beside it,
 compares two versions in one run on one card), builds its kernels, and on
 random blocks seeded 258458, at the n / 256 - 1 fused launch shapes of an
 n x n factorization at panel 256 (the live rows m[kb:] of width n, the
-panel at col0 = kb):
+panel at col0 = kb), and at each (h, w) of ``--shapes`` with the panel at
+column 0 (e.g. 8192:1024, the n=8192 chunked form's tallest launch):
 
 - prints, per shape and summed, the device time of one launch of the
   fused kernel, of the panel kernel on the same strip (phase A alone), of
   the trailing kernel on the same eliminations (phase B alone) and, where
   the checkout has it, of the batched fused kernel on a stack of that one
-  block (``panel_trailing_fused_batched``, B = 1): the
-  mean over ``--reps`` launches queued behind a spin kernel, so no host
+  block (``panel_trailing_fused_batched``, B = 1) and of kernel 2's
+  one-block route (``panel_trailing_fused_one_block``): the mean over ``--reps`` launches queued behind a spin kernel, so no host
   gap between launches counts (``chip_smoke.device_ms``), and the median
   of ``--reps`` calls by CUDA events around each call, the wrapper's host
   time included;
@@ -123,9 +124,10 @@ def load_form(so) -> None:
     _build._libs["panel_fused"] = lib
 
 
-def time_shapes(label: str, n: int, reps: int) -> None:
+def time_shapes(label: str, n: int, reps: int, extra=()) -> None:
     """The per-shape and summed device and per-call times (module
-    docstring) of the fused kernel and its two phases alone."""
+    docstring) of the fused kernel and its two phases alone, at the n x n
+    factorization's shapes (summed) and at each (h, w) of ``extra``."""
     import torch
 
     from chip_smoke import device_ms
@@ -138,9 +140,10 @@ def time_shapes(label: str, n: int, reps: int) -> None:
     total = {"fused": [0.0, 0.0], "phase A": [0.0, 0.0],
              "phase B": [0.0, 0.0], "batched B=1": [0.0, 0.0]}
     head = f"probe: {label}: " if label else "probe: "
-    for kb in range(0, n - PANEL, PANEL):
-        h = n - kb
-        orig = torch.as_tensor(rng.standard_normal((h, n)),
+    shapes = [(n - kb, n, kb) for kb in range(0, n - PANEL, PANEL)]
+    for i, (h, w, kb) in enumerate(shapes + [(h, w, 0) for h, w in extra]):
+        summed = i < len(shapes)
+        orig = torch.as_tensor(rng.standard_normal((h, w)),
                                dtype=torch.float32, device=dev)
         work = orig.clone()
         strip = orig[:, kb:kb + PANEL]
@@ -155,16 +158,20 @@ def time_shapes(label: str, n: int, reps: int) -> None:
         if hasattr(kf, "panel_trailing_fused_batched"):
             calls["batched B=1"] = lambda: kf.panel_trailing_fused_batched(
                 work[None], kb, 0, panel=PANEL)
+        if hasattr(kf, "panel_trailing_fused_one_block") and not summed:
+            calls["one-block"] = lambda: kf.panel_trailing_fused_one_block(
+                work, kb, 0, panel=PANEL)
         line = []
         for name, fn in calls.items():
             dms = device_ms(fn, reps)
             work.copy_(orig)
             cms = cuda_event_ms(fn, reps, setup=lambda: work.copy_(orig))
-            total[name][0] += dms
-            total[name][1] += cms
+            if summed:
+                total[name][0] += dms
+                total[name][1] += cms
             line.append(f"{name} {dms:.4f} device, {cms:.4f} per call")
-        print(f"{head}({h}, {n}) kb={kb}: " + "; ".join(line) + " (ms)")
-    print(f"{head}the {len(range(0, n - PANEL, PANEL))} shapes summed: "
+        print(f"{head}({h}, {w}) kb={kb}: " + "; ".join(line) + " (ms)")
+    print(f"{head}the {len(shapes)} shapes of n={n} summed: "
           + "; ".join(f"{name} {d:.4f} device, {c:.4f} per call"
                       for name, (d, c) in total.items() if d) + " (ms)")
 
@@ -175,6 +182,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--shapes", default="",
+                    help="more (h, w) blocks, panel at column 0: H:W,...")
     ap.add_argument("--forms", default="",
                     help="comma-separated forms of csrc/panel_fused.cu "
                          f"to time: {', '.join(ABLATIONS)}")
@@ -203,7 +212,9 @@ def main(argv=None) -> int:
             load_form(built[form])
             time_shapes(f"form {form}", args.n, args.reps)
         return 0
-    time_shapes("", args.n, args.reps)
+    extra = [tuple(int(x) for x in hw.split(":"))
+             for hw in args.shapes.split(",") if hw]
+    time_shapes("", args.n, args.reps, extra)
     rng = np.random.default_rng(258459)
     n, reps = args.n, args.reps
     dev = torch.device("cuda")

@@ -22,7 +22,8 @@ spills of the grid kernels, then, on random inputs seeded 258458:
   strip: median ms of ``--reps`` calls by CUDA events, and us per pivot
   step;
 - ``fused``: kernel 2 at (4096, 4096) and (8192, 1024), both dtypes,
-  median ms;
+  median ms, beside its one-block route on the same block
+  (``panel_trailing_fused_one_block``);
 - ``factor``: one chunked factorization at n=8192 (panel 256, chunk 4)
   and n=12,800 (panel 128, chunk 8) in float32 and at n=8192 in bfloat16,
   median of 3, beside ``torch.linalg.lu_factor`` on the same float32
@@ -188,8 +189,12 @@ def main(argv=None) -> int:
                 ms = cuda_event_ms(
                     lambda: kf.panel_trailing_fused(work, 0, 0, panel=256),
                     args.reps, setup=lambda: work.copy_(orig))
-                print(f"fused kernel 2 ({h}, {w}) {dt}: {ms:.4f} ms "
-                      f"[{card}]")
+                one = cuda_event_ms(
+                    lambda: kf.panel_trailing_fused_one_block(
+                        work, 0, 0, panel=256), max(3, args.reps // 4),
+                    setup=lambda: work.copy_(orig))
+                print(f"fused kernel 2 ({h}, {w}) {dt}: {ms:.4f} ms; the "
+                      f"one-block route {one:.4f} [{card}]")
 
     if "factor" in parts:
         from gauss_tpu_torch.core import blocked

@@ -591,6 +591,7 @@ def test_chip_smoke_serve_phase_rehearsal(monkeypatch, tmp_path):
                                  "256 bfloat16"}
     assert out["faults"]["poison"].keys() == {"nan", "singular"}
     assert 0.0 <= out["batch"]["host_staging_share"] <= 1.0
+    assert out["batch"]["own_process_trace"]["lost"] == 0
     text = buf.getvalue()
     assert '{"serve": ' in text and "requesttrace: 6 trace(s)" in text
     # The plan of one batched factor on the card.
@@ -602,3 +603,12 @@ def test_chip_smoke_serve_phase_rehearsal(monkeypatch, tmp_path):
     assert {k: v for k, v in plan.items() if v} == {
         "panel_trailing_fused_batched_bf16": 7,
         "panel_factor_batched_bf16": 1}
+    # Their phase-A routes: the 4096 bucket's 15 launches and a full
+    # batch's 2048 on the grid route, four members of 2048 on one wave of
+    # clusters, never one block.
+    assert cs.batched_factor_routes(8, 4096, 256) == {"grid": 15}
+    assert cs.batched_factor_routes(8, 2048, 256, 2) == {"grid": 7}
+    assert cs.batched_factor_routes(4, 2048, 256) == {"cluster": 7}
+    assert cs.batched_factor_routes(8, 128, 128) == {}
+    assert all("block" not in r["fused_routes"]
+               for r in out["rungs"].values())

@@ -127,6 +127,155 @@ def test_fused_batched_argument_checks():
         kf.panel_trailing_fused_batched(torch.zeros(2, 8, 8), 0, 6, panel=4)
 
 
+# --- the batched fused launch's rule -------------------------------------------
+
+#: (B, h, wtot, panel, itemsize) at the serving lane's shapes (the first
+#: panel step of each bucket's factor, and the tall steps of the 4096
+#: bucket, the panel at column wtot - h) -> the rule's (route, K, G, rows
+#: a phase-A block holds, grid) on the H100.
+SERVICE_ROUTES = {
+    (8, 4096, 4096, 256, 4): ("grid", 6, 22, 187, 132),
+    (8, 3840, 4096, 256, 4): ("grid", 6, 22, 175, 132),
+    (8, 3584, 4096, 256, 4): ("grid", 7, 18, 200, 132),
+    (8, 2048, 2048, 256, 4): ("grid", 8, 16, 128, 132),
+    (8, 1024, 1024, 256, 4): ("grid", 8, 16, 64, 132),
+    (8, 512, 512, 128, 4): ("grid", 8, 8, 64, 132),
+    (8, 2048, 2048, 256, 2): ("grid", 8, 16, 128, 132),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVICE_ROUTES))
+def test_fused_batched_geometry_at_the_service_shapes(shape):
+    bsz, h, w, panel, isz = shape
+    g = kf.fused_batched_geometry(bsz, h, w, panel, w - h, itemsize=isz)
+    assert (g.route, g.groups, g.group, g.rows_per_block,
+            g.grid) == SERVICE_ROUTES[shape]
+    assert g.groups * g.group <= kf.H100_SMS
+    assert g.smem_bytes == max(kp.cluster_smem_bytes(g.rows_per_block, panel,
+                                                     isz),
+                               kf.trailing_smem_bytes(panel, 32))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_fused_batched_rule_keeps_one_wave_of_clusters(itemsize):
+    """At h = 2048 a cluster holds the strip: up to the 7 clusters the H100
+    holds at once the stack takes the cluster route in one wave; an eighth
+    member takes the grid route, 8 groups of 16, in one round."""
+    for bsz in range(1, 8):
+        g = kf.fused_batched_geometry(bsz, 2048, 2048, 256,
+                                      itemsize=itemsize)
+        assert (g.route, g.cluster, g.groups) == ("cluster", 16, 0)
+        assert g.grid == 16 * min(bsz + -(-bsz * g.chunks * (
+            1 + g.row_tiles) // 16), kf.H100_CLUSTERS_OF_16)
+    g = kf.fused_batched_geometry(8, 2048, 2048, 256, itemsize=itemsize)
+    assert (g.route, g.groups, g.group) == ("grid", 8, 16)
+    assert kf.fused_batched_geometry(8, 2048, 2048, 256, clusters=8,
+                                     itemsize=itemsize).route == "cluster"
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_tall_members_never_take_the_one_block_route(itemsize):
+    """(B, 4096) and the 4096 bucket's steps, at every batch the lane
+    pads to, and the n=8192 form's tallest strips: the grid route (or a
+    bfloat16 cluster), never one block; the groups fit the card."""
+    for bsz in (1, 2, 4, 8, 16):
+        for h in (4096, 3840, 3584, 8192):
+            g = kf.fused_batched_geometry(bsz, h, 4096 if h < 4096 else h,
+                                          256, 4096 - h if h < 4096 else 0,
+                                          itemsize=itemsize)
+            assert g.route != "block"
+            if g.route == "grid":
+                assert 1 <= g.groups <= bsz
+                assert g.groups * g.group <= kf.H100_SMS
+                assert kp.cluster_smem_bytes(g.rows_per_block, 256,
+                                             itemsize) <= kp.PANEL_SMEM_MAX
+
+
+@pytest.mark.parametrize("bsz,h,panel,sms", [
+    (8, 4096, 256, 132), (8, 2048, 256, 132), (5, 3000, 128, 132),
+    (16, 1024, 256, 132), (8, 4096, 256, 60), (3, 12800, 128, 132),
+    (8, 27000, 256, 132), (1, 100, 16, 132), (40, 1024, 256, 132)])
+def test_group_size_takes_the_most_groups_then_the_widest(bsz, h, panel,
+                                                          sms):
+    k, g = kf.group_size(bsz, h, panel, 4, sms)
+    fits = [gg for gg in range(1, kp.PANEL_GRID_MAX + 1)
+            if kp.cluster_smem_bytes(-(-h // gg), panel) <= kp.PANEL_SMEM_MAX]
+    if not fits or fits[0] > sms or not kp.grid_size(h, panel):
+        assert (k, g) == (0, 0)
+        return
+    # As many groups of the smallest fitting G as the card holds, at most
+    # one a member; then the widest G that K groups leave, capped at the
+    # single strip's G.
+    assert k == min(bsz, sms // fits[0])
+    assert g == min(sms // k, kp.grid_size(h, panel)) and g in fits
+    assert k * g <= sms and -(-bsz // k) == -(-bsz // (sms // fits[0]))
+
+
+@pytest.mark.parametrize("h,wtot,panel,col0,itemsize", [
+    (2048, 2048, 256, 0, 4), (512, 2048, 256, 1536, 4),
+    (4096, 4096, 256, 0, 4), (8192, 1024, 256, 0, 4),
+    (12800, 1024, 128, 0, 4), (6865, 6865, 1024, 0, 4),
+    (6849, 1024, 256, 0, 2), (96, 96, 16, 32, 4)])
+def test_one_member_is_kernel_2s_launch(h, wtot, panel, col0, itemsize):
+    """At B = 1 the batched rule is kernel 2's: the strip's route and blocks
+    (panel_geometry), one group."""
+    g = kf.fused_batched_geometry(1, h, wtot, panel, col0,
+                                  itemsize=itemsize)
+    strip = kp.panel_geometry(h, panel, itemsize)
+    assert g == kf.fused_geometry(h, wtot, panel, col0, itemsize=itemsize)
+    assert (g.route, g.group) == (strip.route, strip.blocks)
+    assert g.groups == (1 if strip.route == "grid" else 0)
+
+
+@pytest.mark.parametrize("chunks", [5, 4])
+def test_batched_exchange_scratch(chunks):
+    """Each member's counters, the stack's two tickets, then room for each
+    member's grid-route exchange at any G the C launcher may take (up to
+    PANEL_GRID_MAX): 2 x G zeroed 64-bit records a member (8-byte aligned
+    after the tickets) and 2 x G pivot-row slots."""
+    gmax = kp.PANEL_GRID_MAX
+    u, ctr, gctr, rec, slot = kf._batched_scratch(3, 16, chunks, CPU)
+    assert u.shape == (3, 16, chunks * kf.TRAIL_CHUNK_COLS)
+    gctr0 = 3 * (3 + chunks)
+    head = gctr0 + 2 + gctr0 % 2
+    assert ctr.dtype == torch.int32 and ctr.numel() == head + 4 * gmax * 3
+    assert gctr.data_ptr() == ctr.data_ptr() + 4 * gctr0
+    assert rec.numel() == 2 * gmax * 3 * 2 and rec.data_ptr() % 8 == 0
+    assert rec.data_ptr() == ctr.data_ptr() + 4 * head
+    assert not bool(ctr.any())
+    assert slot.shape == (3, 2 * gmax, 16) and slot.dtype == torch.float32
+
+
+def test_route_launches_reset_and_cpu_counts_none(rng):
+    """``_build.ROUTE_LAUNCHES`` (the batched fused launches by the route
+    the launcher took) is cleared by ``reset_launches``; the CPU path, the
+    plain version, counts nothing there."""
+    _build.ROUTE_LAUNCHES["panel_trailing_fused_batched/grid"] = 3
+    _build.reset_launches()
+    assert _build.ROUTE_LAUNCHES == {}
+    x = torch.as_tensor(rng.standard_normal((2, 64, 96)),
+                        dtype=torch.float32)
+    kf.panel_trailing_fused_batched(x, 16, 0, panel=16)
+    assert _build.ROUTE_LAUNCHES == {}
+
+
+def test_one_block_entry_runs_the_plain_version_on_the_cpu(rng):
+    """``panel_trailing_fused_one_block`` takes a block or a stack; on the
+    CPU it is the plain version and counts no launch; the route-forcing
+    entry needs the card."""
+    x = torch.as_tensor(rng.standard_normal((2, 64, 96)),
+                        dtype=torch.float32)
+    before = dict(_build.LAUNCHES)
+    got = kf.panel_trailing_fused_one_block(x.clone(), 16, 0, panel=16)
+    want = kf.panel_trailing_fused_batched_plain(x.clone(), 16, 0, panel=16)
+    one = kf.panel_trailing_fused_one_block(x[1].clone(), 16, 0, panel=16)
+    for g, w, o in zip(got, want, one):
+        assert torch.equal(g, w) and torch.equal(g[1], o)
+    assert dict(_build.LAUNCHES) == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kf.panel_trailing_fused_batched_at(x, 16, 0, panel=16, route="grid")
+
+
 # --- the bfloat16 batched panel kernel's plain version -------------------------
 
 
@@ -314,20 +463,39 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bsz,h,w,panel,dtype", [
-    (3, 512, 512, 128, torch.float32), (2, 300, 700, 64, torch.float32),
-    (2, 4096, 768, 256, torch.float32), (3, 512, 512, 128, BF16)])
-def test_fused_batched_kernel_on_card(cuda_device, bsz, h, w, panel, dtype):
-    """One launch per stack; every member bit for bit kernel 2 on it alone
-    (both phase-A routes), pivots equal to the plain version's."""
+@pytest.mark.parametrize("bsz,h,w,panel,dtype,route", [
+    (3, 512, 512, 128, torch.float32, "cluster"),
+    (2, 300, 700, 64, torch.float32, "cluster"),
+    (2, 4096, 768, 256, torch.float32, "grid"),
+    (3, 512, 512, 128, BF16, "cluster"),
+    (2, 7424, 512, 256, BF16, "grid"),           # taller than a cluster
+    (8, 1024, 1024, 256, torch.float32, "grid"),  # more than 7 clusters
+    (8, 1024, 1024, 256, BF16, "grid"),
+    (9, 700, 800, 128, torch.float32, "grid")])
+def test_fused_batched_kernel_on_card(cuda_device, bsz, h, w, panel, dtype,
+                                      route):
+    """One launch per stack on the rule's route, the C launcher's geometry
+    equal to the Python rule's; every member bit for bit kernel 2 on it
+    alone (every phase-A route), pivots equal to the plain version's."""
     x = torch.as_tensor(np.random.default_rng(h + w).standard_normal(
         (bsz, h, w)), dtype=torch.float32, device=cuda_device).to(dtype)
+    isz = x.element_size()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    info = kf.fused_batched_launch_info(bsz, h, w, panel, itemsize=isz)
+    geom = kf.fused_batched_geometry(bsz, h, w, panel, sms=sms, itemsize=isz,
+                                     clusters=info["fit"] if info["route"]
+                                     == "cluster" else None)
+    assert geom.route == route
+    assert {k: info[k] for k in geom._fields} == geom._asdict()
     key = "panel_trailing_fused_batched" + ("_bf16" if dtype == BF16
                                             else "")
     before = _build.LAUNCHES[key]
+    by_route = dict(_build.ROUTE_LAUNCHES)
     work = x.clone()
     got = kf.panel_trailing_fused_batched(work, 0, 0, panel=panel)
     assert _build.LAUNCHES[key] == before + 1
+    by_route[f"{key}/{route}"] = by_route.get(f"{key}/{route}", 0) + 1
+    assert _build.ROUTE_LAUNCHES == by_route
     for i in range(bsz):
         single = x[i].clone()
         one = kf.panel_trailing_fused(single, 0, 0, panel=panel)
@@ -337,6 +505,42 @@ def test_fused_batched_kernel_on_card(cuda_device, bsz, h, w, panel, dtype):
         plain = kf.panel_trailing_fused_plain(x[i].clone(), 0, 0,
                                               panel=panel)
         assert torch.equal(got[1][i], plain[1])
+
+
+@pytest.mark.cuda
+def test_fused_batched_routes_agree_and_fail_typed_on_card(cuda_device):
+    """Every route that holds the strip gives the rule's bits (the cluster
+    waves, the one-block route, the grid route at other K and G); a grid
+    route the card cannot hold at once, or a route that does not hold the
+    strip, raises KernelLaunchError and launches nothing."""
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (8, 512, 640)), dtype=torch.float32, device=cuda_device)
+    want = x.clone()
+    ref = kf.panel_trailing_fused_batched(want, 0, 0, panel=128)
+    for route, k, g in (("cluster", 0, 0), ("block", 0, 0), ("grid", 4, 8),
+                        ("grid", 8, 3), ("grid", 0, 0)):
+        work = x.clone()
+        n = _build.ROUTE_LAUNCHES.get(f"panel_trailing_fused_batched/{route}",
+                                      0)
+        got = kf.panel_trailing_fused_batched_at(work, 0, 0, panel=128,
+                                                 route=route, groups=k,
+                                                 group=g)
+        assert _build.ROUTE_LAUNCHES[
+            f"panel_trailing_fused_batched/{route}"] == n + 1
+        for a, b in zip(got[:4], ref[:4]):
+            assert torch.equal(a, b)
+        assert torch.equal(work, want)
+    before = dict(_build.LAUNCHES)
+    by_route = dict(_build.ROUTE_LAUNCHES)
+    with pytest.raises(_build.KernelLaunchError, match="CUDA error"):
+        kf.panel_trailing_fused_batched_at(x.clone(), 0, 0, panel=128,
+                                           route="grid", groups=8, group=40)
+    tall = torch.zeros((2, 4096, 512), device=cuda_device)
+    with pytest.raises(_build.KernelLaunchError, match="CUDA error"):
+        kf.panel_trailing_fused_batched_at(tall, 0, 0, panel=256,
+                                           route="cluster")
+    assert dict(_build.LAUNCHES) == before
+    assert _build.ROUTE_LAUNCHES == by_route
 
 
 @pytest.mark.cuda

@@ -177,8 +177,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. The structure router (``structure.solve_auto`` on the recovery
    ladder) on the card: (a) the batched panel kernel (kernel 1 over a
    (B, h, panel) stack, one launch) bit for bit against its plain version
-   on a random (64, 128, 128) stack, a stack past a block's shared memory
-   (the global-scratch route) and a one-member stack against the
+   on a random (64, 128, 128) stack (the register step loop on one
+   block), a stack of members taller than that loop takes (the one-block
+   loop in global scratch) and a one-member stack against the
    single-strip kernel; (b) one ``solve_auto`` per class, each with the
    launch counts set to 0 just before and read just after: spd
    (``synthetic.spd_matrix`` at STRUCT_SPD, served by ``cholesky``, the
@@ -192,7 +193,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (STRUCT_BANDED: the tridiagonal scan and the block LU), blockdiag
    (STRUCT_BLOCKDIAG, 64 members in one bucket: one batched launch per
    factor, the cache's warm-up factor included, every launch held bit for
-   bit against its plain version, the launch timed beside
+   bit against its plain version, the launches counted by the route each
+   took, none on the one-block loop, the launch timed beside
    ``torch.linalg.lu_factor`` on the same stack and its bound); each
    served at rung 0 by its engine and verified by a float64 residual at
    the 1e-4 gate; (c) the demotions at STRUCT_DEMOTE_N: the spd system
@@ -216,8 +218,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    to ``fused_batched_geometry``'s, each member's pivots equal and
    its block within TOL (float32) or TOL_BF16/TOL_BF16_SHARE (bfloat16) of
    the plain version and bit for bit kernel 2 on that member alone; the
-   bfloat16 batched panel kernel at SERVE_K1_CHECK bit for bit its plain
-   version and the bfloat16 kernel 1 on each member; each timed (CUDA
+   batched panel kernel at SERVE_K1_CHECK (the service's last panels,
+   (8, 256, 256) on a cluster of 4 and (8, 128, 128) on one block's
+   registers, float32 and bfloat16) on the route the rule names (the C
+   launcher's report and its count by route), bit for bit its plain
+   version and kernel 1 on each member; each timed (CUDA
    events, median of --reps) beside the single-stack kernel looped over
    the members, the one-block route on the same stack (the fused kernel;
    ``panel_trailing_fused_one_block``), its plain version,
@@ -240,11 +245,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``numpy`` lane at 0, the launch counts equal to the plan of every
    factor the cache ran (warm-ups included) and of the handoff
    factorization, the batched fused launches by the route each took equal
-   to the rule's plan, none on the one-block route; lanes, cache, solves/s, p50/p99, occupancy; one full
+   to the rule's plan, none on the one-block route, and the batched panel
+   launches by the step loop each took equal to the rule's plan, none on
+   the one-block loop; every batched panel launch of (c) and (e) recorded
+   by (B, h, panel, dtype) and route, held bit for bit against its plain
+   version after the run, each shape timed beside its bound and
+   ``lu_factor``; lanes, cache, solves/s, p50/p99, occupancy; one full
    4096 batch taken apart (padding, staging, factor, solves, the host
    residual: the host staging share) and traced in a fresh process (its
    16 kernels as planned, a trace missing some taken again as in phase 6;
-   device busy against host ms, the idle share); (d) a transient
+   device busy against host ms, the idle share), and in the server's own
+   process, recording what it lost (queue-3 fault 1); (d) a transient
    ``serve.cache.compile`` fault retried and served, ``poison:nan`` and
    ``poison:singular`` rejected typed; (e) ``python -m gauss_tpu_torch.serve.cli --requests
    40 --metrics-out``: exit 0, the port's ``summarize`` renders ok = 40,
@@ -402,15 +413,17 @@ DEMOTIONS = (
 # Phase 9's cells. (a) The batched fused kernel's stacks (B, n, panel,
 # dtype): tall members (n=4096) and more members than the card's clusters
 # at once (n=2048) on the grid route, a panel-128 rung, the bfloat16 form,
-# and one wave of clusters (B = 4); the bfloat16 batched panel
-# kernel's stacks. (b) The default serving ladder (the JAX package's
+# and one wave of clusters (B = 4); the batched panel kernel's stacks
+# (B, h, panel, dtype) at the service's last panels, both lanes. (b) The default serving ladder (the JAX package's
 # serve/buckets.py), its batch, and the bfloat16 rung. (c) The service:
 # its mix reaches every rung and lane; one oversized request takes the
 # handoff lane. (d) The poison order. (e) The CLI run.
 SERVE_FUSED_CHECK = ((8, 4096, 256, "float32"), (8, 2048, 256, "float32"),
                      (8, 512, 128, "float32"), (8, 2048, 256, "bfloat16"),
                      (4, 1024, 256, "float32"))
-SERVE_K1_CHECK = ((8, 128, 128), (64, 128, 128))
+SERVE_K1_CHECK = ((8, 256, 256, "float32"), (8, 128, 128, "float32"),
+                  (8, 256, 256, "bfloat16"), (8, 128, 128, "bfloat16"),
+                  (64, 128, 128, "bfloat16"))
 SERVE_LADDER = (128, 256, 512, 1024, 2048, 4096)
 SERVE_BATCH = 8
 SERVE_BF16_N = 2048
@@ -2410,9 +2423,21 @@ TRACE_KINDS = (
      "panel_trailing_fused_batched_bf16", "block"),
     (("gtt_fused_batched_grid_bf16_kernel",),
      "panel_trailing_fused_batched_bf16", "grid"),
-    (("gtt_panel_batched_kernel",), "panel_factor_batched", "batched"),
-    (("gtt_panel_batched_bf16_kernel",), "panel_factor_batched_bf16",
-     "batched"))
+    (("gtt_batched_regs_kernel",), "panel_factor_batched", "regs"),
+    (("gtt_batched_cluster_kernel",), "panel_factor_batched", "cluster"),
+    (("gtt_panel_batched_kernel<true>", "gtt_panel_batched_kernelILb1E"),
+     "panel_factor_batched", "smem"),
+    (("gtt_panel_batched_kernel<false>", "gtt_panel_batched_kernelILb0E"),
+     "panel_factor_batched", "global"),
+    (("gtt_batched_regs_bf16_kernel",), "panel_factor_batched_bf16", "regs"),
+    (("gtt_batched_cluster_bf16_kernel",), "panel_factor_batched_bf16",
+     "cluster"),
+    (("gtt_panel_batched_bf16_kernel<true>",
+      "gtt_panel_batched_bf16_kernelILb1E"), "panel_factor_batched_bf16",
+     "smem"),
+    (("gtt_panel_batched_bf16_kernel<false>",
+      "gtt_panel_batched_bf16_kernelILb0E"), "panel_factor_batched_bf16",
+     "global"))
 
 
 # About 10 ms of spin on the H100: the profiler keeps only the device
@@ -3510,7 +3535,7 @@ def phase_structure(reps: int):
     rng = np.random.default_rng(SEED + 8)
     path = dict.fromkeys(_build.LAUNCHES, 0)
     out = {"card": card, "batched": {}, "batched_err": 0.0, "classes": {},
-           "demotions": {}}
+           "demotions": {}, "batched_routes": {}}
     require(not lowered.lowered_enabled(N), "a tune store starts the dense "
             "lane below float32; phase 8 expects the float32 route")
     plan = plan_counts(factor_plan(N, PANEL)) if on_card else dict.fromkeys(
@@ -3566,6 +3591,10 @@ def phase_structure(reps: int):
         want = expect(cache.misses - misses) if callable(expect) else expect
         for k in path:
             path[k] += got[k]
+        for k, v in _build.ROUTE_LAUNCHES.items():
+            if k.startswith("panel_factor_batched"):
+                routes = out["batched_routes"]
+                routes[k] = routes.get(k, 0) + v
         rel = checks.residual_norm(a, res.x, b, relative=True)
         require(res.rung == engine and res.rung_index == 0,
                 f"{label}: served by {res.rung} at rung {res.rung_index} "
@@ -3662,6 +3691,10 @@ def phase_structure(reps: int):
                   f"{row['rel_residual']:.3e} [{card}]")
     finally:
         kp.panel_factor_batched = real_batched
+    require(not any(k.endswith(("/smem", "/global"))
+                    for k in out["batched_routes"]),
+            f"the block-diagonal lane's batched panel launches by route "
+            f"{out['batched_routes']}: the one-block loop")
     for shape, stack in sorted(stacks.items()):
         bms, by = batched_bound(shape)
         rec = {"bound_ms": bms, "bound_by": by, "ms": None, "plain_ms": None,
@@ -3854,9 +3887,26 @@ def serve_fused_check(reps: int, rng, bsz: int, n: int, panel: int,
     return rec
 
 
+def batched_launch_route(h: int, panel: int, itemsize: int = 4) -> str:
+    """The batched panel kernel's step loop for an (h, panel) member of
+    ``itemsize``-byte words (``panel_batched_geometry``: ``regs`` or
+    ``cluster``, the register loop; ``smem`` or ``global``, the one-block
+    loop); on the CPU the plain version."""
+    from gauss_tpu_torch.kernels import panel as kp
+
+    if DEVICE != "cuda":
+        return "plain"
+    return kp.panel_batched_geometry(h, panel, itemsize).route
+
+
+def batched_launch_key(itemsize: int, route: str) -> str:
+    return f"panel_factor_batched{'_bf16' if itemsize == 2 else ''}/{route}"
+
+
 def serve_k1_check(reps: int, rng, shape) -> dict:
-    """Phase 9 (a): the bfloat16 batched panel kernel on a (B, h, panel)
-    stack: one launch, bit for bit its plain version and the bfloat16
+    """Phase 9 (a): the batched panel kernel on a (B, h, panel, dtype)
+    stack: one launch, on the route the rule names (the C launcher's
+    report and its count by route), bit for bit its plain version and
     kernel 1 on each member alone; timed beside kernel 1 looped over the
     members, the plain version, ``lu_factor`` on the float32 stack and the
     bound."""
@@ -3866,30 +3916,41 @@ def serve_k1_check(reps: int, rng, shape) -> dict:
     from gauss_tpu_torch.kernels import panel as kp
 
     dev = torch.device(DEVICE)
-    p = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
-                        device=dev).to(torch.bfloat16)
-    before = _build.LAUNCHES["panel_factor_batched_bf16"]
+    *dims, dt = shape
+    p = torch.as_tensor(rng.standard_normal(dims), dtype=torch.float32,
+                        device=dev).to(getattr(torch, dt))
+    isz = p.element_size()
+    key = "panel_factor_batched" + ("_bf16" if isz == 2 else "")
+    route = batched_launch_route(*dims[1:], isz)
+    before = _build.LAUNCHES[key]
+    by_route = _build.ROUTE_LAUNCHES.get(batched_launch_key(isz, route), 0)
     got = kp.panel_factor_batched(p.clone())
     sync()
-    require(_build.LAUNCHES["panel_factor_batched_bf16"]
-            == before + (DEVICE == "cuda"), "one bf16 batched launch")
+    on_card = DEVICE == "cuda"
+    require(_build.LAUNCHES[key] == before + on_card
+            and _build.ROUTE_LAUNCHES.get(batched_launch_key(isz, route), 0)
+            == by_route + on_card, f"one batched launch on the {route} route "
+            f"at {shape}: {_build.ROUTE_LAUNCHES}")
+    if on_card:
+        info = kp.panel_batched_info(*dims[1:], isz)
+        require(info["route"] == route, f"batched panel kernel at {shape}: "
+                f"the C launcher's route {info}, the rule's {route}")
     require(same_outputs(got, kp.panel_factor_batched_plain(p.clone())),
-            f"bf16 batched panel kernel at {shape} differs from the plain "
+            f"batched panel kernel at {shape} differs from the plain "
             f"version")
-    for i in range(shape[0]):
+    for i in range(dims[0]):
         one = kp.panel_factor(p[i].clone())
         require(all(torch.equal(g[i], w) for g, w in zip(got, one)),
-                f"bf16 batched panel kernel at {shape}: member {i} differs "
-                f"from the bfloat16 kernel 1 on it alone")
-    bms, by = batched_bound(shape, itemsize=2)
-    rec = {"stack": list(shape), "err": 0.0, "bound_ms": bms, "bound_by": by,
-           "route": None, "ms": None, "loop_ms": None, "plain_ms": None,
-           "library_ms": None}
-    if DEVICE == "cuda":
-        rec["route"] = kp.panel_batched_info(*shape[1:], 2)["route"]
+                f"batched panel kernel at {shape}: member {i} differs "
+                f"from kernel 1 on it alone")
+    bms, by = batched_bound(dims, itemsize=isz)
+    rec = {"stack": list(dims), "dtype": dt, "err": 0.0, "bound_ms": bms,
+           "bound_by": by, "route": route, "ms": None, "loop_ms": None,
+           "plain_ms": None, "library_ms": None}
+    if on_card:
         rec["ms"] = device_ms(lambda: kp.panel_factor_batched(p), reps)
         rec["loop_ms"] = device_ms(lambda: [kp.panel_factor(p[i]) for i in
-                                            range(shape[0])],
+                                            range(dims[0])],
                                    max(3, reps // 4))
         rec["plain_ms"] = call_ms(lambda: kp.panel_factor_batched_plain(p),
                                   1)
@@ -3897,12 +3958,64 @@ def serve_k1_check(reps: int, rng, shape) -> dict:
         with quiet_fd1():
             rec["library_ms"] = device_ms(lambda: torch.linalg.lu_factor(f32),
                                           reps)
-    print(f"phase 9: bf16 batched panel kernel at {shape} ({rec['route']} "
-          f"route): one launch, == plain and == the bf16 kernel 1 on each "
-          f"member bit for bit; ms {rec['ms']} (kernel 1 looped "
-          f"{rec['loop_ms']}), plain {rec['plain_ms']}, lu_factor on the "
-          f"float32 stack {rec['library_ms']}, bound {bms:.5f} ({by})")
+    print(f"phase 9: batched panel kernel at {shape} ({route} route): one "
+          f"launch, == plain and == kernel 1 on each member bit for bit; ms "
+          f"{rec['ms']} (kernel 1 looped {rec['loop_ms']}), plain "
+          f"{rec['plain_ms']}, lu_factor on the float32 stack "
+          f"{rec['library_ms']}, bound {bms:.5f} ({by})")
     return rec
+
+
+def batched_panel_recorder(real, seen: dict, kept: list):
+    """A stand-in for ``panel_factor_batched`` that counts every launch by
+    (B, h, panel, dtype) and the route the rule names (``seen``) and keeps
+    each launch's input (``kept``, one device copy a launch) for
+    ``check_kept_batched``."""
+    def recording(p, kb=0):
+        kept.append((p.clone(), kb))
+        shape = (*p.shape, str(p.dtype).replace("torch.", ""))
+        rec = seen.setdefault(str(shape), {
+            "shape": list(shape), "launches": 0,
+            "route": batched_launch_route(*p.shape[1:], p.element_size())})
+        rec["launches"] += 1
+        return real(p, kb)
+    return recording
+
+
+def check_kept_batched(kept: list, where: str) -> None:
+    """The kernel launched again on every kept input, after the run (it is
+    deterministic: the same input gives the same bits), bit for bit its
+    plain version."""
+    from gauss_tpu_torch.kernels import panel as kp
+
+    for x, kb in kept:
+        require(same_outputs(kp.panel_factor_batched(x.clone(), kb),
+                             kp.panel_factor_batched_plain(x, kb)),
+                f"{where}: a batched panel launch at {tuple(x.shape)} "
+                f"{x.dtype} differs from the plain version")
+
+
+def time_launched_batched(reps: int, seen: dict, rng) -> None:
+    """Each recorded (B, h, panel, dtype) of the batched panel kernel timed
+    on a random stack (device ms of queued launches) beside its bound and
+    ``lu_factor`` on the float32 stack."""
+    import torch
+
+    from gauss_tpu_torch.kernels import panel as kp
+
+    for rec in seen.values():
+        *dims, dt = rec["shape"]
+        p = torch.as_tensor(rng.standard_normal(dims), dtype=torch.float32,
+                            device=torch.device(DEVICE)).to(getattr(torch, dt))
+        rec["bound_ms"], rec["bound_by"] = batched_bound(
+            dims, itemsize=p.element_size())
+        rec["ms"] = rec["library_ms"] = None
+        if DEVICE == "cuda":
+            rec["ms"] = device_ms(lambda: kp.panel_factor_batched(p), reps)
+            f32 = p.float()
+            with quiet_fd1():
+                rec["library_ms"] = device_ms(
+                    lambda: torch.linalg.lu_factor(f32), reps)
 
 
 def batched_factor_plan(n: int, panel: int, itemsize: int = 4) -> dict:
@@ -3965,7 +4078,17 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
     fac = blocked.lu_factor_blocked_batched(stack, device=DEVICE)
     sync()
     got = {k: v for k, v in _build.LAUNCHES.items() if v}
-    counted = {k.split("/")[1]: v for k, v in _build.ROUTE_LAUNCHES.items()}
+    counted = {k.split("/")[1]: v for k, v in _build.ROUTE_LAUNCHES.items()
+               if k.startswith("panel_trailing_fused_batched")}
+    counted_k1 = {k: v for k, v in _build.ROUTE_LAUNCHES.items()
+                  if k.startswith("panel_factor_batched")}
+    isz = stack.element_size()
+    if DEVICE == "cuda":
+        k1_route = batched_launch_key(isz, batched_launch_route(panel, panel,
+                                                                isz))
+        require(counted_k1 == {k1_route: 1}, f"lu_factor_blocked_batched "
+                f"n={n}: the batched panel launch by route {counted_k1}, "
+                f"the rule's {k1_route}")
     want = {k: v for k, v in batched_factor_plan(
         n, panel, stack.element_size()).items() if v}
     require(got == want, f"lu_factor_blocked_batched n={n} {dtype_name}: "
@@ -3983,7 +4106,6 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
             one, f)).abs().max()) / scale for f in ("linv", "uinv")))
     require(inv_err <= TOL_FACTOR, f"lu_factor_blocked_batched n={n}: "
             f"linv/uinv {inv_err} of max |m| from the single factor")
-    isz = stack.element_size()
     routes = batched_factor_routes(SERVE_BATCH, n, panel, isz)
     require("block" not in routes, f"lu_factor_blocked_batched n={n}: "
             f"the rule puts a batched fused launch on the one-block route: "
@@ -4004,6 +4126,7 @@ def serve_rung(reps: int, n: int, dtype_name: str) -> dict:
                     f", the rule's {want_route}")
     rec = {"n": n, "dtype": dtype_name, "panel": panel, "launches": got,
            "fused_routes": counted, "fused_routes_plan": routes,
+           "panel_routes": counted_k1,
            "linv_uinv_err": inv_err, "ms": None,
            "library_ms": None}
     if DEVICE == "cuda":
@@ -4053,7 +4176,8 @@ def serve_batch_trace(path: str, retake: bool = True) -> dict:
     """One traced ``exe.solve`` of phase 9 (c)'s batch, its 16 kernels as
     planned (a batched fused launch per panel with columns right of it,
     phase A's route by the rule for the batch and the live strip's height,
-    then the batched panel launch; a trace missing some is taken again):
+    then the batched panel launch on the route the rule names; a trace
+    missing some is taken again):
     device busy ms against host ms. On the card ``serve_batch_figures``
     runs it in a fresh process: in earlier whole runs, before the tall
     steps left the one-block route, the trace lost the call's first kernel
@@ -4073,7 +4197,8 @@ def serve_batch_trace(path: str, retake: bool = True) -> dict:
             h = key.bucket_n - kb
             plan.append(("panel_trailing_fused_batched",
                          batched_route(key.batch, h, exe.panel), h))
-        plan.append(("panel_factor_batched", "batched", exe.panel))
+        plan.append(("panel_factor_batched",
+                     batched_launch_route(exe.panel, exe.panel), exe.panel))
     rec = {"planned_kernels": len(plan)}
     if retake:
         kernels, busy, host_ms, traces = trace_plan(
@@ -4171,6 +4296,7 @@ def phase_serve(reps: int):
     from gauss_tpu_torch import obs
     from gauss_tpu_torch.core import blocked
     from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.kernels import panel as kp
     from gauss_tpu_torch.obs import requesttrace
     from gauss_tpu_torch.obs import summarize as summ
     from gauss_tpu_torch.resilience import inject
@@ -4185,14 +4311,15 @@ def phase_serve(reps: int):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     rng = np.random.default_rng(SEED + 9)
-    out = {"card": card, "fused": {}, "k1_bf16": {}, "rungs": {}}
+    out = {"card": card, "fused": {}, "k1": {}, "rungs": {}}
 
     # (a) The three new kernels against their plain versions.
     for bsz, n, panel, dt in SERVE_FUSED_CHECK:
         out["fused"][f"({bsz}, {n}, {n}) {dt}"] = serve_fused_check(
             reps, rng, bsz, n, panel, dt)
     for shape in SERVE_K1_CHECK:
-        out["k1_bf16"][str(tuple(shape))] = serve_k1_check(reps, rng, shape)
+        out["k1"][f"{tuple(shape[:3])} {shape[3]}"] = serve_k1_check(
+            reps, rng, shape)
 
     # (b) The batched LU at every rung of the ladder.
     for n in SERVE_LADDER:
@@ -4208,6 +4335,10 @@ def phase_serve(reps: int):
                       verify_gate=GATE, structure_aware=True, device=DEVICE)
     factors = []
     real_factor = cache.BatchedExecutable.factor
+    # Every batched panel launch of (c) and (e), by shape and route, each
+    # held against its plain version after the run.
+    seen, kept = {}, []
+    real_batched = kp.panel_factor_batched
 
     def counted_factor(exe, a_pad):
         factors.append((exe.key, exe.panel))
@@ -4219,6 +4350,7 @@ def phase_serve(reps: int):
         concurrency=SERVE_CONCURRENCY, seed=SEED, serve=cfg)
     big = dominant_system(SERVE_OVERSIZE, SEED + 6)
     cache.BatchedExecutable.factor = counted_factor
+    kp.panel_factor_batched = batched_panel_recorder(real_batched, seen, kept)
     try:
         with obs.run(metrics_out=stream, tool="chip_smoke_serve"), \
                 SolverServer(cfg) as server:
@@ -4227,11 +4359,16 @@ def phase_serve(reps: int):
             handoff = server.solve(*big, timeout=900)
             sync()
             got = dict(_build.LAUNCHES)
-            counted = dict(_build.ROUTE_LAUNCHES)
+            counted = {k: v for k, v in _build.ROUTE_LAUNCHES.items()
+                       if k.startswith("panel_trailing_fused_batched")}
+            counted_k1 = {k: v for k, v in _build.ROUTE_LAUNCHES.items()
+                          if k.startswith("panel_factor_batched")}
             served_factors = list(factors)
+            kp.panel_factor_batched = real_batched
             out["batch"] = serve_batch_figures(server, work)
     finally:
         cache.BatchedExecutable.factor = real_factor
+        kp.panel_factor_batched = real_batched
     require(handoff.status == STATUS_OK and handoff.lane == "handoff",
             f"the oversized request: {handoff.status} on {handoff.lane} "
             f"({handoff.error})")
@@ -4254,7 +4391,7 @@ def phase_serve(reps: int):
     require(dtypes == {"float32", "bfloat16", "bf16x3"} and spd,
             f"service: the lanes factored {sorted(dtypes)}, spd: {spd}")
     plan = dict.fromkeys(_build.LAUNCHES, 0)
-    routes = {}
+    routes, routes_k1 = {}, {}
     for key, panel in served_factors:
         if key.structure != "spd":
             isz = 2 if key.dtype == "bfloat16" else 4
@@ -4266,12 +4403,22 @@ def phase_serve(reps: int):
                                               panel, isz).items():
                 k = f"panel_trailing_fused_batched{sfx}/{r}"
                 routes[k] = routes.get(k, 0) + v
+            if on_card:
+                k = batched_launch_key(isz, batched_launch_route(
+                    panel, panel, isz))
+                routes_k1[k] = routes_k1.get(k, 0) + 1
     require(not on_card or counted == routes, f"service: batched fused "
             f"launches by the "
             f"route the launcher took {counted}, the plan by the rule "
             f"{routes}")
     require(not any(k.endswith("/block") for k in counted), f"service: "
             f"batched fused launches on the one-block route: {counted}")
+    require(not on_card or counted_k1 == routes_k1, f"service: batched "
+            f"panel launches by the route the launcher took {counted_k1}, "
+            f"the plan by the rule {routes_k1}")
+    require(not any(k.endswith(("/smem", "/global")) for k in counted_k1),
+            f"service: batched panel launches on the one-block loop: "
+            f"{counted_k1}")
     hf = blocked.resolve_factor(SERVE_OVERSIZE, device=DEVICE)
     hpanel = blocked.auto_panel(SERVE_OVERSIZE)
     chunk = (getattr(hf, "keywords", {}).get("chunk", blocked.CHUNK_DEFAULT)
@@ -4300,7 +4447,8 @@ def phase_serve(reps: int):
             summary["batch_occupancy_mean"], "batches": summary["batches"],
         "factors": len(served_factors),
         "launches": {k: v for k, v in got.items() if v},
-        "batched_fused_routes": counted, "batched_fused_routes_plan": routes}
+        "batched_fused_routes": counted, "batched_fused_routes_plan": routes,
+        "batched_panel_routes": counted_k1}
     print(f"phase 9: service ({SERVE_REQUESTS} requests + {SERVE_WARMUP} "
           f"warm-up, closed loop x{SERVE_CONCURRENCY}, mix {SERVE_MIX}, plus "
           f"one n={SERVE_OVERSIZE}): {counts}, lanes {lanes}, cache "
@@ -4310,7 +4458,8 @@ def phase_serve(reps: int):
           f"{out['service']['launches']} == the plan of its "
           f"{len(served_factors)} factors and the handoff factorization "
           f"(batched fused by the phase-A route each launch took {counted}"
-          f" == the rule's plan) [{card}]")
+          f" == the rule's plan; batched panel by step loop {counted_k1} =="
+          f" the rule's plan) [{card}]")
 
     # (d) Faults: a transient build fault retried and served; poison.
     with SolverServer(ServeConfig(**{**cfg.__dict__,
@@ -4337,9 +4486,14 @@ def phase_serve(reps: int):
 
     # (e) The CLI, its stream through the summarizer and requesttrace.
     cli_stream = os.path.join(work, "cli.jsonl")
-    run_cli(serve_cli, ["--requests", str(SERVE_CLI_REQUESTS), "--warmup",
-                        "0", "--mix", SERVE_CLI_MIX, "--device", DEVICE,
-                        "--metrics-out", cli_stream, *SERVE_CLI_ARGS])
+    kp.panel_factor_batched = batched_panel_recorder(real_batched, seen, kept)
+    try:
+        run_cli(serve_cli, ["--requests", str(SERVE_CLI_REQUESTS),
+                            "--warmup", "0", "--mix", SERVE_CLI_MIX,
+                            "--device", DEVICE, "--metrics-out", cli_stream,
+                            *SERVE_CLI_ARGS])
+    finally:
+        kp.panel_factor_batched = real_batched
     text = run_cli(summ, [cli_stream])
     m = re.search(r"serving:\n\s+requests: ok=(\d+)", text)
     require(m and int(m.group(1)) == SERVE_CLI_REQUESTS,
@@ -4351,6 +4505,24 @@ def phase_serve(reps: int):
     require(rc == 0, f"requesttrace --check: {buf.getvalue()}")
     print(f"phase 9: serve.cli exit 0; summarize: ok={m.group(1)}; "
           f"{buf.getvalue().strip()}")
+    # Step 1's record: the batched panel launches of (c) and (e) by shape,
+    # each held against its plain version, each shape timed.
+    t0 = time.perf_counter()
+    check_kept_batched(kept, "service and CLI")
+    time_launched_batched(reps, seen, rng)
+    out["batched_launched"] = seen
+    for rec in seen.values():
+        require(not on_card or rec["route"] in ("regs", "cluster"),
+                f"service: a batched panel launch at {rec['shape']} on the "
+                f"one-block loop ({rec['route']})")
+        print(f"phase 9: batched panel launches at {tuple(rec['shape'])}: "
+              f"{rec['launches']} on the {rec['route']} route, "
+              f"{rec['ms']} ms, bound {rec['bound_ms']:.5f} "
+              f"({rec['bound_by']}), lu_factor on the float32 stack "
+              f"{rec['library_ms']} [{card}]")
+    print(f"phase 9: {len(kept)} batched panel launches of the service and "
+          f"the CLI == their plain versions bit for bit "
+          f"({time.perf_counter() - t0:.1f} s with the timings)")
     print(json.dumps({"serve": out}, default=str))
     return {k: got[k] for k in _build.LAUNCHES}, out
 
@@ -4595,37 +4767,49 @@ def main(argv=None) -> int:
          "differing_share": f16["share3"],
          "shape": f"({N}, {N}) bfloat16, panel at column 0 (the unfused "
                   f"pair's leg)"})
-    bshape = max(struct["batched"])
-    bat = struct["batched"][bshape]
-    kernels.append(
-        {"name": "panel_factor_batched", "route": "cuda",
-         "source": src + "panel_batched.cu",
-         "sources": [src + "panel_batched.cu", src + "panel_common.cuh"],
-         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
-         **launch_keys("panel_factor_batched"),
-         "max_abs_err": struct["batched_err"],
-         "ms": bat["ms"], "plain_ms": bat["plain_ms"],
-         "bound_ms": bat["bound_ms"], "bound_by": bat["bound_by"],
-         "library_ms": bat["library_ms"],
-         "shape": f"{bshape}: the block-diagonal lane's stack, one launch "
-                  f"(library: torch.linalg.lu_factor on the stack); every "
-                  f"launch held bit for bit against its plain version",
-         "stacks": struct["batched"]})
-    k1b = serve["k1_bf16"][str(max(tuple(x) for x in SERVE_K1_CHECK))]
-    kernels.append(
-        {"name": "panel_factor_batched_bf16", "route": "cuda",
-         "source": src + "panel_batched.cu",
-         "sources": [src + "panel_batched.cu", src + "panel_common.cuh"],
-         "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
-         **launch_keys("panel_factor_batched_bf16"),
-         "max_abs_err": max(r["err"] for r in serve["k1_bf16"].values()),
-         "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
-         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"],
-         "library_ms": k1b["library_ms"], "loop_ms": k1b["loop_ms"],
-         "shape": f"{tuple(k1b['stack'])} bfloat16, one launch (library: "
-                  f"torch.linalg.lu_factor on the float32 stack; loop_ms: "
-                  f"the bfloat16 kernel 1 looped over the members)",
-         "stacks": serve["k1_bf16"]})
+    bat_routes = dict(struct["batched_routes"])
+    for k, v in serve["service"]["batched_panel_routes"].items():
+        bat_routes[k] = bat_routes.get(k, 0) + v
+    for name, dt in (("panel_factor_batched", "float32"),
+                     ("panel_factor_batched_bf16", "bfloat16")):
+        checks = {k: r for k, r in serve["k1"].items() if r["dtype"] == dt}
+        head = checks[f"(8, 256, 256) {dt}"]
+        shapes = {k: r for k, r in serve["batched_launched"].items()
+                  if r["shape"][3] == dt}
+        if dt == "float32":
+            shapes.update({f"{k} float32 (structure)": r
+                           for k, r in struct["batched"].items()})
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": src + "panel_batched.cu",
+             "sources": [src + "panel_batched.cu", src + "panel_common.cuh"],
+             "symbols": {"regs": f"gtt_batched_regs{name[20:]}_kernel<...>",
+                         "cluster":
+                             f"gtt_batched_cluster{name[20:]}_kernel<...>",
+                         "smem": f"gtt_panel_batched{name[20:]}_kernel<true>",
+                         "global":
+                             f"gtt_panel_batched{name[20:]}_kernel<false>"},
+             "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
+             **launch_keys(name),
+             "launches_by_route": {k.split("/")[1]: v for k, v in
+                                   bat_routes.items()
+                                   if k.split("/")[0] == name},
+             "max_abs_err": max([r["err"] for r in checks.values()]
+                                + ([struct["batched_err"]]
+                                   if dt == "float32" else [])),
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"], "loop_ms": head["loop_ms"],
+             "shape": f"(8, 256, 256) {dt}, a check shape of phase 9 (a) "
+                      f"(the last panel of the 1024-4096 buckets at the "
+                      f"ladder's full batch), on the {head['route']} route, "
+                      f"one launch (library: torch.linalg.lu_factor on the "
+                      f"float32 stack; loop_ms: kernel 1 looped over the "
+                      f"members); the shapes the main paths launched, with "
+                      f"their counts and times, are launched_shapes; every "
+                      f"main-path launch held bit for bit against its plain "
+                      f"version",
+             "stacks": checks, "launched_shapes": shapes})
     for name, dt, sfx in (("panel_trailing_fused_batched", "float32", ""),
                           ("panel_trailing_fused_batched_bf16", "bfloat16",
                            "_bf16")):

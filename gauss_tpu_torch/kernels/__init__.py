@@ -8,7 +8,9 @@
   ones, the one-block kernel (``csrc/panel_factor.cu``) beyond the grid's
   reach (``panel_geometry``); and
   ``panel_factor_batched``, a (B, h, panel) stack in one launch
-  (``csrc/panel_batched.cu``, one block per member);
+  (``csrc/panel_batched.cu``: each member of up to 256 rows in the
+  registers of one block or a cluster of 4, taller ones on the one-block
+  step loop; ``panel_batched_geometry``);
 - :mod:`.panel_fused` — ``panel_trailing_fused`` and ``trailing_update``
   (``csrc/panel_fused.cu``);
 - :mod:`.matmul` — ``matmul_tiled`` and ``matmul_stripe``

@@ -52,10 +52,12 @@ LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
             "matmul_tiled": 0, "matmul_stripe": 0, "eliminate_step": 0,
             "rankk_update": 0, "spmv_ell": 0}
 
-#: Launches of the batched fused kernel by phase-A route, keyed
-#: ``panel_trailing_fused_batched[_bf16]/<route>`` (route ``cluster``,
-#: ``grid`` or ``block``, as the C launcher reports the route it took),
-#: counted beside :data:`LAUNCHES` at the launch. Reset with
+#: Launches of the batched kernels by the route the C launcher reports it
+#: took, counted beside :data:`LAUNCHES` at the launch: the batched fused
+#: kernel by phase-A route, keyed ``panel_trailing_fused_batched[_bf16]/
+#: <route>`` (``cluster``, ``grid`` or ``block``), and the batched panel
+#: kernel by step loop, keyed ``panel_factor_batched[_bf16]/<route>``
+#: (``regs``, ``cluster``, ``smem`` or ``global``). Reset with
 #: :func:`reset_launches`.
 ROUTE_LAUNCHES: dict[str, int] = {}
 
@@ -70,7 +72,7 @@ _GRID = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
 _FUSED = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
           _P, _P]
 _TRAILING = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 _FUSED_BATCHED = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
 _SIGNATURES = {

@@ -45,8 +45,11 @@ under separate keys (``panel_factor_bf16``, ``panel_factor_cluster_bf16``,
 ``panel_factor_grid_bf16``).
 
 :func:`panel_factor_batched` factors a (B, h, panel) stack of strips in
-one launch (``csrc/panel_batched.cu``, one block per member on the same
-one-block step loop; launch key ``panel_factor_batched``, and
+one launch (``csrc/panel_batched.cu``: members of up to 256 rows and
+columns on a step loop that keeps each member in the registers of one
+block, or of a cluster of 4 above 128, every thread working every step;
+taller members on the one-block step loop; :func:`panel_batched_geometry`
+names the route; launch key ``panel_factor_batched``, and
 ``panel_factor_batched_bf16`` at bfloat16 storage, with the rounding
 above): the form the serving lanes run on a one-panel bucket and on the
 last panel of a wider one, where the JAX package vmaps
@@ -420,17 +423,50 @@ def panel_factor(p: torch.Tensor, kb: int = 0, seg: int | None = None):
                               geom.blocks if geom.route == "grid" else 0)
 
 
+class BatchedGeometry(NamedTuple):
+    route: str     # "regs", "cluster" (the register loop), "smem" or
+                   # "global" (the one-block loop)
+    blocks: int    # blocks a member
+    threads: int   # threads a block
+
+
+#: The batched panel kernel's routes, by the C launcher's route codes.
+BATCHED_ROUTES = ("global", "smem", "regs", "cluster")
+BATCHED_SMEM_MAX = 227 * 1024 - 8 * 1024
+
+
+def panel_batched_geometry(h: int, panel: int,
+                           itemsize: int = 4) -> BatchedGeometry:
+    """The step loop an (h, panel) member of ``itemsize``-byte words takes
+    in the batched kernel: a mirror of the C launcher's rule
+    (``gtt_batched_rule``, which alone decides a launch), for the tests and
+    the plans of ``chip_smoke.py``. The register loop on one block of 512
+    threads (``"regs"``) up to 128 rows and columns, on a cluster of 4
+    blocks of 256 (``"cluster"``) up to 256; beyond, the one-block loop, in
+    shared memory (``"smem"``) where the transposed member fits there, else
+    in place in global memory (``"global"``)."""
+    if not (1 <= panel <= PANEL_MAX and h >= 1):
+        raise ValueError(f"no batched route for an ({h}, {panel}) member")
+    if h <= 128 and panel <= 128:
+        return BatchedGeometry("regs", 1, 512)
+    if h <= 256 and panel <= 256:
+        return BatchedGeometry("cluster", 4, 256)
+    fits = panel * h * itemsize <= BATCHED_SMEM_MAX
+    return BatchedGeometry("smem" if fits else "global", 1, 512)
+
+
 def panel_batched_info(h: int, panel: int, itemsize: int = 4) -> dict:
-    """What the batched kernel's C side reports for an (h, panel) member of
-    ``itemsize``-byte words (4: float32, 2: bfloat16): ``route``
-    ``"smem"`` (a block factors it in shared memory) or ``"global"`` (in
-    place in global memory), and the dynamic shared memory bytes per
-    block. Builds ``csrc/panel_batched.cu``; needs a CUDA device."""
+    """What the batched kernel's C launcher does with an (h, panel) member
+    of ``itemsize``-byte words (4: float32, 2: bfloat16): ``route`` (as
+    :func:`panel_batched_geometry` names it), ``blocks`` a member,
+    ``threads`` a block and the dynamic shared memory bytes a block.
+    Builds ``csrc/panel_batched.cu``; needs a CUDA device."""
     lib = _build.library("panel_batched")
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     _build.check(lib, lib.gtt_panel_batched_info(h, panel, itemsize, out),
                  "panel_batched_info")
-    return {"route": "smem" if out[0] else "global", "smem_bytes": out[1]}
+    return {"route": BATCHED_ROUTES[out[0]], "blocks": out[1],
+            "threads": out[2], "smem_bytes": out[3]}
 
 
 def _check_batched_args(p: torch.Tensor, kb: int) -> None:
@@ -457,24 +493,42 @@ def _panel_factor_batched_cuda(p: torch.Tensor, kb: int):
         p = p.contiguous()
     bsz, h, panel = p.shape
     dev = p.device
-    pt = torch.empty((bsz, panel, h), dtype=p.dtype, device=dev)
-    ipiv = torch.empty((bsz, panel), dtype=torch.int32, device=dev)
-    inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
-    chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
-    minpiv = torch.empty(bsz, dtype=p.dtype, device=dev)
-    sfx = launch_suffix(p.dtype)
+    key = "panel_factor_batched" + launch_suffix(p.dtype)
     lib = _build.library("panel_batched")
+    # The launcher's own rule names the route, and so the outputs to give
+    # it; it refuses a launch whose route's outputs are missing.
+    geo = (ctypes.c_int * 4)()
+    _build.check(lib, lib.gtt_panel_batched_info(h, panel, p.element_size(),
+                                                 geo), key)
+    regs = BATCHED_ROUTES[geo[0]] in ("regs", "cluster")
+    ipiv = torch.empty((bsz, panel), dtype=torch.int32, device=dev)
+    minpiv = torch.empty(bsz, dtype=p.dtype, device=dev)
+    if regs:  # the kernel writes the row-permuted panel and its indices
+        out = torch.empty((bsz, h, panel), dtype=p.dtype, device=dev)
+        perm = torch.empty((bsz, h), dtype=torch.int64, device=dev)
+        ptrs = (0, ipiv.data_ptr(), 0, 0, minpiv.data_ptr(), out.data_ptr(),
+                perm.data_ptr())
+    else:  # the transposed panel and the inverse positions
+        pt = torch.empty((bsz, panel, h), dtype=p.dtype, device=dev)
+        inv = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+        chosen = torch.empty((bsz, h), dtype=torch.int32, device=dev)
+        ptrs = (pt.data_ptr(), ipiv.data_ptr(), inv.data_ptr(),
+                chosen.data_ptr(), minpiv.data_ptr(), 0, 0)
+    taken = (ctypes.c_int * 1)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, "gtt_panel_factor_batched" + sfx)(
+        rc = getattr(lib, "gtt_" + key)(
             p.data_ptr(), p.stride(0), p.stride(1), bsz, h, panel, int(kb),
-            pt.data_ptr(), ipiv.data_ptr(), inv.data_ptr(),
-            chosen.data_ptr(), minpiv.data_ptr(), stream)
-    _build.check(lib, rc, "panel_factor_batched" + sfx)
-    _build.LAUNCHES["panel_factor_batched" + sfx] += 1
-    perm = perm_from_inv(inv, chosen, kb, panel)
-    out = torch.gather(pt.transpose(1, 2), 1,
-                       perm[:, :, None].expand(bsz, h, panel))
+            *ptrs, taken, stream)
+    _build.check(lib, rc, key)
+    _build.LAUNCHES[key] += 1
+    by_route = f"{key}/{BATCHED_ROUTES[taken[0]]}"
+    _build.ROUTE_LAUNCHES[by_route] = _build.ROUTE_LAUNCHES.get(by_route,
+                                                                0) + 1
+    if not regs:
+        perm = perm_from_inv(inv, chosen, kb, panel)
+        out = torch.gather(pt.transpose(1, 2), 1,
+                           perm[:, :, None].expand(bsz, h, panel))
     return out, ipiv, perm, minpiv
 
 
@@ -484,9 +538,11 @@ def panel_factor_batched(p: torch.Tensor, kb: int = 0):
 
     Returns ``(p_perm (B, h, panel), ipiv (B, panel), perm_local (B, h),
     min_abs_pivot (B,))``; ``p`` is not modified. A CUDA tensor launches
-    ``csrc/panel_batched.cu`` once for the whole stack (float32 or
-    bfloat16, launch keys ``panel_factor_batched`` and
-    ``panel_factor_batched_bf16``) or raises; a CPU tensor runs
+    ``csrc/panel_batched.cu`` once for the whole stack on the step loop its
+    launcher's rule names (:func:`panel_batched_geometry` mirrors it;
+    float32 or bfloat16, launch keys ``panel_factor_batched`` and
+    ``panel_factor_batched_bf16``, and by the route taken in
+    ``_build.ROUTE_LAUNCHES``) or raises; a CPU tensor runs
     :func:`panel_factor_batched_plain`."""
     _check_batched_args(p, kb)
     if p.device.type == "cpu":

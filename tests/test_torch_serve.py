@@ -569,7 +569,9 @@ def test_chip_smoke_serve_phase_rehearsal(monkeypatch, tmp_path):
             ("DEVICE", CPU), ("REPO", str(tmp_path)),
             ("SERVE_FUSED_CHECK", ((2, 96, 32, "float32"),
                                    (2, 64, 64, "bfloat16"))),
-            ("SERVE_K1_CHECK", ((3, 16, 16),)), ("SERVE_LADDER", (128, 384)),
+            ("SERVE_K1_CHECK", ((3, 16, 16, "bfloat16"),
+                                (3, 16, 16, "float32"))),
+            ("SERVE_LADDER", (128, 384)),
             ("SERVE_BATCH", 2), ("SERVE_BF16_N", 256),
             ("SERVE_MIX", "random:100,random:250,internal:200,spd:120,"
                           "dtype:bfloat16/200,dtype:bf16x3/100,sparse:300/4"),
@@ -592,6 +594,16 @@ def test_chip_smoke_serve_phase_rehearsal(monkeypatch, tmp_path):
     assert out["faults"]["poison"].keys() == {"nan", "singular"}
     assert 0.0 <= out["batch"]["host_staging_share"] <= 1.0
     assert out["batch"]["own_process_trace"]["lost"] == 0
+    # Every batched panel launch of the service and the CLI, by shape and
+    # dtype (both lanes), held against the plain version: on the CPU the
+    # plain version itself.
+    launched = out["batched_launched"]
+    assert {r["shape"][3] for r in launched.values()} == {"float32",
+                                                         "bfloat16"}
+    assert all(r["launches"] > 0 and r["route"] == "plain"
+               for r in launched.values())
+    assert {k: r["route"] for k, r in out["k1"].items()} == {
+        "(3, 16, 16) bfloat16": "plain", "(3, 16, 16) float32": "plain"}
     text = buf.getvalue()
     assert '{"serve": ' in text and "requesttrace: 6 trace(s)" in text
     # The plan of one batched factor on the card.

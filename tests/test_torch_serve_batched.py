@@ -543,20 +543,46 @@ def test_fused_batched_routes_agree_and_fail_typed_on_card(cuda_device):
     assert _build.ROUTE_LAUNCHES == by_route
 
 
+def _same(g, w):
+    """Equal values, NaN equal to NaN."""
+    if g.is_floating_point():
+        gn, wn = g.isnan(), w.isnan()
+        return torch.equal(gn, wn) and torch.equal(g.masked_fill(gn, 0),
+                                                   w.masked_fill(wn, 0))
+    return torch.equal(g, w)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128, 128), (64, 128, 128),
-                                   (3, 700, 128)])
-def test_batched_panel_kernel_bf16_on_card(cuda_device, shape):
+@pytest.mark.parametrize("case", ["random", "zero_pivot", "nan"])
+@pytest.mark.parametrize("shape", [
+    (8, 128, 128), (64, 128, 128), (3, 700, 128), (1, 128, 128),
+    (2, 128, 128), (4, 128, 128), (1, 256, 256), (2, 256, 256),
+    (4, 256, 256), (8, 256, 256), (3, 129, 128), (2, 257, 256)])
+def test_batched_panel_kernel_bf16_on_card(cuda_device, shape, case):
+    """The bfloat16 batched panel kernel: one launch on the rule's route,
+    each member bit for bit the plain version and the bfloat16 kernel 1
+    on it alone, on a random stack, one with a zero pivot (a zero first
+    column in member 0) and one with a NaN entry."""
     x = torch.as_tensor(np.random.default_rng(shape[0]).standard_normal(
-        shape), dtype=BF16, device=cuda_device)
+        shape), dtype=BF16)
+    if case == "zero_pivot":
+        x[0, :, 0] = 0
+    elif case == "nan":
+        x[-1, shape[1] // 2, 1] = float("nan")
+    x = x.to(cuda_device)
+    route = kp.panel_batched_geometry(*shape[1:], 2).route
     before = _build.LAUNCHES["panel_factor_batched_bf16"]
+    by_route = _build.ROUTE_LAUNCHES.get(
+        f"panel_factor_batched_bf16/{route}", 0)
     got = kp.panel_factor_batched(x.clone())
     assert _build.LAUNCHES["panel_factor_batched_bf16"] == before + 1
+    assert _build.ROUTE_LAUNCHES[f"panel_factor_batched_bf16/{route}"] \
+        == by_route + 1
     for g, w in zip(got, kp.panel_factor_batched_plain(x.clone())):
-        assert torch.equal(g, w)
+        assert _same(g, w)
     for i in range(shape[0]):
         for g, w in zip(got, kp.panel_factor(x[i].clone())):
-            assert torch.equal(g[i], w)
+            assert _same(g[i], w)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,10 @@ CPU = "cpu"
 # interpret mode; the port's step loop rounds the product and the
 # difference apart (tests/test_torch_panel.py holds the same bound).
 TOL_PANEL = 5e-6
+# The same contraction over a 128-step panel: the FMA's single rounding
+# drifts from the rounded product and difference by up to ~1.2e-5 of the
+# scale on the seeded (2, 128, 128) stack.
+TOL_PANEL_128 = 5e-5
 
 
 # --- buckets ---------------------------------------------------------------
@@ -97,18 +101,20 @@ def test_batched_plain_is_the_per_member_plain_panel(shape, kb):
         kp.perm_from_inv(inv, chosen, kb, shape[2]))
 
 
-def test_batched_against_vmapped_jax_kernel_in_interpret_mode():
-    p = _stack((3, 64, 64), 7).numpy()
+@pytest.mark.parametrize("shape,tol", [((3, 64, 64), TOL_PANEL),
+                                       ((2, 128, 128), TOL_PANEL_128)])
+def test_batched_against_vmapped_jax_kernel_in_interpret_mode(shape, tol):
+    p = _stack(shape, 7).numpy()
     jp = jax.vmap(lambda m: panel_factor_pallas(m, 0, interpret=True,
-                                                seg=64))(jnp.asarray(p))
+                                                seg=shape[2]))(jnp.asarray(p))
     jp = [np.asarray(o) for o in jp]
     got = [o.numpy() for o in kp.panel_factor_batched(torch.from_numpy(p))]
     np.testing.assert_array_equal(got[1], jp[1])  # ipiv
     np.testing.assert_array_equal(got[2], jp[2])  # perm
     scale = np.abs(jp[0]).max()
-    np.testing.assert_allclose(got[0], jp[0], rtol=0, atol=TOL_PANEL * scale)
+    np.testing.assert_allclose(got[0], jp[0], rtol=0, atol=tol * scale)
     np.testing.assert_allclose(got[3], np.asarray(jp[3]).reshape(-1),
-                               rtol=0, atol=TOL_PANEL * scale)
+                               rtol=0, atol=tol * scale)
 
 
 def test_batched_argument_checks():
@@ -127,31 +133,150 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def test_batched_route_rule():
+    """The batched kernel's route rule (``panel_batched_geometry``, the
+    mirror of the C launcher's): members of up to 128 rows and columns on
+    the register loop in one block, up to 256 on a cluster of 4, taller
+    ones on the one-block loop, in shared memory where the transposed
+    member fits its 219 KiB."""
+    g = kp.panel_batched_geometry
+    assert g(128, 128) == kp.BatchedGeometry("regs", 1, 512)
+    assert g(100, 16) == g(32, 32) == g(1, 1) == g(128, 128)
+    assert g(128, 128, 2) == g(128, 128)
+    for h, panel in ((129, 128), (200, 64), (256, 256), (256, 1),
+                     (128, 129)):
+        for isz in (4, 2):
+            assert g(h, panel, isz) == kp.BatchedGeometry("cluster", 4, 256)
+    assert g(257, 256) == kp.BatchedGeometry("global", 1, 512)
+    assert g(257, 256, 2).route == "smem"     # 128.5 KiB
+    assert g(512, 128).route == "global"      # 256 KiB
+    assert g(700, 128, 2).route == "smem"     # 175 KiB
+    assert g(438, 128).route == "smem" and g(439, 128).route == "global"
+    with pytest.raises(ValueError):
+        g(64, 0)
+    assert kp.BATCHED_ROUTES == ("global", "smem", "regs", "cluster")
+
+
+@pytest.mark.parametrize("shape,kb", [((2, 40, 24), 4), ((3, 128, 128), 0),
+                                      ((2, 257, 16), 9)])
+def test_batched_on_the_cpu_is_the_plain_version(shape, kb):
+    """A CPU stack takes the plain version, whichever route the card's
+    launcher would take for its members."""
+    x = _stack(shape, 3)
+    for g, w in zip(kp.panel_factor_batched(x, kb),
+                    kp.panel_factor_batched_plain(x, kb)):
+        assert torch.equal(g, w)
+
+
+def _same(g, w):
+    """Equal values, NaN equal to NaN."""
+    if g.is_floating_point():
+        gn, wn = g.isnan(), w.isnan()
+        return torch.equal(gn, wn) and torch.equal(g.masked_fill(gn, 0),
+                                                   w.masked_fill(wn, 0))
+    return torch.equal(g, w)
+
+
+def _card_stack(shape, case, device, dtype=torch.float32):
+    """A seeded random stack, or one whose first member has a zero column
+    (a zero pivot: inf and NaN multipliers), or one with a NaN entry."""
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        shape), dtype=torch.float32).to(dtype)
+    if case == "zero_pivot":
+        x[0, :, 0] = 0
+    elif case == "nan":
+        x[-1, shape[1] // 2, 1] = float("nan")
+    return x.to(device)
+
+
+# The service's last panels (B in 1, 2, 4, 8 at 128 and 256), the block
+# lane's stack, each route's edge and a member just past it, tall members.
+CARD_SHAPES = [(64, 128, 128), (3, 512, 128), (5, 100, 16), (1, 256, 256),
+               (1, 128, 128), (2, 128, 128), (4, 128, 128), (8, 128, 128),
+               (2, 256, 256), (4, 256, 256), (8, 256, 256), (3, 129, 128),
+               (2, 257, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 128, 128), (3, 512, 128),
-                                   (5, 100, 16), (1, 256, 256)])
-def test_batched_kernel_matches_plain_on_card(cuda_device, shape):
-    """One launch per stack, each member bit for bit the plain panel, a
-    one-member stack bit for bit the single-strip kernel."""
-    x = _stack(shape, shape[1]).to(cuda_device)
+@pytest.mark.parametrize("case", ["random", "zero_pivot", "nan"])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_batched_kernel_matches_plain_on_card(cuda_device, shape, case):
+    """One launch per stack on the rule's route, each member bit for bit
+    the plain panel and the single-strip kernel on it alone."""
+    x = _card_stack(shape, case, cuda_device)
+    route = kp.panel_batched_geometry(*shape[1:]).route
     before = _build.LAUNCHES["panel_factor_batched"]
+    by_route = _build.ROUTE_LAUNCHES.get(f"panel_factor_batched/{route}", 0)
     got = kp.panel_factor_batched(x.clone())
     assert _build.LAUNCHES["panel_factor_batched"] == before + 1
+    assert _build.ROUTE_LAUNCHES[f"panel_factor_batched/{route}"] \
+        == by_route + 1
     for g, w in zip(got, kp.panel_factor_batched_plain(x.clone())):
-        assert torch.equal(g, w)
-    one = kp.panel_factor_batched(x[:1].clone())
-    for g, w in zip(one, kp.panel_factor(x[0].clone())):
-        assert torch.equal(g[0], w)
+        assert _same(g, w)
+    for i in range(shape[0]):
+        for g, w in zip(got, kp.panel_factor(x[i].clone())):
+            assert _same(g[i], w)
 
 
 @pytest.mark.cuda
 def test_batched_route_is_reported_by_the_launcher(cuda_device):
-    """A (128, 128) float32 member (64 KiB) is factored in shared memory,
-    a (512, 128) one (256 KiB) in place in global memory."""
-    assert kp.panel_batched_info(128, 128) == {"route": "smem",
-                                               "smem_bytes": 65536}
-    assert kp.panel_batched_info(512, 128) == {"route": "global",
-                                               "smem_bytes": 0}
+    """The C launcher's route, blocks and threads equal the Python rule's
+    at both storage types: a (128, 128) member on one block's registers, a
+    (256, 256) one on a cluster of 4, a (512, 128) float32 one (256 KiB) in
+    place in global memory; a shape it does not take is refused typed."""
+    assert kp.panel_batched_info(128, 128)["route"] == "regs"
+    assert kp.panel_batched_info(256, 256)["route"] == "cluster"
+    assert kp.panel_batched_info(512, 128) == {
+        "route": "global", "blocks": 1, "threads": 512, "smem_bytes": 0}
+    for h, panel in ((1, 1), (100, 16), (128, 128), (129, 128), (128, 129),
+                     (256, 256), (257, 256), (512, 128), (700, 128)):
+        for isz in (4, 2):
+            info = kp.panel_batched_info(h, panel, isz)
+            assert (info["route"], info["blocks"], info["threads"]) \
+                == tuple(kp.panel_batched_geometry(h, panel, isz))
+    for bad in ((64, 0), (0, 64), (64, 64, 8)):
+        with pytest.raises(_build.KernelLaunchError):
+            kp.panel_batched_info(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (2, 256, 256),
+                                   (2, 512, 128)])
+def test_batched_launcher_refuses_missing_outputs_on_card(cuda_device,
+                                                          shape):
+    """The launcher refuses, before any launch, a call that lacks an
+    output of the route it takes (the other route's outputs only): a typed
+    error, nothing written, no CUDA error left behind."""
+    import ctypes
+
+    bsz, h, panel = shape
+    x = _card_stack(shape, "random", cuda_device)
+    lib = _build.library("panel_batched")
+    regs = kp.panel_batched_info(h, panel)["route"] in ("regs", "cluster")
+    ipiv = torch.full((bsz, panel), -7, dtype=torch.int32,
+                      device=cuda_device)
+    minpiv = torch.zeros(bsz, device=cuda_device)
+    pt = torch.empty((bsz, panel, h), device=cuda_device)
+    ints = torch.empty((2, bsz, h), dtype=torch.int32, device=cuda_device)
+    out = torch.empty((bsz, h, panel), device=cuda_device)
+    perm = torch.empty((bsz, h), dtype=torch.int64, device=cuda_device)
+    # The outputs of the route not taken, none of the route taken.
+    given = ((pt.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(), 0, 0)
+             if regs else (0, 0, 0, out.data_ptr(), perm.data_ptr()))
+    taken = (ctypes.c_int * 1)(-1)
+    rc = lib.gtt_panel_factor_batched(
+        x.data_ptr(), x.stride(0), x.stride(1), bsz, h, panel, 0, given[0],
+        ipiv.data_ptr(), given[1], given[2], minpiv.data_ptr(), given[3],
+        given[4], taken, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(_build.KernelLaunchError):
+        _build.check(lib, rc, "panel_factor_batched")
+    torch.cuda.synchronize()
+    assert taken[0] == -1
+    assert bool((ipiv == -7).all())
+    # The card is still usable: the wrapper's own launch is right.
+    for g, w in zip(kp.panel_factor_batched(x.clone()),
+                    kp.panel_factor_batched_plain(x.clone())):
+        assert torch.equal(g, w)
 
 
 # --- the cache ---------------------------------------------------------------

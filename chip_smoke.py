@@ -261,7 +261,57 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    40 --metrics-out``: exit 0, the port's ``summarize`` renders ok = 40,
    ``requesttrace --check`` exits 0. The service run (c) is the path's
    launch counts; a ``{"serve": ...}`` JSON line carries the figures.
-10. The ``kernels`` JSON line, the card line, and the final
+10. The checksum-carrying and checkpointed factorizations
+   (``resilience/abft``, ``checkpoint``, ``abftcheck``, ``chaos``), each
+   counted call with the launch counts set to 0 just before it and read
+   just after: (a) ``lu_factor_abft`` on phase 6's random matrix at
+   RES_LU (n=8192, panel 256, chunk 4): kernel 1 on every panel (the
+   rider pins the unfused pair), its launches equal to the plan
+   (``abft_plan``: 19 grid, 13 cluster, plus each replayed group), the
+   factor bit for bit ``lu_factor_blocked_chunked`` with ``abft=True`` and
+   with ``panel_impl="pallas"``, no detection on the clean run (its largest
+   group mismatch over ``tol`` printed), every launch of one factorization
+   held against its plain version (``checked_launches``); one transient
+   ``sdc_bitflip`` in group RES_FLIP_GROUP right of the group's columns
+   (the plan seed picked by ``planned_flip``), detected in that group at
+   the flipped column and replayed to the clean bits; one flip in the last
+   group (which check caught it printed), replayed to the clean bits; a U
+   flip that only the final identity reads (a stand-in flips it in the
+   identity's first input): in the last group's columns replayed once
+   from the rollback point to the clean bits, in group 0's escalated; one
+   persistent flip: ``SDCUnrecoverableError`` at its group, and
+   ``solve_resilient(abft=True)`` escalating past it to a verified answer;
+   ``solve_lu_abft`` on the internal system; the runner's ms (CUDA events,
+   median of 3) beside the chunked form's plain, ``abft=True`` and
+   ``"pallas"`` ms. (b) ``lu_factor_blocked_chunked_checkpointed`` at the
+   same cell: bit for bit the chunked factor, kernel 1 by key and kernel
+   2 by phase-A route equal to ``factor_plan``'s, the seconds and bytes of each save, its wall
+   ms; a child process killed (``GAUSS_FAULTS=checkpoint.group=kill``) at
+   the third group boundary with the kernels this process built (its
+   ``build_all`` seconds all 0), resumed here bit for bit with the rest of
+   the plan's launches. (c) ``cholesky_factor_abft`` at RES_CHOL on
+   ``spd_matrix``: bit for bit the flat form with and without the rider,
+   one transient flip replayed, ms beside the flat and unrolled forms. (d)
+   ``abft_matmul`` at (RES_MM,)^3 in "highest" and "high": the clean
+   product equal to ``core.matmul``'s, single flips until one is corrected
+   in place (each flip past ``tol`` detected and fixed within it, each
+   below it harmless), a flipped row recomputed, ms beside ``core.matmul``.
+   (e) one ``lu_factor_abft`` at each campaign size (abftcheck's
+   ``LU_SIZES``, chaos's ``SOLVER_SIZES``, at RES_CAMPAIGN_PANEL) and at
+   RES_SERVE_N with every kernel-1 launch held against its plain version
+   and the checked launches equal to the plan's; ``abftcheck`` at its
+   defaults (110 cases: 100% detection, every replay bit for bit, exit 0)
+   and ``chaos --no-fleet --no-durable`` at RES_CHAOS_ARGS (exit 0, no
+   silent wrong answer), the input of each of their calls of the
+   single-strip panel, batched panel and SpMV kernels kept
+   (``kept_launches``) and held bit for bit against the plain version
+   after them, every launch of theirs among the kept calls; and a
+   ``SolverServer`` with ``abft=True`` on RES_SERVE_REQUESTS + 1 systems
+   at RES_SERVE_N past the ladder top (the ``abft`` route, ``ok`` at 1e-4, the last one with
+   a flip tagged ``sdc_detected``; launches equal to the plan). A
+   ``{"resilience": ...}`` JSON line carries the figures and the phase's
+   wall time.
+11. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -437,6 +487,23 @@ SERVE_POISON_N = 256
 SERVE_CLI_REQUESTS = 40
 SERVE_CLI_MIX = "random:100*2,random:300,spd:200,dtype:bfloat16/500"
 SERVE_CLI_ARGS: tuple = ()
+#: Phase 10: the checksum-carrying LU (phase 6's n=8192 cell), the groups
+#: of its transient and persistent flips, the subprocess kill's skip (the
+#: third group boundary), the Cholesky sizes, the matmul size, the
+#: service's abft requests, and the chaos campaign's cut.
+RES_LU = (8192, 256, 4)
+RES_FLIP_GROUP = 3
+RES_PERSIST_GROUP = 2
+RES_KILL_SKIP = 2
+RES_CHOL = (2048, 8192)
+RES_MM = 2048
+RES_SERVE_N = SERVE_OVERSIZE
+RES_SERVE_REQUESTS = 3
+RES_ABFTCHECK_ARGS: tuple = ()
+RES_CAMPAIGN_PANEL = 16     # the campaigns' default --panel
+RES_CHAOS_ARGS = ("--cases", "100", "--serve-requests", "20")
+LU_FIELDS = ("m", "perm", "min_abs_pivot", "linv", "uinv")
+CHOL_FIELDS = ("m", "linv", "min_diag")
 
 
 def require(cond, msg: str) -> None:
@@ -2141,13 +2208,14 @@ def phase_telemetry(dat: str):
 
 
 def factor_plan(n: int, panel: int, chunk: int | None = None,
-                itemsize: int = 4):
+                itemsize: int = 4, unfused: bool = False):
     """The kernel launches of one ``"auto"`` factorization on the card, in
     order, as ``(launch key, phase-A route, strip height)``: the chunked
     form at ``chunk`` (the fused kernel on each panel with columns right of
     it inside its group, the panel kernel on the group's last panel), or
     with ``chunk=None`` the unrolled (and flat) form, one group of every
-    panel; ``itemsize`` 2 for the bfloat16 forms."""
+    panel; ``itemsize`` 2 for the bfloat16 forms; ``unfused`` the
+    ``"pallas"`` route (the panel kernel on every panel)."""
     from gauss_tpu_torch.kernels import panel as kp
     from gauss_tpu_torch.kernels import panel_fused as kf
 
@@ -2161,7 +2229,7 @@ def factor_plan(n: int, panel: int, chunk: int | None = None,
         w = min(chunk, nb - g0) * panel
         for kb in range(0, w, panel):
             h = gh - kb
-            if panel >= 64 and w - kb > panel:
+            if not unfused and panel >= 64 and w - kb > panel:
                 plan.append(("panel_trailing_fused" + sfx, kf.fused_geometry(
                     h, w, panel, kb, itemsize=itemsize).route, h))
             else:
@@ -4527,6 +4595,815 @@ def phase_serve(reps: int):
     return {k: got[k] for k in _build.LAUNCHES}, out
 
 
+# --- Phase 10: the checksum-carrying and checkpointed factorizations ------
+
+
+def abft_plan(n: int, panel: int, chunk: int, replays=(),
+              groups: int | None = None) -> list:
+    """Kernel 1's launches of one ``lu_factor_abft`` (the checksum rider
+    pins the unfused pair: the panel kernel on every panel, in group
+    order) over its first ``groups`` groups (default all), then those of
+    each replayed group in ``replays``, as ``(launch key, route, strip
+    height)``."""
+    plan = factor_plan(n, panel, chunk, unfused=True)
+    out = plan[:None if groups is None else groups * chunk]
+    for g in replays:
+        out += plan[g * chunk:(g + 1) * chunk]
+    return out
+
+
+def launch_counts(plan) -> dict:
+    """A plan's launches as phase 10 counts them: the single-strip panel
+    kernel by its launch key, which names its route; the fused kernel by
+    key and phase-A route."""
+    out = {}
+    for key, route, _ in plan:
+        k = key if key.startswith("panel_factor") else f"{key}/{route}"
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def planned_flip(site: str, skip: int, seed: int, lo: int, npad: int):
+    """The (row, column) that an ``sdc_bitflip`` plan of ``seed`` flips at
+    its firing poll: the first draw of ``abft._poll_sdc_corrupt`` from the
+    spec's generator (row, then column, over the active region from
+    ``lo``)."""
+    from gauss_tpu_torch.resilience import inject
+
+    plan = inject.FaultPlan([inject.FaultSpec(
+        site=site, kind="sdc_bitflip", skip=skip, max_triggers=1)],
+        seed=seed)
+    with inject.plan(plan):
+        for _ in range(skip):
+            inject.poll_sdc(site)
+        _, rng = inject.poll_sdc(site)
+        i = lo + int(rng.integers(0, max(1, npad - lo)))
+        j = lo + int(rng.integers(0, max(1, npad - lo)))
+    return i, j
+
+
+def with_sdc_plan(site: str, fn, seed: int, **spec) -> dict:
+    """``fn()`` under one ``sdc_bitflip`` spec at ``site``: its value, or
+    the SDCUnrecoverableError it raised, the ``sdc_inject`` and ``sdc``
+    events, and the plan's trigger count."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.resilience import abft, inject
+
+    plan = inject.FaultPlan([inject.FaultSpec(site=site, kind="sdc_bitflip",
+                                              **spec)], seed=seed)
+    out = {"value": None, "error": None}
+    with obs.run() as rec:
+        with inject.plan(plan) as ap:
+            try:
+                out["value"] = fn()
+            except abft.SDCUnrecoverableError as e:
+                out["error"] = e
+    out["injected"] = [e for e in rec.events if e["type"] == "sdc_inject"]
+    out["sdc"] = [e for e in rec.events if e["type"] == "sdc"]
+    out["triggered"] = ap.stats()["triggered"]
+    return out
+
+
+def bits_equal(f0, f1, fields) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(f0, f), getattr(f1, f)) for f in fields)
+
+
+def checked_abft_factor(a, panel: int, chunk: int) -> dict:
+    """One ``lu_factor_abft`` of ``a`` with every kernel-1 launch held
+    against its plain version (``checked_launches``), the checked launches
+    equal to the plan's: returns them."""
+    from gauss_tpu_torch.resilience import abft
+
+    n = a.shape[0]
+    seen = {}
+    with checked_launches(seen):
+        abft.lu_factor_abft(a, panel=panel, chunk=chunk, device=DEVICE)
+        sync()
+    plan = abft_plan(n, panel, chunk)
+    want = {"panel": len(plan), "panel strided": len(plan),
+            "panel grid": sum(r == "grid" for _, r, _ in plan),
+            "panel one-block": sum(r == "block" for _, r, _ in plan)}
+    require(seen == {k: v for k, v in want.items() if v},
+            f"lu_factor_abft n={n}, panel {panel}: checked launches {seen}, "
+            f"plan {want}")
+    return seen
+
+
+def resilience_lu(counted, a, n: int, panel: int, chunk: int) -> dict:
+    """Phase 10 (a): the checksum-carrying LU at full size (module
+    docstring)."""
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.resilience import abft, recover
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+    from gauss_tpu_torch.verify import checks
+
+    on_card = DEVICE == "cuda"
+    npad = -(-n // panel) * panel
+    groups = -(-(npad // panel) // chunk)
+    w = chunk * panel
+
+    def factor():
+        return abft.lu_factor_abft(a, panel=panel, chunk=chunk,
+                                   device=DEVICE)
+
+    def planned(*replays, upto=None):
+        return (launch_counts(abft_plan(n, panel, chunk, replays, upto))
+                if on_card else {})
+
+    (clean, rep), got = counted(factor)
+    require(got == planned(), f"lu_factor_abft n={n}: kernel launches by "
+            f"route {got}, the plan says {planned()}")
+    require(rep.detections == 0, f"lu_factor_abft n={n}: a clean run "
+            f"tripped detection: {rep.to_dict()}")
+    errs = clean.abft_err.cpu().numpy().astype(np.float64)
+    rec = {"n": n, "panel": panel, "chunk": chunk, "groups": groups,
+           "tol": rep.tol, "launches": got,
+           "max_group_err_over_tol": float(errs[:-1].max()) / rep.tol,
+           "final_err_over_tol": float(errs[-1]) / (
+               rep.tol * abft.FINAL_TOL_FACTOR)}
+    for label, kw in (("abft=True", {"abft": True}),
+                      ("panel_impl='pallas'", {"panel_impl": "pallas"})):
+        ref = blocked.lu_factor_blocked_chunked(a, panel=panel, chunk=chunk,
+                                                device=DEVICE, **kw)
+        require(bits_equal(clean, ref, LU_FIELDS), f"lu_factor_abft n={n} "
+                f"!= lu_factor_blocked_chunked({label}) bit for bit")
+        del ref
+    # Every kernel-1 launch of one factorization against its plain version
+    # (most of its strip heights run on no other path).
+    rec["checked_launches"] = checked_abft_factor(a, panel, chunk)
+
+    # A transient flip in a middle group, right of the group's columns:
+    # detected in that group at that column, replayed to the clean bits.
+    g = RES_FLIP_GROUP
+    seed = next(s for s in range(64)
+                if planned_flip(abft.SITE_LU, g, s, g * w, npad)[1]
+                >= (g + 1) * w)
+    run, got = counted(lambda: with_sdc_plan(
+        abft.SITE_LU, factor, seed, max_triggers=1, skip=g))
+    fac, rep_t = run["value"]
+    (inj,) = run["injected"]
+    require(run["triggered"] == 1 and inj["group"] == g
+            and rep_t.detect_groups == [g] and rep_t.detect_cols
+            == [inj["col"]] and rep_t.replays == 1 and not rep_t.escalated,
+            f"transient flip in group {g}: injected {inj}, report "
+            f"{rep_t.to_dict()}")
+    require(bits_equal(fac, clean, LU_FIELDS), f"transient flip in group "
+            f"{g}: the replayed factor differs from the clean one")
+    require(got == planned(g), f"transient flip: launches {got}, the plan "
+            f"with group {g} replayed says {planned(g)}")
+    rec["transient"] = {"group": g, "row": inj["row"], "col": inj["col"],
+                        "bit": inj["bit"], "magnitude": rep_t.max_err,
+                        "replays": rep_t.replays,
+                        "detect_latency_s": rep_t.detect_latency_s}
+    del fac
+
+    # A flip in the last group.
+    last = groups - 1
+    run, got = counted(lambda: with_sdc_plan(
+        abft.SITE_LU, factor, 0, max_triggers=1, skip=last))
+    fac, rep_l = run["value"]
+    by_final = [e for e in run["sdc"] if e["latency_s"] == 0.0]
+    require(run["triggered"] == 1 and rep_l.detections >= 1
+            and set(rep_l.detect_groups) == {last} and not rep_l.escalated
+            and bits_equal(fac, clean, LU_FIELDS) and got == planned(last),
+            f"flip in the last group: report {rep_l.to_dict()}, launches "
+            f"{got}")
+    (run_l_inj,) = run["injected"]
+    del fac
+    # The last group's own column identity sees a flip of its active
+    # region first; the final identity e^T P A = (e^T L) U is what sees a
+    # flip that lands in U after the last group's check. A stand-in flips
+    # one bit of U in the final identity's first input: in a column of the
+    # last group the runner replays that group from its rollback point to
+    # the clean bits; in group 0's columns, past the carry it keeps, it
+    # escalates.
+    real_final = blocked._csum_final_err_lu
+
+    def final_flip(col):
+        v = float(clean.m[1, col])
+        bit = next(b for b in range(23, 31) if not abs(
+            abft._flipped_host(v, b, np.float32) - v)
+            <= 8 * rep.tol * abft.FINAL_TOL_FACTOR)
+        calls = []
+
+        def flipped_once(m, crow0):
+            calls.append(col)
+            if len(calls) == 1:
+                m = abft.flip_bit(m.clone(), 1, col, bit)
+            return real_final(m, crow0)
+
+        def run():
+            try:
+                return factor()[0], None
+            except abft.SDCUnrecoverableError as e:
+                return None, e
+
+        blocked._csum_final_err_lu = flipped_once
+        try:
+            (fac, err), got = counted(run)
+        finally:
+            blocked._csum_final_err_lu = real_final
+        return fac, err, got, abft.last_report(), len(calls), bit
+
+    def share(e):
+        """A mismatch over ``tol``; None where the flip made an inf."""
+        return e / rep.tol if np.isfinite(e) else None
+
+    col = last * w + 1
+    fac, err, got, rep_f, calls, bit = final_flip(col)
+    require(err is None and rep_f.detect_groups == [last]
+            and rep_f.detect_cols == [col] and rep_f.replays == 1
+            and not rep_f.escalated and calls == 2
+            and bits_equal(fac, clean, LU_FIELDS) and got == planned(last),
+            f"a U flip in column {col} seen by the final identity: report "
+            f"{rep_f.to_dict()}, identity calls {calls}, launches {got}")
+    rec["last_group"] = {"group": last, "row": run_l_inj["row"],
+                         "col": run_l_inj["col"],
+                         "detections": rep_l.detections,
+                         "by_final_identity": len(by_final),
+                         "by_group_check": rep_l.detections - len(by_final),
+                         "final_identity": {
+                             "col": col, "bit": bit,
+                             "replays": rep_f.replays,
+                             "err_over_tol": share(rep_f.max_err)}}
+    del fac
+    fac, err, got, rep_f, calls, bit = final_flip(panel + 1)
+    require(fac is None and err is not None and err.group == 0
+            and err.col == panel + 1 and rep_f.escalated and calls == 1
+            and got == planned(), f"a U flip in column {panel + 1} seen by "
+            f"the final identity: raised {err!r}, report "
+            f"{rep_f.to_dict()}, launches {got}")
+    rec["last_group"]["factored_flip"] = {
+        "col": panel + 1, "bit": bit, "escalated": True,
+        "err_over_tol": share(err.magnitude)}
+
+    # A persistent flip: typed, and the ladder escalates past it.
+    g = RES_PERSIST_GROUP
+    run, got = counted(lambda: with_sdc_plan(
+        abft.SITE_LU, factor, 1, max_triggers=None, skip=g))
+    err = run["error"]
+    require(err is not None and err.group == g, f"persistent flip in group "
+            f"{g}: {run['value'] and run['value'][1].to_dict()} raised "
+            f"{err!r}")
+    require(got == planned(g, g, upto=g + 1), f"persistent flip: launches "
+            f"{got}, the plan up to group {g} with it twice more says "
+            f"{planned(g, g, upto=g + 1)}")
+    rng = np.random.default_rng(SEED + 3)
+    a64 = a.cpu().numpy().astype(np.float64)
+    b64 = rng.standard_normal(n)
+    run, got = counted(lambda: with_sdc_plan(
+        abft.SITE_LU, lambda: recover.solve_resilient(
+            a64, b64, abft=True, panel=panel, device=DEVICE), 1,
+        max_triggers=None,
+        skip=g))
+    res = run["value"]
+    rel = checks.residual_norm(a64, res.x, b64, relative=True)
+    require(res.rung_index >= 1
+            and res.escalations[0] == ("abft",
+                                       "exception:SDCUnrecoverableError")
+            and res.sdc["escalated"] and rel <= GATE,
+            f"persistent flip under solve_resilient: rung {res.rung}, "
+            f"escalations {res.escalations}, residual {rel}")
+    rec["persistent"] = {"group": g, "error_col": err.col,
+                         "magnitude": err.magnitude, "served_by": res.rung,
+                         "rel_residual": rel, "launches": got}
+    del a64
+
+    # solve_lu_abft on the internal system.
+    ai, bi = synthetic.internal_matrix(n), synthetic.internal_rhs(n)
+    (x, _, rep_i), got = counted(lambda: abft.solve_lu_abft(
+        ai, bi, panel=panel, chunk=chunk, device=DEVICE))
+    res_i = checks.residual_norm(ai, x, bi)
+    require(checks.internal_pattern_ok(x, atol=1e-4) and res_i < GATE
+            and rep_i.detections == 0 and got == planned(),
+            f"solve_lu_abft internal n={n}: residual {res_i}, report "
+            f"{rep_i.to_dict()}, launches {got}")
+    rec["internal_residual"] = res_i
+    del ai, bi, x
+    if on_card:
+        rec["factor_ms"] = cuda_event_ms(factor, 3, warmup=1)
+        for key, kw in (("chunked_ms", {}), ("chunked_abft_ms",
+                                             {"abft": True}),
+                        ("chunked_pallas_ms", {"panel_impl": "pallas"})):
+            rec[key] = cuda_event_ms(
+                lambda kw=kw: blocked.lu_factor_blocked_chunked(
+                    a, panel=panel, chunk=chunk, device=DEVICE, **kw), 3,
+                warmup=1)
+    return rec
+
+
+def resilience_checkpoint(counted, a, n: int, panel: int, chunk: int,
+                          work: str) -> dict:
+    """Phase 10 (b): the checkpointed chunked LU at full size."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.resilience import checkpoint as ckpt
+    from gauss_tpu_torch.resilience import inject
+
+    on_card = DEVICE == "cuda"
+    plan = factor_plan(n, panel, chunk)
+    want = launch_counts(plan) if on_card else {}
+    saves = []
+    real_save = ckpt.save_state
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        nbytes = real_save(*args, **kw)
+        saves.append((round(time.perf_counter() - t0, 4), nbytes))
+        return nbytes
+
+    path = os.path.join(work, "ck.npz")
+    ckpt.save_state = timed_save
+    try:
+        t0 = time.perf_counter()
+        fck, got = counted(lambda: ckpt.lu_factor_blocked_chunked_checkpointed(
+            a, path, panel=panel, chunk=chunk, device=DEVICE))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ckpt.save_state = real_save
+    require(got == want, f"checkpointed n={n}: launches by route {got}, the "
+            f"plan says {want}")
+    ref = blocked.lu_factor_blocked_chunked(a, panel=panel, chunk=chunk,
+                                            device=DEVICE)
+    require(bits_equal(fck, ref, LU_FIELDS), f"checkpointed n={n} != "
+            f"lu_factor_blocked_chunked bit for bit")
+    del ref
+    groups = -(-(-(-n // panel)) // chunk)
+    require(len(saves) == groups - 1 and not os.path.exists(path),
+            f"checkpointed n={n}: {len(saves)} saves, file left: "
+            f"{os.path.exists(path)}")
+    rec = {"n": n, "saves_s_bytes": saves, "wall_ms": wall_ms,
+           "launches": got}
+    # A child process killed at the third group boundary (kind kill: a
+    # real os._exit) with the kernels this process built; this process
+    # resumes its file.
+    kpath = os.path.join(work, "killed.npz")
+    code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+            f"import numpy as np, torch; "
+            f"from gauss_tpu_torch.kernels import _build; "
+            f"print(json.dumps(_build.build_all() if {on_card} else {{}}), "
+            f"flush=True); "
+            f"from gauss_tpu_torch.resilience import checkpoint as c; "
+            f"a = torch.as_tensor(np.random.default_rng({SEED + n})"
+            f".standard_normal(({n}, {n})), dtype=torch.float32, "
+            f"device={DEVICE!r}); "
+            f"c.lu_factor_blocked_chunked_checkpointed(a, {kpath!r}, "
+            f"panel={panel}, chunk={chunk}, device={DEVICE!r}); "
+            f"print('finished')")
+    env = {**os.environ,
+           "GAUSS_FAULTS": f"checkpoint.group=kill:skip={RES_KILL_SKIP}"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    require(r.returncode == inject.KILL_EXIT_CODE
+            and "finished" not in r.stdout, f"the killed child exited "
+            f"{r.returncode}: {(r.stdout + r.stderr)[-2000:]}")
+    built = json.loads(r.stdout.splitlines()[0])
+    require(not any(built.values()), f"the child rebuilt kernels: {built}")
+    done = ckpt.load_state(kpath)["meta"]["next_group"]
+    require(done == RES_KILL_SKIP * chunk, f"the killed child saved "
+            f"next_group {done}")
+    resumed, got = counted(lambda: ckpt.lu_factor_blocked_chunked_checkpointed(
+        a, kpath, panel=panel, chunk=chunk, device=DEVICE))
+    require(bits_equal(resumed, fck, LU_FIELDS), f"resumed n={n} != the "
+            f"uninterrupted checkpointed factor bit for bit")
+    rest = [x for x in plan if x[2] <= n - done * panel]
+    require(got == (launch_counts(rest) if on_card else {}),
+            f"resume from group {done}: launches {got}")
+    rec["kill"] = {"next_group": done, "child_s": round(child_s, 3),
+                   "child_build_s": built, "resume_launches": got}
+    if on_card:
+        t0 = time.perf_counter()
+        ckpt.lu_factor_blocked_chunked_checkpointed(a, path, panel=panel,
+                                                    chunk=chunk,
+                                                    device=DEVICE)
+        sync()
+        rec["second_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    del fck, resumed
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def resilience_cholesky(n: int, reps: int) -> dict:
+    """Phase 10 (c): the checksum-carrying Cholesky at ``n``."""
+    import torch
+
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.resilience import abft
+    from gauss_tpu_torch.structure import cholesky
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    a = torch.as_tensor(synthetic.spd_matrix(n), dtype=torch.float32,
+                        device=torch.device(DEVICE))
+    f0 = cholesky.cholesky_factor_blocked(a, device=DEVICE)
+    f1 = cholesky.cholesky_factor_blocked(a, abft=True, device=DEVICE)
+    clean, rep = abft.cholesky_factor_abft(a, device=DEVICE)
+    require(bits_equal(f0, f1, CHOL_FIELDS) and bits_equal(
+        f0, clean, CHOL_FIELDS), f"Cholesky n={n}: the rider changed bits")
+    require(rep.detections == 0 and float(clean.min_diag) > 0,
+            f"Cholesky n={n}: a clean run tripped detection: "
+            f"{rep.to_dict()}")
+    errs = clean.abft_err.cpu().numpy().astype(np.float64)
+    nb = rep.groups
+    k = nb // 2
+    run = with_sdc_plan(abft.SITE_CHOL, lambda: abft.cholesky_factor_abft(
+        a, device=DEVICE), 0, max_triggers=1, skip=k)
+    fac, rep_t = run["value"]
+    require(run["triggered"] == 1 and rep_t.detect_groups == [k]
+            and rep_t.replays == 1 and bits_equal(fac, clean, CHOL_FIELDS),
+            f"Cholesky n={n}: flip at panel {k}: {rep_t.to_dict()}")
+    rec = {"n": n, "panels": nb, "tol": rep.tol,
+           "max_group_err_over_tol": float(errs[:-1].max()) / rep.tol,
+           "final_err_over_tol": float(errs[-1]) / (
+               rep.tol * abft.FINAL_TOL_FACTOR),
+           "transient": {"panel": k, "row": run["injected"][0]["row"],
+                         "col": run["injected"][0]["col"],
+                         "magnitude": rep_t.max_err}}
+    del fac, f1, f0, clean
+    if DEVICE == "cuda":
+        rec["abft_ms"] = cuda_event_ms(
+            lambda: abft.cholesky_factor_abft(a, device=DEVICE), reps,
+            warmup=1)
+        rec["flat_ms"] = cuda_event_ms(
+            lambda: cholesky.cholesky_factor_blocked(a, device=DEVICE), reps,
+            warmup=1)
+        rec["unrolled_ms"] = cuda_event_ms(
+            lambda: cholesky.cholesky_factor_blocked_unrolled(a,
+                                                              device=DEVICE),
+            reps, warmup=1)
+    return rec
+
+
+def resilience_matmul(n: int, reps: int) -> dict:
+    """Phase 10 (d): ``abft_matmul`` at (n,)^3 in "highest" and "high"."""
+    import torch
+
+    from gauss_tpu_torch.core.matmul import matmul
+    from gauss_tpu_torch.resilience import abft
+    from gauss_tpu_torch.utils.timing import cuda_event_ms
+
+    rng = np.random.default_rng(SEED + 10)
+    dev = torch.device(DEVICE)
+    a = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
+                        device=dev)
+    b = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
+                        device=dev)
+    out = {}
+    real_poll = abft._poll_sdc_corrupt
+
+    def flip_row(site, m, lo, engine, group, **kw):
+        for j in range(m.shape[1]):
+            abft.flip_bit(m, 5, j, 29)
+        return m, True
+
+    for prec in ("highest", "high"):
+        clean, info = abft.abft_matmul(a, b, precision=prec, device=DEVICE)
+        require(info["detections"] == 0 and torch.equal(
+            clean, matmul(a, b, prec)), f"abft_matmul {prec}: clean product "
+            f"flagged or != core.matmul: {info}")
+        tol = info["tol"]
+        tried = []
+        for seed in range(16):
+            run = with_sdc_plan(abft.SITE_MATMUL, lambda: abft.abft_matmul(
+                a, b, precision=prec, device=DEVICE), seed, max_triggers=1)
+            fixed, inf = run["value"]
+            (inj,) = run["injected"]
+            v = float(clean[inj["row"], inj["col"]])
+            delta = abs(abft._flipped_host(v, inj["bit"], np.float32) - v)
+            dev_max = float((fixed - clean).abs().max())
+            if inf["detections"]:
+                require((inf["corrected"] or inf["recomputed"])
+                        and dev_max <= tol, f"abft_matmul {prec} seed "
+                        f"{seed}: {inf}, max deviation {dev_max}")
+            else:
+                require(np.isfinite(delta) and delta <= tol,
+                        f"abft_matmul {prec} seed {seed}: flip of "
+                        f"{delta} > tol {tol} missed")
+            tried.append({"seed": seed, "bit": inj["bit"], "delta": delta,
+                          "corrected": inf["corrected"],
+                          "recomputed": inf["recomputed"],
+                          "max_dev": dev_max})
+            if inf["corrected"]:
+                break
+        require(tried[-1]["corrected"], f"abft_matmul {prec}: no flip "
+                f"corrected in place over {tried}")
+        abft._poll_sdc_corrupt = flip_row
+        try:
+            wide, inf = abft.abft_matmul(a, b, precision=prec, device=DEVICE)
+        finally:
+            abft._poll_sdc_corrupt = real_poll
+        require(inf["recomputed"] and not inf["corrected"]
+                and torch.equal(wide, clean), f"abft_matmul {prec}: a "
+                f"flipped row was not recomputed: {inf}")
+        rec = {"tol": tol, "flips": tried, "row_recomputed": True}
+        if DEVICE == "cuda":
+            rec["abft_ms"] = cuda_event_ms(lambda: abft.abft_matmul(
+                a, b, precision=prec, device=DEVICE), reps, warmup=1)
+            rec["matmul_ms"] = cuda_event_ms(lambda: matmul(a, b, prec),
+                                             reps, warmup=1)
+        out[prec] = rec
+    return out
+
+
+def equal_nan(got, want) -> bool:
+    """``torch.equal``, where NaN matches NaN: the campaigns corrupt
+    operands with NaN and inf, which the kernels carry through."""
+    import torch
+
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    gn, wn = got.isnan(), want.isnan()
+    return torch.equal(gn, wn) and torch.equal(got[~gn], want[~wn])
+
+
+def strided_copy(t):
+    """A copy of ``t`` at its strides (a view of a larger matrix keeps its
+    leading dimension)."""
+    import torch
+
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+@contextlib.contextmanager
+def kept_launches(kept: list):
+    """Inside the block, the input of every call of the single-strip panel
+    kernel, the batched panel kernel and the SpMV kernel is kept (a device
+    copy at its strides) for ``check_kept_launches``."""
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.sparse import spmv as ks
+
+    real = (blocked.panel_factor, kp.panel_factor_batched,
+            ks.spmv_ell_kernel)
+
+    def panel(p, kb=0, seg=None):
+        kept.append(("panel", [strided_copy(p)], [kb]))
+        return real[0](p, kb, seg)
+
+    def batched(p, kb=0):
+        kept.append(("batched", [strided_copy(p)], [kb]))
+        return real[1](p, kb)
+
+    def spmv(*args):
+        kept.append(("spmv", [strided_copy(t) for t in args], []))
+        return real[2](*args)
+
+    blocked.panel_factor, kp.panel_factor_batched = panel, batched
+    ks.spmv_ell_kernel = spmv
+    try:
+        yield kept
+    finally:
+        blocked.panel_factor, kp.panel_factor_batched = real[:2]
+        ks.spmv_ell_kernel = real[2]
+
+
+def check_kept_launches(kept: list, where: str) -> dict:
+    """Each kept input launched again (the kernels are deterministic: the
+    same input gives the same bits) and held bit for bit against its plain
+    version: returns the calls and distinct shapes by kernel."""
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.sparse import spmv as ks
+
+    fns = {"panel": (kp.panel_factor, kp.panel_factor_plain),
+           "batched": (kp.panel_factor_batched, kp.panel_factor_batched_plain),
+           "spmv": (ks.spmv_ell_kernel, ks.spmv_ell_plain)}
+    shapes = {}
+    for kind, inputs, kb in kept:
+        launch, plain = fns[kind]
+        got = launch(*map(strided_copy, inputs), *kb)
+        want = plain(*inputs, *kb)
+        if kind == "spmv":
+            got, want = (got,), (want,)
+        sig = tuple((tuple(t.shape), t.stride(), str(t.dtype))
+                    for t in inputs)
+        require(all(equal_nan(g, w) for g, w in zip(got, want)),
+                f"{where}: the {kind} kernel at {sig} (kb={kb}) differs "
+                f"from the plain version")
+        shapes.setdefault(kind, []).append(sig)
+    return {kind: {"calls": len(sigs), "shapes": len(set(sigs))}
+            for kind, sigs in shapes.items()}
+
+
+def resilience_campaigns(counted, work: str) -> dict:
+    """Phase 10 (e): ``abftcheck`` at its defaults, ``chaos`` without the
+    fleet and durable phases, and the service's abft lane."""
+    import torch
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.resilience import abft, abftcheck, chaos, inject
+    from gauss_tpu_torch.serve import ServeConfig, SolverServer
+    from gauss_tpu_torch.verify import checks
+
+    out = {}
+    # Kernel 1 at the campaigns' strips (their panel, a width no earlier
+    # phase launches) and at the abft service's n: one factorization at
+    # each size, every launch held against its plain version.
+    rng = np.random.default_rng(SEED + 30)
+    out["checked_launches"] = {}
+    for n, panel in ([(m, RES_CAMPAIGN_PANEL) for m in sorted(
+            {*abftcheck.LU_SIZES, *chaos.SOLVER_SIZES})]
+            + [(RES_SERVE_N, blocked.auto_panel(RES_SERVE_N))]):
+        x = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32,
+                            device=torch.device(DEVICE))
+        out["checked_launches"][f"n={n}, panel {panel}"] = \
+            checked_abft_factor(x, panel, blocked.CHUNK_DEFAULT)
+    del x
+    # The campaigns' own launches: each input kept and, after them, held
+    # against its plain version; every launch they made went through the
+    # recorder.
+    kept, runs = [], {}
+    argv = {"abftcheck": (abftcheck.main, RES_ABFTCHECK_ARGS),
+            "chaos": (chaos.main, ("--no-fleet", "--no-durable", "--tmpdir",
+                                   work, *RES_CHAOS_ARGS))}
+    with kept_launches(kept):
+        for name, (main, args) in argv.items():
+            path = os.path.join(work, f"{name}.json")
+            t0 = time.perf_counter()
+            rc, got = counted(lambda: main(
+                ["--device", DEVICE, "--summary-json", path, *args]))
+            with open(path) as f:
+                runs[name] = rc, round(time.perf_counter() - t0, 3), got, \
+                    json.load(f)
+    held = check_kept_launches(kept, "abftcheck and chaos")
+    launched = sum(sum(got.values()) for _, _, got, _ in runs.values())
+    require(DEVICE != "cuda" or launched == sum(
+        k["calls"] for k in held.values()), f"abftcheck and chaos: "
+        f"{launched} kernel launches, {held} through the recorder")
+    out["held"] = held
+    rc, wall, _, summ = runs["abftcheck"]
+    sdc = summ["sdc"]
+    require(rc == 0 and summ["invariant_ok"] and sdc["detect_rate"] == 1.0
+            and sdc["bit_identity_failures"] == 0 and sdc["missed"] == 0
+            and summ["identity"]["bit_identical"],
+            f"abftcheck exited {rc}: {summ}")
+    out["abftcheck"] = {"rc": rc, "wall_s": wall, "cases": sdc["cases"],
+                        "injected": sdc["injected"],
+                        "replayed": sdc["replayed"],
+                        "escalated": sdc["escalated"],
+                        "mean_detect_latency_s":
+                            sdc["mean_detect_latency_s"],
+                        "identity": summ["identity"],
+                        "matmul": summ["matmul"]}
+    rc, wall, _, summ = runs["chaos"]
+    require(rc == 0 and summ["invariant_ok"]
+            and summ["solver"]["counts"]["silent_wrong"] == 0,
+            f"chaos exited {rc}: {summ}")
+    out["chaos"] = {"rc": rc, "wall_s": wall, "injected": summ["injected"],
+                    "solver": summ["solver"]["counts"],
+                    "serve": summ["serve"].get("counts"),
+                    "sdc_detect_rate": summ["sdc"].get("detect_rate")}
+    # The service's abft lane: n=RES_SERVE_N requests past the ladder top.
+    n = RES_SERVE_N
+    cfg = ServeConfig(ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                      refine_steps=SERVE_REFINE, verify_gate=GATE, abft=True,
+                      device=DEVICE)
+    systems = [dominant_system(n, SEED + 20 + k)
+               for k in range(RES_SERVE_REQUESTS + 1)]
+    plan = inject.FaultPlan([inject.FaultSpec(
+        site=abft.SITE_LU, kind="sdc_bitflip", max_triggers=1, skip=1)],
+        seed=2)
+
+    def serve():
+        results = []
+        with obs.run() as rec, SolverServer(cfg) as srv:
+            for a, b in systems[:-1]:
+                results.append(srv.solve(a, b, timeout=900))
+            with inject.plan(plan):
+                results.append(srv.solve(*systems[-1], timeout=900))
+        return results, rec.events
+
+    t0 = time.perf_counter()
+    (results, events), got = counted(serve)
+    wall = time.perf_counter() - t0
+    routes = [e for e in events if e["type"] == "route"]
+    rels = [checks.residual_norm(a, r.x, b, relative=True)
+            for (a, b), r in zip(systems, results)]
+    require(all(r.ok and r.lane == "handoff" for r in results)
+            and max(rels) <= GATE and len(routes) == len(systems)
+            and all(e["lane"] == "abft" for e in routes)
+            and [r.sdc_detected for r in results]
+            == [False] * RES_SERVE_REQUESTS + [True],
+            f"abft service: {[(r.status, r.lane, r.sdc_detected) for r in results]}, "
+            f"residuals {rels}, routes {routes}")
+    panel, chunk = blocked.auto_panel(n), blocked.CHUNK_DEFAULT
+    base = abft_plan(n, panel, chunk)
+    want = (launch_counts(base * len(systems)
+                         + abft_plan(n, panel, chunk, (1,))[len(base):])
+            if DEVICE == "cuda" else {})
+    require(got == want, f"abft service: launches by route {got}, the plan "
+            f"says {want}")
+    out["serve"] = {"n": n, "requests": len(systems), "wall_s": round(wall,
+                                                                       3),
+                    "rel_residuals": rels, "sdc_detected": [
+                        r.sdc_detected for r in results], "launches": got}
+    return out
+
+
+def phase_resilience(reps: int):
+    """The checksum-carrying and checkpointed factorizations, the ABFT
+    matmul and the campaigns on the card (module docstring, phase 10):
+    returns the launch counts of its counted calls and its figures."""
+    import tempfile
+
+    import torch
+
+    from gauss_tpu_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    card = smi_line() if on_card else "cpu"
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    counts = {}
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after: its value and its launches, both added to the phase's
+        counts. A kernel whose key does not name its route is counted by
+        route (``_build.ROUTE_LAUNCHES``), every other by its key."""
+        _build.reset_launches()
+        val = fn()
+        sync()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v and not any(
+            r.startswith(k + "/") for r in _build.ROUTE_LAUNCHES)}
+        got.update(_build.ROUTE_LAUNCHES)
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return val, got
+
+    out = {"card": card}
+    n, panel, chunk = RES_LU
+    a = torch.as_tensor(np.random.default_rng(SEED + n).standard_normal(
+        (n, n)), dtype=torch.float32, device=torch.device(DEVICE))
+    work = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        lu = out["lu"] = resilience_lu(counted, a, n, panel, chunk)
+        print(f"phase 10 (a): lu_factor_abft n={n}, panel {panel}, chunk "
+              f"{chunk}: kernel-1 launches {lu['launches']}, bits == "
+              f"chunked abft=True == pallas; checked launches "
+              f"{lu['checked_launches']}; clean err/tol max "
+              f"{lu['max_group_err_over_tol']:.3e} (final "
+              f"{lu['final_err_over_tol']:.3e} of 4 tol); transient flip "
+              f"{lu['transient']}; last group {lu['last_group']}; "
+              f"persistent {lu['persistent']}; internal residual "
+              f"{lu['internal_residual']:.3e}"
+              + (f"; factor {lu['factor_ms']:.3f} ms (median of 3), chunked "
+                 f"{lu['chunked_ms']:.3f}, chunked abft=True "
+                 f"{lu['chunked_abft_ms']:.3f}, chunked pallas "
+                 f"{lu['chunked_pallas_ms']:.3f}" if on_card else "")
+              + f" [{card}]")
+        ck = out["checkpoint"] = resilience_checkpoint(counted, a, n, panel,
+                                                       chunk, work)
+        print(f"phase 10 (b): checkpointed n={n}: bits == chunked; launches "
+              f"{ck['launches']}; saves [s, bytes] {ck['saves_s_bytes']}; "
+              f"wall {ck['wall_ms']:.1f} ms"
+              + (f" (again {ck['second_wall_ms']:.1f})" if on_card else "")
+              + f" against the chunked factor's "
+              f"{lu.get('chunked_ms', float('nan')):.3f} ms; killed child "
+              f"{ck['kill']} resumed bit for bit [{card}]")
+        del a
+        if on_card:
+            torch.cuda.empty_cache()
+        out["cholesky"] = [resilience_cholesky(m, 3) for m in RES_CHOL]
+        for rec in out["cholesky"]:
+            print(f"phase 10 (c): cholesky_factor_abft n={rec['n']}: bits == "
+                  f"flat abft=False; err/tol {rec['max_group_err_over_tol']:.3e} "
+                  f"(final {rec['final_err_over_tol']:.3e}); transient "
+                  f"{rec['transient']} replayed bit for bit"
+                  + (f"; abft {rec['abft_ms']:.3f} ms, flat "
+                     f"{rec['flat_ms']:.3f}, unrolled {rec['unrolled_ms']:.3f}"
+                     if on_card else "") + f" [{card}]")
+        out["matmul"] = resilience_matmul(RES_MM, reps)
+        for prec, rec in out["matmul"].items():
+            print(f"phase 10 (d): abft_matmul ({RES_MM},)^3 {prec}: clean; "
+                  f"flips {rec['flips']}; a flipped row recomputed"
+                  + (f"; {rec['abft_ms']:.4f} ms against core.matmul "
+                     f"{rec['matmul_ms']:.4f}" if on_card else "")
+                  + f" [{card}]")
+        camp = out["campaigns"] = resilience_campaigns(counted, work)
+        print(f"phase 10 (e): kernel 1 checked at "
+              f"{camp['checked_launches']}; the campaigns' calls held by "
+              f"shape {camp['held']}; abftcheck {camp['abftcheck']}; chaos "
+              f"{camp['chaos']}; service {camp['serve']} [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = counts
+    out["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    print(f"phase 10: launches {counts}; {out['wall_s']} s wall "
+          f"[{card}]")
+    print(json.dumps({"resilience": out}, default=str))
+    return launches, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -4570,6 +5447,11 @@ def main(argv=None) -> int:
     require(by_path["structure"]["panel_factor_batched"] > 0,
             "the structure path launched no batched panel kernel")
     by_path["serve"], serve = phase_serve(args.reps)
+    by_path["resilience"], res = phase_resilience(args.reps)
+    require(by_path["resilience"]["panel_factor_grid"] > 0
+            and by_path["resilience"]["panel_factor_cluster"] > 0,
+            "the resilience path launched no grid- or cluster-route panel "
+            "kernel")
     for name in ("panel_trailing_fused_batched",
                  "panel_trailing_fused_batched_bf16",
                  "panel_factor_batched_bf16", "panel_factor_batched"):
@@ -4598,6 +5480,11 @@ def main(argv=None) -> int:
     def launch_keys(name):
         return {"launches": launches[name], "launches_by_path": {
             p: c[name] for p, c in by_path.items() if c[name]}}
+
+    def res_routes(name):
+        """Phase 10's launches of a kernel by route."""
+        return {k.split("/")[1]: v for k, v in res["launches"].items()
+                if k.split("/")[0] == name}
 
     src = "gauss_tpu_torch/kernels/csrc/"
     tall, grid = k1["shapes"][(N, PANEL)], k1["shapes"][(2 * N, PANEL)]
@@ -4678,7 +5565,8 @@ def main(argv=None) -> int:
          "(8192, 1024) grid route": tallest(ob32, "fused_"),
          "factorization_ms": k2["factorization_ms"],
          "factorization_lu_factor_ms": k2["lu_factor_ms"],
-         "large_n": large_n_summary(large, "panel_trailing_fused")},
+         "large_n": large_n_summary(large, "panel_trailing_fused"),
+         "resilience_by_route": res_routes("panel_trailing_fused")},
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",

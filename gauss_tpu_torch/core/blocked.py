@@ -1101,17 +1101,21 @@ def resolve_factor(n: int, unroll="auto", *, donate: bool = False,
     the policy says unrolled. ``donate=True`` lets the factorization take
     the caller's tensor in place when it needs no padding (the JAX
     package's donating twins). A tuned store's ``"lu_factor"`` ``chunk``
-    for the size bucket replaces the seed before the escalation. ``checkpoint_path`` raises: the
-    checkpointed factorization is ROADMAP queue-1 item 9."""
+    for the size bucket replaces the seed before the escalation.
+    ``checkpoint_path`` routes to the host-stepped checkpointed chunked
+    factorization (:func:`gauss_tpu_torch.resilience.checkpoint
+    .lu_factor_blocked_chunked_checkpointed`, a partial carrying
+    ``path``); it and ``abft`` are mutually exclusive."""
     if checkpoint_path is not None:
         if abft:
             raise ValueError("checkpoint_path and abft are mutually "
                              "exclusive; the ABFT runner keeps its own "
                              "in-memory carry (resilience.abft)")
-        raise NotImplementedError(
-            "checkpoint_path: the checkpointed factorization "
-            "(resilience/checkpoint) is not ported yet (ROADMAP queue-1 "
-            "item 9)")
+        from gauss_tpu_torch.resilience.checkpoint import \
+            lu_factor_blocked_chunked_checkpointed
+
+        return partial(lu_factor_blocked_chunked_checkpointed,
+                       path=checkpoint_path)
 
     def pick(fn, **kw):
         if abft:

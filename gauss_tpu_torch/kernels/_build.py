@@ -52,12 +52,16 @@ LAUNCHES = {"panel_factor": 0, "panel_factor_cluster": 0,
             "matmul_tiled": 0, "matmul_stripe": 0, "eliminate_step": 0,
             "rankk_update": 0, "spmv_ell": 0}
 
-#: Launches of the batched kernels by the route the C launcher reports it
-#: took, counted beside :data:`LAUNCHES` at the launch: the batched fused
-#: kernel by phase-A route, keyed ``panel_trailing_fused_batched[_bf16]/
-#: <route>`` (``cluster``, ``grid`` or ``block``), and the batched panel
-#: kernel by step loop, keyed ``panel_factor_batched[_bf16]/<route>``
-#: (``regs``, ``cluster``, ``smem`` or ``global``). Reset with
+#: Launches of the kernels whose :data:`LAUNCHES` key does not name the
+#: route, counted by route beside it at the launch (:func:`count_route`):
+#: the batched fused kernel by the phase-A route the C launcher reports it
+#: took, keyed ``panel_trailing_fused_batched[_bf16]/<route>``
+#: (``cluster``, ``grid`` or ``block``); the batched panel kernel by step
+#: loop, ``panel_factor_batched[_bf16]/<route>`` (``regs``, ``cluster``,
+#: ``smem`` or ``global``); and the fused kernel by the phase-A route of
+#: ``fused_geometry`` that its launch took,
+#: ``panel_trailing_fused[_bf16]/<route>``. The single-strip panel
+#: kernel's keys name its route already. Reset with
 #: :func:`reset_launches`.
 ROUTE_LAUNCHES: dict[str, int] = {}
 
@@ -157,6 +161,14 @@ def is_kernel_fault(exc: BaseException) -> bool:
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def count_route(key: str, route: str) -> None:
+    """Count one launch of ``key`` in :data:`LAUNCHES` and, under
+    ``key/route``, in :data:`ROUTE_LAUNCHES`."""
+    LAUNCHES[key] += 1
+    by_route = f"{key}/{route}"
+    ROUTE_LAUNCHES[by_route] = ROUTE_LAUNCHES.get(by_route, 0) + 1
 
 
 def reset_launches() -> None:

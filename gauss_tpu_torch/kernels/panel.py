@@ -521,10 +521,7 @@ def _panel_factor_batched_cuda(p: torch.Tensor, kb: int):
             p.data_ptr(), p.stride(0), p.stride(1), bsz, h, panel, int(kb),
             *ptrs, taken, stream)
     _build.check(lib, rc, key)
-    _build.LAUNCHES[key] += 1
-    by_route = f"{key}/{BATCHED_ROUTES[taken[0]]}"
-    _build.ROUTE_LAUNCHES[by_route] = _build.ROUTE_LAUNCHES.get(by_route,
-                                                                0) + 1
+    _build.count_route(key, BATCHED_ROUTES[taken[0]])
     if not regs:
         perm = perm_from_inv(inv, chosen, kb, panel)
         out = torch.gather(pt.transpose(1, 2), 1,

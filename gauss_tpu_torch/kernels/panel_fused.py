@@ -353,7 +353,7 @@ def _fused_cuda(block, col0: int, kbrow: int, panel: int, fseg: int):
             rec.data_ptr() if grid_route else None,
             slot.data_ptr() if grid_route else None, stream)
     _build.check(lib, rc, "panel_trailing_fused" + sfx)
-    _build.LAUNCHES["panel_trailing_fused" + sfx] += 1
+    _build.count_route("panel_trailing_fused" + sfx, geom.route)
     perm_local = perm_from_inv(inv, chosen, kbrow, panel)
     return pt.T[perm_local], ipiv, perm_local, minpiv[0], block
 
@@ -585,10 +585,7 @@ def _fused_batched_cuda(stack, col0: int, kbrow: int, panel: int, fseg: int,
             group if route == "grid" else 0, taken, stream)
     key = "panel_trailing_fused_batched" + sfx
     _build.check(lib, rc, key)
-    _build.LAUNCHES[key] += 1
-    by_route = f"{key}/{ROUTES[taken[0]]}"
-    _build.ROUTE_LAUNCHES[by_route] = _build.ROUTE_LAUNCHES.get(by_route,
-                                                                0) + 1
+    _build.count_route(key, ROUTES[taken[0]])
     perm = perm_from_inv(inv, chosen, kbrow, panel)
     p = torch.gather(pt.transpose(1, 2), 1,
                      perm[:, :, None].expand(bsz, h, panel))

@@ -1,22 +1,35 @@
-"""gauss_tpu_torch.resilience — fault injection and the recovery ladder.
+"""gauss_tpu_torch.resilience — fault injection, recovery ladders,
+checkpointed and checksum-carrying solves.
 
 Port of ``gauss_tpu/resilience``:
 
 - :mod:`.inject` — seeded, deterministic fault injection behind named hook
-  points (``core.blocked.factor``, ``core.gauss.solve``,
-  ``serve.cache.compile``, ``structure.detect``); off by default, one
-  ``is None`` check per hook.
+  points; off by default, one ``is None`` check per hook.
 - :mod:`.recover` — ``solve_resilient(a, b)``: every result gated at the
   1e-4 relative residual, failures escalated along an explicit ladder of
-  the port's engines, each step an obs ``recovery`` event, a typed
+  the port's engines (with ``abft=True``, the checksum-carrying rung
+  first), each step an obs ``recovery`` event, a typed
   :class:`UnrecoverableSolveError` only when the ladder is exhausted.
+- :mod:`.checkpoint` — panel-granular checkpoint/resume of the chunked
+  factorization, in the JAX package's file format: a killed run resumes
+  bit for bit.
+- :mod:`.abft` — checksum-carrying LU, Cholesky and matmul that detect
+  silent data corruption within one panel group, localize it and replay
+  the group from the held carry (bit for bit an uninterrupted run), and
+  escalate typed (:class:`~gauss_tpu_torch.resilience.abft
+  .SDCUnrecoverableError`) when replay fails.
+- :mod:`.chaos` — the campaign runner (``python -m
+  gauss_tpu_torch.resilience.chaos``): every injected fault recovered or
+  typed, never a silent wrong answer.
+- :mod:`.abftcheck` — the ABFT campaign (``python -m
+  gauss_tpu_torch.resilience.abftcheck``).
 
 ``inject`` is imported eagerly (stdlib + numpy only; the hook points in
-``core`` reference it at module load); ``recover`` imports the solver
-stack and loads lazily. Not ported yet: ``checkpoint``, ``abft``,
-``chaos`` and ``abftcheck`` (ROADMAP queue-1 item 9) and ``watchdog``,
-``dcheckpoint`` and ``fleet`` (item 10), so ``WorkerLostError``,
-``FleetError`` and ``solve_supervised`` are not here.
+``core`` reference it at module load); the other submodules import the
+solver stack and load lazily. Not ported yet: ``watchdog``,
+``dcheckpoint`` and ``fleet`` (ROADMAP queue-1 item 10), so
+``WorkerLostError``, ``FleetError`` and ``solve_supervised`` are not
+here, and ``chaos`` refuses its ``fleet`` and ``durable`` phases.
 """
 
 from gauss_tpu_torch.resilience.inject import (  # noqa: F401
@@ -26,7 +39,7 @@ from gauss_tpu_torch.resilience.inject import (  # noqa: F401
     SimulatedFaultError,
 )
 
-_LAZY = ("recover", "inject")
+_LAZY = ("recover", "checkpoint", "chaos", "inject", "abft", "abftcheck")
 
 __all__ = ["FaultPlan", "FaultSpec", "SimulatedCompileError",
            "SimulatedFaultError", "UnrecoverableSolveError",

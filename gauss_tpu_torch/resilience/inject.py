@@ -19,10 +19,22 @@ The hook sites the port polls today:
                             ``gauss_tpu_torch.serve.cache``
     structure.detect        force the router's tag (kind ``mistag``) —
                             ``gauss_tpu_torch.structure.router``
+    serve.worker.dispatch   delay the serve worker before dispatch —
+                            ``gauss_tpu_torch.serve.server``
+    serve.server.batch      kill the serving process at a batch boundary
+                            (kind ``server_kill``) — the same
+    checkpoint.group        raise or ``os._exit`` between checkpointed
+                            factor groups —
+                            ``gauss_tpu_torch.resilience.checkpoint``
+    abft.lu.group           flip one bit of one element of the on-device
+    abft.chol.group         carry at a panel-group boundary (kind
+                            ``sdc_bitflip``: :func:`poll_sdc`, applied by
+                            ``gauss_tpu_torch.resilience.abft``)
+    abft.matmul             the same against an ABFT matmul's product
 
-The other sites of the JAX package's catalog (the serve worker, the
-journal, dist, checkpoint, out-of-core, fleet and ABFT sites) belong to
-modules not ported yet; a plan may name them, and nothing polls them.
+The other sites of the JAX package's catalog (the journal, dist,
+out-of-core and fleet sites) belong to modules not ported yet; a plan may
+name them, and nothing polls them.
 
 The operand of the port is a numpy array or a torch tensor, on the CPU
 or on the card. :func:`corrupt_operand` corrupts a copy on the host with

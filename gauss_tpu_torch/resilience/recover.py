@@ -8,7 +8,14 @@ instead of returning a wrong answer:
 
     rung 0  primary engine        blocked f32 factor + host-f64 refinement
                                   (``core.blocked.solve_refined``), or the
-                                  rank-1 oracle (``core.gauss``)
+                                  rank-1 oracle (``core.gauss``); with
+                                  ``abft=True`` the checksum-carrying form
+                                  (``resilience.abft``) is prepended: a
+                                  transient mid-solve corruption is
+                                  detected and replayed inside the rung
+                                  (``abft_replay`` recovery events), and
+                                  only persistent corruption (typed
+                                  ``SDCUnrecoverableError``) escalates
     rung 1  pivot_safe            re-factor with ``zero_pivot_safe`` + the
                                   same refinement
     rung 2  ds_refine             double-single on-device refinement
@@ -29,13 +36,10 @@ when host LAPACK finds the system singular).
 
 Deliberate deviations from the JAX package:
 
-- **Unported rungs are refused before the ladder runs.** ``abft`` and
-  ``abft_chol`` (ROADMAP queue-1 item 9) and ``outofcore`` (item 10) have
-  no engine in the port yet: a ladder that names one, including
-  ``default_rungs(abft=True)`` and ``structured_rungs(..., abft=True)``
-  where the JAX package would prepend an ABFT rung, raises
-  :class:`RungNotPortedError` when it is built. No such rung is tried and
-  escalated past.
+- **Unported rungs are refused before the ladder runs.** ``outofcore``
+  (ROADMAP queue-1 item 10) has no engine in the port yet: a ladder that
+  names it raises :class:`RungNotPortedError` when it is built. It is
+  never tried and escalated past.
 - **Kernel failures are not hidden.** The JAX ladder escalates past any
   exception of a rung. The port re-raises
   :class:`~gauss_tpu_torch.kernels._build.KernelBuildError` and
@@ -44,8 +48,16 @@ Deliberate deviations from the JAX package:
   (:func:`~gauss_tpu_torch.kernels._build.is_kernel_fault`): a kernel that
   does not build, launch or run is a fault of the program, and escalating
   would quietly serve the answer from a rung that runs no kernel (the CUDA
-  error is sticky, so every card rung after it fails the same way). Every
-  other exception escalates as in the JAX package.
+  error is sticky, so every card rung after it fails the same way). This
+  holds inside the ``abft``/``abft_chol`` rungs too: a kernel fault is not
+  a checksum mismatch and is not replayed. Every other exception
+  escalates as in the JAX package; an ``SDCUnrecoverableError`` escalates
+  to the next rung, and the failed rung's ABFT report stays on the result
+  (``ResilientResult.sdc``).
+- The JAX ladder freezes a flight-recorder bundle when an SDC error
+  escalates past its rung (``obs.postmortem``); the flight recorder is
+  ROADMAP queue-1 item 11, so the port emits the same ``recovery`` events
+  without a bundle.
 """
 
 from __future__ import annotations
@@ -66,8 +78,6 @@ ENGINES = ("blocked", "rank1")
 #: Rungs of the JAX package that have no engine in the port yet, and the
 #: ROADMAP queue-1 item that brings each.
 UNPORTED_RUNGS = {
-    "abft": "ROADMAP queue-1 item 9 (resilience/abft)",
-    "abft_chol": "ROADMAP queue-1 item 9 (resilience/abft)",
     "outofcore": "ROADMAP queue-1 item 10 (outofcore/)",
 }
 
@@ -95,13 +105,14 @@ def _refuse_unported(ladder: Sequence[str]) -> Tuple[str, ...]:
 def default_rungs(engine: str = "blocked",
                   abft: bool = False) -> Tuple[str, ...]:
     """The ladder's rung names in escalation order for a primary engine.
-    ``abft=True`` names the JAX package's checksum-carrying head, which is
-    not ported: :class:`RungNotPortedError`."""
+    ``abft=True`` prepends the checksum-carrying rung (in-rung detect,
+    localize, replay; see :mod:`gauss_tpu_torch.resilience.abft`): replay
+    failure escalates through exactly the ladder below it."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; options: {ENGINES}")
     alternate = "rank1" if engine == "blocked" else "blocked"
     base = (engine, "pivot_safe", "ds_refine", alternate, "numpy_f64")
-    return _refuse_unported(("abft",) + base if abft else base)
+    return ("abft",) + base if abft else base
 
 
 class UnrecoverableSolveError(RuntimeError):
@@ -139,8 +150,8 @@ class ResilientResult:
     attempts: int              # rungs tried (1 = no escalation)
     rel_residual: float
     escalations: List[Tuple[str, str]]  # (rung, trigger) of each failure
-    #: ABFT accounting in the JAX package; always None in the port (no
-    #: ABFT rung runs).
+    #: the ABFT rungs' detection/replay accounting (None when the ladder
+    #: has no ABFT rung, or none of them ran).
     sdc: Optional[dict] = None
 
     @property
@@ -251,6 +262,30 @@ def _rung_numpy(a64, b64, panel, iters, device):
             f"exactly singular system: host LAPACK reports {e}") from e
 
 
+def _rung_abft(a64, b64, panel, iters, device):
+    """Checksum-carrying blocked LU with in-rung detect/localize/replay
+    (:mod:`gauss_tpu_torch.resilience.abft`): a transient corruption is
+    repaired inside the rung, bit for bit an uninterrupted run; persistent
+    corruption raises the typed SDCUnrecoverableError and the ladder
+    escalates past it."""
+    from gauss_tpu_torch.resilience import abft
+
+    x, fac, _report = abft.solve_lu_abft(a64, b64, panel=panel, iters=iters,
+                                         device=device)
+    return x, fac
+
+
+def _rung_abft_chol(a64, b64, panel, iters, device):
+    """The SPD sibling: checksum-carrying blocked Cholesky with replay; a
+    non-SPD operand raises the typed NotSPDError the plain cholesky rung
+    does."""
+    from gauss_tpu_torch.resilience import abft
+
+    x, fac, _report = abft.solve_chol_abft(a64, b64, panel=panel,
+                                           iters=iters, device=device)
+    return x, fac
+
+
 def _rung_cholesky(a64, b64, panel, iters, device):
     """SPD rung: blocked Cholesky + host-f64 refinement; a non-SPD operand
     raises the typed NotSPDError and the ladder demotes."""
@@ -305,7 +340,11 @@ _RUNG_FNS: Dict[str, Callable] = {
     "cg": _rung_krylov("cg"),
     "gmres": _rung_krylov("gmres"),
     "bicgstab": _rung_krylov("bicgstab"),
+    "abft": _rung_abft,
+    "abft_chol": _rung_abft_chol,
 }
+
+_ABFT_RUNGS = ("abft", "abft_chol")
 
 #: ladder head per structure tag; every structured ladder then demotes to
 #: "blocked" (general LU) -> pivot_safe -> ds_refine -> numpy_f64.
@@ -322,19 +361,19 @@ def structured_rungs(tag: str, abft: bool = False,
                      lowered: bool = False) -> Tuple[str, ...]:
     """The escalation ladder for a structure tag: the structured engine
     first, then the general-LU demotion rungs. ``lowered=True`` (dense
-    only) prepends the mixed-precision rung. ``abft=True`` on the spd and
-    dense tags names the JAX package's checksum-carrying head, which is not
-    ported (:class:`RungNotPortedError`); on the other tags the JAX ladder
-    is unchanged by it, and so is the port's."""
+    only) prepends the mixed-precision rung. ``abft=True`` prepends the
+    checksum-carrying engine where one exists (``abft_chol`` on spd,
+    ``abft`` on dense) and wins over ``lowered``; the other tags' ladders
+    are unchanged by it."""
     if tag not in _STRUCTURE_HEADS:
         raise ValueError(f"unknown structure tag {tag!r}; options: "
                          f"{sorted(_STRUCTURE_HEADS)}")
     base = _STRUCTURE_HEADS[tag] + ("blocked", "pivot_safe", "ds_refine",
                                     "numpy_f64")
     if abft and tag == "spd":
-        return _refuse_unported(("abft_chol",) + base)
+        return ("abft_chol",) + base
     if abft and tag == "dense":
-        return _refuse_unported(("abft",) + base)
+        return ("abft",) + base
     if lowered and tag == "dense":
         return ("lowered",) + base
     return base
@@ -355,8 +394,10 @@ def solve_resilient(a, b, *, gate: float = DEFAULT_GATE,
     ``ValueError`` for malformed requests (shapes, unknown rung names),
     :class:`RungNotPortedError` for a ladder naming an unported rung, and
     re-raises the kernels' build, launch and run errors. ``rungs``
-    overrides the ladder. ``device``: where the rungs run (default
-    ``cuda``)."""
+    overrides the ladder. ``abft=True`` prepends the checksum-carrying
+    rung (:func:`default_rungs`); ``.sdc`` on the result then carries the
+    detection/replay accounting (``.sdc_detected`` is the serving tag).
+    ``device``: where the rungs run (default ``cuda``)."""
     from gauss_tpu_torch.kernels._build import is_kernel_fault
 
     a64 = np.asarray(a, dtype=np.float64)
@@ -384,13 +425,50 @@ def solve_resilient(a, b, *, gate: float = DEFAULT_GATE,
         raise ValueError(f"unknown ladder rung(s) {unknown}; options: "
                          f"{sorted(set(_RUNG_FNS) | set(UNPORTED_RUNGS))}")
     _refuse_unported(ladder)
+    has_abft = any(r in _ABFT_RUNGS for r in ladder)
+    sdc_reports: List[dict] = []
+
+    def collect_sdc(rung: str) -> None:
+        """Keep the just-finished ABFT rung's report: a later ABFT rung
+        overwrites the module's thread-local, so a failed rung's
+        detections must be taken here."""
+        if rung not in _ABFT_RUNGS:
+            return
+        from gauss_tpu_torch.resilience import abft as _abft
+
+        rep = _abft.last_report()
+        if rep is not None:
+            sdc_reports.append(rep.to_dict())
+        _abft.clear_report()
+
+    def sdc_info() -> Optional[dict]:
+        if not has_abft or not sdc_reports:
+            return None
+        if len(sdc_reports) == 1:
+            return sdc_reports[0]
+        out = dict(sdc_reports[-1])
+        out["engine"] = "+".join(r["engine"] for r in sdc_reports)
+        for key in ("detections", "replays"):
+            out[key] = sum(r[key] for r in sdc_reports)
+        out["escalated"] = any(r["escalated"] for r in sdc_reports)
+        out["max_err"] = max(r["max_err"] for r in sdc_reports)
+        for key in ("detect_groups", "detect_cols", "detect_latency_s"):
+            out[key] = [v for r in sdc_reports for v in r[key]]
+        return out
+
+    if has_abft:
+        from gauss_tpu_torch.resilience import abft as _abft
+
+        _abft.clear_report()
 
     escalations: List[Tuple[str, str]] = []
     for i, rung in enumerate(ladder):
         try:
             x, fac = _RUNG_FNS[rung](a64, b64, panel, refine_iters, device)
             ok, trigger, rel = _gate(a64, b64, x, factors=fac, gate=gate)
+            collect_sdc(rung)
         except SingularSystemError as e:
+            collect_sdc(rung)
             escalations.append((rung, "singular_matrix"))
             obs.counter("resilience.unrecoverable")
             obs.emit("recovery", trigger="singular_matrix", rung=rung,
@@ -401,6 +479,7 @@ def solve_resilient(a, b, *, gate: float = DEFAULT_GATE,
             if is_kernel_fault(e):
                 raise
             ok, trigger, rel = False, f"exception:{type(e).__name__}", None
+            collect_sdc(rung)
         if ok:
             if i > 0:
                 obs.counter("resilience.recovered")
@@ -410,7 +489,8 @@ def solve_resilient(a, b, *, gate: float = DEFAULT_GATE,
             return ResilientResult(x=np.asarray(x, dtype=np.float64),
                                    rung=rung, rung_index=i, attempts=i + 1,
                                    rel_residual=rel,
-                                   escalations=escalations)
+                                   escalations=escalations,
+                                   sdc=sdc_info())
         escalations.append((rung, trigger))
         obs.counter("resilience.escalations")
         obs.emit("recovery", trigger=trigger, rung=rung, rung_index=i,

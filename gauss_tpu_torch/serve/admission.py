@@ -93,7 +93,6 @@ UNPORTED_OPTIONS = (
     ("slo_shed", False, "item 11 (obs/slo, the SLO-degraded admission)"),
     ("flight_dir", None, "item 11 (obs/flight, the flight recorder)"),
     ("attr", None, "item 11 (obs/attr, the attribution plane)"),
-    ("abft", False, "item 9 (resilience/abft)"),
     ("supervised_handoff", False, "item 10 (resilience/fleet)"),
     ("outofcore_handoff", False, "item 10 (outofcore/)"),
 )
@@ -167,11 +166,16 @@ class ServeConfig:
     #                                 transiently to isolate the culprit
     #                                 member(s) (typed STATUS_POISON);
     #                                 False = the whole batch fails together
+    abft: bool = False              # checksum-carrying (ABFT) solves on the
+    #                                 handoff lane for systems that fit the
+    #                                 card: silent data corruption detected
+    #                                 within one panel group and repaired by
+    #                                 replay (resilience.abft); results that
+    #                                 saw a detection carry sdc_detected
     # -- the JAX package's planes not ported: each off, or the server
     #    refuses to build (FeatureNotPortedError) --------------------------
     supervised_handoff: bool = False  # the fleet supervisor's handoff lane
     outofcore_handoff: bool = False   # the host-streamed handoff lane
-    abft: bool = False              # checksum-carrying single-request lanes
     live_port: Optional[int] = None  # the live telemetry endpoint
     slos: tuple = ()                # its SLO definitions
     slo_shed: bool = False          # SLO-degraded admission
@@ -199,6 +203,9 @@ class ServeResult:
     retry_after_s: Optional[float] = None
     error: Optional[str] = None
     rel_residual: Optional[float] = None
+    #: True when the ABFT-protected lane detected (and repaired) silent
+    #: data corruption while serving this request (ServeConfig.abft).
+    sdc_detected: bool = False
 
     @property
     def ok(self) -> bool:

@@ -12,7 +12,11 @@ panel step for the whole stack on the card). Lanes:
   certified-SPD batches with ``structure_aware``.
 - **handoff** — oversized systems (past the ladder top), one at a time
   through :func:`gauss_tpu_torch.core.blocked.solve_handoff` (the
-  single-card lane; its ``route`` event says why).
+  single-card lane; its ``route`` event says why), or, with
+  ``ServeConfig.abft`` and a system that fits the card, through the
+  checksum-carrying recovery ladder (``solve_resilient(abft=True)``, a
+  ``route`` event with ``lane="abft"``; the result carries
+  ``sdc_detected``).
 - **sparse** — ``structure="sparse"`` batches: every member runs the
   Krylov recovery ladder.
 - **numpy** — the degraded lane: the host recovery ladder, when the
@@ -52,7 +56,7 @@ Deliberate deviations from the JAX package:
   the card, so a first batch's deadline never runs while ``nvcc`` does.
 - Options of planes not ported (:data:`~gauss_tpu_torch.serve.admission
   .UNPORTED_OPTIONS`: the mesh lanes, the journal, the live, flight and
-  attribution planes, ABFT, the supervised and out-of-core handoff)
+  attribution planes, the supervised and out-of-core handoff)
   raise :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError`
   when the server is built.
 """
@@ -494,21 +498,39 @@ class SolverServer:
 
     def _serve_handoff(self, req: ServeRequest) -> None:
         """Oversized lane: one solve_handoff call per request (its routing
-        decision is its own ``route`` event), on the single-card lane."""
+        decision is its own ``route`` event), on the single-card lane; with
+        ``abft`` and a system that fits the card, the checksum-carrying
+        ladder instead."""
         from gauss_tpu_torch.core import blocked
 
         cfg = self.config
+        sdc_detected = False
         try:
             with obs.trace_context(req.trace_id), \
                     obs.span("serve_handoff", n=req.n):
-                x = blocked.solve_handoff(
-                    req.a.astype(np.float64), req.b.astype(np.float64),
-                    budget=cfg.device_budget, panel=cfg.panel,
-                    iters=max(2, cfg.refine_steps), device=self.device)
+                if cfg.abft and blocked.fits_single_chip(req.n,
+                                                         device=self.device):
+                    from gauss_tpu_torch.resilience import recover
+
+                    obs.emit("route", tool="serve_handoff", lane="abft",
+                             n=req.n)
+                    rr = recover.solve_resilient(
+                        req.a.astype(np.float64), req.b.astype(np.float64),
+                        abft=True, panel=cfg.panel,
+                        refine_iters=max(2, cfg.refine_steps),
+                        device=self.device)
+                    x = rr.x
+                    sdc_detected = rr.sdc_detected
+                else:
+                    x = blocked.solve_handoff(
+                        req.a.astype(np.float64), req.b.astype(np.float64),
+                        budget=cfg.device_budget, panel=cfg.panel,
+                        iters=max(2, cfg.refine_steps), device=self.device)
         except Exception as e:  # noqa: BLE001 — lane boundary
             self._fail([req], STATUS_FAILED, "handoff", None, _err(e))
             return
-        self._finish(req, np.asarray(x), lane="handoff", bucket_n=None)
+        self._finish(req, np.asarray(x), lane="handoff", bucket_n=None,
+                     sdc_detected=sdc_detected)
 
     def _serve_sparse(self, reqs) -> None:
         """The sparse lane: every member runs the Krylov recovery ladder
@@ -559,7 +581,7 @@ class SolverServer:
             self._finish(req, rr.x, lane="numpy", bucket_n=None)
 
     def _finish(self, req: ServeRequest, x: np.ndarray, lane: str,
-                bucket_n: Optional[int]) -> None:
+                bucket_n: Optional[int], sdc_detected: bool = False) -> None:
         rel = None
         if (lane == "batched" and self.config.poison_scan
                 and not bool(np.isfinite(x).all())):
@@ -597,11 +619,15 @@ class SolverServer:
         queue_s = time.perf_counter() - req.t_submit
         if not req.resolve(ServeResult(status=STATUS_OK, x=x, lane=lane,
                                        bucket_n=bucket_n, queue_s=queue_s,
-                                       rel_residual=rel)):
+                                       rel_residual=rel,
+                                       sdc_detected=sdc_detected)):
             return  # cancelled mid-compute: the client owns the terminal
         obs.counter("serve.served")
+        if sdc_detected:
+            obs.counter("serve.sdc_detected")
         obs.histogram("serve.latency_s", queue_s)
         obs.emit("serve_request", id=req.id, n=req.n, k=req.k,
                  trace=req.trace_id, status=STATUS_OK, lane=lane,
                  bucket_n=bucket_n, latency_s=round(queue_s, 6),
-                 rel_residual=rel)
+                 rel_residual=rel,
+                 **({"sdc_detected": True} if sdc_detected else {}))

@@ -34,8 +34,16 @@ the router's signal to demote to general LU.
 As ``lax.linalg.cholesky`` does by default, the diagonal block is
 symmetrized (``(d + d^T) / 2``) before its factor; ``L21`` reads the lower
 triangle only. So a non-symmetric operand fails the same way in both
-packages. ``abft=True`` (the checksum rider) is ROADMAP queue-1 item 9 and
-raises :class:`AbftNotPortedError`.
+packages.
+
+``abft=True`` on the flat form carries the JAX package's symmetric
+column-checksum rider (:func:`_chol_panel_step`'s ``crow``) and returns
+``BlockedCholesky.abft_err`` of shape ``(nb + 1,)``: the per-panel
+mismatch, then the whole-factor identity ``e^T A = (e^T L) L^T``. The
+rider reads the factor and never writes it, so the factor is bit for bit
+the ``abft=False`` one. The unrolled form refuses it with the JAX
+package's ValueError; the host-stepped runner with replay is
+:func:`gauss_tpu_torch.resilience.abft.cholesky_factor_abft`.
 """
 
 from __future__ import annotations
@@ -55,15 +63,6 @@ class NotSPDError(RuntimeError):
         self.min_diag = min_diag
 
 
-class AbftNotPortedError(NotImplementedError):
-    """``abft=True``: the checksum-carrying Cholesky is not ported yet."""
-
-    def __init__(self):
-        super().__init__(
-            "abft=True: the checksum-carrying Cholesky (resilience/abft) is "
-            "not ported to gauss_tpu_torch yet (ROADMAP queue-1 item 9)")
-
-
 class BlockedCholesky(NamedTuple):
     """A = L @ L^T factorization state (identity-padded to a panel multiple).
 
@@ -73,7 +72,8 @@ class BlockedCholesky(NamedTuple):
     linv: (nb, panel, panel) explicit inverses of the diagonal L blocks.
     min_diag: 0-d; min over the diagonal of L, <= 0 means not SPD (NaN
           folds to 0).
-    abft_err: the JAX package's checksum field; always None here.
+    abft_err: set only by ``abft=True`` and the ABFT runner: the
+          checksum mismatch per panel, then the whole-factor identity.
     """
 
     m: object
@@ -117,53 +117,137 @@ def _prepare(a, panel, device):
     return blocked._pad_to_panel(a, panel), panel
 
 
+def _chol_panel_step(m, min_diag, kb: int, panel: int, mode: str,
+                     crow=None):
+    """One panel of the flat (masked) blocked Cholesky on ``m``, in place:
+    factor the diagonal block at ``kb``, install L11/L21 and apply the
+    self-masking SYRK update over the whole matrix; with an ABFT checksum
+    row ``crow``, its symmetric rider update and the checks of the
+    trailing block and the panel's columns. Returns ``(m, min_diag, linv,
+    crow, err)`` (``crow``/``err`` None without a rider). The JAX
+    package's ``_chol_panel_step``: the single source of the flat form and
+    of the ABFT runner."""
+    import torch
+
+    from gauss_tpu_torch.core.blocked import _nan_inf_abs
+    from gauss_tpu_torch.core.matmul import gdot
+
+    npad = m.shape[0]
+    rows = torch.arange(npad, device=m.device)
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    l11, linv, mind = _chol_panel(m[kb:kb + panel, kb:kb + panel], panel)
+    min_diag = torch.minimum(min_diag, mind)
+    colblk = m[:, kb:kb + panel]
+    below = (rows >= kb + panel)[:, None]
+    l21 = gdot(torch.where(below, colblk, zero), linv.T, mode)
+    in_panel = ((rows >= kb) & (rows < kb + panel))[:, None]
+    l11_full = torch.zeros((npad, panel), dtype=m.dtype, device=m.device)
+    l11_full[kb:kb + panel] = l11
+    colblk = torch.where(in_panel, l11_full, torch.where(below, l21, colblk))
+    m[:, kb:kb + panel] = colblk
+    m -= gdot(l21, l21.T, mode)
+    err = None
+    if crow is not None:
+        # s = c1 @ L11^-T is e^T [L11; L21], and the trailing checksum
+        # update s @ L21^T is the rider of the SYRK above; then the
+        # panel-column identity c1 == (e^T [L11; L21]) @ L11^T.
+        c1 = crow[:, kb:kb + panel]
+        s = gdot(c1, linv.T, mode)
+        crow = crow - gdot(s, l21.T, mode)
+        err, _ = _csum_sym_trailing_err(m, crow, kb + panel)
+        el = torch.where((rows >= kb)[:, None], colblk, zero).sum(0)
+        pred = gdot(el[None, :], l11.T, mode)
+        err = torch.maximum(err, _nan_inf_abs(pred[0] - c1[0]).max())
+    return m, min_diag, linv, crow, err
+
+
+def _csum_sym_init(m):
+    """The initial checksum row: the column sums of the view symmetrized
+    from the lower triangle, ``tril(m) + tril(m, -1)^T`` (the matrix the
+    factorization reads), so an asymmetric operand fails as not SPD, not
+    as corruption."""
+    import torch
+
+    return (torch.tril(m).sum(0) + torch.tril(m, -1).sum(1))[None, :]
+
+
+def _csum_sym_trailing_err(m, crow, split: int):
+    """``(max mismatch, argmax column)`` of the trailing block's column
+    sums (the symmetrized-from-lower view of ``m[split:, split:]``)
+    against ``crow``; columns left of ``split`` count 0. The strict upper
+    triangle, which the factorization never reads, is not checked."""
+    import torch
+
+    from gauss_tpu_torch.core.blocked import _nan_inf_abs
+
+    sub = m[split:, split:]
+    diff = torch.zeros(m.shape[1], dtype=m.dtype, device=m.device)
+    diff[split:] = (torch.tril(sub).sum(0) + torch.tril(sub, -1).sum(1)
+                    - crow[0, split:])
+    diff = _nan_inf_abs(diff)
+    return diff.max(), diff.argmax()
+
+
+def _csum_final_err_chol(m, crow0):
+    """The post-factor identity ``e^T A = (e^T L) @ L^T``: ``(max
+    mismatch, argmax column)``."""
+    import torch
+
+    from gauss_tpu_torch.core.blocked import _nan_inf_abs
+
+    lt = torch.tril(m)
+    pred = lt.sum(0)[None, :] @ lt.T
+    diff = _nan_inf_abs(pred[0] - crow0[0])
+    return diff.max(), diff.argmax()
+
+
 def cholesky_factor_blocked(a, panel: int | None = None,
                             gemm_precision: str = "highest",
                             abft: bool = False,
                             device=None) -> BlockedCholesky:
     """Flat blocked Cholesky, the JAX form's arithmetic: each panel's
     ``L21`` and SYRK update are full-size products against the column
-    block masked to the rows below the panel. Never raises on non-SPD
-    input — check ``min_diag`` (the host entries do). ``device``: default
-    ``cuda``."""
+    block masked to the rows below the panel (:func:`_chol_panel_step`).
+    Never raises on non-SPD input — check ``min_diag`` (the host entries
+    do). ``abft``: carry the checksum row and return ``abft_err`` (module
+    docstring); the factor is bit for bit the ``abft=False`` one.
+    ``device``: default ``cuda``."""
+    import torch
+
+    from gauss_tpu_torch.core.matmul import resolve_precision
+
+    mode = resolve_precision(gemm_precision)
+    m, panel = _prepare(a, panel, device)
+    min_diag = torch.full((), float("inf"), dtype=m.dtype, device=m.device)
+    crow0 = crow = _csum_sym_init(m) if abft else None
+    linvs, errs = [], []
+    for kb in range(0, m.shape[0], panel):
+        m, min_diag, linv, crow, err = _chol_panel_step(
+            m, min_diag, kb, panel, mode, crow=crow)
+        linvs.append(linv)
+        errs.append(err)
+    abft_err = None
+    if abft:
+        abft_err = torch.stack(errs + [_csum_final_err_chol(m, crow0)[0]])
+    return BlockedCholesky(m=m, linv=torch.stack(linvs), min_diag=min_diag,
+                           abft_err=abft_err)
+
+
+def cholesky_factor_blocked_unrolled(a, panel: int | None = None,
+                                     gemm_precision: str = "highest",
+                                     abft: bool = False,
+                                     device=None) -> BlockedCholesky:
+    """Blocked Cholesky whose trailing block genuinely shrinks (n^3/3
+    flops, no masks). ``abft=True`` raises the JAX package's ValueError:
+    the rider rides the flat form and the ABFT runner only."""
     import torch
 
     from gauss_tpu_torch.core.matmul import gdot, resolve_precision
 
     if abft:
-        raise AbftNotPortedError()
-    mode = resolve_precision(gemm_precision)
-    m, panel = _prepare(a, panel, device)
-    npad = m.shape[0]
-    rows = torch.arange(npad, device=m.device)
-    zero = torch.zeros((), dtype=m.dtype, device=m.device)
-    min_diag = torch.full((), float("inf"), dtype=m.dtype, device=m.device)
-    linvs = []
-    for kb in range(0, npad, panel):
-        l11, linv, mind = _chol_panel(m[kb:kb + panel, kb:kb + panel], panel)
-        min_diag = torch.minimum(min_diag, mind)
-        linvs.append(linv)
-        colblk = m[:, kb:kb + panel]
-        below = (rows >= kb + panel)[:, None]
-        l21 = gdot(torch.where(below, colblk, zero), linv.T, mode)
-        in_panel = ((rows >= kb) & (rows < kb + panel))[:, None]
-        l11_full = torch.zeros((npad, panel), dtype=m.dtype, device=m.device)
-        l11_full[kb:kb + panel] = l11
-        m[:, kb:kb + panel] = torch.where(
-            in_panel, l11_full, torch.where(below, l21, colblk))
-        m -= gdot(l21, l21.T, mode)
-    return BlockedCholesky(m=m, linv=torch.stack(linvs), min_diag=min_diag)
-
-
-def cholesky_factor_blocked_unrolled(a, panel: int | None = None,
-                                     gemm_precision: str = "highest",
-                                     device=None) -> BlockedCholesky:
-    """Blocked Cholesky whose trailing block genuinely shrinks (n^3/3
-    flops, no masks)."""
-    import torch
-
-    from gauss_tpu_torch.core.matmul import gdot, resolve_precision
-
+        raise ValueError("abft=True is supported on the flat fori form "
+                         "(cholesky_factor_blocked) and the host-stepped "
+                         "ABFT runner, not the unrolled trace form")
     mode = resolve_precision(gemm_precision)
     m, panel = _prepare(a, panel, device)
     npad = m.shape[0]

@@ -79,8 +79,9 @@ def main(argv=None) -> int:
         "root": str(root), "requests": requests,
         "solves_per_s": summary["throughput_rps"], "p50_s": lat["p50"],
         "p99_s": lat["p99"], "batches": summary["batches"],
-        "batched_fused_routes": dict(getattr(_build, "ROUTE_LAUNCHES", {}))
-        or None,
+        "batched_fused_routes": {
+            k: v for k, v in getattr(_build, "ROUTE_LAUNCHES", {}).items()
+            if k.startswith("panel_trailing_fused_batched")} or None,
         "card": c.smi_line()}))
     return 0
 

@@ -431,8 +431,11 @@ def test_resolve_factor_options():
         "donate": True}
     with pytest.raises(ValueError, match="unknown unroll"):
         tb.resolve_factor(64, "bogus")
-    with pytest.raises(NotImplementedError, match="queue-1 item 9"):
-        tb.resolve_factor(64, "auto", checkpoint_path="ckpt")
+    from gauss_tpu_torch.resilience import checkpoint as tckpt
+
+    f = tb.resolve_factor(64, "auto", checkpoint_path="ckpt")
+    assert f.func is tckpt.lu_factor_blocked_chunked_checkpointed
+    assert f.keywords == {"path": "ckpt"}
     with pytest.raises(ValueError, match="mutually exclusive"):
         tb.resolve_factor(64, "auto", checkpoint_path="ckpt", abft=True)
 

@@ -305,16 +305,21 @@ def _spy_rungs(monkeypatch, **fns):
 
 
 @pytest.mark.parametrize("rungs", [("outofcore", "numpy_f64"),
-                                   ("numpy_f64", "abft"),
-                                   ("abft_chol", "cholesky")])
+                                   ("numpy_f64", "outofcore"),
+                                   ("abft_chol", "abft", "outofcore")])
 def test_unported_rungs_are_refused_before_any_rung_runs(monkeypatch, rungs):
-    calls = _spy_rungs(monkeypatch, numpy_f64=trecover._rung_numpy)
+    """``outofcore`` (queue-1 item 10) is refused wherever it stands, before
+    any rung runs, the ported ABFT rungs included."""
+    calls = _spy_rungs(monkeypatch, numpy_f64=trecover._rung_numpy,
+                       abft=trecover._rung_abft,
+                       abft_chol=trecover._rung_abft_chol)
     a, b = _system(np.random.default_rng(3), 8)
-    with pytest.raises(trecover.RungNotPortedError, match="queue-1 item"):
+    with pytest.raises(trecover.RungNotPortedError, match="queue-1 item") \
+            as ei:
         trecover.solve_resilient(a, b, rungs=rungs, device=CPU)
-    with pytest.raises(trecover.RungNotPortedError):
-        trecover.solve_resilient(a, b, abft=True, device=CPU)
+    assert ei.value.rungs == ("outofcore",)
     assert calls == []
+    assert set(trecover.UNPORTED_RUNGS) == {"outofcore"}
 
 
 def _cuda_error_without_class(msg):

@@ -13,6 +13,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gauss_tpu import obs as jobs
 from gauss_tpu.resilience import inject as jinject
@@ -93,8 +94,11 @@ def test_non_spd_is_typed_with_the_same_witness(row):
         cholesky.cholesky_factor(a, panel=32, device=CPU)
     assert np.sign(et.value.min_diag) == np.sign(ej.value.min_diag)
     assert et.value.min_diag == pytest.approx(ej.value.min_diag, abs=1e-6)
-    with pytest.raises(cholesky.AbftNotPortedError, match="item 9"):
-        cholesky.cholesky_factor_blocked(a, abft=True, device=CPU)
+    # The checksum rider leaves the witness as it is.
+    f0 = cholesky.cholesky_factor_blocked(a, panel=32, device=CPU)
+    f1 = cholesky.cholesky_factor_blocked(a, panel=32, abft=True, device=CPU)
+    assert float(f1.min_diag) == float(f0.min_diag) <= 0.0
+    assert torch.equal(f1.m, f0.m) and f1.abft_err.shape == (3,)
 
 
 def test_spd_solves_pass_the_gate():

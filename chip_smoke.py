@@ -311,7 +311,50 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    a flip tagged ``sdc_detected``; launches equal to the plan). A
    ``{"resilience": ...}`` JSON line carries the figures and the phase's
    wall time.
-11. The ``kernels`` JSON line, the card line, and the final
+11. The host-streamed out-of-core solve (``outofcore/stream``,
+   ``outofcore/check``, the ``outofcore`` rung and the handoff lanes),
+   each counted call with the launch counts set to 0 just before it and
+   read just after, against the streamed factor's plan (the in-core
+   chunked form's at the same panel and chunk). Step 0 prints the host's
+   budget, ``torch.cuda.mem_get_info()``, the seconds to pin OOC_PIN_BYTES
+   and one contiguous pinned copy's GB/s each way. (a) ``python -m
+   gauss_tpu_torch.outofcore.check`` at its defaults (smoke n=2048, chunk
+   4, ct 256; routing n=192): verified at 1e-4, tiles >= 2, the ledger's
+   peak under 50% of 3 n^2 4, one ``route`` event with
+   ``lane=outofcore`` on its ``--metrics-out`` stream. (b) The JAX
+   package's acceptance scale, OOC_N (n=32768, the check's
+   ``_seeded_system`` in float32, panel 128, chunk 16, ct OOC_CT): the
+   streamed factor, then the streamed solve with three refinement steps,
+   each timed with nothing around its launches; the residual at 1e-4; the
+   ledger's and the allocator's peaks under 50% of 3 n^2 4; a second
+   streamed factor, bit for bit the first, with every launch of the first
+   group and each route's tallest and shortest launch kept and held
+   against the plain version after it (``checked_launches`` with
+   ``held`` and ``deferred``), every launch timed by CUDA events; the
+   pivots equal to the in-core ``lu_factor_blocked_chunked``'s, its bits
+   compared (printed), both factors' float64 backward error within BACKWARD_RATIO
+   of ``lu_factor``'s (``ooc_backward_err``); the ``StreamStats`` with the
+   GB and GB/s each way, beside the in-core factor's and ``lu_factor``'s
+   seconds. (c) ``solve_handoff(a, b)`` with no budget and no engine on a
+   float32 system of OOC_BIG_N (``big_system``, made in row blocks),
+   past the card's budget: the ``route`` event ``lane=outofcore``, the
+   residual at 1e-4, the launches against the plan, those on the one-block
+   routes (strips past the grid route's 57,575 rows) counted and timed,
+   and each route's tallest and shortest launch of kernels 1 and 2 kept
+   and held against the plain version after the call.
+   (d) At OOC_RIDERS (phase 6/10's n=8192 cell, ct 1024): ``abft=True``
+   clean (its largest group mismatch over ``tol``), an ``outofcore.tile``
+   nan plan raising ``SDCDetectedError`` at the group and column the plan
+   poisons (``planned_tile_fault``; the CPU tests hold the group against
+   the JAX package's), and a child killed (``GAUSS_FAULTS=
+   outofcore.group=kill``) at the third group boundary resumed here from
+   its checkpoint bit for bit. (e) ``solve_resilient(rungs=("outofcore",
+   "numpy_f64"))`` served by ``outofcore``, and a ``SolverServer`` with
+   ``outofcore_handoff=True`` and a ``device_budget`` one byte below the
+   request's working set serving one n=6000 request ``ok`` at 1e-4 on
+   lane ``outofcore`` (its ``serve_handoff`` route event). An
+   ``{"outofcore": ...}`` JSON line carries the figures.
+12. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -503,6 +546,26 @@ RES_ABFTCHECK_ARGS: tuple = ()
 RES_CAMPAIGN_PANEL = 16     # the campaigns' default --panel
 RES_CHAOS_ARGS = ("--cases", "100", "--serve-requests", "20")
 LU_FIELDS = ("m", "perm", "min_abs_pivot", "linv", "uinv")
+#: Phase 11: the out-of-core solve. (a) the check CLI at its defaults (its
+#: extra arguments); (b) the JAX package's acceptance scale
+#: (``check.py --giant``) at its tile width (the card's 80 GB budget would
+#: make the auto window one tile); (c) the smallest multiple of the
+#: 128-column panel whose float32 working set 3 n^2 4 exceeds the card's
+#: budget (0.85 of its memory: 72.3e9 B, so n > 77,621), and the bytes
+#: pinned and copied in Step 0; (d) the riders at phase 6/10's n=8192 cell
+#: (n, panel, chunk) with ct 1024, the tile fault's skip (the third tile
+#: of group 1) and the kill's (the third group boundary); (e) the ladder's
+#: n and the service's one request past the ladder top.
+OOC_CHECK_ARGS: tuple = ()
+OOC_N, OOC_CT = 32768, 2048
+OOC_BIG_N = 77696
+OOC_PIN_BYTES = 4 * 2**30
+OOC_RIDERS = (8192, 256, 4, 1024)
+OOC_TILE_SKIP = 9
+OOC_KILL_SKIP = 2
+OOC_LADDER_N = 4096
+OOC_SERVE_N = SERVE_OVERSIZE
+OOC_FIELDS = ("m", "perm", "linv", "uinv")
 CHOL_FIELDS = ("m", "linv", "min_diag")
 
 
@@ -2269,18 +2332,26 @@ def route_counts(plan) -> dict:
 
 
 @contextlib.contextmanager
-def checked_launches(seen: dict, errs: dict | None = None):
-    """Inside the block, every panel-kernel and fused-kernel launch that
-    ``core/blocked`` makes is held against the plain version on a copy of
-    its input: the panel kernel bit for bit; the fused kernel's panel,
+def checked_launches(seen: dict, errs: dict | None = None, held=None,
+                     deferred: bool = False, timing: dict | None = None):
+    """Inside the block, the panel-kernel and fused-kernel launches that
+    ``core/blocked`` makes are held against the plain version on a copy of
+    their input: the panel kernel bit for bit; the fused kernel's panel,
     pivots, permutation and min |pivot| bit for bit, its updated block
     within TOL (a bfloat16 block: bf16_block_check) of the plain one and
-    bit for bit equal to the unfused pair (panel kernel + reconstruction + trailing
-    kernel) on the same input. ``seen`` counts the checked launches, the
-    strided ones (leading dimension above the width), those on phase A's
-    grid route and on its one-block route, and those with no trailing
-    columns; ``errs``, when
-    given, keeps the largest fused error over its scale by dtype."""
+    bit for bit equal to the unfused pair (panel kernel + reconstruction +
+    trailing kernel) on the same input. ``held``, when given, is the set
+    of places in launch order (from 0) of the launches held, else every
+    launch is; with ``deferred`` a held launch keeps a copy of its input
+    and of its outputs and is held when the block ends, outside whatever
+    the block times. ``seen`` counts the held launches, the strided ones
+    (leading dimension above the width), those on phase A's grid route
+    and on its one-block route, and those with no trailing columns;
+    ``errs``, when given, keeps the largest fused error over its scale by
+    dtype; ``timing``, when given, gets every launch by key (kernel 1's
+    launch key, which names its route; kernel 2's ``key/route``): its
+    launches, strip heights and, on the card, its device ms from CUDA
+    events around it (``ms`` summed, ``max_ms``)."""
     import torch
 
     from gauss_tpu_torch.core import blocked
@@ -2288,6 +2359,8 @@ def checked_launches(seen: dict, errs: dict | None = None):
     from gauss_tpu_torch.kernels import panel_fused as kf
 
     real_pf, real_fused = blocked.panel_factor, blocked.panel_trailing_fused
+    on_card = DEVICE == "cuda"
+    order, kept, events = [0], [], []
 
     def note(kind, x, route, empty):
         for key, hit in ((kind, True),
@@ -2298,50 +2371,94 @@ def checked_launches(seen: dict, errs: dict | None = None):
             if hit:
                 seen[key] = seen.get(key, 0) + 1
 
+    def launch(key, h, src, run, check):
+        """``run()`` -> (its return value, the outputs to hold), timed
+        and, where its place is held, checked by ``check(input, outputs)``
+        now or when the block ends."""
+        i = order[0]
+        order[0] += 1
+        hit = held is None or i in held
+        x = src.clone() if hit else None
+        start = end = None
+        if timing is not None and on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        got, outs = run()
+        if start is not None:
+            end.record()
+        if timing is not None:
+            events.append((key, h, start, end))
+        if hit and deferred:
+            kept.append((check, x, tuple(t.clone() if torch.is_tensor(t)
+                                         else t for t in outs)))
+        elif hit:
+            check(x, outs)
+        return got, hit
+
     def panel_factor(p, kb=0, seg=None):
-        x = p.clone()
-        got = real_pf(p, kb, seg)
-        require(same_outputs(got, kp.panel_factor_plain(x, kb)),
-                f"panel kernel at {tuple(p.shape)} (ld {p.stride(0)}, "
-                f"kb={kb}) differs from the plain version")
-        note("panel", p, kp.panel_geometry(*p.shape,
-                                           p.element_size()).route, False)
+        where = (f"panel kernel at {tuple(p.shape)} (ld {p.stride(0)}, "
+                 f"kb={kb})")
+
+        def check(x, outs):
+            require(same_outputs(outs, kp.panel_factor_plain(x, kb)),
+                    f"{where} differs from the plain version")
+
+        def run():
+            got = real_pf(p, kb, seg)
+            return got, got
+
+        got, hit = launch(panel_launch_key(*p.shape, p.element_size()),
+                          p.shape[0], p, run, check)
+        if hit:
+            note("panel", p, kp.panel_geometry(
+                *p.shape, p.element_size()).route, False)
         return got
 
     def fused(block, col0, kbrow, *, panel, **kw):
-        x = block.clone()
-        got = real_fused(block, col0, kbrow, panel=panel, **kw)
-        ref = kf.panel_trailing_fused_plain(x.clone(), col0, kbrow,
-                                            panel=panel)
+        route = kf.fused_geometry(*block.shape, panel, col0,
+                                  itemsize=block.element_size()).route
         where = (f"fused kernel at {tuple(block.shape)} (ld "
                  f"{block.stride(0)}, col0={col0}, kbrow={kbrow})")
-        require(same_outputs(got[:4], ref[:4]),
-                f"{where}: panel or pivots differ from the plain version")
-        if block.dtype == torch.bfloat16:
-            _, rel, share = bf16_block_check(where, block, ref[4],
-                                          col0 + panel)
+
+        def check(x, outs):
+            after = outs[4]
+            ref = kf.panel_trailing_fused_plain(x.clone(), col0, kbrow,
+                                                panel=panel)
+            require(same_outputs(outs[:4], ref[:4]),
+                    f"{where}: panel or pivots differ from the plain version")
+            if after.dtype == torch.bfloat16:
+                _, rel, share = bf16_block_check(where, after, ref[4],
+                                                 col0 + panel)
+                if errs is not None:
+                    errs["bfloat16 share"] = max(
+                        errs.get("bfloat16 share", 0.0), share)
+            else:
+                scale = float(ref[4].abs().max())
+                err = float((after - ref[4]).abs().max())
+                require(err <= TOL * scale, f"{where}: max |kernel - plain| "
+                        f"{err} > {TOL} x {scale}")
+                rel = err / scale
             if errs is not None:
-                errs["bfloat16 share"] = max(errs.get("bfloat16 share", 0.0),
-                                             share)
-        else:
-            scale = float(ref[4].abs().max())
-            err = float((block - ref[4]).abs().max())
-            require(err <= TOL * scale, f"{where}: max |kernel - plain| "
-                    f"{err} > {TOL} x {scale}")
-            rel = err / scale
-        if errs is not None:
-            key = str(block.dtype).replace("torch.", "")
-            errs[key] = max(errs.get(key, 0.0), rel)
-        pair = x.clone()
-        p2, ipiv2, perm2, _ = kp.panel_factor(pair[:, col0:col0 + panel],
-                                              kbrow)
-        mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, kbrow, panel)
-        kf.trailing_update(pair, mult, onehot, col0)
-        require(torch.equal(pair, block), f"{where}: != the unfused pair")
-        note("fused", block, kf.fused_geometry(
-            *block.shape, panel, col0,
-            itemsize=block.element_size()).route,
-             col0 + panel == block.shape[1])
+                key = str(after.dtype).replace("torch.", "")
+                errs[key] = max(errs.get(key, 0.0), rel)
+            pair = x.clone()
+            p2, ipiv2, perm2, _ = kp.panel_factor(
+                pair[:, col0:col0 + panel], kbrow)
+            mult, onehot = kf.reconstruct_mult_pt(p2, ipiv2, perm2, kbrow,
+                                                  panel)
+            kf.trailing_update(pair, mult, onehot, col0)
+            require(torch.equal(pair, after), f"{where}: != the unfused pair")
+
+        def run():
+            got = real_fused(block, col0, kbrow, panel=panel, **kw)
+            return got, (*got[:4], block)
+
+        sfx = "_bf16" if block.element_size() == 2 else ""
+        got, hit = launch(f"panel_trailing_fused{sfx}/{route}",
+                          block.shape[0], block, run, check)
+        if hit:
+            note("fused", block, route, col0 + panel == block.shape[1])
         return got
 
     blocked.panel_factor, blocked.panel_trailing_fused = panel_factor, fused
@@ -2350,6 +2467,23 @@ def checked_launches(seen: dict, errs: dict | None = None):
     finally:
         blocked.panel_factor = real_pf
         blocked.panel_trailing_fused = real_fused
+    sync()
+    for check, x, outs in kept:
+        check(x, outs)
+    kept.clear()
+    if timing is not None:
+        for key, h, start, end in events:
+            r = timing.setdefault(key, {"launches": 0, "ms": 0.0,
+                                        "max_ms": 0.0, "h_max": h,
+                                        "h_min": h})
+            r["launches"] += 1
+            r["h_max"], r["h_min"] = max(r["h_max"], h), min(r["h_min"], h)
+            if start is not None:
+                ms = start.elapsed_time(end)
+                r["ms"] += ms
+                r["max_ms"] = max(r["max_ms"], ms)
+        for r in timing.values():
+            r["ms"], r["max_ms"] = round(r["ms"], 4), round(r["max_ms"], 4)
 
 
 def bf16_block_check(where: str, got, ref, c1: int) -> tuple:
@@ -2512,16 +2646,23 @@ TRACE_KINDS = (
 # events that its clock puts inside the profiling window, so a marker this
 # long on each side of the call keeps the call's kernels well inside it.
 TRACE_MARKER_CYCLES = 1 << 24
+#: Spin markers queued, each to a synchronize, before a traced call. More
+#: than one does not help: after a whole run a session drops every device
+#: record up to its call's first kernel, however many markers lead it
+#: (scripts/probe_trace_sessions.py --lead-markers 3; ROADMAP queue 3).
+TRACE_LEAD_MARKERS = 1
 
 
 def trace_launches(fn, path: str):
     """One traced call of ``fn``: its hand-written kernels in launch order
     as ``(key, route, device ms)``, the device busy ms, and the call's host
-    ms (to a synchronize). A spin kernel finished inside the profile before
-    the call, and one queued after the call's synchronize, hold the call's
-    kernels away from the ends of the profiling window, where the profiler
-    drops a device event whose clock reading falls outside it; only the
-    events between the two markers count."""
+    ms (to a synchronize). TRACE_LEAD_MARKERS spin kernels finished inside
+    the profile before the call, and one queued after the call's
+    synchronize, hold the call's kernels away from the ends of the
+    profiling window, where the profiler drops a device event whose clock
+    reading falls outside it, and give a session that drops its first
+    device records (ROADMAP queue 3, fault 1) markers to drop; only the
+    events between the last leading marker and the trailing one count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2530,7 +2671,9 @@ def trace_launches(fn, path: str):
         [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
     with profile(activities=acts) as prof:
         if DEVICE == "cuda":
-            torch.cuda._sleep(TRACE_MARKER_CYCLES)
+            for _ in range(TRACE_LEAD_MARKERS):
+                torch.cuda._sleep(TRACE_MARKER_CYCLES)
+                sync()
         sync()
         t0 = time.perf_counter()
         fn()
@@ -5404,6 +5547,615 @@ def phase_resilience(reps: int):
     return launches, out
 
 
+def big_system(n: int, seed: int, rows: int = 4096):
+    """A float32 system of order ``n`` made from ``seed`` in row blocks of
+    ``rows``, each block from its own generator (``SeedSequence((seed, n,
+    block))``) on a thread pool, never a float64 copy of the matrix; the
+    diagonal dominance of ``outofcore.check._seeded_system``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    a = np.empty((n, n), dtype=np.float32)
+
+    def fill(i):
+        r0, r1 = i * rows, min(n, (i + 1) * rows)
+        g = np.random.default_rng(np.random.SeedSequence((seed, n, i)))
+        g.standard_normal(out=a[r0:r1], dtype=np.float32)
+        idx = np.arange(r0, r1)
+        a[idx, idx] += np.float32(n)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        list(ex.map(fill, range(-(-n // rows))))
+    b = np.random.default_rng(np.random.SeedSequence((seed, n))) \
+        .standard_normal(n).astype(np.float32)
+    return a, b
+
+
+def ooc_plan(n: int, panel: int, chunk: int, first_group: int = 0,
+             unfused: bool = False):
+    """The kernel launches of one streamed factorization: the in-core
+    chunked form's plan (the group step is ``_factor_group`` on the
+    group's own block, with the same heights and widths), from group
+    ``first_group`` on."""
+    return [x for x in factor_plan(n, panel, chunk, unfused=unfused)
+            if x[2] <= -(-n // panel) * panel - first_group * panel]
+
+
+def ooc_held(plan, first: int = 0) -> set:
+    """The places in ``plan`` of the launches phase 11 holds against the
+    plain version: the first ``first``, and each key and route's tallest
+    and shortest launch."""
+    ends = {}
+    for i, (key, route, h) in enumerate(plan):
+        tall, short = ends.setdefault((key, route), (i, i))
+        ends[key, route] = (tall if plan[tall][2] >= h else i,
+                            short if plan[short][2] <= h else i)
+    return set(range(first)).union(*ends.values())
+
+
+def held_counts(plan, held) -> dict:
+    """``checked_launches``'s counts by kind and phase-A route of the
+    launches of ``plan`` at the places ``held``."""
+    out = {}
+    for i in held:
+        key, route, _ = plan[i]
+        kind = "fused" if key.startswith("panel_trailing_fused") else "panel"
+        for k, hit in ((kind, True), (kind + " grid", route == "grid"),
+                       (kind + " one-block", route == "block")):
+            if hit:
+                out[k] = out.get(k, 0) + 1
+    return out
+
+
+def held_ooc_launches(plan, held, timing: dict, fn):
+    """``fn()`` under ``checked_launches`` with the launches at the places
+    ``held`` of ``plan`` kept and held against their plain version after
+    it, every launch timed into ``timing``: returns ``fn``'s value and
+    the held counts, required equal to the plan's."""
+    seen = {}
+    with checked_launches(seen, held=held, deferred=True, timing=timing):
+        val = fn()
+    got = {k: v for k, v in seen.items() if k in (
+        "panel", "fused", "panel grid", "fused grid", "panel one-block",
+        "fused one-block")}
+    want = held_counts(plan, held)
+    require(got == want, f"held launches {got}, the plan's places give "
+            f"{want}")
+    return val, got
+
+
+def planned_tile_fault(n: int, panel: int, chunk: int, ct: int,
+                       spec: str) -> tuple:
+    """The (group, column) an ``outofcore.tile`` nan plan poisons in a
+    streamed factorization: the plan's polls replayed on zero tiles of
+    the factorization's tile shapes, in its order, up to the tile the
+    plan corrupts; the group is its first panel (the JAX package's
+    ``SDCDetectedError.group``), the column the first poisoned one."""
+    from gauss_tpu_torch.resilience import inject
+
+    npad = -(-n // panel) * panel
+    nb = npad // panel
+    with inject.plan(inject.FaultPlan.parse(spec)):
+        for g0 in range(0, nb, chunk):
+            gs = g0 * panel
+            w = min(chunk, nb - g0) * panel
+            for c0 in range(gs + w, npad, ct):
+                tile = np.zeros((npad - gs, min(ct, npad - c0)), np.float32)
+                got = inject.corrupt_operand("outofcore.tile", tile)
+                if got is not tile:
+                    return g0, c0 + int(np.isnan(got).any(axis=0).argmax())
+    raise SystemExit(f"chip_smoke FAILED: the plan {spec} poisons no tile")
+
+
+def ooc_backward_err(a, m, perm, cols: int = 4096) -> float:
+    """``||A[perm] - LU||_F / ||A||_F`` in float64 on the card, by column
+    blocks of U (``backward_err``'s at sizes where its whole float64
+    products do not fit beside each other): ``a`` the unpadded operand
+    (numpy, float32), ``m`` the packed factor, ``perm`` its row order."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    n, npad = a.shape[0], m.shape[0]
+    ap = torch.eye(npad, dtype=torch.float32, device=dev)
+    ap[:n, :n] = torch.as_tensor(a, device=dev)
+    ap = ap[torch.as_tensor(perm, device=dev)]
+    m = torch.as_tensor(m, device=dev)
+    low = torch.tril(m, -1).double()
+    low.diagonal().fill_(1.0)
+    num = den = 0.0
+    for c0 in range(0, npad, cols):
+        c1 = min(npad, c0 + cols)
+        r = ap[:, c0:c1].double() - low @ torch.triu(m[:, c0:c1],
+                                                   -c0).double()
+        num += float((r * r).sum())
+        den += float((ap[:, c0:c1].double() ** 2).sum())
+    del low, ap
+    return (num / den) ** 0.5
+
+
+def ooc_streamed(a, b, ct: int) -> dict:
+    """Phase 11 (b)'s streamed factorization, then its streamed solve
+    with ``solve_outofcore``'s refinement (3 steps), each timed: the
+    factor, the solution and both ``StreamStats``."""
+    from gauss_tpu_torch import outofcore
+    from gauss_tpu_torch.outofcore import stream
+
+    t0 = time.perf_counter()
+    fac = outofcore.lu_factor_outofcore(a, ct=ct, device=DEVICE,
+                                        alloc_peak=True)
+    sync()
+    factor_s = time.perf_counter() - t0
+    fstats = outofcore.last_stream_stats()
+    b64 = np.asarray(b, dtype=np.float64)[:, None]
+    t0 = time.perf_counter()
+    x = outofcore.lu_solve_outofcore(fac, b64, alloc_peak=True)
+    sstats = [outofcore.last_stream_stats()]
+    for _ in range(3):
+        d = outofcore.lu_solve_outofcore(
+            fac, stream._residual_chunked(a, x, b64), alloc_peak=True)
+        x = x + d
+        sstats.append(outofcore.last_stream_stats())
+    solve_s = time.perf_counter() - t0
+    return {"fac": fac, "x": x[:, 0], "factor_s": factor_s,
+            "solve_s": solve_s, "stats": fstats, "solve_stats": sstats}
+
+
+def stream_figures(st) -> dict:
+    """A StreamStats record's figures, with the GB moved each way and
+    their rates over the copies' device seconds."""
+    d = st.to_dict()
+    for way in ("h2d", "d2h"):
+        gb = getattr(st, f"bytes_{way}") / 1e9
+        dev_s = getattr(st, f"{way}_device_s")
+        d[f"{way}_gb"] = round(gb, 3)
+        d[f"{way}_gb_s"] = round(gb / dev_s, 2) if dev_s else None
+    return d
+
+
+def ooc_check_cli(counted, work: str) -> dict:
+    """Phase 11 (a): ``python -m gauss_tpu_torch.outofcore.check`` at its
+    defaults (smoke n=2048, chunk 4, ct 256; routing n=192), in this
+    process, its stream and summary read back."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.outofcore import check
+    from gauss_tpu_torch.tune import space
+
+    metrics = os.path.join(work, "ooc.jsonl")
+    summary = os.path.join(work, "ooc.json")
+    argv = ["--metrics-out", metrics, "--summary-json", summary,
+            "--device", DEVICE, *OOC_CHECK_ARGS]
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc, got = counted(lambda: check.main(argv))
+    doc = json.load(open(summary))
+    smoke, routing = doc["smoke"], doc["routing"]
+    routes = [e for e in obs.read_events(metrics) if e["type"] == "route"]
+    require(rc == 0 and doc["ok"], f"outofcore.check exited {rc}: "
+            f"{buf.getvalue()[-2000:]}")
+    require(smoke["verified"] and smoke["rel_residual"] <= GATE
+            and smoke["tiles"] >= 2 and smoke["peak_device_frac"] < 0.5,
+            f"outofcore.check smoke leg {smoke}")
+    require(routing["verified"] and [r["lane"] for r in routes] == [
+        "outofcore"], f"outofcore.check routing leg {routing}, routes "
+            f"{routes}")
+    args = check.build_parser().parse_args(argv)
+    sp = blocked.auto_panel(args.n)
+    rp = blocked.auto_panel(args.routing_n)
+    want = (launch_counts(ooc_plan(args.n, args.panel or sp, args.chunk)
+                          + ooc_plan(args.routing_n, rp,
+                                     space.OUTOFCORE_CHUNK_SEED))
+            if DEVICE == "cuda" else {})
+    require(got == want, f"outofcore.check: launches {got}, the plan says "
+            f"{want}")
+    return {"smoke": {k: smoke[k] for k in (
+        "n", "panel", "chunk", "ct", "s_per_solve", "rel_residual", "tiles",
+        "groups", "peak_device_frac", "alloc_peak_device_frac",
+        "overlap_fraction", "h2d_device_s", "d2h_device_s",
+        "compute_device_s")},
+            "routing": {k: routing[k] for k in ("n", "budget",
+                                                "rel_residual")},
+            "route_event": {k: routes[0][k] for k in (
+                "lane", "est_bytes", "budget", "itemsize")},
+            "launches": got}
+
+
+def ooc_giant(counted) -> dict:
+    """Phase 11 (b): the JAX package's acceptance scale, streamed at its
+    tile width, against the in-core chunked factor and ``lu_factor``."""
+    import torch
+
+    from gauss_tpu_torch import outofcore
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.outofcore import check
+    from gauss_tpu_torch.tune import space
+
+    n, ct = OOC_N, OOC_CT
+    t0 = time.perf_counter()
+    a, b = check._seeded_system(n, SEED)
+    gen_s = time.perf_counter() - t0
+    panel, chunk = blocked.auto_panel(n), space.OUTOFCORE_CHUNK_SEED
+    plan = ooc_plan(n, panel, chunk)
+    first = len([x for x in plan if x[2] > n - chunk * panel])
+    # The figures come from a run with nothing around its launches; then
+    # a second streamed factor holds the first group's launches and each
+    # route's tallest and shortest against the plain version, and times
+    # every launch.
+    res, got = counted(lambda: ooc_streamed(a, b, ct))
+    on_card = DEVICE == "cuda"
+    require(got == (launch_counts(plan) if on_card else {}),
+            f"streamed n={n}: launches {got}, the plan says "
+            f"{launch_counts(plan)}")
+    log = {}
+    (fac2, got2), held = held_ooc_launches(
+        plan, ooc_held(plan, first), log, lambda: counted(
+            lambda: outofcore.lu_factor_outofcore(a, ct=ct, device=DEVICE)))
+    require(got2 == got and bits_equal(fac2, res["fac"], OOC_FIELDS),
+            f"streamed n={n}: the held factor (launches {got2}) differs from "
+            f"the timed one's")
+    del fac2
+    if on_card:
+        torch.cuda.empty_cache()
+    fac, st = res["fac"], res["stats"]
+    rel = check._rel_residual(a, res["x"], b)
+    workset = 3 * n * n * 4
+    peak = max([st.peak_device_bytes] + [s.peak_device_bytes
+                                         for s in res["solve_stats"]])
+    alloc = max([st.alloc_peak_device_bytes] + [
+        s.alloc_peak_device_bytes for s in res["solve_stats"]])
+    require(rel <= GATE, f"streamed n={n}: rel residual {rel}")
+    require(st.tiles >= 2 and peak < 0.5 * workset and alloc < 0.5 * workset,
+            f"streamed n={n}: tiles {st.tiles}, peak {peak} (ledger), "
+            f"{alloc} (allocator) of {workset}")
+    out = {"n": n, "panel": panel, "chunk": chunk, "ct": ct,
+           "gen_s": round(gen_s, 3), "rel_residual": rel,
+           "factor_s": round(res["factor_s"], 3),
+           "solve_s": round(res["solve_s"], 3),
+           "peak_frac": round(peak / workset, 4),
+           "alloc_peak_frac": round(alloc / workset, 4),
+           "stream": stream_figures(st),
+           "solve_stream": stream_figures(res["solve_stats"][0]),
+           "launches": log, "held": held}
+    # The in-core chunked factor at the same panel and chunk, and
+    # lu_factor, on the card: pivots, bits, backward errors, times.
+    dev = torch.device(DEVICE)
+    a_dev = torch.as_tensor(a, device=dev)
+    t0 = time.perf_counter()
+    ref = blocked.lu_factor_blocked_chunked(a_dev, panel=panel, chunk=chunk,
+                                            device=dev)
+    sync()
+    out["incore_factor_s"] = round(time.perf_counter() - t0, 4)
+    require(torch.equal(fac.perm, ref.perm.cpu()), f"streamed n={n}: the "
+            f"pivots differ from the in-core chunked factor's")
+    diffs = {f: float((getattr(fac, f) - getattr(ref, f).cpu()).abs().max())
+             for f in ("m", "linv", "uinv")}
+    out["bits_equal_incore"] = all(v == 0.0 for v in diffs.values())
+    out["max_diff_incore"] = diffs
+    be = {"streamed": ooc_backward_err(a, fac.m, fac.perm),
+          "incore": ooc_backward_err(a, ref.m, ref.perm)}
+    del ref
+    if on_card:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lu, piv = torch.linalg.lu_factor(a_dev)
+        sync()
+        out["lu_factor_s"] = round(time.perf_counter() - t0, 4)
+        be["lu_factor"] = ooc_backward_err(a, lu, lu_factor_perm(piv))
+        del lu, piv
+        for k in ("streamed", "incore"):
+            require(be[k] <= BACKWARD_RATIO * be["lu_factor"],
+                    f"n={n}: the {k} factor's backward error {be[k]} > "
+                    f"{BACKWARD_RATIO} x lu_factor's {be['lu_factor']}")
+    out["backward_err"] = be
+    del a_dev
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def ooc_past_budget(counted, work: str) -> dict:
+    """Phase 11 (c): ``solve_handoff(a, b)``, no budget and no engine, at
+    the smallest panel multiple past the card's budget."""
+    from gauss_tpu_torch import obs, outofcore
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.outofcore import check
+    from gauss_tpu_torch.tune import space
+
+    n = OOC_BIG_N
+    t0 = time.perf_counter()
+    a, b = big_system(n, SEED)
+    gen_s = time.perf_counter() - t0
+    stream_path = os.path.join(work, "handoff.jsonl")
+    panel = blocked.auto_panel(n)
+    plan = ooc_plan(n, panel, space.OUTOFCORE_CHUNK_SEED)
+
+    def call():
+        t0 = time.perf_counter()
+        with obs.run(metrics_out=stream_path, tool="chip_smoke"):
+            val = counted(lambda: blocked.solve_handoff(a, b, device=DEVICE))
+        return val, time.perf_counter() - t0
+
+    # Each route's tallest and shortest launch keeps its input and
+    # outputs, held against the plain version after the call; the wall
+    # holds those copies and the events around every launch.
+    log = {}
+    ((x, got), wall), held = held_ooc_launches(plan, ooc_held(plan), log,
+                                               call)
+    routes = [e for e in obs.read_events(stream_path)
+              if e["type"] == "route"]
+    require([r["lane"] for r in routes] == ["outofcore"],
+            f"handoff n={n}: routes {routes}")
+    budget = blocked.device_memory_budget(DEVICE)
+    require(routes[0]["budget"] == budget and routes[0]["est_bytes"]
+            == 3 * n * n * 4 > budget, f"handoff n={n}: route {routes[0]}")
+    st = outofcore.last_stream_stats()
+    rel = check._rel_residual(a, x, b)
+    require(rel <= GATE, f"handoff n={n}: rel residual {rel}")
+    require(st.panel == panel, f"handoff n={n}: panel {st.panel}, the plan "
+            f"{panel}")
+    require(got == (launch_counts(plan) if DEVICE == "cuda" else {}),
+            f"handoff n={n}: launches {got}, the plan says "
+            f"{launch_counts(plan)}")
+    one_block = {k: v for k, v in log.items()
+                 if k in ("panel_factor", "panel_trailing_fused/block")}
+    return {"n": n, "gen_s": round(gen_s, 3), "wall_s": round(wall, 3),
+            "rel_residual": rel, "route": {k: routes[0][k] for k in (
+                "lane", "est_bytes", "budget", "itemsize")},
+            "host_budget": outofcore.host_memory_budget(),
+            "stream": stream_figures(st), "launches": log,
+            "one_block": one_block, "held": held}
+
+
+def ooc_riders(counted, work: str) -> dict:
+    """Phase 11 (d): the checksum rider (clean, and a tile corruption
+    localized), and a child killed at ``outofcore.group`` resumed from
+    its checkpoint bit for bit, at phase 6/10's n=8192 cell."""
+    import torch
+
+    from gauss_tpu_torch import outofcore
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.resilience import checkpoint as ckpt
+    from gauss_tpu_torch.resilience import inject
+
+    n, panel, chunk, ct = OOC_RIDERS
+    on_card = DEVICE == "cuda"
+    a = np.random.default_rng(SEED + n).standard_normal((n, n)).astype(
+        np.float32)
+    kw = dict(panel=panel, chunk=chunk, ct=ct, device=DEVICE)
+    fa, got = counted(lambda: outofcore.lu_factor_outofcore(a, abft=True,
+                                                            **kw))
+    uplan = ooc_plan(n, panel, chunk, unfused=True)
+    require(got == (launch_counts(uplan) if on_card else {}),
+            f"abft n={n}: launches {got}")
+    npad = fa.m.shape[0]
+    crow0 = np.eye(npad, dtype=np.float32)
+    crow0[:n, :n] = a
+    tol = blocked.abft_default_tol(npad, torch.float32,
+                                   float(np.abs(crow0.sum(0)).max()))
+    clean = float(fa.abft_err.max()) / tol
+    require(clean < 1.0, f"abft n={n}: a clean run's mismatch {clean} of tol")
+    ref = blocked.lu_factor_blocked_chunked(a, panel=panel, chunk=chunk,
+                                            abft=True, device=DEVICE)
+    bits_abft = all(torch.equal(getattr(fa, f), getattr(ref, f).cpu())
+                    for f in OOC_FIELDS)
+    del ref
+    spec = f"outofcore.tile=nan:seed=7:skip={OOC_TILE_SKIP}"
+    want = planned_tile_fault(n, panel, chunk, ct, spec)
+    err = None
+    with inject.plan(inject.FaultPlan.parse(spec)):
+        try:
+            counted(lambda: outofcore.lu_factor_outofcore(a, abft=True, **kw))
+        except outofcore.SDCDetectedError as e:
+            err = e
+    require(err is not None and (err.group, err.col) == want,
+            f"tile fault {spec}: raised {err!r} at "
+            f"{getattr(err, 'group', None), getattr(err, 'col', None)}, "
+            f"planned {want}")
+    full, got_full = counted(lambda: outofcore.lu_factor_outofcore(a, **kw))
+    kpath = os.path.join(work, "ooc_killed.npz")
+    code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+            f"import numpy as np; "
+            f"from gauss_tpu_torch.kernels import _build; "
+            f"print(json.dumps(_build.build_all() if {on_card} else {{}}), "
+            f"flush=True); "
+            f"from gauss_tpu_torch import outofcore; "
+            f"a = np.random.default_rng({SEED + n}).standard_normal(({n}, "
+            f"{n})).astype(np.float32); "
+            f"outofcore.lu_factor_outofcore(a, panel={panel}, chunk={chunk}, "
+            f"ct={ct}, device={DEVICE!r}, checkpoint_path={kpath!r}); "
+            f"print('finished')")
+    env = {**os.environ,
+           "GAUSS_FAULTS": f"outofcore.group=kill:skip={OOC_KILL_SKIP}"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    require(r.returncode == inject.KILL_EXIT_CODE
+            and "finished" not in r.stdout, f"the killed child exited "
+            f"{r.returncode}: {(r.stdout + r.stderr)[-2000:]}")
+    built = json.loads(r.stdout.splitlines()[0])
+    require(not any(built.values()), f"the child rebuilt kernels: {built}")
+    done = ckpt.load_state(kpath)["meta"]["next_group"]
+    require(done == OOC_KILL_SKIP * chunk, f"the killed child saved "
+            f"next_group {done}")
+    resumed, got_res = counted(lambda: outofcore.lu_factor_outofcore(
+        a, checkpoint_path=kpath, **kw))
+    require(bits_equal(resumed, full, OOC_FIELDS)
+            and not os.path.exists(kpath), f"resumed n={n} != the "
+            f"uninterrupted streamed factor bit for bit")
+    require(got_res == (launch_counts(ooc_plan(n, panel, chunk, done))
+                        if on_card else {}),
+            f"resume from group {done}: launches {got_res}")
+    return {"n": n, "panel": panel, "chunk": chunk, "ct": ct,
+            "clean_err_over_tol": clean, "tol": tol,
+            "bits_equal_incore_abft": bits_abft,
+            "tile_fault": {"spec": spec, "group": err.group, "col": err.col,
+                           "err": err.err},
+            "kill": {"next_group": done, "child_s": round(child_s, 3),
+                     "child_build_s": built, "resume_launches": got_res}}
+
+
+def ooc_ladder_service(counted) -> dict:
+    """Phase 11 (e): the ``outofcore`` rung, then the service's
+    out-of-core handoff lane on one n=6000 request."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.resilience import recover
+    from gauss_tpu_torch.serve.admission import ServeConfig
+    from gauss_tpu_torch.serve.server import SolverServer
+    from gauss_tpu_torch.tune import space
+
+    on_card = DEVICE == "cuda"
+    chunk = space.OUTOFCORE_CHUNK_SEED
+    n = OOC_LADDER_N
+    a, b = dominant_system(n)
+    t0 = time.perf_counter()
+    rr, got = counted(lambda: recover.solve_resilient(
+        a, b, rungs=("outofcore", "numpy_f64"), device=DEVICE))
+    ladder_s = time.perf_counter() - t0
+    require(rr.rung == "outofcore" and rr.rung_index == 0
+            and rr.rel_residual <= GATE, f"ladder n={n}: served by "
+            f"{rr.rung} ({rr.escalations}), residual {rr.rel_residual}")
+    require(got == (launch_counts(ooc_plan(n, blocked.auto_panel(n), chunk))
+                    if on_card else {}), f"ladder n={n}: launches {got}")
+    ns = OOC_SERVE_N
+    a, b = dominant_system(ns)
+    budget = 3 * ns * ns * 4 - 1
+    cfg = ServeConfig(ladder=SERVE_LADDER, outofcore_handoff=True,
+                      device_budget=budget, verify_gate=GATE, device=DEVICE)
+    with obs.run() as rec:
+        def serve():
+            with SolverServer(cfg) as srv:
+                return srv.solve(a, b)
+        res, got_s = counted(serve)
+    routes = [e for e in rec.events if e["type"] == "route"
+              and e.get("tool") == "serve_handoff"]
+    rel = float(np.linalg.norm(a @ res.x - b) / np.linalg.norm(b))
+    require(res.ok and res.lane == "outofcore" and rel <= GATE
+            and [r["lane"] for r in routes] == ["outofcore"],
+            f"service n={ns}: {res.status} on lane {res.lane}, residual "
+            f"{rel}, routes {routes}")
+    require(got_s == (launch_counts(ooc_plan(ns, blocked.auto_panel(ns),
+                                             chunk)) if on_card else {}),
+            f"service n={ns}: launches {got_s}")
+    return {"ladder": {"n": n, "rung": rr.rung, "s": round(ladder_s, 3),
+                       "rel_residual": rr.rel_residual, "launches": got},
+            "service": {"n": ns, "lane": res.lane, "rel_residual": rel,
+                        "budget": budget, "launches": got_s}}
+
+
+def phase_outofcore():
+    """The host-streamed out-of-core solve on the card (module docstring,
+    phase 11): returns the launch counts of its counted calls and its
+    figures."""
+    import tempfile
+
+    import torch
+
+    from gauss_tpu_torch import outofcore
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    on_card = DEVICE == "cuda"
+    card = smi_line() if on_card else "cpu"
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    counts = {}
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after (as phase 10 counts them)."""
+        _build.reset_launches()
+        val = fn()
+        sync()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v and not any(
+            r.startswith(k + "/") for r in _build.ROUTE_LAUNCHES)}
+        got.update(_build.ROUTE_LAUNCHES)
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return val, got
+
+    out = {"card": card}
+    # Step 0: the host's and the card's memory, and the cost of pinning.
+    step0 = {"host_memory_budget": outofcore.host_memory_budget(),
+             "device_memory_budget": blocked.device_memory_budget(DEVICE),
+             "big_n_fits": outofcore.outofcore_fits(OOC_BIG_N,
+                                                    device=DEVICE)}
+    if on_card:
+        from gauss_tpu_torch.outofcore import stream
+
+        step0["mem_get_info"] = list(torch.cuda.mem_get_info())
+        t0 = time.perf_counter()
+        pinned = stream.pinned_empty((OOC_PIN_BYTES,), torch.uint8)
+        step0["pin_s"] = round(time.perf_counter() - t0, 4)
+        step0["pin_bytes"] = OOC_PIN_BYTES
+        # The link's rate on one contiguous pinned copy each way, beside
+        # which the stream's strided tile copies read.
+        pinned.fill_(1)
+        dev_buf = torch.empty_like(pinned, device=DEVICE)
+        for way, dst, src in (("h2d", dev_buf, pinned),
+                              ("d2h", pinned, dev_buf)):
+            ms = call_ms(lambda: dst.copy_(src, non_blocking=True), 3)
+            step0[f"{way}_contiguous_gb_s"] = round(
+                OOC_PIN_BYTES / ms / 1e6, 2)
+        del pinned, dev_buf
+        torch.cuda.empty_cache()
+    out["step0"] = step0
+    print(f"phase 11 step 0: {json.dumps(step0)} [{card}]")
+    require(step0["big_n_fits"], f"the host cannot admit n={OOC_BIG_N}: "
+            f"{step0}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_outofcore_")
+    try:
+        t0 = time.perf_counter()
+        cli = out["check"] = ooc_check_cli(counted, work)
+        cli["wall_s"] = round(time.perf_counter() - t0, 3)
+        print(f"phase 11 (a): outofcore.check: smoke {cli['smoke']}; "
+              f"routing {cli['routing']}, route {cli['route_event']}; "
+              f"launches {cli['launches']}; {cli['wall_s']} s [{card}]")
+        t0 = time.perf_counter()
+        g = out["giant"] = ooc_giant(counted)
+        g["wall_s"] = round(time.perf_counter() - t0, 3)
+        print(f"phase 11 (b): streamed n={g['n']} (panel {g['panel']}, "
+              f"chunk {g['chunk']}, ct {g['ct']}): factor {g['factor_s']} s, "
+              f"solve + 3 refinements {g['solve_s']} s (in-core chunked "
+              f"factor {g.get('incore_factor_s')} s, lu_factor "
+              f"{g.get('lu_factor_s')} s); residual {g['rel_residual']:.3e}; "
+              f"peak {g['peak_frac']} (ledger), {g['alloc_peak_frac']} "
+              f"(allocator) of 3n^2*4; bits == in-core: "
+              f"{g['bits_equal_incore']} (max diff {g['max_diff_incore']}); "
+              f"backward err {g['backward_err']}; stream {g['stream']}; "
+              f"launches {g['launches']}; held {g['held']}; "
+              f"{g['wall_s']} s wall [{card}]")
+        t0 = time.perf_counter()
+        big = out["past_budget"] = ooc_past_budget(counted, work)
+        big["phase_wall_s"] = round(time.perf_counter() - t0, 3)
+        print(f"phase 11 (c): solve_handoff n={big['n']}: route "
+              f"{big['route']}; residual {big['rel_residual']:.3e}; "
+              f"{big['wall_s']} s (matrix made in {big['gen_s']} s); stream "
+              f"{big['stream']}; launches {big['launches']}; one-block "
+              f"{big['one_block']} [{card}]")
+        t0 = time.perf_counter()
+        rid = out["riders"] = ooc_riders(counted, work)
+        rid["wall_s"] = round(time.perf_counter() - t0, 3)
+        print(f"phase 11 (d): n={rid['n']}, ct {rid['ct']}: abft clean "
+              f"err/tol {rid['clean_err_over_tol']:.3e} (bits == in-core "
+              f"abft: {rid['bits_equal_incore_abft']}); tile fault "
+              f"{rid['tile_fault']}; killed child {rid['kill']} resumed bit "
+              f"for bit; {rid['wall_s']} s [{card}]")
+        t0 = time.perf_counter()
+        ls = out["ladder_service"] = ooc_ladder_service(counted)
+        ls["wall_s"] = round(time.perf_counter() - t0, 3)
+        print(f"phase 11 (e): ladder {ls['ladder']}; service "
+              f"{ls['service']}; {ls['wall_s']} s [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = counts
+    out["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    print(f"phase 11: launches {counts}; {out['wall_s']} s wall [{card}]")
+    print(json.dumps({"outofcore": out}, default=str))
+    return launches, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -5414,6 +6166,14 @@ def large_n_summary(large: dict, key: str) -> dict:
                 "device_ms", {}).get(k)}
             for k, v in cell["launches"].items() if k.split("/")[0] == key}
     return out
+
+
+def ooc_summary(ooc: dict, key: str) -> dict:
+    """A kernel's launches, device ms and strip heights by route in phase
+    11's streamed factorizations ((b) and (c))."""
+    return {f"n={ooc[cell]['n']}": {
+        k.split("/")[-1]: v for k, v in ooc[cell]["launches"].items()
+        if k.split("/")[0] == key} for cell in ("giant", "past_budget")}
 
 
 def main(argv=None) -> int:
@@ -5448,6 +6208,12 @@ def main(argv=None) -> int:
             "the structure path launched no batched panel kernel")
     by_path["serve"], serve = phase_serve(args.reps)
     by_path["resilience"], res = phase_resilience(args.reps)
+    by_path["outofcore"], ooc = phase_outofcore()
+    require(by_path["outofcore"]["panel_trailing_fused"] > 0
+            and by_path["outofcore"]["panel_factor_grid"] > 0
+            and by_path["outofcore"]["panel_factor"] > 0,
+            "the out-of-core path launched no kernel-2, grid-route or "
+            "one-block kernel-1 launch")
     require(by_path["resilience"]["panel_factor_grid"] > 0
             and by_path["resilience"]["panel_factor_cluster"] > 0,
             "the resilience path launched no grid- or cluster-route panel "
@@ -5511,7 +6277,8 @@ def main(argv=None) -> int:
          "batched_solve_strips_library_ms": km["panel_batched_library_ms"],
          "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"],
          "phase_profile_share": tele["phase_share"],
-         "large_n": large_n_summary(large, "panel_factor_cluster")},
+         "large_n": large_n_summary(large, "panel_factor_cluster"),
+         "outofcore": ooc_summary(ooc, "panel_factor_cluster")},
         {"name": "panel_factor_grid", "route": "cuda",
          "source": src + "panel_grid.cu",
          "sources": [src + "panel_grid.cu", src + "panel_grid.cuh",
@@ -5529,7 +6296,8 @@ def main(argv=None) -> int:
              "ms": ob32["panel_ms"], "one_block_ms":
              ob32["panel_one_block_ms"], "library_ms": strip_lib,
              "bound_ms": ob32["panel_bound_ms"], "err": ob32["panel_err"]},
-         "large_n": large_n_summary(large, "panel_factor_grid")},
+         "large_n": large_n_summary(large, "panel_factor_grid"),
+         "outofcore": ooc_summary(ooc, "panel_factor_grid")},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
@@ -5539,8 +6307,10 @@ def main(argv=None) -> int:
          "bound_by": grid["bound_by"], "library_ms": grid["library_ms"],
          "shape": f"({2 * N}, {PANEL}) through panel_factor_one_block: the "
                   f"rule sends it only strips beyond the grid's reach, which "
-                  f"no main path factors",
-         "large_n": large_n_summary(large, "panel_factor")},
+                  f"only the out-of-core path factors (its launches and "
+                  f"times there: outofcore)",
+         "large_n": large_n_summary(large, "panel_factor"),
+         "outofcore": ooc_summary(ooc, "panel_factor")},
         {"name": "panel_trailing_fused", "route": "cuda",
          "source": src + "panel_fused.cu",
          "sources": [src + "panel_fused.cu", src + "panel_fused.cuh",
@@ -5566,7 +6336,8 @@ def main(argv=None) -> int:
          "factorization_ms": k2["factorization_ms"],
          "factorization_lu_factor_ms": k2["lu_factor_ms"],
          "large_n": large_n_summary(large, "panel_trailing_fused"),
-         "resilience_by_route": res_routes("panel_trailing_fused")},
+         "resilience_by_route": res_routes("panel_trailing_fused"),
+         "outofcore": ooc_summary(ooc, "panel_trailing_fused")},
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",

@@ -79,8 +79,9 @@ lane's factor and solve).
 :func:`lu_factor_blocked_phased` runs the ``"pallas"`` route with a
 synchronized telemetry span around each phase (the solver-phase profile of
 the CLIs' ``--phase-profile``). :func:`solve_handoff` routes a solve by its
-working set (:func:`fits_single_chip`); only the single-card lane is
-ported.
+working set (:func:`fits_single_chip`): the single-card lane, or the
+host-streamed out-of-core engine (:mod:`gauss_tpu_torch.outofcore`) past
+the card's budget; the sharded ``dist`` lane is not ported.
 
 Deliberate deviations from the JAX package:
 
@@ -1234,8 +1235,8 @@ HANDOFF_ENGINES = (None, "single_chip", "dist", "outofcore")
 
 class LaneNotPortedError(NotImplementedError):
     """A :func:`solve_handoff` lane the JAX package has and the port does
-    not yet: the sharded (``dist``) and host-streamed (``outofcore``)
-    engines, ROADMAP queue-1 item 10. Raised instead of any fallback."""
+    not yet: the sharded (``dist``) engine, ROADMAP queue-1 item 10.
+    Raised instead of any fallback."""
 
 
 def device_memory_budget(device=None) -> int:
@@ -1290,19 +1291,26 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
                   engine: str | None = None, **single_chip_kwargs):
     """Size-routed solve (the JAX package's ``solve_handoff``): the
     single-card refined path (:func:`solve_refined`) while the working set
-    fits the budget (:func:`fits_single_chip`), emitting a ``route``
-    event with the JAX package's fields. Returns x float64.
+    fits the budget (:func:`fits_single_chip`), the host-streamed
+    out-of-core engine (:func:`gauss_tpu_torch.outofcore.solve_outofcore`)
+    beyond it while the host can admit the system
+    (:func:`gauss_tpu_torch.outofcore.outofcore_fits`), a ValueError past
+    that. Each route emits a ``route`` event with the JAX package's
+    fields. Returns x float64, refined on every route.
 
-    ``engine`` forces a lane: ``"single_chip"``, ``"dist"`` or
-    ``"outofcore"`` (None = size-routed). The two off-card lanes, and a
-    size-routed request past the budget, raise
-    :class:`LaneNotPortedError` naming the estimate and the budget;
-    options a chosen lane cannot honour raise ValueError, as in the JAX
-    package. ``single_chip_kwargs`` are :func:`solve_refined`'s
-    (dtype, panel_impl, unroll, a_dev, b_dev, device); ``dtype`` counts in
-    the estimate and must be float32 or bfloat16 (the dtypes the kernels
-    take).
-    ``mesh`` is accepted for the JAX signature; no lane reads it yet."""
+    ``engine`` forces a lane: ``"single_chip"``, ``"outofcore"`` or
+    ``"dist"`` (None = size-routed); ``"dist"`` raises
+    :class:`LaneNotPortedError`. Options a chosen lane cannot honour raise
+    ValueError, as in the JAX package: ``single_chip_kwargs`` are
+    :func:`solve_refined`'s (dtype, panel_impl, unroll, a_dev, b_dev,
+    device), and the out-of-core lane honours ``dtype`` and ``device``
+    only. ``dtype`` counts in the estimate and must be float32 or
+    bfloat16 (the dtypes the kernels take).
+
+    Deviation: the port has no device mesh, so ``mesh`` is accepted for
+    the JAX signature and read by no lane; where the JAX package, given a
+    multi-device mesh, shards an oversized request (``dist``), the port
+    streams it out of core."""
     from gauss_tpu_torch import obs
 
     del mesh
@@ -1315,25 +1323,46 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
                   else device_memory_budget(device))
     itemsize = _handoff_itemsize(a, single_chip_kwargs)
     est_bytes = 3 * n * n * itemsize
+    if single_chip_kwargs.get("dtype") is not None:
+        _torch_dtype(single_chip_kwargs["dtype"])
+
+    def outofcore_route():
+        from gauss_tpu_torch import outofcore
+
+        bad = sorted(set(single_chip_kwargs) - {"dtype", "device"})
+        if bad:
+            raise ValueError(
+                f"n={n} routes to the out-of-core engine and these options "
+                f"do not apply to it: {bad}")
+        obs.emit("route", tool="solve_handoff", n=n, lane="outofcore",
+                 est_bytes=est_bytes, budget=eff_budget, itemsize=itemsize)
+        return outofcore.solve_outofcore(a, b, panel=panel, iters=iters,
+                                         tol=tol, **single_chip_kwargs)
+
+    if engine == "outofcore":
+        return outofcore_route()
     if engine == "single_chip" or (
             engine is None
             and fits_single_chip(n, itemsize=itemsize, budget=eff_budget)):
-        kwargs = dict(single_chip_kwargs)
-        if kwargs.get("dtype") is not None:
-            _torch_dtype(kwargs["dtype"])
         obs.emit("route", tool="solve_handoff", n=n, lane="single_chip",
                  est_bytes=est_bytes, budget=eff_budget, itemsize=itemsize)
         return solve_refined(a, b, panel=panel, iters=iters, tol=tol,
-                             **kwargs)[0]
+                             **single_chip_kwargs)[0]
+    if engine is None:
+        from gauss_tpu_torch import outofcore
+
+        if outofcore.outofcore_fits(n, itemsize=itemsize, device=device):
+            return outofcore_route()
+        raise ValueError(
+            f"n={n} exceeds the single-card budget (needs ~{est_bytes} "
+            f"bytes at itemsize {itemsize}, budget {eff_budget}) and the "
+            f"host-streamed out-of-core engine cannot admit it either "
+            f"(gauss_tpu_torch.outofcore.outofcore_fits)")
     options = sorted(set(single_chip_kwargs) - {"device"})
-    lane = engine or "dist or outofcore"
-    if engine == "outofcore":
-        options = [k for k in options if k != "dtype"]
-    if options and engine is not None:
-        raise ValueError(f"n={n} routes to the {engine} engine and these "
+    if options:
+        raise ValueError(f"n={n} routes to the dist engine and these "
                          f"options do not apply to it: {options}")
     raise LaneNotPortedError(
-        f"n={n}: the {lane} lane (working set ~{est_bytes} bytes at "
-        f"itemsize {itemsize}, single-card budget {eff_budget}) is not "
-        f"ported yet: the sharded and out-of-core engines are ROADMAP "
-        f"queue-1 item 10")
+        f"n={n}: the dist lane (working set ~{est_bytes} bytes at itemsize "
+        f"{itemsize}, single-card budget {eff_budget}) is not ported yet: "
+        f"the sharded engine is ROADMAP queue-1 item 10")

@@ -1,5 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
+``csrc/hostcopy.cu`` holds no kernel: it is the out-of-core stream's
+pinned host allocation and strided copy (``cudaMemcpy2DAsync``), built
+and loaded the same way.
+
 Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; every
 pointer and the stream pass as ``c_void_p``, every integer as ``c_int``.
@@ -31,7 +35,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("panel_factor", "panel_cluster", "panel_grid", "panel_batched",
-           "panel_fused", "panel_fused_batched", "matmul", "rowelim", "spmv")
+           "panel_fused", "panel_fused_batched", "matmul", "rowelim", "spmv",
+           "hostcopy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -128,6 +133,11 @@ _SIGNATURES = {
     "spmv": {
         "gtt_spmv_ell_f32": [_P, _P, _P, _P, _I, _I, _P],
         "gtt_spmv_ell_f64": [_P, _P, _P, _P, _I, _I, _P],
+    },
+    "hostcopy": {
+        "gtt_host_alloc": [ctypes.POINTER(_P), _L],
+        "gtt_host_free": [_P],
+        "gtt_copy2d": [_P, _L, _P, _L, _L, _L, _I, _P],
     },
 }
 

@@ -26,15 +26,21 @@ The hook sites the port polls today:
     checkpoint.group        raise or ``os._exit`` between checkpointed
                             factor groups —
                             ``gauss_tpu_torch.resilience.checkpoint``
+    outofcore.group         raise or ``os._exit`` between streamed
+                            out-of-core factor groups —
+                            ``gauss_tpu_torch.outofcore.stream``
+    outofcore.tile          corrupt one trailing tile on its way to the
+                            device (the ``abft=True`` rider's detection
+                            surface) — the same
     abft.lu.group           flip one bit of one element of the on-device
     abft.chol.group         carry at a panel-group boundary (kind
                             ``sdc_bitflip``: :func:`poll_sdc`, applied by
                             ``gauss_tpu_torch.resilience.abft``)
     abft.matmul             the same against an ABFT matmul's product
 
-The other sites of the JAX package's catalog (the journal, dist,
-out-of-core and fleet sites) belong to modules not ported yet; a plan may
-name them, and nothing polls them.
+The other sites of the JAX package's catalog (the journal, dist and
+fleet sites) belong to modules not ported yet; a plan may name them, and
+nothing polls them.
 
 The operand of the port is a numpy array or a torch tensor, on the CPU
 or on the card. :func:`corrupt_operand` corrupts a copy on the host with

@@ -23,6 +23,10 @@ instead of returning a wrong answer:
     rung 3  alternate engine      the other engine (blocked <-> rank1)
     rung 4  numpy_f64             host LAPACK in float64
 
+The ``outofcore`` rung streams a system past the card's memory from the
+host (:mod:`gauss_tpu_torch.outofcore`); the service's out-of-core
+handoff lane runs the ladder ``("outofcore", "numpy_f64")``.
+
 :func:`structured_rungs` puts a structure tag's engine ahead of the
 general-LU chain (``cholesky``, ``banded``, ``blockdiag``, the Krylov
 rungs ``cg``/``gmres``/``bicgstab``, or the ``lowered`` head on the dense
@@ -36,10 +40,10 @@ when host LAPACK finds the system singular).
 
 Deliberate deviations from the JAX package:
 
-- **Unported rungs are refused before the ladder runs.** ``outofcore``
-  (ROADMAP queue-1 item 10) has no engine in the port yet: a ladder that
-  names it raises :class:`RungNotPortedError` when it is built. It is
-  never tried and escalated past.
+- **Unported rungs are refused before the ladder runs.** A ladder that
+  names a rung with no engine in the port (:data:`UNPORTED_RUNGS`, empty
+  since the ``outofcore`` rung came) raises :class:`RungNotPortedError`
+  when it is built; such a rung is never tried and escalated past.
 - **Kernel failures are not hidden.** The JAX ladder escalates past any
   exception of a rung. The port re-raises
   :class:`~gauss_tpu_torch.kernels._build.KernelBuildError` and
@@ -76,10 +80,8 @@ DEFAULT_GATE = 1e-4
 ENGINES = ("blocked", "rank1")
 
 #: Rungs of the JAX package that have no engine in the port yet, and the
-#: ROADMAP queue-1 item that brings each.
-UNPORTED_RUNGS = {
-    "outofcore": "ROADMAP queue-1 item 10 (outofcore/)",
-}
+#: ROADMAP queue-1 item that brings each: none since ``outofcore``.
+UNPORTED_RUNGS: Dict[str, str] = {}
 
 
 class RungNotPortedError(NotImplementedError):
@@ -262,6 +264,19 @@ def _rung_numpy(a64, b64, panel, iters, device):
             f"exactly singular system: host LAPACK reports {e}") from e
 
 
+def _rung_outofcore(a64, b64, panel, iters, device):
+    """Host-streamed rung (:mod:`gauss_tpu_torch.outofcore`): only the
+    active panel group and a bounded tile window live on the card, the
+    serving layer's giant-request lane. An ABFT detection
+    (``SDCDetectedError``) or a refused admission escalates; a kernel
+    fault re-raises, as in the other card rungs."""
+    from gauss_tpu_torch import outofcore
+
+    return outofcore.solve_outofcore(a64, b64, panel=panel,
+                                     iters=max(2, iters),
+                                     device=device), None
+
+
 def _rung_abft(a64, b64, panel, iters, device):
     """Checksum-carrying blocked LU with in-rung detect/localize/replay
     (:mod:`gauss_tpu_torch.resilience.abft`): a transient corruption is
@@ -342,6 +357,7 @@ _RUNG_FNS: Dict[str, Callable] = {
     "bicgstab": _rung_krylov("bicgstab"),
     "abft": _rung_abft,
     "abft_chol": _rung_abft_chol,
+    "outofcore": _rung_outofcore,
 }
 
 _ABFT_RUNGS = ("abft", "abft_chol")

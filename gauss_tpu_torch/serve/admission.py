@@ -94,7 +94,6 @@ UNPORTED_OPTIONS = (
     ("flight_dir", None, "item 11 (obs/flight, the flight recorder)"),
     ("attr", None, "item 11 (obs/attr, the attribution plane)"),
     ("supervised_handoff", False, "item 10 (resilience/fleet)"),
-    ("outofcore_handoff", False, "item 10 (outofcore/)"),
 )
 
 

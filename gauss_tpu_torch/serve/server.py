@@ -497,19 +497,37 @@ class SolverServer:
             self._finish(req, xi, lane="batched", bucket_n=bucket_n)
 
     def _serve_handoff(self, req: ServeRequest) -> None:
-        """Oversized lane: one solve_handoff call per request (its routing
-        decision is its own ``route`` event), on the single-card lane; with
+        """Oversized lane: with ``outofcore_handoff`` and a working set past
+        ``device_budget``, the request streams from host memory under the
+        ladder ``("outofcore", "numpy_f64")`` (lane ``outofcore``); with
         ``abft`` and a system that fits the card, the checksum-carrying
-        ladder instead."""
+        ladder; else one solve_handoff call (its routing decision is its
+        own ``route`` event)."""
         from gauss_tpu_torch.core import blocked
 
         cfg = self.config
         sdc_detected = False
+        lane = "handoff"
         try:
             with obs.trace_context(req.trace_id), \
                     obs.span("serve_handoff", n=req.n):
-                if cfg.abft and blocked.fits_single_chip(req.n,
-                                                         device=self.device):
+                if (cfg.outofcore_handoff
+                        and not blocked.fits_single_chip(
+                            req.n, budget=cfg.device_budget,
+                            device=self.device)):
+                    from gauss_tpu_torch.resilience import recover
+
+                    lane = "outofcore"
+                    obs.emit("route", tool="serve_handoff",
+                             lane="outofcore", n=req.n,
+                             budget=cfg.device_budget)
+                    x = recover.solve_resilient(
+                        req.a.astype(np.float64), req.b.astype(np.float64),
+                        rungs=("outofcore", "numpy_f64"), panel=cfg.panel,
+                        refine_iters=max(2, cfg.refine_steps),
+                        device=self.device).x
+                elif cfg.abft and blocked.fits_single_chip(
+                        req.n, device=self.device):
                     from gauss_tpu_torch.resilience import recover
 
                     obs.emit("route", tool="serve_handoff", lane="abft",
@@ -527,9 +545,9 @@ class SolverServer:
                         budget=cfg.device_budget, panel=cfg.panel,
                         iters=max(2, cfg.refine_steps), device=self.device)
         except Exception as e:  # noqa: BLE001 — lane boundary
-            self._fail([req], STATUS_FAILED, "handoff", None, _err(e))
+            self._fail([req], STATUS_FAILED, lane, None, _err(e))
             return
-        self._finish(req, np.asarray(x), lane="handoff", bucket_n=None,
+        self._finish(req, np.asarray(x), lane=lane, bucket_n=None,
                      sdc_detected=sdc_detected)
 
     def _serve_sparse(self, reqs) -> None:

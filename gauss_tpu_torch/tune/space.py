@@ -2,8 +2,9 @@
 
 A copy of the parts of the JAX package's ``tune/space.py`` that the port
 reads: the seeds of the sparse plane, of the blocked factorization and
-the fused kernel, and of the lowered-precision solve, the declared axes
-of the ops ``core/blocked``, ``kernels/panel_fused`` and ``core/lowered``
+the fused kernel, of the lowered-precision solve and of the out-of-core
+stream, the declared axes of the ops ``core/blocked``,
+``kernels/panel_fused``, ``core/lowered`` and ``outofcore/stream``
 consult, and the key helpers (:func:`space_for`, :func:`seed_params`,
 :func:`n_bucket`, :func:`config_key`). :func:`config_key` gives the JAX
 package's key for the same ``(op, n, dtype, engine)``, so one store
@@ -43,6 +44,15 @@ FUSED_FSEG_SEED = 32
 #: a measured converging pair moves the start down the ladder.
 LOWERED_DTYPE_SEED = "float32"
 LOWERED_REFINE_SEED = 6
+
+#: The out-of-core streamed factorization (``outofcore.stream``): the
+#: trailing tile width (columns per streamed H2D/D2H tile), the panels per
+#: streamed group, and the share of the device budget the streamed
+#: working set may claim (declared, not swept: it keeps headroom for the
+#: update's transients and cuBLAS's workspace).
+OUTOFCORE_CT_SEED = 4096
+OUTOFCORE_CHUNK_SEED = 16
+OUTOFCORE_DEVICE_FRAC_SEED = 0.25
 
 #: GMRES restart length — the resident Krylov basis, i.e. the
 #: O(nnz + n*restart) peak-memory bound of the sparse plane.
@@ -99,6 +109,12 @@ SPACES: Dict[str, Tuple[Axis, ...]] = {
     "lowered": (
         Axis("dtype", LOWERED_DTYPE_SEED, ("bfloat16", "bf16x3")),
         Axis("refine_steps", LOWERED_REFINE_SEED, (2, 4, 8, 12)),
+    ),
+    "outofcore": (
+        Axis("ct", OUTOFCORE_CT_SEED, (2048, 8192)),
+        Axis("chunk", OUTOFCORE_CHUNK_SEED, (8, 32)),
+        Axis("device_frac", OUTOFCORE_DEVICE_FRAC_SEED, (),
+             sweep_default=False),
     ),
     "sparse": (
         Axis("restart", SPARSE_RESTART_SEED, (16, 64)),

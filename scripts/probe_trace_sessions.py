@@ -17,8 +17,12 @@ that call; and one across ``--takes`` takes of the calls phases 6 (c),
 7 (d) and 9 (c) trace, in turn (:func:`phase_takes`). Each take of a
 session lies between spin markers, and the session is exported once: the
 markers and planned kernels recorded, and the takes short of their plan.
-One JSON line, with the card's name and power limit. Needs a CUDA
-device.
+Every record a trace lacks is named (:func:`missing_records`: which
+marker, or which take's kernel by position, key and route), and each
+session opens with ``--lead-markers`` spin markers (default
+``chip_smoke.TRACE_LEAD_MARKERS``, which ``trace_launches`` queues too),
+to see whether the records a session drops are its first. One JSON line,
+with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -84,6 +88,46 @@ def phase_takes(c) -> list:
     return out
 
 
+def _records(c, path: str) -> list:
+    """A Chrome trace's spin markers and hand-written kernels in device
+    order: ``"marker"`` or ``(key, route)``."""
+    with open(path) as f:
+        kernels = sorted((e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel" and e.get("ph") == "X"),
+                         key=lambda e: float(e["ts"]))
+    out = []
+    for e in kernels:
+        if "spin" in e["name"]:
+            out.append("marker")
+            continue
+        out += [(key, route) for syms, key, route in c.TRACE_KINDS
+                if any(sym in e["name"] for sym in syms)]
+    return out
+
+
+def missing_records(c, path: str, lead: int, takes: list) -> list:
+    """The records of a traced session that its trace lacks, named: the
+    session's ``lead`` leading markers, then per take its kernels and one
+    marker after it, aligned with what the trace holds (difflib); each
+    missing record as ``"marker i"`` or ``"take t kernel i: key/route"``."""
+    import difflib
+
+    want, names = ["marker"] * lead, [f"marker {i}" for i in range(lead)]
+    for t, (_, _, plan) in enumerate(takes):
+        for i, (k, r, _) in enumerate(plan):
+            want.append((k, r))
+            names.append(f"take {t} kernel {i}: {k}/{r}")
+        want.append("marker")
+        names.append(f"marker {lead + t}")
+    got = _records(c, path)
+    out = []
+    sm = difflib.SequenceMatcher(None, want, got, autojunk=False)
+    for op, i0, i1, _, _ in sm.get_opcodes():
+        if op in ("delete", "replace"):
+            out += names[i0:i1]
+    return out
+
+
 def long_lived(c, takes: list, path: str) -> dict:
     """One profiler session over ``takes`` (``(label, call, plan)``), each
     between spin markers, exported once: per take, the planned kernels
@@ -98,6 +142,8 @@ def long_lived(c, takes: list, path: str) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(c.TRACE_LEAD_MARKERS - 1):
+            marker()
         for _, call, _ in takes:
             marker()
             call()
@@ -108,14 +154,17 @@ def long_lived(c, takes: list, path: str) -> dict:
         kernels = sorted((e for e in json.load(f)["traceEvents"]
                           if e.get("cat") == "kernel" and e.get("ph") == "X"),
                          key=lambda e: float(e["ts"]))
-    marks = [i for i, e in enumerate(kernels) if "spin" in e["name"]]
+    lead = c.TRACE_LEAD_MARKERS - 1
+    marks = [i for i, e in enumerate(kernels) if "spin" in e["name"]][lead:]
     ours = [[(key, route) for syms, key, route in c.TRACE_KINDS
              if any(sym in e["name"] for sym in syms)] for e in kernels]
     planned = sum(len(p) for _, _, p in takes)
-    rec = {"takes": len(takes), "markers": len(marks),
-           "markers_planned": len(takes) + 1,
+    rec = {"takes": len(takes),
+           "markers": len(marks) + lead,
+           "markers_planned": len(takes) + 1 + lead,
            "planned_kernels": planned,
-           "kernels_anywhere": sum(len(o) for o in ours)}
+           "kernels_anywhere": sum(len(o) for o in ours),
+           "missing": missing_records(c, path, lead + 1, takes)}
     if len(marks) == len(takes) + 1:
         lost = {}
         for (label, _, plan), lo, hi in zip(takes, marks, marks[1:]):
@@ -144,10 +193,13 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):
             torch.cuda.synchronize()
-        got, _, _ = c.trace_launches(call, os.path.join(work, "loop.json"))
+        path = os.path.join(work, "loop.json")
+        got, _, _ = c.trace_launches(call, path)
         if [(k, r) for k, r, _ in got] != want:
             first_loss = {"round": s + 1, "recorded": len(got),
-                          "planned": len(want)}
+                          "planned": len(want),
+                          "missing": missing_records(
+                              c, path, c.TRACE_LEAD_MARKERS, [calls[0]])}
             break
     return {"loop_rounds": sessions, "loop_first_loss": first_loss,
             "one_call": long_lived(c, [calls[0]] * takes,
@@ -163,6 +215,9 @@ def main(argv=None) -> int:
                     help="run chip_smoke.main() in this process first")
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--takes", type=int, default=20)
+    ap.add_argument("--lead-markers", type=int, default=None,
+                    help="spin markers opening each session (default "
+                         "chip_smoke.TRACE_LEAD_MARKERS)")
     args = ap.parse_args(argv)
     import torch
 
@@ -171,6 +226,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(HERE))
     c = _smoke()
+    if args.lead_markers is not None:
+        c.TRACE_LEAD_MARKERS = args.lead_markers
     if args.whole_run:
         rc = c.main([])
         if rc:
@@ -182,6 +239,7 @@ def main(argv=None) -> int:
     print(json.dumps({"trace_sessions": probe(c, args.rounds, args.takes,
                                               str(work)),
                       "after_whole_run": args.whole_run,
+                      "lead_markers": c.TRACE_LEAD_MARKERS,
                       "card": c.smi_line()}))
     return 0
 

@@ -500,16 +500,21 @@ def test_handoff_itemsize_matches_jax():
     assert tb._handoff_itemsize(torch.ones(2, dtype=torch.float64), {}) == 4
 
 
-def test_handoff_off_card_lanes_raise_typed_error():
+def test_handoff_off_card_lanes_raise_typed_error(tmp_path):
+    """The sharded lane still raises typed; the out-of-core lane, forced
+    or size-routed past the budget, now solves, with the JAX package's
+    route event."""
     n = 32
     a, b = np.eye(n), np.ones(n)
-    for engine in ("dist", "outofcore"):
-        with pytest.raises(tb.LaneNotPortedError, match="queue-1 item 10"):
-            tb.solve_handoff(a, b, engine=engine)
-    with pytest.raises(tb.LaneNotPortedError) as e:
-        tb.solve_handoff(a, b, budget=16, device="cpu")
-    assert f"~{3 * n * n * 4} bytes" in str(e.value) and "budget 16" in str(
-        e.value)
+    with pytest.raises(tb.LaneNotPortedError, match="queue-1 item 10"):
+        tb.solve_handoff(a, b, engine="dist")
+    assert np.array_equal(tb.solve_handoff(a, b, engine="outofcore",
+                                           device="cpu"), b)
+    x, ev = _route_events(tobs, tmp_path / "t.jsonl", lambda: tb.solve_handoff(
+        a, b, budget=16, device="cpu"))
+    assert np.array_equal(x, b)
+    assert ev[0]["lane"] == "outofcore" and ev[0]["budget"] == 16
+    assert ev[0]["est_bytes"] == 3 * n * n * 4
     with pytest.raises(ValueError, match="do not apply"):
         tb.solve_handoff(a, b, engine="dist", panel_impl="jax")
     with pytest.raises(ValueError, match="unknown handoff engine"):

@@ -34,7 +34,7 @@ PENDING = {"gauss_tpu.obs": {
                "JournalError": "item 11, serve/durable",
                "RequestJournal": "item 11, serve/durable"}}
 PACKAGES = ["", ".io", ".core", ".structure", ".obs", ".tune", ".resilience",
-            ".serve"]
+            ".serve", ".outofcore"]
 
 
 def _reference_exports(pkg: str) -> set:

@@ -308,18 +308,23 @@ def _spy_rungs(monkeypatch, **fns):
                                    ("numpy_f64", "outofcore"),
                                    ("abft_chol", "abft", "outofcore")])
 def test_unported_rungs_are_refused_before_any_rung_runs(monkeypatch, rungs):
-    """``outofcore`` (queue-1 item 10) is refused wherever it stands, before
-    any rung runs, the ported ABFT rungs included."""
-    calls = _spy_rungs(monkeypatch, numpy_f64=trecover._rung_numpy,
-                       abft=trecover._rung_abft,
-                       abft_chol=trecover._rung_abft_chol)
+    """``outofcore`` was the one unported rung; ported now, the ladder runs
+    it wherever it stands: first it serves, after rungs that fail it
+    serves in their place. ``UNPORTED_RUNGS`` is empty."""
+    def fail(*args):
+        raise RuntimeError("injected rung failure")
+
+    head = rungs.index("outofcore")
+    calls = _spy_rungs(monkeypatch, numpy_f64=fail if head else
+                       trecover._rung_numpy, abft=fail, abft_chol=fail,
+                       outofcore=trecover._rung_outofcore)
     a, b = _system(np.random.default_rng(3), 8)
-    with pytest.raises(trecover.RungNotPortedError, match="queue-1 item") \
-            as ei:
-        trecover.solve_resilient(a, b, rungs=rungs, device=CPU)
-    assert ei.value.rungs == ("outofcore",)
-    assert calls == []
-    assert set(trecover.UNPORTED_RUNGS) == {"outofcore"}
+    rr = trecover.solve_resilient(a, b, rungs=rungs, device=CPU)
+    assert rr.rung == "outofcore" and rr.rung_index == head
+    assert calls == list(rungs[:head + 1])
+    np.testing.assert_allclose(rr.x, np.linalg.solve(a, b), rtol=1e-8,
+                               atol=1e-10)
+    assert trecover.UNPORTED_RUNGS == {}
 
 
 def _cuda_error_without_class(msg):

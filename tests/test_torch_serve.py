@@ -375,11 +375,12 @@ def test_transient_failures_degrade_to_the_numpy_lane(rng):
     ("outofcore_handoff", True)])
 def test_unported_options_raise_when_the_server_is_built(name, value):
     """Every option of a plane not ported raises when the server is
-    built; ``abft``, ported since, builds and is no longer listed."""
-    if name == "abft":
+    built; ``abft`` and ``outofcore_handoff``, ported since, build and are
+    no longer listed."""
+    if name in ("abft", "outofcore_handoff"):
         assert name not in {o for o, _, _ in admission.UNPORTED_OPTIONS}
         with SolverServer(_config(**{name: value})) as srv:
-            assert srv.config.abft is True
+            assert getattr(srv.config, name) is True
         return
     with pytest.raises(FeatureNotPortedError, match=name):
         SolverServer(_config(**{name: value}))

@@ -354,7 +354,67 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    request's working set serving one n=6000 request ``ok`` at 1e-4 on
    lane ``outofcore`` (its ``serve_handoff`` route event). An
    ``{"outofcore": ...}`` JSON line carries the figures.
-12. The ``kernels`` JSON line, the card line, and the final
+12. The durable and network service (``serve/durable``, ``serve/net``,
+   ``serve/durablecheck`` and the journaled server); no CPU fallback.
+   (b) runs first and alone: its timed run (the loadgen plan) shares the
+   card and the host with nothing else. Then (c) and (a), each in a
+   process of its own, run beside the rest of (b) (its oversized request
+   and its checks; their figures are taken with the others running), and
+   last, alone, (a)'s overhead leg.
+   (a) ``python -m gauss_tpu_torch.serve.durablecheck`` at NET_CAMPAIGN
+   (the JAX package's CI configuration: 28 cases, seed 258458) on the
+   card with ``--no-overhead``: its four recovery kinds, the three
+   subprocess legs at once (a ``server_kill`` child, a torn-write child,
+   a supervised child; each a new ``python -m`` process that loads the
+   kernels built here); 0 lost, 0 duplicate terminals, 0 duplicate
+   solves, 0 unverified, exit 0; every batched-kernel launch of its
+   in-process cases held against the plain version at once
+   (``held_batched_launches``). Its overhead leg
+   (``durablecheck.run_overhead_phase``: journal-off, then journal-on,
+   seconds per request and their ratio) runs in this process at the end
+   of the phase (``net_overhead``). (b) The wire, at phase 9's
+   configuration (SERVE_LADDER, batch, one refinement step, SERVE_MIX:
+   bf16, bf16x3, spd and sparse tokens) with a journal in a temporary
+   directory: a ``SolverServer`` behind ``ReplicaApp`` + ``RequestApi``
+   on 127.0.0.1, port 0, driven by ``loadgen.run_load`` through a
+   ``SolveClient`` (``net_load``: the mix's weights, NET_WARMUP warm-up
+   requests as a burst, then NET_REQUESTS keyed ones closed loop x
+   SERVE_CONCURRENCY, its request count cut, its sizes not; every
+   operand above 4 MiB by chunked upload), then one keyed SERVE_OVERSIZE
+   request (the handoff lane); the launch counts are this run's (path
+   ``net``). Every batched factor of the run is kept (its host stack and
+   its factor) and run again after it with every launch held against the
+   plain version at once, bit for bit the same factor; the handoff's
+   kernel-1/2 launches are held after the run (``checked_launches``).
+   Every ``ok`` answer verified at 1e-4 from the journaled operands
+   (``durablecheck.audit``: one terminal per key); each system submitted
+   again in process to the same server (its worker solves them while the
+   held re-run runs on this thread; only that thread's launches are
+   held), the largest difference relative to |x| printed and whether the
+   two are equal bit for bit; then every
+   key resubmitted over the wire, SERVE_CONCURRENCY at once: its
+   journaled terminal, bit for bit, with no kernel launch and no new
+   batch. Printed: solves/s beside phase 9's; each measured request's seconds seen from the client
+   (p50, p99, mean, and its uploads' share) and from the server
+   (admission to terminal); upload MB/s of the 4096-bucket operands; the
+   journal's appends, fsyncs, bytes, seconds of appends per key and the
+   scan's seconds. (c) A replica child (``python -m
+   gauss_tpu_torch.serve.net --replica``, port fixed for its restarts)
+   under ``durable.supervise`` (a supervisor process of its own) with
+   ``GAUSS_FAULTS=serve.server.batch=server_kill`` at a seeded boundary
+   (NET_KILL_SKIP, past every batch the warm-up can make, so after its
+   4096-bucket batch, in the measured waves): a
+   ``SolveClient`` that reads ``endpoint.json`` drives the start of
+   (b)'s plan (the warm-up and NET_KILL_REQUESTS) through ``run_load``,
+   through the kill and the restart; the audit (every key admitted once,
+   one terminal per key, every ``ok`` at 1e-4), restarts = 1, a 4096
+   batch done before the kill (its blame record), the replayed count,
+   the seconds from the kill to the first replayed terminal; SIGTERM
+   drains the replica to exit 116 and a clean-shutdown marker; one more
+   start replays nothing; each incarnation's build seconds (0: it loaded
+   this checkout's libraries). A ``{"net": ...}`` JSON line carries the
+   figures.
+13. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -567,6 +627,23 @@ OOC_LADDER_N = 4096
 OOC_SERVE_N = SERVE_OVERSIZE
 OOC_FIELDS = ("m", "perm", "linv", "uinv")
 CHOL_FIELDS = ("m", "linv", "min_diag")
+#: Phase 12: the durable campaign's CLI arguments (the JAX package's CI
+#: configuration). The wire's plan (``net_load``): phase 9's mix and
+#: weights, NET_WARMUP warm-up requests, then NET_REQUESTS (one wave of
+#: SERVE_CONCURRENCY) closed loop: phase 9's sizes, its request count cut
+#: to keep the whole run inside its limit on a slower host (a 4096-bucket
+#: operand costs seconds of encoding, upload and journal, and every key is
+#: checked three times after the run; ``net_load`` picks its seed). (c)
+#: drives the same plan. The range the kill's seeded batch boundary is drawn
+#: from: past every batch the warm-up can make (one a request at most),
+#: so the kill falls in the measured waves, after the warm-up's
+#: 4096-bucket batch; the delay injected before each batch of the killed
+#: incarnation, so that requests wait in its queue when it dies; the
+#: supervisor's stall threshold.
+NET_CAMPAIGN = ("--cases", "28", "--seed", str(SEED))
+NET_WARMUP, NET_REQUESTS, NET_KILL_REQUESTS = 4, 8, 8
+NET_KILL_SKIP, NET_DELAY_S = (4, 6), 2.0
+NET_STALL_S = 60.0
 
 
 def require(cond, msg: str) -> None:
@@ -6156,6 +6233,702 @@ def phase_outofcore():
     return launches, out
 
 
+# --- Phase 12: the durable and network service ---------------------------
+
+
+@contextlib.contextmanager
+def held_batched_launches(seen: dict, thread=None):
+    """Inside the block, every launch of the batched panel kernel (rows
+    1c/1d) and of the batched fused kernel (rows 2c/2d) is held at once
+    against its plain version on a copy of its input: the panel kernel bit
+    for bit; the fused kernel's pivots and permutation bit for bit, and
+    each member's panel and updated block within TOL of its scale (a
+    bfloat16 member: ``bf16_block_check``). ``seen`` counts the held
+    launches by key. Given ``thread``, only the launches made on it are
+    held and counted; other threads launch as if outside the block."""
+    import threading
+
+    import torch
+
+    from gauss_tpu_torch.kernels import panel as kp
+    from gauss_tpu_torch.kernels import panel_fused as kf
+
+    real_pb, real_fb = kp.panel_factor_batched, kf.panel_trailing_fused_batched
+
+    def count(key, x):
+        key += "_bf16" if x.dtype == torch.bfloat16 else ""
+        seen[key] = seen.get(key, 0) + 1
+
+    def elsewhere():
+        return thread is not None and threading.current_thread() is not thread
+
+    def panel_batched(p, kb=0):
+        if elsewhere():
+            return real_pb(p, kb)
+        x = p.clone()
+        got = real_pb(p, kb)
+        require(same_outputs(got, kp.panel_factor_batched_plain(x, kb)),
+                f"a batched panel launch at {tuple(p.shape)} {p.dtype} "
+                f"differs from the plain version")
+        count("panel_factor_batched", p)
+        return got
+
+    def fused_batched(stack, col0, kbrow, *, panel, **kw):
+        if elsewhere():
+            return real_fb(stack, col0, kbrow, panel=panel, **kw)
+        x = stack.clone()
+        got = real_fb(stack, col0, kbrow, panel=panel, **kw)
+        ref = kf.panel_trailing_fused_batched_plain(x, col0, kbrow,
+                                                    panel=panel)
+        where = (f"a batched fused launch at {tuple(stack.shape)} "
+                 f"{stack.dtype}, col0={col0}")
+        require(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+                f"{where}: pivots differ from the plain version")
+        for i in range(stack.shape[0]):
+            if stack.dtype == torch.bfloat16:
+                bf16_block_check(f"{where}, member {i}", stack[i], x[i],
+                                 col0 + panel)
+                continue
+            scale = float(x[i].abs().max())
+            err = max(float((stack[i] - x[i]).abs().max()),
+                      float((got[0][i] - ref[0][i]).abs().max()))
+            require(err <= TOL * scale, f"{where}, member {i}: max |kernel "
+                    f"- plain| {err} > {TOL} x {scale}")
+        count("panel_trailing_fused_batched", stack)
+        return got
+
+    kp.panel_factor_batched = panel_batched
+    kf.panel_trailing_fused_batched = fused_batched
+    try:
+        yield
+    finally:
+        kp.panel_factor_batched = real_pb
+        kf.panel_trailing_fused_batched = real_fb
+
+
+def net_campaign(work: str, card: str) -> dict:
+    """Phase 12 (a): the durable campaign's CLI in this process, its
+    overhead leg left to ``net_overhead``, every batched launch of its
+    in-process recovery cases held at once. ``phase_net`` runs it in a
+    process of its own."""
+    from gauss_tpu_torch.serve import durablecheck
+
+    held = {}
+    real_case = durablecheck.run_recovery_case
+
+    def held_case(*args, **kw):
+        with held_batched_launches(held):
+            return real_case(*args, **kw)
+
+    path = os.path.join(work, "campaign.json")
+    t0 = time.perf_counter()
+    durablecheck.run_recovery_case = held_case
+    try:
+        run_cli(durablecheck, [*NET_CAMPAIGN, "--no-overhead",
+                               "--device", DEVICE,
+                               "--tmpdir", os.path.join(work, "campaign"),
+                               "--summary-json", path])
+    finally:
+        durablecheck.run_recovery_case = real_case
+    with open(path) as f:
+        doc = json.load(f)
+    legs = doc["subprocess"]["legs"]
+    faults = {k: doc[k] for k in ("lost", "duplicate_terminals",
+                                  "duplicate_solves", "unverified")}
+    require(doc["invariant_ok"] and not any(faults.values())
+            and all(leg["outcome"] == "ok" for leg in legs),
+            f"the durable campaign: {faults}, legs "
+            f"{[(leg['leg'], leg['outcome']) for leg in legs]}")
+    require(not DEVICE == "cuda" or held.get("panel_factor_batched"),
+            f"the campaign's cases held no batched launch: {held}")
+    rec = {"cases": doc["in_process_cases"], "legs": len(legs),
+           "legs_ok": sum(leg["outcome"] == "ok" for leg in legs),
+           "admitted": doc["admitted"], "statuses": doc["statuses"],
+           "replayed": doc["replayed"], "deduped": doc["deduped"],
+           "torn_dropped": doc["torn_dropped"], **faults,
+           "held_launches": held,
+           "legs_s": {leg["leg"]: leg["wall_s"] for leg in legs},
+           "wall_s": round(time.perf_counter() - t0, 3)}
+    print(f"phase 12 (a): durablecheck {' '.join(NET_CAMPAIGN)}: "
+          f"{rec['cases']} cases and {rec['legs_ok']} of {rec['legs']} "
+          f"subprocess legs passed, {rec['admitted']} admitted "
+          f"({rec['statuses']}), {rec['replayed']} replayed; lost "
+          f"{faults['lost']}, duplicate terminals "
+          f"{faults['duplicate_terminals']}, duplicate solves "
+          f"{faults['duplicate_solves']}, unverified {faults['unverified']};"
+          f" batched launches held {held}; {rec['wall_s']} s [{card}]")
+    return rec
+
+
+def net_overhead(work: str, card: str) -> dict:
+    """Phase 12 (a)'s overhead leg (``durablecheck.run_overhead_phase``:
+    one loadgen plan journal-off, then journal-on), in this process once
+    nothing else of the phase runs."""
+    from gauss_tpu_torch.serve import durablecheck
+
+    t0 = time.perf_counter()
+    ov = durablecheck.run_overhead_phase(SEED, GATE,
+                                         os.path.join(work, "overhead"),
+                                         device=DEVICE)
+    require(ov["off"]["incorrect"] == 0 and ov["on"]["incorrect"] == 0,
+            f"the overhead leg: {ov}")
+    rec = {k: ov[k] for k in ("off", "on", "overhead_ratio")}
+    rec["wall_s"] = round(time.perf_counter() - t0, 3)
+    print(f"phase 12 (a): overhead leg, alone: journal-off "
+          f"{ov['off']['s_per_request']} s/req, journal-on "
+          f"{ov['on']['s_per_request']} s/req (ratio "
+          f"{ov['overhead_ratio']}); {rec['wall_s']} s [{card}]")
+    return rec
+
+
+def timed_calls(obj, name: str, log: list, size=None):
+    """Wrap ``obj.<name>`` (an instance's method) so that each call
+    appends ``(size(*args), seconds)`` to ``log``."""
+    real = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            log.append((size(*args, **kw) if size else None,
+                        time.perf_counter() - t0))
+    setattr(obj, name, timed)
+
+
+def last_record(jd: str) -> dict:
+    """The last record of a journal's live segment, read from its tail
+    (a journal of large operands takes seconds to scan whole)."""
+    from gauss_tpu_torch.serve import durable
+
+    with open(durable.segment_paths(jd)[-1], "rb") as f:
+        f.seek(max(0, f.seek(0, 2) - 4096))
+        tail = f.read().rstrip(b"\n").rsplit(b"\n", 1)[-1]
+    return durable.decode_line(tail + b"\n") or {}
+
+
+def journal_systems(jd: str):
+    """The journal's admits by key: ``{rid: (a, b, dtype, n)}``, and the
+    scan's seconds."""
+    from gauss_tpu_torch.serve import durable
+
+    t0 = time.perf_counter()
+    st = durable.scan(jd)
+    scan_s = time.perf_counter() - t0
+    out = {}
+    for doc in st.admits.values():
+        b = durable.decode_array(doc["b"])
+        out[doc["rid"]] = (durable.decode_array(doc["a"]),
+                           b.reshape(-1) if doc.get("was_vector") else b,
+                           doc.get("dtype"), doc["n"])
+    return st, out, scan_s
+
+
+def net_load(requests: int):
+    """Phase 12's plan: phase 9's mix and weights (SERVE_MIX), NET_WARMUP
+    warm-up requests as a burst, then ``requests`` keyed ones closed loop,
+    SERVE_CONCURRENCY at a time, made from the first seed from SEED on
+    whose plan holds every lane of the mix (each token with a dtype, spd
+    or sparse) and a dense system of the ladder's top bucket both in the
+    warm-up (so (c)'s kill follows a top-bucket batch) and in the measured
+    requests (the heaviest traffic is measured)."""
+    from gauss_tpu_torch.serve import loadgen
+
+    lanes = {(s.kind, s.dtype) for s, _ in loadgen.parse_mix(SERVE_MIX)
+             if s.dtype or s.kind in ("spd", "sparse")}
+
+    def top(spec):
+        n = int(spec.arg.split("/")[0])
+        return (spec.kind in ("random", "internal") and not spec.dtype
+                and SERVE_LADDER[-2] < n <= SERVE_LADDER[-1])
+    for seed in range(SEED, SEED + 1000):
+        cfg = loadgen.LoadgenConfig(
+            mix=SERVE_MIX, requests=requests, warmup=NET_WARMUP,
+            mode="closed", concurrency=SERVE_CONCURRENCY, seed=seed,
+            verify_gate=GATE, request_ids=True, timeout_s=900)
+        rng = np.random.default_rng(seed)
+        warm = loadgen.sample_plan(cfg, cfg.warmup, rng)
+        plan = loadgen.sample_plan(cfg, requests, rng)
+        if (lanes <= {(s.kind, s.dtype) for s in warm + plan}
+                and any(map(top, warm)) and any(map(top, plan))):
+            return cfg
+    raise SystemExit("chip_smoke FAILED: no seed gives phase 12 a plan "
+                     "with every lane")
+
+
+def percentiles(vals) -> dict:
+    vals = sorted(vals)
+    return {"p50_s": float(np.percentile(vals, 50)),
+            "p99_s": float(np.percentile(vals, 99)),
+            "mean_s": float(np.mean(vals))}
+
+
+def net_wire(work: str, card: str, service: dict, after_run=None):
+    """Phase 12 (b) (module docstring): the wire run's launch counts, its
+    launches by route, and the figures. ``after_run()`` is called once the
+    timed run (the loadgen plan) is over, before the oversized request and
+    the checks."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.serve import (STATUS_OK, ServeConfig, SolverServer,
+                                       cache, durable, durablecheck, loadgen,
+                                       net)
+    from gauss_tpu_torch.verify import checks
+
+    jd = os.path.join(work, "wire-journal")
+    cfg = ServeConfig(ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                      refine_steps=SERVE_REFINE, cache_capacity=32,
+                      verify_gate=GATE, structure_aware=True, device=DEVICE,
+                      journal_dir=jd)
+    lg = net_load(NET_REQUESTS)
+    measured = f"lg{lg.seed}-"  # run_load's keys; the warm-up's are minted
+    big = dominant_system(SERVE_OVERSIZE, SEED + 6)
+    factors, uploads, solves, appends, seen_h = [], [], [], [], {}
+    real_factor = cache.BatchedExecutable.factor
+
+    def kept_factor(exe, a_pad):
+        fac = real_factor(exe, a_pad)
+        if exe.key.structure != "spd":
+            factors.append((exe, a_pad, fac))
+        return fac
+
+    server = SolverServer(cfg).start()
+    api = net.RequestApi(net.ReplicaApp(server)).start()
+    client = net.SolveClient(api.url, seed=SEED, timeout_s=lg.timeout_s)
+    timed_calls(client, "_upload", uploads,
+                lambda uid, a, *r, **k: (a.shape[0], a.nbytes, k.get("rid")))
+    timed_calls(client, "solve", solves,
+                lambda *a, **k: k.get("request_id"))
+    timed_calls(server.journal, "_append", appends)
+    cache.BatchedExecutable.factor = kept_factor
+    try:
+        t0 = time.perf_counter()
+        with obs.run(tool="chip_smoke_net"), \
+                checked_launches(seen_h, deferred=True):
+            _build.reset_launches()
+            summary = loadgen.run_load(client, lg)
+            run_s = time.perf_counter() - t0
+            run_solves, run_uploads, run_batches = (solves[:], uploads[:],
+                                                    server.batches)
+            if after_run is not None:
+                after_run()
+            t0 = time.perf_counter()
+            handoff = client.solve(*big, request_id="net-oversize",
+                                   timeout=900)
+            sync()
+            got = dict(_build.LAUNCHES)
+            routes = dict(_build.ROUTE_LAUNCHES)
+    finally:
+        cache.BatchedExecutable.factor = real_factor
+    handoff_s = time.perf_counter() - t0
+    counts = summary["counts"]
+    require(counts == {**dict.fromkeys(counts, 0), STATUS_OK: lg.requests}
+            and not summary["incorrect"] and handoff.status == STATUS_OK
+            and handoff.lane == "handoff"
+            and checks.residual_norm(big[0], handoff.x, big[1],
+                                     relative=True) <= GATE,
+            f"the wire run: {counts}, incorrect {summary['incorrect']}; the "
+            f"oversized request {handoff.status} on {handoff.lane} "
+            f"({handoff.error})")
+    # The journal: one terminal per key, every ok verified at 1e-4 from
+    # the journaled operands.
+    st, systems, scan_s = journal_systems(jd)
+    ledger = [(rid, v[3]) for rid, v in systems.items()]
+    audit = durablecheck.audit(jd, ledger, GATE, state=st)
+    require(len(ledger) == lg.warmup + lg.requests + 1
+            and not (audit["missing"] or audit["duplicates"]
+                     or audit["incorrect"])
+            and audit["statuses"] == {STATUS_OK: len(ledger)},
+            f"the wire run's journal audit: {len(ledger)} keys, "
+            f"{ {k: audit[k] for k in ('missing', 'duplicates', 'incorrect', 'statuses')} }")
+    # Each system submitted again in process to the same server, whose
+    # worker solves them while this thread runs every batched factor of
+    # the run again, each launch on this thread held, the same factor bit
+    # for bit (the kernels are deterministic).
+    wire_x = {rid: durable.decode_array(st.by_rid[rid]["x"])
+              for rid in systems}
+    t0 = time.perf_counter()
+    handles = {rid: server.submit(a, b, dtype=dt)
+               for rid, (a, b, dt, _) in systems.items()}
+    held = {}
+    with held_batched_launches(held, thread=threading.current_thread()):
+        for exe, a_pad, fac in factors:
+            again = real_factor(exe, a_pad)
+            require(bits_equal(again, fac, LU_FIELDS),
+                    f"a batched factor of the wire run at {exe.key} came "
+                    f"out different when run again")
+        sync()
+    held_s = time.perf_counter() - t0
+    factors.clear()
+    diff, equal = 0.0, 0
+    for rid, h in handles.items():
+        res = h.result(900)
+        require(res.status == STATUS_OK, f"in process, {rid}: {res.status}")
+        x, ref = wire_x[rid], res.x
+        diff = max(diff, float(np.linalg.norm(x - ref)
+                               / np.linalg.norm(ref)))
+        equal += bool(np.array_equal(x, ref))
+    inproc_s = time.perf_counter() - t0
+    bat = {k: got[k] for k in ("panel_factor_batched",
+                               "panel_factor_batched_bf16",
+                               "panel_trailing_fused_batched",
+                               "panel_trailing_fused_batched_bf16")}
+    require(not DEVICE == "cuda" or held == {k: v for k, v in bat.items()
+                                             if v},
+            f"held batched launches {held} != the run's {bat}")
+    require(not DEVICE == "cuda"
+            or seen_h.get("panel", 0) + seen_h.get("fused", 0)
+            == sum(got[k] for k in ("panel_factor", "panel_factor_cluster",
+                                    "panel_factor_grid",
+                                    "panel_trailing_fused")),
+            f"the handoff's held launches {seen_h} != its launches {got}")
+    # Every key again over the wire: the journaled terminal, no launch.
+    sync()
+    before = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES),
+              server.batches, server.requests_served)
+
+    def resubmit(item):
+        rid, (a, b, dt, _) = item
+        res = client.solve(a, b, dtype=dt, request_id=rid, timeout=900)
+        require(res.status == STATUS_OK
+                and np.array_equal(res.x.reshape(wire_x[rid].shape),
+                                   wire_x[rid]),
+                f"the resubmitted key {rid}: {res.status}, not its "
+                f"journaled terminal")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+        list(pool.map(resubmit, systems.items()))
+    resubmit_s = time.perf_counter() - t0
+    sync()
+    after = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES),
+             server.batches, server.requests_served)
+    require(after == before, "the resubmissions launched a kernel or "
+            "served a batch")
+    jstats = server.journal.stats()
+    api.stop()
+    server.stop(drain=True, timeout=600)
+    require(last_record(jd).get("rec") == "shutdown",
+            "no clean-shutdown marker")
+    # ((n, bytes, key), seconds) per upload: the top bucket's operands
+    top = [(nb, t) for (n, nb, _), t in run_uploads
+           if SERVE_LADDER[-2] < n <= SERVE_LADDER[-1]]
+    up_mb_s = (sum(nb for nb, _ in top) / 1e6 / sum(t for _, t in top)
+               if top else None)
+    keys = len(ledger)
+    # The measured requests' seconds, each seen from the client (upload,
+    # POST and wait), from the server (admission to terminal) and in its
+    # uploads; the journal's appends per key.
+    client_lat = [t for rid, t in run_solves
+                  if rid and rid.startswith(measured)]
+    split = {"client": percentiles(client_lat),
+             "server": {"p50_s": summary["latency_s"]["p50"],
+                        "p99_s": summary["latency_s"]["p99"],
+                        "mean_s": summary["latency_s"]["mean"]},
+             "upload_s_per_request": sum(
+                 t for (_, _, rid), t in run_uploads
+                 if rid and rid.startswith(measured)) / lg.requests,
+             "journal_append_s_per_key": sum(s for _, s in appends) / keys}
+    rec = {"requests": lg.requests, "warmup": lg.warmup, "keys": keys,
+           "seed": lg.seed,
+           "waves": lg.requests / SERVE_CONCURRENCY,
+           "counts": counts, "lanes": summary["lanes"],
+           "batches": run_batches,
+           "solves_per_s": summary["throughput_rps"],
+           "wall_s": summary["wall_s"], "warmup_s": summary["warmup_s"],
+           "split": split, "client_retries": summary["retries"],
+           "in_process": {k: service[k] for k in ("solves_per_s", "p50_s",
+                                                  "p99_s")},
+           "upload_mb_s_4096": up_mb_s, "uploads_4096": len(top),
+           "journal": {k: jstats[k] for k in ("appends", "fsyncs", "bytes",
+                                              "segments", "rotations")},
+           "scan_s": scan_s, "held_launches": held,
+           "held_handoff": {k: v for k, v in seen_h.items()
+                            if k in ("panel", "fused")},
+           "held_s": held_s, "max_rel_diff_in_process": diff,
+           "bit_equal_in_process": equal, "resubmit_s": resubmit_s,
+           "run_s": run_s, "handoff_s": handoff_s,
+           "in_process_s": inproc_s}
+    c, sv = split["client"], split["server"]
+    print(f"phase 12 (b): {keys} keyed requests over HTTP, alone on the "
+          f"card ({lg.warmup} warm-up as a burst + {lg.requests} closed "
+          f"loop x{SERVE_CONCURRENCY}, {rec['waves']:g} wave(s), of "
+          f"{SERVE_MIX}, seed {lg.seed}; + one n={SERVE_OVERSIZE}): "
+          f"{counts}, lanes "
+          f"{summary['lanes']}, {summary['throughput_rps']} solves/s over "
+          f"{summary['wall_s']:.1f} s; each measured request from the "
+          f"client p50 {c['p50_s']:.3f} s, p99 {c['p99_s']:.3f} s, mean "
+          f"{c['mean_s']:.3f} s, of which uploads "
+          f"{split['upload_s_per_request']:.3f} s; from the server "
+          f"(admission to terminal) p50 {sv['p50_s']:.3f} s, p99 "
+          f"{sv['p99_s']:.3f} s, mean {sv['mean_s']:.3f} s (phase 9 in "
+          f"process, no journal: {service['solves_per_s']} solves/s, p50 "
+          f"{service['p50_s']} s, p99 {service['p99_s']} s); every ok at "
+          f"1e-4, one terminal per key; batched launches held after the run"
+          f" {held} ({held_s:.1f} s, every factor bit for bit again), the "
+          f"handoff's {rec['held_handoff']}; in process again, beside the "
+          f"held re-run ({inproc_s:.1f} s): max |x_wire - x| / |x| {diff:.3g}, {equal} "
+          f"of {keys} bit for bit; every key resubmitted: its journaled "
+          f"terminal, 0 launches, 0 batches ({resubmit_s:.1f} s, "
+          f"x{SERVE_CONCURRENCY} at once); upload "
+          f"{up_mb_s} MB/s over {len(top)} {SERVE_LADDER[-1]}-bucket "
+          f"operands; journal {rec['journal']}, "
+          f"{split['journal_append_s_per_key']:.4f} s of appends per key, "
+          f"scan {scan_s:.2f} s; the loadgen run "
+          f"{run_s:.1f} s, the oversized request with its held launches "
+          f"{handoff_s:.1f} s [{card}]")
+    return {k: got[k] for k in _build.LAUNCHES}, routes, rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def stop_supervised(sup, ep_path: str) -> None:
+    """Leave no process of (c) behind: a supervisor still running gets
+    SIGTERM (it forwards it to the replica, which drains), then SIGKILL;
+    a replica still alive after that is killed by the pid it published."""
+    import signal
+
+    if sup.poll() is None:
+        sup.send_signal(signal.SIGTERM)
+        try:
+            sup.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            sup.kill()
+            sup.wait(timeout=60)
+    try:
+        with open(ep_path) as f:
+            pid = json.load(f)["pid"]
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            if b"gauss_tpu_torch.serve.net" in f.read():
+                os.kill(pid, signal.SIGKILL)
+    except (OSError, ValueError, KeyError):
+        pass  # no endpoint, or the replica is gone
+
+
+def net_kill(work: str, card: str) -> dict:
+    """Phase 12 (c) (module docstring)."""
+    import signal
+
+    from gauss_tpu_torch.serve import (STATUS_OK, ServeConfig, SolverServer,
+                                       durable, durablecheck, loadgen, net)
+
+    d = os.path.join(work, "replica")
+    jd = os.path.join(d, "journal")
+    skip = int(np.random.default_rng(SEED + 12).integers(*NET_KILL_SKIP))
+    child = [sys.executable, "-m", "gauss_tpu_torch.serve.net", "--replica",
+             "--dir", d, "--port", str(free_port()),
+             "--ladder", ",".join(map(str, SERVE_LADDER)),
+             "--max-batch", str(SERVE_BATCH), "--verify-gate", str(GATE),
+             "--structure-aware", "--device", DEVICE]
+    code = (f"import sys, time; sys.path.insert(0, {REPO!r}); "
+            f"from gauss_tpu_torch.serve import durable; "
+            f"sys.exit(durable.supervise({child!r}, "
+            f"heartbeat_path={os.path.join(d, 'heartbeat.json')!r}, "
+            f"journal_dir={jd!r}, max_restarts=1, "
+            f"stall_after_s={NET_STALL_S!r}, log=lambda m: "
+            f"print(f'{{time.time():.3f}} {{m}}', flush=True)))")
+    env = dict(os.environ, GAUSS_FAULTS=(
+        f"serve.server.batch=server_kill:skip={skip};"
+        f"serve.worker.dispatch=delay:param={NET_DELAY_S}:max=1000000"))
+    t0 = time.perf_counter()
+    sup = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    ep_path = os.path.join(d, "endpoint.json")
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(ep_path):
+            require(sup.poll() is None and time.monotonic() < deadline,
+                    f"the replica published no endpoint: "
+                    f"{(sup.stdout.read() if sup.poll() is not None else '')[-2000:]}")
+            time.sleep(0.1)
+        with open(ep_path) as f:
+            first = json.load(f)
+        lg = net_load(NET_KILL_REQUESTS)
+        client = net.SolveClient(first["url"], seed=SEED + 1,
+                                 timeout_s=lg.timeout_s)
+        summary = loadgen.run_load(client, lg)
+        with open(ep_path) as f:
+            second = json.load(f)
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=600)
+    finally:
+        stop_supervised(sup, ep_path)
+    log = sup.stdout.read()
+    wall = time.perf_counter() - t0
+    for line in log.strip().splitlines():
+        print(f"    | {line}")
+    restarts = sum("restarting against the same journal" in ln
+                   for ln in log.splitlines())
+    died = [float(ln.split()[0]) for ln in log.splitlines()
+            if "died rc=" in ln]
+    counts = summary["counts"]
+    require(rc == net.DRAIN_EXIT and restarts == 1 and len(died) == 1
+            and second["pid"] != first["pid"],
+            f"the supervised replica: supervisor exit {rc} (want "
+            f"{net.DRAIN_EXIT}), {restarts} restart(s), pids "
+            f"{first['pid']} / {second['pid']}")
+    require(counts == {**dict.fromkeys(counts, 0), STATUS_OK: lg.requests}
+            and not summary["incorrect"],
+            f"the run through the kill: {counts}, incorrect "
+            f"{summary['incorrect']}")
+    # Every key of the plan admitted once, and one terminal each.
+    st = durable.scan(jd)
+    by_rid = {doc["rid"]: doc for doc in st.admits.values()}
+    keys = lg.warmup + lg.requests
+    ledger = [(rid, doc["n"]) for rid, doc in by_rid.items()]
+    audit = durablecheck.audit(jd, ledger, GATE, state=st)
+    require(len(st.admits) == len(by_rid) == keys and not (
+        audit["missing"] or audit["duplicates"] or audit["incorrect"])
+            and audit["statuses"] == {STATUS_OK: keys}
+            and st.clean_shutdown,
+            f"the replica's journal audit: {len(st.admits)} admits of "
+            f"{len(by_rid)} keys, {keys} sent, {audit}")
+    top = {doc["id"] for doc in st.admits.values()
+           if SERVE_LADDER[-2] < doc["n"] <= SERVE_LADDER[-1]
+           and doc.get("structure") != "sparse"}
+    boot1 = {i for bl in st.blames if bl.get("boot") == 1
+             for i in bl.get("ids") or ()}
+    require(top & boot1,
+            f"no {SERVE_LADDER[-1]} batch before the kill (boundary "
+            f"{skip + 1})")
+    kill_t = died[0]
+    replayed = sorted(t["t_unix"] for t in st.terminals.values()
+                      if t["t_unix"] > kill_t
+                      and st.admits[t["id"]]["t_unix"] < kill_t)
+    resume = second["resume"]
+    require(resume["replayed"] == len(replayed) and resume["replayed"] > 0,
+            f"replayed {resume}, {len(replayed)} admitted before the kill "
+            f"and served after it")
+    # One more start replays nothing.
+    with SolverServer(ServeConfig(ladder=SERVE_LADDER, device=DEVICE,
+                                  journal_dir=jd)) as srv:
+        again = dict(srv.last_resume)
+    require(again["replayed"] == 0 and again["clean"],
+            f"a start after the drain: {again}")
+    rec = {"kill_boundary": skip + 1, "restarts": restarts,
+           "replayed": resume["replayed"],
+           "kill_to_first_replayed_s": replayed[0] - kill_t,
+           "keys": keys, "counts": counts,
+           "solves_per_s": summary["throughput_rps"],
+           "p50_s": summary["latency_s"]["p50"],
+           "p99_s": summary["latency_s"]["p99"],
+           "client_retries": summary["retries"],
+           "build_s": [first["build_s"], second["build_s"]],
+           "drain_exit": rc, "restart_after_drain": again,
+           "journal_bytes": sum(os.path.getsize(p)
+                                for p in durable.segment_paths(jd)),
+           "wall_s": wall}
+    print(f"phase 12 (c): a replica under supervise killed at batch "
+          f"boundary {skip + 1} (after a {SERVE_LADDER[-1]} batch), "
+          f"{restarts} restart; {keys} keys ({lg.warmup} warm-up + "
+          f"{lg.requests} of (b)'s plan), each admitted once and exactly one"
+          f" terminal ({audit['statuses']}), every ok at 1e-4; "
+          f"{resume['replayed']} replayed, the first "
+          f"{rec['kill_to_first_replayed_s']:.2f} s after the kill; "
+          f"{summary['throughput_rps']} solves/s through it, "
+          f"{summary['retries']} client retries; SIGTERM: exit {rc}, clean-shutdown marker, a start after it "
+          f"replays {again['replayed']}; the children's build seconds "
+          f"{rec['build_s']}; {wall:.1f} s [{card}]")
+    return rec
+
+
+def start_own_process(expr: str, log: str, names=()):
+    """``expr`` (this script imported as ``c``, each of ``names`` set to its
+    value here) evaluated in a new process (never a fork of this one), its
+    value printed as JSON on the last line of ``log``: the process. SIGTERM
+    makes it exit through its ``finally`` blocks (the processes it started
+    are stopped)."""
+    sets = "".join(f"c.{n} = {globals()[n]!r}; " for n in names)
+    code = (f"import json, signal, sys; sys.path.insert(0, {REPO!r}); "
+            f"signal.signal(signal.SIGTERM, lambda *a: sys.exit(143)); "
+            f"import chip_smoke as c; {sets}"
+            f"print(json.dumps({expr}, default=str))")
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=REPO)
+
+
+def finish_own_process(proc, log: str, label: str) -> dict:
+    """Wait for ``start_own_process``'s process, echo its output, and
+    return its value."""
+    rc = proc.wait(timeout=1200)
+    with open(log) as f:
+        text = f.read()
+    print(text.rstrip())
+    require(rc == 0, f"{label}: its process exited {rc}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_net(service: dict | None = None):
+    """The durable and network service on the card (module docstring,
+    phase 12): returns the launch counts of the wire run (b) and the
+    phase's figures; ``service``: phase 9's service figures, printed
+    beside the wire's. Its journals live in a temporary directory that
+    the phase removes."""
+    import tempfile
+
+    on_card = DEVICE == "cuda"
+    card = smi_line() if on_card else "cpu"
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="gauss_net_")
+    procs = {}
+    logs = {k: os.path.join(work, f"{k}.log") for k in ("a", "c")}
+    runs = {"c": ("kill", f"c.net_kill({work!r}, {card!r})",
+                  ("DEVICE", "SERVE_LADDER", "SERVE_BATCH",
+                   "SERVE_CONCURRENCY", "SERVE_MIX", "NET_WARMUP",
+                   "NET_KILL_REQUESTS", "NET_KILL_SKIP", "NET_DELAY_S")),
+            "a": ("campaign",
+                  f"c.net_campaign({os.path.join(work, 'a')!r}, {card!r})",
+                  ("DEVICE", "NET_CAMPAIGN"))}
+
+    def start(k):
+        procs[k] = start_own_process(runs[k][1], logs[k], runs[k][2])
+
+    def start_beside():
+        for k in runs:
+            start(k)
+    try:
+        # (b)'s timed run alone; on the card (c) and (a) then run beside
+        # (b)'s checks, on the CPU (a host shared with other work) after
+        # them, in turn; the overhead leg last, alone.
+        os.makedirs(os.path.join(work, "a"))
+        out = {"card": card}
+        launches, routes, out["wire"] = net_wire(
+            work, card, service or dict.fromkeys(("solves_per_s", "p50_s",
+                                                  "p99_s")),
+            after_run=start_beside if on_card else None)
+        out["wire"]["launches"] = {k: v for k, v in launches.items() if v}
+        out["wire"]["routes"] = routes
+        for k, (key, _, _) in runs.items():
+            if k not in procs:
+                start(k)
+            out[key] = finish_own_process(procs[k], logs[k],
+                                          f"phase 12 ({k})")
+        out["campaign"]["overhead"] = net_overhead(work, card)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=300)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"net": out}, default=str))
+    return launches, out
+
+
 def large_n_summary(large: dict, key: str) -> dict:
     """A kernel's launches by phase-A route and device ms in one
     factorization of each full-size cell (phase 6)."""
@@ -6188,27 +6961,50 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing run", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
+
+    def done(label):
+        print(f"chip_smoke: {label} done at {time.perf_counter() - t_main:.1f}"
+              f" s")
     sys.path.insert(0, REPO)
     phase_toolchain()
     phase_build()
+    done("phases 1-2")
     k1, k2, k3 = phase_kernels(args.reps)
     km = phase_elim_matmul_kernels(args.reps)
     spmv, systems = phase_spmv_kernel(args.reps)
+    done("phase 3")
     blocked_launches, dat = phase_main_path()
     by_path = {"blocked": blocked_launches, **phase_elim_matmul_paths(dat)}
     for path, counts in by_path.items():
         require(counts["spmv_ell"] == 0, f"path {path} launched the SpMV "
                 f"kernel {counts['spmv_ell']} times")
     by_path["sparse"] = phase_sparse_path(spmv, systems)
+    done("phase 4")
     by_path["telemetry"], tele = phase_telemetry(dat)
+    done("phase 5")
     by_path["large_n"], large = phase_large_n()
+    done("phase 6")
     by_path["lowered"], low = phase_lowered(args.reps)
+    done("phase 7")
     by_path["structure"], struct = phase_structure(args.reps)
     require(by_path["structure"]["panel_factor_batched"] > 0,
             "the structure path launched no batched panel kernel")
+    done("phase 8")
     by_path["serve"], serve = phase_serve(args.reps)
+    done("phase 9")
     by_path["resilience"], res = phase_resilience(args.reps)
+    done("phase 10")
     by_path["outofcore"], ooc = phase_outofcore()
+    done("phase 11")
+    by_path["net"], net_fig = phase_net(serve["service"])
+    done("phase 12")
+    for name in ("panel_trailing_fused_batched",
+                 "panel_trailing_fused_batched_bf16",
+                 "panel_factor_batched_bf16", "panel_factor_batched",
+                 "panel_trailing_fused", "spmv_ell"):
+        require(by_path["net"][name] > 0, f"the net path launched no "
+                f"{name}")
     require(by_path["outofcore"]["panel_trailing_fused"] > 0
             and by_path["outofcore"]["panel_factor_grid"] > 0
             and by_path["outofcore"]["panel_factor"] > 0,
@@ -6541,6 +7337,8 @@ def main(argv=None) -> int:
                   f"same matrix as CSR is the library call)",
          "stock_gather_sum_ms": big["stock_ms"],
          "shapes": [spmv[key] for key in sorted(spmv)]})
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_main:.1f} s "
+          f"(phase 12: {net_fig['wall_s']} s)")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,13 @@ systems on the Krylov ladder and degrades to the host recovery ladder
 when the device lane is persistently unhealthy — with admission control
 (:mod:`.admission`: queue bounds, deadlines, the poison scan) in front and
 an open/closed-loop load generator (:mod:`.loadgen`, ``python -m
-gauss_tpu_torch.serve.cli``) beside it. Importing this package loads no
-torch.
+gauss_tpu_torch.serve.cli``) beside it. :mod:`.durable` makes admission
+durable (the write-ahead request journal, ``ServeConfig(journal_dir=)``,
+crash -> restart replay, idempotency keys, ``supervise``; the campaign
+``python -m gauss_tpu_torch.serve.durablecheck``), and :mod:`.net` puts
+a server behind HTTP (``ReplicaApp``, ``RequestApi``, ``SolveClient``,
+``python -m gauss_tpu_torch.serve.net --replica``). Importing this
+package loads no torch.
 
 Quick tour::
 
@@ -22,9 +27,8 @@ Quick tour::
         assert res.ok
 
 Not ported yet (ROADMAP queue-1 item 11): ``CacheView``,
-``shared_cache``, ``Lane``, ``LaneSet``, ``compat_sig``, ``JournalError``
-and ``RequestJournal`` (the mesh lanes and the request journal), the
-network tier and the check CLIs.
+``shared_cache``, ``Lane``, ``LaneSet``, ``compat_sig`` (the mesh lanes),
+the router and the check CLIs other than ``durablecheck``.
 """
 
 from gauss_tpu_torch.serve.admission import (  # noqa: F401
@@ -54,12 +58,16 @@ from gauss_tpu_torch.serve.cache import (  # noqa: F401
     ExecutableCache,
     LaneNotPortedError,
 )
+from gauss_tpu_torch.serve.durable import (  # noqa: F401
+    JournalError,
+    RequestJournal,
+)
 from gauss_tpu_torch.serve.server import SolverServer  # noqa: F401
 
 __all__ = ["BatchedExecutable", "CacheKey", "DEFAULT_LADDER",
-           "ExecutableCache", "FeatureNotPortedError", "LaneHealth",
-           "LaneNotPortedError", "STATUS_CANCELLED", "STATUS_EXPIRED",
-           "STATUS_FAILED", "STATUS_OK", "STATUS_POISON", "STATUS_REJECTED",
-           "ServeConfig", "ServeRequest", "ServeResult", "SolverServer",
-           "bucket_for", "pad_system", "poison_scan", "pow2_bucket",
-           "unpad_solution"]
+           "ExecutableCache", "FeatureNotPortedError", "JournalError",
+           "LaneHealth", "LaneNotPortedError", "RequestJournal",
+           "STATUS_CANCELLED", "STATUS_EXPIRED", "STATUS_FAILED",
+           "STATUS_OK", "STATUS_POISON", "STATUS_REJECTED", "ServeConfig",
+           "ServeRequest", "ServeResult", "SolverServer", "bucket_for",
+           "pad_system", "poison_scan", "pow2_bucket", "unpad_solution"]

@@ -87,7 +87,6 @@ class FeatureNotPortedError(NotImplementedError):
 #: keeps each plane off and the ROADMAP queue-1 item that brings it.
 UNPORTED_OPTIONS = (
     ("lanes", 0, "item 11 (serve/lanes, the mesh serving plane)"),
-    ("journal_dir", None, "item 11 (serve/durable, the request journal)"),
     ("live_port", None, "item 11 (obs/live, obs/export, the live plane)"),
     ("slos", (), "item 11 (obs/slo)"),
     ("slo_shed", False, "item 11 (obs/slo, the SLO-degraded admission)"),
@@ -117,11 +116,12 @@ def refuse_unported(config: "ServeConfig") -> None:
 @dataclasses.dataclass
 class ServeConfig:
     """Tuning knobs for :class:`gauss_tpu_torch.serve.server.SolverServer`:
-    the JAX package's that the single-lane server reads, ``device``, and
-    the switches of the planes not ported (:data:`UNPORTED_OPTIONS`), which
-    must keep their off values. The JAX package's sub-options of those
-    planes (journal batching, lane widths, continuous batching, the live
-    endpoint's host and window, ...) are not fields here."""
+    the JAX package's that the single-lane server and its journal read,
+    ``device``, and the switches of the planes not ported
+    (:data:`UNPORTED_OPTIONS`), which must keep their off values. The JAX
+    package's sub-options of those planes (lane widths, continuous
+    batching, the live endpoint's host and window, ...) are not fields
+    here."""
 
     ladder: tuple = ()              # () -> buckets.DEFAULT_LADDER
     max_batch: int = 8              # dynamic-batching ceiling per dispatch
@@ -165,6 +165,28 @@ class ServeConfig:
     #                                 transiently to isolate the culprit
     #                                 member(s) (typed STATUS_POISON);
     #                                 False = the whole batch fails together
+    # -- durable admission (gauss_tpu_torch.serve.durable) ---------------
+    journal_dir: Optional[str] = None  # write-ahead request journal: every
+    #                                    admit and terminal is journaled
+    #                                    (CRC'd JSONL segments) and a
+    #                                    restart replays unterminated
+    #                                    admits. None = journal off (one
+    #                                    is-None check at admission)
+    journal_fsync_batch: int = 8    # fsync every N journal appends (the
+    #                                 shutdown marker and rotation always
+    #                                 fsync)
+    journal_rotate_records: int = 4096  # compact the live segment past this
+    #                                     many records (tmp+fsync+rename)
+    resume: bool = True             # with a journal: replay unterminated
+    #                                 admits at start(); False = journal
+    #                                 new traffic only
+    heartbeat_path: Optional[str] = None  # worker-loop liveness file for
+    #                                       durable.supervise; None = off
+    quarantine_deaths: int = 2      # journaled replay quarantines an admit
+    #                                 whose blame records implicate it in
+    #                                 this many distinct process deaths:
+    #                                 solo on the host ladder, a typed
+    #                                 poison reject past it. 0 = off
     abft: bool = False              # checksum-carrying (ABFT) solves on the
     #                                 handoff lane for systems that fit the
     #                                 card: silent data corruption detected
@@ -178,7 +200,6 @@ class ServeConfig:
     live_port: Optional[int] = None  # the live telemetry endpoint
     slos: tuple = ()                # its SLO definitions
     slo_shed: bool = False          # SLO-degraded admission
-    journal_dir: Optional[str] = None  # the write-ahead request journal
     flight_dir: Optional[str] = None  # the crash-surviving flight recorder
     attr: Optional[bool] = None     # the device-time attribution plane
     lanes: int = 0                  # the mesh serving plane's lanes
@@ -220,7 +241,8 @@ class ServeRequest:
     def __init__(self, a: np.ndarray, b: np.ndarray,
                  deadline_s: Optional[float] = None,
                  structure: Optional[str] = None,
-                 dtype: Optional[str] = None):
+                 dtype: Optional[str] = None,
+                 request_id: Optional[str] = None):
         from gauss_tpu_torch.obs import requesttrace
 
         with ServeRequest._ids_lock:
@@ -229,6 +251,19 @@ class ServeRequest:
         #: every event this request touches (obs.requesttrace folds the
         #: stream back into one span tree per request).
         self.trace_id = requesttrace.mint()
+        #: client idempotency key (durable serving): journaled with the
+        #: admit and terminal so a resubmission after a crash dedupes
+        #: against the journal. None = no identity across restarts.
+        self.request_id = request_id
+        #: the id the journal pairs admit and terminal records under; a
+        #: replay sets it to the journaled id.
+        self.journal_id = self.id
+        #: terminal hook: the journal's append, installed at admission and
+        #: called by resolve() only when its CAS is won.
+        self._on_terminal = None
+        #: quarantined by a replay or an adoption: solo on the host
+        #: ladder, never batched. Set before the request is queued.
+        self.quarantine = False
         self.a = np.asarray(a)
         self.b = np.asarray(b)
         #: structure routing tag ("spd" / "banded" / "blockdiag" / "dense"
@@ -249,9 +284,22 @@ class ServeRequest:
         self.t_submit = time.perf_counter()
         self.deadline = (self.t_submit + deadline_s
                          if deadline_s is not None else None)
+        #: wall-clock deadline, the journalable form (perf_counter means
+        #: nothing across a restart)
+        self.deadline_unix = (time.time() + deadline_s
+                              if deadline_s is not None else None)
         self._done = threading.Event()
         self._resolve_lock = threading.Lock()
         self._result: Optional[ServeResult] = None  # guarded by: self._resolve_lock
+
+    @classmethod
+    def reserve_ids(cls, above: int) -> None:
+        """Mint every later id above ``above``: a journaled server calls
+        this with its journal's largest id, so a new admit never takes the
+        id of a record that a previous process journaled."""
+        with cls._ids_lock:
+            nxt = next(cls._ids)
+            cls._ids = iter(range(max(nxt, int(above) + 1), 1 << 62))
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline is None:
@@ -263,12 +311,18 @@ class ServeRequest:
         under a lock): the worker finishing and the client cancelling can
         race, and exactly one of them owns the terminal status. Returns
         True when this call won; callers emit their terminal obs event
-        only then, so the stream carries one terminal per request too."""
+        only then, so the stream carries one terminal per request too.
+        The journal's terminal hook runs here, on the winning call only
+        and before the done event, so no client sees a terminal the
+        journal does not hold yet."""
         with self._resolve_lock:
             if self._result is not None:
                 return False
             result.latency_s = time.perf_counter() - self.t_submit
             result.trace = self.trace_id
+            hook = self._on_terminal
+            if hook is not None:
+                hook(self, result)  # never raises: failures are counted
             self._result = result
             self._done.set()
             return True
@@ -296,6 +350,18 @@ class ServeRequest:
                 raise TimeoutError(
                     f"request {self.id} timed out after {timeout} s and "
                     f"was cancelled")
+        return self._result  # read after the done event (set under the lock)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request resolves, WITHOUT cancelling on timeout
+        (the network tier parks a handler here and answers 202 when it
+        times out). True when the request holds a terminal."""
+        return self._done.wait(timeout)
+
+    def peek(self) -> Optional[ServeResult]:
+        """The terminal result if resolved, else None (never blocks)."""
+        if not self._done.is_set():
+            return None
         return self._result  # read after the done event (set under the lock)
 
     @property

@@ -9,12 +9,16 @@ run's obs stream (render it with ``python -m
 gauss_tpu_torch.obs.summarize``, fold it per request with ``python -m
 gauss_tpu_torch.obs.requesttrace PATH --check``), ``--summary-json``
 writes the report. The flags are the JAX package's plus ``--device
-{cuda,cpu}`` (default ``cuda``: without a card the server raises). A flag
-of a plane not ported yet exits 2 naming its ROADMAP queue-1 item
-(:data:`UNPORTED_FLAGS`); the JAX package's sub-options of those planes
-(``--cb-window``, ``--resume``, ``--request-ids``, ...) are not flags
-here, so argparse refuses them (exit 2). Exit 2 also when a solution is
-INCORRECT.
+{cuda,cpu}`` (default ``cuda``: without a card the server raises).
+``--journal DIR`` makes admission durable (:mod:`.durable`; SIGTERM then
+drains and journals the clean-shutdown marker), ``--supervised`` re-runs
+this command as a child under :func:`.durable.supervise`, and ``--net
+URL`` drives the load over HTTP against a running replica
+(:mod:`.net`). A flag of a plane not ported yet exits 2 naming its
+ROADMAP queue-1 item (:data:`UNPORTED_FLAGS`); the JAX package's
+sub-options of those planes (``--cb-window``, ``--fleet-dir``, ...) are
+not flags here, so argparse refuses them (exit 2). Exit 2 also when a
+solution is INCORRECT.
 
 Example (CPU)::
 
@@ -26,6 +30,8 @@ Example (CPU)::
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 import sys
 
 #: Flags of planes not ported yet: (attribute, value that leaves the plane
@@ -33,11 +39,8 @@ import sys
 UNPORTED_FLAGS = (
     ("lanes", 0, "--lanes", "item 11 (serve/lanes)"),
     ("lane_width", 1, "--lane-width", "item 11 (serve/lanes)"),
-    ("journal", None, "--journal", "item 11 (serve/durable)"),
-    ("supervised", False, "--supervised", "item 11 (serve/durable)"),
     ("flight_dir", None, "--flight-dir", "item 11 (obs/flight)"),
     ("attr", False, "--attr", "item 11 (obs/attr)"),
-    ("net", None, "--net", "item 11 (serve/net)"),
     ("replicas", 0, "--replicas", "item 11 (serve/router)"),
     ("live_port", None, "--live-port", "item 11 (obs/live, obs/export)"),
     ("slo_shed", False, "--slo-shed", "item 11 (obs/slo)"),
@@ -49,13 +52,50 @@ UNPORTED_FLAGS = (
 )
 
 
+def _install_drain_handler(server) -> None:
+    """SIGTERM = graceful drain (journal runs only): stop admitting, serve
+    what was accepted, journal the clean-shutdown marker, exit 0."""
+    def _drain(signum, frame):
+        print("serve.cli: SIGTERM — draining (clean-shutdown marker "
+              "journaled on completion)", file=sys.stderr)
+        server.stop(drain=True)
+        raise SystemExit(0)
+
+    try:
+        signal.signal(signal.SIGTERM, _drain)
+    except ValueError:  # not the main thread
+        pass
+
+
+def _run_supervised(args, argv) -> int:
+    """``--supervised``: run this same serve command as a child under
+    :func:`gauss_tpu_torch.serve.durable.supervise`; a child that died or
+    stalled restarts against the same journal, whose resume makes the
+    restart correct."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.serve import durable
+
+    if not args.journal:
+        print("serve.cli: --supervised requires --journal (the restart is "
+              "only correct against a journal)", file=sys.stderr)
+        return 2
+    child = [a for a in (argv if argv is not None else sys.argv[1:])
+             if a != "--supervised"]
+    child_argv = [sys.executable, "-m", "gauss_tpu_torch.serve.cli"] + child
+    hb = os.path.join(args.journal, "heartbeat.json")
+    with obs.run(tool="gauss_serve_supervisor", journal=args.journal):
+        return durable.supervise(
+            child_argv, heartbeat_path=hb, max_restarts=args.max_restarts,
+            stall_after_s=args.stall_after, journal_dir=args.journal)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gauss_tpu_torch.serve.cli",
         description="Batched solver serving load test: request queue, "
                     "shape-bucketed executable cache, admission control. "
                     "The flags of planes not ported yet (--lanes, "
-                    "--journal, --net, --live-port, ...) exit 2.")
+                    "--replicas, --live-port, ...) exit 2.")
     p.add_argument("--mix", default="random:100*2,random:200,internal:160",
                    help="weighted workload tokens kind:arg[*weight] "
                         "(kinds: random:<n>, internal:<n>, dat:<path>, "
@@ -108,16 +148,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--panel", type=int, default=None,
                    help="blocked-solver panel width (default: auto, "
                         "consulting the tuned store when one exists)")
+    # -- durable admission (gauss_tpu_torch.serve.durable) ----------------
+    p.add_argument("--journal", default=None, metavar="DIR",
+                   help="write-ahead request journal at DIR: every admit "
+                        "and terminal is journaled and a restarted server "
+                        "replays unterminated admits (exactly-once "
+                        "terminal statuses across kill -9)")
+    p.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="with --journal: replay unterminated admits at "
+                        "start; --no-resume journals new traffic only "
+                        "(default: resume)")
+    p.add_argument("--request-ids", action="store_true",
+                   help="mint a deterministic idempotency key per loadgen "
+                        "request; with --journal a rerun dedupes against "
+                        "journaled terminals instead of re-solving")
+    p.add_argument("--supervised", action="store_true",
+                   help="run this serve command as a child that a "
+                        "supervisor restarts, against the same journal, "
+                        "when it dies or stalls (requires --journal)")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="supervised mode: restart budget (default 3)")
+    p.add_argument("--stall-after", type=float, default=30.0, metavar="S",
+                   help="supervised mode: heartbeat staleness that calls "
+                        "a stall (default 30)")
+    # -- the network tier (gauss_tpu_torch.serve.net) ---------------------
+    p.add_argument("--net", default=None, metavar="URL",
+                   help="drive the load over HTTP against a running "
+                        "request endpoint (python -m gauss_tpu_torch.serve"
+                        ".net --replica) instead of an in-process server; "
+                        "history metrics tagged serve:net:<mode>")
     # -- the JAX package's planes that are not ported (each exits 2; their
     #    sub-options are not flags here) -----------------------------------
     p.add_argument("--lanes", type=int, default=0)
     p.add_argument("--lane-width", type=int, default=1)
     p.add_argument("--compile-cache", default=None, metavar="DIR")
-    p.add_argument("--journal", default=None, metavar="DIR")
-    p.add_argument("--supervised", action="store_true")
     p.add_argument("--flight-dir", default=None, metavar="DIR")
     p.add_argument("--attr", action="store_true")
-    p.add_argument("--net", default=None, metavar="URL")
     p.add_argument("--replicas", type=int, default=0, metavar="N")
     p.add_argument("--live-port", type=int, default=None, metavar="PORT")
     p.add_argument("--slo-shed", action="store_true")
@@ -142,6 +209,8 @@ def main(argv=None) -> int:
             print(f"serve.cli: {flag} is not ported to gauss_tpu_torch yet "
                   f"(ROADMAP queue-1 {item})", file=sys.stderr)
             return 2
+    if args.supervised:
+        return _run_supervised(args, argv)
 
     from gauss_tpu_torch import obs
     from gauss_tpu_torch.serve import buckets
@@ -162,16 +231,28 @@ def main(argv=None) -> int:
         ladder=ladder, max_batch=args.max_batch, max_queue=args.max_queue,
         batch_linger_s=args.linger, cache_capacity=args.cache_capacity,
         refine_steps=args.refine_steps, panel=args.panel, dtype=args.dtype,
-        device=args.device)
+        device=args.device, journal_dir=args.journal, resume=args.resume,
+        heartbeat_path=os.environ.get("GAUSS_SERVE_HEARTBEAT") or None)
     cfg = LoadgenConfig(
         mix=args.mix, requests=args.requests, warmup=args.warmup,
         mode=args.mode, concurrency=args.concurrency, rate=args.rate,
         nrhs=args.nrhs, seed=args.seed, deadline_s=args.deadline,
-        serve=serve_cfg)
+        request_ids=args.request_ids, serve=serve_cfg)
     with obs.run(metrics_out=args.metrics_out, tool="gauss_serve",
                  mode=args.mode, mix=args.mix, requests=args.requests):
-        with SolverServer(serve_cfg) as server:
-            summary = run_load(server, cfg)
+        if args.net:
+            # The same loadgen plan over HTTP through the network client.
+            from gauss_tpu_torch.serve.net import SolveClient
+
+            summary = run_load(SolveClient(args.net), cfg)
+        else:
+            with SolverServer(serve_cfg) as server:
+                if args.journal:
+                    _install_drain_handler(server)
+                    if server.last_resume:
+                        print(f"journal: {args.journal} "
+                              f"resume={server.last_resume}")
+                summary = run_load(server, cfg)
     print(format_summary(summary))
     if args.metrics_out:
         print(f"metrics: {args.metrics_out}")

@@ -52,11 +52,14 @@ relative-residual gate; the summary counts ``incorrect`` separately from
 transport-level failures, because a fast wrong answer is the one failure
 mode a solver service must never ship.
 
-The report's sections for planes the port does not have yet (the network
-client, the mesh lanes, the journal, the SLO monitors, the attribution
-plane) are absent, as the JAX package's are when those planes are off;
-``compile_cache`` is None (the persistent compile cache is the JAX
-package's).
+The "server" may be a network client
+(:class:`gauss_tpu_torch.serve.net.SolveClient`, the ``--net`` mode): the
+report then names its endpoint (``net``) and its history metrics are
+tagged ``serve:net:<mode>``. A journaled server adds the ``journal``
+section. The report's sections for planes the port does not have yet (the
+mesh lanes, the SLO monitors, the attribution plane) are absent, as the
+JAX package's are when those planes are off; ``compile_cache`` is None
+(the persistent compile cache is the JAX package's).
 """
 
 from __future__ import annotations
@@ -101,6 +104,10 @@ class LoadgenConfig:
     nrhs: int = 1
     seed: int = 258458
     deadline_s: Optional[float] = None
+    #: mint a deterministic idempotency key per measured request
+    #: (``submit(request_id="lg<seed>-<i>")``): with a journaled server a
+    #: rerun of the same plan dedupes already-terminal requests.
+    request_ids: bool = False
     timeout_s: float = 600.0
     verify_gate: float = VERIFY_GATE
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -316,6 +323,9 @@ def run_load(server: SolverServer, cfg: LoadgenConfig) -> Dict:
         with next_lock:
             return next(next_i, None)
 
+    def _rid(i: int) -> Optional[str]:
+        return f"lg{cfg.seed}-{i}" if cfg.request_ids else None
+
     def closed_worker(wid: int):
         wrng = np.random.default_rng(cfg.seed + 1000 + wid)
         while True:
@@ -326,7 +336,8 @@ def run_load(server: SolverServer, cfg: LoadgenConfig) -> Dict:
             operands[i] = (a, b)
             results[i] = server.solve(a, b, deadline_s=cfg.deadline_s,
                                       timeout=cfg.timeout_s,
-                                      dtype=plan[i].dtype)
+                                      dtype=plan[i].dtype,
+                                      request_id=_rid(i))
 
     t_start = time.perf_counter()
     if cfg.mode == "closed":
@@ -349,7 +360,8 @@ def run_load(server: SolverServer, cfg: LoadgenConfig) -> Dict:
             if delay > 0:
                 time.sleep(delay)
             handles.append(server.submit(a, b, deadline_s=cfg.deadline_s,
-                                         dtype=spec.dtype))
+                                         dtype=spec.dtype,
+                                         request_id=_rid(i)))
         for i, h in enumerate(handles):
             results[i] = h.result(cfg.timeout_s)
     else:
@@ -413,6 +425,13 @@ def run_load(server: SolverServer, cfg: LoadgenConfig) -> Dict:
                      if k in ("entries", "capacity", "evictions")}},
         "verify_gate": cfg.verify_gate,
     }
+    if getattr(server, "url", None) is not None:
+        # The "server" is a network client (the --net mode): its history
+        # metrics band separately (history_records' serve:net: tag).
+        summary["net"] = server.url
+    if getattr(server, "journal", None) is not None:
+        summary["journal"] = {**server.journal.stats(),
+                              "resume": server.last_resume}
     obs.emit("serve_loadgen", **{k: v for k, v in summary.items()
                                  if k != "kind"})
     for name, value in history_records(summary):
@@ -426,6 +445,9 @@ def history_records(summary: Dict) -> List[Tuple[str, float]]:
     ingest path; metric names are mode-qualified so open- and closed-loop
     epochs never pollute each other's baselines)."""
     tag = f"serve:{summary.get('mode', 'closed')}"
+    if summary.get("net"):
+        # Wire runs pay HTTP and codec time on top of serving.
+        tag = f"serve:net:{summary.get('mode', 'closed')}"
     out = []
     tput = summary.get("throughput_rps")
     if isinstance(tput, (int, float)) and tput > 0:
@@ -483,4 +505,13 @@ def format_summary(summary: Dict) -> str:
         + (f"; {summary['retries']} retried batch attempt(s)"
            if summary.get("retries") else ""),
     ]
+    jr = summary.get("journal")
+    if jr:
+        lines.append(
+            f"  journal: {jr['appends']} append(s) / {jr['fsyncs']} "
+            f"fsync(s) / {jr['rotations']} rotation(s), "
+            f"{jr['segments']} segment(s), {jr['bytes']} bytes"
+            + (f"; resumed {jr['resume']['replayed']} replayed + "
+               f"{jr['resume']['expired']} expired"
+               if jr.get("resume") else ""))
     return "\n".join(lines)

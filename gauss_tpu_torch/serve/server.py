@@ -55,14 +55,33 @@ Deliberate deviations from the JAX package:
 - :meth:`start` builds the kernels before the worker admits anything on
   the card, so a first batch's deadline never runs while ``nvcc`` does.
 - Options of planes not ported (:data:`~gauss_tpu_torch.serve.admission
-  .UNPORTED_OPTIONS`: the mesh lanes, the journal, the live, flight and
-  attribution planes, the supervised and out-of-core handoff)
-  raise :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError`
-  when the server is built.
+  .UNPORTED_OPTIONS`: the mesh lanes, the live, flight and attribution
+  planes, the supervised handoff) raise
+  :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError` when
+  the server is built.
+- A journaled server mints its request ids above the journal's largest
+  (:meth:`~gauss_tpu_torch.serve.admission.ServeRequest.reserve_ids`): the
+  JAX package's restarted server counts from 1 again, and a new admit
+  that takes a journaled id is folded into the older request at the next
+  scan.
+
+With ``ServeConfig(journal_dir=...)`` admission is durable
+(:mod:`gauss_tpu_torch.serve.durable`): every admit and every terminal is
+journaled, a restarted server replays the unterminated admits through
+this same dispatch (in-deadline requests re-solve and re-verify, expired
+ones get a typed terminal, journaled operands are poison-scanned, an
+admit implicated in ``quarantine_deaths`` process deaths runs solo on the
+host ladder and is refused typed past that; original journal and trace
+ids kept), and client idempotency keys (``submit(request_id=...)``)
+dedupe resubmissions against journaled terminals and in-flight requests.
+A kernel fault on a replayed batch fails it typed like any other: one
+journaled ``failed`` terminal, never a replay loop.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue as _queue
 import threading
 import time
@@ -124,7 +143,31 @@ class SolverServer:
         self._stop = threading.Event()
         self._stats_lock = threading.Lock()
         self.batches = 0                  # guarded by: self._stats_lock
+        self.requests_served = 0          # guarded by: self._stats_lock
         self.retries = 0                  # guarded by: self._stats_lock
+        #: durable admission (None = journal off)
+        self.journal = None               # serve.durable.RequestJournal
+        self._rid_terminals: dict = {}    # idempotency key -> terminal doc
+        self._rid_pending: dict = {}      # idempotency key -> in-flight req
+        self._resumed = False             # replay runs once per journal open
+        #: what the last start() recovery did ({"replayed", "expired",
+        #: "clean", ...}); None before any journaled start
+        self.last_resume = None
+        self._hb_last = 0.0               # owned by: worker — hb throttle
+        if self.config.journal_dir:
+            from gauss_tpu_torch.serve import durable as _durable
+
+            self._durable = _durable
+            self.journal = _durable.RequestJournal(
+                self.config.journal_dir,
+                fsync_batch=self.config.journal_fsync_batch,
+                rotate_records=self.config.journal_rotate_records)
+            self._rid_terminals = dict(self.journal.recovered.by_rid)
+            # A restarted process counts request ids from 1 again: new
+            # admits must not reuse a journaled id, or their records fold
+            # into an older request's at the next scan (the JAX package's
+            # server reuses them).
+            ServeRequest.reserve_ids(self.journal.recovered.max_id)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -145,15 +188,159 @@ class SolverServer:
         self._worker = threading.Thread(target=self._run,
                                         name="gauss-serve", daemon=True)
         self._worker.start()
+        if self.journal is not None and not self._resumed:
+            self._resumed = True
+            self._replay()
         return self
+
+    # -- durability (gauss_tpu_torch.serve.durable) ------------------------
+
+    def _journal_terminal(self, req: ServeRequest, result) -> None:
+        """The resolve() terminal hook of a journaled request: append the
+        terminal record from the winning CAS, so the journal carries
+        exactly one terminal per admit. Never raises into the resolver: a
+        journaling failure is counted and emitted."""
+        try:
+            doc = self.journal.append_terminal(
+                id=req.journal_id, request_id=req.request_id,
+                trace=req.trace_id, status=result.status, x=result.x,
+                lane=result.lane, rel_residual=result.rel_residual,
+                error=result.error)
+            if req.request_id:
+                self._rid_terminals[req.request_id] = doc
+                self._rid_pending.pop(req.request_id, None)
+        except Exception as e:  # noqa: BLE001 — durability must not break serving
+            obs.counter("journal.errors")
+            obs.emit("journal", event="append_error", error=_err(e)[:200])
+
+    def _replay(self) -> None:
+        """Crash -> restart recovery: the journal's unterminated admits
+        back through the normal dispatch, under their original journal
+        and trace ids. Past-deadline ones resolve STATUS_EXPIRED; poisoned
+        operands, and admits implicated in more than
+        ``quarantine_deaths`` process deaths, resolve STATUS_POISON; those
+        at the threshold are quarantined (solo on the host ladder). The
+        admission bound is bypassed: these were admitted once."""
+        st = self.journal.recovered
+        if st.clean_shutdown or not self.config.resume:
+            self.last_resume = {"replayed": 0, "expired": 0,
+                                "clean": st.clean_shutdown,
+                                "resume": self.config.resume,
+                                "torn_dropped": st.torn_dropped}
+            obs.emit("serve_resume", **self.last_resume)
+            return
+        dec = self._durable.decode_array
+        replayed = expired = poisoned = quarantined = 0
+        k_deaths = self.config.quarantine_deaths
+        deaths = st.death_counts() if k_deaths else {}
+        now = time.time()
+        for doc in st.live_admits():
+            try:
+                a = dec(doc["a"])
+                b = dec(doc["b"])
+            except Exception:  # noqa: BLE001 — a damaged admit body
+                obs.counter("journal.replay_undecodable")
+                continue
+            if doc.get("was_vector"):
+                b = b.reshape(-1)
+            remaining = None
+            if doc.get("deadline_unix") is not None:
+                remaining = float(doc["deadline_unix"]) - now
+            structure = (doc.get("structure")
+                         if self.config.structure_aware else None)
+            req = ServeRequest(
+                a, b, deadline_s=(remaining if remaining is None
+                                  or remaining > 0 else None),
+                structure=structure,
+                dtype=doc.get("dtype") or self.config.dtype,
+                request_id=doc.get("rid"))
+            req.journal_id = int(doc["id"])
+            if doc.get("trace"):
+                req.trace_id = str(doc["trace"])
+            req._on_terminal = self._journal_terminal
+            if req.request_id:
+                # A client resubmitting its key during recovery attaches
+                # to the replay instead of solving twice.
+                self._rid_pending[req.request_id] = req
+            if remaining is not None and remaining <= 0:
+                expired += 1
+                if req.resolve(ServeResult(
+                        status=STATUS_EXPIRED,
+                        error="deadline expired before recovery "
+                              "(crash -> restart replay)")):
+                    obs.counter("serve.resume_expired")
+                    obs.emit("serve_request", id=req.journal_id, n=req.n,
+                             trace=req.trace_id, status=STATUS_EXPIRED,
+                             replayed=True)
+                continue
+            reason = (poison_scan(a, b) if self.config.poison_scan
+                      else None)
+            implicated = deaths.get(int(doc["id"]), 0)
+            if reason is not None or (k_deaths and implicated > k_deaths):
+                # Re-dispatching it is the crash loop: a typed terminal,
+                # journaled, so the next restart replays nothing.
+                poisoned += 1
+                err = (f"poisoned operands: {reason}" if reason is not None
+                       else f"quarantined: implicated in {implicated} "
+                            f"worker deaths (threshold {k_deaths})")
+                if req.resolve(ServeResult(status=STATUS_POISON,
+                                           error=err)):
+                    obs.counter("serve.poisoned")
+                    obs.emit("serve_request", id=req.journal_id, n=req.n,
+                             trace=req.trace_id, status=STATUS_POISON,
+                             replayed=True, deaths=implicated,
+                             error=err[:200])
+                continue
+            if k_deaths and implicated >= k_deaths:
+                # Quarantine: solo on the host recovery ladder, never
+                # batched and never on the device lane its deaths
+                # implicate; one more death takes it past the threshold.
+                req.quarantine = True
+                quarantined += 1
+                obs.counter("serve.quarantined")
+                obs.emit("quarantine", id=req.journal_id,
+                         rid=req.request_id, trace=req.trace_id,
+                         deaths=implicated, action="solo")
+            replayed += 1
+            self._depth_add(1)
+            self._queue.put(req)
+            obs.counter("serve.replayed")
+            obs.emit("serve_admit", id=req.journal_id, trace=req.trace_id,
+                     n=req.n, k=req.k, replayed=True,
+                     deadline_s=remaining)
+        self.last_resume = {"replayed": replayed, "expired": expired,
+                            "poisoned": poisoned,
+                            "quarantined": quarantined,
+                            "clean": False, "resume": True,
+                            "torn_dropped": st.torn_dropped}
+        obs.emit("serve_resume", **self.last_resume)
+
+    def _crash(self) -> None:
+        """Chaos hook (not part of the serving API): die as a kill at a
+        batch boundary does. The in-flight batch finishes (its terminals
+        are journaled), everything still queued is abandoned unresolved,
+        and the journal's file handle is dropped with no fsync and no
+        shutdown marker. The in-process campaign uses this where a
+        subprocess would use ``os._exit``."""
+        self._stop.set()
+        self._queue.put(None)  # type: ignore[arg-type]
+        if self._worker is not None:
+            self._worker.join(timeout=60.0)
+            self._worker = None
+        if self.journal is not None:
+            self.journal.abandon()
 
     def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop the worker; with ``drain`` (default) requests accepted
         before the stop began are served first, otherwise they resolve as
         rejected. Admission closes first, under the lock submits enqueue
-        under, so every accepted request gets exactly one terminal."""
+        under, so every accepted request gets exactly one terminal. A
+        journal gets its clean-shutdown marker only when the worker
+        joined (a wedged worker may still be computing a journaled
+        admit), and is closed."""
         with self._depth_lock:
             self._closed = True
+        joined = True
         if self._worker is not None:
             if drain:
                 deadline = time.monotonic() + timeout
@@ -162,6 +349,7 @@ class SolverServer:
             self._stop.set()
             self._queue.put(None)  # type: ignore[arg-type] # wake the worker
             self._worker.join(timeout=timeout)
+            joined = not self._worker.is_alive()
             self._worker = None
         else:
             self._stop.set()
@@ -174,6 +362,10 @@ class SolverServer:
                 continue
             self._depth_add(-1)
             self._reject_stopped(req)
+        if self.journal is not None and not self.journal.closed:  # lockset: ok — stop() is the only closer; close() re-checks under its lock
+            if joined:
+                self.journal.append_shutdown()
+            self.journal.close()
 
     def __enter__(self) -> "SolverServer":
         return self.start()
@@ -210,7 +402,8 @@ class SolverServer:
 
     def submit(self, a, b, deadline_s: Optional[float] = None,
                structure: Optional[str] = None,
-               dtype: Optional[str] = None) -> ServeRequest:
+               dtype: Optional[str] = None,
+               request_id: Optional[str] = None) -> ServeRequest:
         """Enqueue one system. Returns the request handle at once; a
         queue-full rejection or a poisoned operand resolves it
         synchronously.
@@ -220,21 +413,48 @@ class SolverServer:
         the cache (certified-SPD batches take the Cholesky lane). Ignored
         otherwise. ``dtype``: the batched lane's storage dtype for this
         request (``float32`` / ``bfloat16`` / ``bf16x3``), None takes
-        ``config.dtype``. (The JAX package's ``request_id`` idempotency
-        key is read only by its request journal, which is not ported.)"""
+        ``config.dtype``. ``request_id``: a client idempotency key, read
+        only with ``config.journal_dir``: a key already in flight returns
+        that request's handle; a key with a journaled terminal resolves
+        from the journal at once, with no solve. The poison scan runs
+        before the journal admit, so a non-finite request never reaches
+        the journal; the admit is journaled before this returns."""
+        jr = self.journal
+        if jr is not None and request_id:
+            pending = self._rid_pending.get(request_id)
+            if pending is not None:
+                obs.counter("serve.deduped_pending")
+                obs.emit("serve_dedup", request_id=request_id,
+                         trace=pending.trace_id, pending=True)
+                return pending
+            term = self._rid_terminals.get(request_id)
+            if term is not None:
+                # A new client interaction (a fresh trace) answered by the
+                # journaled terminal: one terminal event, no solve.
+                req = ServeRequest(a, b, deadline_s=deadline_s,
+                                   request_id=request_id)
+                if req.resolve(self._durable.terminal_to_result(term)):
+                    obs.counter("serve.deduped")
+                    obs.emit("serve_request", id=req.id, n=req.n,
+                             trace=req.trace_id,
+                             status=term.get("status"), deduped=True,
+                             request_id=request_id)
+                return req
         if deadline_s is None:
             deadline_s = self.config.deadline_default_s
         if self.config.poison_scan:
             reason = poison_scan(a, b)
             if reason is not None:
-                req = ServeRequest(a, b, deadline_s=deadline_s)
+                req = ServeRequest(a, b, deadline_s=deadline_s,
+                                   request_id=request_id)
                 if req.resolve(ServeResult(
                         status=STATUS_POISON,
                         error=f"poisoned operands: {reason}")):
                     obs.counter("serve.poisoned")
                     obs.emit("serve_request", id=req.id, n=req.n,
                              trace=req.trace_id, status=STATUS_POISON,
-                             reason="admission_scan", error=reason)
+                             reason="admission_scan", error=reason,
+                             request_id=request_id)
                 return req
         if self.config.structure_aware and structure is None:
             from gauss_tpu_torch.structure import structure_tag
@@ -243,16 +463,39 @@ class SolverServer:
         if not self.config.structure_aware:
             structure = None
         req = ServeRequest(a, b, deadline_s=deadline_s, structure=structure,
-                           dtype=dtype or self.config.dtype)
-        # One critical section: the closed/full check and the enqueue, so
-        # a request is either enqueued before stop() closes admission (its
-        # drain or flush owns it) or refused here.
+                           dtype=dtype or self.config.dtype,
+                           request_id=request_id)
+        # One critical section: the closed/full check, the journal admit
+        # and the enqueue, so a request is either enqueued before stop()
+        # closes admission (its drain or flush owns it) or refused here,
+        # and a terminal can never precede its admit in the journal.
+        dup = None
         with self._depth_lock:
             closed = self._closed
-            full = not closed and self._depth >= self.config.max_queue
-            if not closed and not full:
+            if not closed and jr is not None and request_id:
+                # Again inside the lock: a concurrent submit or an
+                # adoption (net.adopt_journal) may have taken the key.
+                dup = self._rid_pending.get(request_id)
+            full = (not closed and dup is None
+                    and self._depth >= self.config.max_queue)
+            if not closed and dup is None and not full:
+                if jr is not None:
+                    jr.append_admit(
+                        id=req.id, request_id=request_id,
+                        trace=req.trace_id, a=req.a, b=req.b,
+                        was_vector=req.was_vector,
+                        deadline_unix=req.deadline_unix,
+                        dtype=req.dtype, structure=req.structure)
+                    req._on_terminal = self._journal_terminal
+                    if request_id:
+                        self._rid_pending[request_id] = req
                 self._depth += 1
                 self._queue.put(req)
+        if dup is not None:
+            obs.counter("serve.deduped_pending")
+            obs.emit("serve_dedup", request_id=request_id,
+                     trace=dup.trace_id, pending=True, raced=True)
+            return dup
         if closed:
             self._reject_stopped(req)
             return req
@@ -276,15 +519,19 @@ class SolverServer:
 
     def solve(self, a, b, deadline_s: Optional[float] = None,
               timeout: Optional[float] = 300.0,
-              dtype: Optional[str] = None) -> ServeResult:
+              dtype: Optional[str] = None,
+              request_id: Optional[str] = None) -> ServeResult:
         """Synchronous convenience: submit + wait."""
-        return self.submit(a, b, deadline_s=deadline_s,
-                           dtype=dtype).result(timeout)
+        return self.submit(a, b, deadline_s=deadline_s, dtype=dtype,
+                           request_id=request_id).result(timeout)
 
     # -- worker loop ------------------------------------------------------
 
     def _run(self) -> None:
+        hb_path = self.config.heartbeat_path
         while not self._stop.is_set():
+            if hb_path is not None:
+                self._heartbeat(hb_path)
             try:
                 req = self._queue.get(timeout=0.1)
             except _queue.Empty:
@@ -307,8 +554,29 @@ class SolverServer:
                 self._drain_rate = (0.7 * self._drain_rate + 0.3 * inst
                                     if self._drain_rate else inst)
             if _inject.enabled():
-                # Hook point "serve.server.batch": the batch boundary.
+                # Hook point "serve.server.batch": the batch boundary (the
+                # batch's terminals are journaled, the queue is not yet
+                # served); kind "server_kill" os._exits here.
                 _inject.maybe_kill("serve.server.batch")
+
+    def _heartbeat(self, path: str) -> None:
+        """Supervisor liveness (durable.supervise): touch the heartbeat
+        file from the worker loop, at most every 0.5 s; a wedged worker
+        stops touching it. The file is replaced whole (tmp + rename), so a
+        reader never sees a half-written beat."""
+        now = time.monotonic()
+        if now - self._hb_last < 0.5:
+            return
+        self._hb_last = now
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                f.write(json.dumps({"pid": os.getpid(),
+                                    "time_unix": time.time(),
+                                    "batches": self.batches}))  # lockset: ok — a stats snapshot for liveness
+            os.replace(tmp, path)
+        except OSError:  # liveness must not kill serving
+            pass
 
     def _drain_same_bucket(self, first: ServeRequest):
         """Collect queued requests that share ``first``'s size bucket,
@@ -344,7 +612,7 @@ class SolverServer:
         """Serve one same-bucket batch (or oversized requests); returns the
         number of requests taken."""
         now = time.perf_counter()
-        live = []
+        live, solo = [], []
         for req in batch:
             if req.done:
                 # Cancelled while queued: the client holds its terminal.
@@ -357,8 +625,27 @@ class SolverServer:
                     obs.counter("serve.expired")
                     obs.emit("serve_request", id=req.id, n=req.n,
                              trace=req.trace_id, status=STATUS_EXPIRED)
+            elif req.quarantine:
+                solo.append(req)
             else:
                 live.append(req)
+        if (live or solo) and self.journal is not None:
+            # The blame record, before the dispatch: a death while this
+            # batch is in flight implicates exactly these ids (one death
+            # per journal boot, the quarantine's evidence). A torn blame
+            # drops at scan, costing evidence, never correctness.
+            try:
+                self.journal.append_blame(
+                    ids=[r.journal_id for r in live + solo],
+                    rids=[r.request_id for r in live + solo
+                          if r.request_id])
+            except Exception as e:  # noqa: BLE001 — durability must not break serving
+                obs.counter("journal.errors")
+                obs.emit("journal", event="append_error",
+                         error=_err(e)[:200])
+        for req in solo:
+            # Quarantined: solo on the host ladder, never batched.
+            self._serve_numpy(req)
         if not live:
             return len(batch)
         if live[0].n > self.ladder[-1]:
@@ -640,6 +927,8 @@ class SolverServer:
                                        rel_residual=rel,
                                        sdc_detected=sdc_detected)):
             return  # cancelled mid-compute: the client owns the terminal
+        with self._stats_lock:
+            self.requests_served += 1
         obs.counter("serve.served")
         if sdc_detected:
             obs.counter("serve.sdc_detected")

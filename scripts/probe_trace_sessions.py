@@ -4,7 +4,7 @@ kernel records that a whole ``chip_smoke.py`` run's traces lose, and
 whether one long-lived session keeps them (ROADMAP queue 3, fault 1).
 
     python3 scripts/probe_trace_sessions.py [--whole-run] [--rounds 40]
-                                            [--takes 20]
+                                            [--takes 20] [--lead-op]
 
 With ``--whole-run`` the process first runs ``chip_smoke.main()`` (every
 phase, its own traced calls included), so the probe starts where the
@@ -21,8 +21,12 @@ Every record a trace lacks is named (:func:`missing_records`: which
 marker, or which take's kernel by position, key and route), and each
 session opens with ``--lead-markers`` spin markers (default
 ``chip_smoke.TRACE_LEAD_MARKERS``, which ``trace_launches`` queues too),
-to see whether the records a session drops are its first. One JSON line,
-with the card's name and power limit. Needs a CUDA device.
+to see whether the records a session drops are its first. With
+``--lead-op`` every session (``trace_launches``' too) opens with a small
+real torch op before its markers (:func:`lead_op_sessions`): if a real
+kernel, not a spin, absorbs the loss of the session's opening, no marker
+and no kernel of the call is missing. One JSON line, with the card's name
+and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +49,29 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def lead_op_sessions() -> None:
+    """From now on, every session that ``torch.profiler.profile`` opens
+    (``chip_smoke.trace_launches``' and :func:`long_lived`'s) starts with
+    a small real torch op on the card, a cumulative sum of 65,536 floats,
+    to a synchronize. :func:`probe`'s empty sessions keep the plain class
+    (``profile.plain``)."""
+    import torch
+    import torch.profiler
+
+    plain = torch.profiler.profile
+
+    class LeadOpProfile(plain):
+        def __enter__(self):
+            prof = super().__enter__()
+            torch.cumsum(torch.arange(1 << 16, device="cuda",
+                                      dtype=torch.float32), 0)
+            torch.cuda.synchronize()
+            return prof
+
+    LeadOpProfile.plain = plain
+    torch.profiler.profile = LeadOpProfile
 
 
 def phase_takes(c) -> list:
@@ -188,20 +215,23 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
     calls = phase_takes(c)
     label, call, plan = calls[0]
     want = [(k, r) for k, r, _ in plan]
-    first_loss = None
+    first_loss, opening = None, {}
+    empty = getattr(profile, "plain", profile)
     for s in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
+        with empty(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):
             torch.cuda.synchronize()
         path = os.path.join(work, "loop.json")
         got, _, _ = c.trace_launches(call, path)
+        missing = missing_records(c, path, c.TRACE_LEAD_MARKERS, [calls[0]])
+        for name in missing:  # which opening records the rounds lost
+            opening[name] = opening.get(name, 0) + 1
         if [(k, r) for k, r, _ in got] != want:
             first_loss = {"round": s + 1, "recorded": len(got),
-                          "planned": len(want),
-                          "missing": missing_records(
-                              c, path, c.TRACE_LEAD_MARKERS, [calls[0]])}
+                          "planned": len(want), "missing": missing}
             break
     return {"loop_rounds": sessions, "loop_first_loss": first_loss,
+            "loop_missing_by_record": opening,
             "one_call": long_lived(c, [calls[0]] * takes,
                                    os.path.join(work, "one_call.json")),
             "phase_calls": long_lived(
@@ -218,6 +248,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lead-markers", type=int, default=None,
                     help="spin markers opening each session (default "
                          "chip_smoke.TRACE_LEAD_MARKERS)")
+    ap.add_argument("--lead-op", action="store_true",
+                    help="open each session with a small real torch "
+                         "op before its markers")
     args = ap.parse_args(argv)
     import torch
 
@@ -228,6 +261,8 @@ def main(argv=None) -> int:
     c = _smoke()
     if args.lead_markers is not None:
         c.TRACE_LEAD_MARKERS = args.lead_markers
+    if args.lead_op:
+        lead_op_sessions()
     if args.whole_run:
         rc = c.main([])
         if rc:
@@ -240,6 +275,7 @@ def main(argv=None) -> int:
                                               str(work)),
                       "after_whole_run": args.whole_run,
                       "lead_markers": c.TRACE_LEAD_MARKERS,
+                      "lead_op": args.lead_op,
                       "card": c.smi_line()}))
     return 0
 

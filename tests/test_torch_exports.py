@@ -30,9 +30,7 @@ PENDING = {"gauss_tpu.obs": {
                "shared_cache": "item 11, serve/cache's process cache",
                "Lane": "item 11, serve/lanes",
                "LaneSet": "item 11, serve/lanes",
-               "compat_sig": "item 11, serve/lanes",
-               "JournalError": "item 11, serve/durable",
-               "RequestJournal": "item 11, serve/durable"}}
+               "compat_sig": "item 11, serve/lanes"}}
 PACKAGES = ["", ".io", ".core", ".structure", ".obs", ".tune", ".resilience",
             ".serve", ".outofcore"]
 

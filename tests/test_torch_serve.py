@@ -373,14 +373,20 @@ def test_transient_failures_degrade_to_the_numpy_lane(rng):
     ("slos", ("x",)), ("slo_shed", True), ("flight_dir", "/nonexistent/f"),
     ("attr", True), ("abft", True), ("supervised_handoff", True),
     ("outofcore_handoff", True)])
-def test_unported_options_raise_when_the_server_is_built(name, value):
+def test_unported_options_raise_when_the_server_is_built(name, value,
+                                                         tmp_path):
     """Every option of a plane not ported raises when the server is
-    built; ``abft`` and ``outofcore_handoff``, ported since, build and are
-    no longer listed."""
-    if name in ("abft", "outofcore_handoff"):
+    built; ``abft``, ``outofcore_handoff`` and ``journal_dir``, ported
+    since, build and are no longer listed (the journal in a temporary
+    directory, not at the listed path)."""
+    if name in ("abft", "outofcore_handoff", "journal_dir"):
         assert name not in {o for o, _, _ in admission.UNPORTED_OPTIONS}
+        if name == "journal_dir":
+            value = str(tmp_path / "j")
         with SolverServer(_config(**{name: value})) as srv:
-            assert getattr(srv.config, name) is True
+            assert getattr(srv.config, name) == value
+            if name == "journal_dir":
+                assert srv.journal is not None and srv.journal.dir == value
         return
     with pytest.raises(FeatureNotPortedError, match=name):
         SolverServer(_config(**{name: value}))
@@ -401,6 +407,22 @@ def test_device_defaults_to_the_card():
     ["--live-port", "0"], ["--slo-shed"], ["--slo-json", "s.json"],
     ["--history"], ["--regress-check"], ["--compile-cache", "c"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
+    """Every flag of a plane not ported exits 2 naming its item;
+    ``--journal``, ``--supervised`` and ``--net``, ported since, are
+    accepted: parsed, not listed, and not refused (``--supervised``
+    alone exits 2 only for its missing ``--journal``)."""
+    ported = {"--journal": "journal", "--supervised": "supervised",
+              "--net": "net"}
+    if flag[0] in ported:
+        attr = ported[flag[0]]
+        assert attr not in {a for a, _, _, _ in serve_cli.UNPORTED_FLAGS}
+        args = serve_cli.build_parser().parse_args(["--device", CPU, *flag])
+        assert getattr(args, attr) == (flag[1] if len(flag) > 1 else True)
+        if flag[0] == "--supervised":
+            assert serve_cli.main(["--device", CPU, *flag]) == 2
+            err = capsys.readouterr().err
+            assert "requires --journal" in err and "queue-1" not in err
+        return
     assert serve_cli.main(["--device", CPU, *flag]) == 2
     assert "queue-1 item" in capsys.readouterr().err
 

@@ -301,8 +301,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    RES_SERVE_N with every kernel-1 launch held against its plain version
    and the checked launches equal to the plan's; ``abftcheck`` at its
    defaults (110 cases: 100% detection, every replay bit for bit, exit 0)
-   and ``chaos --no-fleet --no-durable`` at RES_CHAOS_ARGS (exit 0, no
-   silent wrong answer), the input of each of their calls of the
+   and ``chaos --no-fleet`` at RES_CHAOS_ARGS (exit 0, no silent wrong
+   answer; its durable phase's four kill/resume cases, one per
+   ``durablecheck.CASE_KINDS``, without a violation), the input of each
+   of their calls of the
    single-strip panel, batched panel and SpMV kernels kept
    (``kept_launches``) and held bit for bit against the plain version
    after them, every launch of theirs among the kept calls; and a
@@ -357,17 +359,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 12. The durable and network service (``serve/durable``, ``serve/net``,
    ``serve/durablecheck`` and the journaled server); no CPU fallback.
    (b) runs first and alone: its timed run (the loadgen plan) shares the
-   card and the host with nothing else. Then (c) and (a), each in a
-   process of its own, run beside the rest of (b) (its oversized request
-   and its checks; their figures are taken with the others running), and
-   last, alone, (a)'s overhead leg.
+   card and the host with nothing else; in a whole run phase 13 (a)'s
+   timed run follows it, alone too. Then (c) and (a), each in a process
+   of its own, run beside the rest of (b) (its oversized request and its
+   checks; their figures are taken with the others running, phase 13's
+   campaigns among them), and last (a)'s overhead leg.
    (a) ``python -m gauss_tpu_torch.serve.durablecheck`` at NET_CAMPAIGN
-   (the JAX package's CI configuration: 28 cases, seed 258458) on the
-   card with ``--no-overhead``: its four recovery kinds, the three
-   subprocess legs at once (a ``server_kill`` child, a torn-write child,
-   a supervised child; each a new ``python -m`` process that loads the
-   kernels built here); 0 lost, 0 duplicate terminals, 0 duplicate
-   solves, 0 unverified, exit 0; every batched-kernel launch of its
+   (the JAX package's CI configuration, seed 258458, cut from 28 cases to
+   8 and without its subprocess legs: chaos's durable phase in phase 10
+   and replicacheck's failover cases in phase 13 run the same case
+   runners, and (c), phase 13 (c)'s crash-loop and supervised legs and
+   13 (e)'s kill leg the same real deaths) on the card with
+   ``--no-overhead``: its four recovery kinds; 0 lost, 0 duplicate
+   terminals, 0 duplicate solves, 0 unverified, exit 0; every
+   batched-kernel launch of its
    in-process cases held against the plain version at once
    (``held_batched_launches``). Its overhead leg
    (``durablecheck.run_overhead_phase``: journal-off, then journal-on,
@@ -414,7 +419,48 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    start replays nothing; each incarnation's build seconds (0: it loaded
    this checkout's libraries). A ``{"net": ...}`` JSON line carries the
    figures.
-13. The ``kernels`` JSON line, the card line, and the final
+13. The replicated service behind the router (``serve/router``,
+   ``serve/replicacheck``, ``serve/poisoncheck``, ``obs/flight``,
+   ``obs/postmortem``, ``obs/debug``, ``obs/flightcheck``,
+   ``obs/regress``); no CPU fallback. (a)'s timed run runs alone, right
+   after phase 12 (b)'s (the router then stays up until phase 12 is
+   done; its seconds count to phase 13): a
+   ``Router`` + ``RouterFront`` over ROUTER_REPLICAS replica processes on
+   the card (``python -m gauss_tpu_torch.serve.net --replica``, each with
+   a journal and its ``flight/`` ring), at phase 12 (b)'s configuration
+   and plan (``net_load``), driven by ``loadgen.run_load`` through a
+   ``SolveClient``; once the warm-up is back, the replica with the deepest
+   queue is SIGKILLed (its launches read from its ``/healthz`` just
+   before) and the router fails its journal over to a peer and respawns
+   it. Then one probe to the respawned replica (a key whose ring position
+   falls on it), every key resubmitted through the router (its journaled
+   terminal, bit for bit; the replicas serve nothing more), the audit of
+   the union of the live and retired journals (``replicacheck
+   .audit_union``: 0 lost, 0 duplicate terminals, every ``ok`` at 1e-4),
+   ``journal-failed-1`` adopted, one failover, the dead replica's bundle
+   passing ``python -m gauss_tpu_torch.obs.debug --check``; the launches
+   are the replicas' (``/healthz``: the victim's before the kill, the live
+   ones' at the end; path ``router``). Every system of the run is solved
+   again in this process with every batched launch held against its plain
+   version (``held_batched_launches``), beside the journaled answers.
+   Printed: solves/s through the router beside phase 12's one replica and
+   phase 9's in process, and its ratio to phase 12's (three replicas
+   against one at the service's ladder, same plan, same run; no gate:
+   (a)'s window also holds the kill and its failover), the client's
+   p50/p99, the failover's seconds and the kill-to-live seconds. Then,
+   each in a process of its own, started
+   after (a)'s timed run, beside phase 12's checks and (a)'s on the card
+   (in turn after them on the CPU): (b) ``replicacheck`` at
+   REPLICA_CAMPAIGN (the JAX package's CI configuration) with its
+   ``--history`` in a file of its own, then ``obs.regress check`` of its
+   summary against that file (verdicts stamped with the card); (c)
+   ``poisoncheck`` at POISON_CAMPAIGN
+   ``--no-mesh`` (0 replica restarts, the crash loop broken); (e)
+   ``flightcheck`` (the SIGKILLed child's bundle passes ``--check``); the
+   in-process cases of (b) and (c) with every batched launch held. (d)
+   is ``chaos``'s durable phase, in phase 10. A ``{"router": ...}`` JSON
+   line carries the figures.
+14. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -604,7 +650,9 @@ RES_SERVE_N = SERVE_OVERSIZE
 RES_SERVE_REQUESTS = 3
 RES_ABFTCHECK_ARGS: tuple = ()
 RES_CAMPAIGN_PANEL = 16     # the campaigns' default --panel
-RES_CHAOS_ARGS = ("--cases", "100", "--serve-requests", "20")
+#: chaos's solver cases cut from 100 to 40 to keep the whole run inside
+#: its budget once phase 13 joined it (its durable phase now runs too).
+RES_CHAOS_ARGS = ("--cases", "40", "--serve-requests", "20")
 LU_FIELDS = ("m", "perm", "min_abs_pivot", "linv", "uinv")
 #: Phase 11: the out-of-core solve. (a) the check CLI at its defaults (its
 #: extra arguments); (b) the JAX package's acceptance scale
@@ -628,7 +676,11 @@ OOC_SERVE_N = SERVE_OVERSIZE
 OOC_FIELDS = ("m", "perm", "linv", "uinv")
 CHOL_FIELDS = ("m", "linv", "min_diag")
 #: Phase 12: the durable campaign's CLI arguments (the JAX package's CI
-#: configuration). The wire's plan (``net_load``): phase 9's mix and
+#: configuration, its 28 cases cut to 8 and its subprocess legs left out:
+#: phase 10's chaos and phase 13's replicacheck run the same recovery and
+#: adoption cases, and (c), phase 13's crash-loop, supervised and flight
+#: kill legs the same real deaths). The wire's
+#: plan (``net_load``): phase 9's mix and
 #: weights, NET_WARMUP warm-up requests, then NET_REQUESTS (one wave of
 #: SERVE_CONCURRENCY) closed loop: phase 9's sizes, its request count cut
 #: to keep the whole run inside its limit on a slower host (a 4096-bucket
@@ -640,10 +692,30 @@ CHOL_FIELDS = ("m", "linv", "min_diag")
 #: 4096-bucket batch; the delay injected before each batch of the killed
 #: incarnation, so that requests wait in its queue when it dies; the
 #: supervisor's stall threshold.
-NET_CAMPAIGN = ("--cases", "28", "--seed", str(SEED))
+NET_CAMPAIGN = ("--cases", "8", "--seed", str(SEED), "--no-subprocess")
 NET_WARMUP, NET_REQUESTS, NET_KILL_REQUESTS = 4, 8, 8
 NET_KILL_SKIP, NET_DELAY_S = (4, 6), 2.0
 NET_STALL_S = 60.0
+#: Phase 13: the router's replicas (at phase 12 (b)'s configuration and
+#: plan), how long a replica may take to reach the card and publish its
+#: endpoint, how long the kill after the warm-up waits for a queue to
+#: form, and the size of the probe sent to the respawned replica; the
+#: campaigns' CLI arguments (the JAX package's CI seeds, with 12 cases
+#: each where its CI runs 30 and 28, so that the whole script stays well
+#: inside its time limit; every kind and every leg still runs); the delay
+#: injected before each batch of the child flightcheck kills.
+ROUTER_REPLICAS, ROUTER_SPAWN_S, ROUTER_KILL_WAIT_S = 3, 600.0, 60.0
+#: The host threads of each process ``start_own_process`` starts (and of
+#: the servers and replicas those start): phases 12 and 13 run up to five
+#: such processes, each spawning replicas, beside the main process on the
+#: host's 8 cores, and every process's BLAS and torch pools would
+#: otherwise take all 8.
+BACKGROUND_THREADS = {"OMP_NUM_THREADS": "2", "OPENBLAS_NUM_THREADS": "2",
+                      "MKL_NUM_THREADS": "2"}
+ROUTER_PROBE_N = 200
+REPLICA_CAMPAIGN = ("--cases", "12", "--seed", "190733")
+POISON_CAMPAIGN = ("--cases", "12", "--seed", "777201")
+FLIGHT_KILL_DELAY_S = 0.05
 
 
 def require(cond, msg: str) -> None:
@@ -5413,7 +5485,7 @@ def check_kept_launches(kept: list, where: str) -> dict:
 
 def resilience_campaigns(counted, work: str) -> dict:
     """Phase 10 (e): ``abftcheck`` at its defaults, ``chaos`` without the
-    fleet and durable phases, and the service's abft lane."""
+    fleet phase (with its durable phase), and the service's abft lane."""
     import torch
 
     from gauss_tpu_torch import obs
@@ -5441,8 +5513,8 @@ def resilience_campaigns(counted, work: str) -> dict:
     # recorder.
     kept, runs = [], {}
     argv = {"abftcheck": (abftcheck.main, RES_ABFTCHECK_ARGS),
-            "chaos": (chaos.main, ("--no-fleet", "--no-durable", "--tmpdir",
-                                   work, *RES_CHAOS_ARGS))}
+            "chaos": (chaos.main, ("--no-fleet", "--tmpdir", work,
+                                   *RES_CHAOS_ARGS))}
     with kept_launches(kept):
         for name, (main, args) in argv.items():
             path = os.path.join(work, f"{name}.json")
@@ -5473,12 +5545,16 @@ def resilience_campaigns(counted, work: str) -> dict:
                         "identity": summ["identity"],
                         "matmul": summ["matmul"]}
     rc, wall, _, summ = runs["chaos"]
+    dur = summ["durable"]
     require(rc == 0 and summ["invariant_ok"]
-            and summ["solver"]["counts"]["silent_wrong"] == 0,
+            and summ["solver"]["counts"]["silent_wrong"] == 0
+            and dur.get("crashes") == 4 and dur["violations"] == 0,
             f"chaos exited {rc}: {summ}")
     out["chaos"] = {"rc": rc, "wall_s": wall, "injected": summ["injected"],
                     "solver": summ["solver"]["counts"],
                     "serve": summ["serve"].get("counts"),
+                    "durable": {k: dur[k] for k in ("crashes", "admitted",
+                                                    "violations")},
                     "sdc_detect_rate": summ["sdc"].get("detect_rate")}
     # The service's abft lane: n=RES_SERVE_N requests past the ladder top.
     n = RES_SERVE_N
@@ -6245,7 +6321,11 @@ def held_batched_launches(seen: dict, thread=None):
     each member's panel and updated block within TOL of its scale (a
     bfloat16 member: ``bf16_block_check``). ``seen`` counts the held
     launches by key. Given ``thread``, only the launches made on it are
-    held and counted; other threads launch as if outside the block."""
+    held and counted; other threads launch as if outside the block.
+    Non-finite values (a campaign's poisoned member) must sit where the
+    plain version puts them, with the same value. A launch that differs
+    is reported when the block ends, on the thread that opened it (the
+    launches of a server's worker thread run on)."""
     import threading
 
     import torch
@@ -6254,6 +6334,19 @@ def held_batched_launches(seen: dict, thread=None):
     from gauss_tpu_torch.kernels import panel_fused as kf
 
     real_pb, real_fb = kp.panel_factor_batched, kf.panel_trailing_fused_batched
+    errors = []
+
+    def check(cond, msg):
+        if not cond:
+            errors.append(msg)
+
+    def finite_err(got, want):
+        """max |got - want| over the finite entries; inf where the two
+        differ in which entries are finite, or in a non-finite value."""
+        gf, wf = torch.isfinite(got), torch.isfinite(want)
+        if not (torch.equal(gf, wf) and equal_nan(got[~gf], want[~wf])):
+            return float("inf")
+        return float((got[gf] - want[wf]).abs().max()) if gf.any() else 0.0
 
     def count(key, x):
         key += "_bf16" if x.dtype == torch.bfloat16 else ""
@@ -6267,9 +6360,10 @@ def held_batched_launches(seen: dict, thread=None):
             return real_pb(p, kb)
         x = p.clone()
         got = real_pb(p, kb)
-        require(same_outputs(got, kp.panel_factor_batched_plain(x, kb)),
-                f"a batched panel launch at {tuple(p.shape)} {p.dtype} "
-                f"differs from the plain version")
+        check(all(equal_nan(g, w) for g, w in zip(
+            got, kp.panel_factor_batched_plain(x, kb))),
+            f"a batched panel launch at {tuple(p.shape)} {p.dtype} "
+            f"differs from the plain version")
         count("panel_factor_batched", p)
         return got
 
@@ -6282,18 +6376,22 @@ def held_batched_launches(seen: dict, thread=None):
                                                     panel=panel)
         where = (f"a batched fused launch at {tuple(stack.shape)} "
                  f"{stack.dtype}, col0={col0}")
-        require(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
-                f"{where}: pivots differ from the plain version")
+        check(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+              f"{where}: pivots differ from the plain version")
         for i in range(stack.shape[0]):
             if stack.dtype == torch.bfloat16:
-                bf16_block_check(f"{where}, member {i}", stack[i], x[i],
-                                 col0 + panel)
+                try:
+                    bf16_block_check(f"{where}, member {i}", stack[i], x[i],
+                                     col0 + panel)
+                except SystemExit as e:
+                    errors.append(str(e))
                 continue
-            scale = float(x[i].abs().max())
-            err = max(float((stack[i] - x[i]).abs().max()),
-                      float((got[0][i] - ref[0][i]).abs().max()))
-            require(err <= TOL * scale, f"{where}, member {i}: max |kernel "
-                    f"- plain| {err} > {TOL} x {scale}")
+            fin = torch.isfinite(x[i])
+            scale = float(x[i][fin].abs().max()) if fin.any() else 0.0
+            err = max(finite_err(stack[i], x[i]),
+                      finite_err(got[0][i], ref[0][i]))
+            check(err <= TOL * scale, f"{where}, member {i}: max |kernel "
+                  f"- plain| {err} > {TOL} x {scale}")
         count("panel_trailing_fused_batched", stack)
         return got
 
@@ -6304,6 +6402,7 @@ def held_batched_launches(seen: dict, thread=None):
     finally:
         kp.panel_factor_batched = real_pb
         kf.panel_trailing_fused_batched = real_fb
+    require(not errors, "; ".join(errors[:3]))
 
 
 def net_campaign(work: str, card: str) -> dict:
@@ -6332,7 +6431,7 @@ def net_campaign(work: str, card: str) -> dict:
         durablecheck.run_recovery_case = real_case
     with open(path) as f:
         doc = json.load(f)
-    legs = doc["subprocess"]["legs"]
+    legs = doc["subprocess"].get("legs", [])
     faults = {k: doc[k] for k in ("lost", "duplicate_terminals",
                                   "duplicate_solves", "unverified")}
     require(doc["invariant_ok"] and not any(faults.values())
@@ -6854,7 +6953,8 @@ def start_own_process(expr: str, log: str, names=()):
             f"print(json.dumps({expr}, default=str))")
     with open(log, "w") as f:
         return subprocess.Popen([sys.executable, "-c", code], stdout=f,
-                                stderr=subprocess.STDOUT, cwd=REPO)
+                                stderr=subprocess.STDOUT, cwd=REPO,
+                                env=dict(os.environ, **BACKGROUND_THREADS))
 
 
 def finish_own_process(proc, log: str, label: str) -> dict:
@@ -6868,12 +6968,14 @@ def finish_own_process(proc, log: str, label: str) -> dict:
     return json.loads(text.strip().splitlines()[-1])
 
 
-def phase_net(service: dict | None = None):
+def phase_net(service: dict | None = None, beside=None):
     """The durable and network service on the card (module docstring,
     phase 12): returns the launch counts of the wire run (b) and the
     phase's figures; ``service``: phase 9's service figures, printed
-    beside the wire's. Its journals live in a temporary directory that
-    the phase removes."""
+    beside the wire's; ``beside()``, on the card, runs right after (b)'s
+    timed run, before (c) and (a) start (phase 13's timed run, which then
+    starts phase 13's campaigns); its seconds are not this phase's. Its
+    journals live in a temporary directory that the phase removes."""
     import tempfile
 
     on_card = DEVICE == "cuda"
@@ -6893,7 +6995,13 @@ def phase_net(service: dict | None = None):
     def start(k):
         procs[k] = start_own_process(runs[k][1], logs[k], runs[k][2])
 
+    beside_s = [0.0]
+
     def start_beside():
+        if beside is not None:
+            t1 = time.perf_counter()
+            beside()
+            beside_s[0] = time.perf_counter() - t1
         for k in runs:
             start(k)
     try:
@@ -6924,9 +7032,569 @@ def phase_net(service: dict | None = None):
                     proc.kill()
                     proc.wait(timeout=60)
         shutil.rmtree(work, ignore_errors=True)
-    out["wall_s"] = round(time.perf_counter() - t0, 3)
+    out["wall_s"] = round(time.perf_counter() - t0 - beside_s[0], 3)
     print(json.dumps({"net": out}, default=str))
     return launches, out
+
+
+# --- Phase 13: the replicated service behind the router --------------------
+
+def replica_health(rp) -> dict:
+    """A replica's ``/healthz`` doc (its served and batch counts and its
+    kernel launches by key and route)."""
+    import urllib.request
+
+    with urllib.request.urlopen(rp.url + "/healthz", timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def add_launches(total: dict, routes: dict, doc: dict) -> None:
+    for k, v in (doc.get("launches") or {}).items():
+        total[k] = total.get(k, 0) + v
+    for k, v in (doc.get("route_launches") or {}).items():
+        routes[k] = routes.get(k, 0) + v
+
+
+def kill_busiest(router, solves: list, warmup: int, out: dict) -> None:
+    """Once the warm-up's solves are back, SIGKILL the replica with the
+    deepest queue (the first to hold one; any replica after
+    ROUTER_KILL_WAIT_S), its launches read from it just before, and wait
+    for the router to fail it over and respawn it."""
+    from gauss_tpu_torch.serve import replicacheck
+
+    while len(solves) < warmup:
+        time.sleep(0.05)
+    deadline = time.monotonic() + ROUTER_KILL_WAIT_S
+    while True:
+        live = router.live_replicas()
+        depth = {name: replica_health(rp)["depth"]
+                 for name, rp in sorted(live.items())}
+        name = max(depth, key=depth.get)
+        if depth[name] >= 1 or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    out["victim"], out["depth_at_kill"] = name, depth
+    out["health_before_kill"] = replica_health(live[name])
+    t0 = time.perf_counter()
+    out["pid"] = router.kill_replica(name)
+    replicacheck._wait_respawn(router, name, out["pid"],
+                               timeout_s=ROUTER_SPAWN_S)
+    out["kill_to_live_s"] = time.perf_counter() - t0
+
+
+def router_run(work: str) -> dict:
+    """Phase 13 (a)'s timed part (module docstring): a router over
+    ROUTER_REPLICAS replicas started, phase 12 (b)'s plan driven through it
+    by ``loadgen.run_load``, the busiest replica SIGKILLed after the
+    warm-up and waited for until the router has failed it over and
+    respawned it. Returns the state ``router_check`` takes over; the
+    router keeps running."""
+    import threading
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.serve import loadgen, net
+    from gauss_tpu_torch.serve.router import Router, RouterConfig
+
+    st = {"root": os.path.join(work, "router"), "solves": [], "kill": {},
+          "lg": net_load(NET_REQUESTS)}
+    cfg = RouterConfig(replicas=ROUTER_REPLICAS, dir=st["root"],
+                       ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                       verify_gate=GATE, device=DEVICE,
+                       structure_aware=True, spawn_timeout_s=ROUTER_SPAWN_S,
+                       forward_timeout_s=900.0)
+    t0 = time.perf_counter()
+    with obs.run(tool="chip_smoke_router") as rec:
+        st["router"] = router = Router(cfg).start()
+        try:
+            st["start_s"] = time.perf_counter() - t0
+            st["client"] = client = net.SolveClient(
+                router.url, seed=SEED, timeout_s=st["lg"].timeout_s)
+            timed_calls(client, "solve", st["solves"],
+                        lambda *a, **k: k.get("request_id"))
+            killer = threading.Thread(target=kill_busiest, args=(
+                router, st["solves"], st["lg"].warmup, st["kill"]))
+            killer.start()
+            t1 = time.perf_counter()
+            st["summary"] = loadgen.run_load(client, st["lg"])
+            st["run_s"] = time.perf_counter() - t1
+            killer.join(timeout=ROUTER_SPAWN_S)
+            require(not killer.is_alive() and "kill_to_live_s" in st["kill"],
+                    f"the kill after the warm-up did not finish: "
+                    f"{st['kill']}")
+        except BaseException:
+            router.stop(drain=False)
+            raise
+        st["events"] = [e for e in rec.events
+                        if e["type"] == "replica_failover"]
+    st["wall_s"] = time.perf_counter() - t0
+    return st
+
+
+def router_check(st: dict, card: str, figs: dict):
+    """Phase 13 (a)'s checks on ``router_run``'s state (module
+    docstring): the respawn probed, every key resubmitted, the journal
+    union audited, the bundle checked, the run's systems solved again in
+    this process with every batched launch held, the router stopped.
+    Returns the router run's launches by key and by route, and its
+    figures."""
+    import glob
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gauss_tpu_torch.obs import debug as gdebug
+    from gauss_tpu_torch.serve import (STATUS_OK, ServeConfig, SolverServer,
+                                       durable, net, replicacheck)
+
+    router, client, kill, lg = (st["router"], st["client"], st["kill"],
+                                st["lg"])
+    root, solves, summary = st["root"], st["solves"], st["summary"]
+    launches, routes, held = {}, {}, {}
+    scfg = ServeConfig(ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                       refine_steps=SERVE_REFINE, verify_gate=GATE,
+                       structure_aware=True, device=DEVICE)
+
+    def held_rerun(systems):
+        """The run's systems solved again in this process, every batched
+        launch held (``held``: the counts by key, then the results and the
+        seconds; a failure is raised on the caller's thread)."""
+        try:
+            t3 = time.perf_counter()
+            with SolverServer(scfg) as srv, held_batched_launches(held):
+                handles = {rid: srv.submit(a, b, dtype=dt)
+                           for rid, (a, b, dt, _) in systems.items()}
+                out = {rid: h.result(900) for rid, h in handles.items()}
+                sync()
+            held.update(results=out, s=time.perf_counter() - t3)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the caller
+            held["error"] = e
+    t0 = time.perf_counter()
+    try:
+        victim = kill["victim"]
+        add_launches(launches, routes, kill["health_before_kill"])
+        # The respawned replica serves: a key whose ring position falls on
+        # it, sent through the router.
+        rng = np.random.default_rng(SEED + 13)
+        while True:
+            a, b = dominant_system(ROUTER_PROBE_N,
+                                   int(rng.integers(1 << 30)))
+            if router.ring.lookup(net.matrix_digest(a)) == victim:
+                break
+        probe = client.solve(a, b, request_id="router-respawned",
+                             timeout=900)
+        healths = {name: replica_health(rp)
+                   for name, rp in router.live_replicas().items()}
+        require(probe.status == STATUS_OK
+                and healths[victim]["served"] >= 1
+                and healths[victim]["pid"] != kill["pid"],
+                f"the respawned {victim}: {probe.status} ({probe.error}), "
+                f"{healths[victim]}")
+        # Every key again through the router: its journaled terminal, no
+        # replica serves anything more (0 duplicate solves).
+        before = sum(h["served"] for h in healths.values())
+        jdirs = sorted(glob.glob(os.path.join(root, "r*", "journal*")))
+        systems, terminals = {}, {}
+        for jd in jdirs:
+            js = durable.scan(jd)
+            for doc in js.admits.values():
+                if doc["rid"] not in systems:
+                    bb = durable.decode_array(doc["b"])
+                    systems[doc["rid"]] = (
+                        durable.decode_array(doc["a"]),
+                        bb.reshape(-1) if doc.get("was_vector") else bb,
+                        doc.get("dtype"), doc["n"])
+            for doc in js.terminals.values():
+                if doc.get("rid") and doc.get("x") is not None:
+                    terminals[doc["rid"]] = durable.decode_array(doc["x"])
+        # Every batched launch held: each system of the run solved again
+        # in this process, on a thread of its own beside the resubmission
+        # (which only the replicas serve), with every batched-kernel
+        # launch held against its plain version.
+        rerun = threading.Thread(target=held_rerun, args=(systems,),
+                                 daemon=True)
+        rerun.start()
+
+        def resubmit(rid):
+            return rid, client.solve(*systems[rid][:2],
+                                     dtype=systems[rid][2],
+                                     request_id=rid, timeout=900)
+        t2 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+            storm = dict(pool.map(resubmit, sorted(systems)))
+        storm_s = time.perf_counter() - t2
+        healths = {name: replica_health(rp)
+                   for name, rp in router.live_replicas().items()}
+        fresh = sum(h["served"] for h in healths.values()) - before
+        for doc in healths.values():
+            add_launches(launches, routes, doc)
+        stats = router.stats()
+    finally:
+        stop = router.stop(drain=True, timeout=600)
+    rerun.join()
+    if "error" in held:
+        raise held["error"]
+    events = st["events"]
+    bundle, bundle_ok = replicacheck._bundle_ok(os.path.join(root, victim))
+    check_rc = gdebug.main([bundle, "--check"]) if bundle else None
+    ledger = [(rid, v[3]) for rid, v in systems.items()]
+    audit = replicacheck.audit_union(jdirs, ledger, GATE)
+    counts = summary["counts"]
+    mismatch = [rid for rid, res in storm.items()
+                if res.status != STATUS_OK or not np.array_equal(
+                    res.x.reshape(terminals[rid].shape), terminals[rid])]
+    require(counts == {**dict.fromkeys(counts, 0), STATUS_OK: lg.requests}
+            and not summary["incorrect"]
+            and len(ledger) == lg.warmup + lg.requests + 1
+            and not (audit["missing"] or audit["duplicates"]
+                     or audit["incorrect"])
+            and audit["statuses"] == {STATUS_OK: len(ledger)}
+            and fresh == 0 and not mismatch,
+            f"the router run: {counts}, incorrect {summary['incorrect']}; "
+            f"{len(ledger)} keys; audit "
+            f"{ {k: audit[k] for k in ('missing', 'duplicates', 'incorrect', 'statuses')} }; "
+            f"the resubmission solved {fresh} fresh, {mismatch} differ")
+    failed_dir = os.path.join(root, victim, "journal-failed-1")
+    require(os.path.isdir(failed_dir) and len(events) == 1
+            and events[0].get("adopter") and bundle_ok and check_rc == 0
+            and stats["restarts_used"] == 1,
+            f"the failover of {victim}: journal-failed-1 "
+            f"{os.path.isdir(failed_dir)}, events {events}, bundle {bundle} "
+            f"(--check rc {check_rc}), restarts {stats['restarts_used']}")
+    results, held_s = held.pop("results"), held.pop("s")
+    diff, equal = 0.0, 0
+    for rid, res in results.items():
+        require(res.status == STATUS_OK, f"in process, {rid}: {res.status}")
+        x = terminals[rid].reshape(res.x.shape)
+        diff = max(diff, float(np.linalg.norm(x - res.x)
+                               / np.linalg.norm(res.x)))
+        equal += bool(np.array_equal(x, res.x))
+    bat = {k: v for k, v in launches.items() if "batched" in k}
+    require(not DEVICE == "cuda" or (bat and set(bat) <= set(held)),
+            f"the replicas' batched launches {bat}; held on the re-run "
+            f"{held}")
+    require(diff <= 1e-4, f"in process against the router: max |x_wire - "
+            f"x| / |x| {diff}")
+    measured = f"lg{lg.seed}-"
+    cl = percentiles([t for rid, t in solves
+                      if rid and rid.startswith(measured)])
+    ev = events[0]
+    one = figs.get("net_solves_per_s")
+    ratio = (round(summary["throughput_rps"] / one, 4) if one else None)
+    rec = {"replicas": ROUTER_REPLICAS, "requests": lg.requests,
+           "warmup": lg.warmup, "seed": lg.seed, "keys": len(ledger),
+           "counts": counts, "lanes": summary["lanes"],
+           "solves_per_s": summary["throughput_rps"],
+           "one_replica_solves_per_s": one, "vs_one_replica": ratio,
+           "in_process_solves_per_s": figs.get("serve_solves_per_s"),
+           "client": cl, "server": {
+               "p50_s": summary["latency_s"]["p50"],
+               "p99_s": summary["latency_s"]["p99"]},
+           "client_retries": summary["retries"],
+           "start_s": st["start_s"], "run_s": st["run_s"],
+           "run_wall_s": st["wall_s"],
+           "checks_s": time.perf_counter() - t0,
+           "kill": {"victim": victim, "depth": kill["depth_at_kill"],
+                    "kill_to_live_s": kill["kill_to_live_s"],
+                    "recovery_s": ev.get("recovery_s"),
+                    "adopter": ev.get("adopter"),
+                    "replayed": ev.get("replayed"),
+                    "imported": ev.get("imported"),
+                    "pins_moved": ev.get("pins_moved")},
+           "bundle": os.path.basename(bundle), "bundle_check_rc": check_rc,
+           "audit": {k: audit[k] for k in ("admitted", "terminals",
+                                           "statuses", "torn_dropped")},
+           "lost": len(audit["missing"]),
+           "duplicate_terminals": len(audit["duplicates"]),
+           "duplicate_solves": fresh, "resubmit_s": storm_s,
+           "held_launches": held, "held_s": held_s,
+           "max_rel_diff_in_process": diff, "bit_equal_in_process": equal,
+           "stop": stop["causes"]}
+    print(f"phase 13 (a): {len(ledger)} keyed requests through a router over "
+          f"{ROUTER_REPLICAS} replicas on the card ({lg.warmup} warm-up + "
+          f"{lg.requests} closed loop x{SERVE_CONCURRENCY} of {SERVE_MIX}, "
+          f"seed {lg.seed}; + one probe of the respawned replica), "
+          f"{victim} SIGKILLed after the warm-up at queue depths "
+          f"{kill['depth_at_kill']}: {counts}, lanes {summary['lanes']}; "
+          f"{summary['throughput_rps']} solves/s through the router (phase "
+          f"12's one replica {one}: x{ratio} for {ROUTER_REPLICAS} replicas "
+          f"at the ladder, no gate; phase 9 in process "
+          f"{figs.get('serve_solves_per_s')}; this run); the "
+          f"client p50 {cl['p50_s']:.3f} s, p99 {cl['p99_s']:.3f} s; the "
+          f"failover {ev.get('recovery_s')} s (adopter {ev.get('adopter')}, "
+          f"{ev.get('replayed')} replayed, {ev.get('imported')} imported), "
+          f"the kill to {victim} live again {kill['kill_to_live_s']:.2f} s; "
+          f"lost {rec['lost']}, duplicate terminals "
+          f"{rec['duplicate_terminals']}, duplicate solves {fresh} (every "
+          f"key resubmitted: its journaled terminal, {storm_s:.1f} s); "
+          f"journal-failed-1 adopted; bundle --check rc {check_rc}; "
+          f"launches {launches}, by route {routes}; held on the in-process "
+          f"re-run {held} ({held_s:.1f} s, max |x_wire - x| / |x| "
+          f"{diff:.3g}, {equal} of {len(results)} bit for bit); replicas "
+          f"started in {st['start_s']:.1f} s, the loadgen run "
+          f"{st['run_s']:.1f} s, the checks {rec['checks_s']:.1f} s "
+          f"[{card}]")
+    return launches, routes, rec
+
+
+def replica_campaign(work: str, card: str) -> dict:
+    """Phase 13 (b): ``replicacheck`` at REPLICA_CAMPAIGN on the card in
+    this process, every batched launch of its in-process cases held; its
+    records into a history file of its own, then ``obs.regress check``
+    against that file."""
+    from gauss_tpu_torch.obs import regress
+    from gauss_tpu_torch.serve import replicacheck
+
+    held = {}
+    real_case = replicacheck.run_failover_case
+
+    def held_case(*args, **kw):
+        with held_batched_launches(held):
+            return real_case(*args, **kw)
+
+    path = os.path.join(work, "replica.json")
+    hist = os.path.join(work, "history.jsonl")
+    t0 = time.perf_counter()
+    replicacheck.run_failover_case = held_case
+    try:
+        run_cli(replicacheck, [*REPLICA_CAMPAIGN, "--device", DEVICE,
+                               "--tmpdir", os.path.join(work, "replica"),
+                               "--summary-json", path, "--history", hist])
+    finally:
+        replicacheck.run_failover_case = real_case
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        doc = json.load(f)
+    records = regress.ingest_file(path)
+    out = run_cli(regress, ["check", path, "--history", hist,
+                            "--min-samples", "1"])
+    verdicts = regress.check_records(records, regress.load_history(hist),
+                                     min_samples=1)
+    tag = regress.device_tag(DEVICE)
+    require(verdicts and all(v["status"] == "fast" and v["device"] == tag
+                             for v in verdicts),
+            f"regress check on the card's history: {verdicts}")
+    legs = {leg["leg"]: leg for leg in doc["legs"]}
+    faults = {k: doc[k] for k in ("lost", "duplicate_terminals",
+                                  "duplicate_solves", "unverified")}
+    require(doc["invariant_ok"] and not any(faults.values())
+            and set(legs) == {"kill3", "drain_free", "stall"}
+            and all(leg["outcome"] == "ok" for leg in legs.values())
+            and doc["tput"]["ok"]
+            and (not DEVICE == "cuda" or held.get("panel_factor_batched")),
+            f"replicacheck: {faults}, legs "
+            f"{[(k, v['outcome'], v.get('error')) for k, v in legs.items()]},"
+            f" tput {doc['tput']}, held {held}")
+    rec = {"cases": doc["in_process_cases"], "admitted": doc["admitted"],
+           "statuses": doc["statuses"], **faults,
+           "legs": {k: {"outcome": v["outcome"],
+                        "recovery_s": v.get("recovery_s"),
+                        "restarts_used": v.get("restarts_used")}
+                    for k, v in legs.items()},
+           "tput_injected": doc["tput"], "held_launches": held,
+           "verdicts": [
+               {k: v.get(k) for k in ("metric", "value", "status", "device")}
+               for v in verdicts],
+           "wall_s": round(wall, 3)}
+    print(f"phase 13 (b): replicacheck {' '.join(REPLICA_CAMPAIGN)}: "
+          f"{rec['cases']} cases and legs {rec['legs']}, {doc['admitted']} "
+          f"admitted ({doc['statuses']}); {faults}; 1 -> 3 replicas with "
+          f"{doc['tput']['delay_s']} s injected a batch "
+          f"{doc['tput']['replicas_1']['throughput_rps']} -> "
+          f"{doc['tput']['replicas_3']['throughput_rps']} req/s "
+          f"(x{doc['tput']['speedup']}), gate x2; batched launches held "
+          f"{held};"
+          f" regress on the card's history: {rec['verdicts']}; "
+          f"{rec['wall_s']} s [{card}]")
+    print("\n".join(f"    | {ln}" for ln in out.strip().splitlines()[-2:]))
+    return rec
+
+
+def poison_campaign(work: str, card: str) -> dict:
+    """Phase 13 (c): ``poisoncheck`` at POISON_CAMPAIGN on the card in this
+    process (``--no-mesh``), every batched launch of its in-process cases
+    held."""
+    from gauss_tpu_torch.serve import poisoncheck
+
+    held = {}
+    real_case = poisoncheck.run_case
+
+    def held_case(*args, **kw):
+        with held_batched_launches(held):
+            return real_case(*args, **kw)
+
+    path = os.path.join(work, "poison.json")
+    t0 = time.perf_counter()
+    poisoncheck.run_case = held_case
+    try:
+        run_cli(poisoncheck, [*POISON_CAMPAIGN, "--device", DEVICE,
+                              "--no-mesh",
+                              "--tmpdir", os.path.join(work, "poison"),
+                              "--summary-json", path])
+    finally:
+        poisoncheck.run_case = real_case
+    with open(path) as f:
+        doc = json.load(f)
+    legs = {leg["leg"]: leg for leg in doc["legs"]}
+    require(doc["invariant_ok"] and doc["crash_loops"] == 0
+            and set(legs) == {"replica", "crashloop", "supervised"}
+            and all(leg["outcome"] == "ok" for leg in legs.values())
+            and legs["replica"]["restarts_used"] == 0
+            and legs["crashloop"]["outcome"] == "ok"
+            and (not DEVICE == "cuda" or held.get("panel_factor_batched")),
+            f"poisoncheck: {doc['case_violations']}, legs "
+            f"{[(k, v['outcome'], v.get('error')) for k, v in legs.items()]}"
+            f", held {held}")
+    rec = {"cases": doc["in_process_cases"], "requests": doc["requests"],
+           "innocents": doc["innocents"], "poisoned": doc["poisoned"],
+           "bisections": doc["bisections"],
+           "replica_restarts": legs["replica"]["restarts_used"],
+           "crashloop_rcs": [i["rc"] for i in
+                             legs["crashloop"]["incarnations"]],
+           "legs": {k: v["outcome"] for k, v in legs.items()},
+           "held_launches": held,
+           "wall_s": round(time.perf_counter() - t0, 3)}
+    print(f"phase 13 (c): poisoncheck {' '.join(POISON_CAMPAIGN)} "
+          f"--no-mesh: {rec['cases']} cases, {rec['requests']} requests "
+          f"({rec['innocents']} innocents), {rec['poisoned']} typed poison, "
+          f"{rec['bisections']} bisections; replica leg 0 restarts, crash "
+          f"loop broken (incarnations exit {rec['crashloop_rcs']}), legs "
+          f"{rec['legs']}; batched launches held {held}; {rec['wall_s']} s "
+          f"[{card}]")
+    return rec
+
+
+def flight_campaign(work: str, card: str) -> dict:
+    """Phase 13 (e): ``flightcheck`` on the card (its kill leg's child
+    delayed FLIGHT_KILL_DELAY_S a batch, so the card's fast batches still
+    die mid-load)."""
+    from gauss_tpu_torch.obs import flightcheck
+
+    path = os.path.join(work, "flight.json")
+    t0 = time.perf_counter()
+    run_cli(flightcheck, ["--device", DEVICE, "--kill-delay",
+                          str(FLIGHT_KILL_DELAY_S),
+                          "--tmpdir", os.path.join(work, "flight"),
+                          "--summary-json", path])
+    with open(path) as f:
+        doc = json.load(f)
+    kill, torn, ov = doc["kill"], doc["torn_tail"], doc["overhead"]
+    require(doc["invariant_ok"] and kill["outcome"] == "ok"
+            and kill["bundle_check_rc"] == 0,
+            f"flightcheck: kill {kill}, torn {torn.get('error')}, overhead "
+            f"{ov.get('outcome')}")
+    rec = {"kill": {k: kill.get(k) for k in (
+        "attempts", "cause", "batches_reconstructed", "in_flight_at_death",
+        "trace_ids_ok", "in_flight_match", "bundle_check_rc", "wall_s")},
+        "torn_offsets": torn["offsets_checked"],
+        "overhead": {k: ov.get(k) for k in ("off", "on", "overhead_ratio")},
+        "wall_s": round(time.perf_counter() - t0, 3)}
+    print(f"phase 13 (e): flightcheck: the SIGKILLed child's bundle "
+          f"({rec['kill']['cause']}) passes --check, "
+          f"{rec['kill']['batches_reconstructed']} batches reconstructed, "
+          f"{rec['kill']['in_flight_at_death']} in flight at death, all "
+          f"matched; {rec['torn_offsets']} torn-tail cuts; flight-on/off "
+          f"{ov.get('overhead_ratio')}; {rec['wall_s']} s [{card}]")
+    return rec
+
+
+#: Phase 13's campaigns, each run in a process of its own:
+#: (its figures' key, the function of this script it evaluates).
+ROUTER_CAMPAIGNS = {"b": ("replica", "replica_campaign"),
+                    "c": ("poison", "poison_campaign"),
+                    "e": ("flight", "flight_campaign")}
+
+
+def start_router_campaigns(bg: dict) -> None:
+    """Start phase 13's campaigns (b), (c) and (e), each in a process of
+    its own (``start_own_process``), in a temporary directory; ``bg``
+    keeps the directory and the processes."""
+    import tempfile
+
+    card = smi_line() if DEVICE == "cuda" else "cpu"
+    bg["work"] = tempfile.mkdtemp(prefix="gauss_router_")
+    bg["procs"] = {}
+    keys = ("DEVICE", "SERVE_LADDER", "SERVE_BATCH", "SERVE_CONCURRENCY",
+            "SERVE_MIX", "REPLICA_CAMPAIGN", "POISON_CAMPAIGN",
+            "FLIGHT_KILL_DELAY_S")
+    for k, (_, fn) in ROUTER_CAMPAIGNS.items():
+        sub = os.path.join(bg["work"], k)
+        os.makedirs(sub)
+        bg["procs"][k] = start_own_process(
+            f"c.{fn}({sub!r}, {card!r})", os.path.join(sub, "log"), keys)
+
+
+def start_router_phase(bg: dict) -> None:
+    """Phase 13's start on the card: (a)'s timed run (``router_run``, its
+    router left running for ``router_check``), then the campaigns.
+    Phase 12 calls it right after its own timed run, so that both timed
+    runs have the card to themselves and every check after them runs
+    beside the campaigns."""
+    import tempfile
+
+    bg["router_work"] = tempfile.mkdtemp(prefix="gauss_router_run_")
+    bg["router"] = router_run(bg["router_work"])
+    start_router_campaigns(bg)
+
+
+def stop_router_phase(bg: dict) -> None:
+    """Leave nothing of phase 13 behind: a router still up is stopped, a
+    campaign still running is terminated, their directories removed."""
+    st = bg.get("router")
+    if st is not None and not st.get("stopped"):
+        st["router"].stop(drain=False)
+    for proc in bg.get("procs", {}).values():
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+    for key in ("work", "router_work"):
+        if key in bg:
+            shutil.rmtree(bg[key], ignore_errors=True)
+
+
+def phase_router(figs: dict, bg: dict | None = None):
+    """The replicated service behind the router on the card (module
+    docstring, phase 13): returns the launch counts of the router run (a)
+    and the phase's figures. ``figs``: phase 9's and phase 12's solves/s,
+    printed beside the router's. ``bg``: what ``start_router_phase``
+    started beside phase 12; else (a)'s timed run runs here, and the
+    campaigns beside (a)'s checks on the card, after them on the CPU.
+    Everything runs in temporary directories that the phase removes."""
+    import tempfile
+
+    from gauss_tpu_torch.kernels import _build
+
+    on_card = DEVICE == "cuda"
+    card = smi_line() if on_card else "cpu"
+    t0 = time.perf_counter()
+    bg = {} if bg is None else bg
+    out = {"card": card}
+    try:
+        if "router" not in bg:
+            bg["router_work"] = tempfile.mkdtemp(prefix="gauss_router_run_")
+            bg["router"] = router_run(bg["router_work"])
+            if on_card:
+                start_router_campaigns(bg)
+        launched, routes, out["router"] = router_check(bg["router"], card,
+                                                       figs)
+        bg["router"]["stopped"] = True
+        out["router"]["launches"] = launched
+        out["router"]["routes"] = routes
+        if "procs" not in bg:
+            start_router_campaigns(bg)
+        for k, (key, _) in ROUTER_CAMPAIGNS.items():
+            out[key] = finish_own_process(
+                bg["procs"][k], os.path.join(bg["work"], k, "log"),
+                f"phase 13 ({k})")
+    finally:
+        stop_router_phase(bg)
+    # (a)'s timed run, where phase 12 ran it, counts to this phase.
+    out["wall_s"] = round(time.perf_counter() - t0 + (
+        bg["router"]["wall_s"] if "router" in bg and on_card else 0.0), 3)
+    print(json.dumps({"router": out}, default=str))
+    return {k: launched.get(k, 0) for k in _build.LAUNCHES}, out
 
 
 def large_n_summary(large: dict, key: str) -> dict:
@@ -6997,8 +7665,25 @@ def main(argv=None) -> int:
     done("phase 10")
     by_path["outofcore"], ooc = phase_outofcore()
     done("phase 11")
-    by_path["net"], net_fig = phase_net(serve["service"])
+    # Phase 13's timed run follows phase 12 (b)'s, each with the card to
+    # itself; phase 13's campaigns then run beside both phases' checks.
+    bg = {}
+    try:
+        by_path["net"], net_fig = phase_net(
+            serve["service"], beside=lambda: start_router_phase(bg))
+    except BaseException:
+        stop_router_phase(bg)
+        raise
     done("phase 12")
+    by_path["router"], router_fig = phase_router({
+        "serve_solves_per_s": serve["service"]["solves_per_s"],
+        "net_solves_per_s": net_fig["wire"]["solves_per_s"]}, bg)
+    done("phase 13")
+    for name in ("panel_trailing_fused_batched", "panel_factor_batched",
+                 "panel_trailing_fused_batched_bf16",
+                 "panel_factor_batched_bf16", "spmv_ell"):
+        require(by_path["router"][name] > 0, f"the router path launched no "
+                f"{name}")
     for name in ("panel_trailing_fused_batched",
                  "panel_trailing_fused_batched_bf16",
                  "panel_factor_batched_bf16", "panel_factor_batched",
@@ -7337,8 +8022,9 @@ def main(argv=None) -> int:
                   f"same matrix as CSR is the library call)",
          "stock_gather_sum_ms": big["stock_ms"],
          "shapes": [spmv[key] for key in sorted(spmv)]})
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_main:.1f} s "
-          f"(phase 12: {net_fig['wall_s']} s)")
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_main:.1f} s "
+          f"(phase 12: {net_fig['wall_s']} s, phase 13: "
+          f"{router_fig['wall_s']} s)")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,9 @@ module compiles nothing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -247,28 +249,52 @@ def _finish_build(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
     BUILD_SECONDS[name] = time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """An exclusive ``flock`` on the build dir: processes that start
+    together (a router's replicas) build each library once, one after
+    another, instead of each running every ``nvcc``."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with open(build_dir() / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=SOURCES) -> dict[str, float]:
     """Build every missing library at once — one ``nvcc`` per source, all
-    started together — and load them. Returns the seconds per source."""
+    started together — and load them. Returns the seconds per source.
+    Builds run under a file lock on the build dir, so a second process
+    waits for the first and loads what it built."""
     with _lock:
         todo = [n for n in names if n not in _libs
                 and not _lib_path(n).is_file()]
-        if todo:
-            nvcc = find_nvcc()
-            t0 = time.perf_counter()
-            jobs = [(n, *_start_build(n, nvcc)) for n in todo]
-            errors = []
-            for n, proc, tmp, out in jobs:
-                try:
-                    _finish_build(n, proc, tmp, out, t0)
-                except KernelBuildError as e:
-                    errors.append(str(e))
-            if errors:
-                raise KernelBuildError("\n".join(errors))
+        with _build_dir_lock() if todo else contextlib.nullcontext():
+            todo = [n for n in todo if not _lib_path(n).is_file()]
+            _build_locked(todo)
         for n in names:
             BUILD_SECONDS.setdefault(n, 0.0)
             _load_locked(n)
     return {n: BUILD_SECONDS[n] for n in names}
+
+
+def _build_locked(todo) -> None:
+    """One ``nvcc`` per source of ``todo``, all started together."""
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    jobs = [(n, *_start_build(n, nvcc)) for n in todo]
+    errors = []
+    for n, proc, tmp, out in jobs:
+        try:
+            _finish_build(n, proc, tmp, out, t0)
+        except KernelBuildError as e:
+            errors.append(str(e))
+    if errors:
+        raise KernelBuildError("\n".join(errors))
 
 
 def _load_locked(name: str) -> ctypes.CDLL:

@@ -26,14 +26,20 @@ JAX package's: ``cuda`` for ``tpu``, ``cuda[ds]`` for ``tpu[ds]``, and so
 on (``cli/_common.py``). Compile spans are ``compile:cuda_blocked_warmup``
 for ``compile:tpu_blocked_warmup`` and the like.
 
+The crash-surviving flight recorder (:mod:`.flight`, a flight sink on
+the same hooks), its post-mortem bundles (:mod:`.postmortem`), their
+reader (``python -m gauss_tpu_torch.obs.debug``), its gate (``python -m
+gauss_tpu_torch.obs.flightcheck``) and the regression sentinel
+(``python -m gauss_tpu_torch.obs.regress``, with a history of its own)
+load only where they are used.
+
 Not ported yet: the collective budgets (``collective_budget``,
 ``compiled_collective_budget``, ``record_collective_budget``, with the
 distributed plane), the cost half of ``obs.compile`` (``cost_summary``,
 ``record_cost``, ``record_vmem_estimate``: XLA's cost analysis and
 Mosaic's VMEM have no counterpart), and the modules ``aggregate``,
-``attr``, ``debug``, ``doctor``, ``export``, ``flight``, ``flightcheck``,
-``live``, ``livecheck``, ``postmortem``, ``prof``, ``profcheck``,
-``regress``, ``requesttrace``, ``slo`` and ``top``.
+``attr``, ``doctor``, ``export``, ``live``, ``livecheck``, ``prof``,
+``profcheck``, ``slo`` and ``top``.
 """
 
 from gauss_tpu_torch.obs.compile import compile_span
@@ -61,5 +67,6 @@ __all__ = ["Recorder", "active", "compile_span", "counter", "current_trace",
            "new_run_id", "read_events", "record_solve_health", "record_span",
            "run", "set_flight_sink", "set_live_sink", "span", "trace_context"]
 
-# gauss_tpu_torch.obs.summarize and .trace are `python -m` entry points and
-# are deliberately NOT imported here (runpy's double-import warning).
+# gauss_tpu_torch.obs.summarize, .trace, .debug, .flightcheck and .regress
+# are `python -m` entry points and are deliberately NOT imported here
+# (runpy's double-import warning).

@@ -134,8 +134,8 @@ def _fold_key(ev: Dict[str, Any]) -> str:
 def fold_ring_events(events: List[Dict[str, Any]],
                      ring_events: List[Dict[str, Any]]
                      ) -> List[Dict[str, Any]]:
-    """Merge flight-ring records (the JAX package's ``obs.flight.scan``; the flight recorder is not
-    ported) into a
+    """Merge flight-ring records (:func:`gauss_tpu_torch.obs.flight.scan`,
+    either package's ring) into a
     recorded stream so a crash-spanning trace completes: the dead
     incarnation's ring carries the admit/batch stages the recorder lost
     with the process, the survivor's stream carries the terminal the

@@ -19,8 +19,10 @@ Three sinks hang off these hooks:
 - the **flight sink** — a crash-surviving ring of the most recent events,
   installed by :func:`set_flight_sink`; same contract again.
 
-The port keeps the live and flight setters as plain hooks: the sinks
-themselves come with the serving plane.
+The flight sink is :class:`gauss_tpu_torch.obs.flight.FlightSink`
+(installed by ``obs.flight.install``, which a server with a
+``flight_dir`` calls); the live sink's setter stays a plain hook until the
+live plane is ported.
 
 Additionally, a thread-local **trace context** (:func:`trace_context`)
 stamps every event emitted inside it with a ``trace`` id, so request-scoped

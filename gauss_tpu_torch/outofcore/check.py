@@ -24,12 +24,13 @@ The summary (``--summary-json``) is the JAX package's
 N`` adds the acceptance-scale leg (n=32768 class; ``--giant-ct`` pins its
 tile width, which the card's 80 GB budget would otherwise make one tile).
 
-``--history`` and ``--regress-check`` need ``obs.regress``, which is not
-ported yet (ROADMAP queue-1 item 11): they stay in the parser and refuse
-with exit status 2 and a message naming that item.
+``--history`` appends the run's records to the port's regression history
+(``obs.regress``: its own file, each record stamped with the device it
+ran on) and ``--regress-check`` gates them against that device's
+baselines.
 
-Exit status: 2 when any assertion fails (or a refused option is given), 0
-otherwise.
+Exit status: 2 when any assertion fails, 1 when ``--regress-check`` finds
+an out-of-band metric, 0 otherwise.
 """
 
 from __future__ import annotations
@@ -42,10 +43,6 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-
-#: what --history / --regress-check wait for
-REGRESS_PENDING = ("obs.regress is not ported to gauss_tpu_torch yet "
-                   "(ROADMAP queue-1 item 11)")
 
 
 def _seeded_system(n: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -123,6 +120,29 @@ def run_routing(n: int, seed: int, gate: float, device=None) -> Dict:
             "verified": bool(np.isfinite(rel) and rel <= gate)}
 
 
+def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
+    """(metric, value, unit) records an out-of-core run contributes to the
+    regression history (the JAX package's names), all slow-side gated:
+    the streamed solve's seconds, its stall fraction (1 - transfer/compute
+    overlap) and the ledger's peak device fraction; the giant leg's
+    seconds."""
+    out: List[Tuple[str, float, str]] = []
+    smoke = summary.get("smoke") or {}
+    if isinstance(smoke.get("s_per_solve"), (int, float)):
+        out.append(("outofcore:s_per_solve", smoke["s_per_solve"], "s"))
+    if isinstance(smoke.get("stall_fraction"), (int, float)):
+        out.append(("outofcore:stall_fraction",
+                    round(smoke["stall_fraction"], 4), "ratio"))
+    if isinstance(smoke.get("peak_device_frac"), (int, float)):
+        out.append(("outofcore:peak_device_frac",
+                    smoke["peak_device_frac"], "ratio"))
+    giant = summary.get("giant") or {}
+    if isinstance(giant.get("s_per_solve"), (int, float)):
+        out.append((f"outofcore:n{giant['n']}/s_per_solve",
+                    giant["s_per_solve"], "s"))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gauss_tpu_torch.outofcore.check",
@@ -159,10 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append this run's records to the regression "
-                        "history (refused: " + REGRESS_PENDING + ")")
+                        "history (default reports/history_torch.jsonl)")
     p.add_argument("--regress-check", action="store_true",
-                   help="gate against the history baselines (refused: "
-                        + REGRESS_PENDING + ")")
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
     p.add_argument("--band", type=float, default=1.5,
                    help="slow-side noise band for --regress-check")
     return p
@@ -170,10 +190,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.history is not None or args.regress_check:
-        print(f"outofcore-check: --history / --regress-check: "
-              f"{REGRESS_PENDING}", file=sys.stderr)
-        return 2
 
     from gauss_tpu_torch import obs
 
@@ -252,7 +268,16 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1, sort_keys=True)
             f.write("\n")
         print(f"summary: {args.summary_json}")
-    return 2 if failures else 0
+    # Run-id-tagged sources: equal values of distinct epochs stay
+    # separate baseline samples.
+    from gauss_tpu_torch.obs import regress
+
+    records = regress.campaign_records(
+        history_records(summary), f"outofcore-{obs.new_run_id()}",
+        "outofcore", regress.device_tag(args.device))
+    rc = regress.gate(records, args.history, args.regress_check,
+                      band=args.band, healthy=not failures)
+    return 2 if failures else rc
 
 
 if __name__ == "__main__":

@@ -23,13 +23,15 @@ Port of ``gauss_tpu/resilience``:
   typed, never a silent wrong answer.
 - :mod:`.abftcheck` — the ABFT campaign (``python -m
   gauss_tpu_torch.resilience.abftcheck``).
+- :mod:`.fleet` — the exit-cause vocabulary supervisors share
+  (``exit_cause``, ``counts_against_restart_budget``, ``DRAIN_EXIT``).
 
 ``inject`` is imported eagerly (stdlib + numpy only; the hook points in
 ``core`` reference it at module load); the other submodules import the
 solver stack and load lazily. Not ported yet: ``watchdog``,
-``dcheckpoint`` and ``fleet`` (ROADMAP queue-1 item 10), so
+``dcheckpoint`` and ``fleet``'s supervisor (ROADMAP queue-1 item 10), so
 ``WorkerLostError``, ``FleetError`` and ``solve_supervised`` are not
-here, and ``chaos`` refuses its ``fleet`` and ``durable`` phases.
+here, and ``chaos`` refuses its ``fleet`` phase.
 """
 
 from gauss_tpu_torch.resilience.inject import (  # noqa: F401
@@ -39,7 +41,8 @@ from gauss_tpu_torch.resilience.inject import (  # noqa: F401
     SimulatedFaultError,
 )
 
-_LAZY = ("recover", "checkpoint", "chaos", "inject", "abft", "abftcheck")
+_LAZY = ("recover", "checkpoint", "chaos", "inject", "abft", "abftcheck",
+         "fleet")
 
 __all__ = ["FaultPlan", "FaultSpec", "SimulatedCompileError",
            "SimulatedFaultError", "UnrecoverableSolveError",

@@ -27,12 +27,12 @@ Three phases:
   localized and corrected in place; wider corruption is recomputed.
 
 The summary (``--summary-json``, ``kind: abft_campaign``) has the JAX
-package's keys. ``--history`` and ``--regress-check`` need
-``obs.regress``, which is not ported yet (ROADMAP queue-1 item 11): they
-stay in the parser and refuse with exit status 2 and a message naming
-that item. Exit status: 2 when the invariant is violated (missed
-detection, silent wrong answer, bit-identity failure) or a refused
-option is given, 0 otherwise.
+package's keys. ``--history`` appends the campaign's records to the
+port's regression history (``obs.regress``: its own file, each record
+stamped with the device it ran on) and ``--regress-check`` gates them
+against that device's baselines. Exit status: 2 when the invariant is
+violated (missed detection, silent wrong answer, bit-identity failure), 1
+when ``--regress-check`` finds an out-of-band metric, 0 otherwise.
 """
 
 from __future__ import annotations
@@ -45,10 +45,6 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-
-#: what --history / --regress-check wait for
-REGRESS_PENDING = ("obs.regress is not ported to gauss_tpu_torch yet "
-                   "(ROADMAP queue-1 item 11)")
 
 #: scenario catalog: transient dominates ~11:1 (real SDC is overwhelmingly
 #: one-shot; the persistent slice proves the escalate-to-ladder path).
@@ -347,9 +343,8 @@ def run_matmul_phase(cases: int, seed: int, device=None) -> Dict:
 
 
 def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
-    """(metric, value, unit) records an ABFT campaign would contribute to
-    the regression history (the JAX package's names), for
-    ``obs.regress`` once it is ported."""
+    """(metric, value, unit) records an ABFT campaign contributes to the
+    regression history (the JAX package's names)."""
     out: List[Tuple[str, float, str]] = []
     sdc = summary.get("sdc") or {}
     if sdc.get("wall_s") and sdc.get("cases"):
@@ -399,19 +394,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append this campaign's records to the regression "
-                        "history (refused: " + REGRESS_PENDING + ")")
+                        "history (default reports/history_torch.jsonl)")
     p.add_argument("--regress-check", action="store_true",
-                   help="gate against the history baselines (refused: "
-                        + REGRESS_PENDING + ")")
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.history is not None or args.regress_check:
-        print(f"abftcheck: --history / --regress-check: {REGRESS_PENDING}",
-              file=sys.stderr)
-        return 2
 
     from gauss_tpu_torch import obs
     from gauss_tpu_torch.cli._common import metrics_run
@@ -477,11 +468,17 @@ def main(argv=None) -> int:
             f.write("\n")
         print(f"summary: {args.summary_json}")
 
+    from gauss_tpu_torch.obs import regress
+
+    rc = regress.gate(
+        regress.campaign_records(history_records(summary), "abft", "abft",
+                                 regress.device_tag(args.device)),
+        args.history, args.regress_check, healthy=not violations)
     if violations:
         print(f"abftcheck: INVARIANT VIOLATED ({violations} case(s))",
               file=sys.stderr)
         return 2
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

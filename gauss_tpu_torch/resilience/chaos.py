@@ -26,20 +26,30 @@ Phases:
 - **structure** (``--no-structure`` to skip): structured solves under a
   lying classifier (every class x every wrong tag, through the
   ``structure.detect`` hook) demote to a verified answer or a typed error.
+- **durable** (``--no-durable`` to skip): the serving plane killed and
+  restarted against its write-ahead request journal — one in-process
+  case per crash kind of
+  :data:`gauss_tpu_torch.serve.durablecheck.CASE_KINDS`, through that
+  campaign's :func:`~gauss_tpu_torch.serve.durablecheck.run_recovery_case`
+  (every admitted request reaches exactly one journaled terminal, served
+  results re-verified, idempotent resubmission never re-solves).
 - **sdc** (``--sdc-cases``, 0 disables): on-device ``sdc_bitflip`` faults
   at the ABFT group sites, through
   :func:`gauss_tpu_torch.resilience.abftcheck.run_sdc_case`.
 
-The JAX package's ``fleet`` and ``durable`` phases need the supervised
-fleet (ROADMAP queue-1 item 10) and the request journal (item 11), which
-are not ported: a run that does not pass ``--no-fleet --no-durable``
-exits 2 naming them, and does not skip them silently. ``--history`` and
-``--regress-check`` need ``obs.regress`` (item 11) and exit 2 too.
+The JAX package's ``fleet`` phase needs the supervised fleet (ROADMAP
+queue-1 item 10), which is not ported: a run that does not pass
+``--no-fleet`` exits 2 naming it, and does not skip it silently (its
+post-mortem assertions come with it). ``--history`` appends the
+campaign's records to the port's regression history (``obs.regress``:
+its own file, each record stamped with the device it ran on) and
+``--regress-check`` gates them against that device's baselines.
 
 The summary (``--summary-json``, ``kind: chaos_campaign``) has the JAX
-package's keys (``fleet`` and ``durable`` empty). Exit status: 2 when the
-invariant is violated (silent wrong answer or untyped error) or a refused
-option is given, 0 otherwise.
+package's keys (``fleet`` empty). Exit status: 2 when the invariant is
+violated (silent wrong answer or untyped error) or a refused option is
+given, 1 when ``--regress-check`` finds an out-of-band metric, 0
+otherwise.
 """
 
 from __future__ import annotations
@@ -54,15 +64,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-#: what --history / --regress-check wait for
-REGRESS_PENDING = ("obs.regress is not ported to gauss_tpu_torch yet "
-                   "(ROADMAP queue-1 item 11)")
 #: the JAX package's phases whose planes are not ported
 UNPORTED_PHASES = (
-    ("no_fleet", "--no-fleet", "the fleet phase needs resilience/fleet "
-     "(ROADMAP queue-1 item 10)"),
-    ("no_durable", "--no-durable", "the durable phase needs serve/durable "
-     "(ROADMAP queue-1 item 11)"),
+    ("no_fleet", "--no-fleet", "the fleet phase needs resilience/fleet's "
+     "supervisor (ROADMAP queue-1 item 10)"),
 )
 
 #: solver-phase scenario catalog: (name, weight). Most faults are one-shot.
@@ -362,10 +367,47 @@ def run_sdc_phase(cases: int, seed: int, gate: float, log=print,
     return summ
 
 
+def run_durable_phase(seed: int, gate: float, tmpdir: str,
+                      device=None) -> Dict:
+    """Kill-the-server chaos: one in-process case per crash kind against
+    the write-ahead request journal (the deep campaign with real
+    subprocess kills is ``serve.durablecheck``; the runner is shared).
+    These crashes go through the server's ``_crash()`` hook, not the
+    inject module, so they are not counted as injected faults."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.kernels._build import is_kernel_fault
+    from gauss_tpu_torch.serve import durablecheck
+    from gauss_tpu_torch.serve.cache import ExecutableCache
+    from gauss_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cache = ExecutableCache(32, device=dev)
+    ddir = os.path.join(tmpdir, "durable")
+    os.makedirs(ddir, exist_ok=True)
+    cases: List[Dict] = []
+    with obs.span("chaos_durable_phase"):
+        for i, kind in enumerate(durablecheck.CASE_KINDS):
+            try:
+                cases.append(durablecheck.run_recovery_case(
+                    i, seed, gate, ddir, kind, cache=cache,
+                    device=dev.type))
+            except Exception as e:  # noqa: BLE001 — untyped escape IS the bug
+                if is_kernel_fault(e):
+                    raise
+                cases.append({"case": i, "kind": kind,
+                              "outcome": "violation",
+                              "error": f"{type(e).__name__}: {e}"[:200]})
+    return {"ran": True, "cases": cases,
+            "admitted": sum(c.get("audit", {}).get("admitted", 0)
+                            for c in cases),
+            "crashes": len(cases),
+            "violations": sum(1 for c in cases
+                              if c["outcome"] == "violation")}
+
+
 def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
-    """(metric, value, unit) records a campaign would contribute to the
-    regression history (the JAX package's names), for ``obs.regress`` once
-    it is ported."""
+    """(metric, value, unit) records a campaign contributes to the
+    regression history (the JAX package's names)."""
     out: List[Tuple[str, float, str]] = []
     sol = summary.get("solver") or {}
     if isinstance(sol.get("mean_rung"), (int, float)) and sol["mean_rung"] > 0:
@@ -386,8 +428,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Seeded chaos campaign: inject faults across engines "
                     "and hook points; assert every fault is recovered "
                     "(verified) or a typed error — never a silent wrong "
-                    "answer. Pass --no-fleet --no-durable: those phases "
-                    "are not ported.")
+                    "answer. Pass --no-fleet: that phase is not "
+                    "ported.")
     p.add_argument("--cases", type=int, default=200,
                    help="solver-phase fault cases (default 200)")
     p.add_argument("--seed", type=int, default=258458)
@@ -411,15 +453,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-structure", action="store_true",
                    help="skip the structured-solve mis-tag phase")
     p.add_argument("--no-durable", action="store_true",
-                   help="required: the journal-recovery phase is not "
-                        "ported (ROADMAP queue-1 item 11)")
+                   help="skip the journal kill/resume phase")
     p.add_argument("--sdc-cases", type=int, default=12,
                    help="on-device sdc_bitflip cases against the ABFT "
                         "engines (0 disables; the deep campaign is "
                         "abftcheck)")
     p.add_argument("--tmpdir", default=None,
-                   help="where the checkpoint phase writes its files "
-                        "(default: a new temporary directory)")
+                   help="where the checkpoint and durable phases write "
+                        "their files (default: a new temporary directory)")
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="append the campaign's obs JSONL stream here")
     p.add_argument("--summary-json", default=None, metavar="PATH",
@@ -427,19 +468,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append this campaign's records to the regression "
-                        "history (refused: " + REGRESS_PENDING + ")")
+                        "history (default reports/history_torch.jsonl)")
     p.add_argument("--regress-check", action="store_true",
-                   help="gate against the history baselines (refused: "
-                        + REGRESS_PENDING + ")")
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.history is not None or args.regress_check:
-        print(f"chaos: --history / --regress-check: {REGRESS_PENDING}",
-              file=sys.stderr)
-        return 2
     missing = [(flag, why) for attr, flag, why in UNPORTED_PHASES
                if not getattr(args, attr)]
     if missing:
@@ -474,6 +511,9 @@ def main(argv=None) -> int:
                                           device=dev))
         struct = ({} if args.no_structure
                   else run_structure_phase(args.seed, args.gate, device=dev))
+        dur = ({} if args.no_durable
+               else run_durable_phase(args.seed, args.gate,
+                                      args.tmpdir or scratch, device=dev))
         sdc = (run_sdc_phase(args.sdc_cases, args.seed, args.gate,
                              device=dev)
                if args.sdc_cases > 0 else {})
@@ -485,6 +525,7 @@ def main(argv=None) -> int:
                       + (serve.get("unresolved", 0) if serve else 0)
                       + (0 if not ckpt or ckpt["bit_identical"] else 1)
                       + (struct.get("violations", 0) if struct else 0)
+                      + (dur.get("violations", 0) if dur else 0)
                       + (sdc.get("violations", 0) if sdc else 0))
         injected = (solver["injected"] + (serve.get("injected", 0))
                     + (ckpt.get("injected", 0) if ckpt else 0)
@@ -507,7 +548,7 @@ def main(argv=None) -> int:
             "device": args.device,
             "injected": injected, "injected_by_site": sites,
             "solver": solver, "serve": serve, "checkpoint": ckpt,
-            "fleet": {}, "structure": struct, "durable": {}, "sdc": sdc,
+            "fleet": {}, "structure": struct, "durable": dur, "sdc": sdc,
             "wall_s": wall, "invariant_ok": violations == 0,
         }
         obs.emit("chaos_campaign",
@@ -537,6 +578,14 @@ def main(argv=None) -> int:
         print(f"  structure: {len(struct['cases'])} mis-tag case(s) -> "
               f"{by_outcome}, {struct['demotions']} demotion(s), "
               f"{struct['violations']} violation(s)")
+    if dur:
+        by_outcome = {}
+        for c in dur["cases"]:
+            by_outcome[c["outcome"]] = by_outcome.get(c["outcome"], 0) + 1
+        print(f"  durable: {dur['crashes']} kill/resume case(s) "
+              f"({'+'.join(c['kind'] for c in dur['cases'])}) -> "
+              f"{by_outcome}, {dur['admitted']} admitted, "
+              f"{dur['violations']} violation(s)")
     if sdc:
         print(f"  sdc: {sdc['cases']} on-device case(s), "
               f"{sdc['injected']} bitflip(s) -> detect rate "
@@ -556,11 +605,17 @@ def main(argv=None) -> int:
             f.write("\n")
         print(f"summary: {args.summary_json}")
 
+    from gauss_tpu_torch.obs import regress
+
+    rc = regress.gate(
+        regress.campaign_records(history_records(summary), "chaos", "chaos",
+                                 regress.device_tag(args.device)),
+        args.history, args.regress_check, healthy=not violations)
     if violations:
         print(f"chaos: INVARIANT VIOLATED ({violations} case(s))",
               file=sys.stderr)
         return 2
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

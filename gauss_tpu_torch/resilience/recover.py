@@ -58,10 +58,11 @@ Deliberate deviations from the JAX package:
   escalates as in the JAX package; an ``SDCUnrecoverableError`` escalates
   to the next rung, and the failed rung's ABFT report stays on the result
   (``ResilientResult.sdc``).
-- The JAX ladder freezes a flight-recorder bundle when an SDC error
-  escalates past its rung (``obs.postmortem``); the flight recorder is
-  ROADMAP queue-1 item 11, so the port emits the same ``recovery`` events
-  without a bundle.
+
+An SDC error escalating past its rung means repair failed: the ladder
+then fires the ``sdc_detected`` post-mortem trigger
+(:func:`gauss_tpu_torch.obs.postmortem.trigger`, a no-op unless a serving
+process with a ``flight_dir`` armed it), as the JAX ladder does.
 """
 
 from __future__ import annotations
@@ -508,6 +509,16 @@ def solve_resilient(a, b, *, gate: float = DEFAULT_GATE,
                                    escalations=escalations,
                                    sdc=sdc_info())
         escalations.append((rung, trigger))
+        if "SDC" in trigger:
+            # Repair failed: freeze the flight ring into a post-mortem
+            # bundle (no-op unless the serving process armed the trigger).
+            try:
+                from gauss_tpu_torch.obs import postmortem as _postmortem
+
+                _postmortem.trigger("sdc_detected", rung=rung,
+                                    escalation=trigger)
+            except Exception:  # pragma: no cover — capture is best-effort
+                pass
         obs.counter("resilience.escalations")
         obs.emit("recovery", trigger=trigger, rung=rung, rung_index=i,
                  attempt=i + 1, outcome="escalate",

@@ -15,8 +15,12 @@ durable (the write-ahead request journal, ``ServeConfig(journal_dir=)``,
 crash -> restart replay, idempotency keys, ``supervise``; the campaign
 ``python -m gauss_tpu_torch.serve.durablecheck``), and :mod:`.net` puts
 a server behind HTTP (``ReplicaApp``, ``RequestApi``, ``SolveClient``,
-``python -m gauss_tpu_torch.serve.net --replica``). Importing this
-package loads no torch.
+``python -m gauss_tpu_torch.serve.net --replica``). :mod:`.router` fronts
+N replica processes (consistent-hash routing, journal failover, bounded
+restarts; ``serve.cli --replicas N``), with its campaigns ``python -m
+gauss_tpu_torch.serve.replicacheck`` and ``python -m
+gauss_tpu_torch.serve.poisoncheck``. Importing this package loads no
+torch.
 
 Quick tour::
 
@@ -27,8 +31,8 @@ Quick tour::
         assert res.ok
 
 Not ported yet (ROADMAP queue-1 item 11): ``CacheView``,
-``shared_cache``, ``Lane``, ``LaneSet``, ``compat_sig`` (the mesh lanes),
-the router and the check CLIs other than ``durablecheck``.
+``shared_cache``, ``Lane``, ``LaneSet``, ``compat_sig`` (the mesh lanes)
+and ``meshcheck``.
 """
 
 from gauss_tpu_torch.serve.admission import (  # noqa: F401

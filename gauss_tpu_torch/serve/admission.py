@@ -90,7 +90,6 @@ UNPORTED_OPTIONS = (
     ("live_port", None, "item 11 (obs/live, obs/export, the live plane)"),
     ("slos", (), "item 11 (obs/slo)"),
     ("slo_shed", False, "item 11 (obs/slo, the SLO-degraded admission)"),
-    ("flight_dir", None, "item 11 (obs/flight, the flight recorder)"),
     ("attr", None, "item 11 (obs/attr, the attribution plane)"),
     ("supervised_handoff", False, "item 10 (resilience/fleet)"),
 )
@@ -187,6 +186,12 @@ class ServeConfig:
     #                                 this many distinct process deaths:
     #                                 solo on the host ladder, a typed
     #                                 poison reject past it. 0 = off
+    # -- the flight recorder (gauss_tpu_torch.obs.flight) ----------------
+    flight_dir: Optional[str] = None  # crash-surviving mmap ring of every
+    #                                   obs event, bundles/ under it on a
+    #                                   crash; None = off (one is-None read
+    #                                   per hook)
+    flight_ring_bytes: int = 1 << 20  # the ring's data bytes
     abft: bool = False              # checksum-carrying (ABFT) solves on the
     #                                 handoff lane for systems that fit the
     #                                 card: silent data corruption detected
@@ -200,7 +205,6 @@ class ServeConfig:
     live_port: Optional[int] = None  # the live telemetry endpoint
     slos: tuple = ()                # its SLO definitions
     slo_shed: bool = False          # SLO-degraded admission
-    flight_dir: Optional[str] = None  # the crash-surviving flight recorder
     attr: Optional[bool] = None     # the device-time attribution plane
     lanes: int = 0                  # the mesh serving plane's lanes
 

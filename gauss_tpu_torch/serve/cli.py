@@ -12,13 +12,20 @@ writes the report. The flags are the JAX package's plus ``--device
 {cuda,cpu}`` (default ``cuda``: without a card the server raises).
 ``--journal DIR`` makes admission durable (:mod:`.durable`; SIGTERM then
 drains and journals the clean-shutdown marker), ``--supervised`` re-runs
-this command as a child under :func:`.durable.supervise`, and ``--net
-URL`` drives the load over HTTP against a running replica
-(:mod:`.net`). A flag of a plane not ported yet exits 2 naming its
-ROADMAP queue-1 item (:data:`UNPORTED_FLAGS`); the JAX package's
-sub-options of those planes (``--cb-window``, ``--fleet-dir``, ...) are
-not flags here, so argparse refuses them (exit 2). Exit 2 also when a
-solution is INCORRECT.
+this command as a child under :func:`.durable.supervise`, ``--net URL``
+drives the load over HTTP against a running replica or router front
+(:mod:`.net`), and ``--replicas N`` spawns N journaled replica processes
+behind a consistent-hash router front (:mod:`.router`; ``--port``,
+``--fleet-dir``) and drives the load through it. ``--flight-dir DIR``
+records the run into the crash-surviving flight ring
+(:mod:`gauss_tpu_torch.obs.flight`; also read from ``GAUSS_FLIGHT_DIR``,
+which is how ``--supervised`` hands it to the child), and ``--history`` /
+``--regress-check`` feed and gate the port's regression history
+(:mod:`gauss_tpu_torch.obs.regress`). A flag of a plane not ported yet
+exits 2 naming its ROADMAP queue-1 item (:data:`UNPORTED_FLAGS`); the JAX
+package's sub-options of those planes (``--cb-window``, ...) are not flags
+here, so argparse refuses them (exit 2). Exit 2 also when a solution is
+INCORRECT, 1 when ``--regress-check`` finds an out-of-band metric.
 
 Example (CPU)::
 
@@ -39,14 +46,10 @@ import sys
 UNPORTED_FLAGS = (
     ("lanes", 0, "--lanes", "item 11 (serve/lanes)"),
     ("lane_width", 1, "--lane-width", "item 11 (serve/lanes)"),
-    ("flight_dir", None, "--flight-dir", "item 11 (obs/flight)"),
     ("attr", False, "--attr", "item 11 (obs/attr)"),
-    ("replicas", 0, "--replicas", "item 11 (serve/router)"),
     ("live_port", None, "--live-port", "item 11 (obs/live, obs/export)"),
     ("slo_shed", False, "--slo-shed", "item 11 (obs/slo)"),
     ("slo_json", None, "--slo-json", "item 11 (obs/slo)"),
-    ("history", None, "--history", "item 11 (obs/regress)"),
-    ("regress_check", False, "--regress-check", "item 11 (obs/regress)"),
     ("compile_cache", None, "--compile-cache",
      "item 11 (the JAX package's tune/compilecache)"),
 )
@@ -86,7 +89,8 @@ def _run_supervised(args, argv) -> int:
     with obs.run(tool="gauss_serve_supervisor", journal=args.journal):
         return durable.supervise(
             child_argv, heartbeat_path=hb, max_restarts=args.max_restarts,
-            stall_after_s=args.stall_after, journal_dir=args.journal)
+            stall_after_s=args.stall_after, journal_dir=args.journal,
+            flight_dir=args.flight_dir)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Batched solver serving load test: request queue, "
                     "shape-bucketed executable cache, admission control. "
                     "The flags of planes not ported yet (--lanes, "
-                    "--replicas, --live-port, ...) exit 2.")
+                    "--live-port, ...) exit 2.")
     p.add_argument("--mix", default="random:100*2,random:200,internal:160",
                    help="weighted workload tokens kind:arg[*weight] "
                         "(kinds: random:<n>, internal:<n>, dat:<path>, "
@@ -172,20 +176,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stall-after", type=float, default=30.0, metavar="S",
                    help="supervised mode: heartbeat staleness that calls "
                         "a stall (default 30)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="crash-surviving flight recorder at DIR: every obs "
+                        "event also lands in an mmap ring that outlives "
+                        "kill -9, and dead/stalled/unclean-resume detection "
+                        "freezes it into a post-mortem bundle under "
+                        "DIR/bundles (inspect with python -m "
+                        "gauss_tpu_torch.obs.debug; also read from the "
+                        "GAUSS_FLIGHT_DIR env, which is how --supervised "
+                        "hands it to the child)")
     # -- the network tier (gauss_tpu_torch.serve.net) ---------------------
     p.add_argument("--net", default=None, metavar="URL",
                    help="drive the load over HTTP against a running "
                         "request endpoint (python -m gauss_tpu_torch.serve"
                         ".net --replica) instead of an in-process server; "
                         "history metrics tagged serve:net:<mode>")
+    p.add_argument("--replicas", type=int, default=0, metavar="N",
+                   help="spawn N journaled replica processes (on --device) "
+                        "behind a consistent-hash router front and drive "
+                        "the load through it; a replica killed mid-load "
+                        "fails its journal over to a surviving peer")
+    p.add_argument("--port", type=int, default=0, metavar="P",
+                   help="with --replicas: the router front's listen port "
+                        "(default 0 = ephemeral)")
+    p.add_argument("--fleet-dir", default=None, metavar="DIR",
+                   help="with --replicas: fleet state root (per-replica "
+                        "journal/flight/heartbeat dirs and the router's "
+                        "assign log; default: a new temporary directory)")
     # -- the JAX package's planes that are not ported (each exits 2; their
     #    sub-options are not flags here) -----------------------------------
     p.add_argument("--lanes", type=int, default=0)
     p.add_argument("--lane-width", type=int, default=1)
     p.add_argument("--compile-cache", default=None, metavar="DIR")
-    p.add_argument("--flight-dir", default=None, metavar="DIR")
     p.add_argument("--attr", action="store_true")
-    p.add_argument("--replicas", type=int, default=0, metavar="N")
     p.add_argument("--live-port", type=int, default=None, metavar="PORT")
     p.add_argument("--slo-shed", action="store_true")
     # -- outputs ----------------------------------------------------------
@@ -197,8 +220,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(kind=serve_loadgen)")
     p.add_argument("--slo-json", default=None, metavar="PATH")
     p.add_argument("--history", nargs="?", const="", default=None,
-                   metavar="PATH")
-    p.add_argument("--regress-check", action="store_true")
+                   metavar="PATH",
+                   help="append the run's serving metrics to the regression "
+                        "history (default reports/history_torch.jsonl)")
+    p.add_argument("--regress-check", action="store_true",
+                   help="gate the run's serving metrics against the "
+                        "history baselines (exit 1 when out of band)")
     return p
 
 
@@ -232,19 +259,49 @@ def main(argv=None) -> int:
         batch_linger_s=args.linger, cache_capacity=args.cache_capacity,
         refine_steps=args.refine_steps, panel=args.panel, dtype=args.dtype,
         device=args.device, journal_dir=args.journal, resume=args.resume,
-        heartbeat_path=os.environ.get("GAUSS_SERVE_HEARTBEAT") or None)
+        heartbeat_path=os.environ.get("GAUSS_SERVE_HEARTBEAT") or None,
+        flight_dir=(args.flight_dir
+                    or os.environ.get("GAUSS_FLIGHT_DIR") or None))
     cfg = LoadgenConfig(
         mix=args.mix, requests=args.requests, warmup=args.warmup,
         mode=args.mode, concurrency=args.concurrency, rate=args.rate,
         nrhs=args.nrhs, seed=args.seed, deadline_s=args.deadline,
         request_ids=args.request_ids, serve=serve_cfg)
+    if args.net and args.replicas:
+        print("serve.cli: --net and --replicas are exclusive (--net "
+              "targets an endpoint that already exists)", file=sys.stderr)
+        return 2
     with obs.run(metrics_out=args.metrics_out, tool="gauss_serve",
                  mode=args.mode, mix=args.mix, requests=args.requests):
-        if args.net:
-            # The same loadgen plan over HTTP through the network client.
-            from gauss_tpu_torch.serve.net import SolveClient
+        if args.net or args.replicas:
+            # The same loadgen plan over HTTP through the network client:
+            # against an existing endpoint (--net) or a freshly spawned
+            # replica fleet behind the router (--replicas).
+            import tempfile
 
-            summary = run_load(SolveClient(args.net), cfg)
+            from gauss_tpu_torch.serve.net import SolveClient
+            from gauss_tpu_torch.serve.router import Router, RouterConfig
+
+            router = None
+            try:
+                url = args.net
+                if args.replicas:
+                    fleet_dir = (args.fleet_dir
+                                 or tempfile.mkdtemp(prefix="gauss_fleet-"))
+                    router = Router(RouterConfig(
+                        replicas=args.replicas, port=args.port,
+                        dir=fleet_dir, ladder=tuple(ladder),
+                        max_batch=args.max_batch, max_queue=args.max_queue,
+                        linger_s=args.linger, dtype=args.dtype,
+                        device=args.device)).start()
+                    url = router.url
+                    print(f"replica fleet: {args.replicas} replica(s) "
+                          f"behind {url} (state: {fleet_dir})")
+                summary = run_load(SolveClient(url), cfg)
+            finally:
+                if router is not None:
+                    out = router.stop(drain=True)
+                    print(f"fleet drained: {out['causes']}")
         else:
             with SolverServer(serve_cfg) as server:
                 if args.journal:
@@ -259,12 +316,19 @@ def main(argv=None) -> int:
     if args.summary_json:
         write_summary(summary, args.summary_json)
         print(f"summary: {args.summary_json}")
+    from gauss_tpu_torch.obs import regress
+    from gauss_tpu_torch.serve.loadgen import history_records
+
+    rc = regress.gate(
+        regress.campaign_records(history_records(summary), "gauss-serve",
+                                 "serve", regress.device_tag(args.device)),
+        args.history, args.regress_check)
     if summary["incorrect"]:
         print(f"gauss-serve: {summary['incorrect']} INCORRECT solution(s) "
               f"(relative residual above {cfg.verify_gate:g})",
               file=sys.stderr)
         return 2
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -48,11 +48,10 @@ Fault hooks (:mod:`gauss_tpu_torch.resilience.inject`):
 record append (kind ``journal_torn_write``: a partial record, then
 ``os._exit``).
 
-Deliberate deviation from the JAX package: :func:`supervise` refuses
-``flight_dir`` (the post-mortem bundle needs ``obs/postmortem``, ROADMAP
-queue-1 item 11) with :class:`~gauss_tpu_torch.serve.admission
-.FeatureNotPortedError` before any child is spawned. Importing this module
-loads no torch.
+With ``flight_dir``, :func:`supervise` hands its children the flight dir
+(``GAUSS_FLIGHT_DIR``) and captures a post-mortem bundle of every death it
+detects (:mod:`gauss_tpu_torch.obs.postmortem`), as the JAX package's
+does. Importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -532,18 +531,30 @@ def supervise(child_argv: List[str], *, heartbeat_path: str,
     (in the main thread) is forwarded to the child for a graceful drain,
     and the child's exit code is returned.
 
-    ``flight_dir`` (the JAX package's post-mortem capture) raises
-    :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError`
-    before any child is spawned: ``obs/postmortem`` is not ported."""
-    if flight_dir:
-        from gauss_tpu_torch.serve.admission import FeatureNotPortedError
-
-        raise FeatureNotPortedError(
-            f"supervise(flight_dir={flight_dir!r}): the post-mortem bundle "
-            f"needs obs/postmortem, not ported to gauss_tpu_torch yet "
-            f"(ROADMAP queue-1 item 11)")
+    With ``flight_dir``, the children inherit it through
+    ``GAUSS_FLIGHT_DIR`` (a child server records into its ring), and every
+    died/stalled detection harvests the dead incarnation's ring into a
+    post-mortem bundle (cause ``supervisor_death``, ``supervisor_stall``
+    or ``poison_quarantine``) BEFORE the restart overwrites the scene."""
     base_env = dict(env if env is not None else os.environ)
     base_env["GAUSS_SERVE_HEARTBEAT"] = heartbeat_path
+    if flight_dir:
+        base_env["GAUSS_FLIGHT_DIR"] = os.fspath(flight_dir)
+
+    def _capture(cause: str, **detail) -> None:
+        """The supervisor's post-mortem capture; never raises (a capture
+        failure must not cost the restart)."""
+        if not flight_dir:
+            return
+        try:
+            from gauss_tpu_torch.obs import postmortem
+
+            postmortem.capture_bundle(
+                postmortem.default_bundles_dir(flight_dir), cause,
+                flight_dir=flight_dir, journal_dir=journal_dir,
+                heartbeat_path=heartbeat_path, extra=detail, log=log)
+        except Exception as e:  # pragma: no cover — capture is best-effort
+            log(f"supervise: post-mortem capture failed: {e}")
     restarts = 0
     draining = {"flag": False}
     child: Dict[str, Optional[subprocess.Popen]] = {"proc": None}
@@ -611,6 +622,10 @@ def supervise(child_argv: List[str], *, heartbeat_path: str,
                                   and c > prev_deaths.get(i, 0)
                                   for i, c in cur.items())
                 prev_deaths = cur
+            _capture("poison_quarantine" if quarantined
+                     else "supervisor_stall" if stalled
+                     else "supervisor_death",
+                     rc=rc, restarts=restarts, pid=proc.pid)
             if quarantined:
                 obs.counter("serve.quarantined_respawns")
                 obs.emit("serve_supervisor", event="restart",

@@ -29,18 +29,22 @@ Phases:
   a batch boundary, a ``journal_torn_write`` child that dies mid-append,
   and a child under :func:`~gauss_tpu_torch.serve.durable.supervise`
   whose restart must finish the plan exactly once. Each child is a new
-  ``python -m`` process on ``--device``; the legs run at once on the
-  card, in turn on the CPU.
+  ``python -m`` process on ``--device``, recording into a flight ring;
+  each death (or the unclean resume after it) must leave a post-mortem
+  bundle that ``python -m gauss_tpu_torch.obs.debug --check`` passes. The
+  legs run at once on the card, in turn on the CPU.
 - **overhead** (``--no-overhead`` skips it): one loadgen plan journal-off
   and journal-on, seconds per request and their ratio.
 
-Deliberate deviations from the JAX package: the legs assert no
-post-mortem bundle (``obs/postmortem`` is not ported); ``--history`` and
-``--regress-check`` exit 2 (``obs/regress``, ROADMAP queue-1 item 11);
-``--tmpdir`` defaults to a new temporary directory, removed at the end.
-The summary counts the invariant's four failure kinds (``lost``,
+``--history`` appends the campaign's records to the port's regression
+history (``obs.regress``: its own file, each record stamped with the
+device it ran on) and ``--regress-check`` gates them against that
+device's baselines. Deliberate deviations from the JAX package:
+``--tmpdir`` defaults to a new temporary directory, removed at the end;
+the summary counts the invariant's four failure kinds (``lost``,
 ``duplicate_terminals``, ``duplicate_solves``, ``unverified``). Exit 2
-when the invariant is violated or a refused option is given, 0 otherwise.
+when the invariant is violated, 1 when ``--regress-check`` finds an
+out-of-band metric, 0 otherwise.
 """
 
 from __future__ import annotations
@@ -56,9 +60,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-#: what --history / --regress-check wait for
-REGRESS_PENDING = ("obs.regress is not ported to gauss_tpu_torch yet "
-                   "(ROADMAP queue-1 item 11)")
 CASE_KINDS = ("crash", "torn", "clean", "underload")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -316,6 +317,9 @@ def run_subprocess_legs(seed: int, gate: float, tmpdir: str,
              supervised: bool) -> Dict:
         jd = os.path.join(tmpdir, f"leg-{name}")
         ledger = os.path.join(tmpdir, f"leg-{name}.ledger")
+        # Every leg records into a flight ring; the death (or the unclean
+        # resume after it) must leave a post-mortem bundle.
+        fdir = os.path.join(tmpdir, f"leg-{name}.flight")
         leg: Dict = {"leg": name}
         t0 = time.perf_counter()
         with obs.span(f"durable_leg_{name}"):
@@ -333,14 +337,14 @@ def run_subprocess_legs(seed: int, gate: float, tmpdir: str,
                     _drive_argv(jd, ledger, requests, seed, device),
                     heartbeat_path=os.path.join(jd, "heartbeat.json"),
                     max_restarts=2, stall_after_s=60.0, env=env, log=_log,
-                    journal_dir=jd)
+                    flight_dir=fdir, journal_dir=jd)
                 leg["supervise_rc"] = rc
                 leg["restarts"] = sum("restarting" in ln for ln in logs)
                 # The leg proves something only if the child really died
                 # AND supervision brought the plan home.
                 killed = rc == 0 and leg["restarts"] >= 1
             else:
-                env = dict(env_base)
+                env = dict(env_base, GAUSS_FLIGHT_DIR=fdir)
                 if faults:
                     env["GAUSS_FAULTS"] = faults
                 p1 = subprocess.run(
@@ -352,10 +356,13 @@ def run_subprocess_legs(seed: int, gate: float, tmpdir: str,
                 if p1.returncode not in (0, KILL_EXIT_CODE):
                     leg["stderr"] = p1.stderr[-1500:]
                 # The recovery run: no faults, no new requests — replay
-                # and drain.
+                # and drain. Its start() finds the dead child's
+                # unterminated admits and captures the 'unclean_resume'
+                # bundle this leg asserts on.
                 p2 = subprocess.run(
-                    _drive_argv(jd, ledger, 0, seed, device), env=env_base,
-                    cwd=_REPO, timeout=300, capture_output=True, text=True)
+                    _drive_argv(jd, ledger, 0, seed, device),
+                    env=dict(env_base, GAUSS_FLIGHT_DIR=fdir), cwd=_REPO,
+                    timeout=300, capture_output=True, text=True)
                 leg["resume_rc"] = p2.returncode
                 if p2.returncode != 0:
                     leg["stderr2"] = p2.stderr[-1500:]
@@ -371,12 +378,25 @@ def run_subprocess_legs(seed: int, gate: float, tmpdir: str,
                         leg["rerun"] = json.loads(line[6:])
         leg["killed"] = killed
         leg["audit"] = audit(jd, _read_ledger(ledger), gate)
+        # The post-mortem: a bundle captured for this leg's death that
+        # ``obs.debug --check`` passes (integrity + exactly one cause).
+        from gauss_tpu_torch.obs import debug as _debug
+        from gauss_tpu_torch.obs import postmortem as _postmortem
+
+        bundle = _postmortem.latest_bundle(
+            _postmortem.default_bundles_dir(fdir))
+        leg["bundle"] = bundle
+        leg["bundle_check_rc"] = (_debug.main([bundle, "--check"])
+                                  if bundle else None)
+        leg["postmortem_ok"] = bundle is not None \
+            and leg["bundle_check_rc"] == 0
         leg["wall_s"] = round(time.perf_counter() - t0, 3)
         a_ = leg["audit"]
         rerun = leg.get("rerun") or {}
         leg["outcome"] = (
             "violation" if (a_["missing"] or a_["duplicates"]
                             or a_["incorrect"] or not killed
+                            or not leg["postmortem_ok"]
                             or rerun.get("solved_fresh", 0) > 0)
             else "ok")
         return leg
@@ -441,6 +461,23 @@ def run_overhead_phase(seed: int, gate: float, tmpdir: str,
     return results
 
 
+def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
+    """(metric, value, unit) records a campaign contributes to history
+    (the JAX package's names), slow-side gated: recovery getting slower
+    shows as s_per_case, the journal getting more expensive as
+    journal_s_per_request (the on/off ratio stays in the summary: its
+    sub-ms denominator jitters between epochs)."""
+    out: List[Tuple[str, float, str]] = []
+    wall, cases = summary.get("wall_s"), summary.get("cases")
+    if isinstance(wall, (int, float)) and wall > 0 and cases:
+        out.append(("durable:s_per_case", round(wall / cases, 6), "s"))
+    on = ((summary.get("overhead") or {}).get("on") or {}).get(
+        "s_per_request")
+    if isinstance(on, (int, float)) and on > 0:
+        out.append(("durable:journal_s_per_request", on, "s"))
+    return out
+
+
 # -- the self-driving server child (--drive) -------------------------------
 
 def drive_main(args) -> int:
@@ -457,7 +494,8 @@ def drive_main(args) -> int:
         (args.seed, 0xD21FE)))
     cfg = _case_config(args.journal, args.gate, args.device,
                        heartbeat_path=os.environ.get(
-                           "GAUSS_SERVE_HEARTBEAT") or None)
+                           "GAUSS_SERVE_HEARTBEAT") or None,
+                       flight_dir=os.environ.get("GAUSS_FLIGHT_DIR") or None)
     with obs.run(metrics_out=args.metrics_out, tool="durable_drive",
                  requests=args.requests, seed=args.seed):
         srv = SolverServer(cfg)
@@ -531,10 +569,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append campaign records to the regression history "
-                        "(refused: " + REGRESS_PENDING + ")")
+                        "(default reports/history_torch.jsonl)")
     p.add_argument("--regress-check", action="store_true",
-                   help="gate against the history baselines (refused: "
-                        + REGRESS_PENDING + ")")
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
     # -- the subprocess worker mode ---------------------------------------
     p.add_argument("--drive", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--journal", default=None, help=argparse.SUPPRESS)
@@ -546,10 +584,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.history is not None or args.regress_check:
-        print(f"durablecheck: --history / --regress-check: "
-              f"{REGRESS_PENDING}", file=sys.stderr)
-        return 2
     if args.drive:
         if not args.journal or not args.ledger:
             print("durablecheck --drive needs --journal and --ledger",
@@ -582,6 +616,7 @@ def main(argv=None) -> int:
               f"killed={leg['killed']} admitted={a_['admitted']} "
               f"missing={len(a_['missing'])} "
               f"duplicates={len(a_['duplicates'])} "
+              f"bundle={'ok' if leg.get('postmortem_ok') else 'MISSING'} "
               f"rerun={leg.get('rerun')}")
     overhead = summary["overhead"]
     if overhead:
@@ -598,6 +633,12 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1, sort_keys=True)
             f.write("\n")
         print(f"summary: {args.summary_json}")
+    from gauss_tpu_torch.obs import regress
+
+    rc = regress.gate(
+        regress.campaign_records(history_records(summary), "durablecheck",
+                                 "durable", regress.device_tag(args.device)),
+        args.history, args.regress_check, healthy=summary["invariant_ok"])
     if not summary["invariant_ok"]:
         bad = summary["case_violations"]
         print(f"durablecheck: INVARIANT VIOLATED ({summary['violations']} "
@@ -606,7 +647,7 @@ def main(argv=None) -> int:
             print(f"  case {o['case']} [{o['kind']}]: {o.get('error')}",
                   file=sys.stderr)
         return 2
-    return 0
+    return rc
 
 
 def _campaign(args, tmpdir: str, cache) -> Dict:

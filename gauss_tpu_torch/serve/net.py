@@ -31,7 +31,9 @@ package's replica):
                                result doc; close-delimited.
 ``POST /v1/adopt``             failover: adopt the journal dir in the body
                                (:func:`adopt_journal`).
-``GET /healthz``               liveness, queue depth, the retry hint.
+``GET /healthz``               liveness, queue depth, the retry hint (and
+                               the port's own served and batch counts and
+                               kernel launches).
 =============================  ===========================================
 
 **Client contract** (:class:`SolveClient`): retries capped by the
@@ -48,14 +50,16 @@ server's worker thread. :func:`adopt_journal` admits under
 so a resubmission racing an adoption never admits one logical request
 twice.
 
-Deliberate deviations from the JAX package (ROADMAP queue 3): the replica
-(``python -m gauss_tpu_torch.serve.net --replica``) takes ``--device
-{cuda,cpu}`` (default ``cuda``) and ``--structure-aware``, has no compile
-cache and no flight dir (``tune/compilecache``, ``obs/flight``: not
-ported), and exits with the port's own :data:`DRAIN_EXIT` (116, the JAX
-package's ``resilience.fleet.DRAIN_EXIT``) after a drain;
-:func:`adopt_journal` has no mesh-lanes branch (``serve/lanes`` is not
-ported). Importing this module loads no torch.
+The replica (``python -m gauss_tpu_torch.serve.net --replica``) records
+into ``<dir>/flight`` (or ``GAUSS_FLIGHT_DIR``) as the JAX package's does,
+and exits with :data:`DRAIN_EXIT` (116,
+:mod:`gauss_tpu_torch.resilience.fleet`'s) after a drain. Deliberate
+deviations from the JAX package (ROADMAP queue 3): the replica takes
+``--device {cuda,cpu}`` (default ``cuda``) and ``--structure-aware``, has
+no compile cache (``tune/compilecache``: not ported), and publishes
+``build_s`` and ``resume`` in ``endpoint.json``; :func:`adopt_journal` has
+no mesh-lanes branch (``serve/lanes`` is not ported). Importing this
+module loads no torch.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from gauss_tpu_torch import obs
+from gauss_tpu_torch.resilience import fleet as _fleet
 from gauss_tpu_torch.serve import durable
 from gauss_tpu_torch.serve.admission import (
     STATUS_EXPIRED,
@@ -102,9 +107,9 @@ UPLOAD_SLAB_BYTES = 1 << 20
 UPLOAD_KEEP = 64
 #: operands above this many bytes go through chunked upload by default.
 UPLOAD_THRESHOLD_BYTES = 4 << 20
-#: a replica's exit code after a SIGTERM/SIGINT drain (the JAX package's
-#: ``resilience.fleet.DRAIN_EXIT``): an operator drain, not a crash.
-DRAIN_EXIT = 116
+#: a replica's exit code after a SIGTERM/SIGINT drain: an operator drain,
+#: not a crash (one constant, :mod:`gauss_tpu_torch.resilience.fleet`'s).
+DRAIN_EXIT = _fleet.DRAIN_EXIT
 
 
 # -- framing / codecs ------------------------------------------------------
@@ -478,9 +483,22 @@ class ReplicaApp:
         return 200, adopt_journal(self.server, dirpath)
 
     def health(self) -> Dict[str, Any]:
-        return {"status": "ok", "pid": os.getpid(),
-                "depth": self.server._depth_snapshot(),
-                "retry_after_s": self.server.retry_after_hint()}
+        """The ``/healthz`` doc: the JAX package's fields, and the port's
+        own ``served``, ``batches`` and, once this process has loaded the
+        kernels, their ``launches`` by key and by route
+        (``kernels._build.LAUNCHES`` / ``ROUTE_LAUNCHES``): a router's
+        replicas are processes of their own, and this is where their
+        launches are read."""
+        doc = {"status": "ok", "pid": os.getpid(),
+               "depth": self.server._depth_snapshot(),
+               "retry_after_s": self.server.retry_after_hint(),
+               "served": self.server.requests_served,  # lockset: ok — racy counter read
+               "batches": self.server.batches}  # lockset: ok — racy counter read
+        build = sys.modules.get("gauss_tpu_torch.kernels._build")
+        if build is not None:
+            doc["launches"] = {k: v for k, v in build.LAUNCHES.items() if v}
+            doc["route_launches"] = dict(build.ROUTE_LAUNCHES)
+        return doc
 
 
 class _NetHandler(BaseHTTPRequestHandler):
@@ -924,7 +942,7 @@ def build_replica_parser() -> argparse.ArgumentParser:
                         "child (guards against accidental bare runs)")
     p.add_argument("--dir", required=True,
                    help="replica state dir: journal/, heartbeat.json, "
-                        "endpoint.json, obs.jsonl")
+                        "endpoint.json, obs.jsonl, flight/")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0,
                    help="bind port (0 = ephemeral; the bound address is "
@@ -975,7 +993,9 @@ def replica_main(argv: Optional[List[str]] = None) -> int:
         structure_aware=args.structure_aware,
         journal_dir=os.path.join(d, "journal"), resume=True,
         journal_fsync_batch=args.fsync_batch,
-        heartbeat_path=os.path.join(d, "heartbeat.json"))
+        heartbeat_path=os.path.join(d, "heartbeat.json"),
+        flight_dir=(os.environ.get("GAUSS_FLIGHT_DIR")
+                    or os.path.join(d, "flight")))
     # The handler touches ONLY this dict, never a threading primitive: it
     # runs on the main thread, and Event.set() there could wait on a lock
     # that thread already holds inside wait().

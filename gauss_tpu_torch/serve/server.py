@@ -55,8 +55,8 @@ Deliberate deviations from the JAX package:
 - :meth:`start` builds the kernels before the worker admits anything on
   the card, so a first batch's deadline never runs while ``nvcc`` does.
 - Options of planes not ported (:data:`~gauss_tpu_torch.serve.admission
-  .UNPORTED_OPTIONS`: the mesh lanes, the live, flight and attribution
-  planes, the supervised handoff) raise
+  .UNPORTED_OPTIONS`: the mesh lanes, the live and attribution planes,
+  the supervised handoff) raise
   :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError` when
   the server is built.
 - A journaled server mints its request ids above the journal's largest
@@ -76,6 +76,13 @@ ids kept), and client idempotency keys (``submit(request_id=...)``)
 dedupe resubmissions against journaled terminals and in-flight requests.
 A kernel fault on a replayed batch fails it typed like any other: one
 journaled ``failed`` terminal, never a replay loop.
+
+With ``ServeConfig(flight_dir=...)`` the server records into the
+crash-surviving flight ring (:mod:`gauss_tpu_torch.obs.flight`) from
+:meth:`start` to :meth:`stop`, arms the in-process post-mortem trigger
+(:mod:`gauss_tpu_torch.obs.postmortem`), and a journaled start that finds
+unterminated admits captures an ``unclean_resume`` bundle before its
+replay, as the JAX package's server does.
 """
 
 from __future__ import annotations
@@ -154,6 +161,9 @@ class SolverServer:
         #: "clean", ...}); None before any journaled start
         self.last_resume = None
         self._hb_last = 0.0               # owned by: worker — hb throttle
+        #: the crash-surviving flight recorder (None until start() with a
+        #: flight_dir) — obs.flight.FlightSink
+        self._flight = None
         if self.config.journal_dir:
             from gauss_tpu_torch.serve import durable as _durable
 
@@ -182,6 +192,8 @@ class SolverServer:
             from gauss_tpu_torch.kernels import _build
 
             _build.build_all()
+        if self.config.flight_dir and self._flight is None:
+            self._start_flight()
         self._stop.clear()
         with self._depth_lock:
             self._closed = False
@@ -192,6 +204,47 @@ class SolverServer:
             self._resumed = True
             self._replay()
         return self
+
+    def _start_flight(self) -> None:
+        """Bring up the flight recorder: the obs flight sink writing every
+        event into ``flight_dir``'s mmap ring, plus the in-process
+        post-mortem trigger (SDC escalation). Lazy imports: a
+        ``flight_dir=None`` server never loads any of this."""
+        from gauss_tpu_torch.obs import flight as _flight_mod
+        from gauss_tpu_torch.obs import postmortem as _postmortem
+
+        cfg = self.config
+        self._flight = _flight_mod.install(
+            cfg.flight_dir, ring_bytes=cfg.flight_ring_bytes)
+        _postmortem.install_trigger(
+            _postmortem.default_bundles_dir(cfg.flight_dir),
+            flight_dir=cfg.flight_dir, journal_dir=cfg.journal_dir,
+            heartbeat_path=cfg.heartbeat_path)
+        obs.emit("flight", event="recording", dir=cfg.flight_dir,
+                 ring_bytes=cfg.flight_ring_bytes)
+
+    def _stop_flight(self, close: bool = True) -> None:
+        """Uninstall the flight sink and disarm the trigger. ``close=False``
+        (a crash) drops the sink without its final sidecar write: the ring
+        stays exactly as a kill would leave it."""
+        if self._flight is None:
+            return
+        from gauss_tpu_torch.obs import flight as _flight_mod
+        from gauss_tpu_torch.obs import postmortem as _postmortem
+        from gauss_tpu_torch.obs import spans as _spans
+
+        _postmortem.uninstall_trigger()
+        if close:
+            _flight_mod.uninstall()
+        else:
+            _spans.set_flight_sink(None)
+        self._flight = None
+
+    @property
+    def flight_sink(self):
+        """The installed flight recorder sink (None when the plane is
+        off)."""
+        return self._flight
 
     # -- durability (gauss_tpu_torch.serve.durable) ------------------------
 
@@ -229,6 +282,23 @@ class SolverServer:
                                 "torn_dropped": st.torn_dropped}
             obs.emit("serve_resume", **self.last_resume)
             return
+        if self.config.flight_dir and st.live_admits():
+            # Crash detection at resume time: an unclean journal with
+            # unterminated admits means the previous incarnation died
+            # mid-flight — harvest its flight ring into a post-mortem
+            # bundle BEFORE replay traffic overwrites the scene.
+            try:
+                from gauss_tpu_torch.obs import postmortem as _postmortem
+
+                _postmortem.capture_bundle(
+                    _postmortem.default_bundles_dir(self.config.flight_dir),
+                    "unclean_resume", flight_dir=self.config.flight_dir,
+                    journal_dir=self.config.journal_dir,
+                    heartbeat_path=self.config.heartbeat_path,
+                    extra={"live_admits": len(st.live_admits()),
+                           "torn_dropped": st.torn_dropped})
+            except Exception:  # noqa: BLE001 — capture never blocks recovery
+                obs.counter("postmortem.capture_errors")
         dec = self._durable.decode_array
         replayed = expired = poisoned = quarantined = 0
         k_deaths = self.config.quarantine_deaths
@@ -329,6 +399,8 @@ class SolverServer:
             self._worker = None
         if self.journal is not None:
             self.journal.abandon()
+        # Dropped, not closed: a real kill writes no final sidecar.
+        self._stop_flight(close=False)
 
     def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop the worker; with ``drain`` (default) requests accepted
@@ -366,6 +438,7 @@ class SolverServer:
             if joined:
                 self.journal.append_shutdown()
             self.journal.close()
+        self._stop_flight()
 
     def __enter__(self) -> "SolverServer":
         return self.start()

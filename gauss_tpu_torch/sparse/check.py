@@ -32,11 +32,13 @@ giant leg's wall time and peak bytes (``kind: sparse_solve``).
 ``sparse_check_smoke`` and ``sparse_check_giant`` spans, a
 ``sparse_solve`` event per solve and the ``sparse.solves`` counter.
 
-Not ported yet: ``--history`` and ``--regress-check`` wait for
-``obs.regress``.
+``--history`` appends the run's records to the port's regression history
+(``obs.regress``: its own file, each record stamped with the device it
+ran on) and ``--regress-check`` gates them against that device's
+baselines, with the slow-side band ``--band``.
 
-Exit status: 2 when any leg fails verification/classification/memory, 0
-otherwise.
+Exit status: 2 when any leg fails verification/classification/memory, 1
+when ``--regress-check`` finds an out-of-band metric, 0 otherwise.
 """
 
 from __future__ import annotations
@@ -215,6 +217,28 @@ def run_giant(n: int, nnz_per_row: int, seed: int, gate: float,
     }
 
 
+def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
+    """(metric, value, unit) records for the regression history (the JAX
+    package's names): per-method seconds per solve and iteration counts,
+    the giant leg's wall time and peak bytes; all slow-side gated."""
+    out: List[Tuple[str, float, str]] = []
+    for method, row in (summary.get("methods") or {}).items():
+        if isinstance(row.get("s_per_solve"), (int, float)):
+            out.append((f"sparse:{method}/s_per_solve",
+                        row["s_per_solve"], "s"))
+        if isinstance(row.get("iterations"), (int, float)):
+            out.append((f"sparse:{method}/iterations",
+                        float(row["iterations"]), "count"))
+    giant = summary.get("giant") or {}
+    if isinstance(giant.get("s_per_solve"), (int, float)):
+        out.append(("sparse:giant/s_per_solve",
+                    giant["s_per_solve"], "s"))
+    if isinstance(giant.get("peak_rss_bytes"), (int, float)):
+        out.append(("sparse:giant/peak_rss_bytes",
+                    float(giant["peak_rss_bytes"]), "bytes"))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gauss_tpu_torch.sparse.check",
@@ -242,6 +266,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the solves run (default cuda; cpu runs the "
                         "kernel's plain version)")
+    p.add_argument("--history", nargs="?", const="", default=None,
+                   metavar="PATH",
+                   help="append this run's records to the regression "
+                        "history (default reports/history_torch.jsonl)")
+    p.add_argument("--regress-check", action="store_true",
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
+    p.add_argument("--band", type=float, default=1.5,
+                   help="slow-side noise band for --regress-check "
+                        "(default 1.5: millisecond-scale timings are "
+                        "jittery, while the regressions this gate exists "
+                        "for — densification, a preconditioner losing its "
+                        "bite — move the metrics by orders of magnitude)")
     return p
 
 
@@ -316,7 +353,16 @@ def main(argv=None) -> int:
             f.write("\n")
         print(f"summary: {args.summary_json}")
 
-    return 2 if bad else 0
+    # Run-id-tagged sources: identical values from distinct epochs (the
+    # iteration counts are deterministic) stay separate baseline samples.
+    from gauss_tpu_torch.obs import regress
+
+    records = regress.campaign_records(
+        history_records(summary), f"sparse-{obs.new_run_id()}", "sparse",
+        regress.device_tag(args.device))
+    rc = regress.gate(records, args.history, args.regress_check,
+                      band=args.band, healthy=not bad)
+    return 2 if bad else rc
 
 
 if __name__ == "__main__":

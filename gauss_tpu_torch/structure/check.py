@@ -19,12 +19,14 @@ a perf regression: a class silently demoting to LU shows up as
 flops_ratio jumping to 1.0). ``--metrics-out PATH`` appends the run's
 obs stream.
 
-``--history`` and ``--regress-check`` need ``obs.regress``, which is not
-ported yet (ROADMAP queue-1 item 11): they stay in the parser and refuse
-with exit status 2 and a message naming that item.
+``--history`` appends the run's records to the port's regression history
+(``obs.regress``: its own file, each record stamped with the device it
+ran on) and ``--regress-check`` gates them against that device's
+baselines.
 
 Exit status: 2 when any class fails verification or routes to the wrong
-engine (or a refused option is given), 0 otherwise.
+engine, 1 when ``--regress-check`` finds an out-of-band metric, 0
+otherwise.
 """
 
 from __future__ import annotations
@@ -34,13 +36,9 @@ import json
 import os
 import sys
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
-
-#: what --history / --regress-check wait for
-REGRESS_PENDING = ("obs.regress is not ported to gauss_tpu_torch yet "
-                   "(ROADMAP queue-1 item 11)")
 
 
 def dense_lu_flops(n: int) -> float:
@@ -99,6 +97,21 @@ def run_class(kind: str, a: np.ndarray, seed: int, gate: float,
     }
 
 
+def history_records(summary: Dict) -> List[Tuple[str, float, str]]:
+    """(metric, value, unit) records for the regression history (the JAX
+    package's names): s_per_solve and the flops ratio per class, both
+    slow-side gated (a class demoting to dense LU raises both)."""
+    out: List[Tuple[str, float, str]] = []
+    for kind, row in (summary.get("classes") or {}).items():
+        if isinstance(row.get("s_per_solve"), (int, float)):
+            out.append((f"structure:{kind}/s_per_solve",
+                        row["s_per_solve"], "s"))
+        if isinstance(row.get("flops_ratio"), (int, float)):
+            out.append((f"structure:{kind}/flops_ratio",
+                        row["flops_ratio"], "ratio"))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m gauss_tpu_torch.structure.check",
@@ -127,10 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append this run's records to the regression "
-                        "history (refused: " + REGRESS_PENDING + ")")
+                        "history (default reports/history_torch.jsonl)")
     p.add_argument("--regress-check", action="store_true",
-                   help="gate against the history baselines (refused: "
-                        + REGRESS_PENDING + ")")
+                   help="gate against the history baselines (exit 1 when "
+                        "out of band)")
     p.add_argument("--band", type=float, default=1.5,
                    help="slow-side noise band for --regress-check "
                         "(default 1.5: the smoke's per-class timings are "
@@ -143,10 +156,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.history is not None or args.regress_check:
-        print(f"structure-check: --history / --regress-check: "
-              f"{REGRESS_PENDING}", file=sys.stderr)
-        return 2
 
     from gauss_tpu_torch import obs
     from gauss_tpu_torch.cli._common import metrics_run
@@ -192,7 +201,16 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1, sort_keys=True)
             f.write("\n")
         print(f"summary: {args.summary_json}")
-    return 2 if bad else 0
+    # Run-id-tagged sources: identical values from distinct epochs (the
+    # flops ratios are deterministic) stay separate baseline samples.
+    from gauss_tpu_torch.obs import regress
+
+    records = regress.campaign_records(
+        history_records(summary), f"structure-{obs.new_run_id()}",
+        "structure", regress.device_tag(args.device))
+    rc = regress.gate(records, args.history, args.regress_check,
+                      band=args.band, healthy=not bad)
+    return 2 if bad else rc
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@ whether one long-lived session keeps them (ROADMAP queue 3, fault 1).
 
     python3 scripts/probe_trace_sessions.py [--whole-run] [--rounds 40]
                                             [--takes 20] [--lead-op]
+    python3 scripts/probe_trace_sessions.py --empty-sessions K [--session-op]
+                                            [--between N] [--before-build]
 
 With ``--whole-run`` the process first runs ``chip_smoke.main()`` (every
 phase, its own traced calls included), so the probe starts where the
@@ -25,8 +27,22 @@ to see whether the records a session drops are its first. With
 ``--lead-op`` every session (``trace_launches``' too) opens with a small
 real torch op before its markers (:func:`lead_op_sessions`): if a real
 kernel, not a spin, absorbs the loss of the session's opening, no marker
-and no kernel of the call is missing. One JSON line, with the card's name
-and power limit. Needs a CUDA device.
+and no kernel of the call is missing. With ``--lead-op`` the probe also
+reports, for each session that lost a record, whether the trace holds the
+lead op's own kernels (:func:`lead_op_recorded`: the kernels whose
+correlation ids match the launches made inside the trace's
+``aten::cumsum``), and the profiler's state as each session opened
+(:func:`session_state`: whether a profiler or Kineto session was still
+active, the profiler type, and the environment's Kineto/CUPTI knobs,
+where the activity buffers' size would be set). With ``--empty-sessions
+K`` the process, fresh, opens K empty profiler sessions (with
+``--session-op``, each running the lead op), runs ``--between N`` lead
+ops outside any session, and then takes phase 6's n=8192 call once
+(:func:`after_empty_sessions`); ``--before-build`` opens the sessions
+before the hand-written kernels' libraries are built and loaded
+(``chip_smoke.phase_build``): whether the sessions a process opened
+before a take, or the device work between them, decide what it loses. One JSON
+line, with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,27 +67,80 @@ def _smoke():
     return mod
 
 
+#: the profiler's state as each lead-op session opened, in order
+SESSION_STATES: list = []
+
+
+def session_state() -> dict:
+    """The profiler's state now: whether the autograd profiler and Kineto
+    report a session still active, the profiler type, and the Kineto /
+    CUPTI environment knobs (none set: Kineto's default activity
+    buffers)."""
+    import torch
+
+    a = torch._C._autograd
+    st = {}
+    for name in ("_profiler_enabled", "_is_kineto_stopped",
+                 "_profiler_type", "kineto_available"):
+        fn = getattr(a, name, None)
+        try:
+            st[name.strip("_")] = str(fn()) if fn is not None else None
+        except Exception as e:  # noqa: BLE001 — a probe reports, never dies
+            st[name.strip("_")] = f"{type(e).__name__}: {e}"
+    st["env"] = {k: v for k, v in os.environ.items()
+                 if k.startswith(("KINETO", "CUPTI", "TORCH_CUPTI",
+                                  "TORCH_PROFILER"))}
+    return st
+
+
+def _lead_op():
+    import torch
+
+    torch.cumsum(torch.arange(1 << 16, device="cuda",
+                              dtype=torch.float32), 0)
+    torch.cuda.synchronize()
+
+
 def lead_op_sessions() -> None:
     """From now on, every session that ``torch.profiler.profile`` opens
     (``chip_smoke.trace_launches``' and :func:`long_lived`'s) starts with
     a small real torch op on the card, a cumulative sum of 65,536 floats,
-    to a synchronize. :func:`probe`'s empty sessions keep the plain class
-    (``profile.plain``)."""
-    import torch
+    to a synchronize, and appends :func:`session_state` taken just before
+    it opens to :data:`SESSION_STATES`. :func:`probe`'s empty sessions
+    keep the plain class (``profile.plain``)."""
     import torch.profiler
 
     plain = torch.profiler.profile
 
     class LeadOpProfile(plain):
         def __enter__(self):
+            SESSION_STATES.append(session_state())
             prof = super().__enter__()
-            torch.cumsum(torch.arange(1 << 16, device="cuda",
-                                      dtype=torch.float32), 0)
-            torch.cuda.synchronize()
+            _lead_op()
             return prof
 
     LeadOpProfile.plain = plain
     torch.profiler.profile = LeadOpProfile
+
+
+def lead_op_recorded(path: str) -> dict:
+    """The kernel launches the runtime recorded inside the trace's
+    ``aten::cumsum`` ops (the lead op's, and any the traced call makes
+    itself), and how many of their correlation ids have a kernel record.
+    It opens no session of its own: a session opened before a traced call
+    changes what that call's trace loses."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+           for e in events if e.get("cat") == "cpu_op"
+           and e.get("name") == "aten::cumsum"]
+    launched = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "")
+                and any(lo <= float(e["ts"]) <= hi for lo, hi in ops)}
+    recorded = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "kernel"} & launched
+    return {"launched": len(launched), "recorded": len(recorded)}
 
 
 def phase_takes(c) -> list:
@@ -187,6 +256,8 @@ def long_lived(c, takes: list, path: str) -> dict:
              if any(sym in e["name"] for sym in syms)] for e in kernels]
     planned = sum(len(p) for _, _, p in takes)
     rec = {"takes": len(takes),
+           "lead_op_recorded": lead_op_recorded(path),
+           "state_at_start": SESSION_STATES[-1] if SESSION_STATES else None,
            "markers": len(marks) + lead,
            "markers_planned": len(takes) + 1 + lead,
            "planned_kernels": planned,
@@ -215,7 +286,7 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
     calls = phase_takes(c)
     label, call, plan = calls[0]
     want = [(k, r) for k, r, _ in plan]
-    first_loss, opening = None, {}
+    first_loss, opening, rounds = None, {}, []
     empty = getattr(profile, "plain", profile)
     for s in range(sessions):
         with empty(activities=[ProfilerActivity.CPU,
@@ -226,17 +297,60 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
         missing = missing_records(c, path, c.TRACE_LEAD_MARKERS, [calls[0]])
         for name in missing:  # which opening records the rounds lost
             opening[name] = opening.get(name, 0) + 1
+        rounds.append({"missing": len(missing),
+                       "lead_op": (lead_op_recorded(path)
+                                   if SESSION_STATES else None)})
         if [(k, r) for k, r, _ in got] != want:
             first_loss = {"round": s + 1, "recorded": len(got),
-                          "planned": len(want), "missing": missing}
+                          "planned": len(want), "missing": missing,
+                          "lead_op_recorded": lead_op_recorded(path),
+                          "state_at_start": (SESSION_STATES[-1]
+                                             if SESSION_STATES else None)}
             break
     return {"loop_rounds": sessions, "loop_first_loss": first_loss,
-            "loop_missing_by_record": opening,
+            "loop_missing_by_record": opening, "loop_by_round": rounds,
             "one_call": long_lived(c, [calls[0]] * takes,
                                    os.path.join(work, "one_call.json")),
             "phase_calls": long_lived(
                 c, [calls[i % len(calls)] for i in range(takes)],
                 os.path.join(work, "phase_calls.json"))}
+
+
+def after_empty_sessions(c, k: int, work: str, op: bool = False,
+                         between: int = 0, before_build: bool = False
+                         ) -> dict:
+    """``k`` profiler sessions (each around one synchronize; with ``op``,
+    around the lead op), ``between`` lead ops outside any session, then
+    one traced take of phase 6's n=8192 call: its planned kernels, the
+    ones recorded, and the records missing by name. The sessions come
+    after ``c.phase_build()`` and the calls' warm-up (``phase_takes``);
+    ``before_build``: before both."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def sessions():
+        for _ in range(k):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                if op:
+                    _lead_op()
+                torch.cuda.synchronize()
+    if before_build:
+        sessions()
+    c.phase_build()
+    label, call, plan = phase_takes(c)[0]
+    if not before_build:
+        sessions()
+    for _ in range(between):
+        _lead_op()
+    path = os.path.join(work, f"after_{k}.json")
+    got, _, _ = c.trace_launches(call, path)
+    return {"empty_sessions": k, "session_op": op, "between": between,
+            "before_build": before_build, "call": label,
+            "planned": len(plan),
+            "recorded": len(got),
+            "missing": missing_records(c, path, c.TRACE_LEAD_MARKERS,
+                                       [(label, call, plan)])}
 
 
 def main(argv=None) -> int:
@@ -251,6 +365,19 @@ def main(argv=None) -> int:
     ap.add_argument("--lead-op", action="store_true",
                     help="open each session with a small real torch "
                          "op before its markers")
+    ap.add_argument("--empty-sessions", type=int, default=None,
+                    metavar="K",
+                    help="open K empty sessions in this fresh process, "
+                         "then take phase 6's call once")
+    ap.add_argument("--session-op", action="store_true",
+                    help="with --empty-sessions: run the lead op inside "
+                         "each of them")
+    ap.add_argument("--between", type=int, default=0, metavar="N",
+                    help="with --empty-sessions: N lead ops outside any "
+                         "session before the take")
+    ap.add_argument("--before-build", action="store_true",
+                    help="with --empty-sessions: open the sessions before "
+                         "the kernels' libraries are built and loaded")
     args = ap.parse_args(argv)
     import torch
 
@@ -261,18 +388,27 @@ def main(argv=None) -> int:
     c = _smoke()
     if args.lead_markers is not None:
         c.TRACE_LEAD_MARKERS = args.lead_markers
+    work = HERE / "build" / "trace_sessions"
+    os.makedirs(work, exist_ok=True)
     if args.lead_op:
         lead_op_sessions()
+    if args.empty_sessions is not None:
+        print(json.dumps({"trace_sessions": after_empty_sessions(
+            c, args.empty_sessions, str(work), op=args.session_op,
+            between=args.between, before_build=args.before_build),
+            "card": c.smi_line()}))
+        return 0
     if args.whole_run:
         rc = c.main([])
         if rc:
             return rc
     else:
         c.phase_build()
-    work = HERE / "build" / "trace_sessions"
-    os.makedirs(work, exist_ok=True)
     print(json.dumps({"trace_sessions": probe(c, args.rounds, args.takes,
                                               str(work)),
+                      "sessions_opened": len(SESSION_STATES),
+                      "states_seen": sorted({json.dumps(s, sort_keys=True)
+                                             for s in SESSION_STATES}),
                       "after_whole_run": args.whole_run,
                       "lead_markers": c.TRACE_LEAD_MARKERS,
                       "lead_op": args.lead_op,

@@ -521,9 +521,13 @@ def test_abftcheck_cli_smoke(tmp_path, capsys):
                             "matmul", "wall_s"}
     assert tcheck.history_records(summary) and all(
         m.startswith("abft:") for m, _, _ in tcheck.history_records(summary))
-    for extra in (["--history"], ["--regress-check"]):
-        assert tcheck.main(["--device", CPU] + extra) == 2
-        assert "queue-1 item 11" in capsys.readouterr().err
+    assert tcheck.history_records(summary) == \
+        jcheck.history_records(summary)
+    from gauss_tpu_torch.obs import regress
+
+    hist = tmp_path / "h.jsonl"
+    assert regress.gate(regress.ingest_file(out), str(hist), True) == 0
+    assert {r["device"] for r in regress.load_history(hist)} == {CPU}
     assert (tcheck.LU_SIZES, tcheck.CHOL_SIZES, tcheck.SCENARIOS) == (
         jcheck.LU_SIZES, jcheck.CHOL_SIZES, jcheck.SCENARIOS)
     assert tcheck.build_parser().parse_args([]).cases == 110

@@ -74,15 +74,49 @@ def test_chaos_campaign_small_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    ([], "--no-fleet --no-durable"),
-    (["--no-fleet"], "--no-durable"),
+    ([], "--no-fleet"),
     (["--no-durable"], "--no-fleet"),
-    (["--no-fleet", "--no-durable", "--history"], "queue-1 item 11"),
-    (["--no-fleet", "--no-durable", "--regress-check"], "queue-1 item 11"),
+    (["--no-durable", "--history"], "--no-fleet"),
     (["--no-fleet", "--no-durable", "--engines", "bogus"], "unknown engine")])
 def test_unported_phases_and_options_exit_2(argv, needle, capsys):
+    """Only the fleet phase stays unported (item 10); the durable phase
+    and ``--history`` / ``--regress-check`` are ported since
+    (``test_durable_phase_verdicts_equal_the_jax_packages``,
+    ``test_chaos_history_and_regress_gate``)."""
     assert tchaos.main(["--device", CPU] + argv) == 2
-    assert needle in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert needle in err and "--no-durable" not in err
+    assert [f for _, f, _ in tchaos.UNPORTED_PHASES] == ["--no-fleet"]
+
+
+def test_durable_phase_verdicts_equal_the_jax_packages(tmp_path):
+    """chaos's durable phase: one in-process kill/resume case per
+    ``durablecheck.CASE_KINDS``, the same verdicts and admitted counts as
+    the JAX package's phase for the same seed."""
+    got = tchaos.run_durable_phase(5, GATE, str(tmp_path / "t"), device=CPU)
+    want = jchaos.run_durable_phase(5, GATE, str(tmp_path / "j"))
+    keys = ("case", "kind", "outcome")
+    assert [{k: c[k] for k in keys} for c in got["cases"]] == [
+        {k: c[k] for k in keys} for c in want["cases"]]
+    assert got["crashes"] == want["crashes"] == 4
+    assert got["violations"] == want["violations"] == 0
+    assert got["admitted"] == want["admitted"]
+
+
+def test_chaos_history_and_regress_gate(tmp_path, capsys):
+    hist = tmp_path / "h.jsonl"
+    argv = ["--device", CPU, "--cases", "4", "--serve-requests", "0",
+            "--sdc-cases", "0", "--no-checkpoint", "--no-structure",
+            "--no-fleet", "--no-durable", "--seed", "5", "--history",
+            str(hist)]
+    assert tchaos.main(argv) == 0
+    assert tchaos.main(argv + ["--regress-check"]) == 0
+    from gauss_tpu_torch.obs import regress
+
+    recs = regress.load_history(hist)
+    assert recs and {r["device"] for r in recs} == {CPU}
+    assert "chaos:solver/s_per_case" in {r["metric"] for r in recs}
+    capsys.readouterr()
 
 
 def test_chaos_history_records_shape():

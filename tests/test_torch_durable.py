@@ -34,7 +34,6 @@ from gauss_tpu_torch.serve import (
     STATUS_OK,
     STATUS_POISON,
     STATUS_REJECTED,
-    FeatureNotPortedError,
     ServeConfig,
     ServeRequest,
     SolverServer,
@@ -492,13 +491,19 @@ def test_supervise_kills_a_stalled_child_and_waits_for_it(tmp_path):
 
 
 def test_supervise_flight_dir_is_refused_before_any_spawn(tmp_path):
+    """``flight_dir`` is ported since (``obs/postmortem``): the child runs
+    with ``GAUSS_FLIGHT_DIR`` set, and a clean exit captures no bundle
+    (``tests/test_torch_flight.py`` holds the bundle of a death). The
+    name is the one the test had while ``flight_dir`` was refused."""
     marker = str(tmp_path / "spawned")
-    with pytest.raises(FeatureNotPortedError, match="item 11"):
-        durable.supervise(
-            [sys.executable, "-c", f"open({marker!r}, 'w')"],
-            heartbeat_path=str(tmp_path / "hb"),
-            flight_dir=str(tmp_path / "f"))
-    assert not os.path.exists(marker)
+    fdir = str(tmp_path / "f")
+    rc = durable.supervise(
+        [sys.executable, "-c", f"import os; open({marker!r}, 'w')"
+         f".write(os.environ['GAUSS_FLIGHT_DIR'])"],
+        heartbeat_path=str(tmp_path / "hb"), flight_dir=fdir,
+        log=lambda _m: None)
+    assert rc == 0 and open(marker).read() == fdir
+    assert not os.path.exists(os.path.join(fdir, "bundles"))
 
 
 def test_inject_kinds_and_torn_write_hook():
@@ -537,9 +542,27 @@ def test_campaign_subprocess_legs(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--history"], ["--regress-check"]])
-def test_campaign_regress_flags_exit_2(flag, capsys):
-    assert durablecheck.main(["--device", CPU, *flag]) == 2
-    assert "item 11" in capsys.readouterr().err
+def test_campaign_regress_flags_exit_2(flag, capsys, tmp_path,
+                                       monkeypatch):
+    """``--history`` and ``--regress-check`` are ported since
+    (``obs.regress``): the campaign appends its records to the port's
+    history (here a temporary file standing in for the default), stamped
+    with the device, or gates them against it (no baseline yet: exit 0).
+    The name is the one the test had while both exited 2."""
+    from gauss_tpu_torch.obs import regress
+
+    hist = tmp_path / "history_torch.jsonl"
+    monkeypatch.setattr(regress, "default_history_path", lambda: str(hist))
+    assert durablecheck.main(["--device", CPU, "--cases", "4",
+                              "--no-subprocess", "--no-overhead",
+                              *flag]) == 0
+    out = capsys.readouterr().out
+    if flag == ["--history"]:
+        recs = regress.load_history(hist)
+        assert [r["metric"] for r in recs] == ["durable:s_per_case"]
+        assert recs[0]["device"] == CPU and recs[0]["kind"] == "durable"
+    else:
+        assert "no-baseline" in out and not hist.exists()
 
 
 def test_campaign_cli_in_process_only(tmp_path):

@@ -492,8 +492,9 @@ def test_tune_space_axes(monkeypatch):
 
 def test_check_cli_smoke(tmp_path, capsys):
     """The gate CLI end to end at micro sizes on the CPU: verifies,
-    asserts boundedness and routing, writes the summary; the regress
-    flags refuse with exit 2 naming the pending item."""
+    asserts boundedness and routing, writes the summary, whose records
+    equal the JAX package's; ``--history`` appends them (stamped with the
+    device) to the file named."""
     from gauss_tpu_torch.outofcore import check
 
     metrics = tmp_path / "ooc.jsonl"
@@ -515,9 +516,15 @@ def test_check_cli_smoke(tmp_path, capsys):
 
     aj, bj = jcheck._seeded_system(64, 7)
     assert np.array_equal(a, aj) and np.array_equal(b, bj)
-    for flags in (["--history"], ["--regress-check"]):
-        assert check.main(flags + ["--device", "cpu"]) == 2
-        assert "item 11" in capsys.readouterr().err
+    assert check.history_records(doc) == jcheck.history_records(doc)
+    from gauss_tpu_torch.obs import regress
+
+    hist = tmp_path / "h.jsonl"
+    recs = regress.ingest_file(summary)
+    assert regress.gate(recs, str(hist), True) == 0
+    assert regress.load_history(hist) == recs
+    assert {r["device"] for r in recs} == {"cpu"}
+    capsys.readouterr()
 
 
 def test_entry_points_default_to_the_card():

@@ -376,17 +376,21 @@ def test_transient_failures_degrade_to_the_numpy_lane(rng):
 def test_unported_options_raise_when_the_server_is_built(name, value,
                                                          tmp_path):
     """Every option of a plane not ported raises when the server is
-    built; ``abft``, ``outofcore_handoff`` and ``journal_dir``, ported
-    since, build and are no longer listed (the journal in a temporary
-    directory, not at the listed path)."""
-    if name in ("abft", "outofcore_handoff", "journal_dir"):
+    built; ``abft``, ``outofcore_handoff``, ``journal_dir`` and
+    ``flight_dir``, ported since, build and are no longer listed (the
+    journal and the flight ring in a temporary directory, not at the
+    listed path)."""
+    if name in ("abft", "outofcore_handoff", "journal_dir", "flight_dir"):
         assert name not in {o for o, _, _ in admission.UNPORTED_OPTIONS}
-        if name == "journal_dir":
-            value = str(tmp_path / "j")
+        if name in ("journal_dir", "flight_dir"):
+            value = str(tmp_path / name)
         with SolverServer(_config(**{name: value})) as srv:
             assert getattr(srv.config, name) == value
             if name == "journal_dir":
                 assert srv.journal is not None and srv.journal.dir == value
+            if name == "flight_dir":
+                assert srv.flight_sink.flight_dir == value
+        assert srv.flight_sink is None
         return
     with pytest.raises(FeatureNotPortedError, match=name):
         SolverServer(_config(**{name: value}))
@@ -408,16 +412,26 @@ def test_device_defaults_to_the_card():
     ["--history"], ["--regress-check"], ["--compile-cache", "c"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     """Every flag of a plane not ported exits 2 naming its item;
-    ``--journal``, ``--supervised`` and ``--net``, ported since, are
-    accepted: parsed, not listed, and not refused (``--supervised``
-    alone exits 2 only for its missing ``--journal``)."""
+    ``--journal``, ``--supervised``, ``--net``, ``--flight-dir``,
+    ``--replicas``, ``--history`` and ``--regress-check``, ported since,
+    are accepted: parsed, not listed, and not refused (``--supervised``
+    alone exits 2 only for its missing ``--journal``). They run end to end
+    in ``tests/test_torch_router.py`` (``--replicas``, ``--history``) and
+    ``tests/test_torch_flight.py`` (the flight plane)."""
     ported = {"--journal": "journal", "--supervised": "supervised",
-              "--net": "net"}
+              "--net": "net", "--flight-dir": "flight_dir",
+              "--replicas": "replicas", "--history": "history",
+              "--regress-check": "regress_check"}
     if flag[0] in ported:
         attr = ported[flag[0]]
         assert attr not in {a for a, _, _, _ in serve_cli.UNPORTED_FLAGS}
         args = serve_cli.build_parser().parse_args(["--device", CPU, *flag])
-        assert getattr(args, attr) == (flag[1] if len(flag) > 1 else True)
+        want = flag[1] if len(flag) > 1 else True
+        if flag[0] == "--replicas":
+            want = int(want)
+        if flag[0] == "--history":
+            want = ""  # the port's default history file
+        assert getattr(args, attr) == want
         if flag[0] == "--supervised":
             assert serve_cli.main(["--device", CPU, *flag]) == 2
             err = capsys.readouterr().err

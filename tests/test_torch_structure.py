@@ -346,10 +346,27 @@ def test_check_cli_prints_the_reference_lines(tmp_path, argv):
     assert set(data["classes"]) == {"spd", "banded", "blockdiag", "dense"}
 
 
-def test_check_cli_refuses_regress_options():
-    for extra in (["--history"], ["--regress-check"]):
-        rc, _ = _run(check.main, ["--device", "cpu"] + extra)
-        assert rc == 2
+def test_check_cli_refuses_regress_options(tmp_path):
+    """``--history`` / ``--regress-check`` are ported since
+    (``obs.regress``): the records enter the history file named, stamped
+    with the device, and gate against it. The name is the one the test
+    had while both were refused."""
+    hist = str(tmp_path / "h.jsonl")
+    from gauss_tpu_torch.obs import regress
+
+    for extra in (["--history", hist], ["--regress-check", "--history",
+                                        hist]):
+        rc, _ = _run(check.main, ["--device", "cpu", "--spd-n", "32",
+                                  "--banded-n", "64", "--blockdiag-n", "32",
+                                  "--dense-n", "32", "--repeats", "1"]
+                     + extra)
+        assert rc == 0
+    recs = regress.load_history(hist)
+    assert recs and {r["device"] for r in recs} == {"cpu"}
+    assert {r["metric"] for r in recs} == {
+        m for m, _, _ in check.history_records({"classes": {
+            k: {"s_per_solve": 1.0, "flops_ratio": 1.0}
+            for k in ("spd", "banded", "blockdiag", "dense")}})}
 
 
 # --- chip_smoke.py phase 8 on the CPU ---------------------------------------

@@ -138,9 +138,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    with every checksum entry under the JAX package's threshold;
    ``zero_pivot_safe`` on a singular matrix: finite, min |pivot| 0), and
    ``solve_handoff`` at n=2048 (its ``route`` event), with exact launch
-   counts; ``fits_single_chip`` at the card's budget, and the ``dist``
-   lane's typed error. A ``{"large_n": ...}`` JSON line carries the
-   phase's figures.
+   counts; ``fits_single_chip`` at the card's budget (the ``dist`` lane
+   runs in phase 14, apart from this process's card). A
+   ``{"large_n": ...}`` JSON line carries the phase's figures.
 7. The lowered-precision solve (``core/lowered``) on the bfloat16 forms
    of kernels 1-3: (a) kernel 1 at bfloat16 bit for bit against its plain
    version on the cluster route at (N, PANEL) and on the grid route
@@ -460,7 +460,42 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    in-process cases of (b) and (c) with every batched launch held. (d)
    is ``chaos``'s durable phase, in phase 10. A ``{"router": ...}`` JSON
    line carries the figures.
-14. The ``kernels`` JSON line, the card line, and the final
+14. The distributed and native engines (``dist/``, ``native/``), every
+   distributed leg in a process of its own (NCCL's init and teardown
+   touch no other phase): (a) ``cuda-dist-blocked`` and
+   ``cuda-dist-blocked2d`` at DIST_N (n=8192, float32, a random system)
+   on a world of one over NCCL (no NCCL: the phase fails; it never takes
+   gloo), after a warm-up at DIST_WARM_N: each engine's staging, factor
+   and solve seconds (the 1-D engine's factor carries the augmented
+   right-hand side) and two host-f64 refinement steps to the 1e-4 gate,
+   its collectives by kind, beside the port's ``cuda`` backend's factor
+   and solve on the same system; kernel 1's launches by route on the 1-D
+   engine's panel strips (counts set to 0 just before, read just after:
+   one per panel, no other kernel), every one held bit for bit against
+   its plain version on a re-run (``held_kernel1``), and
+   ``recommend_engine(8192)`` the 2-D engine. (b) every distributed
+   backend through ``gauss_internal -s 2048 --verify`` and ``matmul 2048
+   --engines cuda-dist`` on (a)'s world, and ``gauss_external`` on the
+   generator matrix (phase 4's file) through ``cuda-dist-blocked`` in a
+   process of its own beside (a) (``dist_external``: the Python parse of
+   4.2 M lines takes seconds), held, as it does not refine, to phase 4's
+   float32 backward error on a re-run. (c) ``gauss_internal
+   --backend cuda-dist-blocked`` with ``--coordinator 127.0.0.1:<port>
+   --num-processes 1 --process-id 0 --metrics-out``: the stream is
+   ``<base>.p0.jsonl``, ``python -m gauss_tpu_torch.obs.aggregate`` merges
+   it, and it holds the ``collective`` events; (b)'s and (c)'s kernel-1
+   launches six times one n=2048 solve's (the CLIs solve twice), that
+   solve's held on a re-run. (d) in a process of its own beside
+   (a)-(c) (``native_child``): ``make`` of the native library into an
+   empty build dir (its seconds printed), then every native gauss engine
+   at NATIVE_N through ``gauss_internal --verify`` and ``matmul --engines
+   cuda,seq,omp`` on the card's host, on NATIVE_THREADS threads (cut to
+   n=512 for the phase's budget, DIST_BUDGET_S). In a whole run the phase
+   starts with phase 8, whose checks hold no time, runs beside it, and
+   ends after it (beside phase 13's campaigns it starved their stall
+   leg's deadline).
+   A ``{"dist": ...}`` JSON line carries the figures.
+15. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -3198,11 +3233,6 @@ def phase_large_n():
     require(blocked.fits_single_chip(n_max, device=DEVICE)
             and not blocked.fits_single_chip(n_max + 1, device=DEVICE),
             f"fits_single_chip at n={n_max}")
-    try:
-        blocked.solve_handoff(af, bf, engine="dist")
-        require(False, "engine='dist' did not raise")
-    except blocked.LaneNotPortedError as e:
-        print(f"phase 6: solve_handoff engine='dist': {e}")
     out["handoff"] = {"budget": budget, "largest_n": n_max}
     print(f"phase 6: solve_handoff n={FLAT_N}: route {route['lane']}, "
           f"est {route['est_bytes']} of budget {budget} B; fits_single_chip "
@@ -7609,12 +7639,460 @@ def large_n_summary(large: dict, key: str) -> dict:
     return out
 
 
+def dist_summary(fig: dict, key: str) -> dict:
+    """Phase 14's launches of a kernel-1 route: (a)'s n=8192 1-D solve
+    (each held on a re-run) and one n=2048 solve of (b)/(c)'s."""
+    return {f"n={DIST_N} 1-D engine": fig["a"]["kernel1_launches"][key],
+            f"n={DIST_CLI_N} solve (b), (c)": fig["c"]["held_per_solve"][key]}
+
+
 def ooc_summary(ooc: dict, key: str) -> dict:
     """A kernel's launches, device ms and strip heights by route in phase
     11's streamed factorizations ((b) and (c))."""
     return {f"n={ooc[cell]['n']}": {
         k.split("/")[-1]: v for k, v in ooc[cell]["launches"].items()
         if k.split("/")[0] == key} for cell in ("giant", "past_budget")}
+
+
+# --- phase 14: the distributed and native engines --------------------------
+
+DIST_N = 8192          # (a): the blocked engines at full width
+DIST_WARM_N = 512      # (a)'s warm-up, at the same code path
+DIST_CLI_N = N         # (b), (c): the reference's NSIZE
+DIST_BACKENDS = ("cuda-dist", "cuda-dist2d", "cuda-dist-blocked",
+                 "cuda-dist-blocked2d")
+NATIVE_N = 512         # (d): cut so that the phase fits its budget
+NATIVE_THREADS = 8     # (d): the card host's cores (the CLIs' default, 32,
+                       # makes forkjoin start 32 threads a step)
+DIST_BUDGET_S = 60.0
+KERNEL1_KEYS = ("panel_factor_cluster", "panel_factor_grid", "panel_factor")
+
+
+def dist_system(n: int):
+    rng = np.random.default_rng(SEED)
+    return (rng.standard_normal((n, n), dtype=np.float32),
+            rng.standard_normal(n, dtype=np.float32))
+
+
+def rel_res(a64, x, b64) -> float:
+    return float(np.linalg.norm(a64 @ np.asarray(x, np.float64) - b64)
+                 / np.linalg.norm(b64))
+
+
+@contextlib.contextmanager
+def held_kernel1(seen: dict):
+    """Every kernel-1 launch inside the block held against its plain
+    version on the same strip, bit for bit (the factor, pivots,
+    permutation and min |pivot|): ``seen`` counts the held launches by
+    launch key and records the largest difference (``max_abs_err``) and
+    any launch that differed (``bad``). The plain calls count no launch."""
+    import torch
+
+    from gauss_tpu_torch.kernels import panel as kp
+
+    real = kp.panel_factor
+
+    def held(p, kb=0, seg=None):
+        out = real(p, kb)
+        want = kp.panel_factor_plain(p, kb)
+        key = panel_launch_key(*p.shape, p.element_size())
+        seen[key] = seen.get(key, 0) + 1
+        err = float((out[0] - want[0]).abs().max())
+        seen["max_abs_err"] = max(seen.get("max_abs_err", 0.0), err)
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            seen.setdefault("bad", []).append(list(p.shape))
+        return out
+
+    kp.panel_factor = held
+    try:
+        yield seen
+    finally:
+        kp.panel_factor = real
+
+
+def dist_leg(engine: str, mesh, a, b, a64, b64) -> dict:
+    """One blocked engine at full width on ``mesh``: the factor's seconds
+    (the 1-D engine's factor carries the augmented right-hand side, so its
+    seconds hold that solve too), one solve against the factors, two
+    host-f64 refinement steps through them, the collectives by kind."""
+    from gauss_tpu_torch.dist import gauss_dist_blocked as gdb
+    from gauss_tpu_torch.dist import gauss_dist_blocked2d as g2d
+    from gauss_tpu_torch.obs import collectives
+
+    if engine == "cuda-dist-blocked":
+        prepare, solve = gdb.prepare_dist_blocked, gdb.lu_solve_dist_blocked
+
+        def factor(staged):
+            return gdb.factor_solve_dist_blocked_staged(staged, mesh)[1]
+    else:
+        prepare, solve = g2d.prepare_dist_blocked2d, \
+            g2d.lu_solve_dist_blocked2d
+
+        def factor(staged):
+            return g2d.factor_dist_blocked2d(staged, mesh)
+    t0 = time.perf_counter()
+    staged = prepare(a, b, mesh)
+    sync()
+    stage_s = time.perf_counter() - t0
+    with collectives.counting() as budget:
+        t0 = time.perf_counter()
+        fac = factor(staged)
+        sync()
+        factor_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x = solve(fac, b64)
+        sync()
+        solve_s = time.perf_counter() - t0
+    x = gdb.host_refine(a64, b64, x.cpu().numpy(),
+                        lambda r: solve(fac, r), 2, 0.0)
+    res = rel_res(a64, x, b64)
+    require(np.isfinite(x).all() and res <= GATE,
+            f"{engine} at n={len(b)}: residual {res}")
+    return {"n": len(b), "panel": staged[-1], "stage_s": round(stage_s, 4),
+            "factor_s": round(factor_s, 4), "solve_s": round(solve_s, 4),
+            "rel_residual": res, "collectives": {
+                op: v["count"] for op, v in sorted(budget.items())}}
+
+
+def dist_engines(work: str) -> dict:
+    """Phase 14 (a)-(c), in a process of its own (``dist_child``): NCCL's
+    init and teardown touch no other phase."""
+    import torch
+    import torch.distributed as dist
+
+    from gauss_tpu_torch import dist as tdist
+    from gauss_tpu_torch.cli import gauss_internal, matmul
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.dist import gauss_dist_blocked as gdb
+    from gauss_tpu_torch.dist import mesh as tmesh
+    from gauss_tpu_torch.dist import multihost
+    from gauss_tpu_torch.io import synthetic
+    from gauss_tpu_torch.kernels import _build
+
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    require(DEVICE != "cuda" or dist.is_nccl_available(), "torch.distributed "
+            "has no NCCL: the distributed engines on the card need it (no "
+            "switch to gloo)")
+    out = {"card": smi_line() if DEVICE == "cuda" else "cpu"}
+    t_a = time.perf_counter()
+    multihost.initialize(device=DEVICE)
+    require(dist.get_backend() == backend and dist.get_world_size() == 1,
+            f"not a world of one over {backend}: {dist.get_backend()}")
+    mesh1, mesh2 = tmesh.make_mesh(1), tmesh.make_mesh_2d(1, 1)
+    rec = tdist.recommend_engine(DIST_N)
+    want = ("gauss_solve_dist_blocked2d_refined"
+            if DIST_N >= tdist.DIST_2D_CROSSOVER_N
+            else "gauss_solve_dist_blocked_refined")
+    require(rec.__name__ == want, f"recommend_engine({DIST_N}) is "
+            f"{rec.__name__}")
+    aw, bw = dist_system(DIST_WARM_N)
+    aw64, bw64 = aw.astype(np.float64), bw.astype(np.float64)
+    for eng, m in (("cuda-dist-blocked", mesh1),
+                   ("cuda-dist-blocked2d", mesh2)):
+        dist_leg(eng, m, aw, bw, aw64, bw64)          # warm-up
+    blocked.solve_refined(aw, bw, iters=2, device=DEVICE)
+    a, b = dist_system(DIST_N)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    # (a): the main path, counts set to 0 just before and read after.
+    _build.reset_launches()
+    legs = {"cuda-dist-blocked": dist_leg("cuda-dist-blocked", mesh1, a, b,
+                                          a64, b64)}
+    launches_1d = {k: _build.LAUNCHES[k] for k in KERNEL1_KEYS}
+    legs["cuda-dist-blocked2d"] = dist_leg("cuda-dist-blocked2d", mesh2, a,
+                                           b, a64, b64)
+    out["launches_a"] = dict(_build.LAUNCHES)
+    require(out["launches_a"] == {**{k: 0 for k in _build.LAUNCHES},
+                                  **launches_1d},
+            f"(a) launched other kernels: {out['launches_a']}")
+    nb = -(-DIST_N // gdb.auto_panel_dist(DIST_N, 1))
+    require(sum(launches_1d.values()) == (nb if DEVICE == "cuda" else 0),
+            f"(a) kernel 1 launched {launches_1d}, not once a panel ({nb})")
+    # The port's single-card backend on the same system, same run.
+    t0 = time.perf_counter()
+    fac = blocked.resolve_factor(DIST_N, "auto", device=DEVICE)(
+        a, device=DEVICE)
+    sync()
+    cuda_factor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocked.lu_solve(fac, b)
+    sync()
+    legs["cuda"] = {"factor_s": round(cuda_factor_s, 4),
+                    "solve_s": round(time.perf_counter() - t0, 4)}
+    del fac
+    # Every kernel-1 launch of one 1-D solve held on a re-run.
+    seen = {}
+    with held_kernel1(seen):
+        gdb.factor_solve_dist_blocked_staged(
+            gdb.prepare_dist_blocked(a, b, mesh1), mesh1)
+    held = {k: seen.get(k, 0) for k in KERNEL1_KEYS}
+    require(not seen.get("bad") and sum(held.values()) == nb and (
+        DEVICE != "cuda" or held == launches_1d),
+        f"(a) held kernel-1 launches {seen} against {launches_1d}")
+    out["a"] = {"legs": legs, "kernel1_launches": launches_1d,
+                "held": held, "held_max_abs_err": seen.get("max_abs_err"),
+                "recommend_engine": rec.__name__,
+                "wall_s": round(time.perf_counter() - t_a, 1)}
+    for eng, leg in legs.items():
+        print(f"phase 14 (a): {eng}: {leg}")
+    print(f"phase 14 (a): kernel 1 {launches_1d}, each held bit for bit "
+          f"({held}); recommend_engine({DIST_N}) = {rec.__name__}")
+
+    # (b) every distributed backend through the CLIs, on (a)'s world (the
+    # external run is a process of its own: ``dist_external``), (c) the
+    # multihost path on one card; their launches counted together.
+    t_b = time.perf_counter()
+    _build.reset_launches()
+    lines, walls = {}, {}
+    for be in DIST_BACKENDS:
+        t0 = time.perf_counter()
+        o = run_cli(gauss_internal, ["-s", str(DIST_CLI_N), "-t", "1",
+                                     "--verify", "--backend", be,
+                                     "--device", DEVICE])
+        lines[be] = [ln for ln in o.splitlines()
+                     if ln.startswith("Application time")][0]
+        walls[be] = round(time.perf_counter() - t0, 2)
+    o = run_cli(matmul, [str(DIST_CLI_N), "--engines", "cuda-dist", "-t",
+                         "1", "--device", DEVICE])
+    require("verify: OK" in o, "matmul cuda-dist did not verify")
+    lines["matmul cuda-dist"] = o.strip().splitlines()[0]
+    out["b"] = {"lines": lines, "cli_wall_s": walls,
+                "wall_s": round(time.perf_counter() - t_b, 1)}
+    multihost.shutdown()
+    t_c = time.perf_counter()
+    base = os.path.join(work, "multihost.jsonl")
+    for f in os.listdir(work):
+        if f.startswith("multihost."):
+            os.remove(os.path.join(work, f))
+    port = free_port()
+    run_cli(gauss_internal, ["-s", str(DIST_CLI_N), "--verify", "--backend",
+                             "cuda-dist-blocked", "--coordinator",
+                             f"127.0.0.1:{port}", "--num-processes", "1",
+                             "--process-id", "0", "--metrics-out", base,
+                             "--device", DEVICE])
+    stream = os.path.join(work, "multihost.p0.jsonl")
+    require(os.path.isfile(stream) and not os.path.exists(base),
+            f"(c) the stream is not {stream}")
+    merged = os.path.join(work, "multihost.merged.jsonl")
+    r = subprocess.run([sys.executable, "-m", "gauss_tpu_torch.obs.aggregate",
+                        stream, "-o", merged], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    require(r.returncode == 0, f"(c) aggregate exited {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    events = [json.loads(ln) for ln in open(merged)]
+    colls = {ev["op"]: ev["count"] for ev in events
+             if ev["type"] == "collective"}
+    require(colls.get("all_gather", 0) > 0 and all(
+        ev["proc"] == 0 for ev in events), f"(c) merged stream: {colls}")
+    out["c"] = {"stream": os.path.relpath(stream, REPO),
+                "merged_events": len(events), "collectives": colls,
+                "report": r.stdout.strip().splitlines()[0],
+                "wall_s": round(time.perf_counter() - t_c, 1)}
+    out["launches_bc"] = dict(_build.LAUNCHES)
+    bc_k1 = {k: _build.LAUNCHES[k] for k in KERNEL1_KEYS}
+    # (b)'s and (c)'s kernel-1 launches are the n=2048 1-D engine's: one
+    # solve of it held on a re-run (each CLI run solves twice: the warm-up
+    # at shape, then the timed solve), on the external system, whose
+    # answer is held to a float32 backward error: the distributed backends
+    # do not refine (as in the JAX package), so phase 4's criterion for
+    # cuda-rowelim, not the 1e-4 forward gate.
+    seen = {}
+    multihost.ensure_world(DEVICE)
+    try:
+        g64 = synthetic.generator_matrix(DIST_CLI_N)
+        gb64 = synthetic.manufactured_rhs(
+            g64, synthetic.manufactured_solution(DIST_CLI_N))
+        with held_kernel1(seen):
+            xg = gdb.gauss_solve_dist_blocked(g64.astype(np.float32),
+                                              gb64.astype(np.float32))
+    finally:
+        multihost.shutdown()
+    xg = xg.cpu().numpy().astype(np.float64)
+    eta = float(np.abs(gb64 - g64 @ xg).max() / (
+        np.abs(g64).sum(1).max() * np.abs(xg).max() + np.abs(gb64).max()))
+    require(eta <= BACKWARD_TOL, f"(b) external cuda-dist-blocked: "
+            f"backward error {eta} > {BACKWARD_TOL}")
+    lines["external backward error"] = f"{eta:.3e}"
+    held_bc = {k: seen.get(k, 0) for k in KERNEL1_KEYS}
+    per_solve = held_bc if DEVICE == "cuda" else {k: 0 for k in held_bc}
+    require(not seen.get("bad") and sum(held_bc.values()) > 0 and all(
+        bc_k1[k] == 4 * per_solve[k] for k in KERNEL1_KEYS),
+        f"(b), (c) kernel-1 launches {bc_k1} against one held solve "
+        f"{seen}")
+    out["c"]["held_per_solve"] = held_bc
+    out["c"]["held_max_abs_err"] = seen.get("max_abs_err")
+    print(f"phase 14 (b): {json.dumps(lines)}")
+    print(f"phase 14 (c): {json.dumps(out['c'])}")
+    return out
+
+
+def dist_external(dat: str) -> dict:
+    """Phase 14 (b)'s external run, in a process of its own beside (a):
+    ``gauss_external`` on the generator system (written to ``dat`` first
+    where no earlier phase left it) through ``cuda-dist-blocked`` on a
+    world of one; its stdout and kernel launches."""
+    from gauss_tpu_torch.cli import gauss_external
+    from gauss_tpu_torch.io import datfile, synthetic
+    from gauss_tpu_torch.kernels import _build
+
+    if not os.path.isfile(dat):
+        os.makedirs(os.path.dirname(dat), exist_ok=True)
+        datfile.write_dat(dat, synthetic.generator_matrix(DIST_CLI_N))
+    _build.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gauss_external.main([dat, "1", "--backend", "cuda-dist-blocked",
+                                  "--device", DEVICE])
+    return {"rc": rc, "out": buf.getvalue(), "launches": dict(_build.LAUNCHES)}
+
+
+def dist_child(work: str) -> dict:
+    """``dist_engines`` with its host figures, as one JSON value."""
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.init()
+    return dist_engines(work)
+
+
+def native_engines(build_s: float, work: str) -> dict:
+    """Phase 14 (d): the native engines on the card's host through the
+    CLIs, from the clean build of ``native_build``."""
+    from gauss_tpu_torch.cli import gauss_internal, matmul
+
+    out = {"make_s": round(build_s, 3), "lines": {}}
+    for engine in ("seq", "omp", "threads", "forkjoin", "tiled"):
+        o = run_cli(gauss_internal, ["-s", str(NATIVE_N), "-t",
+                                     str(NATIVE_THREADS), "--verify",
+                                     "--backend", engine, "--device",
+                                     DEVICE])
+        out["lines"][engine] = [ln for ln in o.splitlines()
+                                if ln.startswith("Application time")][0]
+    o = run_cli(matmul, [str(NATIVE_N), "--engines", "cuda,seq,omp", "-t",
+                         str(NATIVE_THREADS), "--device", DEVICE])
+    require(o.count("verify: OK") == 3, "matmul cuda,seq,omp: a mismatch")
+    out["lines"]["matmul"] = o.strip().splitlines()
+    return out
+
+
+def native_child(clean: str, work: str) -> dict:
+    """Phase 14 (d) in a process of its own: ``make`` into the empty dir
+    ``clean`` (its seconds), then ``native_engines`` on that build."""
+    from gauss_tpu_torch import native
+
+    shutil.rmtree(clean, ignore_errors=True)
+    make_s = native.build(clean)
+    os.environ["GAUSS_TPU_TORCH_NATIVE_DIR"] = clean
+    return native_engines(make_s, work)
+
+
+def _start_child(st: dict, key: str, call: str) -> None:
+    """``call`` (an expression on this script imported as ``c``, with
+    phase 14's sizes) in a new process, its output in ``<work>/<key>.log``
+    and its value as JSON on the last line."""
+    sets = "".join(f"c.{k} = {globals()[k]!r}; " for k in (
+        "DEVICE", "DIST_N", "DIST_WARM_N", "DIST_CLI_N", "NATIVE_N",
+        "NATIVE_THREADS"))
+    code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+            f"import chip_smoke as c; {sets}"
+            f"print(json.dumps({call}, default=str))")
+    log = os.path.join(st["work"], f"{key}.log")
+    with open(log, "w") as f:
+        st[key] = (subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                    stderr=subprocess.STDOUT, cwd=REPO),
+                   log)
+
+
+def _finish_child(st: dict, key: str, label: str) -> dict:
+    """Wait for a part of phase 14; the seconds from the phase's start to
+    its last output (its log's time) go to ``st["ended_s"]``."""
+    proc, log = st[key]
+    rc = proc.wait(timeout=900)
+    with open(log) as f:
+        text = f.read()
+    require(rc == 0, f"phase 14 {label} exited {rc}: {text[-4000:]}")
+    st.setdefault("ended_s", {})[key] = round(
+        os.path.getmtime(log) - st["t0_unix"], 1)
+    return text, json.loads(text.strip().splitlines()[-1])
+
+
+def start_phase_dist() -> dict:
+    """Phase 14's start, its three parts each in a process of its own:
+    (a)-(c) (``dist_child``), (b)'s external run (``dist_external``, on
+    phase 4's generator file where a whole run wrote it) and (d)
+    (``native_child``, on the card's host). Returns what
+    ``finish_phase_dist`` waits for; in a whole run it starts beside phase
+    13's checks and campaigns."""
+    st = {"t0": time.perf_counter(), "t0_unix": time.time(),
+          "work": os.path.join(REPO, "build", "chip_smoke", "dist")}
+    os.makedirs(st["work"], exist_ok=True)
+    dat = os.path.join(REPO, "build", "chip_smoke",
+                       f"generator_{DIST_CLI_N}.dat")
+    _start_child(st, "child", f"c.dist_child({st['work']!r})")
+    _start_child(st, "external", f"c.dist_external({dat!r})")
+    _start_child(st, "native", f"c.native_child("
+                 f"{os.path.join(st['work'], 'native')!r}, "
+                 f"{st['work']!r})")
+    return st
+
+
+def stop_phase_dist(st: dict) -> None:
+    """Leave nothing of phase 14 behind after a failure elsewhere."""
+    for key in ("child", "external", "native"):
+        proc = st[key][0]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def finish_phase_dist(st: dict):
+    """Phase 14's end: its processes waited for, their output printed.
+    Returns the launch counts of (a)'s main path and of (b) + (c), and the
+    phase's figures."""
+    text, child = _finish_child(st, "child", "(a)-(c)")
+    print(text.rstrip())
+    _, ext = _finish_child(st, "external", "(b) external")
+    for line in ext["out"].strip().splitlines():
+        print(f"    | {line}")
+    err = float(re.search(r"Error: (\S+)", ext["out"]).group(1))
+    require(ext["rc"] == 0 and np.isfinite(err),
+            f"gauss_external cuda-dist-blocked: rc {ext['rc']}, Error {err}")
+    # Its kernel 1 is (b)/(c)'s n=2048 solve, held there on a re-run: two
+    # solves (the warm-up at shape, then the timed one).
+    per_solve = child["c"]["held_per_solve"] if DEVICE == "cuda" else {}
+    require(all(ext["launches"][k] == 2 * per_solve.get(k, 0)
+                for k in KERNEL1_KEYS), f"(b) external kernel-1 launches "
+            f"{ext['launches']} against {per_solve} a solve")
+    child["b"]["lines"]["external cuda-dist-blocked"] = (
+        [ln for ln in ext["out"].splitlines() if ln.startswith("Time")][0]
+        + f", Error {err:e}")
+    for k, v in ext["launches"].items():
+        child["launches_bc"][k] += v
+    text, d = _finish_child(st, "native", "(d)")
+    print(text.rstrip())
+    print(f"phase 14 (d): make {d['make_s']} s (a clean build dir); "
+          f"{json.dumps(d['lines'])}")
+    # The phase's time: its start to the end of its last part (in a whole
+    # run it waits for phase 8 after that).
+    wall = max(st["ended_s"].values())
+    span = time.perf_counter() - st["t0"]
+    print(f"phase 14: {wall:.1f} s to its last part's end (budget "
+          f"{DIST_BUDGET_S:.0f} s{'' if wall <= DIST_BUDGET_S else ', PAST IT'}"
+          f"; parts {st['ended_s']}); {span:.1f} s to this line")
+    figs = {"a": child["a"], "b": child["b"], "c": child["c"], "d": d,
+            "wall_s": wall, "ended_s": st["ended_s"],
+            "span_s": round(span, 1), "card": child["card"]}
+    print(json.dumps({"dist": figs}))
+    return child["launches_a"], child["launches_bc"], figs
+
+
+def phase_dist():
+    """The distributed and native engines (module docstring, phase 14),
+    alone: returns what ``finish_phase_dist`` returns."""
+    st = start_phase_dist()
+    try:
+        return finish_phase_dist(st)
+    finally:
+        stop_phase_dist(st)
 
 
 def main(argv=None) -> int:
@@ -7655,10 +8133,20 @@ def main(argv=None) -> int:
     done("phase 6")
     by_path["lowered"], low = phase_lowered(args.reps)
     done("phase 7")
-    by_path["structure"], struct = phase_structure(args.reps)
-    require(by_path["structure"]["panel_factor_batched"] > 0,
-            "the structure path launched no batched panel kernel")
-    done("phase 8")
+    # Phase 14 runs beside phase 8, whose checks hold no time (its three
+    # parts in processes of their own; NCCL's init and teardown touch no
+    # other phase), and ends after it.
+    dist_st = start_phase_dist()
+    try:
+        by_path["structure"], struct = phase_structure(args.reps)
+        require(by_path["structure"]["panel_factor_batched"] > 0,
+                "the structure path launched no batched panel kernel")
+        done("phase 8")
+        by_path["dist"], by_path["dist_cli"], dist_fig = finish_phase_dist(
+            dist_st)
+    finally:
+        stop_phase_dist(dist_st)
+    done("phase 14")
     by_path["serve"], serve = phase_serve(args.reps)
     done("phase 9")
     by_path["resilience"], res = phase_resilience(args.reps)
@@ -7679,6 +8167,9 @@ def main(argv=None) -> int:
         "serve_solves_per_s": serve["service"]["solves_per_s"],
         "net_solves_per_s": net_fig["wire"]["solves_per_s"]}, bg)
     done("phase 13")
+    for path in ("dist", "dist_cli"):
+        require(sum(by_path[path][k] for k in KERNEL1_KEYS) > 0,
+                f"the {path} path launched no kernel 1")
     for name in ("panel_trailing_fused_batched", "panel_factor_batched",
                  "panel_trailing_fused_batched_bf16",
                  "panel_factor_batched_bf16", "spmv_ell"):
@@ -7759,7 +8250,8 @@ def main(argv=None) -> int:
          "batched_solve_strips_bound_ms": km["panel_batched_bound_ms"],
          "phase_profile_share": tele["phase_share"],
          "large_n": large_n_summary(large, "panel_factor_cluster"),
-         "outofcore": ooc_summary(ooc, "panel_factor_cluster")},
+         "outofcore": ooc_summary(ooc, "panel_factor_cluster"),
+         "dist": dist_summary(dist_fig, "panel_factor_cluster")},
         {"name": "panel_factor_grid", "route": "cuda",
          "source": src + "panel_grid.cu",
          "sources": [src + "panel_grid.cu", src + "panel_grid.cuh",
@@ -7778,7 +8270,8 @@ def main(argv=None) -> int:
              ob32["panel_one_block_ms"], "library_ms": strip_lib,
              "bound_ms": ob32["panel_bound_ms"], "err": ob32["panel_err"]},
          "large_n": large_n_summary(large, "panel_factor_grid"),
-         "outofcore": ooc_summary(ooc, "panel_factor_grid")},
+         "outofcore": ooc_summary(ooc, "panel_factor_grid"),
+         "dist": dist_summary(dist_fig, "panel_factor_grid")},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
@@ -8022,9 +8515,9 @@ def main(argv=None) -> int:
                   f"same matrix as CSR is the library call)",
          "stock_gather_sum_ms": big["stock_ms"],
          "shapes": [spmv[key] for key in sorted(spmv)]})
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_main:.1f} s "
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_main:.1f} s "
           f"(phase 12: {net_fig['wall_s']} s, phase 13: "
-          f"{router_fig['wall_s']} s)")
+          f"{router_fig['wall_s']} s, phase 14: {dist_fig['wall_s']} s)")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

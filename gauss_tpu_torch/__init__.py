@@ -18,7 +18,11 @@ blocked Cholesky, the band solvers and a block-diagonal lane whose stacks
 factor in one batched panel-kernel launch) runs on the recovery ladder
 of :mod:`.resilience`, with seeded fault injection. The
 telemetry core (:mod:`.obs`) records spans, counters and health monitors
-as JSONL under the CLIs' ``--metrics-out``.
+as JSONL under the CLIs' ``--metrics-out``. The reference's other
+parallel engines: the native C++ CPU engines (:mod:`.native`, built with
+``make`` at first use) and the distributed engines on
+``torch.distributed`` (:mod:`.dist`: one process a card, NCCL on the
+cards, gloo on the CPU).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise RuntimeError.

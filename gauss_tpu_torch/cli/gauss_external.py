@@ -2,7 +2,8 @@
 
 The JAX package's ``gauss_external`` surface on the port:
 ``python -m gauss_tpu_torch.cli.gauss_external <matrixfile> [threads]
-[--device cuda|cpu] [--metrics-out PATH] [--trace DIR] [--debug]`` —
+[--backend B] [--device cuda|cpu] [--metrics-out PATH] [--trace DIR]
+[--debug] [--coordinator HOST:PORT --num-processes N --process-id I]`` —
 parse and densify the coordinate file, build the RHS from the preset
 solution X[i] = i + 1, time the solve, print::
 
@@ -40,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "(PyTorch/CUDA port).")
     p.add_argument("matrixfile", help="path to the .dat matrix file")
     p.add_argument("threads", nargs="?", type=int, default=0,
-                   help="threads / shards (accepted for parity)")
+                   help="threads of the native engines, ranks of the "
+                        "distributed ones (default: all)")
     p.add_argument("--backend", choices=_common.GAUSS_BACKENDS,
                    default="cuda")
     p.add_argument("--device", choices=_common.DEVICES, default="cuda",
@@ -68,6 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "gauss_tpu_torch.obs.summarize PATH`")
     p.add_argument("--debug", action="store_true",
                    help="print parse and pivot diagnostics")
+    from gauss_tpu_torch.dist.multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p
 
 
@@ -101,11 +106,18 @@ def _run(args) -> int:
              device=dev.type, matrixfile=str(args.matrixfile))
     print(f"Matrix {args.matrixfile}: {n} x {n}, backend {args.backend}")
 
-    with profiling.trace(args.trace, args.device):
-        x, elapsed = _common.solve_with_backend(
-            a, b, args.backend, nthreads=args.threads, pivoting="partial",
-            refine_iters=args.refine, panel=args.panel,
-            refine_tol=args.refine_tol, device=args.device)
+    try:
+        with profiling.trace(args.trace, args.device):
+            x, elapsed = _common.solve_with_backend(
+                a, b, args.backend, nthreads=args.threads,
+                pivoting="partial", refine_iters=args.refine,
+                panel=args.panel, refine_tol=args.refine_tol,
+                device=args.device)
+    except np.linalg.LinAlgError:
+        # The native engines raise on a zero pivot; the reference's abort
+        # message (gauss_external_input.c:137 prints to stderr).
+        print("The matrix is singular", file=sys.stderr)
+        return 1
 
     if args.debug and args.backend == "cuda":
         # Pivot diagnostics: one extra factorization of the exact backend
@@ -140,7 +152,8 @@ def _run(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    with _common.metrics_run(args, "gauss_external") as (rec, stream):
+    with _common.joined(args), \
+            _common.metrics_run(args, "gauss_external") as (rec, stream):
         rc = _run(args)
     if stream:
         print(f"Metrics: run {rec.run_id} appended to {stream}")

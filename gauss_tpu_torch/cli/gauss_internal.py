@@ -2,9 +2,11 @@
 
 The JAX package's ``gauss_internal`` surface on the port:
 ``python -m gauss_tpu_torch.cli.gauss_internal -s <n> -t <threads>
-[--backend cuda|cuda-unblocked|cuda-rowelim|cuda-rowelim-step] [--verify]
-[--device cuda|cpu] [--metrics-out PATH] [--trace DIR] [--profile]
-[--phase-profile]``, defaults n=2048 / 32 threads, printing
+[--backend B] [--verify] [--device cuda|cpu] [--metrics-out PATH]
+[--trace DIR] [--profile] [--phase-profile] [--coordinator HOST:PORT
+--num-processes N --process-id I]`` (backends: ``_common.GAUSS_BACKENDS``;
+``-t`` is the rank count of the distributed backends and the thread count
+of the native ones), defaults n=2048 / 32 threads, printing
 ``Application time: %f Secs`` over init + solve. Invalid -s/-t values
 fall back to the defaults with a notice. Exit code 1 when ``--verify``
 fails or the matrix is singular.
@@ -59,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", metavar="N", default=str(DEFAULT_N),
                    help=f"matrix dimension (default {DEFAULT_N})")
     p.add_argument("-t", metavar="T", default=str(DEFAULT_THREADS),
-                   help="threads / shards (accepted for parity; default "
-                        f"{DEFAULT_THREADS})")
+                   help="threads of the native engines, ranks of the "
+                        "distributed ones (clamped to the cards, or the "
+                        f"CPU cores; default {DEFAULT_THREADS})")
     p.add_argument("--backend", choices=_common.GAUSS_BACKENDS,
                    default="cuda")
     p.add_argument("--device", choices=_common.DEVICES, default="cuda",
@@ -101,6 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "phase-instrumented blocked factorization (panel "
                         "factor / pivot apply / trailing update spans, a "
                         "synchronize after each) and print its table")
+    from gauss_tpu_torch.dist.multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p
 
 
@@ -172,7 +178,8 @@ def _run(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    with _common.metrics_run(args, "gauss_internal") as (rec, stream):
+    with _common.joined(args), \
+            _common.metrics_run(args, "gauss_internal") as (rec, stream):
         rc = _run(args)
     if stream:
         print(f"Metrics: run {rec.run_id} appended to {stream}")

@@ -5,8 +5,9 @@ reference's ``./cuda_matmul <nsize>`` (CUDA_and_OpenMP/Version-2/
 cuda_matmul.cu:104-187)::
 
     python -m gauss_tpu_torch.cli.matmul [nsize] [--engines E1,E2,...]
-        [--precision highest|high|default] [--device cuda|cpu]
-        [--metrics-out PATH] [--trace DIR]
+        [-t THREADS] [--precision highest|high|default]
+        [--device cuda|cpu] [--metrics-out PATH] [--trace DIR]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
 
 It fills ``A[idx] = idx+1`` and ``B[idx] = 1/(idx+1)`` (default nsize
 1024), and per engine prints::
@@ -16,11 +17,16 @@ It fills ``A[idx] = idx+1`` and ``B[idx] = 1/(idx+1)`` (default nsize
 where verify is the reference's epsilon comparator (eps = 1e-4, scaled by
 max|C|) against the float64 product. Exit code 1 when any engine
 mismatches. Engines: ``cuda`` (cuBLAS through ``core/matmul.matmul``, the
-counterpart of the JAX package's XLA engine; the default),
-``cuda-kernel`` (the tiled kernel, :func:`.kernels.matmul.matmul_tiled`)
-and ``cuda-kernel-v1`` (the row-stripe kernel,
-:func:`.kernels.matmul.matmul_stripe`). ``--precision`` unset keeps each
-engine's default, ``"high"`` (the bf16x3 split) everywhere. A warm-up at
+counterpart of the JAX package's XLA engine), ``cuda-kernel`` (the tiled
+kernel, :func:`.kernels.matmul.matmul_tiled`), ``cuda-kernel-v1`` (the
+row-stripe kernel, :func:`.kernels.matmul.matmul_stripe`), ``cuda-dist``
+(the sharded product, :func:`.dist.matmul_dist.matmul_dist`, on ``-t``
+ranks — all the cards by default), and the native host engines ``seq``
+and ``omp`` (``-t`` threads; all cores by default). The default run is
+the JAX package's three-way comparison, ``cuda,seq,omp`` (the sequential
+baseline is slow at large n: name the engines to leave it out).
+``--precision`` unset keeps each device engine's default, ``"high"`` (the
+bf16x3 split) everywhere. A warm-up at
 shape runs first (it builds the kernel and initialises cuBLAS); the timed
 span includes the host-to-device copy of A and B and the fetch of C, as
 the reference's does (cuda_matmul.cu:135-167).
@@ -31,10 +37,6 @@ span, a ``verify`` span, the timed ``matmul:<engine>`` span (recorded
 after the run), a ``reported_time`` and a ``health`` event;
 ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the engines'
 runs into DIR.
-
-Not ported yet: the ``seq``/``omp`` engines wait for the native CPU
-engines (and ``--threads`` with them), ``tpu-dist`` for the distributed
-plane.
 """
 
 from __future__ import annotations
@@ -54,7 +56,9 @@ from gauss_tpu_torch.verify import checks
 
 DEFAULT_N = 1024  # reference default nsize (cuda_matmul.cu:16,105-111)
 LABELS = {"cuda": "CUDA", "cuda-kernel": "CUDA-Kernel",
-          "cuda-kernel-v1": "CUDA-Kernel-V1"}
+          "cuda-kernel-v1": "CUDA-Kernel-V1",
+          "cuda-dist": "CUDA-Dist (sharded)", "seq": "Sequential",
+          "omp": "OpenMP"}
 
 
 def _inputs(n: int):
@@ -84,15 +88,46 @@ def _run_device(a, b, engine: str, precision, dev):
     return np.asarray(c, np.float64), elapsed
 
 
+def dist_matmul_job(a, b, precision, mesh=None):
+    """One rank's part of the ``cuda-dist`` engine (run on every rank by
+    :func:`gauss_tpu_torch.dist.launch.run`): a warm-up at shape, then
+    the sharded product timed with its fetch."""
+    from gauss_tpu_torch.dist.matmul_dist import matmul_dist
+
+    kw = {} if precision is None else {"precision": precision}
+    with obs.compile_span("matmul_warmup:cuda-dist", n=a.shape[0]):
+        matmul_dist(a, b, mesh, **kw).cpu()
+    elapsed, c = timed_fetch(lambda: matmul_dist(a, b, mesh, **kw))
+    return np.asarray(c, np.float64), elapsed
+
+
+def _run_dist(a, b, precision, nthreads, dev):
+    from gauss_tpu_torch.dist import launch
+
+    return launch.run(nthreads, dist_matmul_job, a, b, precision,
+                      mesh="1d", device=dev.type)
+
+
+def _run_native(a, b, engine, nthreads):
+    from gauss_tpu_torch import native
+
+    elapsed, c = timed_fetch(native.matmul, a, b, engine=engine,
+                             nthreads=nthreads)
+    return c, elapsed
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="matmul",
         description="Dense matmul benchmark (PyTorch/CUDA port of "
                     "cuda_matmul).")
     p.add_argument("nsize", nargs="?", type=int, default=DEFAULT_N)
-    p.add_argument("--engines", default="cuda",
+    p.add_argument("--engines", default="cuda,seq,omp",
                    help="comma-separated subset of: "
                         f"{', '.join(_common.MATMUL_BACKENDS)}")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="threads of the omp engine, ranks of cuda-dist "
+                        "(default: all)")
     p.add_argument("--precision", choices=("highest", "high", "default"),
                    default=None,
                    help="GEMM precision for every engine (default 'high', "
@@ -107,7 +142,15 @@ def main(argv=None) -> int:
                    help="append this run's telemetry as JSONL to PATH; "
                         "render with `python -m "
                         "gauss_tpu_torch.obs.summarize`")
+    from gauss_tpu_torch.dist import multihost
+
+    multihost.add_multihost_args(p)
     args = p.parse_args(argv)
+    with _common.joined(args):
+        return _main(args)
+
+
+def _main(args) -> int:
     n = args.nsize
     if n <= 0:
         print("matmul: nsize must be positive", file=sys.stderr)
@@ -129,7 +172,14 @@ def main(argv=None) -> int:
         failed = False
         with profiling.trace(args.trace, dev):
             for engine in engines:
-                c, elapsed = _run_device(a, b, engine, args.precision, dev)
+                if engine in ("seq", "omp"):
+                    c, elapsed = _run_native(a, b, engine, args.threads)
+                elif engine == "cuda-dist":
+                    c, elapsed = _run_dist(a, b, args.precision,
+                                           args.threads, dev)
+                else:
+                    c, elapsed = _run_device(a, b, engine, args.precision,
+                                             dev)
                 with obs.span("verify"):
                     ok = checks.elementwise_match(
                         c, truth, epsilon=checks.EPSILON * scale)

@@ -1,10 +1,10 @@
 """Matrix generator CLI: emits a synthetic matrix in .dat format to stdout.
 
 Reference surface (matrices_dense/matrix_gen.cc + Makefile): ``./matrix_gen <n>``.
-The JAX package dispatches to its native C++ tool when built; the port
-has no ``native/`` yet (ROADMAP queue-1 item 5), so without ``--python``
-(or ``--structure``) it exits 2 naming that item, and with it writes the
-same bytes as the JAX package's Python writer.
+Without ``--python`` (or ``--structure``) it runs the native C++ tool
+(:mod:`gauss_tpu_torch.native`, built at first use); with it, the Python
+writer, whose bytes are the same. A native build that fails exits 1 with
+make's error instead of taking the Python writer.
 
 ``--structure`` extends the reference surface with the structure classes the
 router (:mod:`gauss_tpu_torch.structure`) recognizes — ``spd``, ``banded:<b>``,
@@ -21,6 +21,7 @@ operation end to end.
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 
 from gauss_tpu_torch.io import datfile, synthetic
@@ -64,7 +65,7 @@ def main(argv=None) -> int:
                         "blockdiag:<k> | dense (default: the reference "
                         "matrix_gen.cc min-matrix)")
     p.add_argument("--python", action="store_true",
-                   help="the Python writer (the native tool is not ported)")
+                   help="force the Python writer (skip the native tool)")
     p.add_argument("--metrics-out", metavar="PATH", default=None,
                    help="append generation telemetry as JSONL to PATH")
     args = p.parse_args(argv)
@@ -86,33 +87,40 @@ def main(argv=None) -> int:
         obs.emit("config", tool="matrix_gen", n=args.n,
                  structure=args.structure)
         if not args.python and matrix is None:
-            # The JAX package dispatches to its native C++ tool here; the
-            # port has no native/ yet, and says so instead of writing the
-            # matrix by another engine.
-            print("matrix_gen: the native engine (native/) is not ported "
-                  "to gauss_tpu_torch yet (ROADMAP queue-1 item 5); pass "
-                  "--python for the Python writer, whose output is "
-                  "identical", file=sys.stderr)
-            return 2
-        # Values are small integers, exact powers of rho, or float64
-        # draws; .17g prints them with an exact round trip either way.
-        with obs.span("generate_python"):
-            if isinstance(matrix, tuple):
-                # The sparse class: coordinates straight to the
-                # writer — no n x n buffer at any n.
-                rows, cols, vals = matrix
-                datfile.write_dat(sys.stdout, n=args.n, rows=rows,
-                                  cols=cols, vals=vals)
-            else:
-                datfile.write_dat(
-                    sys.stdout,
-                    matrix if matrix is not None
-                    else synthetic.generator_matrix(args.n),
-                    drop_zeros=drop_zeros)
+            # The native C++ tool only knows the reference min-matrix;
+            # structured modes always take the Python writer.
+            from gauss_tpu_torch import native
+
+            try:
+                gen = native.matrix_gen_path()
+            except (native.NativeBuildError, native.NativeRefusedError) as e:
+                print(f"matrix_gen: {e}", file=sys.stderr)
+                return 1
+            sys.stdout.flush()
+            with obs.span("generate_native"):
+                rc = subprocess.run([gen, str(args.n)],
+                                    stdout=sys.stdout).returncode
+        else:
+            # Values are small integers, exact powers of rho, or float64
+            # draws; .17g prints them with an exact round trip either way.
+            with obs.span("generate_python"):
+                if isinstance(matrix, tuple):
+                    # The sparse class: coordinates straight to the
+                    # writer — no n x n buffer at any n.
+                    rows, cols, vals = matrix
+                    datfile.write_dat(sys.stdout, n=args.n, rows=rows,
+                                      cols=cols, vals=vals)
+                else:
+                    datfile.write_dat(
+                        sys.stdout,
+                        matrix if matrix is not None
+                        else synthetic.generator_matrix(args.n),
+                        drop_zeros=drop_zeros)
+            rc = 0
     if args.metrics_out:
         print(f"Metrics: run {rec.run_id} appended to {args.metrics_out}",
               file=sys.stderr)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

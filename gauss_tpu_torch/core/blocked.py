@@ -1233,12 +1233,6 @@ DEFAULT_CHIP_BYTES = 13 * 2**30
 HANDOFF_ENGINES = (None, "single_chip", "dist", "outofcore")
 
 
-class LaneNotPortedError(NotImplementedError):
-    """A :func:`solve_handoff` lane the JAX package has and the port does
-    not yet: the sharded (``dist``) engine, ROADMAP queue-1 item 10.
-    Raised instead of any fallback."""
-
-
 def device_memory_budget(device=None) -> int:
     """Usable bytes on ``device`` (None means the card): 0.85 of the total
     ``torch.cuda.mem_get_info`` reports on a CUDA device, else
@@ -1291,29 +1285,28 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
                   engine: str | None = None, **single_chip_kwargs):
     """Size-routed solve (the JAX package's ``solve_handoff``): the
     single-card refined path (:func:`solve_refined`) while the working set
-    fits the budget (:func:`fits_single_chip`), the host-streamed
-    out-of-core engine (:func:`gauss_tpu_torch.outofcore.solve_outofcore`)
-    beyond it while the host can admit the system
-    (:func:`gauss_tpu_torch.outofcore.outofcore_fits`), a ValueError past
-    that. Each route emits a ``route`` event with the JAX package's
-    fields. Returns x float64, refined on every route.
+    fits the budget (:func:`fits_single_chip`); beyond it, given a ``mesh``
+    of more than one rank, the sharded blocked engine
+    (:func:`gauss_tpu_torch.dist.gauss_dist_blocked
+    .gauss_solve_dist_blocked_refined`, the ``dist`` lane), else the
+    host-streamed out-of-core engine
+    (:func:`gauss_tpu_torch.outofcore.solve_outofcore`) while the host can
+    admit the system (:func:`gauss_tpu_torch.outofcore.outofcore_fits`),
+    a ValueError past that. Each route emits a ``route`` event with the
+    JAX package's fields. Returns x float64, refined on every route.
 
     ``engine`` forces a lane: ``"single_chip"``, ``"outofcore"`` or
-    ``"dist"`` (None = size-routed); ``"dist"`` raises
-    :class:`LaneNotPortedError`. Options a chosen lane cannot honour raise
+    ``"dist"`` (None = size-routed; ``"dist"`` with no ``mesh`` shards over
+    every rank of the world, a world of one on ``device`` when no process
+    group exists). The dist lane is SPMD: every rank of the mesh calls
+    with the same operands. Options a chosen lane cannot honour raise
     ValueError, as in the JAX package: ``single_chip_kwargs`` are
     :func:`solve_refined`'s (dtype, panel_impl, unroll, a_dev, b_dev,
-    device), and the out-of-core lane honours ``dtype`` and ``device``
-    only. ``dtype`` counts in the estimate and must be float32 or
-    bfloat16 (the dtypes the kernels take).
-
-    Deviation: the port has no device mesh, so ``mesh`` is accepted for
-    the JAX signature and read by no lane; where the JAX package, given a
-    multi-device mesh, shards an oversized request (``dist``), the port
-    streams it out of core."""
+    device), the out-of-core lane honours ``dtype`` and ``device`` only,
+    and the dist lane ``device`` only. ``dtype`` counts in the estimate
+    and must be float32 or bfloat16 (the dtypes the kernels take)."""
     from gauss_tpu_torch import obs
 
-    del mesh
     if engine not in HANDOFF_ENGINES:
         raise ValueError(f"unknown handoff engine {engine!r}; options: "
                          f"{HANDOFF_ENGINES}")
@@ -1348,21 +1341,30 @@ def solve_handoff(a, b, budget: int | None = None, mesh=None,
                  est_bytes=est_bytes, budget=eff_budget, itemsize=itemsize)
         return solve_refined(a, b, panel=panel, iters=iters, tol=tol,
                              **single_chip_kwargs)[0]
-    if engine is None:
+    if engine is None and (mesh is None or mesh.size() < 2):
+        # No mesh to shard over: stream from host memory instead.
         from gauss_tpu_torch import outofcore
 
         if outofcore.outofcore_fits(n, itemsize=itemsize, device=device):
             return outofcore_route()
         raise ValueError(
             f"n={n} exceeds the single-card budget (needs ~{est_bytes} "
-            f"bytes at itemsize {itemsize}, budget {eff_budget}) and the "
-            f"host-streamed out-of-core engine cannot admit it either "
+            f"bytes at itemsize {itemsize}, budget {eff_budget}), no mesh "
+            f"of more than one device was given, and the host-streamed "
+            f"out-of-core engine cannot admit it either "
             f"(gauss_tpu_torch.outofcore.outofcore_fits)")
     options = sorted(set(single_chip_kwargs) - {"device"})
     if options:
         raise ValueError(f"n={n} routes to the dist engine and these "
                          f"options do not apply to it: {options}")
-    raise LaneNotPortedError(
-        f"n={n}: the dist lane (working set ~{est_bytes} bytes at itemsize "
-        f"{itemsize}, single-card budget {eff_budget}) is not ported yet: "
-        f"the sharded engine is ROADMAP queue-1 item 10")
+    from gauss_tpu_torch.dist.gauss_dist_blocked import \
+        gauss_solve_dist_blocked_refined
+    from gauss_tpu_torch.dist.mesh import make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    obs.emit("route", tool="solve_handoff", n=n, lane="dist",
+             est_bytes=est_bytes, budget=eff_budget, itemsize=itemsize,
+             devices=int(mesh.size()))
+    return gauss_solve_dist_blocked_refined(a, b, mesh=mesh, panel=panel,
+                                            iters=iters, tol=tol)

@@ -19,9 +19,10 @@ reference semantics — last duplicate wins, EOF terminates — for bug-parity
 experiments.
 
 This is the port's own copy of the JAX package's numpy-only parser; the
-port imports nothing from the JAX package. The one deviation: the C++ fast
-parser (``engine="native"`` there) is not part of this package yet, so
-``read_dat_dense`` always runs the fully-checked python parser.
+port imports nothing from the JAX package. The C++ fast parser
+(``engine="native"``) is the port's :mod:`gauss_tpu_torch.native`, built
+from the same source; ``engine="auto"`` takes it only for ``strict=False``
+on a file path, as in the JAX package.
 
 **Duplicate-coordinate semantics.** A ``.dat`` file may name the same
 ``(row, col)`` twice; the consumers resolve that differently, on purpose:
@@ -355,15 +356,41 @@ def read_dat_dense(path_or_file: PathOrFile, dtype=np.float64,
                    engine: str = "auto", strict: bool = True) -> np.ndarray:
     """Parse + densify in one step (the external-input programs' initMatrix).
 
-    engine: "python" or "auto" (both the python parser here). The C++
-    parser ("native") is not part of this package yet and is refused with
-    a ValueError rather than quietly replaced.
+    engine: "python", "native" (the C++ parser of
+    :mod:`gauss_tpu_torch.native`), or "auto" — native when the input is a
+    real file path AND ``strict`` is off; python otherwise. The native
+    parser has no per-line validation (its output gets only a whole-matrix
+    finite check — no line numbers, no duplicate/terminator detection), so
+    the strict default routes "auto" through the fully-checked python
+    parser. Unlike the JAX package, a native build that fails raises
+    (``native.NativeBuildError``) instead of quietly taking the python
+    parser; only ``GAUSS_TPU_NO_NATIVE`` sends "auto" to the python parser.
     """
-    if engine == "native":
-        raise ValueError("engine='native' (the C++ parser) is not part of "
-                         "gauss_tpu_torch yet; use engine='python'")
-    if engine not in ("auto", "python"):
+    is_path = not (hasattr(path_or_file, "read"))
+    if engine not in ("auto", "python", "native"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "native" and not is_path:
+        raise ValueError("engine='native' requires a file path, not a file "
+                         "object")
+    if (engine == "native" or (engine == "auto" and not strict)) and is_path:
+        from gauss_tpu_torch import native
+
+        if engine == "native" or native.available():
+            try:
+                dense = native.read_dat_dense(
+                    os.fspath(path_or_file)).astype(dtype, copy=False)
+                if strict and not np.isfinite(dense).all():
+                    raise DatFormatError(
+                        f"non-finite value(s) in "
+                        f"{os.fspath(path_or_file)!r} (native parser; "
+                        f"re-read with engine='python' for the offending "
+                        f"line)")
+                return dense
+            except ValueError:
+                # A file the native parser rejects: "auto" re-reads it
+                # with the python parser, which names the bad line.
+                if engine == "native":
+                    raise
     n, rows, cols, vals = read_dat(path_or_file, strict=strict)
     return densify(n, rows, cols, vals, dtype=dtype)
 

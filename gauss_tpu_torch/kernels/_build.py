@@ -250,17 +250,21 @@ def _finish_build(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
 
 
 @contextlib.contextmanager
-def _build_dir_lock():
-    """An exclusive ``flock`` on the build dir: processes that start
-    together (a router's replicas) build each library once, one after
-    another, instead of each running every ``nvcc``."""
-    build_dir().mkdir(parents=True, exist_ok=True)
-    with open(build_dir() / "build.lock", "w") as f:
+def dir_lock(path: Path):
+    """An exclusive ``flock`` on a build dir: processes that start
+    together (a router's replicas, a launcher's ranks) build each library
+    once, one after another, instead of each running every compiler."""
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "build.lock", "w") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_dir_lock():
+    return dir_lock(build_dir())
 
 
 def build_all(names=SOURCES) -> dict[str, float]:

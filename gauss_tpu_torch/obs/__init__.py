@@ -33,15 +33,24 @@ gauss_tpu_torch.obs.flightcheck``) and the regression sentinel
 (``python -m gauss_tpu_torch.obs.regress``, with a history of its own)
 load only where they are used.
 
-Not ported yet: the collective budgets (``collective_budget``,
-``compiled_collective_budget``, ``record_collective_budget``, with the
-distributed plane), the cost half of ``obs.compile`` (``cost_summary``,
+The collective budgets (:mod:`.collectives`: ``collective_budget``,
+``compiled_collective_budget``, ``record_collective_budget``) count the
+collectives a distributed call issues through
+:mod:`gauss_tpu_torch.dist.comm`; ``python -m gauss_tpu_torch.obs.aggregate``
+merges the per-process streams of a multi-process launch.
+
+Not ported yet: the cost half of ``obs.compile`` (``cost_summary``,
 ``record_cost``, ``record_vmem_estimate``: XLA's cost analysis and
-Mosaic's VMEM have no counterpart), and the modules ``aggregate``,
-``attr``, ``doctor``, ``export``, ``live``, ``livecheck``, ``prof``,
-``profcheck``, ``slo`` and ``top``.
+Mosaic's VMEM have no counterpart), and the modules ``attr``, ``doctor``,
+``export``, ``live``, ``livecheck``, ``prof``, ``profcheck``, ``slo`` and
+``top``.
 """
 
+from gauss_tpu_torch.obs.collectives import (
+    collective_budget,
+    compiled_collective_budget,
+    record_collective_budget,
+)
 from gauss_tpu_torch.obs.compile import compile_span
 from gauss_tpu_torch.obs.health import record_solve_health
 from gauss_tpu_torch.obs.registry import Recorder, new_run_id, read_events
@@ -62,11 +71,14 @@ from gauss_tpu_torch.obs.spans import (
     trace_context,
 )
 
-__all__ = ["Recorder", "active", "compile_span", "counter", "current_trace",
-           "emit", "flight_sink", "gauge", "histogram", "live_sink",
-           "new_run_id", "read_events", "record_solve_health", "record_span",
+__all__ = ["Recorder", "active", "collective_budget",
+           "compiled_collective_budget", "compile_span", "counter",
+           "current_trace", "emit", "flight_sink", "gauge", "histogram",
+           "live_sink", "new_run_id", "read_events",
+           "record_collective_budget", "record_solve_health", "record_span",
            "run", "set_flight_sink", "set_live_sink", "span", "trace_context"]
 
-# gauss_tpu_torch.obs.summarize, .trace, .debug, .flightcheck and .regress
+# gauss_tpu_torch.obs.summarize, .trace, .debug, .flightcheck, .regress
+# and .aggregate
 # are `python -m` entry points and are deliberately NOT imported here
 # (runpy's double-import warning).

@@ -38,7 +38,8 @@ def new_run_id() -> str:
 # run_start fields written by environment_fingerprint(); the summarizer
 # renders these on their own "environment:" line instead of the meta header.
 ENV_FINGERPRINT_KEYS = ("host", "os_pid", "python", "torch", "cuda",
-                        "backend", "device_kind", "device_count")
+                        "backend", "device_kind", "device_count",
+                        "process_index", "process_count")
 
 
 def environment_fingerprint() -> Dict[str, Any]:
@@ -46,7 +47,9 @@ def environment_fingerprint() -> Dict[str, Any]:
     versions and the backend: ``"cuda"`` with the card's name and the
     device count when CUDA is ALREADY initialized in this process, else
     ``"cpu"`` (a run that never touched the card ran on the CPU, as the
-    JAX package stamps the platform it ran on). Stamped into run_start at
+    JAX package stamps the platform it ran on), and the process's rank and
+    world size when a ``torch.distributed`` process group is up (the
+    lanes ``obs.aggregate`` merges by). Stamped into run_start at
     close so a regression is attributable to an environment, not just a
     commit.
 
@@ -64,6 +67,11 @@ def environment_fingerprint() -> Dict[str, Any]:
         return fp
     fp["torch"] = getattr(torch, "__version__", None)
     fp["cuda"] = getattr(getattr(torch, "version", None), "cuda", None)
+    dist = getattr(torch, "distributed", None)
+    if (dist is not None and dist.is_available()
+            and dist.is_initialized()):
+        fp.update(process_index=dist.get_rank(),
+                  process_count=dist.get_world_size())
     if not torch.cuda.is_initialized():
         fp["backend"] = "cpu"
         return fp

@@ -24,14 +24,17 @@ Port of ``gauss_tpu/resilience``:
 - :mod:`.abftcheck` — the ABFT campaign (``python -m
   gauss_tpu_torch.resilience.abftcheck``).
 - :mod:`.fleet` — the exit-cause vocabulary supervisors share
-  (``exit_cause``, ``counts_against_restart_budget``, ``DRAIN_EXIT``).
+  (``exit_cause``, ``counts_against_restart_budget``, ``DRAIN_EXIT``) and
+  the worker's lease heartbeat (``active``, ``beat``, ``read_lease``).
+- :mod:`.watchdog` — deadlines around blocking distributed steps: a dead
+  or stalled peer becomes a typed :class:`WorkerLostError`.
 
 ``inject`` is imported eagerly (stdlib + numpy only; the hook points in
 ``core`` reference it at module load); the other submodules import the
-solver stack and load lazily. Not ported yet: ``watchdog``,
-``dcheckpoint`` and ``fleet``'s supervisor (ROADMAP queue-1 item 10), so
-``WorkerLostError``, ``FleetError`` and ``solve_supervised`` are not
-here, and ``chaos`` refuses its ``fleet`` phase.
+solver stack and load lazily. Not ported yet: ``dcheckpoint`` and
+``fleet``'s supervisor (ROADMAP queue-1 item 10), so ``FleetError`` and
+``solve_supervised`` are not here, and ``chaos`` refuses its ``fleet``
+phase.
 """
 
 from gauss_tpu_torch.resilience.inject import (  # noqa: F401
@@ -42,11 +45,11 @@ from gauss_tpu_torch.resilience.inject import (  # noqa: F401
 )
 
 _LAZY = ("recover", "checkpoint", "chaos", "inject", "abft", "abftcheck",
-         "fleet")
+         "fleet", "watchdog")
 
 __all__ = ["FaultPlan", "FaultSpec", "SimulatedCompileError",
            "SimulatedFaultError", "UnrecoverableSolveError",
-           "solve_resilient"]
+           "WorkerLostError", "solve_resilient"]
 
 
 def __getattr__(name):
@@ -58,6 +61,10 @@ def __getattr__(name):
         from gauss_tpu_torch.resilience.recover import solve_resilient
 
         return solve_resilient
+    if name == "WorkerLostError":
+        from gauss_tpu_torch.resilience.watchdog import WorkerLostError
+
+        return WorkerLostError
     if name in _LAZY:
         import importlib
 

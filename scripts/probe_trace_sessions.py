@@ -7,6 +7,8 @@ whether one long-lived session keeps them (ROADMAP queue 3, fault 1).
                                             [--takes 20] [--lead-op]
     python3 scripts/probe_trace_sessions.py --empty-sessions K [--session-op]
                                             [--between N] [--before-build]
+                                            [--phase-kernels R]
+                                            [--cudart-shared]
 
 With ``--whole-run`` the process first runs ``chip_smoke.main()`` (every
 phase, its own traced calls included), so the probe starts where the
@@ -40,8 +42,12 @@ K`` the process, fresh, opens K empty profiler sessions (with
 ops outside any session, and then takes phase 6's n=8192 call once
 (:func:`after_empty_sessions`); ``--before-build`` opens the sessions
 before the hand-written kernels' libraries are built and loaded
-(``chip_smoke.phase_build``): whether the sessions a process opened
-before a take, or the device work between them, decide what it loses. One JSON
+(``chip_smoke.phase_build``), ``--phase-kernels R`` runs phase 3's
+kernel checks between the build and the take, and ``--cudart-shared``
+builds the libraries against the shared CUDA runtime (torch's) instead of
+nvcc's static one: whether the sessions a process opened before a take,
+the device work between them, or a second copy of the runtime decide
+what it loses. One JSON
 line, with the card's name and power limit. Needs a CUDA device.
 """
 
@@ -317,14 +323,16 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
 
 
 def after_empty_sessions(c, k: int, work: str, op: bool = False,
-                         between: int = 0, before_build: bool = False
-                         ) -> dict:
+                         between: int = 0, before_build: bool = False,
+                         kernels: int = 0) -> dict:
     """``k`` profiler sessions (each around one synchronize; with ``op``,
     around the lead op), ``between`` lead ops outside any session, then
     one traced take of phase 6's n=8192 call: its planned kernels, the
     ones recorded, and the records missing by name. The sessions come
     after ``c.phase_build()`` and the calls' warm-up (``phase_takes``);
-    ``before_build``: before both."""
+    ``before_build``: before both. ``kernels``: phase 3's kernel checks
+    (``c.phase_kernels(kernels)``, that many timed launches each) run
+    between the build and the take."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,6 +346,8 @@ def after_empty_sessions(c, k: int, work: str, op: bool = False,
     if before_build:
         sessions()
     c.phase_build()
+    if kernels:
+        c.phase_kernels(kernels)
     label, call, plan = phase_takes(c)[0]
     if not before_build:
         sessions()
@@ -346,11 +356,18 @@ def after_empty_sessions(c, k: int, work: str, op: bool = False,
     path = os.path.join(work, f"after_{k}.json")
     got, _, _ = c.trace_launches(call, path)
     return {"empty_sessions": k, "session_op": op, "between": between,
-            "before_build": before_build, "call": label,
+            "before_build": before_build, "phase_kernels": kernels,
+            "nvcc_flags": " ".join(_nvcc_flags()), "call": label,
             "planned": len(plan),
             "recorded": len(got),
             "missing": missing_records(c, path, c.TRACE_LEAD_MARKERS,
                                        [(label, call, plan)])}
+
+
+def _nvcc_flags():
+    from gauss_tpu_torch.kernels import _build
+
+    return _build.NVCC_FLAGS
 
 
 def main(argv=None) -> int:
@@ -378,6 +395,14 @@ def main(argv=None) -> int:
     ap.add_argument("--before-build", action="store_true",
                     help="with --empty-sessions: open the sessions before "
                          "the kernels' libraries are built and loaded")
+    ap.add_argument("--phase-kernels", type=int, default=0, metavar="R",
+                    help="with --empty-sessions: run phase 3's kernel "
+                         "checks (R timed launches each) between the build "
+                         "and the take")
+    ap.add_argument("--cudart-shared", action="store_true",
+                    help="build the kernels' libraries with `-cudart "
+                         "shared` (the CUDA runtime torch loads) instead of "
+                         "nvcc's static runtime, into libraries of their own")
     args = ap.parse_args(argv)
     import torch
 
@@ -385,6 +410,12 @@ def main(argv=None) -> int:
         print("probe: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
+    if args.cudart_shared:
+        from gauss_tpu_torch.kernels import _build
+
+        # The flags are part of the libraries' hash: these build beside
+        # the static-runtime ones under names of their own.
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-cudart", "shared")
     c = _smoke()
     if args.lead_markers is not None:
         c.TRACE_LEAD_MARKERS = args.lead_markers
@@ -395,7 +426,8 @@ def main(argv=None) -> int:
     if args.empty_sessions is not None:
         print(json.dumps({"trace_sessions": after_empty_sessions(
             c, args.empty_sessions, str(work), op=args.session_op,
-            between=args.between, before_build=args.before_build),
+            between=args.between, before_build=args.before_build,
+            kernels=args.phase_kernels),
             "card": c.smi_line()}))
         return 0
     if args.whole_run:

@@ -501,13 +501,21 @@ def test_handoff_itemsize_matches_jax():
 
 
 def test_handoff_off_card_lanes_raise_typed_error(tmp_path):
-    """The sharded lane still raises typed; the out-of-core lane, forced
-    or size-routed past the budget, now solves, with the JAX package's
-    route event."""
+    """The sharded lane, forced, solves on a world of one (it once raised
+    typed); the out-of-core lane, forced or size-routed past the budget,
+    solves, with the JAX package's route event."""
+    from gauss_tpu_torch.dist import multihost
+
     n = 32
     a, b = np.eye(n), np.ones(n)
-    with pytest.raises(tb.LaneNotPortedError, match="queue-1 item 10"):
-        tb.solve_handoff(a, b, engine="dist")
+    try:
+        x, ev = _route_events(tobs, tmp_path / "d.jsonl",
+                              lambda: tb.solve_handoff(a, b, engine="dist",
+                                                       device="cpu"))
+    finally:
+        multihost.shutdown()
+    assert np.array_equal(x, b)
+    assert ev[0]["lane"] == "dist" and ev[0]["devices"] == 1
     assert np.array_equal(tb.solve_handoff(a, b, engine="outofcore",
                                            device="cpu"), b)
     x, ev = _route_events(tobs, tmp_path / "t.jsonl", lambda: tb.solve_handoff(
@@ -641,7 +649,10 @@ def test_chip_smoke_large_n_phase_rehearsal(monkeypatch, tmp_path):
     assert out["handoff"]["largest_n"] == int(
         (tb.DEFAULT_CHIP_BYTES // 12) ** 0.5)
     text = buf.getvalue()
-    assert '{"large_n": ' in text and "queue-1 item 10" in text
+    # The dist lane (once refused here, typed) runs in phase 14, apart
+    # from this process's card; phase 6 prints its single-card lane.
+    assert '{"large_n": ' in text and "solve_handoff n=" in text
+    assert "route single_chip" in text
     # The plans at the card's sizes: n=8192 runs 24 fused launches (15 on
     # the grid route) and 8 panel-kernel launches (4 on the grid route);
     # n=12,800 87 fused (41 grid) and 13 panel (5 grid); neither sends a

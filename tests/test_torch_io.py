@@ -95,11 +95,20 @@ def test_iter_coords_chunks_byte_equal(tmp_path, rng):
             _same_bytes(x, y)
 
 
-def test_native_engine_refused():
-    """The C++ parser is not part of the port: refused, never replaced."""
+def test_native_engine_refused(tmp_path):
+    """The C++ parser (once refused) reads a file path to the JAX native
+    parser's bits; a file object is still refused for it, as in the JAX
+    package."""
+    from gauss_tpu import native as jnative
+
     with pytest.raises(ValueError, match="native"):
         tdat.read_dat_dense(io.StringIO("1 1 1\n1 1 1.0\n0 0 0\n"),
                             engine="native")
+    path = tmp_path / "m.dat"
+    path.write_text("2 2 3\n1 1 1.5\n2 1 -2.25\n2 2 1e-3\n0 0 0\n")
+    got = tdat.read_dat_dense(str(path), engine="native")
+    assert got.tobytes() == jnative.read_dat_dense(str(path)).tobytes()
+    assert got.tobytes() == tdat.read_dat_dense(str(path)).tobytes()
 
 
 def test_checks_identical(rng):

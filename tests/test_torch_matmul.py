@@ -146,10 +146,23 @@ def test_cli_default_precision_mismatch_exit_code():
 
 
 @pytest.mark.parametrize("argv", [["0", "--device", "cpu"],
-                                  ["8", "--engines", "seq", "--device", "cpu"],
+                                  ["8", "--engines", "tpu", "--device", "cpu"],
                                   ["8", "--engines", "", "--device", "cpu"]])
 def test_cli_rejects_bad_input(argv):
     assert _run(argv)[0] == 1
+
+
+def test_cli_native_and_default_engines():
+    """The native engines (once refused as unknown) run, and an unnamed
+    engine list is the JAX package's three-way ``cuda,seq,omp``."""
+    rc, out = _run(["8", "--engines", "seq", "--device", "cpu"])
+    assert rc == 0
+    assert [LINE.match(line).groups() for line in out.strip().splitlines()] \
+        == [("Sequential", "OK")]
+    rc, out = _run(["16", "--device", "cpu"])
+    assert rc == 0
+    assert [LINE.match(line).groups() for line in out.strip().splitlines()] \
+        == [("CUDA", "OK"), ("Sequential", "OK"), ("OpenMP", "OK")]
 
 
 @pytest.fixture

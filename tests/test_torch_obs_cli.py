@@ -161,7 +161,7 @@ def test_cpu_stream_says_cpu(jax_streams, tmp_path, key):
     main, argv = {
         "internal": (gauss_internal.main, ["-s", "32", "--verify"]),
         "external": (gauss_external.main, [str(jax_streams["dat"])]),
-        "matmul": (matmul.main, ["32"]),
+        "matmul": (matmul.main, ["32", "--engines", "cuda"]),
     }[key]
     assert _run(main, [*argv, "--device", "cpu", "--metrics-out",
                        str(path)])[0] == 0
@@ -183,7 +183,7 @@ def test_both_summarizers_render_both_streams(jax_streams, tmp_path, key):
     main, argv = {
         "internal": (gauss_internal.main, ["-s", "32", "--phase-profile"]),
         "external": (gauss_external.main, [str(jax_streams["dat"])]),
-        "matmul": (matmul.main, ["32"]),
+        "matmul": (matmul.main, ["32", "--engines", "cuda"]),
     }[key]
     assert _run(main, [*argv, "--device", "cpu", "--metrics-out",
                        str(path)])[0] == 0

@@ -582,11 +582,17 @@ def test_matrix_gen_stdout_matches_the_jax_cli(tmp_path, args):
     assert got == want and got[0] == 0
 
 
-def test_matrix_gen_native_engine_exits_2(capsys):
+def test_matrix_gen_native_engine_exits_2(tmp_path):
+    """The native tool (once refused with exit 2) writes the JAX package's
+    bytes, which equal the Python writer's."""
     from gauss_tpu_torch.cli import matrix_gen
 
-    assert matrix_gen.main(["6"]) == 2
-    assert "queue-1 item 5" in capsys.readouterr().err
+    got = _cli_out("gauss_tpu_torch.cli.matrix_gen", ["6"], tmp_path)
+    want = _cli_out("gauss_tpu.cli.matrix_gen", ["6"], tmp_path,
+                    env_jax=True)
+    py = _cli_out("gauss_tpu_torch.cli.matrix_gen", ["6", "--python"],
+                  tmp_path)
+    assert got == want == py and got[0] == 0
     assert matrix_gen.main(["0"]) == 1
 
 

@@ -495,7 +495,42 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ends after it (beside phase 13's campaigns it starved their stall
    leg's deadline).
    A ``{"dist": ...}`` JSON line carries the figures.
-15. The ``kernels`` JSON line, the card line, and the final
+15. The supervised fleet and the live telemetry plane
+   (``resilience/fleet``, ``resilience/dcheckpoint``, ``obs/live``,
+   ``obs/export``, ``obs/slo``, ``obs/top``, ``obs/livecheck``), in two
+   processes of its own started beside phase 13's campaigns (its checks
+   hold no time) and waited for after phase 13: (a) ``solve_supervised``
+   on a random float32 system at FLEET_N (n=8192, seed 258458, panel 256,
+   chunk 4) over FLEET_WORKERS worker processes on the card: its seconds,
+   each worker's seconds and bytes a shard write and worker 0's seconds
+   hashing shards into manifests; the launches the workers report in
+   their last beats (path ``fleet``: each worker factors the whole
+   system, so twice ``factor_plan``'s); the final checkpoint generation
+   bit for bit ``lu_factor_blocked_chunked`` at the same statics in this
+   process, every launch of which is held against its plain version.
+   (b) the same system with worker 1 killed before its third group
+   (``fleet.worker.group=kill``): x bit for bit (a)'s, the resume latency
+   (torch's import, CUDA init and the libraries' load included); then
+   with no restart budget, to the local finish (in the phase's own
+   process, its launches held) and to a shrink onto one worker, each x
+   bit for bit (a)'s. (c) ``chaos``'s fleet phase at the JAX package's
+   size (n=48, panel 16, a 3 s stall threshold): a kill and a stall, 0
+   violations, every bundle passing ``obs.debug --check``; its workers'
+   launches over its three runs (path ``chaos_fleet``), the clean run's
+   twice the plan's and held through the same factorization here. (d)
+   phase 9's n=6000 request through
+   ``ServeConfig(supervised_handoff=True)``: lane ``fleet``, verified at
+   1e-4; its workers' launches (path ``fleet_lane``, from the fleet's
+   ``done`` event) twice the plan's at the server's panel and chunk 1,
+   held the same way. (e) ``livecheck`` at its defaults on the card, its
+   four legs, its server in the phase's process with every launch held
+   at the launch against its plain version (path ``live``); then
+   ``python -m gauss_tpu_torch.obs.top --once`` against a fleet at
+   FLEET_TOP_N running with ``--live-port 0`` until a frame shows its
+   heartbeat ages, its workers' launches (path ``fleet_top``, from its
+   summary) held as in (c). A ``{"fleet": ...}`` JSON line carries the
+   figures.
+16. The ``kernels`` JSON line, the card line, and the final
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -7405,6 +7440,13 @@ def replica_campaign(work: str, card: str) -> dict:
     legs = {leg["leg"]: leg for leg in doc["legs"]}
     faults = {k: doc[k] for k in ("lost", "duplicate_terminals",
                                   "duplicate_solves", "unverified")}
+    stall = legs.get("stall", {})
+    if stall.get("outcome") != "ok":
+        # What a failed stall leg leaves (queue-3 fault 2): the router's
+        # death events and the replicas' last log lines.
+        print(f"phase 13 (b): the stall leg failed: deaths "
+              f"{json.dumps(stall.get('deaths'))}; log tails "
+              f"{json.dumps({k: v[-8:] for k, v in stall.get('child_logs', {}).items()})}")
     require(doc["invariant_ok"] and not any(faults.values())
             and set(legs) == {"kill3", "drain_free", "stall"}
             and all(leg["outcome"] == "ok" for leg in legs.values())
@@ -7419,6 +7461,7 @@ def replica_campaign(work: str, card: str) -> dict:
                         "recovery_s": v.get("recovery_s"),
                         "restarts_used": v.get("restarts_used")}
                     for k, v in legs.items()},
+           "stall_deaths": stall.get("deaths"),
            "tput_injected": doc["tput"], "held_launches": held,
            "verdicts": [
                {k: v.get(k) for k in ("metric", "value", "status", "device")}
@@ -8095,6 +8138,406 @@ def phase_dist():
         stop_phase_dist(st)
 
 
+# --- phase 15: the supervised fleet and the live telemetry plane -----------
+
+FLEET_N = 8192          # (a), (b): the system at full width
+FLEET_PANEL = 256
+FLEET_CHUNK = 4         # CHUNK_SEED: 8 checkpoint generations of 4 panels
+FLEET_WORKERS = 2
+FLEET_KILL_SKIP = 2     # (b): worker 1 killed before its third group
+FLEET_TOP_N = 2048      # (e): the fleet the dashboard watches
+CHAOS_FLEET_N = 48      # (c): chaos's fleet phase (the JAX package's size)
+CHAOS_FLEET_PANEL = 16
+#: phase 15's paths besides (a)'s ``fleet``, each a run's worker or server
+#: launches: (c) chaos's three supervised runs, (d) the server's fleet
+#: lane, (e) livecheck's server and the dashboard's fleet
+FLEET_CHECK_PATHS = ("chaos_fleet", "fleet_lane", "live", "fleet_top")
+FLEET_FIELDS = (("m", "m"), ("perm", "perm"), ("min_piv", "min_abs_pivot"),
+                ("linvs", "linv"), ("uinvs", "uinv"))
+
+
+def fleet_figures(res) -> dict:
+    """A supervised solve's figures: its rung and counts, seconds, and
+    each worker incarnation's checkpoint figures (seconds and bytes a
+    shard write, seconds hashing shards into manifests)."""
+    out = {k: getattr(res, k) for k in (
+        "rung", "restarts", "stalls", "kills", "shrinks", "world",
+        "resume_latency_s", "rel_residual", "wall_s")}
+    out["checkpoint"] = [
+        {"worker": r["worker"], "resumed_from": r["resumed_from"],
+         "gens": r["gens_written"],
+         "shard_write_s": r["shard_write_s"],
+         "shard_mb": [round(v / 2**20, 1) for v in r["shard_bytes"]],
+         "manifest_hash_s": r["manifest_hash_s"]}
+        for r in res.checkpoint]
+    return out
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def fleet_done_launches(events) -> list:
+    """The launches of each supervised solve in ``events`` (its ``fleet``
+    ``done`` event: the workers' counts, read from their last beats)."""
+    from gauss_tpu_torch.kernels import _build
+
+    return [{k: (ev.get("launches") or {}).get(k, 0) for k in _build.LAUNCHES}
+            for ev in events
+            if ev["type"] == "fleet" and ev.get("event") == "done"]
+
+
+def fleet_held(label: str, a, panel: int, chunk: int, workers: int,
+               clean: dict) -> int:
+    """A fleet's worker launches held against their plain versions: the
+    same factorization of ``a`` at ``panel`` and ``chunk`` in this process,
+    each launch against its plain version on the same input. ``clean``,
+    an unfaulted run's launches, must be ``workers`` times the plan's (each
+    worker factors the whole system). Returns the launches held."""
+    from gauss_tpu_torch.core import blocked
+
+    n = a.shape[0]
+    plan = factor_plan(n, panel, chunk)
+    want = {k: workers * v for k, v in plan_counts(plan).items()}
+    seen = {}
+    with checked_launches(seen):
+        blocked.lu_factor_blocked_chunked(
+            np.asarray(a, np.float64).astype(np.float32), panel=panel,
+            chunk=chunk, device=DEVICE)
+    sync()
+    held = seen.get("panel", 0) + seen.get("fused", 0)
+    require(held == len(plan) and (clean == want or DEVICE != "cuda"),
+            f"{label}: the workers' launches {clean} against {workers} x "
+            f"the plan's {plan_counts(plan)}; {held} launches held here of "
+            f"{len(plan)}")
+    return held
+
+
+def fleet_solves(work: str, card: str) -> dict:
+    """Phase 15 (a) and (b), in a process of its own: the supervised solve
+    at FLEET_N on the card, clean, with a worker killed, with no restart
+    budget (the local finish in this process) and with a shrink; the
+    clean run's launches are the ``fleet`` path's."""
+    import torch
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+    from gauss_tpu_torch.resilience import checkpoint, dcheckpoint, fleet
+
+    a, b = dist_system(FLEET_N)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    kw = dict(workers=FLEET_WORKERS, panel=FLEET_PANEL, chunk=FLEET_CHUNK,
+              device=DEVICE)
+    out = {"card": card, "n": FLEET_N, "panel": FLEET_PANEL,
+           "chunk": FLEET_CHUNK, "workers": FLEET_WORKERS}
+    jd = os.path.join(work, "clean")
+    clean = fleet.solve_supervised(a, b, jobdir=jd, keep=True, **kw)
+    # The fleet path: the workers' own counts (each a process of its own,
+    # counting from 0), read from their last beats.
+    launches = {k: clean.launches.get(k, 0) for k in _build.LAUNCHES}
+    plan = factor_plan(FLEET_N, FLEET_PANEL, FLEET_CHUNK)
+    want = {k: FLEET_WORKERS * v for k, v in plan_counts(plan).items()}
+    require(clean.rung == "supervised" and clean.rel_residual <= GATE
+            and (launches == want or DEVICE != "cuda"),
+            f"(a) clean supervised solve: rung {clean.rung}, residual "
+            f"{clean.rel_residual}, launches {launches} against "
+            f"{FLEET_WORKERS} x the plan's {plan_counts(plan)}")
+    out["a"] = fleet_figures(clean)
+    out["launches"] = launches
+    out["routes"] = dict(clean.route_launches)
+    # The factor: the final generation, bit for bit the chunked form at
+    # the same statics in this process, every launch of which is held
+    # against its plain version.
+    meta = {"schema": checkpoint.SCHEMA, "n": FLEET_N, "panel": FLEET_PANEL,
+            "chunk": FLEET_CHUNK, "panel_impl": "auto",
+            "gemm_precision": "highest", "dtype": "float32",
+            "digest": checkpoint._digest(a)}
+    ckdir = os.path.join(jd, "ckpt")
+    g, manifest = dcheckpoint.last_good(ckdir, meta)
+    carry = dcheckpoint.load_carry(ckdir, manifest, panel=FLEET_PANEL,
+                                   npad=FLEET_N)
+    seen = {}
+    with checked_launches(seen):
+        ref = blocked.lu_factor_blocked_chunked(
+            a, panel=FLEET_PANEL, chunk=FLEET_CHUNK, device=DEVICE)
+    sync()
+    differ = [k for k, f in FLEET_FIELDS
+              if not np.array_equal(carry[k], getattr(ref, f).cpu().numpy())]
+    held = seen.get("panel", 0) + seen.get("fused", 0)
+    require(g == FLEET_N // FLEET_PANEL and not differ and held == len(plan),
+            f"(a) the final generation {g} differs from "
+            f"lu_factor_blocked_chunked in {differ}; {held} launches held "
+            f"of {len(plan)}")
+    x_here = fleet._solve_refined(ref, a64, b64, 2)
+    out["a"].update(generation=g, factor_bit_for_bit=True,
+                    held_launches=held,
+                    x_equal_in_process=bool(np.array_equal(clean.x, x_here)))
+    del ref, carry
+    shutil.rmtree(jd, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 15 (a): supervised n={FLEET_N} on {FLEET_WORKERS} "
+          f"workers: {clean.wall_s} s, residual {clean.rel_residual:.3e}; "
+          f"launches {({k: v for k, v in launches.items() if v})} "
+          f"({FLEET_WORKERS} x the plan), routes {out['routes']}; the final "
+          f"generation bit for bit lu_factor_blocked_chunked here ({held} "
+          f"launches held); x {'=' if out['a']['x_equal_in_process'] else '!='}"
+          f" the in-process solve; checkpoint {out['a']['checkpoint']} "
+          f"[{card}]", flush=True)
+    plan_kill = f"fleet.worker.group=kill:skip={FLEET_KILL_SKIP}"
+    out["b"] = {}
+    for label, over in (("kill", {}),
+                        ("local_finish", {"max_restarts": 0,
+                                          "min_workers": FLEET_WORKERS}),
+                        ("shrink", {"max_restarts": 0, "min_workers": 1})):
+        seen = {}
+        with checked_launches(seen):
+            res = fleet.solve_supervised(a, b, inject=plan_kill,
+                                         inject_worker=1, **kw, **over)
+        rung = {"kill": "restart"}.get(label, label)
+        require(res.rung == rung and np.array_equal(res.x, clean.x),
+                f"(b) {label}: rung {res.rung}, x bit for bit (a)'s: "
+                f"{np.array_equal(res.x, clean.x)}")
+        out["b"][label] = fleet_figures(res)
+        out["b"][label]["held_launches_here"] = (seen.get("panel", 0)
+                                                 + seen.get("fused", 0))
+        print(f"phase 15 (b) {label}: rung {res.rung}, restarts "
+              f"{res.restarts}, shrinks {res.shrinks}, world {res.world}, "
+              f"resume latency {res.resume_latency_s} s, {res.wall_s} s; x "
+              f"bit for bit (a)'s; launches held here "
+              f"{out['b'][label]['held_launches_here']} [{card}]",
+              flush=True)
+    return out
+
+
+def fleet_top(work: str) -> dict:
+    """Phase 15 (e)'s dashboard: ``python -m gauss_tpu_torch.obs.top
+    --once`` against a fleet running with ``--live-port 0`` at FLEET_TOP_N,
+    until a frame shows the fleet's heartbeat ages."""
+    from gauss_tpu_torch.obs import top
+
+    summary = os.path.join(work, "top.json")
+    cmd = [sys.executable, "-m", "gauss_tpu_torch.resilience.fleet",
+           "--device", DEVICE, "-s", str(FLEET_TOP_N), "--seed", str(SEED),
+           "--panel", str(FLEET_PANEL), "--chunk", str(FLEET_CHUNK),
+           "--live-port", "0", "--summary-json", summary,
+           "--jobdir", os.path.join(work, "top")]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        head = []
+        m = None
+        while m is None and len(head) < 50:
+            head.append(proc.stdout.readline())
+            m = re.search(r"live telemetry: (\S+)/metrics", head[-1])
+            if not head[-1]:
+                break
+        require(m is not None, f"the fleet announced no endpoint: {head}")
+        frame = ""
+        deadline = time.monotonic() + 120
+        while "heartbeat ages" not in frame and time.monotonic() < deadline:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = top.main(["--url", m.group(1), "--once"])
+            require(rc == 0, f"gauss-torch-top --once exited {rc}")
+            frame = buf.getvalue()
+            time.sleep(0.2)
+        rest, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    require("fleet: world" in frame and proc.returncode == 0,
+            f"gauss-torch-top frame {frame!r}; the fleet exited "
+            f"{proc.returncode}: {rest[-2000:]}")
+    from gauss_tpu_torch.kernels import _build
+
+    with open(summary) as f:
+        doc = json.load(f)
+    launches = {k: doc["launches"].get(k, 0) for k in _build.LAUNCHES}
+    held = fleet_held("(e) the dashboard's fleet",
+                      dominant_system(FLEET_TOP_N, SEED)[0], FLEET_PANEL,
+                      FLEET_CHUNK, doc["workers"], launches)
+    return {"frame": frame.strip().splitlines(),
+            "fleet": [ln for ln in rest.splitlines() if "gauss-fleet" in ln],
+            "launches": launches, "held_launches": held}
+
+
+def fleet_checks(work: str, card: str) -> dict:
+    """Phase 15 (c), (d) and (e), in a process of its own: chaos's fleet
+    phase, the server's supervised handoff lane, livecheck and the
+    dashboard against a running fleet."""
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.obs import livecheck
+    from gauss_tpu_torch.resilience import chaos
+    from gauss_tpu_torch.serve import ServeConfig, SolverServer
+
+    from gauss_tpu_torch.core import blocked
+    from gauss_tpu_torch.kernels import _build
+
+    out = {"card": card, "launches": {}}
+    t0 = time.perf_counter()
+    with obs.run() as rec:
+        c = chaos.run_fleet_phase(SEED, GATE, device=DEVICE)
+    # (c)'s workers: the clean run's launches are twice the plan's, held
+    # here on chaos's own system; every run's are the chaos_fleet path's.
+    runs = fleet_done_launches(rec.events)
+    rng = np.random.default_rng(np.random.SeedSequence((SEED, 0xF1EE7)))
+    held_c = fleet_held("(c) chaos's clean fleet run",
+                        chaos._system(rng, CHAOS_FLEET_N)[0],
+                        CHAOS_FLEET_PANEL, 1, 2, runs[0])
+    out["launches"]["chaos_fleet"] = {
+        k: sum(r[k] for r in runs) for k in _build.LAUNCHES}
+    cases = {k["kind"]: {f: k.get(f) for f in (
+        "group", "outcome", "rung", "restarts", "stalls", "bit_identical",
+        "postmortem_ok", "resume_latency_s")} for k in c["cases"]}
+    require(c["violations"] == 0 and set(cases) == {"kill", "stall"}
+            and all(v["outcome"] == "recovered" and v["bit_identical"]
+                    and v["postmortem_ok"] for v in cases.values()),
+            f"(c) chaos's fleet phase: {c}")
+    out["c"] = {"cases": cases, "runs": len(runs), "held_launches": held_c,
+                "wall_s": round(time.perf_counter() - t0, 3)}
+    print(f"phase 15 (c): chaos's fleet phase (n={CHAOS_FLEET_N}, panel "
+          f"{CHAOS_FLEET_PANEL}, stall 3 s): {cases}, 0 violations, every "
+          f"bundle passes --check; the workers' launches over {len(runs)} "
+          f"runs {nonzero(out['launches']['chaos_fleet'])}, the clean "
+          f"run's held here ({held_c}); {out['c']['wall_s']} s [{card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    cfg = ServeConfig(ladder=SERVE_LADDER, max_batch=SERVE_BATCH,
+                      refine_steps=SERVE_REFINE, verify_gate=GATE,
+                      supervised_handoff=True, device=DEVICE)
+    a, b = dominant_system(SERVE_OVERSIZE, SEED + 6)
+    with obs.run() as rec, SolverServer(cfg) as server:
+        res = server.solve(a, b, timeout=900)
+    lanes = [e.get("lane") for e in rec.events if e["type"] == "route"]
+    require(res.ok and res.lane == "fleet" and res.rel_residual <= GATE
+            and "fleet" in lanes,
+            f"(d) supervised handoff: {res.status} lane {res.lane} residual "
+            f"{res.rel_residual} {res.error}")
+    # (d)'s workers (chunk 1 and the server's panel): held here.
+    (lane_launches,) = fleet_done_launches(rec.events)
+    panel_d = blocked._resolve_panel(SERVE_OVERSIZE, cfg.panel, 4)
+    held_d = fleet_held("(d) the supervised lane", a, panel_d, 1,
+                        cfg.fleet_workers, lane_launches)
+    out["launches"]["fleet_lane"] = lane_launches
+    out["d"] = {"n": SERVE_OVERSIZE, "lane": res.lane, "panel": panel_d,
+                "rel_residual": res.rel_residual,
+                "latency_s": res.latency_s, "held_launches": held_d,
+                "wall_s": round(time.perf_counter() - t0, 3)}
+    print(f"phase 15 (d): one n={SERVE_OVERSIZE} request through "
+          f"ServeConfig(supervised_handoff=True): lane {res.lane}, residual "
+          f"{res.rel_residual:.3e}, {res.latency_s} s; the workers' launches "
+          f"{nonzero(lane_launches)} ({cfg.fleet_workers} x the plan at "
+          f"panel {panel_d}, chunk 1), held here ({held_d}) [{card}]",
+          flush=True)
+    t0 = time.perf_counter()
+    path = os.path.join(work, "live.json")
+    # (e): livecheck's server runs in this process; each of its launches
+    # is held at the launch against its plain version (the live path).
+    held, seen = {}, {}
+    _build.reset_launches()
+    with held_batched_launches(held), checked_launches(seen):
+        run_cli(livecheck, ["--device", DEVICE, "--summary-json", path])
+    live = {k: _build.LAUNCHES[k] for k in _build.LAUNCHES}
+    held_e = (sum(held.values()) + seen.get("panel", 0)
+              + seen.get("fused", 0))
+    require(DEVICE != "cuda" or (sum(live.values()) == held_e
+                                 and live["panel_factor_batched"] > 0),
+            f"(e) livecheck's server: launches {nonzero(live)}, {held_e} "
+            f"held ({held}, {seen})")
+    out["launches"]["live"] = live
+    with open(path) as f:
+        doc = json.load(f)
+    out["e"] = {"livecheck": {k: doc[k] for k in ("loadgen", "traces")},
+                "held_launches": held_e,
+                "slo": {k: doc["slo"][k] for k in ("alerts", "clears",
+                                                   "worst_burn")},
+                "top": fleet_top(work),
+                "wall_s": round(time.perf_counter() - t0, 3)}
+    out["launches"]["fleet_top"] = out["e"]["top"]["launches"]
+    shown = {**out["e"], "top": {**out["e"]["top"], "launches": nonzero(
+        out["launches"]["fleet_top"])}}
+    print(f"phase 15 (e): livecheck's four legs pass; its server's launches "
+          f"{nonzero(live)}, each held at the launch; the dashboard's "
+          f"fleet's held here ({shown}) [{card}]", flush=True)
+    return out
+
+
+def start_phase_fleet() -> dict:
+    """Phase 15's start: (a)-(b) (``fleet_solves``) and (c)-(e)
+    (``fleet_checks``), each in a process of its own."""
+    card = smi_line() if DEVICE == "cuda" else "cpu"
+    st = {"t0": time.perf_counter(), "t0_unix": time.time(),
+          "work": os.path.join(REPO, "build", "chip_smoke", "fleet")}
+    shutil.rmtree(st["work"], ignore_errors=True)
+    names = ("DEVICE", "SERVE_LADDER", "SERVE_BATCH", "SERVE_REFINE",
+             "SERVE_OVERSIZE", "FLEET_N", "FLEET_PANEL", "FLEET_CHUNK",
+             "FLEET_TOP_N", "FLEET_KILL_SKIP")
+    for key, fn in (("solves", "fleet_solves"), ("checks", "fleet_checks")):
+        sub = os.path.join(st["work"], key)
+        os.makedirs(sub)
+        st[key] = start_own_process(f"c.{fn}({sub!r}, {card!r})",
+                                    os.path.join(sub, "log"), names)
+    return st
+
+
+def stop_phase_fleet(st: dict) -> None:
+    """Leave nothing of phase 15 behind after a failure elsewhere."""
+    for key in ("solves", "checks"):
+        proc = st.get(key)
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+    shutil.rmtree(st["work"], ignore_errors=True)
+
+
+def finish_phase_fleet(st: dict):
+    """Phase 15's end: returns its paths' launch counts (``fleet``: (a)'s
+    workers; FLEET_CHECK_PATHS: (c)-(e)'s) and the phase's figures, each
+    part's seconds from the phase's start to its last output."""
+    from gauss_tpu_torch.kernels import _build
+
+    figs = {}
+    for key in ("solves", "checks"):
+        log = os.path.join(st["work"], key, "log")
+        figs[key] = finish_own_process(st[key], log, f"phase 15 ({key})")
+        figs[key]["ended_s"] = round(os.path.getmtime(log) - st["t0_unix"],
+                                     1)
+    figs["wall_s"] = max(figs[k]["ended_s"] for k in ("solves", "checks"))
+    print(f"phase 15: {figs['wall_s']} s to its last part's end (parts "
+          f"{ {k: figs[k]['ended_s'] for k in ('solves', 'checks')} })")
+    print(json.dumps({"fleet": figs}, default=str))
+    paths = {"fleet": figs["solves"]["launches"],
+             **{p: figs["checks"]["launches"][p] for p in FLEET_CHECK_PATHS}}
+    return {p: {k: c.get(k, 0) for k in _build.LAUNCHES}
+            for p, c in paths.items()}, figs
+
+
+def phase_fleet():
+    """The supervised fleet and the live plane (module docstring, phase
+    15), alone: returns what ``finish_phase_fleet`` returns."""
+    st = start_phase_fleet()
+    try:
+        return finish_phase_fleet(st)
+    finally:
+        stop_phase_fleet(st)
+
+
+def fleet_summary(fig: dict, key: str) -> dict:
+    """Phase 15 (a)'s launches of a kernel (kernel 2's by phase-A route):
+    both workers' (each factors the whole system), held through the same
+    factorization in the smoke's own process."""
+    routes = {k.split("/")[1]: v for k, v in fig["solves"]["routes"].items()
+              if k.split("/")[0] == key}
+    return {f"n={FLEET_N}, {FLEET_WORKERS} workers":
+            routes or fig["solves"]["launches"].get(key, 0)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20,
@@ -8154,22 +8597,36 @@ def main(argv=None) -> int:
     by_path["outofcore"], ooc = phase_outofcore()
     done("phase 11")
     # Phase 13's timed run follows phase 12 (b)'s, each with the card to
-    # itself; phase 13's campaigns then run beside both phases' checks.
-    bg = {}
+    # itself; phase 13's campaigns and phase 15's parts, whose checks hold
+    # no time, then run beside both phases' checks.
+    bg, fleet_st = {}, {}
+
+    def beside():
+        start_router_phase(bg)
+        fleet_st.update(start_phase_fleet())
     try:
-        by_path["net"], net_fig = phase_net(
-            serve["service"], beside=lambda: start_router_phase(bg))
-    except BaseException:
+        by_path["net"], net_fig = phase_net(serve["service"],
+                                            beside=beside)
+        done("phase 12")
+        by_path["router"], router_fig = phase_router({
+            "serve_solves_per_s": serve["service"]["solves_per_s"],
+            "net_solves_per_s": net_fig["wire"]["solves_per_s"]}, bg)
+        done("phase 13")
+        fleet_paths, fleet_fig = finish_phase_fleet(fleet_st)
+        by_path.update(fleet_paths)
+        done("phase 15")
+    finally:
         stop_router_phase(bg)
-        raise
-    done("phase 12")
-    by_path["router"], router_fig = phase_router({
-        "serve_solves_per_s": serve["service"]["solves_per_s"],
-        "net_solves_per_s": net_fig["wire"]["solves_per_s"]}, bg)
-    done("phase 13")
-    for path in ("dist", "dist_cli"):
+        if fleet_st:
+            stop_phase_fleet(fleet_st)
+    for path in ("dist", "dist_cli", "fleet", "chaos_fleet", "fleet_lane",
+                 "fleet_top"):
         require(sum(by_path[path][k] for k in KERNEL1_KEYS) > 0,
                 f"the {path} path launched no kernel 1")
+    require(by_path["live"]["panel_factor_batched"] > 0,
+            "the live path launched no batched panel kernel")
+    require(by_path["fleet"]["panel_trailing_fused"] > 0,
+            "the fleet path launched no kernel 2")
     for name in ("panel_trailing_fused_batched", "panel_factor_batched",
                  "panel_trailing_fused_batched_bf16",
                  "panel_factor_batched_bf16", "spmv_ell"):
@@ -8251,7 +8708,8 @@ def main(argv=None) -> int:
          "phase_profile_share": tele["phase_share"],
          "large_n": large_n_summary(large, "panel_factor_cluster"),
          "outofcore": ooc_summary(ooc, "panel_factor_cluster"),
-         "dist": dist_summary(dist_fig, "panel_factor_cluster")},
+         "dist": dist_summary(dist_fig, "panel_factor_cluster"),
+         "fleet": fleet_summary(fleet_fig, "panel_factor_cluster")},
         {"name": "panel_factor_grid", "route": "cuda",
          "source": src + "panel_grid.cu",
          "sources": [src + "panel_grid.cu", src + "panel_grid.cuh",
@@ -8271,7 +8729,8 @@ def main(argv=None) -> int:
              "bound_ms": ob32["panel_bound_ms"], "err": ob32["panel_err"]},
          "large_n": large_n_summary(large, "panel_factor_grid"),
          "outofcore": ooc_summary(ooc, "panel_factor_grid"),
-         "dist": dist_summary(dist_fig, "panel_factor_grid")},
+         "dist": dist_summary(dist_fig, "panel_factor_grid"),
+         "fleet": fleet_summary(fleet_fig, "panel_factor_grid")},
         {"name": "panel_factor", "route": "cuda",
          "source": src + "panel_factor.cu",
          "replaces": "gauss_tpu/kernels/panel_pallas.py:253",
@@ -8311,7 +8770,8 @@ def main(argv=None) -> int:
          "factorization_lu_factor_ms": k2["lu_factor_ms"],
          "large_n": large_n_summary(large, "panel_trailing_fused"),
          "resilience_by_route": res_routes("panel_trailing_fused"),
-         "outofcore": ooc_summary(ooc, "panel_trailing_fused")},
+         "outofcore": ooc_summary(ooc, "panel_trailing_fused"),
+         "fleet": fleet_summary(fleet_fig, "panel_trailing_fused")},
         {"name": "trailing_update", "route": "cuda",
          "source": src + "panel_fused.cu",
          "replaces": "gauss_tpu/kernels/panel_fused_pallas.py:332",
@@ -8515,9 +8975,10 @@ def main(argv=None) -> int:
                   f"same matrix as CSR is the library call)",
          "stock_gather_sum_ms": big["stock_ms"],
          "shapes": [spmv[key] for key in sorted(spmv)]})
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_main:.1f} s "
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_main:.1f} s "
           f"(phase 12: {net_fig['wall_s']} s, phase 13: "
-          f"{router_fig['wall_s']} s, phase 14: {dist_fig['wall_s']} s)")
+          f"{router_fig['wall_s']} s, phase 14: {dist_fig['wall_s']} s, "
+          f"phase 15: {fleet_fig['wall_s']} s)")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,11 +39,16 @@ collectives a distributed call issues through
 :mod:`gauss_tpu_torch.dist.comm`; ``python -m gauss_tpu_torch.obs.aggregate``
 merges the per-process streams of a multi-process launch.
 
+The live telemetry plane (:mod:`.live`, a live sink on the same hooks;
+:mod:`.export`, its ``/metrics`` endpoint; :mod:`.slo`, burn-rate
+alerts; ``python -m gauss_tpu_torch.obs.top``, the dashboard; ``python -m
+gauss_tpu_torch.obs.livecheck``, its gate) loads only where a server or
+the fleet supervisor turns it on.
+
 Not ported yet: the cost half of ``obs.compile`` (``cost_summary``,
 ``record_cost``, ``record_vmem_estimate``: XLA's cost analysis and
 Mosaic's VMEM have no counterpart), and the modules ``attr``, ``doctor``,
-``export``, ``live``, ``livecheck``, ``prof``, ``profcheck``, ``slo`` and
-``top``.
+``prof`` and ``profcheck``.
 """
 
 from gauss_tpu_torch.obs.collectives import (

@@ -39,8 +39,8 @@ How this module differs from the JAX package's:
 - **No phase attribution.** A failed gate does not diff ``phases_s``
   against the best BENCH record (that needs ``obs/doctor``).
 - **Planes not ported are refused by name.** A summary of a kind whose
-  plane the port lacks (``slo_report``, ``fleet_solve``, ``mesh_serve``,
-  ``throughput_bench``, ``tune_sweep``, ``prof_check``, ``lint_report``)
+  plane the port lacks (``mesh_serve``, ``throughput_bench``,
+  ``tune_sweep``, ``prof_check``, ``lint_report``)
   raises :class:`PlaneNotPortedError` naming the ROADMAP queue-1 item that
   brings it; the CLI exits 2.
 
@@ -72,12 +72,12 @@ PLANES = {
     "poison_campaign": ("gauss_tpu_torch.serve.poisoncheck", "poison"),
     "replica_campaign": ("gauss_tpu_torch.serve.replicacheck", "replica"),
     "flight_check": ("gauss_tpu_torch.obs.flightcheck", "flight"),
+    "fleet_solve": ("gauss_tpu_torch.resilience.fleet", "fleet"),
+    "slo_report": ("gauss_tpu_torch.obs.slo", "slo"),
 }
 #: summary kinds of the JAX package whose planes are not ported, and the
 #: ROADMAP queue-1 item that brings each
 PENDING_PLANES = {
-    "slo_report": "item 11 (obs/slo)",
-    "fleet_solve": "item 10 (resilience/fleet's supervisor)",
     "mesh_serve": "item 11 (serve/meshcheck, after serve/lanes)",
     "throughput_bench": "item 8 (bench/throughput)",
     "tune_sweep": "item 11 (tune/runner)",

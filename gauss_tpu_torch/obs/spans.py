@@ -21,8 +21,10 @@ Three sinks hang off these hooks:
 
 The flight sink is :class:`gauss_tpu_torch.obs.flight.FlightSink`
 (installed by ``obs.flight.install``, which a server with a
-``flight_dir`` calls); the live sink's setter stays a plain hook until the
-live plane is ported.
+``flight_dir`` calls); the live sink is
+:class:`gauss_tpu_torch.obs.live.LiveAggregator` (installed by
+``obs.live.install``, which a server with a ``live_port`` and the fleet
+supervisor's ``--live-port`` call).
 
 Additionally, a thread-local **trace context** (:func:`trace_context`)
 stamps every event emitted inside it with a ``trace`` id, so request-scoped

@@ -23,18 +23,22 @@ Port of ``gauss_tpu/resilience``:
   typed, never a silent wrong answer.
 - :mod:`.abftcheck` — the ABFT campaign (``python -m
   gauss_tpu_torch.resilience.abftcheck``).
-- :mod:`.fleet` — the exit-cause vocabulary supervisors share
+- :mod:`.fleet` — supervised multi-worker solves: ``solve_supervised(a,
+  b)`` runs the factorization in worker processes over a sharded
+  coordinated checkpoint (lease heartbeats, restart-and-resume, elastic
+  degrade), every rung ending in a verified answer or a typed
+  :class:`FleetError`; ``python -m gauss_tpu_torch.resilience.fleet`` is
+  its CLI. Also the exit-cause vocabulary supervisors share
   (``exit_cause``, ``counts_against_restart_budget``, ``DRAIN_EXIT``) and
   the worker's lease heartbeat (``active``, ``beat``, ``read_lease``).
+- :mod:`.dcheckpoint` — the sharded coordinated checkpoint the fleet
+  resumes from (the JAX package's shard and manifest formats).
 - :mod:`.watchdog` — deadlines around blocking distributed steps: a dead
   or stalled peer becomes a typed :class:`WorkerLostError`.
 
 ``inject`` is imported eagerly (stdlib + numpy only; the hook points in
 ``core`` reference it at module load); the other submodules import the
-solver stack and load lazily. Not ported yet: ``dcheckpoint`` and
-``fleet``'s supervisor (ROADMAP queue-1 item 10), so ``FleetError`` and
-``solve_supervised`` are not here, and ``chaos`` refuses its ``fleet``
-phase.
+solver stack and load lazily.
 """
 
 from gauss_tpu_torch.resilience.inject import (  # noqa: F401
@@ -45,11 +49,12 @@ from gauss_tpu_torch.resilience.inject import (  # noqa: F401
 )
 
 _LAZY = ("recover", "checkpoint", "chaos", "inject", "abft", "abftcheck",
-         "fleet", "watchdog")
+         "fleet", "watchdog", "dcheckpoint")
 
 __all__ = ["FaultPlan", "FaultSpec", "SimulatedCompileError",
            "SimulatedFaultError", "UnrecoverableSolveError",
-           "WorkerLostError", "solve_resilient"]
+           "WorkerLostError", "FleetError", "solve_resilient",
+           "solve_supervised"]
 
 
 def __getattr__(name):
@@ -65,6 +70,14 @@ def __getattr__(name):
         from gauss_tpu_torch.resilience.watchdog import WorkerLostError
 
         return WorkerLostError
+    if name == "FleetError":
+        from gauss_tpu_torch.resilience.fleet import FleetError
+
+        return FleetError
+    if name == "solve_supervised":
+        from gauss_tpu_torch.resilience.fleet import solve_supervised
+
+        return solve_supervised
     if name in _LAZY:
         import importlib
 

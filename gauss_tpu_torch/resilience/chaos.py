@@ -23,6 +23,13 @@ Phases:
 - **checkpoint**: a checkpointed chunked factorization killed mid-run
   (the ``checkpoint.group`` hook) resumes bit for bit to the uninterrupted
   run's factor.
+- **fleet** (``--no-fleet`` to skip): supervised multi-worker solves
+  (:func:`gauss_tpu_torch.resilience.fleet.solve_supervised` on
+  ``--device``) with one worker killed and one stalled at a seeded panel
+  group; the supervised job must finish bit for bit equal to the
+  unfaulted supervised run, or raise the typed ``FleetError``, and every
+  injected kill or stall must leave a post-mortem bundle that ``python -m
+  gauss_tpu_torch.obs.debug --check`` accepts.
 - **structure** (``--no-structure`` to skip): structured solves under a
   lying classifier (every class x every wrong tag, through the
   ``structure.detect`` hook) demote to a verified answer or a typed error.
@@ -37,18 +44,14 @@ Phases:
   at the ABFT group sites, through
   :func:`gauss_tpu_torch.resilience.abftcheck.run_sdc_case`.
 
-The JAX package's ``fleet`` phase needs the supervised fleet (ROADMAP
-queue-1 item 10), which is not ported: a run that does not pass
-``--no-fleet`` exits 2 naming it, and does not skip it silently (its
-post-mortem assertions come with it). ``--history`` appends the
+``--history`` appends the
 campaign's records to the port's regression history (``obs.regress``:
 its own file, each record stamped with the device it ran on) and
 ``--regress-check`` gates them against that device's baselines.
 
 The summary (``--summary-json``, ``kind: chaos_campaign``) has the JAX
-package's keys (``fleet`` empty). Exit status: 2 when the invariant is
-violated (silent wrong answer or untyped error) or a refused option is
-given, 1 when ``--regress-check`` finds an out-of-band metric, 0
+package's keys. Exit status: 2 when the invariant is violated (silent
+wrong answer or untyped error) or a refused option is given, 1 when ``--regress-check`` finds an out-of-band metric, 0
 otherwise.
 """
 
@@ -63,12 +66,6 @@ import time
 from typing import Dict, List, Tuple
 
 import numpy as np
-
-#: the JAX package's phases whose planes are not ported
-UNPORTED_PHASES = (
-    ("no_fleet", "--no-fleet", "the fleet phase needs resilience/fleet's "
-     "supervisor (ROADMAP queue-1 item 10)"),
-)
 
 #: solver-phase scenario catalog: (name, weight). Most faults are one-shot.
 SCENARIOS = (
@@ -280,6 +277,77 @@ def run_checkpoint_phase(tmpdir: str, device=None) -> Dict:
             "injected": injected, "resumed_rel_residual": float(rel)}
 
 
+def run_fleet_phase(seed: int, gate: float, device=None) -> Dict:
+    """Supervised-fleet chaos: kill one fleet worker and stall another at
+    a seeded panel group (the JAX package's phase: n=48, panel 16, a 3 s
+    stall threshold). Invariant: the supervised job completes with a
+    verified solution — bit for bit the unfaulted supervised run — or a
+    typed FleetError; never a hang (every wait is deadline-bounded); and
+    every injected fault leaves a post-mortem bundle ``obs.debug --check``
+    accepts."""
+    import shutil
+
+    from gauss_tpu_torch import obs
+    from gauss_tpu_torch.obs import debug as _debug
+    from gauss_tpu_torch.obs import postmortem as _postmortem
+    from gauss_tpu_torch.resilience import fleet
+    from gauss_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 0xF1EE7)))
+    n = 48
+    a, b = _system(rng, n)
+    kw = dict(workers=2, panel=16, chunk=1, gate=gate, stall_after_s=3.0,
+              barrier_deadline_s=45.0, job_timeout_s=150.0,
+              device=dev.type)
+    cases: List[Dict] = []
+    with obs.span("chaos_fleet_phase"):
+        clean = fleet.solve_supervised(a, b, **kw)
+        group = 1 + int(rng.integers(0, 2))  # kill/stall at group 1 or 2
+        for kind in ("kill", "stall"):
+            case = {"kind": kind, "group": group}
+            # Caller-owned jobdir: solve_supervised leaves it in place, so
+            # the supervisor's post-mortem bundle can be checked after.
+            jobdir = tempfile.mkdtemp(prefix=f"gauss_chaos_fleet_{kind}_")
+            try:
+                res = fleet.solve_supervised(
+                    a, b, jobdir=jobdir,
+                    inject=f"fleet.worker.group={kind}:skip={group}",
+                    inject_worker=1, **kw)
+                case.update(
+                    outcome="recovered" if res.recovered else "ok",
+                    rung=res.rung, restarts=res.restarts,
+                    stalls=res.stalls,
+                    rel_residual=float(res.rel_residual),
+                    resume_latency_s=res.resume_latency_s,
+                    bit_identical=bool(np.array_equal(clean.x, res.x)))
+            except fleet.FleetError as e:
+                case.update(outcome="typed_error", error=str(e)[:200])
+            except Exception as e:  # noqa: BLE001 — an untyped escape IS the bug
+                case.update(outcome="violation",
+                            error=f"{type(e).__name__}: {e}"[:200])
+            # Every injected kill or stall must leave a post-mortem bundle
+            # that obs.debug --check accepts.
+            bundle = _postmortem.latest_bundle(
+                _postmortem.default_bundles_dir(
+                    os.path.join(jobdir, "flight")))
+            case["bundle_check_rc"] = (
+                _debug.main([bundle, "--check"]) if bundle else None)
+            case["postmortem_ok"] = (bundle is not None
+                                     and case["bundle_check_rc"] == 0)
+            shutil.rmtree(jobdir, ignore_errors=True)
+            cases.append(case)
+    violations = sum(
+        1 for c in cases
+        if c["outcome"] == "violation"
+        or not c.get("postmortem_ok")
+        or (c["outcome"] in ("ok", "recovered")
+            and not c.get("bit_identical")))
+    return {"ran": True, "cases": cases, "injected": len(cases),
+            "clean_rel_residual": float(clean.rel_residual),
+            "violations": violations}
+
+
 def run_structure_phase(seed: int, gate: float, device=None) -> Dict:
     """Structured-solve chaos: a wrong structure tag (every class x every
     wrong tag, through the ``structure.detect`` mis-tag hook) must demote
@@ -428,8 +496,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Seeded chaos campaign: inject faults across engines "
                     "and hook points; assert every fault is recovered "
                     "(verified) or a typed error — never a silent wrong "
-                    "answer. Pass --no-fleet: that phase is not "
-                    "ported.")
+                    "answer.")
     p.add_argument("--cases", type=int, default=200,
                    help="solver-phase fault cases (default 200)")
     p.add_argument("--seed", type=int, default=258458)
@@ -448,8 +515,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-checkpoint", action="store_true",
                    help="skip the checkpoint kill/resume phase")
     p.add_argument("--no-fleet", action="store_true",
-                   help="required: the supervised-fleet phase is not "
-                        "ported (ROADMAP queue-1 item 10)")
+                   help="skip the supervised-fleet kill/stall phase "
+                        "(worker subprocesses)")
     p.add_argument("--no-structure", action="store_true",
                    help="skip the structured-solve mis-tag phase")
     p.add_argument("--no-durable", action="store_true",
@@ -477,13 +544,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = [(flag, why) for attr, flag, why in UNPORTED_PHASES
-               if not getattr(args, attr)]
-    if missing:
-        print("chaos: not ported, pass " + " ".join(f for f, _ in missing)
-              + ": " + "; ".join(w for _, w in missing), file=sys.stderr)
-        return 2
-
     engines = [e.strip() for e in args.engines.split(",") if e.strip()]
     sizes = [int(s) for s in args.sizes.split(",")]
     bad = [e for e in engines if e not in ENGINE_SITES]
@@ -509,6 +569,8 @@ def main(argv=None) -> int:
         ckpt = ({} if args.no_checkpoint
                 else run_checkpoint_phase(args.tmpdir or scratch,
                                           device=dev))
+        flt = ({} if args.no_fleet
+               else run_fleet_phase(args.seed, args.gate, device=dev))
         struct = ({} if args.no_structure
                   else run_structure_phase(args.seed, args.gate, device=dev))
         dur = ({} if args.no_durable
@@ -524,11 +586,13 @@ def main(argv=None) -> int:
                       + (serve.get("incorrect", 0) if serve else 0)
                       + (serve.get("unresolved", 0) if serve else 0)
                       + (0 if not ckpt or ckpt["bit_identical"] else 1)
+                      + (flt.get("violations", 0) if flt else 0)
                       + (struct.get("violations", 0) if struct else 0)
                       + (dur.get("violations", 0) if dur else 0)
                       + (sdc.get("violations", 0) if sdc else 0))
         injected = (solver["injected"] + (serve.get("injected", 0))
                     + (ckpt.get("injected", 0) if ckpt else 0)
+                    + (flt.get("injected", 0) if flt else 0)
                     + (struct.get("injected", 0) if struct else 0)
                     + (sdc.get("injected", 0) if sdc else 0))
         sites = dict(solver["injected_by_site"])
@@ -537,6 +601,9 @@ def main(argv=None) -> int:
         if ckpt.get("injected"):
             sites["checkpoint.group"] = (sites.get("checkpoint.group", 0)
                                          + ckpt["injected"])
+        if flt.get("injected"):
+            sites["fleet.worker.group"] = (sites.get("fleet.worker.group", 0)
+                                           + flt["injected"])
         if struct.get("injected"):
             sites["structure.detect"] = (sites.get("structure.detect", 0)
                                          + struct["injected"])
@@ -548,7 +615,7 @@ def main(argv=None) -> int:
             "device": args.device,
             "injected": injected, "injected_by_site": sites,
             "solver": solver, "serve": serve, "checkpoint": ckpt,
-            "fleet": {}, "structure": struct, "durable": dur, "sdc": sdc,
+            "fleet": flt, "structure": struct, "durable": dur, "sdc": sdc,
             "wall_s": wall, "invariant_ok": violations == 0,
         }
         obs.emit("chaos_campaign",
@@ -571,6 +638,14 @@ def main(argv=None) -> int:
         print(f"  checkpoint: killed={ckpt['killed']} "
               f"bit_identical={ckpt['bit_identical']} "
               f"rel_residual={ckpt['resumed_rel_residual']:.3e}")
+    if flt:
+        for c in flt["cases"]:
+            print(f"  fleet[{c['kind']}@group{c['group']}]: "
+                  f"{c['outcome']}"
+                  + (f" rung={c.get('rung')} restarts={c.get('restarts')} "
+                     f"stalls={c.get('stalls')} "
+                     f"bit_identical={c.get('bit_identical')}"
+                     if "rung" in c else f" ({c.get('error', '')[:80]})"))
     if struct:
         by_outcome: Dict[str, int] = {}
         for c in struct["cases"]:

@@ -87,11 +87,7 @@ class FeatureNotPortedError(NotImplementedError):
 #: keeps each plane off and the ROADMAP queue-1 item that brings it.
 UNPORTED_OPTIONS = (
     ("lanes", 0, "item 11 (serve/lanes, the mesh serving plane)"),
-    ("live_port", None, "item 11 (obs/live, obs/export, the live plane)"),
-    ("slos", (), "item 11 (obs/slo)"),
-    ("slo_shed", False, "item 11 (obs/slo, the SLO-degraded admission)"),
     ("attr", None, "item 11 (obs/attr, the attribution plane)"),
-    ("supervised_handoff", False, "item 10 (resilience/fleet)"),
 )
 
 
@@ -115,12 +111,11 @@ def refuse_unported(config: "ServeConfig") -> None:
 @dataclasses.dataclass
 class ServeConfig:
     """Tuning knobs for :class:`gauss_tpu_torch.serve.server.SolverServer`:
-    the JAX package's that the single-lane server and its journal read,
-    ``device``, and the switches of the planes not ported
-    (:data:`UNPORTED_OPTIONS`), which must keep their off values. The JAX
-    package's sub-options of those planes (lane widths, continuous
-    batching, the live endpoint's host and window, ...) are not fields
-    here."""
+    the JAX package's that the single-lane server, its journal, its
+    handoff lanes and its live plane read, ``device``, and the switches of
+    the planes not ported (:data:`UNPORTED_OPTIONS`), which must keep
+    their off values. The JAX package's sub-options of those planes (lane
+    widths, continuous batching, ...) are not fields here."""
 
     ladder: tuple = ()              # () -> buckets.DEFAULT_LADDER
     max_batch: int = 8              # dynamic-batching ceiling per dispatch
@@ -198,13 +193,30 @@ class ServeConfig:
     #                                 within one panel group and repaired by
     #                                 replay (resilience.abft); results that
     #                                 saw a detection carry sdc_detected
+    outofcore_handoff: bool = False   # the host-streamed handoff lane
+    supervised_handoff: bool = False  # route oversized single-RHS solves
+    #                                   through the fleet supervisor
+    #                                   (resilience.fleet.solve_supervised
+    #                                   on ``device``): the long solve
+    #                                   survives worker loss
+    fleet_workers: int = 2          # world size for the supervised lane
+    # -- the live telemetry plane (gauss_tpu_torch.obs.live / export / slo)
+    live_port: Optional[int] = None  # serve /metrics, /healthz, /slo,
+    #                                  /snapshot and /trace on this port
+    #                                  (0 = ephemeral; None = plane off,
+    #                                  the hot path pays nothing)
+    live_host: str = "127.0.0.1"    # bind address for the live endpoint
+    live_window: int = 1024         # rolling-window samples per series
+    slos: tuple = ()                # obs.slo.SLO definitions; () with the
+    #                                 live plane on -> the default serving
+    #                                 SLO (99% of requests terminate ok)
+    slo_shed: bool = False          # while an SLO alert FIRES, admit only
+    #                                 up to max_queue * degraded_queue_
+    #                                 factor: shedding starts before the
+    #                                 deadline cliff, not at it
+    degraded_queue_factor: float = 0.5  # admission bound scale under alert
     # -- the JAX package's planes not ported: each off, or the server
     #    refuses to build (FeatureNotPortedError) --------------------------
-    supervised_handoff: bool = False  # the fleet supervisor's handoff lane
-    outofcore_handoff: bool = False   # the host-streamed handoff lane
-    live_port: Optional[int] = None  # the live telemetry endpoint
-    slos: tuple = ()                # its SLO definitions
-    slo_shed: bool = False          # SLO-degraded admission
     attr: Optional[bool] = None     # the device-time attribution plane
     lanes: int = 0                  # the mesh serving plane's lanes
 

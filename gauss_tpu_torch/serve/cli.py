@@ -19,7 +19,11 @@ behind a consistent-hash router front (:mod:`.router`; ``--port``,
 ``--fleet-dir``) and drives the load through it. ``--flight-dir DIR``
 records the run into the crash-surviving flight ring
 (:mod:`gauss_tpu_torch.obs.flight`; also read from ``GAUSS_FLIGHT_DIR``,
-which is how ``--supervised`` hands it to the child), and ``--history`` /
+which is how ``--supervised`` hands it to the child), ``--live-port
+PORT`` embeds the live telemetry endpoint (:mod:`gauss_tpu_torch.obs
+.export`; watch it with ``python -m gauss_tpu_torch.obs.top``),
+``--slo-shed`` shrinks admission while an SLO alert fires, ``--slo-json``
+writes the run's ``kind: slo_report``, and ``--history`` /
 ``--regress-check`` feed and gate the port's regression history
 (:mod:`gauss_tpu_torch.obs.regress`). A flag of a plane not ported yet
 exits 2 naming its ROADMAP queue-1 item (:data:`UNPORTED_FLAGS`); the JAX
@@ -47,9 +51,6 @@ UNPORTED_FLAGS = (
     ("lanes", 0, "--lanes", "item 11 (serve/lanes)"),
     ("lane_width", 1, "--lane-width", "item 11 (serve/lanes)"),
     ("attr", False, "--attr", "item 11 (obs/attr)"),
-    ("live_port", None, "--live-port", "item 11 (obs/live, obs/export)"),
-    ("slo_shed", False, "--slo-shed", "item 11 (obs/slo)"),
-    ("slo_json", None, "--slo-json", "item 11 (obs/slo)"),
     ("compile_cache", None, "--compile-cache",
      "item 11 (the JAX package's tune/compilecache)"),
 )
@@ -99,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Batched solver serving load test: request queue, "
                     "shape-bucketed executable cache, admission control. "
                     "The flags of planes not ported yet (--lanes, "
-                    "--live-port, ...) exit 2.")
+                    "--attr, ...) exit 2.")
     p.add_argument("--mix", default="random:100*2,random:200,internal:160",
                    help="weighted workload tokens kind:arg[*weight] "
                         "(kinds: random:<n>, internal:<n>, dat:<path>, "
@@ -209,8 +210,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lane-width", type=int, default=1)
     p.add_argument("--compile-cache", default=None, metavar="DIR")
     p.add_argument("--attr", action="store_true")
-    p.add_argument("--live-port", type=int, default=None, metavar="PORT")
-    p.add_argument("--slo-shed", action="store_true")
+    # -- the live telemetry plane -----------------------------------------
+    p.add_argument("--live-port", type=int, default=None, metavar="PORT",
+                   help="embed the live telemetry endpoint on PORT "
+                        "(0 = ephemeral): /metrics Prometheus exposition, "
+                        "/slo burn-rate alert states, /trace on-demand "
+                        "Chrome-trace capture; read it live with `python -m "
+                        "gauss_tpu_torch.obs.top --url "
+                        "http://127.0.0.1:PORT`")
+    p.add_argument("--slo-shed", action="store_true",
+                   help="while an SLO burn-rate alert fires, shrink the "
+                        "admission bound (degradation before the deadline "
+                        "cliff); requires --live-port")
     # -- outputs ----------------------------------------------------------
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="append the run's obs JSONL event stream here "
@@ -218,7 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--summary-json", default=None, metavar="PATH",
                    help="write the serving report as JSON "
                         "(kind=serve_loadgen)")
-    p.add_argument("--slo-json", default=None, metavar="PATH")
+    p.add_argument("--slo-json", default=None, metavar="PATH",
+                   help="write the run's SLO report as JSON (regress-"
+                        "ingestable: kind=slo_report; requires "
+                        "--live-port)")
     p.add_argument("--history", nargs="?", const="", default=None,
                    metavar="PATH",
                    help="append the run's serving metrics to the regression "
@@ -259,6 +273,7 @@ def main(argv=None) -> int:
         batch_linger_s=args.linger, cache_capacity=args.cache_capacity,
         refine_steps=args.refine_steps, panel=args.panel, dtype=args.dtype,
         device=args.device, journal_dir=args.journal, resume=args.resume,
+        live_port=args.live_port, slo_shed=args.slo_shed,
         heartbeat_path=os.environ.get("GAUSS_SERVE_HEARTBEAT") or None,
         flight_dir=(args.flight_dir
                     or os.environ.get("GAUSS_FLIGHT_DIR") or None))
@@ -306,6 +321,11 @@ def main(argv=None) -> int:
             with SolverServer(serve_cfg) as server:
                 if args.journal:
                     _install_drain_handler(server)
+                if server.live_url:
+                    print(f"live telemetry: {server.live_url}/metrics "
+                          f"(watch with: python -m gauss_tpu_torch.obs.top "
+                          f"--url {server.live_url})")
+                if args.journal:
                     if server.last_resume:
                         print(f"journal: {args.journal} "
                               f"resume={server.last_resume}")
@@ -316,6 +336,13 @@ def main(argv=None) -> int:
     if args.summary_json:
         write_summary(summary, args.summary_json)
         print(f"summary: {args.summary_json}")
+    if args.slo_json:
+        if summary.get("slo"):
+            write_summary(summary["slo"], args.slo_json)
+            print(f"slo report: {args.slo_json}")
+        else:
+            print("gauss-serve: --slo-json needs --live-port (no SLO "
+                  "monitors ran)", file=sys.stderr)
     from gauss_tpu_torch.obs import regress
     from gauss_tpu_torch.serve.loadgen import history_records
 

@@ -56,8 +56,10 @@ The "server" may be a network client
 (:class:`gauss_tpu_torch.serve.net.SolveClient`, the ``--net`` mode): the
 report then names its endpoint (``net``) and its history metrics are
 tagged ``serve:net:<mode>``. A journaled server adds the ``journal``
-section. The report's sections for planes the port does not have yet (the
-mesh lanes, the SLO monitors, the attribution plane) are absent, as the
+section, a server with the live plane on the ``slo`` section (its SLO
+monitors' :func:`gauss_tpu_torch.obs.slo.slo_report`). The report's
+sections for planes the port does not have yet (the mesh lanes, the
+attribution plane) are absent, as the
 JAX package's are when those planes are off; ``compile_cache`` is None
 (the persistent compile cache is the JAX package's).
 """
@@ -432,6 +434,14 @@ def run_load(server: SolverServer, cfg: LoadgenConfig) -> Dict:
     if getattr(server, "journal", None) is not None:
         summary["journal"] = {**server.journal.stats(),
                               "resume": server.last_resume}
+    if getattr(server, "live", None) is not None:
+        # The live plane was on: fold its SLO monitors into the report,
+        # also exportable alone (serve.cli --slo-json) as the
+        # regress-ingestable ``kind: slo_report``.
+        from gauss_tpu_torch.obs import slo as _slo
+
+        summary["slo"] = _slo.slo_report(server.live.slos, mix=cfg.mix,
+                                         mode=cfg.mode)
     obs.emit("serve_loadgen", **{k: v for k, v in summary.items()
                                  if k != "kind"})
     for name, value in history_records(summary):
@@ -514,4 +524,11 @@ def format_summary(summary: Dict) -> str:
             + (f"; resumed {jr['resume']['replayed']} replayed + "
                f"{jr['resume']['expired']} expired"
                if jr.get("resume") else ""))
+    slo = summary.get("slo")
+    if slo:
+        lines.append(
+            f"  slo: {slo['violations']}/{slo['requests_counted']} "
+            f"violation(s) (rate {slo['violation_rate']:.4f}), worst burn "
+            f"{slo['worst_burn_rate']:.2f}x, {slo['alerts']} alert(s) "
+            f"fired / {slo['clears']} cleared")
     return "\n".join(lines)

@@ -616,6 +616,7 @@ def run_stall_leg(seed: int, gate: float, tmpdir: str, device: str = "cuda",
     call the stall, kill it, fail its journal over, and leave a
     ``supervisor_stall`` bundle — without the clients noticing more than
     latency."""
+    from gauss_tpu_torch import obs
     from gauss_tpu_torch.serve.net import SolveClient
     from gauss_tpu_torch.serve.router import Router
 
@@ -627,8 +628,9 @@ def run_stall_leg(seed: int, gate: float, tmpdir: str, device: str = "cuda",
             for _ in range(n_req)]
     rids = [f"st-{seed}-{j}" for j in range(n_req)]
     ledger = [(rid, mats[j][0].shape[0]) for j, rid in enumerate(rids)]
-    with Router(_router_config(root, 2, device, stall_after_s=2.5,
-                               poll_s=0.2)) as router:
+    with obs.run() as rec, Router(_router_config(
+            root, 2, device, stall_after_s=2.5, poll_s=0.2)) as router:
+        first = len(rec.events)
         client = SolveClient(router.url, timeout_s=180.0, wait_s=3.0,
                              seed=seed)
         results: Dict[str, Any] = {}
@@ -647,6 +649,7 @@ def run_stall_leg(seed: int, gate: float, tmpdir: str, device: str = "cuda",
         stats = router.stats()
         jdirs = _journal_dirs(router)
         router.stop(drain=True)
+        leg["deaths"] = _death_events(rec.events[first:])
     bundle, bundle_ok = _bundle_ok(os.path.join(root, "r0"))
     leg["bundle"] = bundle
     leg["bundle_check_ok"] = bundle_ok
@@ -665,7 +668,44 @@ def run_stall_leg(seed: int, gate: float, tmpdir: str, device: str = "cuda",
                         f"duplicates={a_['duplicates'][:3]} "
                         f"bundle_ok={bundle_ok} "
                         f"restarts_used={stats['restarts_used']}")
+        # What a violation leaves to read: each replica incarnation's log
+        # tail beside the router's death events (leg["deaths"]).
+        leg["child_logs"] = {
+            name: _tail(os.path.join(root, name, "child.log"))
+            for name in sorted(os.listdir(root))
+            if os.path.isfile(os.path.join(root, name, "child.log"))}
     return leg
+
+
+#: the router's events that tell one death from another
+DEATH_EVENTS = ("stall", "restart", "degraded", "respawn_failed",
+                "death_handling_failed", "replica_spawn")
+
+
+def _death_events(events) -> List[Dict]:
+    """The router's stall, failover, spawn and restart events of a leg, in
+    order, each with its time (seconds into the run): which replica died,
+    how (``cause``, the stale heartbeat's age), who adopted its journal
+    and how long the failover took (``recovery_s``)."""
+    keep = ("t", "event", "replica", "cause", "rc", "heartbeat_age_s",
+            "adopter", "recovery_s", "replayed", "charged", "pid", "error")
+    out = []
+    for ev in events:
+        if ev.get("type") == "replica_failover" or (
+                ev.get("type") == "router"
+                and ev.get("event") in DEATH_EVENTS):
+            doc = {k: ev[k] for k in keep if ev.get(k) is not None}
+            doc.setdefault("event", ev["type"])
+            out.append(doc)
+    return out
+
+
+def _tail(path: str, lines: int = 40) -> List[str]:
+    try:
+        with open(path, "rb") as f:
+            return f.read().decode(errors="replace").splitlines()[-lines:]
+    except OSError:
+        return []
 
 
 def run_tput_phase(seed: int, tmpdir: str, min_speedup: float,

@@ -43,7 +43,10 @@ and keys map to the same replica. Deliberate deviations (ROADMAP queue
 back to the CPU) and ``structure_aware`` fields, passed to every replica;
 ``spawn_timeout_s`` counts a replica's start on the card (its torch
 import, its CUDA start and, on a new checkout, the kernels' build, which
-``kernels._build`` runs once under a file lock for all replicas).
+``kernels._build`` runs once under a file lock for all replicas); and a
+failover passes over a survivor whose heartbeat is already stale instead
+of posting the adopt to it (the JAX router posts it and waits out the
+adopt timeout, its watch loop held all the while).
 Importing this module loads no torch.
 """
 
@@ -284,6 +287,15 @@ class ReplicaProc:
         except OSError:
             return None
 
+    def stale(self, after_s: float) -> Optional[float]:
+        """The heartbeat's age when it, and this incarnation, are older
+        than ``after_s`` (a stall), else None."""
+        age = self.heartbeat_age()
+        if (age is not None and age > after_s
+                and time.time() - self.t_spawn > after_s):
+            return age
+        return None
+
     def retire_journal(self, seq: int) -> Optional[str]:
         """Move this incarnation's journal aside for adoption; the
         respawn starts a FRESH journal (the retired one now belongs to
@@ -429,9 +441,8 @@ class Router:
                         self._on_death(name, rp, _fleet.exit_cause(rc),
                                        rc=rc)
                         continue
-                    age = rp.heartbeat_age()
-                    if (age is not None and age > cfg.stall_after_s
-                            and time.time() - rp.t_spawn > cfg.stall_after_s):
+                    age = rp.stale(cfg.stall_after_s)
+                    if age is not None:
                         # Alive but wedged: the heartbeat (written every
                         # worker-loop iteration) went stale — kill it and
                         # treat the death as a stall.
@@ -541,10 +552,17 @@ class Router:
         if retired and live:
             # The dead replica's ring successor adopts its journal —
             # terminals imported for dedupe, live admits replayed,
-            # expired ones typed. Walk the survivors until one answers.
+            # expired ones typed. Walk the survivors until one answers,
+            # passing over one whose heartbeat is already stale: the
+            # watch loop calls its stall next, and an adopt posted to a
+            # wedged (or stopped) replica would hold this loop, and with
+            # it every other replica's stall check, for the whole adopt
+            # timeout.
             order = [self.ring.lookup(name, set(live))]
             order += [n for n in sorted(live) if n not in order]
             for cand in order:
+                if live[cand].stale(self.config.stall_after_s) is not None:
+                    continue
                 try:
                     adopt_out = self._post_adopt(live[cand], retired)
                     adopter_name = cand

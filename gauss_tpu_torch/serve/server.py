@@ -16,7 +16,11 @@ panel step for the whole stack on the card). Lanes:
   ``ServeConfig.abft`` and a system that fits the card, through the
   checksum-carrying recovery ladder (``solve_resilient(abft=True)``, a
   ``route`` event with ``lane="abft"``; the result carries
-  ``sdc_detected``).
+  ``sdc_detected``), or, with ``supervised_handoff`` and one right-hand
+  side, through the fleet supervisor
+  (:func:`gauss_tpu_torch.resilience.fleet.solve_supervised`, lane
+  ``fleet``: ``fleet_workers`` worker processes on ``device`` over a
+  sharded checkpoint, so the solve survives a worker's death).
 - **sparse** — ``structure="sparse"`` batches: every member runs the
   Krylov recovery ladder.
 - **numpy** — the degraded lane: the host recovery ladder, when the
@@ -53,10 +57,12 @@ Deliberate deviations from the JAX package:
 - The executable cache is private to the server (the JAX package's
   process-shared ``shared_cache`` serves its mesh lanes and is pending).
 - :meth:`start` builds the kernels before the worker admits anything on
-  the card, so a first batch's deadline never runs while ``nvcc`` does.
+  the card, so a first batch's deadline never runs while ``nvcc`` does,
+  and makes the card ready (:func:`gauss_tpu_torch.utils.device
+  .ready_cuda`) before the worker's first heartbeat, so a supervisor's
+  stall threshold times dispatches, not a process still starting.
 - Options of planes not ported (:data:`~gauss_tpu_torch.serve.admission
-  .UNPORTED_OPTIONS`: the mesh lanes, the live and attribution planes,
-  the supervised handoff) raise
+  .UNPORTED_OPTIONS`: the mesh lanes and the attribution plane) raise
   :class:`~gauss_tpu_torch.serve.admission.FeatureNotPortedError` when
   the server is built.
 - A journaled server mints its request ids above the journal's largest
@@ -76,6 +82,16 @@ ids kept), and client idempotency keys (``submit(request_id=...)``)
 dedupe resubmissions against journaled terminals and in-flight requests.
 A kernel fault on a replayed batch fails it typed like any other: one
 journaled ``failed`` terminal, never a replay loop.
+
+With ``ServeConfig(live_port=...)`` the same stream also feeds the live
+telemetry plane (:mod:`gauss_tpu_torch.obs.live`): a rolling-window
+aggregator installed as the obs live sink and an embedded HTTP endpoint
+(:mod:`gauss_tpu_torch.obs.export`) serving ``/metrics`` (Prometheus
+text), ``/healthz``, ``/slo`` (burn-rate alert states), ``/snapshot`` and
+``/trace`` (an on-demand Chrome-trace capture of the next N batches).
+With ``slo_shed`` the admission bound shrinks to ``max_queue *
+degraded_queue_factor`` while an SLO alert fires (reason
+``slo_degraded``).
 
 With ``ServeConfig(flight_dir=...)`` the server records into the
 crash-surviving flight ring (:mod:`gauss_tpu_torch.obs.flight`) from
@@ -164,6 +180,10 @@ class SolverServer:
         #: the crash-surviving flight recorder (None until start() with a
         #: flight_dir) — obs.flight.FlightSink
         self._flight = None
+        #: the live telemetry plane (None until start() with a live_port)
+        self.live = None                  # obs.live.LiveAggregator
+        self._live_server = None          # obs.export.LiveServer
+        self._live_prev = None            # sink displaced by install()
         if self.config.journal_dir:
             from gauss_tpu_torch.serve import durable as _durable
 
@@ -190,8 +210,12 @@ class SolverServer:
             # batch's deadline runs while nvcc does (an unchanged checkout
             # loads its libraries as built).
             from gauss_tpu_torch.kernels import _build
+            from gauss_tpu_torch.utils.device import ready_cuda
 
             _build.build_all()
+            ready_cuda(self.device)
+        if self.config.live_port is not None and self._live_server is None:
+            self._start_live()
         if self.config.flight_dir and self._flight is None:
             self._start_flight()
         self._stop.clear()
@@ -205,10 +229,43 @@ class SolverServer:
             self._replay()
         return self
 
+    def _start_live(self) -> None:
+        """Bring up the live telemetry plane: the aggregator installed as
+        the process obs live sink, and the embedded HTTP endpoint. Lazy
+        imports: a server without a live_port never loads any of this."""
+        from gauss_tpu_torch.obs import export as _export
+        from gauss_tpu_torch.obs import live as _live
+        from gauss_tpu_torch.obs import slo as _slo
+
+        cfg = self.config
+        slos = cfg.slos or (_slo.default_serving_slo(),)
+        self.live = _live.LiveAggregator(window=cfg.live_window, slos=slos)
+        self._live_prev = _live.install(self.live)
+        self._live_server = _export.LiveServer(
+            self.live, port=cfg.live_port, host=cfg.live_host).start()
+        obs.emit("live", event="listening", url=self._live_server.url,
+                 slos=[m.slo.name for m in self.live.slos])
+
+    def _stop_live(self) -> None:
+        if self._live_server is not None:
+            self._live_server.stop()
+            self._live_server = None
+        if self.live is not None:
+            from gauss_tpu_torch.obs import live as _live
+
+            _live.uninstall(self._live_prev)
+            self.live = None
+            self._live_prev = None
+
+    @property
+    def live_url(self) -> Optional[str]:
+        """The live endpoint base URL (None when the plane is off)."""
+        return self._live_server.url if self._live_server else None
+
     def _start_flight(self) -> None:
         """Bring up the flight recorder: the obs flight sink writing every
         event into ``flight_dir``'s mmap ring, plus the in-process
-        post-mortem trigger (SDC escalation). Lazy imports: a
+        post-mortem trigger (SLO firing, SDC escalation). Lazy imports: a
         ``flight_dir=None`` server never loads any of this."""
         from gauss_tpu_torch.obs import flight as _flight_mod
         from gauss_tpu_torch.obs import postmortem as _postmortem
@@ -219,7 +276,9 @@ class SolverServer:
         _postmortem.install_trigger(
             _postmortem.default_bundles_dir(cfg.flight_dir),
             flight_dir=cfg.flight_dir, journal_dir=cfg.journal_dir,
-            heartbeat_path=cfg.heartbeat_path)
+            heartbeat_path=cfg.heartbeat_path,
+            metrics_url=(self._live_server.url + "/metrics"
+                         if self._live_server else None))
         obs.emit("flight", event="recording", dir=cfg.flight_dir,
                  ring_bytes=cfg.flight_ring_bytes)
 
@@ -399,6 +458,7 @@ class SolverServer:
             self._worker = None
         if self.journal is not None:
             self.journal.abandon()
+        self._stop_live()
         # Dropped, not closed: a real kill writes no final sidecar.
         self._stop_flight(close=False)
 
@@ -438,6 +498,7 @@ class SolverServer:
             if joined:
                 self.journal.append_shutdown()
             self.journal.close()
+        self._stop_live()
         self._stop_flight()
 
     def __enter__(self) -> "SolverServer":
@@ -538,6 +599,14 @@ class SolverServer:
         req = ServeRequest(a, b, deadline_s=deadline_s, structure=structure,
                            dtype=dtype or self.config.dtype,
                            request_id=request_id)
+        # SLO-degraded admission (slo_shed): while a burn-rate alert fires,
+        # the effective queue bound shrinks, so load is turned away while
+        # the error budget bleeds. One boolean read when the plane is off.
+        bound = self.config.max_queue
+        degraded = (self.config.slo_shed and self.live is not None
+                    and self.live.slo_firing())
+        if degraded:
+            bound = int(bound * self.config.degraded_queue_factor)
         # One critical section: the closed/full check, the journal admit
         # and the enqueue, so a request is either enqueued before stop()
         # closes admission (its drain or flush owns it) or refused here,
@@ -549,8 +618,7 @@ class SolverServer:
                 # Again inside the lock: a concurrent submit or an
                 # adoption (net.adopt_journal) may have taken the key.
                 dup = self._rid_pending.get(request_id)
-            full = (not closed and dup is None
-                    and self._depth >= self.config.max_queue)
+            full = (not closed and dup is None and self._depth >= bound)
             if not closed and dup is None and not full:
                 if jr is not None:
                     jr.append_admit(
@@ -574,13 +642,18 @@ class SolverServer:
             return req
         if full:
             hint = self.retry_after_hint()
+            reason = "slo_degraded" if degraded else "queue_full"
             if req.resolve(ServeResult(status=STATUS_REJECTED,
                                        retry_after_s=hint,
-                                       error="queue full")):
+                                       error="queue full"
+                                             + (" (slo degraded)"
+                                                if degraded else ""))):
                 obs.counter("serve.rejected")
+                if degraded:
+                    obs.counter("serve.slo_shed")
                 obs.emit("serve_request", id=req.id, n=req.n,
                          trace=req.trace_id, status=STATUS_REJECTED,
-                         reason="queue_full", retry_after_s=hint,
+                         reason=reason, retry_after_s=hint,
                          queue_depth=self._depth_snapshot())
             return req
         obs.counter("serve.submitted")
@@ -857,12 +930,15 @@ class SolverServer:
             self._finish(req, xi, lane="batched", bucket_n=bucket_n)
 
     def _serve_handoff(self, req: ServeRequest) -> None:
-        """Oversized lane: with ``outofcore_handoff`` and a working set past
-        ``device_budget``, the request streams from host memory under the
-        ladder ``("outofcore", "numpy_f64")`` (lane ``outofcore``); with
-        ``abft`` and a system that fits the card, the checksum-carrying
-        ladder; else one solve_handoff call (its routing decision is its
-        own ``route`` event)."""
+        """Oversized lane: with ``supervised_handoff`` and one right-hand
+        side, the fleet supervisor (lane ``fleet``: the solve survives a
+        worker's death by restart and resume from the sharded checkpoint,
+        or elastic degrade); with ``outofcore_handoff`` and a working set
+        past ``device_budget``, the request streams from host memory under
+        the ladder ``("outofcore", "numpy_f64")`` (lane ``outofcore``);
+        with ``abft`` and a system that fits the card, the
+        checksum-carrying ladder; else one solve_handoff call (its routing
+        decision is its own ``route`` event)."""
         from gauss_tpu_torch.core import blocked
 
         cfg = self.config
@@ -871,7 +947,18 @@ class SolverServer:
         try:
             with obs.trace_context(req.trace_id), \
                     obs.span("serve_handoff", n=req.n):
-                if (cfg.outofcore_handoff
+                if cfg.supervised_handoff and req.was_vector:
+                    from gauss_tpu_torch.resilience import fleet
+
+                    lane = "fleet"
+                    obs.emit("route", tool="serve_handoff", lane="fleet",
+                             n=req.n, workers=cfg.fleet_workers)
+                    x = fleet.solve_supervised(
+                        req.a.astype(np.float64), req.b.astype(np.float64),
+                        workers=cfg.fleet_workers, panel=cfg.panel,
+                        refine_iters=max(2, cfg.refine_steps),
+                        device=self.device.type).x
+                elif (cfg.outofcore_handoff
                         and not blocked.fits_single_chip(
                             req.n, budget=cfg.device_budget,
                             device=self.device)):

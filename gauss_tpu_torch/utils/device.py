@@ -42,3 +42,18 @@ def as_tensor(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def ready_cuda(dev: torch.device) -> None:
+    """Make the card ready for a process's first solve: the CUDA context,
+    the caching allocator, and the cuBLAS and cuSOLVER handles that the
+    solvers' products, triangular solves and factorizations take at
+    their first call. Launches none of the port's kernels. A supervised
+    process (a replica, a fleet worker) calls it before its first
+    heartbeat: on a card that other processes share, these take seconds,
+    and inside a first dispatch they would hold the heartbeat past a
+    short stall threshold."""
+    w = 2 * torch.eye(64, device=dev).expand(2, 64, 64)
+    torch.linalg.solve_triangular(w, w @ w, upper=True)
+    torch.linalg.cholesky_ex(w)
+    torch.cuda.synchronize(dev)

@@ -9,6 +9,8 @@ whether one long-lived session keeps them (ROADMAP queue 3, fault 1).
                                             [--between N] [--before-build]
                                             [--phase-kernels R]
                                             [--cudart-shared]
+                                            [--load-only]
+                                            [--sessions-after-load M]
 
 With ``--whole-run`` the process first runs ``chip_smoke.main()`` (every
 phase, its own traced calls included), so the probe starts where the
@@ -47,7 +49,12 @@ kernel checks between the build and the take, and ``--cudart-shared``
 builds the libraries against the shared CUDA runtime (torch's) instead of
 nvcc's static one: whether the sessions a process opened before a take,
 the device work between them, or a second copy of the runtime decide
-what it loses. One JSON
+what it loses. ``--load-only`` builds the libraries in a process of its
+own first, so that this process only loads them (``ctypes.CDLL``, no
+``nvcc``) after its sessions; ``--sessions-after-load M`` opens and closes
+M more empty sessions after the load, before the take: whether loading
+alone reproduces the loss, and whether a session after the load clears
+it. One JSON
 line, with the card's name and power limit. Needs a CUDA device.
 """
 
@@ -324,7 +331,8 @@ def probe(c, sessions: int, takes: int, work: str) -> dict:
 
 def after_empty_sessions(c, k: int, work: str, op: bool = False,
                          between: int = 0, before_build: bool = False,
-                         kernels: int = 0) -> dict:
+                         kernels: int = 0, load_only: bool = False,
+                         after_load: int = 0) -> dict:
     """``k`` profiler sessions (each around one synchronize; with ``op``,
     around the lead op), ``between`` lead ops outside any session, then
     one traced take of phase 6's n=8192 call: its planned kernels, the
@@ -332,12 +340,25 @@ def after_empty_sessions(c, k: int, work: str, op: bool = False,
     after ``c.phase_build()`` and the calls' warm-up (``phase_takes``);
     ``before_build``: before both. ``kernels``: phase 3's kernel checks
     (``c.phase_kernels(kernels)``, that many timed launches each) run
-    between the build and the take."""
+    between the build and the take. ``load_only``: the libraries are
+    built in a process of its own first, so ``c.phase_build()`` here only
+    loads them; ``after_load``: that many more empty sessions after the
+    load, before the take."""
+    import subprocess
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def sessions():
-        for _ in range(k):
+    from gauss_tpu_torch.kernels import _build
+
+    if load_only:
+        subprocess.run([sys.executable, "-c",
+                        f"import sys; sys.path.insert(0, {str(HERE)!r}); "
+                        "from gauss_tpu_torch.kernels import _build; "
+                        "_build.build_all()"], check=True, cwd=HERE)
+
+    def sessions(count=k):
+        for _ in range(count):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]):
                 if op:
@@ -346,6 +367,8 @@ def after_empty_sessions(c, k: int, work: str, op: bool = False,
     if before_build:
         sessions()
     c.phase_build()
+    built_here = sum(_build.BUILD_SECONDS.values()) > 0
+    sessions(after_load)
     if kernels:
         c.phase_kernels(kernels)
     label, call, plan = phase_takes(c)[0]
@@ -357,6 +380,8 @@ def after_empty_sessions(c, k: int, work: str, op: bool = False,
     got, _, _ = c.trace_launches(call, path)
     return {"empty_sessions": k, "session_op": op, "between": between,
             "before_build": before_build, "phase_kernels": kernels,
+            "load_only": load_only, "built_in_this_process": built_here,
+            "sessions_after_load": after_load,
             "nvcc_flags": " ".join(_nvcc_flags()), "call": label,
             "planned": len(plan),
             "recorded": len(got),
@@ -399,6 +424,14 @@ def main(argv=None) -> int:
                     help="with --empty-sessions: run phase 3's kernel "
                          "checks (R timed launches each) between the build "
                          "and the take")
+    ap.add_argument("--load-only", action="store_true",
+                    help="with --empty-sessions: build the libraries in a "
+                         "process of its own first, so this one only loads "
+                         "them")
+    ap.add_argument("--sessions-after-load", type=int, default=0,
+                    metavar="M",
+                    help="with --empty-sessions: M more empty sessions "
+                         "after the libraries load, before the take")
     ap.add_argument("--cudart-shared", action="store_true",
                     help="build the kernels' libraries with `-cudart "
                          "shared` (the CUDA runtime torch loads) instead of "
@@ -427,7 +460,8 @@ def main(argv=None) -> int:
         print(json.dumps({"trace_sessions": after_empty_sessions(
             c, args.empty_sessions, str(work), op=args.session_op,
             between=args.between, before_build=args.before_build,
-            kernels=args.phase_kernels),
+            kernels=args.phase_kernels, load_only=args.load_only,
+            after_load=args.sessions_after_load),
             "card": c.smi_line()}))
         return 0
     if args.whole_run:

@@ -17,6 +17,7 @@ from gauss_tpu.resilience import chaos as jchaos
 from gauss_tpu_torch import obs as tobs
 from gauss_tpu_torch.obs import summarize
 from gauss_tpu_torch.resilience import chaos as tchaos
+from tests.test_torch_fleet import spawning
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -78,15 +79,57 @@ def test_chaos_campaign_small_end_to_end(tmp_path, capsys):
     (["--no-durable"], "--no-fleet"),
     (["--no-durable", "--history"], "--no-fleet"),
     (["--no-fleet", "--no-durable", "--engines", "bogus"], "unknown engine")])
-def test_unported_phases_and_options_exit_2(argv, needle, capsys):
-    """Only the fleet phase stays unported (item 10); the durable phase
-    and ``--history`` / ``--regress-check`` are ported since
-    (``test_durable_phase_verdicts_equal_the_jax_packages``,
-    ``test_chaos_history_and_regress_gate``)."""
-    assert tchaos.main(["--device", CPU] + argv) == 2
-    err = capsys.readouterr().err
-    assert needle in err and "--no-durable" not in err
-    assert [f for _, f, _ in tchaos.UNPORTED_PHASES] == ["--no-fleet"]
+def test_unported_phases_and_options_exit_2(argv, needle, monkeypatch,
+                                            tmp_path, capsys):
+    """No phase is refused any more: the fleet phase is ported
+    (``test_fleet_phase_verdicts_and_bundles``), so a run without
+    ``--no-fleet`` runs it (its runner stubbed here, the other phases cut
+    to nothing), and ``--no-fleet`` skips it. An unknown engine still
+    exits 2."""
+    assert not hasattr(tchaos, "UNPORTED_PHASES")
+    ran = []
+    monkeypatch.setattr(tchaos, "run_fleet_phase", lambda seed, gate, device:
+                        ran.append(device) or {"ran": True, "cases": [],
+                                               "injected": 0,
+                                               "violations": 0})
+    monkeypatch.setattr(tchaos, "run_durable_phase",
+                        lambda *a, **k: {"ran": True, "cases": [],
+                                         "admitted": 0, "crashes": 0,
+                                         "violations": 0})
+    cut = ["--cases", "0", "--serve-requests", "0", "--no-checkpoint",
+           "--no-structure", "--sdc-cases", "0"]
+    if "--history" in argv:
+        argv = [*argv, str(tmp_path / "h.jsonl")]
+    rc = tchaos.main(["--device", CPU, *cut, *argv])
+    captured = capsys.readouterr()
+    if needle == "unknown engine":
+        assert rc == 2 and needle in captured.err
+        return
+    assert rc == 0 and "invariant HOLDS" in captured.out
+    assert [str(d) for d in ran] == ([] if "--no-fleet" in argv else [CPU])
+
+
+def test_fleet_phase_verdicts_and_bundles(monkeypatch):
+    """chaos's fleet phase on the CPU: a worker killed and a worker
+    stalled at the same seeded group as the JAX package's phase draws,
+    each recovered bit for bit to the clean supervised run, each leaving a
+    bundle ``obs.debug --check`` accepts."""
+    import numpy as np
+
+    seed = 258458
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 0xF1EE7)))
+    jchaos._system(rng, 48)
+    group = 1 + int(rng.integers(0, 2))
+    with spawning():
+        out = tchaos.run_fleet_phase(seed, GATE, device=CPU)
+    assert out["violations"] == 0 and out["injected"] == 2
+    assert [c["kind"] for c in out["cases"]] == ["kill", "stall"]
+    for c in out["cases"]:
+        assert c["group"] == group
+        assert c["outcome"] == "recovered" and c["rung"] == "restart"
+        assert c["bit_identical"] and c["postmortem_ok"]
+        assert c["rel_residual"] <= GATE
+    assert out["cases"][1]["stalls"] == 1
 
 
 def test_durable_phase_verdicts_equal_the_jax_packages(tmp_path):

@@ -21,9 +21,6 @@ PENDING = {"gauss_tpu.obs": {
                "cost_summary": _OBS_COST,
                "record_cost": _OBS_COST,
                "record_vmem_estimate": _OBS_COST},
-           "gauss_tpu.resilience": {
-               "FleetError": "item 10, resilience/fleet's supervisor",
-               "solve_supervised": "item 10, resilience/fleet's supervisor"},
            "gauss_tpu.serve": {
                "CacheView": "item 11, serve/cache's mesh-lane view",
                "shared_cache": "item 11, serve/cache's process cache",

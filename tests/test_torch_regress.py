@@ -127,9 +127,32 @@ def test_device_tag_and_the_ports_own_history_file():
     assert path.parent == JAX_HISTORY.parent
 
 
-@pytest.mark.parametrize("kind", sorted(regress.PENDING_PLANES))
+#: kinds whose planes were refused here and are ported since: a summary of
+#: one is ingested through its plane's history_records
+PORTED_SINCE = {"fleet_solve": {"rung_index": 1, "resume_latency_s": 2.5,
+                                "restarts": 1, "wall_s": 9.0},
+                "slo_report": {"violation_rate": 0.25, "worst_burn_rate": 3.0,
+                               "alerts": 2}}
+
+
+@pytest.mark.parametrize("kind", sorted(set(regress.PENDING_PLANES)
+                                        | set(PORTED_SINCE)))
 def test_planes_not_ported_are_refused_by_name(kind, tmp_path, capsys):
+    """Kinds of planes not ported are refused by name; ``fleet_solve`` and
+    ``slo_report``, ported since, are ingested with the JAX package's
+    metrics, stamped with the summary's device."""
     path = tmp_path / "s.json"
+    if kind in PORTED_SINCE:
+        doc = dict(PORTED_SINCE[kind], kind=kind, device="cpu")
+        path.write_text(json.dumps(doc))
+        recs = regress.ingest_file(path)
+        want = jregress.ingest_file(path)
+        assert [(r["metric"], r["value"], r["unit"], r["kind"])
+                for r in recs] == [(r["metric"], r["value"], r["unit"],
+                                    r["kind"]) for r in want]
+        assert recs and all(r["device"] == "cpu" for r in recs)
+        assert kind not in regress.PENDING_PLANES
+        return
     path.write_text(json.dumps({"kind": kind}))
     with pytest.raises(regress.PlaneNotPortedError, match="queue-1 item"):
         regress.ingest_file(path)

@@ -16,6 +16,7 @@ from gauss_tpu.serve import replicacheck as jcheck
 from gauss_tpu.serve.cache import ExecutableCache as JExecutableCache
 from gauss_tpu_torch.serve import replicacheck
 from gauss_tpu_torch.serve.cache import ExecutableCache
+from tests.test_torch_fleet import timing
 
 CPU = "cpu"
 GATE = 1e-4
@@ -108,11 +109,13 @@ def test_scaling_gate_holds_the_injected_legs(monkeypatch, tmp_path):
     monkeypatch.setattr(rmod, "Router", FakeRouter)
     monkeypatch.delenv(inject.ENV_VAR, raising=False)
     monkeypatch.setattr(replicacheck, "_net_load", fake_load)
-    out = replicacheck.run_tput_phase(1, str(tmp_path), 2.0, device=CPU)
-    assert not out["ok"] and out["delay_s"] == replicacheck.TPUT_DELAY_S
-    monkeypatch.setattr(replicacheck, "_net_load",
-                        lambda *a, **k: fake_load(*a, **k, scale=3))
-    out = replicacheck.run_tput_phase(1, str(tmp_path), 2.0, device=CPU)
+    with timing():  # no supervised worker processes beside the legs
+        out = replicacheck.run_tput_phase(1, str(tmp_path), 2.0, device=CPU)
+        assert not out["ok"]
+        assert out["delay_s"] == replicacheck.TPUT_DELAY_S
+        monkeypatch.setattr(replicacheck, "_net_load",
+                            lambda *a, **k: fake_load(*a, **k, scale=3))
+        out = replicacheck.run_tput_phase(1, str(tmp_path), 2.0, device=CPU)
     assert out["ok"] and out["speedup"] >= 2.0
     assert len(seen) == 4 and all(
         f"param={replicacheck.TPUT_DELAY_S}" in v for v in seen)

@@ -20,6 +20,7 @@ import torch
 
 from gauss_tpu.resilience import fleet as jfleet
 from gauss_tpu.serve import router as jrouter
+from gauss_tpu_torch import obs as tobs
 from gauss_tpu_torch.obs import debug, postmortem
 from gauss_tpu_torch.resilience import fleet
 from gauss_tpu_torch.resilience.inject import KILL_EXIT_CODE
@@ -101,6 +102,47 @@ def _systems(n_req, seed=7):
         a[np.arange(n), np.arange(n)] += float(n)
         out.append((a, rng.standard_normal(n)))
     return out
+
+
+@pytest.mark.parametrize("survivor_age_s,adopter", [(0.5, "r1"),
+                                                    (60.0, None)])
+def test_failover_passes_over_a_survivor_with_a_stale_heartbeat(
+        tmp_path, monkeypatch, survivor_age_s, adopter):
+    """A dead replica's journal is posted to a survivor whose heartbeat is
+    fresh, and never to one whose heartbeat is already past
+    ``stall_after_s`` (a wedged or stopped replica would hold the watch
+    loop for the whole adopt timeout): the failover then has no adopter
+    and the stale survivor is left to its own stall check."""
+    import time
+
+    cfg = router.RouterConfig(dir=str(tmp_path), replicas=2, device=CPU,
+                              stall_after_s=2.5, max_restarts=0)
+    r = router.Router(cfg)
+    procs = {}
+    for name in ("r0", "r1"):
+        rdir = tmp_path / name
+        (rdir / "journal").mkdir(parents=True)
+        rp = router.ReplicaProc(name, str(rdir), None, open(
+            rdir / "child.log", "ab"))
+        rp.t_spawn = time.time() - 100.0
+        rp.url = f"http://{name}"
+        procs[name] = rp
+    hb = tmp_path / "r1" / "heartbeat.json"
+    hb.write_text("{}")
+    t = time.time() - survivor_age_s
+    os.utime(hb, (t, t))
+    posted = []
+    monkeypatch.setattr(r, "_post_adopt", lambda rp, retired: posted.append(
+        rp.name) or {"replayed": 0})
+    r.alog = router.AssignLog(str(tmp_path / "assign.log"))
+    r._live = dict(procs)
+    with tobs.run() as rec:
+        r._on_death("r0", procs["r0"], "stalled")
+    (fail,) = [e for e in rec.events if e["type"] == "replica_failover"]
+    assert fail["adopter"] == adopter
+    assert posted == ([adopter] if adopter else [])
+    assert "r1" in r._live and r.degraded
+    r.alog.close()
 
 
 def test_router_end_to_end_with_a_sigkilled_replica(tmp_path):

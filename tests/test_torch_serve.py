@@ -36,6 +36,7 @@ from gauss_tpu_torch.serve import (STATUS_EXPIRED, STATUS_FAILED, STATUS_OK,
                                    buckets, loadgen)
 from gauss_tpu_torch.serve import cli as serve_cli
 from gauss_tpu_torch.verify import checks
+from tests.test_torch_fleet import spawning
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -376,21 +377,47 @@ def test_transient_failures_degrade_to_the_numpy_lane(rng):
 def test_unported_options_raise_when_the_server_is_built(name, value,
                                                          tmp_path):
     """Every option of a plane not ported raises when the server is
-    built; ``abft``, ``outofcore_handoff``, ``journal_dir`` and
-    ``flight_dir``, ported since, build and are no longer listed (the
-    journal and the flight ring in a temporary directory, not at the
-    listed path)."""
-    if name in ("abft", "outofcore_handoff", "journal_dir", "flight_dir"):
+    built; ``abft``, ``outofcore_handoff``, ``journal_dir``,
+    ``flight_dir``, ``live_port``, ``slos``, ``slo_shed`` and
+    ``supervised_handoff``, ported since, build and are no longer listed
+    (the journal and the flight ring in a temporary directory, not at the
+    listed path; ``slos`` takes SLO definitions and the live plane; the
+    supervised handoff serves an oversized request through the fleet
+    supervisor, lane ``fleet``)."""
+    ported = ("abft", "outofcore_handoff", "journal_dir", "flight_dir",
+              "live_port", "slos", "slo_shed", "supervised_handoff")
+    if name in ported:
+        from gauss_tpu_torch.obs.slo import SLO
+
         assert name not in {o for o, _, _ in admission.UNPORTED_OPTIONS}
+        extra = {}
         if name in ("journal_dir", "flight_dir"):
             value = str(tmp_path / name)
-        with SolverServer(_config(**{name: value})) as srv:
+        if name == "slos":
+            value = (SLO(name="x"),)
+        if name in ("slos", "slo_shed"):
+            extra["live_port"] = 0
+        with SolverServer(_config(**{name: value}, **extra)) as srv:
             assert getattr(srv.config, name) == value
             if name == "journal_dir":
                 assert srv.journal is not None and srv.journal.dir == value
             if name == "flight_dir":
                 assert srv.flight_sink.flight_dir == value
-        assert srv.flight_sink is None
+            if name in ("live_port", "slos", "slo_shed"):
+                assert srv.live_url.startswith("http://127.0.0.1:")
+                names = [m.slo.name for m in srv.live.slos]
+                assert names == (["x"] if name == "slos" else ["serve_ok"])
+            if name == "supervised_handoff":
+                rng = np.random.default_rng(9)
+                a, b = _system(rng, LADDER[-1] + 16)
+                with obs.run() as rec, spawning():
+                    res = srv.solve(a, b, timeout=240)
+                assert res.ok and res.lane == "fleet"
+                assert checks.residual_norm(a, res.x, b,
+                                            relative=True) <= GATE
+                assert any(e["type"] == "route" and e.get("lane") == "fleet"
+                           for e in rec.events)
+        assert srv.flight_sink is None and srv.live_url is None
         return
     with pytest.raises(FeatureNotPortedError, match=name):
         SolverServer(_config(**{name: value}))
@@ -413,21 +440,24 @@ def test_device_defaults_to_the_card():
 def test_cli_unported_flags_exit_2(flag, capsys):
     """Every flag of a plane not ported exits 2 naming its item;
     ``--journal``, ``--supervised``, ``--net``, ``--flight-dir``,
-    ``--replicas``, ``--history`` and ``--regress-check``, ported since,
-    are accepted: parsed, not listed, and not refused (``--supervised``
-    alone exits 2 only for its missing ``--journal``). They run end to end
-    in ``tests/test_torch_router.py`` (``--replicas``, ``--history``) and
-    ``tests/test_torch_flight.py`` (the flight plane)."""
+    ``--replicas``, ``--history``, ``--regress-check``, ``--live-port``,
+    ``--slo-shed`` and ``--slo-json``, ported since, are accepted: parsed,
+    not listed, and not refused (``--supervised`` alone exits 2 only for
+    its missing ``--journal``). They run end to end in
+    ``tests/test_torch_router.py`` (``--replicas``, ``--history``),
+    ``tests/test_torch_flight.py`` (the flight plane) and
+    ``test_cli_live_plane_and_slo_report`` (the live plane)."""
     ported = {"--journal": "journal", "--supervised": "supervised",
               "--net": "net", "--flight-dir": "flight_dir",
               "--replicas": "replicas", "--history": "history",
-              "--regress-check": "regress_check"}
+              "--regress-check": "regress_check", "--live-port": "live_port",
+              "--slo-shed": "slo_shed", "--slo-json": "slo_json"}
     if flag[0] in ported:
         attr = ported[flag[0]]
         assert attr not in {a for a, _, _, _ in serve_cli.UNPORTED_FLAGS}
         args = serve_cli.build_parser().parse_args(["--device", CPU, *flag])
         want = flag[1] if len(flag) > 1 else True
-        if flag[0] == "--replicas":
+        if flag[0] in ("--replicas", "--live-port"):
             want = int(want)
         if flag[0] == "--history":
             want = ""  # the port's default history file
@@ -439,6 +469,27 @@ def test_cli_unported_flags_exit_2(flag, capsys):
         return
     assert serve_cli.main(["--device", CPU, *flag]) == 2
     assert "queue-1 item" in capsys.readouterr().err
+
+
+def test_cli_live_plane_and_slo_report(tmp_path):
+    """``--live-port 0 --slo-shed --slo-json``: the endpoint is announced,
+    the report gains the JAX package's ``slo`` line, and the SLO report is
+    written as ``kind: slo_report`` (ingested by ``obs.regress``)."""
+    from gauss_tpu_torch.obs import regress
+
+    slo_path = tmp_path / "slo.json"
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = serve_cli.main([
+            "--device", CPU, "--requests", "6", "--warmup", "0", "--mix",
+            "random:24", "--ladder", "32", "--live-port", "0",
+            "--slo-shed", "--slo-json", str(slo_path)])
+    text = out.getvalue()
+    assert rc == 0 and "live telemetry: http://127.0.0.1:" in text
+    assert "  slo: 0/6 violation(s)" in text
+    doc = json.loads(slo_path.read_text())
+    assert doc["kind"] == "slo_report" and doc["requests_counted"] == 6
+    assert regress.ingest_file(slo_path) == []  # nothing bad to record
 
 
 def test_cli_end_to_end_with_stream(tmp_path):
